@@ -1,0 +1,56 @@
+"""grayscott_jl_tpu_torch — the Gray-Scott reaction-diffusion framework
+on PyTorch and CUDA (NVIDIA Hopper).
+
+The counterpart of ``grayscott_jl_tpu`` (the JAX/Pallas reference, kept
+beside it): the same TOML settings, models, position-keyed noise, BP-lite
+stores and checkpoints, with the fused stencil chain as a hand-written
+CUDA kernel (``ops/csrc/stencil_chain.cu``). It imports neither JAX nor
+the reference package. Entry points run on the CUDA card unless the
+settings ask for ``backend = "CPU"``.
+
+    from grayscott_jl_tpu_torch import main, initialization, Simulation, Settings
+"""
+
+from .config.settings import (  # noqa: F401
+    Settings,
+    get_settings,
+    load_backend_and_lang,
+    parse_settings_toml,
+    resolve_precision,
+)
+from .simulation import Simulation, initialization  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def main(args):
+    """CLI driver entry point."""
+    from .driver import main as _main
+
+    return _main(args)
+
+
+def julia_main(args=None) -> int:
+    """Exit-code wrapper: 0 on success, 1 on any failure (with the
+    traceback on stderr)."""
+    import sys
+    import traceback
+
+    try:
+        main(sys.argv[1:] if args is None else args)
+    except Exception:  # noqa: BLE001 — the exit code is the product
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def cli_main() -> None:
+    """``gray-scott-torch`` console-script entry point."""
+    import sys
+    import time
+
+    t0 = time.perf_counter()
+    rc = julia_main(sys.argv[1:])
+    if rc == 0:
+        print(f"{time.perf_counter() - t0:.6f} seconds", file=sys.stderr)
+    sys.exit(rc)

@@ -1,0 +1,285 @@
+"""Configuration layer: TOML settings file -> :class:`Settings`.
+
+The same TOML schema as ``grayscott_jl_tpu/config/settings.py`` (one
+positional CLI argument, strict ``.toml`` extension, unknown top-level
+keys ignored, the ``[model]`` table validated loudly), resolved onto
+PyTorch:
+
+* ``backend``: ``"CUDA"`` / ``"GPU"`` select the card (the default),
+  ``"CPU"`` the host. ``"TPU"`` / ``"AMDGPU"`` raise, naming what is
+  accepted; a card that was asked for and is absent raises too
+  (:func:`resolve_device`) — a run never drops to the CPU on its own.
+* ``kernel_language``: ``"Pallas"`` / ``"Auto"`` / ``"CUDA"`` select the
+  hand-written CUDA kernel (``ops/cuda_stencil.py``); ``"Plain"`` /
+  ``"XLA"`` / ``"KernelAbstractions"`` select the plain torch path, and
+  only as the user's explicit choice.
+* ``precision``: ``Float32`` / ``Float64`` map to torch dtypes.
+
+Keys the reference package acts on whose subsystem is not in this
+package yet raise :class:`SettingsError` when set to anything but their
+default (:data:`NOT_PORTED`), so no setting is silently dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+from typing import Any, Dict, List, Tuple
+
+import tomllib as _toml
+
+from ..models.base import SettingsError
+
+
+@dataclasses.dataclass
+class Settings:
+    """Simulation settings; the reference's keys and defaults, except
+    ``backend`` (the card) and ``kernel_language`` (the kernel)."""
+
+    L: int = 128
+    steps: int = 20000
+    plotgap: int = 200
+    F: float = 0.04
+    k: float = 0.0
+    dt: float = 0.2
+    Du: float = 0.05
+    Dv: float = 0.1
+    noise: float = 0.0
+    output: str = dataclasses.field(
+        default_factory=lambda: os.path.join(
+            tempfile.gettempdir(), "gs_output.bp"
+        )
+    )
+    checkpoint: bool = False
+    checkpoint_freq: int = 2000
+    checkpoint_output: str = "ckpt.bp"
+    restart: bool = False
+    restart_input: str = "ckpt.bp"
+    #: Simulation step to restart from; -1 = the latest checkpoint.
+    restart_step: int = -1
+    mesh_type: str = "image"
+    precision: str = "Float64"
+    backend: str = "CUDA"
+    kernel_language: str = "Auto"
+    verbose: bool = False
+    supervise: bool = False
+    max_restarts: int = 3
+    health_policy: str = "abort"
+    faults: str = ""
+    watchdog: str = "auto"
+    watchdog_deadline_s: float = 0.0
+    graceful_shutdown: bool = True
+    comm_overlap: str = "auto"
+    halo_depth: int = 0
+    compile_cache: str = ""
+    autotune: str = ""
+    ensemble: Any = None
+    reshard: str = "auto"
+    metrics_interval_s: float = 0.0
+    numerics: str = ""
+    xstats: str = ""
+    compute_precision: str = ""
+    snapshot_bits: str = ""
+    snapshot_bits_ckpt: bool = False
+    model: str = "grayscott"
+    model_params: Any = dataclasses.field(default_factory=dict)
+
+
+SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
+
+#: Keys whose subsystem this package does not have yet: each maps to
+#: the values that mean "feature off" and the ROADMAP item that ports
+#: it. Any other value raises at construction (:func:`check_ported`).
+NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
+    "compute_precision": (("", "f32", "float32", "fp32"),
+                          "Queue 1 item 16 / Queue 2 item 5"),
+    "halo_depth": ((0, 1), "Queue 1 item 13"),
+    "autotune": (("", "off", "cached"), "Queue 1 item 20"),
+    "snapshot_bits": (("",), "Queue 1 item 16"),
+    "snapshot_bits_ckpt": ((False,), "Queue 1 item 16"),
+    "supervise": ((False,), "Queue 1 item 17"),
+    "faults": (("",), "Queue 1 item 17"),
+    "numerics": (("", "off"), "Queue 1 item 16"),
+    "ensemble": ((None,), "Queue 1 item 19"),
+}
+
+PRECISIONS: Dict[str, str] = {
+    "Float32": "float32",
+    "Float64": "float64",
+}
+
+#: Backend strings -> torch device types.
+BACKENDS: Dict[str, str] = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+#: Kernel-language strings -> the port's two paths.
+KERNEL_LANGUAGES: Dict[str, str] = {
+    "plain": "plain",
+    "xla": "plain",
+    "kernelabstractions": "plain",
+    "pallas": "cuda",
+    "auto": "cuda",
+    "cuda": "cuda",
+}
+
+
+def parse_cli_args(args: List[str]) -> str:
+    """The config-file path: one required positional argument."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="gray-scott-torch",
+        description="gray-scott simulation, PyTorch/CUDA version",
+    )
+    parser.add_argument("config_file", type=str, help="configuration file")
+    return parser.parse_args(args).config_file
+
+
+def parse_settings_toml(toml_contents: str) -> Settings:
+    """Parse TOML text into :class:`Settings`; unknown keys are ignored."""
+    config_dict = _toml.loads(toml_contents)
+    settings = Settings()
+    for key, value in config_dict.items():
+        if key in SETTINGS_KEYS and key not in ("model", "model_params"):
+            if key == "ensemble":
+                settings.ensemble = value
+                continue
+            field_type = Settings.__dataclass_fields__[key].type
+            setattr(settings, key, _coerce(key, value, field_type))
+    mdl = config_dict.get("model")
+    if mdl is not None:
+        from ..models import get_model
+
+        if isinstance(mdl, str):
+            settings.model = mdl
+        elif isinstance(mdl, dict):
+            table = dict(mdl)
+            settings.model = str(table.pop("name", settings.model))
+            settings.model_params = table
+        else:
+            raise SettingsError(
+                f"'model' must be a name string or a [model] table, "
+                f"got {mdl!r}"
+            )
+        get_model(settings.model).validate_table(settings.model_params)
+    return settings
+
+
+def _coerce(key: str, value: Any, field_type: str) -> Any:
+    """Coerce a TOML value to the declared field type (int <-> float
+    when exact); anything else is a config error."""
+    if field_type == "float":
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise ValueError(f"Setting {key!r} must be a number, got {value!r}")
+        return float(value)
+    if field_type == "int":
+        if isinstance(value, float) and value.is_integer():
+            value = int(value)
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise ValueError(f"Setting {key!r} must be an integer, got {value!r}")
+        return value
+    if field_type == "bool":
+        if not isinstance(value, bool):
+            raise ValueError(f"Setting {key!r} must be a boolean, got {value!r}")
+        return value
+    if field_type == "str":
+        if not isinstance(value, str):
+            raise ValueError(f"Setting {key!r} must be a string, got {value!r}")
+        return value
+    raise AssertionError(f"unhandled field type {field_type!r} for {key!r}")
+
+
+def get_settings(args: List[str]) -> Settings:
+    """CLI args -> Settings."""
+    config_file = parse_cli_args(args)
+    if not config_file.endswith(".toml"):
+        ext = config_file.rsplit(".", 1)[-1]
+        raise ValueError(
+            "Config file must be in TOML format. "
+            f"Extension not recognized: {ext}\n"
+        )
+    with open(config_file, "r", encoding="utf-8") as f:
+        return parse_settings_toml(f.read())
+
+
+def load_backend_and_lang(settings: Settings) -> Tuple[str, str]:
+    """Normalized ``(device type, kernel path)``: ``("cuda"|"cpu",
+    "cuda"|"plain")``; unsupported values raise naming the accepted
+    ones."""
+    b = settings.backend.lower()
+    lang = settings.kernel_language.lower()
+    if b not in BACKENDS:
+        raise SettingsError(
+            f"Unsupported backend: {settings.backend!r}. This package runs "
+            f"on PyTorch; accepted: {sorted(BACKENDS)}"
+        )
+    if lang not in KERNEL_LANGUAGES:
+        raise SettingsError(
+            f"Unsupported kernel_language: {settings.kernel_language!r}. "
+            f"Accepted: {sorted(KERNEL_LANGUAGES)}"
+        )
+    return BACKENDS[b], KERNEL_LANGUAGES[lang]
+
+
+def resolve_device(settings: Settings):
+    """The torch device the settings select. A card that was asked for
+    and is not there is an error, never a quiet move to the CPU."""
+    import torch
+
+    kind, _ = load_backend_and_lang(settings)
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"backend = {settings.backend!r} selects the CUDA card, but "
+            "torch.cuda.is_available() is False on this machine; set "
+            "backend = \"CPU\" to run on the host"
+        )
+    return torch.device(kind)
+
+
+def resolve_precision(settings: Settings):
+    """Precision string -> torch dtype."""
+    import torch
+
+    if settings.precision == "BFloat16":
+        raise NotImplementedError(
+            "precision = 'BFloat16' is not ported yet (bf16 storage with "
+            "f32 compute in the kernel: ROADMAP Queue 2 item 5)"
+        )
+    name = PRECISIONS.get(settings.precision)
+    if name is None:
+        raise SettingsError(
+            f"Unsupported precision: {settings.precision!r}. "
+            f"Supported: {sorted(PRECISIONS)}"
+        )
+    return getattr(torch, name)
+
+
+def check_ported(settings: Settings) -> None:
+    """Raise :class:`SettingsError` for any key set to a value whose
+    subsystem is not in this package yet (:data:`NOT_PORTED`), and for
+    a multi-device mesh override."""
+    for key, (off, item) in NOT_PORTED.items():
+        value = getattr(settings, key)
+        if isinstance(value, str):
+            value = value.strip().lower()
+        if value not in off:
+            raise SettingsError(
+                f"setting {key} = {getattr(settings, key)!r} is not "
+                f"supported by grayscott_jl_tpu_torch yet (ROADMAP "
+                f"{item}); remove it or use the default"
+            )
+    from .env import env_str
+
+    mesh = env_str("GS_TPU_MESH_DIMS", "").replace(" ", "")
+    if mesh not in ("", "1,1,1"):
+        raise SettingsError(
+            f"GS_TPU_MESH_DIMS={mesh!r} asks for a multi-device mesh; "
+            "this package runs one device (ROADMAP Queue 1 items 11-14)"
+        )
+
+
+def resolve_model(settings: Settings):
+    """The registered model this config selects."""
+    from ..models import get_model
+
+    return get_model(settings.model or "grayscott")

@@ -1,0 +1,141 @@
+"""Simulation driver: the reference's ``GrayScott.main`` step loop
+(counterpart of the core of ``grayscott_jl_tpu/driver.py::run_once``).
+
+Flow: settings -> simulation (restored from ``restart_input`` when
+``restart = true``) -> output stream and checkpoint store -> advance to
+each ``plotgap`` / ``checkpoint_freq`` boundary -> snapshot -> write the
+output step and/or the checkpoint -> close. The steps between two
+boundaries are enqueued on the device as one chunk; the host waits for
+the device only at the boundary.
+
+Not here yet, each a later slice of the port (ROADMAP Queue 1): the
+supervisor and fault injection, the hang watchdog, the observability
+sinks, the asynchronous writer, ``.vti`` files, ensembles and sharding.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List
+
+from .config.env import env_str
+from .config.settings import Settings, get_settings
+from .io.checkpoint import CheckpointWriter, load_checkpoint
+from .io.stream import SimStream
+from .ops import cuda_stencil
+from .simulation import Simulation
+from .utils.log import Logger
+from .utils.profiler import RunStats
+
+
+def _next_boundary(step: int, period: int, limit: int) -> int:
+    """Next multiple of ``period`` after ``step``, capped at ``limit``."""
+    if period <= 0:
+        return limit
+    return min(limit, (step // period + 1) * period)
+
+
+def main(args: List[str], *, seed: int = 0):
+    """Run a full simulation from CLI args. ``GS_SEED`` overrides the
+    noise seed (default 0)."""
+    settings = get_settings(list(args))
+    env_seed = env_str("GS_SEED", "").strip()
+    if env_seed:
+        seed = int(env_seed)
+    return run_once(settings, seed=seed)
+
+
+def _close_quietly(store) -> None:
+    """Close on the failure path without masking the error in flight."""
+    if store is None:
+        return
+    try:
+        store.close()
+    except Exception:  # noqa: BLE001 — the original error wins
+        pass
+
+
+def run_once(settings: Settings, *, seed: int = 0) -> Simulation:
+    """One simulation run; returns the finished :class:`Simulation`."""
+    sim = Simulation(settings, seed=seed)
+    log = Logger(verbose=settings.verbose)
+    restart_step = 0
+    if settings.restart:
+        *fields, restart_step = load_checkpoint(
+            settings.restart_input, settings, settings.restart_step
+        )
+        sim.restore_fields(fields, restart_step)
+        log.info(
+            f"Restarted from {settings.restart_input} at step {restart_step}"
+        )
+    resume = restart_step if settings.restart else None
+    stream = ckpt = None
+    launches0 = cuda_stencil.LAUNCHES
+    try:
+        stream = SimStream(settings, sim.domain, sim.dtype,
+                           resume_step=resume)
+        if settings.checkpoint:
+            ckpt = CheckpointWriter(settings, sim.dtype, resume_step=resume)
+        stats = RunStats(settings.L, config={
+            "model": sim.model.name,
+            "device": str(sim.device),
+            "kernel_language": sim.kernel_language,
+            "fuse": sim.fuse,
+            "precision": settings.precision,
+        })
+        step = restart_step
+        t0 = time.perf_counter()
+        while step < settings.steps:
+            boundary = min(
+                _next_boundary(step, settings.plotgap, settings.steps),
+                _next_boundary(
+                    step,
+                    settings.checkpoint_freq if ckpt is not None else 0,
+                    settings.steps,
+                ),
+            )
+            with stats.phase("compute"):
+                sim.iterate(boundary - step)
+                sim.block_until_ready()
+            stats.count("steps", boundary - step)
+            step = boundary
+            at_plot = settings.plotgap > 0 and step % settings.plotgap == 0
+            at_ckpt = (
+                ckpt is not None and settings.checkpoint_freq > 0
+                and step % settings.checkpoint_freq == 0
+            )
+            if not (at_plot or at_ckpt):
+                continue
+            with stats.phase("device_to_host"):
+                blocks = sim.snapshot()
+            if at_plot:
+                log.info(
+                    f"Simulation at step {step} writing output step "
+                    f"{step // settings.plotgap}"
+                )
+                with stats.phase("output"):
+                    stream.write_step(step, blocks)
+                stats.count("output_steps")
+            if at_ckpt:
+                with stats.phase("checkpoint"):
+                    ckpt.save(step, blocks)
+                stats.count("checkpoints")
+        elapsed = time.perf_counter() - t0
+        stats.count("kernel_launches", cuda_stencil.LAUNCHES - launches0)
+        cells = settings.L**3 * (settings.steps - restart_step)
+        log.info(
+            f"Completed {settings.steps - restart_step} steps in "
+            f"{elapsed:.3f}s ({cells / max(elapsed, 1e-9):.3e} "
+            "cell-updates/s)"
+        )
+        stats.maybe_write()
+        if settings.verbose:
+            log.info(f"run stats: {stats.summary()}")
+        stream.close()
+        if ckpt is not None:
+            ckpt.close()
+    except BaseException:
+        _close_quietly(stream)
+        _close_quietly(ckpt)
+        raise
+    return sim

@@ -1,0 +1,140 @@
+"""Checkpoint / restart (counterpart of ``grayscott_jl_tpu/io/checkpoint.py``).
+
+Every ``checkpoint_freq`` steps the driver appends ``(step, *fields)``
+to the BP-lite store ``checkpoint_output``; ``restart = true`` resumes
+from ``restart_input``. The noise is keyed on the absolute step, so a
+resumed run reproduces the uninterrupted trajectory. The store layout
+and attributes are the reference's, so a checkpoint written by either
+package restarts the other. Replicas and the integrity read-back
+(``GS_CKPT_REPLICAS``, ``GS_CKPT_VERIFY=full``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..config.settings import Settings, resolve_model
+from . import count_steps_upto, open_writer
+from .bplite import BpReader
+from .stream import numpy_dtype
+
+
+class CheckpointWriter:
+    def __init__(
+        self,
+        settings: Settings,
+        dtype,
+        *,
+        writer_id: int = 0,
+        nwriters: int = 1,
+        resume_step: Optional[int] = None,
+    ):
+        L = settings.L
+        model = resolve_model(settings)
+        self.field_names = model.field_names
+        self.path = settings.checkpoint_output
+        # On restart, append (checkpoint_output may be the store the run
+        # resumed from), dropping entries past the resume point.
+        keep = None
+        if settings.restart and resume_step is not None:
+            keep = count_steps_upto(self.path, resume_step)
+        self.writer = open_writer(
+            self.path, writer_id=writer_id, nwriters=nwriters,
+            append=settings.restart, keep_steps=keep,
+        )
+        w = self.writer
+        if writer_id == 0:
+            w.define_attribute("L", settings.L)
+            w.define_attribute("precision", settings.precision)
+            w.define_attribute("model", model.name)
+            w.define_attribute("fields", list(self.field_names))
+        w.define_variable("step", np.int32)
+        for name in self.field_names:
+            w.define_variable(name, numpy_dtype(dtype).name, (L, L, L))
+
+    def save(self, step: int, blocks) -> None:
+        """``blocks``: ``[(offsets, sizes, *field_blocks)]`` in model
+        declaration order."""
+        w = self.writer
+        w.begin_step()
+        w.put("step", np.int32(step))
+        for offsets, sizes, *fblocks in blocks:
+            for name, fb in zip(self.field_names, fblocks):
+                w.put(name, fb, start=offsets, count=sizes)
+        w.end_step()
+
+    def close(self) -> None:
+        self.writer.close()
+
+
+def open_checkpoint(
+    path: str, settings: Settings, restart_step: int = -1
+) -> Tuple[BpReader, int, int]:
+    """Open a checkpoint store and find the entry to restart from:
+    ``restart_step`` selects the entry with that simulation step (the
+    latest such), ``-1`` the latest entry. The store's L, model, fields
+    and precision must match the run's. Returns ``(reader, step_index,
+    sim_step)``."""
+    r = BpReader(path)
+    n = r.num_steps()
+    if n == 0:
+        raise ValueError(f"Checkpoint store {path} contains no steps")
+    attrs = r.attributes()
+    if int(attrs.get("L", settings.L)) != settings.L:
+        raise ValueError(
+            f"Checkpoint L={attrs['L']} does not match config L={settings.L}"
+        )
+    model = resolve_model(settings)
+    stored_model = attrs.get("model")
+    if stored_model is not None and str(stored_model) != model.name:
+        raise ValueError(
+            f"Checkpoint store {path} holds model {stored_model!r} but "
+            f"this run integrates model {model.name!r}"
+        )
+    stored_fields = attrs.get("fields")
+    if stored_fields is not None and list(stored_fields) != list(
+        model.field_names
+    ):
+        raise ValueError(
+            f"Checkpoint store {path} holds fields {list(stored_fields)} "
+            f"but model {model.name!r} declares {list(model.field_names)}"
+        )
+    stored_precision = attrs.get("precision")
+    if stored_precision is not None and str(stored_precision) != str(
+        settings.precision
+    ):
+        raise ValueError(
+            f"Checkpoint store {path} was written at precision "
+            f"{stored_precision!r} but this run is configured for "
+            f"{settings.precision!r}"
+        )
+    if restart_step < 0:
+        idx = n - 1
+        sim_step = int(r.get("step", step=idx))
+    else:
+        available = [int(r.get("step", step=i)) for i in range(n)]
+        if restart_step not in available:
+            raise ValueError(
+                f"Checkpoint store {path} has no entry for simulation "
+                f"step {restart_step}; available steps: {available}"
+            )
+        idx = n - 1 - available[::-1].index(restart_step)
+        sim_step = restart_step
+    return r, idx, sim_step
+
+
+def load_checkpoint(
+    path: str, settings: Settings, restart_step: int = -1
+) -> Tuple:
+    """``(*fields, step)`` of one checkpoint entry, fields in the
+    model's declaration order."""
+    r, idx, step = open_checkpoint(path, settings, restart_step)
+    with r:
+        fields = tuple(
+            r.get(name, step=idx)
+            for name in resolve_model(settings).field_names
+        )
+    return fields + (step,)
+

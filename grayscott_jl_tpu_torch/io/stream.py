@@ -1,0 +1,121 @@
+"""Simulation output stream (counterpart of ``grayscott_jl_tpu/io/stream.py``).
+
+The reference's ``ADIOSStream``: provenance attributes (the model's
+parameters, ``dt``, ``noise``, ``model``, ``fields``), the Fides and VTK
+ImageData schema attributes, and per-step ``step`` plus one variable per
+field (upper-cased: ``U``/``V`` for Gray-Scott) with their
+``(shape, start, count)`` boxes — attribute for attribute what the
+reference writes, so its readers and tools open these stores. The
+reference's ``.vti`` side files are not written yet (ROADMAP Queue 1
+item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..config.settings import Settings, resolve_model
+from ..parallel.domain import CartDomain
+from . import open_writer
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a torch (or numpy) dtype."""
+    name = str(dtype).replace("torch.", "")
+    return np.dtype(name)
+
+
+def fides_vtk_schemas(L: int, var_names: Sequence[str] = ("U", "V")) -> dict:
+    """The Fides + VTK schema attributes over the store variables."""
+    var_names = list(var_names)
+    extent = (("0 " + str(L) + " ") * 3).rstrip()
+    arrays = "\n".join(
+        f"                <DataArray Name=\"{n}\" />" for n in var_names
+    )
+    vtk_schema = (
+        "\n        <?xml version=\"1.0\"?>\n"
+        "        <VTKFile type=\"ImageData\" version=\"0.1\" "
+        "byte_order=\"LittleEndian\">\n"
+        f"          <ImageData WholeExtent=\"{extent}\" Origin=\"0 0 0\" "
+        "Spacing=\"1 1 1\">\n"
+        f"            <Piece Extent=\"{extent}\">\n"
+        f"              <CellData Scalars=\"{var_names[0]}\">\n"
+        f"{arrays}\n"
+        "                <DataArray Name=\"TIME\">\n"
+        "                  step\n"
+        "                </DataArray>\n"
+        "              </CellData>\n"
+        "            </Piece>\n"
+        "          </ImageData>\n"
+        "        </VTKFile>"
+    )
+    return {
+        "Fides_Data_Model": "uniform",
+        "Fides_Origin": [0.0, 0.0, 0.0],
+        "Fides_Spacing": [0.1, 0.1, 0.1],
+        "Fides_Dimension_Variable": var_names[0],
+        "Fides_Variable_List": var_names,
+        "Fides_Variable_Associations": ["points"] * len(var_names),
+        "vtk.xml": vtk_schema,
+    }
+
+
+class SimStream:
+    """Step-output stream for a simulation (``IO.init`` analog)."""
+
+    def __init__(
+        self,
+        settings: Settings,
+        domain: CartDomain,
+        dtype,
+        *,
+        writer_id: int = 0,
+        nwriters: int = 1,
+        resume_step: Optional[int] = None,
+    ):
+        self.settings = settings
+        self.domain = domain
+        L = settings.L
+        model = resolve_model(settings)
+        self.model = model
+        self.var_names = tuple(n.upper() for n in model.field_names)
+        # A resumed run appends, dropping entries past the resume step.
+        keep = None
+        if settings.restart and resume_step is not None:
+            from . import count_steps_upto
+
+            keep = count_steps_upto(settings.output, resume_step)
+        self.writer = open_writer(
+            settings.output, writer_id=writer_id, nwriters=nwriters,
+            append=settings.restart, keep_steps=keep,
+        )
+        if writer_id == 0:
+            for name, value in model.resolve_param_values(settings).items():
+                self.writer.define_attribute(name, value)
+            self.writer.define_attribute("dt", settings.dt)
+            self.writer.define_attribute("noise", settings.noise)
+            self.writer.define_attribute("model", model.name)
+            self.writer.define_attribute("fields", list(self.var_names))
+            for name, value in fides_vtk_schemas(L, self.var_names).items():
+                self.writer.define_attribute(name, value)
+        self.writer.define_variable("step", np.int32)
+        for name in self.var_names:
+            self.writer.define_variable(
+                name, numpy_dtype(dtype).name, (L, L, L)
+            )
+
+    def write_step(self, step: int, blocks) -> None:
+        """Write one output step; ``blocks`` is ``[(offsets, sizes,
+        *field_blocks)]`` in model declaration order."""
+        w = self.writer
+        w.begin_step()
+        w.put("step", np.int32(step))
+        for offsets, sizes, *fblocks in blocks:
+            for name, fb in zip(self.var_names, fblocks):
+                w.put(name, fb, start=offsets, count=sizes)
+        w.end_step()
+
+    def close(self) -> None:
+        self.writer.close()

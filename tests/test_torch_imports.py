@@ -1,0 +1,65 @@
+"""The port stands alone: grayscott_jl_tpu_torch (and chip_smoke.py)
+imports neither JAX nor the reference package, and runs with JAX
+blocked."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "grayscott_jl_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "grayscott_jl_tpu")
+
+PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import grayscott_jl_tpu_torch as gs
+names = [m.name for m in pkgutil.walk_packages(gs.__path__, gs.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+sim = gs.Simulation(gs.Settings(L=8, backend="CPU", noise=0.1,
+                                precision="Float32"))
+sim.iterate(3)
+u, v = sim.get_fields()
+assert u.shape == (8, 8, 8)
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok", len(names))
+"""
+
+
+def test_port_imports_and_runs_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
+def test_no_jax_or_reference_imports(path):
+    bad = [
+        name for name in _imports(path)
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"

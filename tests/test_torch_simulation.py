@@ -1,0 +1,290 @@
+"""The port's single-device Simulation and settings
+(grayscott_jl_tpu_torch/simulation.py, config/settings.py) against the
+reference Simulation on the CPU.
+
+Tolerance for trajectories: atol 1e-5 over 20 float32 steps (1e-12 for
+float64) — the per-step few-ulp FMA-contraction drift of XLA:CPU (see
+test_torch_stencil.py), compounded. Initial fields, chunking and fusion
+invariance, and carried state are bitwise."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from grayscott_jl_tpu.config.settings import Settings as RefSettings
+from grayscott_jl_tpu.models import get_model as ref_get_model
+from grayscott_jl_tpu.simulation import Simulation as RefSimulation
+from grayscott_jl_tpu_torch import Settings, Simulation, parse_settings_toml
+from grayscott_jl_tpu_torch.carry import (
+    fields_from_reference,
+    params_from_reference,
+)
+from grayscott_jl_tpu_torch.config import settings as config
+from grayscott_jl_tpu_torch.models import SettingsError, get_model
+from grayscott_jl_tpu_torch.ops import cuda_stencil
+
+GS = dict(F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0)
+MODELS = ("grayscott", "brusselator", "fhn", "heat")
+
+
+@pytest.fixture
+def x64():
+    prior = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prior)
+
+
+def _pair(lang, L=16, noise=0.1, precision="Float32", seed=3, **kw):
+    kw = {**GS, **kw}
+    ref = RefSimulation(
+        RefSettings(L=L, noise=noise, precision=precision, backend="CPU",
+                    kernel_language=lang, **kw),
+        n_devices=1, seed=seed,
+    )
+    port = Simulation(
+        Settings(L=L, noise=noise, precision=precision, backend="CPU",
+                 kernel_language=lang, **kw),
+        seed=seed,
+    )
+    return ref, port
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("precision", ["Float32", "Float64"])
+@pytest.mark.parametrize("L", [16, 32])
+def test_initial_fields_bitwise(model, precision, L, x64):
+    dtype = "float32" if precision == "Float32" else "float64"
+    want = ref_get_model(model).init(L, jnp.dtype(dtype))
+    got = get_model(model).init(L, getattr(torch, dtype))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert g.numpy().dtype == np.asarray(w).dtype
+
+
+@pytest.mark.parametrize("lang", ["Plain", "Pallas"])
+def test_simulation_matches_reference_20_steps(lang):
+    ref, port = _pair(lang)
+    ref.iterate(20)
+    port.iterate(20)
+    for a, b in zip(ref.get_fields(), port.get_fields()):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
+
+
+def test_simulation_matches_reference_float64(x64):
+    ref, port = _pair("Pallas", precision="Float64")
+    ref.iterate(10)
+    port.iterate(10)
+    for a, b in zip(ref.get_fields(), port.get_fields()):
+        assert b.dtype == np.float64
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("model", ["brusselator", "fhn", "heat"])
+def test_other_models_match_reference_on_plain_path(model):
+    ref = RefSimulation(
+        RefSettings(L=16, noise=0.05, precision="Float32", backend="CPU",
+                    kernel_language="Plain", dt=0.05, model=model),
+        n_devices=1, seed=2,
+    )
+    port = Simulation(
+        Settings(L=16, noise=0.05, precision="Float32", backend="CPU",
+                 kernel_language="Plain", dt=0.05, model=model),
+        seed=2,
+    )
+    ref.iterate(10)
+    port.iterate(10)
+    for a, b in zip(ref.get_fields(), port.get_fields()):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("lang", ["Plain", "Pallas"])
+def test_chunking_invariance_bitwise(lang):
+    _, a = _pair(lang)
+    _, b = _pair(lang)
+    a.iterate(20)
+    for n in (7, 1, 5, 7):
+        b.iterate(n)
+    assert a.step == b.step == 20
+    for x, y in zip(a.get_fields(), b.get_fields()):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("fuse", ["1", "3", "5"])
+def test_fuse_invariance_bitwise(fuse, monkeypatch):
+    _, plain = _pair("Plain")
+    monkeypatch.setenv("GS_FUSE", fuse)
+    _, fused = _pair("Pallas")
+    assert fused.fuse == int(fuse)
+    plain.iterate(17)
+    fused.iterate(17)
+    for x, y in zip(plain.get_fields(), fused.get_fields()):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_restore_fields_round_trip():
+    _, a = _pair("Pallas")
+    a.iterate(6)
+    _, b = _pair("Pallas")
+    b.restore_fields(a.get_fields(), a.step)
+    a.iterate(5)
+    b.iterate(5)
+    for x, y in zip(a.get_fields(), b.get_fields()):
+        np.testing.assert_array_equal(x, y)
+    with pytest.raises(ValueError, match="does not match"):
+        b.restore_fields([np.zeros((4, 4, 4))] * 2, 0)
+    with pytest.raises(ValueError, match="declares 2"):
+        b.restore_fields([np.zeros((16,) * 3)], 0)
+
+
+def test_carry_round_trips_reference_state():
+    """The reference's params and fields carried into the port are the
+    same bits, and one step from the carried state matches the
+    reference's step."""
+    ref, port = _pair("Plain")
+    ref.iterate(4)
+    params = params_from_reference(
+        {k: np.asarray(v) for k, v in ref.params._asdict().items()},
+        torch.float32, "cpu",
+    )
+    for name in params._fields:
+        assert getattr(params, name).item() == float(
+            np.asarray(getattr(ref.params, name)))
+        assert getattr(params, name).dtype == torch.float32
+        assert torch.equal(getattr(params, name),
+                           getattr(port.params, name))
+    host = ref.get_fields()
+    fields = fields_from_reference(host, "cpu")
+    for t, h in zip(fields, host):
+        np.testing.assert_array_equal(t.numpy(), h)
+    port.fields = fields
+    port.step = ref.step
+    ref.iterate(1)
+    port.iterate(1)
+    for a, b in zip(ref.get_fields(), port.get_fields()):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="lack"):
+        params_from_reference({"F": np.float32(0.1)}, torch.float32, "cpu")
+
+
+def test_iterate_launches_nothing_on_cpu():
+    """CPU tensors never reach the kernel; the plain chain runs."""
+    _, port = _pair("Pallas")
+    n = cuda_stencil.LAUNCHES
+    port.iterate(4)
+    assert cuda_stencil.LAUNCHES == n
+
+
+def test_cuda_backend_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        Simulation(Settings(L=8, backend="CUDA"))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        Simulation(Settings(L=8, backend="GPU", kernel_language="Plain"))
+
+
+def test_default_backend_is_the_card(monkeypatch):
+    assert Settings().backend == "CUDA"
+    assert config.load_backend_and_lang(Settings()) == ("cuda", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        Simulation(Settings(L=8))
+
+
+def test_kernel_path_refuses_uncarried_model_on_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SettingsError, match="Queue 2 item 4"):
+        Simulation(Settings(L=8, model="heat", kernel_language="Auto"))
+
+
+@pytest.mark.parametrize("backend", ["TPU", "AMDGPU", "quantum"])
+def test_unsupported_backend_names_accepted_values(backend):
+    with pytest.raises(SettingsError, match="accepted: \\['cpu', 'cuda', 'gpu'\\]"):
+        config.load_backend_and_lang(Settings(backend=backend))
+
+
+@pytest.mark.parametrize("lang,path", [
+    ("Pallas", "cuda"), ("Auto", "cuda"), ("CUDA", "cuda"),
+    ("Plain", "plain"), ("XLA", "plain"), ("KernelAbstractions", "plain"),
+])
+def test_kernel_language_mapping(lang, path):
+    s = Settings(backend="CPU", kernel_language=lang)
+    assert config.load_backend_and_lang(s) == ("cpu", path)
+
+
+def test_bfloat16_names_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+        Simulation(Settings(L=8, backend="CPU", precision="BFloat16"))
+    with pytest.raises(SettingsError):
+        config.resolve_precision(Settings(precision="Float16"))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("compute_precision", "bf16_f32acc"), ("halo_depth", 2),
+    ("autotune", "quick"), ("snapshot_bits", "8"),
+    ("snapshot_bits_ckpt", True), ("supervise", True),
+    ("faults", "step=3:kind=nan"), ("numerics", "boundary"),
+])
+def test_unported_keys_raise_at_construction(key, value):
+    s = dataclasses.replace(Settings(L=8, backend="CPU"), **{key: value})
+    with pytest.raises(SettingsError, match=key):
+        Simulation(s)
+
+
+def test_mesh_override_raises(monkeypatch):
+    monkeypatch.setenv("GS_TPU_MESH_DIMS", "2,1,1")
+    with pytest.raises(SettingsError, match="GS_TPU_MESH_DIMS"):
+        Simulation(Settings(L=8, backend="CPU"))
+    monkeypatch.setenv("GS_TPU_MESH_DIMS", "1,1,1")
+    Simulation(Settings(L=8, backend="CPU"))
+
+
+def test_toml_parse_ignores_unknown_keys_and_reads_model_table():
+    s = parse_settings_toml(
+        'L = 12\nbogus_key = 3\nadios_config = "x.xml"\n'
+        'backend = "CPU"\n[model]\nname = "heat"\nD = 0.3\n'
+    )
+    assert s.L == 12 and s.model == "heat"
+    assert s.model_params == {"D": 0.3}
+    with pytest.raises(SettingsError, match="unknown"):
+        parse_settings_toml('[model]\nname = "heat"\nDx = 1.0\n')
+
+
+def test_params_are_compute_dtype_tensors():
+    """F + k computed from the 0-dim float32 params equals float32
+    arithmetic, not a double sum rounded once."""
+    s = Simulation(Settings(L=8, backend="CPU", precision="Float32",
+                            F=0.1, k=0.2))
+    for name in s.params._fields:
+        p = getattr(s.params, name)
+        assert p.dim() == 0 and p.dtype == torch.float32
+    fk = (s.params.F + s.params.k).item()
+    assert fk == float(np.float32(0.1) + np.float32(0.2))
+
+
+@pytest.mark.parametrize("L", [12, 16, 64])
+def test_seed_bounds_match_reference(L):
+    from grayscott_jl_tpu.models import grayscott as ref_gs
+    from grayscott_jl_tpu_torch.models import grayscott as port_gs
+
+    assert port_gs.seed_bounds(L) == ref_gs.seed_bounds(L)
+    with pytest.raises(ValueError, match="even"):
+        port_gs.seed_bounds(L + 1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 8, 12, 64])
+def test_domain_copy_matches_reference(n):
+    from grayscott_jl_tpu.parallel import domain as ref_domain
+    from grayscott_jl_tpu_torch.parallel import domain
+
+    assert domain.dims_create(n) == ref_domain.dims_create(n)
+    a = domain.CartDomain.create(n, 30)
+    b = ref_domain.CartDomain.create(n, 30)
+    assert (a.dims, a.local_shape, a.storage_shape, a.padded) == (
+        b.dims, b.local_shape, b.storage_shape, b.padded)
