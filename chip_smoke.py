@@ -9,21 +9,37 @@ Run from the root of a checkout on a machine with a CUDA card and
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build every CUDA kernel from ``grayscott_jl_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together), timed;
-3. every kernel against its plain torch version on the card: float32
-   and float64, noise 0 and 0.1, every chain depth up to the
-   shared-memory ledger's cap, L = 64, 100 (ragged tiles) and 256, 20
-   steps from random fields — bitwise equal, and depth k bitwise equal
-   to k launches of depth 1;
+3. every kernel mode against its plain torch version on the card:
+   float32 and float64, noise 0 and 0.1, every chain depth up to the
+   shared-memory ledger's cap. The single-block chain at L = 64, 100
+   (ragged tiles) and 256, 20 steps from random fields, bitwise equal
+   and depth k bitwise equal to k launches of depth 1; the 6n-face step
+   at blocks (128,128,128) and (100,64,96), the x-chain at (32,256,256)
+   and (34,100,100), and the xy-chain operand (128,128+2k,128) with
+   ``offsets[1] = -k``, from random fields and faces, bitwise equal over
+   the whole output;
 4. the main path: ``driver.main`` on an L=256 float32 config with noise,
    plotgap 50, a checkpoint every 100 steps, 200 steps — with the
    kernel launch counts set to 0 just before and read just after, then
    the store read back (ranges, and bitwise equal to the plain path on
    the card), and a restart from the step-100 checkpoint that must
    reproduce the stored step 200 bitwise;
+   then the sharded main path: ``driver.run_once`` with a
+   ``sim_factory`` that puts a (2,2,2) mesh's 8 blocks on ``cuda:0``,
+   the same config at depth 1 — exactly 8 x 200 launches of the
+   6n-face kernel, a store equal to the single-block store bitwise at
+   every step, and a restart from its step-100 checkpoint that
+   reproduces step 200 bitwise; then 50 steps at ``GS_FUSE=2`` on
+   (8,1,1) (x-chain), (2,2,2) (xy-chain with z bands) and (2,2,1)
+   (xy-chain slab form), each bitwise equal to the stored step 50, and
+   L=250 on (3,1,1) (pad-and-mask) bitwise equal to a single-block run;
 5. times at the main path's shapes (L=256 and 512, float32, every chain
-   depth): the kernel (CUDA events, after warm-up), its plain version,
-   and the least time the card could take (bytes moved over the memory
-   rate, or floating-point operations over the float32 rate).
+   depth; and each face mode at the sharded path's block shapes): the
+   kernel (CUDA events, after warm-up), its plain version, and the
+   least time the card could take (bytes moved over the memory rate, or
+   floating-point operations over the float32 rate); and the sharded
+   path's ms per step on one card against the single block's, with the
+   halo exchange timed on its own.
 
 Prints the kernels' JSON line, then the ``nvidia-smi`` line, then the
 result line ``{"ok": true, "device": {...}}`` last; writes the full
@@ -53,9 +69,19 @@ FLOPS_PER_CELL_STEP = 33
 
 MAIN_L = 256
 MAIN_STEPS = 200
+MESH = (2, 2, 2)
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "grayscott_jl_tpu_torch/ops/csrc/stencil_chain.cu"
-REPLACES = "grayscott_jl_tpu/ops/pallas_stencil.py:848"
+
+#: The kernels line's entries: kernel mode -> the TPU kernel it
+#: replaces (the ``pl.pallas_call`` of ``_fused_call`` and the mode's
+#: branch of ``_make_kernel``).
+REPLACES = {
+    "chain": "grayscott_jl_tpu/ops/pallas_stencil.py:848",
+    "faces6": "grayscott_jl_tpu/ops/pallas_stencil.py:636",
+    "xchain": "grayscott_jl_tpu/ops/pallas_stencil.py:663",
+    "xychain": "grayscott_jl_tpu/parallel/temporal.py:422",
+}
 
 
 def log(msg):
@@ -82,6 +108,33 @@ def bound_ms(L, fuse, itemsize=4, n_fields=2):
     t_bytes = 2 * n_fields * itemsize * cells / HBM_BYTES_PER_S
     t_ops = fuse * FLOPS_PER_CELL_STEP * cells / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_of(bytes_moved, flops):
+    """Least time (ms) for ``bytes_moved`` bytes and ``flops`` float32
+    operations on the card, and which of the two bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def face_mode_work(mode, shape, fuse, itemsize=4, n_fields=2):
+    """Bytes one launch must move (each input read once, each output
+    written once) and the float operations it does, for a face mode on
+    a ``shape`` operand: the 6n faces are 1-thick planes; the x-chain's
+    stage s computes (nx + 2 (fuse-1-s)) x-planes of the operand."""
+    nx, ny, nz = shape
+    vol = nx * ny * nz
+    if mode == "faces6":
+        face_cells = 2 * (ny * nz + nx * nz + nx * ny)
+        moved = n_fields * (2 * vol + face_cells) * itemsize
+        cells = vol
+    else:
+        moved = n_fields * ((nx + 2 * fuse) + nx) * ny * nz * itemsize
+        cells = sum((nx + 2 * (fuse - 1 - s)) * ny * nz
+                    for s in range(fuse))
+    return moved, cells * FLOPS_PER_CELL_STEP
 
 
 def phase_parity(torch, gs, cuda_stencil, spec, report):
@@ -144,6 +197,86 @@ def phase_parity(torch, gs, cuda_stencil, spec, report):
     return worst
 
 
+def phase_face_parity(torch, gs, cuda_stencil, spec, report):
+    """Each face mode against its plain version, bitwise over the whole
+    output (the computed out-of-domain rows of a y-extended operand
+    included), from random fields and faces."""
+    worst = {"faces6": 0.0, "xchain": 0.0, "xychain": 0.0}
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+
+    def rand(shape, dtype):
+        return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def compare(mode, got, want, what):
+        torch.cuda.synchronize()
+        err = max((a.double() - b.double()).abs().max().item()
+                  for a, b in zip(got, want))
+        worst[mode] = max(worst[mode], err)
+        check(all(torch.isfinite(a).all().item() for a in got),
+              f"non-finite {mode} output: {what}")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{mode} kernel != plain: {what}, max |diff| {err}")
+        rows.append([mode, what, err])
+
+    for dtype, prec in ((torch.float32, "Float32"),
+                        (torch.float64, "Float64")):
+        cap = cuda_stencil.max_feasible_fuse(
+            torch.empty((), dtype=dtype).element_size())
+        for noise in (0.0, 0.1):
+            params = spec.model.make_params(
+                gs.Settings(noise=noise, F=0.02, k=0.048, Du=0.2, Dv=0.1,
+                            dt=1.0, precision=prec), dtype, "cuda")
+            use = noise != 0
+            seeds = (0, 11, 40)
+            for shape, offs in (((128, 128, 128), (128, 0, 128)),
+                                ((100, 64, 96), (100, 64, 0))):
+                nx, ny, nz = shape
+                f = (rand(shape, dtype), rand(shape, dtype))
+                faces = tuple(rand(x, dtype) for x in
+                              [(1, ny, nz)] * 4 + [(nx, 1, nz)] * 4
+                              + [(nx, ny, 1)] * 4)
+                got = cuda_stencil.fused_step(
+                    f, params, seeds, faces, spec=spec, use_noise=use,
+                    offsets=offs, row=MAIN_L)
+                want = cuda_stencil.plain_step(
+                    f, params, seeds, faces, spec=spec, use_noise=use,
+                    offsets=offs, row=MAIN_L)
+                compare("faces6", got, want, f"{prec} {shape} noise={noise}")
+            for shape, offs, row in (((32, 256, 256), (32, 0, 0), MAIN_L),
+                                     ((34, 100, 100), (68, 0, 0), 100)):
+                f = (rand(shape, dtype), rand(shape, dtype))
+                for k in range(2, cap + 1):
+                    faces = tuple(rand((k,) + shape[1:], dtype)
+                                  for _ in range(4))
+                    got = cuda_stencil.fused_step(
+                        f, params, seeds, faces, spec=spec, use_noise=use,
+                        fuse=k, offsets=offs, row=row)
+                    want = cuda_stencil.plain_xchain(
+                        f, params, seeds, faces, spec=spec, use_noise=use,
+                        fuse=k, offsets=offs, row=row)
+                    compare("xchain", got, want,
+                            f"{prec} {shape} k={k} noise={noise}")
+            for k in range(2, cap + 1):
+                shape = (128, 128 + 2 * k, 128)
+                f = (rand(shape, dtype), rand(shape, dtype))
+                faces = tuple(rand((k,) + shape[1:], dtype)
+                              for _ in range(4))
+                offs = (128, -k, 0)
+                got = cuda_stencil.fused_step(
+                    f, params, seeds, faces, spec=spec, use_noise=use,
+                    fuse=k, offsets=offs, row=MAIN_L, y_halo=k)
+                want = cuda_stencil.plain_xchain(
+                    f, params, seeds, faces, spec=spec, use_noise=use,
+                    fuse=k, offsets=offs, row=MAIN_L)
+                compare("xychain", got, want,
+                        f"{prec} {shape} k={k} noise={noise}")
+            log(f"  {prec} noise={noise}: 6n-face, x-chain (k=2..{cap}) "
+                f"and xy-chain (k=2..{cap}) bitwise equal to plain")
+    report["face_parity"] = rows
+    return worst
+
+
 def write_config(path, **kw):
     lines = []
     for key, value in kw.items():
@@ -173,11 +306,7 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
     from grayscott_jl_tpu_torch import driver
     from grayscott_jl_tpu_torch.io.bplite import BpReader
 
-    common = dict(
-        L=MAIN_L, Du=0.2, Dv=0.1, F=0.02, k=0.048, dt=1.0, noise=0.1,
-        steps=MAIN_STEPS, plotgap=50, precision="Float32",
-        backend="CUDA", kernel_language="Pallas",
-    )
+    common = main_settings()
     out = os.path.join(workdir, "gs.bp")
     ckpt = os.path.join(workdir, "ckpt.bp")
     cfg = os.path.join(workdir, "main.toml")
@@ -186,11 +315,16 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
 
     stats_path = os.path.join(workdir, "stats.json")
     os.environ["GS_TPU_STATS"] = stats_path
-    cuda_stencil.LAUNCHES = 0
+    cuda_stencil.reset_launches()
     t0 = time.perf_counter()
     sim = driver.main([cfg])
     wall = time.perf_counter() - t0
     launches = cuda_stencil.LAUNCHES
+    check(not sim.sharded, f"the main path ran sharded on "
+          f"{torch.cuda.device_count()} cards; run this script on one")
+    check(launches == cuda_stencil.MODE_LAUNCHES["chain"],
+          f"the single-block path launched face modes: "
+          f"{cuda_stencil.MODE_LAUNCHES}")
     del os.environ["GS_TPU_STATS"]
     with open(stats_path, encoding="utf-8") as f:
         stats = json.load(f)
@@ -204,6 +338,7 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
         f"fuse={sim.fuse}, {launches} kernel launches; phases (s): "
         f"{stats['phases_s']}")
 
+    stored = read_store(out)
     with BpReader(out) as r:
         check(r.num_steps() == MAIN_STEPS // 50,
               f"store has {r.num_steps()} steps")
@@ -253,7 +388,151 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
         "u_range": [float(u_end.min()), float(u_end.max())],
         "v_range": [float(v_end.min()), float(v_end.max())],
     }
-    return launches, sim.fuse
+    return launches, sim.fuse, stored
+
+
+def read_store(path):
+    """``[(step, U, V)]`` of every step of a store."""
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+
+    with BpReader(path) as r:
+        return [(int(r.get("step", step=i)), r.get("U", step=i),
+                 r.get("V", step=i)) for i in range(r.num_steps())]
+
+
+def main_settings(**kw):
+    """The main path's settings (phase 4), as keyword arguments."""
+    base = dict(
+        L=MAIN_L, Du=0.2, Dv=0.1, F=0.02, k=0.048, dt=1.0, noise=0.1,
+        steps=MAIN_STEPS, plotgap=50, precision="Float32",
+        backend="CUDA", kernel_language="Pallas",
+    )
+    base.update(kw)
+    return base
+
+
+def mesh_sim(gs, settings, dims, seed=0):
+    """A ``dims`` mesh with every block on ``cuda:0``."""
+    n = dims[0] * dims[1] * dims[2]
+    return gs.Simulation(settings, seed=seed, mesh_dims=dims,
+                         devices=["cuda:0"] * n)
+
+
+def phase_sharded(torch, gs, cuda_stencil, workdir, stored, report):
+    """The sharded main path: ``driver.run_once`` on a (2,2,2) mesh of
+    blocks all on ``cuda:0``, at the card's default depth 1."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+
+    def factory(settings, *, n_devices, seed):
+        return mesh_sim(gs, settings, MESH, seed)
+
+    out = os.path.join(workdir, "mesh.bp")
+    ckpt = os.path.join(workdir, "mesh_ckpt.bp")
+    cfg = os.path.join(workdir, "mesh.toml")
+    write_config(cfg, **main_settings(), output=out, checkpoint=True,
+                 checkpoint_freq=100, checkpoint_output=ckpt)
+    stats_path = os.path.join(workdir, "mesh_stats.json")
+    os.environ["GS_TPU_STATS"] = stats_path
+    cuda_stencil.reset_launches()
+    t0 = time.perf_counter()
+    sim = driver.run_once(get_settings([cfg]), sim_factory=factory)
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_stencil.MODE_LAUNCHES)
+    del os.environ["GS_TPU_STATS"]
+    with open(stats_path, encoding="utf-8") as f:
+        stats = json.load(f)
+    n = MESH[0] * MESH[1] * MESH[2]
+    check(sim.domain.dims == MESH and sim.fuse == 1,
+          f"sharded path ran {sim.domain.dims} at fuse {sim.fuse}")
+    check(counts["faces6"] == n * MAIN_STEPS
+          and sum(counts.values()) == counts["faces6"],
+          f"sharded main path launched {counts}, expected "
+          f"{n * MAIN_STEPS} 6n-face launches and no other")
+    log(f"  driver.run_once on a {MESH} mesh on cuda:0: {MAIN_STEPS} steps "
+        f"in {wall:.3f} s, {counts['faces6']} 6n-face launches; phases "
+        f"(s): {stats['phases_s']}")
+    got = read_store(out)
+    check([s for s, *_ in got] == [s for s, *_ in stored],
+          f"sharded store steps {[s for s, *_ in got]}")
+    for (step, u, v), (_, u1, v1) in zip(got, stored):
+        check(np.array_equal(u, u1) and np.array_equal(v, v1),
+              f"sharded store != single-block store at step {step}")
+    log(f"  sharded store bitwise equal to the single-block store at all "
+        f"{len(got)} steps")
+
+    out2 = os.path.join(workdir, "mesh_restart.bp")
+    cfg2 = os.path.join(workdir, "mesh_restart.toml")
+    write_config(cfg2, **main_settings(), output=out2, restart=True,
+                 restart_input=ckpt, restart_step=100)
+    driver.run_once(get_settings([cfg2]), sim_factory=factory)
+    step2, u2, v2 = read_store(out2)[-1]
+    step1, u1, v1 = stored[-1]
+    check(step2 == step1 == MAIN_STEPS
+          and np.array_equal(u2, u1) and np.array_equal(v2, v1),
+          "sharded restart from step 100 != the stored step 200")
+    log("  sharded restart from step 100 reproduces step 200 bitwise")
+    report["sharded_main_path"] = {
+        "mesh": list(MESH), "wall_s": wall, "launches": counts,
+        "run_stats": stats,
+    }
+    return counts["faces6"]
+
+
+def phase_fuse2(torch, gs, cuda_stencil, stored, report):
+    """``GS_FUSE=2`` runs of 50 steps on the three chain forms, each
+    bitwise equal to the stored step 50, and pad-and-mask L=250."""
+    import numpy as np
+
+    step50, u50, v50 = stored[0]
+    check(step50 == 50, f"first stored step is {step50}")
+    runs = {}
+    os.environ["GS_FUSE"] = "2"
+    try:
+        for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain"),
+                           ((2, 2, 1), "xychain")):
+            n = dims[0] * dims[1] * dims[2]
+            sim = mesh_sim(gs, gs.Settings(**main_settings()), dims)
+            cuda_stencil.reset_launches()
+            t0 = time.perf_counter()
+            sim.iterate(50)
+            sim.block_until_ready()
+            wall = time.perf_counter() - t0
+            counts = dict(cuda_stencil.MODE_LAUNCHES)
+            check(counts[mode] == n * 25
+                  and sum(counts.values()) == counts[mode],
+                  f"GS_FUSE=2 on {dims} launched {counts}, expected "
+                  f"{n * 25} {mode} launches and no other")
+            u, v = sim.get_fields()
+            check(np.array_equal(u, u50) and np.array_equal(v, v50),
+                  f"GS_FUSE=2 on {dims} != the stored step 50")
+            runs["x".join(map(str, dims))] = {
+                "mode": mode, "launches": counts[mode], "wall_s": wall}
+            log(f"  GS_FUSE=2 on {dims}: {counts[mode]} {mode} launches, "
+                "step 50 bitwise equal to the single-block store")
+        L = 250
+        settings = gs.Settings(**main_settings(L=L))
+        single = gs.Simulation(settings)
+        check(not single.sharded, "the L=250 reference run is sharded")
+        sim = mesh_sim(gs, settings, (3, 1, 1))
+        check(sim.domain.padded, "L=250 on (3,1,1) is not padded")
+        cuda_stencil.reset_launches()
+        sim.iterate(50)
+        xchain = cuda_stencil.MODE_LAUNCHES["xchain"]
+        check(xchain == 3 * 25, f"L=250 launched {xchain} x-chain kernels")
+        single.iterate(50)
+        for a, b in zip(single.get_fields(), sim.get_fields()):
+            check(a.shape == (L,) * 3 and np.array_equal(a, b),
+                  "L=250 on (3,1,1) != the single-block L=250 run")
+        runs["L250_3x1x1"] = {"mode": "xchain", "launches": xchain}
+        log("  L=250 on (3,1,1) (pad-and-mask): bitwise equal to the "
+            "single-block run")
+    finally:
+        del os.environ["GS_FUSE"]
+    report["fuse2_runs"] = runs
+    return runs
 
 
 def time_calls(torch, fn, min_ms=200.0):
@@ -274,6 +553,41 @@ def time_calls(torch, fn, min_ms=200.0):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_profile(torch, fn, reps=20):
+    """``fn`` run ``reps`` times under ``torch.profiler`` after a warm-up:
+    the host wall of the window (ms, ending in a synchronise), the
+    device-side events' summed time (kernels and copies; they run on one
+    stream, so the sum is the device's busy time) and per-call device
+    time of the stencil kernel. ``None`` when the profiler recorded no
+    device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = kernel = 0.0
+    launches = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        if "stencil_chain_kernel" in e.name:
+            kernel += ms
+            launches += 1
+    if busy == 0.0:
+        return None
+    return {"wall_ms": wall / reps, "device_busy_ms": busy / reps,
+            "busy_share": busy / wall, "kernel_ms": kernel / reps,
+            "kernel_launches": launches / reps}
 
 
 def phase_times(torch, gs, cuda_stencil, spec, report):
@@ -318,6 +632,137 @@ def phase_times(torch, gs, cuda_stencil, spec, report):
     return rows
 
 
+def phase_face_times(torch, gs, cuda_stencil, spec, report):
+    """Per-launch times of each face mode at the sharded path's block
+    shapes (float32, noise on, depth 2 for the chains)."""
+    params = spec.model.make_params(
+        gs.Settings(noise=0.1, F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0,
+                    precision="Float32"), torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    k = 2
+    cases = (
+        ("faces6", (128, 128, 128), 1, (128, 128, 128), {}),
+        ("xchain", (32, 256, 256), k, (32, 0, 0), {}),
+        ("xychain", (128, 128 + 2 * k, 128), k, (128, 128 - k, 128),
+         {"y_halo": k}),
+    )
+    rows = {}
+    for mode, shape, fuse, offs, extra in cases:
+        nx, ny, nz = shape
+        f = (rand(shape), rand(shape))
+        if mode == "faces6":
+            faces = tuple(rand(x) for x in [(1, ny, nz)] * 4
+                          + [(nx, 1, nz)] * 4 + [(nx, ny, 1)] * 4)
+
+            def plain():
+                return cuda_stencil.plain_step(
+                    f, params, (0, 3, 0), faces, spec=spec, offsets=offs,
+                    row=MAIN_L)
+        else:
+            faces = tuple(rand((fuse, ny, nz)) for _ in range(4))
+
+            def plain():
+                return cuda_stencil.plain_xchain(
+                    f, params, (0, 3, 0), faces, spec=spec, fuse=fuse,
+                    use_noise=True, offsets=offs, row=MAIN_L)
+
+        def kernel():
+            return cuda_stencil.fused_step(
+                f, params, (0, 3, 0), faces, spec=spec, fuse=fuse,
+                offsets=offs, row=MAIN_L, **extra)
+
+        p1 = time_calls(torch, plain, 100.0)
+        k1 = time_calls(torch, kernel)
+        k2 = time_calls(torch, kernel)
+        p2 = time_calls(torch, plain, 100.0)
+        b_ms, b_by = bound_of(*face_mode_work(mode, shape, fuse))
+        prof = device_profile(torch, kernel)
+        rows[mode] = {
+            "shape": list(shape), "fuse": fuse, "ms": (k1 + k2) / 2,
+            "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2,
+            "plain_ms_runs": [p1, p2], "bound_ms": b_ms, "bound_by": b_by,
+            "profile": prof,
+        }
+        dev = ("not measured" if prof is None
+               else f"{prof['kernel_ms']:.4f} ms")
+        log(f"  {mode} {shape} fuse={fuse}: kernel {(k1 + k2) / 2:.4f} "
+            f"ms/call (device time of the kernel alone {dev}), plain "
+            f"{(p1 + p2) / 2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    report["face_times"] = rows
+    return rows
+
+
+def phase_sharded_times(torch, gs, report):
+    """ms per step of the sharded path on one card (8 blocks of the
+    (2,2,2) mesh on cuda:0, and the GS_FUSE=2 chain forms) against the
+    single block, host clock around work that ends in a synchronise;
+    and the 6n-face halo exchange alone."""
+    from grayscott_jl_tpu_torch.parallel import halo
+
+    steps = 50
+    settings = gs.Settings(**main_settings())
+
+    def per_step(sim):
+        sim.iterate(steps)
+        sim.block_until_ready()
+        t0 = time.perf_counter()
+        sim.iterate(steps)
+        sim.block_until_ready()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    one = gs.Simulation(settings)
+    mesh = mesh_sim(gs, settings, MESH)
+    o1, m1, m2, o2 = (per_step(one), per_step(mesh), per_step(mesh),
+                      per_step(one))
+    bvs = mesh.model.boundaries
+    halo.exchange_faces(mesh.blocks, bvs, mesh.mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        halo.exchange_faces(mesh.blocks, bvs, mesh.mesh)
+    torch.cuda.synchronize()
+    exch = (time.perf_counter() - t0) * 1e3 / steps
+    row = {
+        "single_ms_per_step": (o1 + o2) / 2, "single_runs": [o1, o2],
+        "mesh_ms_per_step": (m1 + m2) / 2, "mesh_runs": [m1, m2],
+        "exchange_ms_per_step": exch,
+        "exchange_share": exch / ((m1 + m2) / 2),
+    }
+    log(f"  one card, L={MAIN_L} depth 1: single block "
+        f"{row['single_ms_per_step']:.4f} ms/step, {MESH} mesh "
+        f"{row['mesh_ms_per_step']:.4f} ms/step, of which the 6n-face "
+        f"exchange {exch:.4f} ms ({100 * row['exchange_share']:.1f} %)")
+    for name, sim in (("single", one), ("mesh", mesh)):
+        prof = device_profile(torch, lambda: sim.iterate(1), reps=steps)
+        row[f"{name}_profile"] = prof
+        if prof is None:
+            log(f"  {name}: device busy share not measured (the profiler "
+                "recorded no device event)")
+            continue
+        log(f"  {name} under the profiler: {prof['wall_ms']:.4f} ms/step "
+            f"wall, device busy {prof['device_busy_ms']:.4f} ms "
+            f"({100 * prof['busy_share']:.1f} %), stencil kernel "
+            f"{prof['kernel_ms']:.4f} ms in {prof['kernel_launches']:.0f} "
+            "launches")
+    os.environ["GS_FUSE"] = "2"
+    try:
+        fuse2 = {}
+        for dims in ((8, 1, 1), (2, 2, 2), (2, 2, 1)):
+            fuse2["x".join(map(str, dims))] = per_step(
+                mesh_sim(gs, settings, dims))
+        fuse2["single"] = per_step(gs.Simulation(settings))
+    finally:
+        del os.environ["GS_FUSE"]
+    row["fuse2_ms_per_step"] = fuse2
+    log(f"  GS_FUSE=2 ms/step: {fuse2}")
+    report["sharded_times"] = row
+    return row
+
+
 def main():
     import torch
 
@@ -351,37 +796,61 @@ def main():
 
     spec = kernelgen.get_spec(grayscott.MODEL)
     log("phase 3: kernel vs plain on the card")
-    worst = phase_parity(torch, gs, cuda_stencil, spec, report)
+    worst = {"chain": phase_parity(torch, gs, cuda_stencil, spec, report)}
+    worst.update(phase_face_parity(torch, gs, cuda_stencil, spec, report))
 
-    log("phase 4: main path")
+    log("phase 4: main path, single block and sharded")
     workdir = tempfile.mkdtemp(prefix="gs_chip_smoke_")
     try:
-        launches, main_fuse = phase_main_path(
+        launches, main_fuse, stored = phase_main_path(
             torch, gs, cuda_stencil, workdir, report)
+        faces6_launches = phase_sharded(
+            torch, gs, cuda_stencil, workdir, stored, report)
+        fuse2 = phase_fuse2(torch, gs, cuda_stencil, stored, report)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    del stored
 
     log("phase 5: times (float32)")
     report["clocks_before"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     rows = phase_times(torch, gs, cuda_stencil, spec, report)
+    face_rows = phase_face_times(torch, gs, cuda_stencil, spec, report)
+    phase_sharded_times(torch, gs, report)
     report["clocks_after"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     main_row = next(r for r in rows
                     if r["L"] == MAIN_L and r["fuse"] == main_fuse)
-    kernels = {"kernels": [{
-        "name": "stencil_chain",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]}
+    f0 = tuple(torch.rand((MAIN_L,) * 3, device="cuda") for _ in range(2))
+    params = spec.model.make_params(gs.Settings(**main_settings()),
+                                    torch.float32, "cuda")
+    main_row["profile"] = device_profile(torch, lambda: cuda_stencil.fused_step(
+        f0, params, (0, 3, 0), spec=spec, fuse=main_fuse, row=MAIN_L))
+    del f0
+    entries = (
+        ("stencil_chain", "chain", launches, main_row),
+        ("stencil_faces6", "faces6", faces6_launches, face_rows["faces6"]),
+        ("stencil_xchain", "xchain", fuse2["8x1x1"]["launches"],
+         face_rows["xchain"]),
+        ("stencil_xychain", "xychain", fuse2["2x2x2"]["launches"],
+         face_rows["xychain"]),
+    )
+    kernels = {"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[mode],
+            "launches": n,
+            "max_abs_err": worst[mode],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        }
+        for name, mode, n, row in entries
+    ]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"),

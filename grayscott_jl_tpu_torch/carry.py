@@ -5,7 +5,9 @@ of JAX scalars and its fields as JAX arrays; handed over as numpy, they
 become this package's params (0-dim tensors) and fields (tensors) with
 no rounding in between. The tests use these to feed both packages the
 same state; restarting from a checkpoint written by the reference is the
-file form of the same hand-over.
+file form of the same hand-over. :func:`blocks_from_reference` hands a
+reference run's global fields to a sharded simulation of this package,
+block by block.
 """
 
 from __future__ import annotations
@@ -47,3 +49,26 @@ def fields_from_reference(fields_np: Sequence, device):
         torch.from_numpy(np.array(f, copy=True, order="C")).to(device)
         for f in fields_np
     )
+
+
+def blocks_from_reference(fields_np: Sequence, sim):
+    """The reference's global fields — numpy arrays of ``L^3`` or of a
+    sharded run's padded storage shape, as ``np.asarray`` of its field
+    arrays gives them — as ``sim``'s per-block tensors, bitwise: each
+    block's box on that block's device. Assign the result to
+    ``sim.blocks`` to step the same state in both packages."""
+    fields_np = [np.asarray(f) for f in fields_np]
+    if len(fields_np) != sim.model.n_fields:
+        raise ValueError(
+            f"got {len(fields_np)} fields; model {sim.model.name!r} "
+            f"declares {sim.model.n_fields}"
+        )
+    want = torch.empty((), dtype=sim.dtype).numpy().dtype
+    shapes = ((sim.settings.L,) * 3, tuple(sim.domain.storage_shape))
+    for f in fields_np:
+        if f.dtype != want or f.shape not in shapes:
+            raise ValueError(
+                f"reference field {f.dtype} {f.shape} does not match the "
+                f"run's {want} {shapes[0]} (or storage {shapes[1]})"
+            )
+    return sim.scatter(fields_np)

@@ -94,7 +94,8 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
     "compute_precision": (("", "f32", "float32", "fp32"),
                           "Queue 1 item 16 / Queue 2 item 5"),
-    "halo_depth": ((0, 1), "Queue 1 item 13"),
+    "halo_depth": ((0, 1), "Queue 1 item 13b"),
+    "comm_overlap": (("auto", "off"), "Queue 1 item 13a"),
     "autotune": (("", "off", "cached"), "Queue 1 item 20"),
     "snapshot_bits": (("",), "Queue 1 item 16"),
     "snapshot_bits_ckpt": ((False,), "Queue 1 item 16"),
@@ -254,10 +255,30 @@ def resolve_precision(settings: Settings):
     return getattr(torch, name)
 
 
+#: Environment variables the reference acts on whose subsystem is not
+#: in this package yet: what they turn on, the values that mean "off",
+#: and the ROADMAP item that ports it. The first two override the
+#: :data:`NOT_PORTED` keys above; the last two launch several
+#: processes.
+NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
+    "GS_COMM_OVERLAP": ("split-phase overlap",
+                        ("", "auto", "off", "0", "false", "no"),
+                        "Queue 1 item 13a"),
+    "GS_HALO_DEPTH": ("halo_depth > 1", ("", "auto", "0", "1"),
+                      "Queue 1 item 13b"),
+    "GS_TPU_COORDINATOR": ("multi-process launch", ("",),
+                           "Queue 1 item 14"),
+    "GS_TPU_DISTRIBUTED": ("multi-process launch",
+                           ("", "0", "off", "false", "no"),
+                           "Queue 1 item 14"),
+}
+
+
 def check_ported(settings: Settings) -> None:
     """Raise :class:`SettingsError` for any key set to a value whose
     subsystem is not in this package yet (:data:`NOT_PORTED`), and for
-    a multi-device mesh override."""
+    any environment variable that turns such a subsystem on
+    (:data:`NOT_PORTED_ENV`)."""
     for key, (off, item) in NOT_PORTED.items():
         value = getattr(settings, key)
         if isinstance(value, str):
@@ -270,12 +291,14 @@ def check_ported(settings: Settings) -> None:
             )
     from .env import env_str
 
-    mesh = env_str("GS_TPU_MESH_DIMS", "").replace(" ", "")
-    if mesh not in ("", "1,1,1"):
-        raise SettingsError(
-            f"GS_TPU_MESH_DIMS={mesh!r} asks for a multi-device mesh; "
-            "this package runs one device (ROADMAP Queue 1 items 11-14)"
-        )
+    for var, (what, off, item) in NOT_PORTED_ENV.items():
+        value = env_str(var, "").strip().lower()
+        if value not in off:
+            raise SettingsError(
+                f"{var}={value!r} asks for {what}, which "
+                f"grayscott_jl_tpu_torch does not support yet (ROADMAP "
+                f"{item}); unset it"
+            )
 
 
 def resolve_model(settings: Settings):

@@ -8,15 +8,21 @@ output step and/or the checkpoint -> close. The steps between two
 boundaries are enqueued on the device as one chunk; the host waits for
 the device only at the boundary.
 
+A sharded run writes one block per mesh position into each store step,
+each with its global ``(start, count)`` box; the store serves the same
+assembled arrays as a single-block run's, and a checkpoint restarts a
+run on any mesh.
+
 Not here yet, each a later slice of the port (ROADMAP Queue 1): the
 supervisor and fault injection, the hang watchdog, the observability
-sinks, the asynchronous writer, ``.vti`` files, ensembles and sharding.
+sinks, the asynchronous writer, ``.vti`` files, ensembles and
+multi-process launch.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import List, Optional
 
 from .config.env import env_str
 from .config.settings import Settings, get_settings
@@ -35,14 +41,15 @@ def _next_boundary(step: int, period: int, limit: int) -> int:
     return min(limit, (step // period + 1) * period)
 
 
-def main(args: List[str], *, seed: int = 0):
+def main(args: List[str], *, n_devices: Optional[int] = None,
+         seed: int = 0):
     """Run a full simulation from CLI args. ``GS_SEED`` overrides the
     noise seed (default 0)."""
     settings = get_settings(list(args))
     env_seed = env_str("GS_SEED", "").strip()
     if env_seed:
         seed = int(env_seed)
-    return run_once(settings, seed=seed)
+    return run_once(settings, n_devices=n_devices, seed=seed)
 
 
 def _close_quietly(store) -> None:
@@ -55,9 +62,16 @@ def _close_quietly(store) -> None:
         pass
 
 
-def run_once(settings: Settings, *, seed: int = 0) -> Simulation:
-    """One simulation run; returns the finished :class:`Simulation`."""
-    sim = Simulation(settings, seed=seed)
+def run_once(settings: Settings, *, n_devices: Optional[int] = None,
+             seed: int = 0, sim_factory=None) -> Simulation:
+    """One simulation run; returns the finished :class:`Simulation`.
+    ``sim_factory``, when given, builds the simulation instead of the
+    constructor, called as ``sim_factory(settings, n_devices=...,
+    seed=...)`` (e.g. to place a mesh's blocks on chosen devices)."""
+    if sim_factory is not None:
+        sim = sim_factory(settings, n_devices=n_devices, seed=seed)
+    else:
+        sim = Simulation(settings, n_devices=n_devices, seed=seed)
     log = Logger(verbose=settings.verbose)
     restart_step = 0
     if settings.restart:
@@ -82,6 +96,8 @@ def run_once(settings: Settings, *, seed: int = 0) -> Simulation:
             "kernel_language": sim.kernel_language,
             "fuse": sim.fuse,
             "precision": settings.precision,
+            "n_devices": sim.domain.n_blocks,
+            "mesh_dims": list(sim.domain.dims),
         })
         step = restart_step
         t0 = time.perf_counter()

@@ -4,9 +4,9 @@
 The reference's MPI Cartesian machinery
 (``src/simulation/communication.jl:59-96``) as pure data:
 ``MPI.Dims_create`` becomes :func:`dims_create` (same balanced
-factorization) and the block layout a :class:`CartDomain`. This package
-runs the one-block domain; the multi-device layouts come with the halo
-exchange (ROADMAP Queue 1 items 11-14).
+factorization) and the block layout a :class:`CartDomain`, whose
+``coords``, ``proc_offsets``, ``local_shape`` and ``storage_shape``
+place the blocks of the in-process device mesh (``parallel/mesh.py``).
 
 Non-divisible L runs via **pad-and-mask** (r4): storage is padded to
 equal ``ceil(L/d)`` blocks per axis (SPMD needs equal shards), pad

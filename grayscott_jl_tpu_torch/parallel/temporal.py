@@ -1,0 +1,204 @@
+"""Cross-block temporal blocking for the sharded kernel path
+(counterpart of ``grayscott_jl_tpu/parallel/temporal.py``, its fused,
+non-overlap forms).
+
+The kernel chains ``k`` steps per launch on shrinking windows. Crossing
+a block boundary with that chain needs k-deep halo data:
+
+* **x**: the x-chain mode takes k-wide exchanged x slabs directly;
+* **y**: :func:`xy_chain` extends the operand by a k-deep exchanged y
+  halo, and the kernel's global-coordinate pinning makes in-domain halo
+  rows recompute the y neighbour's values;
+* **z**: the kernel runs with frozen z edges, which spoils the
+  outermost k z-cells of each sharded z side (one cell per stage), and
+  :func:`stitch_bands_from_frame` recomputes those k-wide bands with
+  :func:`window_chain` in torch ops from a corner-propagated k-deep
+  frame (``halo.halo_pad_wide``).
+
+On the TPU the y extent is rounded up to Mosaic's sublane tile with
+boundary-valued filler rows; the card has no such tile, and the filler
+rows only push the spoiled front outward, so they are left out here and
+change no value the caller keeps.
+
+Every form reproduces the step-at-a-time trajectory bitwise (the same
+per-cell operations in the same order, position-keyed noise): the
+plain window chain, the kernel's chain and the band recompute agree
+cell for cell, which the tests assert.
+
+The split-phase forms (``xy_overlap_feasible``, ``overlap=True``) come
+with the overlap slice (ROADMAP Queue 1 item 13a).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import torch
+
+from . import halo
+from .mesh import DeviceMesh
+
+
+def pin_out_of_domain(arr: torch.Tensor, bv: float, origin,
+                      row: int) -> torch.Tensor:
+    """Pin every cell whose GLOBAL coordinate falls outside ``[0, row)``
+    on any axis to the frozen boundary value ``bv``; ``origin`` is the
+    global coordinate of ``arr[0, 0, 0]``. Pins pad cells inside a block
+    of a non-divisible grid as well as ring cells outside the domain."""
+    valid = None
+    for dim in range(3):
+        g = int(origin[dim]) + torch.arange(arr.shape[dim],
+                                            device=arr.device)
+        view = [1, 1, 1]
+        view[dim] = arr.shape[dim]
+        vd = ((g >= 0) & (g < row)).view(view)
+        valid = vd if valid is None else valid & vd
+    return torch.where(valid, arr, bv)
+
+
+def window_chain(fields_w, params, model, *, depth, step, origin, row,
+                 use_noise, unit_noise, boundaries: Sequence[float],
+                 final_pin: bool = True):
+    """``depth`` plain steps on ghost-inclusive field windows, shrinking
+    one cell per side per stage; returns the (shape - 2*depth) cores.
+
+    ``origin`` is the global coordinate of each window's ``[0, 0, 0]``;
+    after each stage, cells outside the global domain are pinned to the
+    per-field ``boundaries`` (:func:`pin_out_of_domain`).
+    ``unit_noise(step, origin, shape, device)`` draws the
+    position-keyed noise.
+    ``final_pin=False`` skips the last stage's pin, legal when every
+    output cell is in the domain. Same operations in the same order as
+    the kernel, so a band computed here sits next to kernel cells
+    seamlessly."""
+    from ..ops import stencil
+
+    fields_w = tuple(fields_w)
+    for s in range(depth):
+        shape = tuple(d - 2 for d in fields_w[0].shape)
+        o = tuple(int(c) + s + 1 for c in origin)
+        if use_noise:
+            noise_term = params.noise * unit_noise(
+                step + s, o, shape, fields_w[0].device)
+        else:
+            noise_term = 0.0
+        fields_w = stencil.reaction_update(fields_w, noise_term, params,
+                                           model)
+        if s + 1 < depth or final_pin:
+            fields_w = tuple(
+                pin_out_of_domain(f, bv, o, row)
+                for f, bv in zip(fields_w, boundaries)
+            )
+    return fields_w
+
+
+def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
+                            step, offs, row, axis_sizes, use_noise,
+                            unit_noise, boundaries: Sequence[float],
+                            dims_to_stitch: Sequence[int] = (0, 1, 2)):
+    """Overwrite the ``depth``-thick boundary bands of one block's
+    results ``fields_i`` with :func:`window_chain` recomputes from its
+    exchanged corner-propagated frame ``fields_w``
+    (``halo.halo_pad_wide``, width ``depth``). Each band is recomputed
+    from a 3k-deep frame window spanning the frame's full extent on the
+    other axes, so corner cells in two bands get the same values twice.
+    Axes with a single block, or not in ``dims_to_stitch``, are skipped.
+    ``offs`` is the block's global origin. Returns new tensors."""
+    k = depth
+    fields_i = [f.clone() for f in fields_i]
+    base = [int(o) - k for o in offs]  # global origin of the frame
+    for dim in range(3):
+        if axis_sizes[dim] == 1 or dim not in dims_to_stitch:
+            continue
+        n_d = fields_i[0].shape[dim]
+        m = fields_w[0].shape[dim]  # n_d + 2k
+        for d0, w0 in ((0, 0), (n_d - k, m - 3 * k)):
+            origin = list(base)
+            origin[dim] += w0
+            bands = window_chain(
+                tuple(f.narrow(dim, w0, 3 * k) for f in fields_w), params,
+                model, depth=k, step=step, origin=origin, row=row,
+                use_noise=use_noise, unit_noise=unit_noise,
+                boundaries=boundaries,
+            )
+            for fi, b in zip(fields_i, bands):
+                fi.narrow(dim, d0, k).copy_(b)
+    return tuple(fields_i)
+
+
+def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
+             chain_kernel: Callable, use_noise, unit_noise, row,
+             mesh: DeviceMesh, boundaries: Sequence[float]) -> List[tuple]:
+    """``depth`` fused steps on every block of an (n, m, p) mesh: the
+    kernel's chain crosses x and y block boundaries, and sharded z sides
+    get the band recompute. ``blocks`` is every block's field tuple
+    (rank order), ``offsets`` their global origins, ``params_of(rank)``
+    the params on that block's device.
+
+    ``chain_kernel(rank, fields_p, faces, step, offs_p)`` runs the
+    kernel (or its plain version) at ``fuse=depth`` on one block's
+    y-extended operand: ``fields_p`` are ``(nx, ny + 2k, nz)`` with rows
+    covering global ``[offs_p[1], offs_p[1] + ny + 2k)``, ``faces`` the
+    field-major (lo, hi) x slabs of the same rows. Returns the new
+    per-block field tuples.
+
+    With z sharded, one corner-propagated k-deep frame (6 ppermutes)
+    serves the operand, its x faces and the z bands; otherwise k-wide y
+    slabs are exchanged first and then the x slabs of the y-padded
+    fields, so the x faces carry the corners (4 ppermutes)."""
+    bvs = tuple(boundaries)
+    dims = mesh.dims
+    k = depth
+    z_sharded = dims[2] > 1
+
+    def interleave(los, his):
+        """Field-major (lo, hi) faces tuple from per-field slabs."""
+        return tuple(x for pair in zip(los, his) for x in pair)
+
+    operands = []
+    if z_sharded:
+        frames = halo.halo_pad_wide(blocks, bvs, mesh, k)
+        for fields, fw in zip(blocks, frames):
+            nx, _, nz = fields[0].shape
+            operands.append((
+                tuple(w[k:k + nx, :, k:k + nz].contiguous() for w in fw),
+                interleave(tuple(w[0:k, :, k:k + nz] for w in fw),
+                           tuple(w[k + nx:, :, k:k + nz] for w in fw)),
+            ))
+    else:
+        y_pairs = halo.exchange_slabs(blocks, bvs, 1, mesh, k)
+        padded = [
+            tuple(torch.cat([lo, f, hi], dim=1)
+                  for f, (lo, hi) in zip(fields, pairs))
+            for fields, pairs in zip(blocks, y_pairs)
+        ]
+        x_pairs = halo.exchange_slabs(padded, bvs, 0, mesh, k)
+        for fields_pr, pairs in zip(padded, x_pairs):
+            operands.append((
+                fields_pr,
+                interleave(tuple(lo for lo, _ in pairs),
+                           tuple(hi for _, hi in pairs)),
+            ))
+
+    out = []
+    for rank, ((fields_p, faces), offs) in enumerate(zip(operands,
+                                                         offsets)):
+        ny = blocks[rank][0].shape[1]
+        offs_p = (offs[0], offs[1] - k, offs[2])
+        res = chain_kernel(rank, fields_p, faces, step, offs_p)
+        res = tuple(f[:, k:k + ny, :].contiguous() for f in res)
+        if z_sharded:
+            # The kernel ran with frozen z edges: its outermost k
+            # z-cells are stale wherever a z neighbour exists (and
+            # exactly right on global z edges). Recompute both k-wide
+            # bands from the frame; the values are bitwise the same, so
+            # overwriting unconditionally is right on edge blocks too.
+            res = stitch_bands_from_frame(
+                res, frames[rank], params_of(rank), model, depth=k,
+                step=step, offs=offs, row=row, axis_sizes=dims,
+                use_noise=use_noise, unit_noise=unit_noise,
+                boundaries=bvs, dims_to_stitch=(2,),
+            )
+        out.append(res)
+    return out
+

@@ -1,24 +1,35 @@
-"""Public simulation API: settings -> model -> device -> fields -> step loop
-(counterpart of ``grayscott_jl_tpu/simulation.py``, single device).
+"""Public simulation API: settings -> model -> devices -> blocks -> step
+loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
 
 * :func:`initialization` parses the config and builds a ready
   :class:`Simulation`.
-* :meth:`Simulation.iterate` advances n steps. On the kernel path it
-  runs ``divmod(n, fuse)`` launches of the fused CUDA kernel, then one
+* The grid is decomposed over a :class:`~.parallel.mesh.DeviceMesh`:
+  one block per mesh position, each on its device (a device may hold
+  several blocks). On the card the default mesh spans every visible
+  card; on the CPU it is one block unless ``n_devices`` or ``devices``
+  asks for more. ``GS_TPU_MESH_DIMS`` or ``mesh_dims`` picks the
+  factorization, as in the reference.
+* :meth:`Simulation.iterate` advances n steps. A single block runs
+  ``divmod(n, fuse)`` launches of the fused CUDA kernel, then one
   shallower launch for the remainder, each seeded by its absolute step;
-  on the plain path, n plain torch steps. It never waits for the
-  device: no ``.item()``, no copy to the host.
+  on the plain path, n plain torch steps. A sharded run takes the
+  reference's branches (``_local_run``) over all blocks: the 6n-face
+  kernel at depth 1, the x-chain on ``(n, 1, 1)`` meshes and the
+  xy-chain on the others at depth k >= 2, or the plain halo-padded step
+  and window chain. It never waits for the device.
 * :meth:`Simulation.get_fields` / :meth:`Simulation.snapshot` copy the
   fields to the host; :meth:`Simulation.restore_fields` loads them back.
 
 The noise key is the integer pair ``(0, seed)``: the int32 words of the
 reference's ``jax.random.PRNGKey(seed)``, so a seed draws the same
-noise in both packages.
+noise in both packages. The noise is keyed on global coordinates, so a
+trajectory is the same bitwise for every mesh, depth and chunking.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +38,11 @@ from .config import settings as config
 from .config.env import env_str
 from .config.settings import Settings
 from .models import SettingsError
-from .ops import cuda_stencil, kernelgen
+from .ops import cuda_stencil, kernelgen, stencil
+from .ops.noise import uniform_pm1_block
+from .parallel import halo, temporal
 from .parallel.domain import CartDomain
+from .parallel.mesh import DeviceMesh, select_devices
 
 
 #: Chain depth with the least time per step on the card at L=256
@@ -67,16 +81,22 @@ def base_key(seed: int) -> Tuple[int, int]:
 
 
 class Simulation:
-    """One registered model on one device (Gray-Scott by default)."""
+    """One registered model (Gray-Scott by default) on a mesh of
+    blocks. ``devices`` is the explicit, possibly repeating, device list
+    (one entry per block); ``n_devices`` and ``mesh_dims`` are as in the
+    reference."""
 
-    def __init__(self, settings: Settings, *, seed: int = 0):
+    def __init__(self, settings: Settings, *,
+                 n_devices: Optional[int] = None, seed: int = 0,
+                 mesh_dims: Optional[Tuple[int, int, int]] = None,
+                 devices: Optional[Sequence] = None):
         self.settings = settings
         config.check_ported(settings)
         self.model = config.resolve_model(settings)
         _, self.kernel_language = config.load_backend_and_lang(settings)
-        self.device = config.resolve_device(settings)
+        kind = config.resolve_device(settings).type
         self.dtype = config.resolve_precision(settings)
-        if self.kernel_language == "cuda" and self.device.type == "cuda":
+        if self.kernel_language == "cuda" and kind == "cuda":
             reason = kernelgen.generation_gate_reason(self.model)
             if reason is not None:
                 raise SettingsError(
@@ -84,28 +104,80 @@ class Simulation:
                     f"the card cannot run model {self.model.name!r}: "
                     f"{reason} (use 'Plain')"
                 )
-        self.domain = CartDomain.create(1, settings.L)
+        devices = select_devices(kind, n_devices, devices)
+        self.domain = CartDomain.create(len(devices), settings.L,
+                                        dims=mesh_dims)
+        self.mesh = DeviceMesh(self.domain.dims, devices)
+        self.sharded = self.domain.n_blocks > 1
+        self.device = devices[0]
         self.spec = kernelgen.get_spec(self.model)
         self.fuse = default_fuse(self.dtype, self.device)
-        self.params = self.model.make_params(
-            settings, self.dtype, self.device
-        )
+        self._params = {
+            d: self.model.make_params(settings, self.dtype, d)
+            for d in dict.fromkeys(devices)
+        }
+        self.params = self._params[self.device]
         self.use_noise = settings.noise != 0.0
         self.base_key = base_key(seed)
         self.step = 0
-        self.fields = tuple(
-            self.model.init(settings.L, self.dtype, device=self.device)
-        )
+        L = settings.L
+        if self.sharded:
+            block = self.domain.local_shape
+            #: Global origin of each block's storage (rank order).
+            self.offsets = [
+                tuple(c * b for c, b in zip(self.domain.coords(r), block))
+                for r in range(self.domain.n_blocks)
+            ]
+            self.blocks = [
+                tuple(self.model.init(L, self.dtype, offsets=offs,
+                                      sizes=block, device=dev))
+                for offs, dev in zip(self.offsets, devices)
+            ]
+        else:
+            self.offsets = [(0, 0, 0)]
+            self.blocks = [
+                tuple(self.model.init(L, self.dtype, device=self.device))
+            ]
+
+    @property
+    def fields(self) -> Tuple[torch.Tensor, ...]:
+        """The single block's field tensors (declaration order); a
+        sharded run holds per-block tuples in :attr:`blocks`."""
+        if self.sharded:
+            raise ValueError(
+                f"a sharded run ({self.domain.dims} mesh) holds its "
+                "fields per block: use .blocks or get_fields()"
+            )
+        return self.blocks[0]
+
+    @fields.setter
+    def fields(self, value) -> None:
+        if self.sharded:
+            raise ValueError(
+                "a sharded run holds its fields per block: use "
+                "restore_fields() or carry.blocks_from_reference()"
+            )
+        self.blocks = [tuple(value)]
 
     def _seeds(self, step: int) -> Tuple[int, int, int]:
         return self.base_key[0], self.base_key[1], step
+
+    def _params_of(self, rank: int):
+        return self._params[self.mesh.devices[rank]]
 
     def iterate(self, nsteps: int = 1) -> None:
         """Advance ``nsteps`` steps; enqueues device work only."""
         if nsteps <= 0:
             return
+        if self.sharded:
+            self.blocks = self._sharded_run(self.blocks, nsteps)
+        else:
+            self.blocks = [self._block_run(self.blocks[0], nsteps)]
+        self.step += nsteps
+
+    def _block_run(self, fields, nsteps: int):
+        """``nsteps`` steps of the whole grid as one block."""
         L = self.settings.L
-        fields = self.fields
         step0 = self.step
         if self.kernel_language == "cuda":
             fuse = min(self.fuse, nsteps)
@@ -128,22 +200,194 @@ class Simulation:
                     fields, self.params, self._seeds(step0 + i),
                     spec=self.spec, use_noise=self.use_noise, row=L,
                 )
-        self.fields = tuple(fields)
-        self.step += nsteps
+        return tuple(fields)
+
+    def _sharded_run(self, blocks, nsteps: int):
+        """``nsteps`` steps over every block of the mesh: the reference's
+        sharded ``_local_run`` branches, each round mapping the list of
+        block field tuples to the next."""
+        L = self.settings.L
+        dims = self.domain.dims
+        local = self.domain.local_shape
+        bvs = self.model.boundaries
+        mesh = self.mesh
+        spec = self.spec
+        step0 = self.step
+        padded = self.domain.padded
+
+        def pin_blocks(blocks):
+            """Re-pin each block's pad cells (global coords >= L) to the
+            boundary value after a round of a non-divisible grid: the
+            chain's final stage writes them unpinned, and the next round
+            reads them as the frozen ghost shell."""
+            if not padded:
+                return [tuple(f) for f in blocks]
+            return [
+                tuple(temporal.pin_out_of_domain(f, bv, offs, L)
+                      for f, bv in zip(fields, bvs))
+                for fields, offs in zip(blocks, self.offsets)
+            ]
+
+        def unit_noise(step_idx, origin, shape, device):
+            return uniform_pm1_block(self.base_key, step_idx, origin, shape,
+                                     L, self.dtype, device=device)
+
+        def run_chain_rounds(chain, fuse, blocks):
+            rounds, rem = divmod(nsteps, fuse)
+            for i in range(rounds):
+                blocks = chain(blocks, step0 + fuse * i, fuse)
+            if rem:
+                blocks = chain(blocks, step0 + fuse * rounds, rem)
+            return blocks
+
+        if self.kernel_language == "cuda":
+            cap = cuda_stencil.max_feasible_fuse(
+                torch.empty((), dtype=self.dtype).element_size(),
+                spec.n_fields,
+            )
+
+            def faces_round(blocks, step):
+                faces = halo.exchange_faces(blocks, bvs, mesh)
+                return pin_blocks([
+                    cuda_stencil.fused_step(
+                        fields, self._params_of(r), self._seeds(step),
+                        faces[r], spec=spec, use_noise=self.use_noise,
+                        fuse=1, offsets=self.offsets[r], row=L,
+                    )
+                    for r, fields in enumerate(blocks)
+                ])
+
+            if dims[1] == 1 and dims[2] == 1:
+                # 1D x-sharded mesh: the only block boundaries are x
+                # faces, so the kernel's chain runs across them from one
+                # exchange of k-wide x slabs.
+                fuse = min(self.fuse, max(nsteps, 1), local[0])
+                fuse = self._cap_depth("x-chain", fuse, cap, local)
+
+                def chain(blocks, step, depth):
+                    if depth == 1:
+                        return faces_round(blocks, step)
+                    pairs = halo.exchange_x_slabs(blocks, bvs, mesh, depth)
+                    return pin_blocks([
+                        cuda_stencil.fused_step(
+                            fields, self._params_of(r), self._seeds(step),
+                            tuple(f for pr in pairs[r] for f in pr),
+                            spec=spec, use_noise=self.use_noise,
+                            fuse=depth, offsets=self.offsets[r], row=L,
+                        )
+                        for r, fields in enumerate(blocks)
+                    ])
+
+                return run_chain_rounds(chain, fuse, blocks)
+
+            # xy-chain (+ z bands when z is sharded): the kernel's chain
+            # crosses x and y block boundaries on a y-extended operand.
+            caps = [local[0], local[1]]
+            if dims[2] > 1:
+                caps.append(local[2] // 2)  # z-band windows need nz >= 2k
+            fuse = max(1, min(self.fuse, max(nsteps, 1), *caps))
+            fuse = self._cap_depth("xy-chain", fuse, cap, local)
+
+            def chain(blocks, step, depth):
+                if depth == 1:
+                    return faces_round(blocks, step)
+
+                def chain_kernel(rank, fields_p, faces, stp, offs_p):
+                    return cuda_stencil.fused_step(
+                        fields_p, self._params_of(rank), self._seeds(stp),
+                        faces, spec=spec, use_noise=self.use_noise,
+                        fuse=depth, offsets=offs_p, row=L, y_halo=depth,
+                    )
+
+                return pin_blocks(temporal.xy_chain(
+                    blocks, self._params_of, self.model, depth=depth,
+                    step=step, offsets=self.offsets,
+                    chain_kernel=chain_kernel, use_noise=self.use_noise,
+                    unit_noise=unit_noise, row=L, mesh=mesh,
+                    boundaries=bvs,
+                ))
+
+            return run_chain_rounds(chain, fuse, blocks)
+
+        # ---- plain path ----
+        if nsteps < 2:
+            pads = halo.halo_pad(blocks, bvs, mesh)
+            out = []
+            for r, fp in enumerate(pads):
+                noise_term = 0.0
+                if self.use_noise:
+                    noise_term = self._params_of(r).noise * unit_noise(
+                        step0, self.offsets[r], local, fp[0].device)
+                out.append(stencil.reaction_update(
+                    fp, noise_term, self._params_of(r), self.model))
+            return pin_blocks(out)
+
+        # One width-k exchange feeds k steps: each stage recomputes on a
+        # window one cell narrower per side, neighbour-owned ring cells
+        # reproducing the owner's values bitwise.
+        fuse = min(self.fuse, nsteps, min(local))
+
+        def chain(blocks, step, depth):
+            frames = halo.halo_pad_wide(blocks, bvs, mesh, depth)
+            return [
+                temporal.window_chain(
+                    fw, self._params_of(r), self.model, depth=depth,
+                    step=step,
+                    origin=tuple(o - depth for o in self.offsets[r]),
+                    row=L, use_noise=self.use_noise, unit_noise=unit_noise,
+                    boundaries=bvs, final_pin=padded,
+                )
+                for r, fw in enumerate(frames)
+            ]
+
+        return run_chain_rounds(chain, fuse, blocks)
+
+    def _cap_depth(self, path: str, fuse: int, cap: int, local) -> int:
+        """The chain depth within the shared-memory ledger's cap, with
+        the reference's step-down warning when the request is deeper."""
+        if fuse <= cap:
+            return fuse
+        capped = max(cap, 1)
+        warnings.warn(
+            f"{path} depth capped at {capped} (fuse={fuse} does not fit "
+            f"shared memory for local grid {tuple(local)}, {self.dtype})",
+            RuntimeWarning, stacklevel=3,
+        )
+        return capped
 
     def get_fields(self) -> Tuple[np.ndarray, ...]:
-        """Host copies of the model's fields, declaration order."""
-        return tuple(f.cpu().numpy() for f in self.fields)
+        """Host copies of the model's fields (declaration order), the
+        blocks assembled and clipped to the true ``L^3`` domain."""
+        if not self.sharded:
+            return tuple(f.cpu().numpy() for f in self.blocks[0])
+        L = self.settings.L
+        storage = self.domain.storage_shape
+        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+        out = [np.empty(storage, dtype=np_dtype) for _ in self.blocks[0]]
+        for offs, fields in zip(self.offsets, self.blocks):
+            for o, f in zip(out, fields):
+                o[tuple(slice(s, s + n) for s, n in zip(offs, f.shape))] = (
+                    f.cpu().numpy())
+        return tuple(o[:L, :L, :L] for o in out)
 
     def snapshot(self):
-        """The fields as host blocks ``[(offsets, sizes, *fields)]`` —
-        one whole-grid block — for the output and checkpoint stores."""
+        """Host blocks ``[(offsets, sizes, *fields)]`` for the output and
+        checkpoint stores: one per block, each clipped to the true
+        domain (a non-divisible L stores pad cells past L)."""
         L = self.settings.L
-        return [((0, 0, 0), (L, L, L)) + self.get_fields()]
+        out = []
+        for offs, fields in zip(self.offsets, self.blocks):
+            true = tuple(min(L - o, s) for o, s in zip(offs,
+                                                       fields[0].shape))
+            sl = tuple(slice(0, t) for t in true)
+            out.append((offs, true)
+                       + tuple(f.cpu().numpy()[sl] for f in fields))
+        return out
 
     def restore_fields(self, fields, step: int) -> None:
-        """Load host field arrays (declaration order) at ``step``."""
-        fields = tuple(fields)
+        """Load host field arrays (declaration order, ``L^3`` each) at
+        ``step``, scattered into the blocks."""
+        fields = tuple(np.asarray(f) for f in fields)
         if len(fields) != self.model.n_fields:
             raise ValueError(
                 f"Checkpoint has {len(fields)} fields; model "
@@ -151,26 +395,48 @@ class Simulation:
             )
         expected = (self.settings.L,) * 3
         for name, f in zip(self.model.field_names, fields):
-            if tuple(np.shape(f)) != expected:
+            if f.shape != expected:
                 raise ValueError(
-                    f"Checkpoint shape {name}={np.shape(f)} does not match "
+                    f"Checkpoint shape {name}={f.shape} does not match "
                     f"L={self.settings.L}"
                 )
-        self.fields = tuple(
-            torch.tensor(np.asarray(f), dtype=self.dtype, device=self.device)
-            for f in fields
-        )
+        self.blocks = self.scatter(fields)
         self.step = int(step)
 
+    def scatter(self, fields) -> List[tuple]:
+        """Per-block tensors (this run's dtype, on each block's device)
+        of global host arrays, ``L^3`` or the padded storage shape; the
+        pad cells of an ``L^3`` array are rebuilt at the boundary
+        value."""
+        storage = self.domain.storage_shape
+        arrays = []
+        for f, bv in zip(fields, self.model.boundaries):
+            f = np.asarray(f)
+            if f.shape != storage:
+                f = np.pad(f, [(0, g - n) for g, n in zip(storage, f.shape)],
+                           constant_values=bv)
+            arrays.append(f)
+        block = self.domain.local_shape
+        return [
+            tuple(
+                torch.tensor(
+                    a[tuple(slice(o, o + b) for o, b in zip(offs, block))],
+                    dtype=self.dtype, device=dev,
+                )
+                for a in arrays
+            )
+            for offs, dev in zip(self.offsets, self.mesh.devices)
+        ]
+
     def block_until_ready(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
-def initialization(args, *, seed: int = 0):
+def initialization(args, *, n_devices: Optional[int] = None, seed: int = 0):
     """Parse the config and build the simulation:
     ``(settings, domain, sim)``."""
     settings = config.get_settings(list(args))
-    sim = Simulation(settings, seed=seed)
+    sim = Simulation(settings, n_devices=n_devices, seed=seed)
     return settings, sim.domain, sim
-

@@ -123,15 +123,23 @@ def test_shared_memory_ledger_caps(itemsize, cap):
 
 
 def test_faces_raise():
+    """The reference's arity checks on ``faces`` and the faces' shapes
+    (the kernel reads them by index); the valid forms run."""
     fields, _, params = _state(4, "float32", 0.0)
     f = fields_from_reference(fields, "cpu")
     face = torch.zeros((2, 4, 4))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    out = cuda_stencil.fused_step(f, params, (0, 0, 0), (face,) * 4,
+                                  spec=SPEC, fuse=2)
+    assert out[0].shape == (4, 4, 4)
+    with pytest.raises(ValueError, match=r"x-chain faces must be \(3, 4, 4\)"):
         cuda_stencil.fused_step(f, params, (0, 0, 0), (face,) * 4,
-                                spec=SPEC, fuse=2)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+                                spec=SPEC, fuse=3)
+    with pytest.raises(ValueError, match=r"6n faces must be \(1, 4, 4\)"):
         cuda_stencil.fused_step(f, params, (0, 0, 0), (face,) * 12,
                                 spec=SPEC, fuse=1)
+    with pytest.raises(ValueError, match="y_halo == fuse"):
+        cuda_stencil.fused_step(f, params, (0, 0, 0), (face,) * 4,
+                                spec=SPEC, fuse=2, y_halo=1)
     with pytest.raises(ValueError, match="x-chain form or the 12-tuple"):
         cuda_stencil.fused_step(f, params, (0, 0, 0), (face,) * 5,
                                 spec=SPEC)

@@ -1,6 +1,7 @@
 """The port stands alone: grayscott_jl_tpu_torch (and chip_smoke.py)
 imports neither JAX nor the reference package, and runs with JAX
-blocked."""
+blocked — on one block and on an 8-block mesh (parallel/mesh.py,
+halo.py, temporal.py)."""
 
 import ast
 import subprocess
@@ -26,6 +27,12 @@ sim = gs.Simulation(gs.Settings(L=8, backend="CPU", noise=0.1,
 sim.iterate(3)
 u, v = sim.get_fields()
 assert u.shape == (8, 8, 8)
+mesh = gs.Simulation(gs.Settings(L=8, backend="CPU", noise=0.1,
+                                 precision="Float32"), n_devices=8)
+mesh.iterate(3)
+assert mesh.domain.dims == (2, 2, 2)
+for a, b in zip(mesh.get_fields(), (u, v)):
+    assert (a == b).all()
 leaked = sorted(m for m in sys.modules
                 if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
 assert not leaked, leaked

@@ -238,9 +238,14 @@ def test_unported_keys_raise_at_construction(key, value):
 
 
 def test_mesh_override_raises(monkeypatch):
+    """A mesh the devices cannot hold raises; one that factors them is
+    taken (and, as in the reference, one device ignores the override)."""
     monkeypatch.setenv("GS_TPU_MESH_DIMS", "2,1,1")
-    with pytest.raises(SettingsError, match="GS_TPU_MESH_DIMS"):
-        Simulation(Settings(L=8, backend="CPU"))
+    with pytest.raises(ValueError, match="GS_TPU_MESH_DIMS"):
+        Simulation(Settings(L=8, backend="CPU"), n_devices=4)
+    assert Simulation(Settings(L=8, backend="CPU"),
+                      n_devices=2).domain.dims == (2, 1, 1)
+    assert not Simulation(Settings(L=8, backend="CPU")).sharded
     monkeypatch.setenv("GS_TPU_MESH_DIMS", "1,1,1")
     Simulation(Settings(L=8, backend="CPU"))
 
