@@ -4,39 +4,52 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and
-``nvcc``. Phases, each of which stops the run on failure:
+``nvcc``. Every model's stencil kernel is generated from its reaction
+(``ops/kernelgen.py``) into the template ``ops/csrc/stencil_chain.cu``.
+Phases, each of which stops the run on failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build every CUDA kernel from ``grayscott_jl_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together), timed;
-3. every kernel mode against its plain torch version on the card:
-   float32 and float64, noise 0 and 0.1, every chain depth up to the
-   shared-memory ledger's cap. The single-block chain at L = 64, 100
-   (ragged tiles) and 256, 20 steps from random fields, bitwise equal
-   and depth k bitwise equal to k launches of depth 1; the 6n-face step
-   at blocks (128,128,128) and (100,64,96), the x-chain at (32,256,256)
-   and (34,100,100), and the xy-chain operand (128,128+2k,128) with
-   ``offsets[1] = -k``, from random fields and faces, bitwise equal over
-   the whole output;
-4. the main path: ``driver.main`` on an L=256 float32 config with noise,
-   plotgap 50, a checkpoint every 100 steps, 200 steps — with the
-   kernel launch counts set to 0 just before and read just after, then
-   the store read back (ranges, and bitwise equal to the plain path on
-   the card), and a restart from the step-100 checkpoint that must
-   reproduce the stored step 200 bitwise;
-   then the sharded main path: ``driver.run_once`` with a
-   ``sim_factory`` that puts a (2,2,2) mesh's 8 blocks on ``cuda:0``,
-   the same config at depth 1 — exactly 8 x 200 launches of the
-   6n-face kernel, a store equal to the single-block store bitwise at
-   every step, and a restart from its step-100 checkpoint that
-   reproduces step 200 bitwise; then 50 steps at ``GS_FUSE=2`` on
-   (8,1,1) (x-chain), (2,2,2) (xy-chain with z bands) and (2,2,1)
-   (xy-chain slab form), each bitwise equal to the stored step 50, and
-   L=250 on (3,1,1) (pad-and-mask) bitwise equal to a single-block run;
-5. times at the main path's shapes (L=256 and 512, float32, every chain
-   depth; and each face mode at the sharded path's block shapes): the
-   kernel (CUDA events, after warm-up), its plain version, and the
-   least time the card could take (bytes moved over the memory rate, or
+2. build the generated kernel of every registered model (grayscott,
+   brusselator, fhn, heat; one ``nvcc`` per model, all started
+   together), timed;
+3. every model's kernel in every mode against its plain torch version on
+   the card: float32 and float64, noise 0 and 0.1, every chain depth up
+   to the model's shared-memory ledger cap. The single-block chain at
+   L = 64, 100 (ragged tiles) and 256, 20 steps from random fields,
+   bitwise equal and depth k bitwise equal to k launches of depth 1;
+   the 6n-face step at blocks (128,128,128) and (100,64,96), the x-chain
+   at (32,256,256) and (34,100,100), and the xy-chain operand
+   (128,128+2k,128) with ``offsets[1] = -k``, from random fields and
+   faces, bitwise equal over the whole output;
+4. the main paths, with the kernel launch counts set to 0 just before
+   each and read just after. Gray-Scott: ``driver.main`` on an L=256
+   float32 config with noise, plotgap 50, a checkpoint every 100 steps,
+   200 steps, then the store read back (ranges, and bitwise equal to
+   the plain path on the card), and a restart from the step-100
+   checkpoint that must reproduce the stored step 200 bitwise; then the
+   sharded main path: ``driver.run_once`` with a ``sim_factory`` that
+   puts a (2,2,2) mesh's 8 blocks on ``cuda:0``, the same config at
+   depth 1 — exactly 8 x 200 launches of the 6n-face kernel, a store
+   equal to the single-block store bitwise at every step, and a restart
+   from its step-100 checkpoint that reproduces step 200 bitwise; then
+   50 steps at ``GS_FUSE=2`` on (8,1,1) (x-chain), (2,2,2) (xy-chain
+   with z bands) and (2,2,1) (xy-chain slab form), each bitwise equal to
+   the stored step 50, and L=250 on (3,1,1) (pad-and-mask) bitwise equal
+   to a single-block run. The other models, each with the physics of
+   its ``examples/settings-<model>.toml`` (dt 0.05) at L=256, noise 0.1,
+   ``kernel_language = "Auto"``: brusselator 200 steps (plotgap 50,
+   checkpoint every 100), fhn and heat 50 steps (plotgap and checkpoint
+   every 25) — every launch the model's generated kernel, the store
+   bitwise equal to the plain path on the card, a restart from the last
+   checkpoint before the end reproducing it, the (2,2,2) mesh on
+   ``cuda:0`` (8 6n-face launches per step) and ``GS_FUSE=2`` on (8,1,1)
+   and (2,2,2) bitwise equal to the single block;
+5. times at the main path's shapes (Gray-Scott: L=256 and 512, float32,
+   every chain depth, and each face mode at the sharded path's block
+   shapes; the other models: L=256 at depth 1): the kernel (CUDA
+   events, after warm-up, and the profiler's device time), its plain
+   version, and the least time the card could take (each field read
+   and written once over the memory rate, or the generated program's
    floating-point operations over the float32 rate); and the sharded
    path's ms per step on one card against the single block's, with the
    halo exchange timed on its own.
@@ -62,11 +75,6 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-#: Floating-point operations per cell and step of the Gray-Scott step
-#: with noise: Laplacians 2 x 7, reaction 12, noise scaling 3 (the
-#: uniform's ``* 2 - 3`` and ``noise *``), Euler update 2 x 2.
-FLOPS_PER_CELL_STEP = 33
-
 MAIN_L = 256
 MAIN_STEPS = 200
 MESH = (2, 2, 2)
@@ -75,13 +83,37 @@ SOURCE = "grayscott_jl_tpu_torch/ops/csrc/stencil_chain.cu"
 
 #: The kernels line's entries: kernel mode -> the TPU kernel it
 #: replaces (the ``pl.pallas_call`` of ``_fused_call`` and the mode's
-#: branch of ``_make_kernel``).
+#: branch of ``_make_kernel``); the other models' kernels replace the
+#: reference's generator.
 REPLACES = {
     "chain": "grayscott_jl_tpu/ops/pallas_stencil.py:848",
     "faces6": "grayscott_jl_tpu/ops/pallas_stencil.py:636",
     "xchain": "grayscott_jl_tpu/ops/pallas_stencil.py:663",
     "xychain": "grayscott_jl_tpu/parallel/temporal.py:422",
+    "generated": "grayscott_jl_tpu/ops/kernelgen.py:136",
 }
+
+#: Gray-Scott's physics in the kernel checks and its main path.
+GS_PHYSICS = dict(F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0)
+
+#: The other models' physics (examples/settings-<model>.toml) and their
+#: main paths: (steps, plotgap, checkpoint_freq).
+PHYSICS = {
+    "brusselator": {"A": 1.0, "B": 3.0, "Du": 0.2, "Dv": 0.02},
+    "fhn": {"a": 0.7, "b": 0.8, "eps": 0.08, "I": 0.5, "Dv": 0.2,
+            "Dw": 0.0},
+    "heat": {"D": 0.2},
+}
+MODEL_PATHS = {"brusselator": (200, 50, 100), "fhn": (50, 25, 25),
+               "heat": (50, 25, 25)}
+MODELS = ("grayscott",) + tuple(MODEL_PATHS)
+
+
+def physics(name):
+    """Settings keywords of model ``name``'s physics."""
+    if name == "grayscott":
+        return dict(GS_PHYSICS)
+    return dict(model=name, model_params=dict(PHYSICS[name]), dt=0.05)
 
 
 def log(msg):
@@ -101,12 +133,13 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(L, fuse, itemsize=4, n_fields=2):
+def bound_ms(L, fuse, flops, itemsize=4, n_fields=2):
     """Least time of one launch advancing ``fuse`` steps on L^3: each
-    field read once and written once, against the float work."""
+    field read once and written once, against ``flops`` float
+    operations per cell and step (the generated program's count)."""
     cells = L**3
     t_bytes = 2 * n_fields * itemsize * cells / HBM_BYTES_PER_S
-    t_ops = fuse * FLOPS_PER_CELL_STEP * cells / F32_FLOPS_PER_S
+    t_ops = fuse * flops * cells / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -119,7 +152,7 @@ def bound_of(bytes_moved, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def face_mode_work(mode, shape, fuse, itemsize=4, n_fields=2):
+def face_mode_work(mode, shape, fuse, flops, itemsize=4, n_fields=2):
     """Bytes one launch must move (each input read once, each output
     written once) and the float operations it does, for a face mode on
     a ``shape`` operand: the 6n faces are 1-thick planes; the x-chain's
@@ -134,30 +167,29 @@ def face_mode_work(mode, shape, fuse, itemsize=4, n_fields=2):
         moved = n_fields * ((nx + 2 * fuse) + nx) * ny * nz * itemsize
         cells = sum((nx + 2 * (fuse - 1 - s)) * ny * nz
                     for s in range(fuse))
-    return moved, cells * FLOPS_PER_CELL_STEP
+    return moved, cells * flops
 
 
 def phase_parity(torch, gs, cuda_stencil, spec, report):
-    """Kernel vs plain, bitwise, and depth k vs k x depth 1."""
+    """Kernel vs plain, bitwise, and depth k vs k x depth 1, for the
+    model of ``spec``."""
     steps = 20
     worst = 0.0
     rows = []
     for dtype, prec in ((torch.float32, "Float32"), (torch.float64, "Float64")):
         cap = cuda_stencil.max_feasible_fuse(
-            torch.empty((), dtype=dtype).element_size()
+            torch.empty((), dtype=dtype).element_size(), spec.n_fields
         )
         for L in (64, 100, 256):
             for noise in (0.0, 0.1):
-                settings = gs.Settings(
-                    L=L, noise=noise, F=0.02, k=0.048, Du=0.2, Dv=0.1,
-                    dt=1.0, precision=prec,
-                )
+                settings = gs.Settings(L=L, noise=noise, precision=prec,
+                                       **physics(spec.name))
                 params = spec.model.make_params(settings, dtype, "cuda")
                 gen = torch.Generator(device="cuda").manual_seed(1000 + L)
                 f0 = tuple(
                     torch.rand((L, L, L), generator=gen, device="cuda",
                                dtype=dtype)
-                    for _ in range(2)
+                    for _ in range(spec.n_fields)
                 )
                 seeds = (0, 11, 40)
                 plain = cuda_stencil.plain_chain(
@@ -181,26 +213,28 @@ def phase_parity(torch, gs, cuda_stencil, spec, report):
                     )
                     worst = max(worst, err)
                     check(all(torch.isfinite(a).all().item() for a in f),
-                          f"non-finite kernel output {prec} L={L} fuse={fuse}")
+                          f"non-finite {spec.name} kernel output {prec} "
+                          f"L={L} fuse={fuse}")
                     check(all(torch.equal(a, b) for a, b in zip(f, plain)),
-                          f"kernel != plain: {prec} L={L} noise={noise} "
-                          f"fuse={fuse}, max |diff| {err}")
+                          f"{spec.name} kernel != plain: {prec} L={L} "
+                          f"noise={noise} fuse={fuse}, max |diff| {err}")
                     by_fuse[fuse] = f
                     rows.append([prec, L, noise, fuse, err])
                 for fuse, f in by_fuse.items():
                     check(all(torch.equal(a, b)
                               for a, b in zip(f, by_fuse[1])),
-                          f"fuse={fuse} != {fuse} x fuse=1: {prec} L={L}")
-                log(f"  {prec} L={L} noise={noise}: fuse 1..{cap} "
-                    "bitwise equal to plain and to k x fuse=1")
-    report["parity"] = rows
+                          f"{spec.name} fuse={fuse} != {fuse} x fuse=1: "
+                          f"{prec} L={L}")
+        log(f"  {spec.name} {prec} L=64/100/256 noise 0/0.1: fuse "
+            f"1..{cap} bitwise equal to plain and to k x fuse=1")
+    report.setdefault("parity", {})[spec.name] = rows
     return worst
 
 
 def phase_face_parity(torch, gs, cuda_stencil, spec, report):
-    """Each face mode against its plain version, bitwise over the whole
-    output (the computed out-of-domain rows of a y-extended operand
-    included), from random fields and faces."""
+    """Each face mode of the model's kernel against its plain version,
+    bitwise over the whole output (the computed out-of-domain rows of a
+    y-extended operand included), from random fields and faces."""
     worst = {"faces6": 0.0, "xchain": 0.0, "xychain": 0.0}
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2024)
@@ -214,28 +248,31 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                   for a, b in zip(got, want))
         worst[mode] = max(worst[mode], err)
         check(all(torch.isfinite(a).all().item() for a in got),
-              f"non-finite {mode} output: {what}")
+              f"non-finite {spec.name} {mode} output: {what}")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"{mode} kernel != plain: {what}, max |diff| {err}")
+              f"{spec.name} {mode} kernel != plain: {what}, max |diff| "
+              f"{err}")
         rows.append([mode, what, err])
 
+    n = spec.n_fields
     for dtype, prec in ((torch.float32, "Float32"),
                         (torch.float64, "Float64")):
         cap = cuda_stencil.max_feasible_fuse(
-            torch.empty((), dtype=dtype).element_size())
+            torch.empty((), dtype=dtype).element_size(), n)
         for noise in (0.0, 0.1):
             params = spec.model.make_params(
-                gs.Settings(noise=noise, F=0.02, k=0.048, Du=0.2, Dv=0.1,
-                            dt=1.0, precision=prec), dtype, "cuda")
+                gs.Settings(noise=noise, precision=prec,
+                            **physics(spec.name)), dtype, "cuda")
             use = noise != 0
             seeds = (0, 11, 40)
             for shape, offs in (((128, 128, 128), (128, 0, 128)),
                                 ((100, 64, 96), (100, 64, 0))):
                 nx, ny, nz = shape
-                f = (rand(shape, dtype), rand(shape, dtype))
+                f = tuple(rand(shape, dtype) for _ in range(n))
                 faces = tuple(rand(x, dtype) for x in
-                              [(1, ny, nz)] * 4 + [(nx, 1, nz)] * 4
-                              + [(nx, ny, 1)] * 4)
+                              [(1, ny, nz)] * (2 * n)
+                              + [(nx, 1, nz)] * (2 * n)
+                              + [(nx, ny, 1)] * (2 * n))
                 got = cuda_stencil.fused_step(
                     f, params, seeds, faces, spec=spec, use_noise=use,
                     offsets=offs, row=MAIN_L)
@@ -245,10 +282,10 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                 compare("faces6", got, want, f"{prec} {shape} noise={noise}")
             for shape, offs, row in (((32, 256, 256), (32, 0, 0), MAIN_L),
                                      ((34, 100, 100), (68, 0, 0), 100)):
-                f = (rand(shape, dtype), rand(shape, dtype))
+                f = tuple(rand(shape, dtype) for _ in range(n))
                 for k in range(2, cap + 1):
                     faces = tuple(rand((k,) + shape[1:], dtype)
-                                  for _ in range(4))
+                                  for _ in range(2 * n))
                     got = cuda_stencil.fused_step(
                         f, params, seeds, faces, spec=spec, use_noise=use,
                         fuse=k, offsets=offs, row=row)
@@ -259,9 +296,9 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                             f"{prec} {shape} k={k} noise={noise}")
             for k in range(2, cap + 1):
                 shape = (128, 128 + 2 * k, 128)
-                f = (rand(shape, dtype), rand(shape, dtype))
+                f = tuple(rand(shape, dtype) for _ in range(n))
                 faces = tuple(rand((k,) + shape[1:], dtype)
-                              for _ in range(4))
+                              for _ in range(2 * n))
                 offs = (128, -k, 0)
                 got = cuda_stencil.fused_step(
                     f, params, seeds, faces, spec=spec, use_noise=use,
@@ -271,21 +308,28 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                     fuse=k, offsets=offs, row=MAIN_L)
                 compare("xychain", got, want,
                         f"{prec} {shape} k={k} noise={noise}")
-            log(f"  {prec} noise={noise}: 6n-face, x-chain (k=2..{cap}) "
-                f"and xy-chain (k=2..{cap}) bitwise equal to plain")
-    report["face_parity"] = rows
+            log(f"  {spec.name} {prec} noise={noise}: 6n-face, x-chain "
+                f"(k=2..{cap}) and xy-chain (k=2..{cap}) bitwise equal to "
+                "plain")
+    report.setdefault("face_parity", {})[spec.name] = rows
     return worst
 
 
-def write_config(path, **kw):
-    lines = []
-    for key, value in kw.items():
+def write_config(path, model=None, model_params=None, **kw):
+    """A settings TOML file; ``model`` and ``model_params`` become its
+    ``[model]`` table."""
+    def line(key, value):
         if isinstance(value, bool):
-            lines.append(f"{key} = {'true' if value else 'false'}")
-        elif isinstance(value, str):
-            lines.append(f"{key} = \"{value}\"")
-        else:
-            lines.append(f"{key} = {value}")
+            return f"{key} = {'true' if value else 'false'}"
+        if isinstance(value, str):
+            return f"{key} = \"{value}\""
+        return f"{key} = {value}"
+
+    lines = [line(key, value) for key, value in kw.items()]
+    if model is not None:
+        lines.append("\n[model]")
+        lines.append(line("name", model))
+        lines += [line(k, v) for k, v in (model_params or {}).items()]
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
 
@@ -325,6 +369,9 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
     check(launches == cuda_stencil.MODE_LAUNCHES["chain"],
           f"the single-block path launched face modes: "
           f"{cuda_stencil.MODE_LAUNCHES}")
+    check(cuda_stencil.MODEL_LAUNCHES == {"grayscott": launches},
+          f"the main path launched {cuda_stencil.MODEL_LAUNCHES}, not only "
+          "Gray-Scott's generated kernel")
     del os.environ["GS_TPU_STATS"]
     with open(stats_path, encoding="utf-8") as f:
         stats = json.load(f)
@@ -391,13 +438,145 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
     return launches, sim.fuse, stored
 
 
-def read_store(path):
-    """``[(step, U, V)]`` of every step of a store."""
+def read_store(path, names=("U", "V")):
+    """``[(step, *fields)]`` of every step of a store; ``names`` are the
+    store's variables (the model's field names, upper-cased)."""
     from grayscott_jl_tpu_torch.io.bplite import BpReader
 
     with BpReader(path) as r:
-        return [(int(r.get("step", step=i)), r.get("U", step=i),
-                 r.get("V", step=i)) for i in range(r.num_steps())]
+        return [(int(r.get("step", step=i)),)
+                + tuple(r.get(n, step=i) for n in names)
+                for i in range(r.num_steps())]
+
+
+def phase_model_path(torch, gs, cuda_stencil, name, workdir, report):
+    """Model ``name``'s main path on the card (``MODEL_PATHS``): the
+    single block through ``driver.main`` with every launch the model's
+    generated kernel, its store against the plain path on the card, a
+    restart, the (2,2,2) mesh on ``cuda:0`` through ``driver.run_once``
+    and ``GS_FUSE=2`` on (8,1,1) and (2,2,2), each bitwise. Returns the
+    single block's launches."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.models import get_model
+
+    steps, gap, freq = MODEL_PATHS[name]
+    names = tuple(f.upper() for f in get_model(name).field_names)
+    common = main_settings(steps=steps, plotgap=gap, noise=0.1,
+                           kernel_language="Auto", **physics(name))
+    for key in GS_PHYSICS:
+        if key != "dt":
+            common.pop(key)
+    out = os.path.join(workdir, f"{name}.bp")
+    ckpt = os.path.join(workdir, f"{name}_ckpt.bp")
+    cfg = os.path.join(workdir, f"{name}.toml")
+    write_config(cfg, **common, output=out, checkpoint=True,
+                 checkpoint_freq=freq, checkpoint_output=ckpt)
+    stats_path = os.path.join(workdir, f"{name}_stats.json")
+    os.environ["GS_TPU_STATS"] = stats_path
+    cuda_stencil.reset_launches()
+    t0 = time.perf_counter()
+    sim = driver.main([cfg])
+    wall = time.perf_counter() - t0
+    launches = cuda_stencil.LAUNCHES
+    models = dict(cuda_stencil.MODEL_LAUNCHES)
+    modes = dict(cuda_stencil.MODE_LAUNCHES)
+    del os.environ["GS_TPU_STATS"]
+    with open(stats_path, encoding="utf-8") as f:
+        stats = json.load(f)
+    check(not sim.sharded and sim.fuse == 1,
+          f"{name} main path ran on {sim.domain.dims} at fuse {sim.fuse}")
+    check(stats["config"]["kernel_selection"]["kernel_gate"]["generated"],
+          f"{name}: Auto did not select the generated kernel: "
+          f"{stats['config']['kernel_selection']}")
+    check(launches == steps and models == {name: steps}
+          and modes["chain"] == steps,
+          f"{name} main path launched {launches} ({models}, {modes}), "
+          f"expected {steps} of its generated chain kernel")
+    log(f"  {name}: driver.main {steps} steps at L={MAIN_L} in {wall:.3f} "
+        f"s, {launches} launches of its generated kernel; phases (s): "
+        f"{stats['phases_s']}")
+    stored = read_store(out, names)
+    check([s[0] for s in stored] == list(range(gap, steps + 1, gap)),
+          f"{name} store steps {[s[0] for s in stored]}")
+    for step, *fields in stored:
+        for n, f in zip(names, fields):
+            check(f.shape == (MAIN_L,) * 3 and f.dtype.name == "float32"
+                  and bool(np.isfinite(f).all()),
+                  f"{name} {n} at step {step}: {f.shape} {f.dtype}, "
+                  "or non-finite")
+    ref = gs.Simulation(gs.Settings(**{**common, "kernel_language": "Plain"}))
+    ref.iterate(steps)
+    for n, a, b in zip(names, ref.get_fields(), stored[-1][1:]):
+        check(np.array_equal(a, b),
+              f"{name} store {n} != plain path: max |diff| "
+              f"{np.abs(a - b).max()}")
+    cfg2 = os.path.join(workdir, f"{name}_restart.toml")
+    out2 = os.path.join(workdir, f"{name}_restart.bp")
+    write_config(cfg2, **common, output=out2, restart=True,
+                 restart_input=ckpt, restart_step=steps - freq)
+    driver.main([cfg2])
+    end = read_store(out2, names)[-1]
+    check(end[0] == steps and all(
+        np.array_equal(a, b) for a, b in zip(end[1:], stored[-1][1:])),
+        f"{name} restart from step {steps - freq} != the stored step {steps}")
+    log(f"  {name}: store bitwise equal to the plain path on the card; "
+        f"restart from step {steps - freq} reproduces step {steps}")
+
+    def factory(settings, *, n_devices, seed):
+        return mesh_sim(gs, settings, MESH, seed)
+
+    cfg3 = os.path.join(workdir, f"{name}_mesh.toml")
+    out3 = os.path.join(workdir, f"{name}_mesh.bp")
+    write_config(cfg3, **common, output=out3)
+    cuda_stencil.reset_launches()
+    t0 = time.perf_counter()
+    driver.run_once(get_settings([cfg3]), sim_factory=factory)
+    mesh_wall = time.perf_counter() - t0
+    counts = dict(cuda_stencil.MODE_LAUNCHES)
+    n_blocks = MESH[0] * MESH[1] * MESH[2]
+    check(counts["faces6"] == n_blocks * steps
+          and cuda_stencil.MODEL_LAUNCHES == {name: n_blocks * steps},
+          f"{name} (2,2,2) mesh launched {counts} "
+          f"{cuda_stencil.MODEL_LAUNCHES}, expected {n_blocks * steps} "
+          "6n-face launches of its kernel")
+    got = read_store(out3, names)
+    check(len(got) == len(stored) and all(
+        a[0] == b[0] and all(np.array_equal(x, y)
+                             for x, y in zip(a[1:], b[1:]))
+        for a, b in zip(got, stored)),
+        f"{name} (2,2,2) store != the single-block store")
+    log(f"  {name}: (2,2,2) mesh on cuda:0, {counts['faces6']} 6n-face "
+        f"launches in {mesh_wall:.3f} s, store bitwise equal at every step")
+    fuse2 = {}
+    at50 = next(s for s in stored if s[0] == 50)
+    os.environ["GS_FUSE"] = "2"
+    try:
+        for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain")):
+            sim = mesh_sim(gs, gs.Settings(**common), dims)
+            cuda_stencil.reset_launches()
+            sim.iterate(50)
+            sim.block_until_ready()
+            counts = dict(cuda_stencil.MODE_LAUNCHES)
+            check(counts[mode] == 8 * 25
+                  and cuda_stencil.MODEL_LAUNCHES == {name: 8 * 25},
+                  f"{name} GS_FUSE=2 on {dims} launched {counts}")
+            check(all(np.array_equal(a, b)
+                      for a, b in zip(sim.get_fields(), at50[1:])),
+                  f"{name} GS_FUSE=2 on {dims} != the stored step 50")
+            fuse2["x".join(map(str, dims))] = counts[mode]
+    finally:
+        del os.environ["GS_FUSE"]
+    log(f"  {name}: GS_FUSE=2 on (8,1,1) and (2,2,2), {fuse2} launches, "
+        "bitwise equal to the stored step 50")
+    report.setdefault("model_paths", {})[name] = {
+        "steps": steps, "wall_s": wall, "launches": launches,
+        "run_stats": stats, "mesh_wall_s": mesh_wall,
+        "mesh_faces6_launches": n_blocks * steps, "fuse2_launches": fuse2,
+    }
+    return launches
 
 
 def main_settings(**kw):
@@ -614,7 +793,7 @@ def phase_times(torch, gs, cuda_stencil, spec, report):
             k2 = time_calls(torch, kernel)
             p2 = time_calls(torch, plain, 100.0)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            b_ms, b_by = bound_ms(L, fuse)
+            b_ms, b_by = bound_ms(L, fuse, spec.flops_per_cell_step())
             rows.append({
                 "L": L, "fuse": fuse, "ms": k_ms, "ms_runs": [k1, k2],
                 "plain_ms": p_ms, "plain_ms_runs": [p1, p2],
@@ -679,7 +858,8 @@ def phase_face_times(torch, gs, cuda_stencil, spec, report):
         k1 = time_calls(torch, kernel)
         k2 = time_calls(torch, kernel)
         p2 = time_calls(torch, plain, 100.0)
-        b_ms, b_by = bound_of(*face_mode_work(mode, shape, fuse))
+        b_ms, b_by = bound_of(*face_mode_work(
+            mode, shape, fuse, spec.flops_per_cell_step()))
         prof = device_profile(torch, kernel)
         rows[mode] = {
             "shape": list(shape), "fuse": fuse, "ms": (k1 + k2) / 2,
@@ -694,6 +874,46 @@ def phase_face_times(torch, gs, cuda_stencil, spec, report):
             f"{(p1 + p2) / 2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     report["face_times"] = rows
     return rows
+
+
+def phase_model_times(torch, gs, cuda_stencil, spec, report):
+    """Model ``spec``'s generated kernel at the main path's shape (L=256,
+    float32, depth 1, noise on): CUDA-event ms per launch (two runs
+    interleaved with two of the plain version), the profiler's device
+    time, and the bound (each field read and written once; the
+    generated program's operations)."""
+    settings = gs.Settings(noise=0.1, precision="Float32",
+                           **physics(spec.name))
+    params = spec.model.make_params(settings, torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f0 = tuple(torch.rand((MAIN_L,) * 3, generator=gen, device="cuda")
+               for _ in range(spec.n_fields))
+
+    def kernel():
+        return cuda_stencil.fused_step(f0, params, (0, 3, 0), spec=spec,
+                                       row=MAIN_L)
+
+    def plain():
+        return cuda_stencil.plain_chain(f0, params, (0, 3, 0), spec=spec,
+                                        row=MAIN_L)
+
+    p1 = time_calls(torch, plain, 100.0)
+    k1 = time_calls(torch, kernel)
+    k2 = time_calls(torch, kernel)
+    p2 = time_calls(torch, plain, 100.0)
+    flops = spec.flops_per_cell_step()
+    b_ms, b_by = bound_ms(MAIN_L, 1, flops, n_fields=spec.n_fields)
+    prof = device_profile(torch, kernel)
+    row = {"L": MAIN_L, "fuse": 1, "ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
+           "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+           "bound_ms": b_ms, "bound_by": b_by, "flops_per_cell_step": flops,
+           "profile": prof}
+    dev = "not measured" if prof is None else f"{prof['kernel_ms']:.4f} ms"
+    log(f"  {spec.name} L={MAIN_L} fuse=1: kernel {row['ms']:.4f} ms/launch "
+        f"(device time {dev}), plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {flops} flop/cell/step)")
+    report.setdefault("model_times", {})[spec.name] = row
+    return row
 
 
 def phase_sharded_times(torch, gs, report):
@@ -772,7 +992,7 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     import grayscott_jl_tpu_torch as gs
-    from grayscott_jl_tpu_torch.models import grayscott
+    from grayscott_jl_tpu_torch.models import get_model
     from grayscott_jl_tpu_torch.ops import _build, cuda_stencil, kernelgen
 
     report = {}
@@ -787,19 +1007,29 @@ def main():
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"phase 2: built {sorted(built)} in {build_s:.2f} s")
-    for name, info in built.items():
+    check(sorted(built) == sorted(MODELS),
+          f"built {sorted(built)}, expected every model {sorted(MODELS)}")
+    log(f"phase 2: built the generated kernels of {sorted(built)} in "
+        f"{build_s:.2f} s (one nvcc each, in parallel)")
+    for name, info in sorted(built.items()):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     report["build_s"] = build_s
+    report["build"] = {n: {"source": os.path.relpath(i["source"], REPO),
+                           "seconds": i["seconds"]}
+                       for n, i in built.items()}
 
-    spec = kernelgen.get_spec(grayscott.MODEL)
-    log("phase 3: kernel vs plain on the card")
-    worst = {"chain": phase_parity(torch, gs, cuda_stencil, spec, report)}
-    worst.update(phase_face_parity(torch, gs, cuda_stencil, spec, report))
+    specs = {name: kernelgen.get_spec(get_model(name)) for name in MODELS}
+    spec = specs["grayscott"]
+    log("phase 3: every model's kernel vs plain on the card")
+    worst = {}
+    for name, sp in specs.items():
+        chain = phase_parity(torch, gs, cuda_stencil, sp, report)
+        faces = phase_face_parity(torch, gs, cuda_stencil, sp, report)
+        worst[name] = {"chain": chain, **faces}
 
-    log("phase 4: main path, single block and sharded")
+    log("phase 4: main paths, single block and sharded")
     workdir = tempfile.mkdtemp(prefix="gs_chip_smoke_")
     try:
         launches, main_fuse, stored = phase_main_path(
@@ -807,15 +1037,23 @@ def main():
         faces6_launches = phase_sharded(
             torch, gs, cuda_stencil, workdir, stored, report)
         fuse2 = phase_fuse2(torch, gs, cuda_stencil, stored, report)
+        del stored
+        model_launches = {
+            name: phase_model_path(torch, gs, cuda_stencil, name, workdir,
+                                   report)
+            for name in MODEL_PATHS
+        }
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del stored
 
     log("phase 5: times (float32)")
     report["clocks_before"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     rows = phase_times(torch, gs, cuda_stencil, spec, report)
     face_rows = phase_face_times(torch, gs, cuda_stencil, spec, report)
+    model_rows = {name: phase_model_times(torch, gs, cuda_stencil,
+                                          specs[name], report)
+                  for name in MODEL_PATHS}
     phase_sharded_times(torch, gs, report)
     report["clocks_after"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
@@ -827,14 +1065,20 @@ def main():
     main_row["profile"] = device_profile(torch, lambda: cuda_stencil.fused_step(
         f0, params, (0, 3, 0), spec=spec, fuse=main_fuse, row=MAIN_L))
     del f0
-    entries = (
-        ("stencil_chain", "chain", launches, main_row),
-        ("stencil_faces6", "faces6", faces6_launches, face_rows["faces6"]),
+    entries = [
+        ("stencil_chain", "chain", launches, worst["grayscott"]["chain"],
+         main_row),
+        ("stencil_faces6", "faces6", faces6_launches,
+         worst["grayscott"]["faces6"], face_rows["faces6"]),
         ("stencil_xchain", "xchain", fuse2["8x1x1"]["launches"],
-         face_rows["xchain"]),
+         worst["grayscott"]["xchain"], face_rows["xchain"]),
         ("stencil_xychain", "xychain", fuse2["2x2x2"]["launches"],
-         face_rows["xychain"]),
-    )
+         worst["grayscott"]["xychain"], face_rows["xychain"]),
+    ] + [
+        (f"stencil_chain_{name}", "generated", model_launches[name],
+         max(worst[name].values()), model_rows[name])
+        for name in MODEL_PATHS
+    ]
     kernels = {"kernels": [
         {
             "name": name,
@@ -842,14 +1086,14 @@ def main():
             "source": SOURCE,
             "replaces": REPLACES[mode],
             "launches": n,
-            "max_abs_err": worst[mode],
+            "max_abs_err": err,
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
         }
-        for name, mode, n, row in entries
+        for name, mode, n, err, row in entries
     ]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

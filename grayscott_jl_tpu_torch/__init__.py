@@ -4,9 +4,10 @@ on PyTorch and CUDA (NVIDIA Hopper).
 The counterpart of ``grayscott_jl_tpu`` (the JAX/Pallas reference, kept
 beside it): the same TOML settings, models, position-keyed noise, BP-lite
 stores and checkpoints, with the fused stencil chain as a hand-written
-CUDA kernel (``ops/csrc/stencil_chain.cu``). It imports neither JAX nor
-the reference package. Entry points run on the CUDA card unless the
-settings ask for ``backend = "CPU"``.
+CUDA template (``ops/csrc/stencil_chain.cu``) into which the kernel
+generator (``ops/kernelgen.py``) emits each model's reaction. It imports
+neither JAX nor the reference package. Entry points run on the CUDA
+card unless the settings ask for ``backend = "CPU"``.
 
     from grayscott_jl_tpu_torch import main, initialization, Simulation, Settings
 """

@@ -10,9 +10,10 @@ PyTorch:
   accepted; a card that was asked for and is absent raises too
   (:func:`resolve_device`) — a run never drops to the CPU on its own.
 * ``kernel_language``: ``"Pallas"`` / ``"Auto"`` / ``"CUDA"`` select the
-  hand-written CUDA kernel (``ops/cuda_stencil.py``); ``"Plain"`` /
+  model's generated CUDA kernel (``ops/cuda_stencil.py``); ``"Plain"`` /
   ``"XLA"`` / ``"KernelAbstractions"`` select the plain torch path, and
-  only as the user's explicit choice.
+  otherwise only ``"Auto"`` does, for a model the kernel generator
+  refuses (``simulation.select_kernel``).
 * ``precision``: ``Float32`` / ``Float64`` map to torch dtypes.
 
 Keys the reference package acts on whose subsystem is not in this

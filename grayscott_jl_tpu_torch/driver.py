@@ -94,6 +94,7 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
             "model": sim.model.name,
             "device": str(sim.device),
             "kernel_language": sim.kernel_language,
+            "kernel_selection": sim.kernel_selection,
             "fuse": sim.fuse,
             "precision": settings.precision,
             "n_devices": sim.domain.n_blocks,

@@ -1,7 +1,7 @@
 """Model registry (counterpart of ``grayscott_jl_tpu/models``).
 Importing this package registers the built-in models: ``grayscott``
-(the flagship, and the one the CUDA kernel carries), ``brusselator``,
-``fhn`` and ``heat``.
+(the flagship), ``brusselator``, ``fhn`` and ``heat``; the kernel
+generator (``ops/kernelgen.py``) gives each its CUDA kernel.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from .base import (  # noqa: F401
     FRAMEWORK_PARAMS,
     Model,
     SettingsError,
+    available_models,
     get_model,
     register,
     seeded_box_init,

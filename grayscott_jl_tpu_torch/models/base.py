@@ -158,6 +158,11 @@ def register(model: Model) -> Model:
     return model
 
 
+def available_models() -> Tuple[str, ...]:
+    """Names of the registered models, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
 def get_model(name: str) -> Model:
     """Look up a registered model; unknown names list the registry."""
     try:

@@ -3,8 +3,8 @@
     u_t = Du * lap(u) + A - (B+1)*u + u^2*v + noise*U(-1,1)
     v_t = Dv * lap(v) + B*u - u^2*v
 
-Runs on the plain torch path; the CUDA kernel carries only Gray-Scott's
-reaction until the kernel generator is ported (ROADMAP Queue 2 item 4).
+On the card it runs the kernel that ``ops/kernelgen.py`` generates
+from this reaction (bitwise equal to the plain torch version).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
     v_t = Dv * lap(v) + v - v^3/3 - w + I + noise*U(-1,1)
     w_t = Dw * lap(w) + eps * (v + a - b*w)
 
-Runs on the plain torch path; the CUDA kernel carries only Gray-Scott's
-reaction until the kernel generator is ported (ROADMAP Queue 2 item 4).
+On the card it runs the kernel that ``ops/kernelgen.py`` generates
+from this reaction (bitwise equal to the plain torch version).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@
     v_t = Dv * lap(v) + u*v^2 - (F+k)*v
 
 on a cubic grid of side ``L`` with a frozen ghost shell (u=1, v=0).
-The hand-written kernel (``ops/csrc/stencil_chain.cu``) carries the
-same reaction as a device function, in the same operation order.
+On the card it runs the kernel that ``ops/kernelgen.py`` generates from
+this reaction, as every registered model does.
 """
 
 from __future__ import annotations
@@ -66,9 +66,9 @@ def init_fields(
 def reaction(fields, laps, noise_u, params):
     """The Gray-Scott time derivatives. The operation order is that of
     the reference (``(u*v)*v``, then ``((Du*lap - uvv) + F*(1-u)) +
-    noise``, then ``(Dv*lap + uvv) - (F+k)*v``); the CUDA kernel's
-    device reaction repeats it, which is what makes the kernel equal
-    this function bitwise."""
+    noise``, then ``(Dv*lap + uvv) - (F+k)*v``); the generated CUDA
+    kernel performs the traced operations in this order, which is what
+    makes it equal this function bitwise."""
     u, v = fields
     lap_u, lap_v = laps
     uvv = u * v * v

@@ -3,8 +3,9 @@
 
     T_t = D * lap(T) + noise*U(-1,1)
 
-Runs on the plain torch path; the CUDA kernel carries only Gray-Scott's
-reaction until the kernel generator is ported (ROADMAP Queue 2 item 4).
+On the card it runs the one-field kernel that ``ops/kernelgen.py``
+generates from this reaction (bitwise equal to the plain torch
+version).
 """
 
 from __future__ import annotations

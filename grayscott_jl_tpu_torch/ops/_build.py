@@ -1,11 +1,15 @@
 """Build and load the package's CUDA kernels.
 
-Each source under ``ops/csrc/`` is compiled by ``nvcc`` into a shared
+The stencil kernel is generated per model: ``ops/kernelgen.py`` emits
+the model's reaction and counts, and :func:`emitted_source` writes them
+into the template ``ops/csrc/stencil_chain.cu`` where its marker line
+stands. Each emitted source is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` — no
-PyTorch headers, so a build takes seconds. The libraries go into
-``ops/csrc/build/`` (listed in ``.gitignore``), named by a hash of the
-source and the flags, at first use; a later call in any process reuses
-them. :func:`build_all` starts one ``nvcc`` per source at once.
+PyTorch headers, so a build takes seconds. The emitted ``.cu`` and its
+library go into ``ops/csrc/build/`` (listed in ``.gitignore``), side by
+side, named by the model and a hash of the template, the emitted text
+and the flags, at first use; a later call in any process reuses them.
+:func:`build_all` starts one ``nvcc`` per spec at once.
 
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed build raises.
@@ -24,8 +28,9 @@ from typing import Dict, Iterable, Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 
-#: Kernel name -> source file under ``ops/csrc``.
-SOURCES = {"stencil_chain": "stencil_chain.cu"}
+#: The kernel template and the line the generated part replaces.
+TEMPLATE = "stencil_chain.cu"
+MARKER = "// @generated-reaction@"
 
 #: ``--fmad=false`` keeps every product and sum separately rounded, the
 #: condition for bitwise agreement with the plain torch versions.
@@ -40,7 +45,8 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+#: Loaded libraries by spec (specs are memoized per model object).
+_LIBS: Dict[object, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -64,58 +70,85 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> str:
-    """Where the library of kernel ``name`` is (or will be) built."""
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read())
+def emitted_source(spec) -> str:
+    """The full CUDA source of ``spec``'s kernel: the template with the
+    generated part in place of its marker line."""
+    with open(os.path.join(CSRC, TEMPLATE), encoding="utf-8") as f:
+        template = f.read()
+    if template.count(MARKER) != 1:
+        raise RuntimeError(
+            f"{TEMPLATE} must hold the marker line {MARKER!r} once")
+    return template.replace(MARKER, spec.cuda_source.rstrip("\n"))
+
+
+def library_path(spec) -> str:
+    """Where the library of ``spec``'s kernel is (or will be) built; the
+    emitted source sits beside it with the suffix ``.cu``."""
+    digest = hashlib.sha256(emitted_source(spec).encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}.{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{spec.name}.{digest.hexdigest()[:16]}.so")
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the named kernels (all by default) that are not built
-    yet, one ``nvcc`` process per source, all started together.
+def all_specs():
+    """The spec of every registered model the generator accepts."""
+    from ..models import available_models, get_model
+    from . import kernelgen
 
-    Returns ``{name: {"path", "seconds", "log"}}``; ``log`` is nvcc's
-    output (register and shared-memory use from ``-Xptxas=-v``), empty
-    for a library that was already built. Raises on any failure, after
-    every started process has ended."""
-    names = list(SOURCES if names is None else names)
+    models = [get_model(name) for name in available_models()]
+    return [kernelgen.get_spec(m) for m in models
+            if kernelgen.generation_gate_reason(m) is None]
+
+
+def build_all(specs: Optional[Iterable] = None) -> Dict[str, dict]:
+    """Compile the kernels of ``specs`` (every registered model the
+    generator accepts, by default) that are not built yet, one ``nvcc``
+    process per spec, all started together.
+
+    Returns ``{model name: {"path", "source", "seconds", "log"}}``;
+    ``log`` is nvcc's output (register and shared-memory use from
+    ``-Xptxas=-v``), empty for a library that was already built. Raises
+    on any failure, after every started process has ended."""
+    specs = list(all_specs() if specs is None else specs)
     os.makedirs(BUILD_DIR, exist_ok=True)
     result: Dict[str, dict] = {}
     running = []
     nvcc = None
-    for name in names:
-        path = library_path(name)
+    for spec in specs:
+        path = library_path(spec)
+        source = path[:-len(".so")] + ".cu"
         if os.path.isfile(path):
-            result[name] = {"path": path, "seconds": 0.0, "log": ""}
+            result[spec.name] = {"path": path, "source": source,
+                                 "seconds": 0.0, "log": ""}
             continue
+        with open(source, "w", encoding="utf-8") as f:
+            f.write(emitted_source(spec))
         nvcc = nvcc or find_nvcc()
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, SOURCES[name])]
         proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            [nvcc, *NVCC_FLAGS, "-o", tmp, source],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        running.append((name, path, tmp, proc, time.perf_counter()))
+        running.append((spec.name, path, source, tmp, proc,
+                        time.perf_counter()))
     failures = []
-    for name, path, tmp, proc, t0 in running:
+    for name, path, source, tmp, proc, t0 in running:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failures.append(
+                f"{name}: nvcc exited {proc.returncode} on {source}\n{log}")
             continue
         os.replace(tmp, path)
-        result[name] = {"path": path, "seconds": seconds, "log": log}
+        result[name] = {"path": path, "source": source, "seconds": seconds,
+                        "log": log}
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return result
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(spec) -> ctypes.CDLL:
+    """The loaded library of ``spec``'s kernel, built first if needed."""
+    lib = _LIBS.get(spec)
     if lib is None:
-        path = build_all([name])[name]["path"]
-        lib = _LIBS[name] = ctypes.CDLL(path)
+        lib = _LIBS[spec] = ctypes.CDLL(build_all([spec])[spec.name]["path"])
     return lib

@@ -1,11 +1,16 @@
-// stencil_chain.cu — fused Gray-Scott stencil + reaction + noise chain
-// for Hopper (sm_90a).
+// stencil_chain.cu — fused n-field stencil + reaction + noise chain for
+// Hopper (sm_90a): the template of the generated kernel.
 //
 // Replaces the Pallas TPU kernel grayscott_jl_tpu/ops/pallas_stencil.py
-// (_make_kernel, launched by _fused_call through pl.pallas_call) in the
-// modes the float32/float64 Gray-Scott path runs. One launch advances
-// every cell of the block `fuse` explicit-Euler steps. A template
-// argument selects the mode:
+// (_make_kernel, launched by _fused_call through pl.pallas_call) as the
+// reference's generator (grayscott_jl_tpu/ops/kernelgen.py) instantiates
+// it for any registered model, in the float32/float64 postures. This
+// file is not compiled on its own: ops/kernelgen.py emits, per model,
+// the field and parameter counts and the model's reaction as a device
+// function, ops/_build.py writes them where the marker line below
+// stands and compiles the result (one library per model). One launch
+// advances every cell of the block `fuse` explicit-Euler steps. A
+// template argument selects the mode:
 //   * kBlock  — faces=None: compute1 (fuse = 1) and compute_k
 //               (fuse = k >= 2) on a whole grid with a frozen ghost
 //               shell (rows 1a, 1b of PERF.md's kernel table);
@@ -17,20 +22,21 @@
 //               coordinates (row 1d); the same mode on the y-extended
 //               operand of parallel/temporal.py xy_chain is row 1e.
 //
-// What bounds it: device-memory bytes. A step reads and writes two
-// fields, 16 B/cell for float (32 B/cell for double), against ~30
-// floating-point operations and one 32-bit hash per cell. The design
-// answer is temporal blocking in shared memory: each block loads its
-// tile plus a `fuse`-cell halo once, advances it `fuse` steps on-chip,
-// and writes the interior once, so the bytes per step fall ~1/fuse
-// while the halo is recomputed (the window shrinks one cell per side in
-// x, y and z per stage). The face modes add only the face bytes, read
-// once where the window crosses the block's edge.
+// What bounds it: device-memory bytes. A step reads and writes every
+// field, 8 B/cell/field for float (16 for double), against ~10
+// floating-point operations per field plus the reaction's program and
+// one 32-bit hash per cell. The design answer is temporal blocking in
+// shared memory: each block loads its tile plus a `fuse`-cell halo
+// once, advances it `fuse` steps on-chip, and writes the interior once,
+// so the bytes per step fall ~1/fuse while the halo is recomputed (the
+// window shrinks one cell per side in x, y and z per stage). The face
+// modes add only the face bytes, read once where the window crosses
+// the block's edge.
 //
 // Design, per block of NTHREADS threads:
 //   * the block owns an interior tile of TX x TY x TZ cells (z is the
 //     contiguous axis); stage 0 loads the tile plus `fuse` halo cells
-//     per side of both fields into shared memory. A window cell outside
+//     per side of every field into shared memory. A window cell outside
 //     the block reads, by mode: the field's frozen boundary value
 //     (kBlock; the reference's pad_with_boundary); the face of the one
 //     axis it lies across (kFaces6; edge and corner ghosts are never
@@ -52,22 +58,23 @@
 //     caller, as in the reference).
 // Blocks are independent and use no atomics: results are deterministic.
 //
-// Shared memory: 2 fields x 2 buffers x (TX+2f)(TY+2f)(TZ+2f) x
-// sizeof(T) — 217,728 B for float at fuse = 5, above the 48 KB static
-// limit, so it is dynamic shared memory enabled per launch with
-// cudaFuncSetAttribute. The Python ledger (ops/cuda_stencil.py,
+// Shared memory: kNF fields x 2 buffers x (TX+2f)(TY+2f)(TZ+2f) x
+// sizeof(T) — 217,728 B for two float fields at fuse = 5, above the
+// 48 KB static limit, so it is dynamic shared memory enabled per launch
+// with cudaFuncSetAttribute. The Python ledger (ops/cuda_stencil.py,
 // smem_bytes / max_feasible_fuse) caps fuse from the same arithmetic;
 // the face modes use the same window.
 //
-// Numerics: every product and sum is an explicitly rounded intrinsic
-// (__fmul_rn, __fadd_rn, ...) and the file is built with --fmad=false,
-// so the kernel performs the same IEEE operations, in the same order,
-// as the plain torch version (ops/stencil.py, models/grayscott.py) and
-// equals it bitwise. The noise is the position-keyed lowbias32 stream
-// of ops/noise.py, evaluated per cell at its global coordinate and
-// absolute step (a negative coordinate wraps as uint32, as in the
-// torch version), so halo cells recomputed by a neighbouring block or
-// shard draw the owner's bits.
+// Numerics: every sum, difference, product and quotient is an
+// explicitly rounded intrinsic (__fmul_rn, __fadd_rn, ...), the
+// generated reaction uses the same helpers, and the file is built with
+// --fmad=false, so the kernel performs the same IEEE operations, in the
+// same order, as the plain torch version (ops/stencil.py, the model's
+// reaction) and equals it bitwise. The noise is the position-keyed
+// lowbias32 stream of ops/noise.py, evaluated per cell at its global
+// coordinate and absolute step (a negative coordinate wraps as uint32,
+// as in the torch version), so halo cells recomputed by a neighbouring
+// block or shard draw the owner's bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,22 +89,47 @@ constexpr int NWARPS = NTHREADS / 32;
 
 enum Mode { kBlock = 0, kFaces6 = 1, kXChain = 2 };
 
-// Face operands, field-major (lo, hi) pairs in the reference's order:
-// kFaces6 — u_xlo, u_xhi, v_xlo, v_xhi, u_ylo, u_yhi, v_ylo, v_yhi,
-//           u_zlo, u_zhi, v_zlo, v_zhi, shaped (1,ny,nz), (nx,1,nz),
-//           (nx,ny,1);
-// kXChain — u_xlo, u_xhi, v_xlo, v_xhi, each (fuse, ny, nz).
-template <typename T>
-struct Faces {
-  const T* p[12];
-};
-
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+
+// torch.maximum / torch.minimum: a NaN operand wins.
+template <typename T>
+__device__ __forceinline__ T nan_or(T a, T b, T m) {
+  return a != a ? a : (b != b ? b : m);
+}
+
+// The generated part: kNF (fields), kNP (params), kDt and kNoise (their
+// indices in the params vector) and
+//   __device__ void gs_reaction(const T* f, const T* lap, T noise,
+//                               const T* p, T* d)
+// for T = float and double, the model's reaction in its trace order.
+// @generated-reaction@
+
+// Per-field operands: input and output pointers and the frozen boundary
+// value.
+template <typename T>
+struct Fields {
+  const T* in[kNF];
+  T* out[kNF];
+  T bound[kNF];
+};
+
+// Face operands in the reference's order: axis-major, then field-major,
+// then lo/hi. kFaces6 — for axis a, field i: p[2 kNF a + 2 i] (lo) and
+// p[2 kNF a + 2 i + 1] (hi), shaped (1,ny,nz), (nx,1,nz), (nx,ny,1);
+// kXChain — p[2 i], p[2 i + 1], each (fuse, ny, nz).
+template <typename T>
+struct Faces {
+  const T* p[6 * kNF];
+};
 
 // lowbias32 (ops/noise.py hash32); uint32 arithmetic wraps mod 2**32.
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
@@ -125,21 +157,6 @@ __device__ __forceinline__ float bits_to_pm1(uint32_t bits) {
   return __fsub_rn(__fmul_rn(f12, 2.0f), 3.0f);
 }
 
-template <typename T>
-struct GsParams {
-  T Du, Dv, F, k, dt, noise, Fk;
-};
-
-// models/grayscott.py reaction, operation for operation.
-template <typename T>
-__device__ __forceinline__ void grayscott_reaction(
-    T u, T v, T lap_u, T lap_v, T noise_u, const GsParams<T>& p,
-    T& du, T& dv) {
-  const T uvv = mul(mul(u, v), v);
-  du = add(add(sub(mul(p.Du, lap_u), uvv), mul(p.F, sub(T(1), u))), noise_u);
-  dv = sub(add(mul(p.Dv, lap_v), uvv), mul(p.Fk, v));
-}
-
 // (x-1, x+1, y-1, y+1, z-1, z+1) summed left to right, then * (1/6) - c:
 // ops/stencil.py laplacian.
 template <typename T>
@@ -155,12 +172,10 @@ __device__ __forceinline__ bool outside(int g, int row) {
 
 template <typename T, int MODE>
 __global__ void __launch_bounds__(NTHREADS)
-stencil_chain_kernel(const T* __restrict__ u_in, const T* __restrict__ v_in,
-                     T* __restrict__ u_out, T* __restrict__ v_out,
-                     const T* __restrict__ params, const Faces<T> faces,
-                     uint32_t k0, uint32_t k1, uint32_t step0, int ox,
-                     int oy, int oz, uint32_t row, int nx, int ny, int nz,
-                     int fuse, int use_noise, T bu, T bv) {
+stencil_chain_kernel(const Fields<T> fs, const T* __restrict__ params,
+                     const Faces<T> faces, uint32_t k0, uint32_t k1,
+                     uint32_t step0, int ox, int oy, int oz, uint32_t row,
+                     int nx, int ny, int nz, int fuse, int use_noise) {
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int h = fuse;
@@ -168,28 +183,25 @@ stencil_chain_kernel(const T* __restrict__ u_in, const T* __restrict__ v_in,
   const int wvol = WX * WY * WZ;
   const int sx = WY * WZ, sy = WZ;
   const int irow = (int)row;
-  // buf[b][f]: ping-pong buffer b of field f (0 = u, 1 = v).
-  T* buf[2][2] = {{smem, smem + wvol}, {smem + 2 * wvol, smem + 3 * wvol}};
+  // Buffer b of field f starts at smem + (b * kNF + f) * wvol.
 
   // Window origin in block coordinates (may be negative).
   const int x0 = blockIdx.z * TX - h;
   const int y0 = blockIdx.y * TY - h;
   const int z0 = blockIdx.x * TZ - h;
 
-  GsParams<T> p;
-  p.Du = params[0];
-  p.Dv = params[1];
-  p.F = params[2];
-  p.k = params[3];
-  p.dt = params[4];
-  p.noise = params[5];
-  p.Fk = add(p.F, p.k);
+  T p[kNP];
+#pragma unroll
+  for (int i = 0; i < kNP; ++i) p[i] = params[i];
   const T inv6 = T(1.0 / 6.0);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   // Stage 0 input: the full window; cells outside the block per mode.
+  // Face pointers are picked with constant indices (the field loop is
+  // unrolled): a computed index into the parameter struct would copy it
+  // to local memory in every thread.
   for (int r = warp; r < WX * WY; r += NWARPS) {
     const int wx = r / WY, wy = r % WY;
     const int gx = x0 + wx, gy = y0 + wy;
@@ -200,27 +212,39 @@ stencil_chain_kernel(const T* __restrict__ u_in, const T* __restrict__ v_in,
       const int gz = z0 + wz;
       const bool in_z = gz >= 0 && gz < nz;
       const int c = r * WZ + wz;
-      T a = bu, b = bv;
+      // Each branch is decided once per cell and loads every field, so
+      // the fields' loads are in flight together.
+      T a[kNF];
+#pragma unroll
+      for (int f = 0; f < kNF; ++f) a[f] = fs.bound[f];
       if (in_x && in_y && in_z) {
-        a = u_in[base + gz];
-        b = v_in[base + gz];
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) a[f] = __ldg(fs.in[f] + base + gz);
       } else if (MODE == kFaces6) {
-        // A ghost across exactly one axis reads that axis's face. The
-        // face pointers are picked with constant indices: a computed
-        // index into the parameter struct would copy it to local memory
-        // in every thread.
+        // A ghost across exactly one axis reads that axis's face.
         if (in_y && in_z && (gx == -1 || gx == nx)) {
           const size_t i = (size_t)gy * nz + gz;
-          a = (gx < 0 ? faces.p[0] : faces.p[1])[i];
-          b = (gx < 0 ? faces.p[2] : faces.p[3])[i];
+          const int hi = gx < 0 ? 0 : 1;
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            a[f] = (hi ? faces.p[2 * f + 1] : faces.p[2 * f])[i];
+          }
         } else if (in_x && in_z && (gy == -1 || gy == ny)) {
           const size_t i = (size_t)gx * nz + gz;
-          a = (gy < 0 ? faces.p[4] : faces.p[5])[i];
-          b = (gy < 0 ? faces.p[6] : faces.p[7])[i];
+          const int hi = gy < 0 ? 0 : 1;
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            a[f] = (hi ? faces.p[2 * kNF + 2 * f + 1]
+                       : faces.p[2 * kNF + 2 * f])[i];
+          }
         } else if (in_x && in_y && (gz == -1 || gz == nz)) {
           const size_t i = (size_t)gx * ny + gy;
-          a = (gz < 0 ? faces.p[8] : faces.p[9])[i];
-          b = (gz < 0 ? faces.p[10] : faces.p[11])[i];
+          const int hi = gz < 0 ? 0 : 1;
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            a[f] = (hi ? faces.p[4 * kNF + 2 * f + 1]
+                       : faces.p[4 * kNF + 2 * f])[i];
+          }
         }
       } else if (MODE == kXChain) {
         // The k-deep x slabs extend the operand in x only.
@@ -228,21 +252,21 @@ stencil_chain_kernel(const T* __restrict__ u_in, const T* __restrict__ v_in,
           const bool lo = gx < 0;
           const size_t i =
               ((size_t)(lo ? gx + fuse : gx - nx) * ny + gy) * nz + gz;
-          a = (lo ? faces.p[0] : faces.p[1])[i];
-          b = (lo ? faces.p[2] : faces.p[3])[i];
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            a[f] = (lo ? faces.p[2 * f] : faces.p[2 * f + 1])[i];
+          }
         }
       }
-      buf[0][0][c] = a;
-      buf[0][1][c] = b;
+#pragma unroll
+      for (int f = 0; f < kNF; ++f) smem[f * wvol + c] = a[f];
     }
   }
   __syncthreads();
 
   for (int s = 0; s < fuse; ++s) {
-    const T* cu = buf[s & 1][0];
-    const T* cv = buf[s & 1][1];
-    T* nu = buf[(s + 1) & 1][0];
-    T* nv = buf[(s + 1) & 1][1];
+    const T* cur = smem + (s & 1) * kNF * wvol;
+    T* nxt = smem + ((s + 1) & 1) * kNF * wvol;
     const bool last = s == fuse - 1;
     const int lo = s + 1;  // this stage's output window is [lo, W - lo)
     const int ex = WX - 2 * lo, ey = WY - 2 * lo, ez = WZ - 2 * lo;
@@ -274,28 +298,33 @@ stencil_chain_kernel(const T* __restrict__ u_in, const T* __restrict__ v_in,
           compute = compute && !outside(oz + gz, irow);
         }
         const int c = (wx * WY + wy) * WZ + wz;
-        T ru = bu, rv = bv;  // pinned cells hold the boundary value
+        T res[kNF];  // pinned cells hold the boundary value
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) res[f] = fs.bound[f];
         if (compute) {
-          const T u = cu[c], v = cv[c];
-          const T lap_u = lap7(cu, c, sx, sy, inv6);
-          const T lap_v = lap7(cv, c, sx, sy, inv6);
-          T noise_u = T(0);
+          T val[kNF], lap[kNF], d[kNF];
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            val[f] = cur[f * wvol + c];
+            lap[f] = lap7(cur + f * wvol, c, sx, sy, inv6);
+          }
+          T noise = T(0);
           if (use_noise) {
             const uint32_t bits =
                 hash32(cell_hash(iy, (uint32_t)(oz + gz), row) ^ pseed);
-            noise_u = mul(p.noise, (T)bits_to_pm1(bits));
+            noise = mul(p[kNoise], (T)bits_to_pm1(bits));
           }
-          T du, dv;
-          grayscott_reaction(u, v, lap_u, lap_v, noise_u, p, du, dv);
-          ru = add(u, mul(du, p.dt));
-          rv = add(v, mul(dv, p.dt));
+          gs_reaction(val, lap, noise, p, d);
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) res[f] = add(val[f], mul(d[f], p[kDt]));
         }
-        if (last) {
-          u_out[gbase + gz] = ru;
-          v_out[gbase + gz] = rv;
-        } else {
-          nu[c] = ru;
-          nv[c] = rv;
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) {
+          if (last) {
+            fs.out[f][gbase + gz] = res[f];
+          } else {
+            nxt[f * wvol + c] = res[f];
+          }
         }
       }
     }
@@ -305,15 +334,15 @@ stencil_chain_kernel(const T* __restrict__ u_in, const T* __restrict__ v_in,
 
 template <typename T>
 size_t smem_bytes(int fuse) {
-  return (size_t)4 * (TX + 2 * fuse) * (TY + 2 * fuse) * (TZ + 2 * fuse) *
-         sizeof(T);
+  return (size_t)2 * kNF * (TX + 2 * fuse) * (TY + 2 * fuse) *
+         (TZ + 2 * fuse) * sizeof(T);
 }
 
 template <typename T, int MODE>
-int run(const T* u_in, const T* v_in, T* u_out, T* v_out, const T* params,
-        const Faces<T>& faces, uint32_t k0, uint32_t k1, uint32_t step0,
-        int ox, int oy, int oz, uint32_t row, int nx, int ny, int nz,
-        int fuse, int use_noise, T bu, T bv, cudaStream_t stream) {
+int run(const Fields<T>& fs, const T* params, const Faces<T>& faces,
+        uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
+        uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
+        cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(fuse);
   cudaError_t err = cudaFuncSetAttribute(
       stencil_chain_kernel<T, MODE>,
@@ -321,46 +350,46 @@ int run(const T* u_in, const T* v_in, T* u_out, T* v_out, const T* params,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
   stencil_chain_kernel<T, MODE><<<grid, NTHREADS, smem, stream>>>(
-      u_in, v_in, u_out, v_out, params, faces, k0, k1, step0, ox, oy, oz,
-      row, nx, ny, nz, fuse, use_noise, bu, bv);
+      fs, params, faces, k0, k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,
+      use_noise);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* u_in, const void* v_in, void* u_out, void* v_out,
-           const void* params, const void* const* face_ptrs, int mode,
+int launch(const void* const* in, void* const* out, const void* params,
+           const void* const* face_ptrs, const double* bounds, int mode,
            uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
            uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
-           T bu, T bv, void* stream) {
-  const int n_faces = mode == kFaces6 ? 12 : mode == kXChain ? 4 : 0;
+           void* stream) {
+  const int n_faces = mode == kFaces6 ? 6 * kNF : mode == kXChain ? 2 * kNF : 0;
   if (fuse < 1 || nx < 1 || ny < 1 || nz < 1 || mode < kBlock ||
-      mode > kXChain || (mode == kFaces6 && fuse != 1) ||
+      mode > kXChain || (mode == kFaces6 && fuse != 1) || in == nullptr ||
+      out == nullptr || bounds == nullptr ||
       (n_faces > 0 && face_ptrs == nullptr)) {
     return (int)cudaErrorInvalidValue;
+  }
+  Fields<T> fs = {};
+  for (int f = 0; f < kNF; ++f) {
+    fs.in[f] = static_cast<const T*>(in[f]);
+    fs.out[f] = static_cast<T*>(out[f]);
+    fs.bound[f] = static_cast<T>(bounds[f]);
   }
   Faces<T> faces = {};
   for (int i = 0; i < n_faces; ++i) {
     faces.p[i] = static_cast<const T*>(face_ptrs[i]);
   }
-  const T* ui = static_cast<const T*>(u_in);
-  const T* vi = static_cast<const T*>(v_in);
-  T* uo = static_cast<T*>(u_out);
-  T* vo = static_cast<T*>(v_out);
   const T* pv = static_cast<const T*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kFaces6:
-      return run<T, kFaces6>(ui, vi, uo, vo, pv, faces, k0, k1, step0, ox,
-                             oy, oz, row, nx, ny, nz, fuse, use_noise, bu,
-                             bv, st);
+      return run<T, kFaces6>(fs, pv, faces, k0, k1, step0, ox, oy, oz, row,
+                             nx, ny, nz, fuse, use_noise, st);
     case kXChain:
-      return run<T, kXChain>(ui, vi, uo, vo, pv, faces, k0, k1, step0, ox,
-                             oy, oz, row, nx, ny, nz, fuse, use_noise, bu,
-                             bv, st);
+      return run<T, kXChain>(fs, pv, faces, k0, k1, step0, ox, oy, oz, row,
+                             nx, ny, nz, fuse, use_noise, st);
     default:
-      return run<T, kBlock>(ui, vi, uo, vo, pv, faces, k0, k1, step0, ox,
-                            oy, oz, row, nx, ny, nz, fuse, use_noise, bu,
-                            bv, st);
+      return run<T, kBlock>(fs, pv, faces, k0, k1, step0, ox, oy, oz, row,
+                            nx, ny, nz, fuse, use_noise, st);
   }
 }
 
@@ -368,39 +397,44 @@ int launch(const void* u_in, const void* v_in, void* u_out, void* v_out,
 
 extern "C" {
 
-// The interior tile (x, y, z); the Python ledger checks it agrees.
-void gs_tile_shape(int* out) {
+// The interior tile (x, y, z) and the generated counts (fields,
+// params); the Python ledger checks they agree.
+void gs_layout(int* out) {
   out[0] = TX;
   out[1] = TY;
   out[2] = TZ;
+  out[3] = kNF;
+  out[4] = kNP;
 }
 
 const char* gs_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// face_ptrs: a host array of device pointers (12 for mode 1, 4 for
-// mode 2), or NULL for mode 0.
-int gs_stencil_chain_f32(const void* u_in, const void* v_in, void* u_out,
-                         void* v_out, const void* params,
-                         const void* const* face_ptrs, int mode, uint32_t k0,
+// in, out: host arrays of kNF device pointers; params: a device vector
+// of kNP values of the fields' type; face_ptrs: a host array of device
+// pointers (6 kNF for mode 1, 2 kNF for mode 2) or NULL for mode 0;
+// bounds: a host array of kNF boundary values.
+int gs_stencil_chain_f32(const void* const* in, void* const* out,
+                         const void* params, const void* const* face_ptrs,
+                         const double* bounds, int mode, uint32_t k0,
                          uint32_t k1, uint32_t step0, int ox, int oy, int oz,
                          uint32_t row, int nx, int ny, int nz, int fuse,
-                         int use_noise, float bu, float bv, void* stream) {
-  return launch<float>(u_in, v_in, u_out, v_out, params, face_ptrs, mode, k0,
-                       k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,
-                       use_noise, bu, bv, stream);
+                         int use_noise, void* stream) {
+  return launch<float>(in, out, params, face_ptrs, bounds, mode, k0, k1,
+                       step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise,
+                       stream);
 }
 
-int gs_stencil_chain_f64(const void* u_in, const void* v_in, void* u_out,
-                         void* v_out, const void* params,
-                         const void* const* face_ptrs, int mode, uint32_t k0,
+int gs_stencil_chain_f64(const void* const* in, void* const* out,
+                         const void* params, const void* const* face_ptrs,
+                         const double* bounds, int mode, uint32_t k0,
                          uint32_t k1, uint32_t step0, int ox, int oy, int oz,
                          uint32_t row, int nx, int ny, int nz, int fuse,
-                         int use_noise, double bu, double bv, void* stream) {
-  return launch<double>(u_in, v_in, u_out, v_out, params, face_ptrs, mode,
-                        k0, k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,
-                        use_noise, bu, bv, stream);
+                         int use_noise, void* stream) {
+  return launch<double>(in, out, params, face_ptrs, bounds, mode, k0, k1,
+                        step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise,
+                        stream);
 }
 
 }  // extern "C"

@@ -8,11 +8,12 @@ grid with a frozen ghost shell), the 6n-face form (one step of a block
 of a 3D-sharded grid) and the 2n-face x-chain form (``fuse`` steps
 across an x shard boundary, also run on the y-extended operand of
 ``parallel/temporal.xy_chain``). For tensors on the card it launches the
-hand-written CUDA kernel ``ops/csrc/stencil_chain.cu`` — or raises: a
-build or launch error, a model the kernel does not carry, or a dtype it
-does not take stops the run. For tensors on the CPU it runs the plain
-torch version of the same function, which is also the kernel's oracle
-on the card.
+model's kernel, generated by ``ops/kernelgen.py`` from the hand-written
+template ``ops/csrc/stencil_chain.cu`` (one library per model, built by
+``ops/_build.py``) — or raises: a build or launch error, or a dtype it
+does not take, stops the run; a model the generator refuses has no
+spec. For tensors on the CPU it runs the plain torch version of the
+same function, which is also the kernel's oracle on the card.
 
 The plain versions: :func:`plain_step` is the torch form of the
 reference's ``_xla_fallback`` (one step on ghost-padded fields with the
@@ -24,15 +25,17 @@ and :func:`plain_xchain` is ``_xla_xchain_fallback``.
 
 The shared-memory ledger (:func:`smem_bytes`, :func:`max_feasible_fuse`)
 replaces the reference's VMEM slab ledger: the kernel keeps two
-ping-pong buffers of each field's window — the ``TILE`` plus a
-``fuse``-cell halo per side — in shared memory. Without faces, a
-requested depth above what fits runs as a sequence of shallower
-launches; an x-chain's depth is its slabs' width, so the caller caps it
-(the simulation does, with a warning) and a deeper one raises.
+ping-pong buffers of the window of each of the model's fields — the
+``TILE`` plus a ``fuse``-cell halo per side — in shared memory. Without
+faces, a requested depth above what fits runs as a sequence of
+shallower launches; an x-chain's depth is its slabs' width, so the
+caller caps it (the simulation does, with a warning) and a deeper one
+raises.
 
-``LAUNCHES`` counts kernel launches (not plain-path calls) and
-``MODE_LAUNCHES`` splits them by mode: a run reads them to show that
-its steps went through the kernel.
+``LAUNCHES`` counts kernel launches (not plain-path calls),
+``MODE_LAUNCHES`` splits them by mode and ``MODEL_LAUNCHES`` by model:
+a run reads them to show that its steps went through the kernel
+generated for its model.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import kernelgen, stencil
+from . import stencil
 from .noise import uniform_pm1_block
 
 #: Launches of the CUDA kernel since the process started (or the
@@ -58,6 +61,10 @@ MODES: Dict[str, int] = {"chain": 0, "faces6": 1, "xchain": 2, "xychain": 2}
 
 #: Launches per mode, counted beside :data:`LAUNCHES`.
 MODE_LAUNCHES: Dict[str, int] = dict.fromkeys(MODES, 0)
+
+#: Launches per model (the generated kernel that ran), counted beside
+#: :data:`LAUNCHES`.
+MODEL_LAUNCHES: Dict[str, int] = {}
 
 #: Interior tile of one thread block, (x, y, z); z is contiguous. Must
 #: equal TX/TY/TZ in stencil_chain.cu (checked when the library loads).
@@ -73,11 +80,13 @@ _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launches() -> None:
-    """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES` count to 0."""
+    """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES` and
+    :data:`MODEL_LAUNCHES` count to 0."""
     global LAUNCHES
     LAUNCHES = 0
     for mode in MODE_LAUNCHES:
         MODE_LAUNCHES[mode] = 0
+    MODEL_LAUNCHES.clear()
 
 
 def smem_bytes(itemsize: int, fuse: int, n_fields: int = 2,
@@ -89,9 +98,10 @@ def smem_bytes(itemsize: int, fuse: int, n_fields: int = 2,
 
 def max_feasible_fuse(itemsize: int, n_fields: int = 2,
                       limit: int = SMEM_LIMIT) -> int:
-    """Deepest chain whose windows fit in shared memory: 5 for float32,
-    2 for float64 with two fields. The face modes use the same window,
-    so this also caps the x-chain and the xy-chain."""
+    """Deepest chain whose windows fit in shared memory: 5 for float32
+    and 2 for float64 with two fields, 8 and 5 with one. The face modes
+    use the same window, so this also caps the x-chain and the
+    xy-chain."""
     k = 0
     while smem_bytes(itemsize, k + 1, n_fields) <= limit:
         k += 1
@@ -107,6 +117,13 @@ def pad_from_faces(x, xlo, xhi, ylo, yhi, zlo, zhi):
                    F.pad(yhi, (0, 0, 0, 0, 1, 1))], dim=1)
     return torch.cat([F.pad(zlo, (0, 0, 1, 1, 1, 1)), x,
                       F.pad(zhi, (0, 0, 1, 1, 1, 1))], dim=2)
+
+
+def _model(spec):
+    """The model declaration of a kernel spec; the plain versions also
+    take the declaration itself as ``spec`` (they need nothing else, and
+    a model the generator refuses has no spec)."""
+    return getattr(spec, "model", spec)
 
 
 def plain_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
@@ -140,7 +157,7 @@ def plain_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
         noise_term = params.noise * unit
     else:
         noise_term = 0.0
-    return stencil.reaction_update(pads, noise_term, params, spec.model)
+    return stencil.reaction_update(pads, noise_term, params, _model(spec))
 
 
 def plain_chain(fields, params, seeds, *, spec, use_noise=True, fuse=1,
@@ -194,7 +211,7 @@ def plain_xchain(fields, params, seeds, faces, *, spec, fuse, use_noise,
         wins = list(stencil.reaction_update(
             tuple(F.pad(w, (1, 1, 1, 1), value=bv)
                   for w, bv in zip(wins, spec.boundaries)),
-            noise_term, params, spec.model,
+            noise_term, params, _model(spec),
         ))
         if s == k - 1:
             break
@@ -313,103 +330,113 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     return fields
 
 
-def _lib():
+def _lib(spec):
+    """The loaded library of ``spec``'s generated kernel, its layout
+    checked against the ledger and its entry points typed."""
     from . import _build
 
-    lib = _build.load("stencil_chain")
+    lib = _build.load(spec)
     if not getattr(lib, "_gs_ready", False):
-        tile = (ctypes.c_int * 3)()
-        lib.gs_tile_shape.argtypes = [ctypes.c_void_p]
-        lib.gs_tile_shape.restype = None
-        lib.gs_tile_shape(ctypes.cast(tile, ctypes.c_void_p))
-        if tuple(tile) != TILE:
+        layout = (ctypes.c_int * 5)()
+        lib.gs_layout.argtypes = [ctypes.c_void_p]
+        lib.gs_layout.restype = None
+        lib.gs_layout(ctypes.cast(layout, ctypes.c_void_p))
+        want = TILE + (spec.n_fields, len(spec.param_fields))
+        if tuple(layout) != want:
             raise RuntimeError(
-                f"stencil_chain.cu tile {tuple(tile)} != ledger TILE {TILE}"
+                f"the {spec.name!r} kernel's (tile, fields, params) "
+                f"{tuple(layout)} != the ledger's {want}"
             )
         lib.gs_error_string.argtypes = [ctypes.c_int]
         lib.gs_error_string.restype = ctypes.c_char_p
-        for suffix, scalar in (("f32", ctypes.c_float),
-                               ("f64", ctypes.c_double)):
+        for suffix in _DTYPES.values():
             fn = getattr(lib, f"gs_stencil_chain_{suffix}")
             fn.argtypes = (
-                [ctypes.c_void_p] * 6
+                [ctypes.c_void_p] * 5
                 + [ctypes.c_int]
                 + [ctypes.c_uint32] * 3
                 + [ctypes.c_int] * 3
                 + [ctypes.c_uint32]
                 + [ctypes.c_int] * 5
-                + [scalar, scalar, ctypes.c_void_p]
+                + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
         lib._gs_ready = True
     return lib
 
 
+def _pointers(tensors):
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
 def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
             faces=None, mode="chain"):
-    """One kernel launch advancing ``fuse`` steps (``fuse`` <= the
-    ledger's cap) in ``mode``."""
+    """One launch of ``spec``'s generated kernel advancing ``fuse``
+    steps (``fuse`` <= the ledger's cap) in ``mode``; returns the new
+    field tuple."""
     global LAUNCHES
-    reason = kernelgen.generation_gate_reason(spec.model)
-    if reason is not None:
-        raise kernelgen.KernelGenError(reason)
-    u, v = fields
-    dtype = u.dtype
+    first = fields[0]
+    dtype = first.dtype
     if dtype not in _DTYPES:
         raise TypeError(
             f"the CUDA kernel takes float32 or float64 fields, got {dtype}"
         )
     for f in fields:
-        if f.device != u.device or f.dtype != dtype or f.shape != u.shape:
+        if (f.device != first.device or f.dtype != dtype
+                or f.shape != first.shape):
             raise ValueError(
                 "fields must share device, dtype and shape; got "
                 f"{[(t.device, t.dtype, tuple(t.shape)) for t in fields]}"
             )
         if f.dim() != 3 or not f.is_contiguous():
             raise ValueError("fields must be contiguous 3D tensors")
-    nx, ny, nz = u.shape
-    if u.numel() >= 2**31:
-        raise ValueError(f"field shape {tuple(u.shape)} is too large")
+    nx, ny, nz = first.shape
+    if first.numel() >= 2**31:
+        raise ValueError(f"field shape {tuple(first.shape)} is too large")
     face_ptrs = None
     if faces is not None:
         # Exchanged y and z faces are strided views of the stacked
         # slabs; the kernel reads each face densely.
         faces = [f.contiguous() for f in faces]
         for f in faces:
-            if f.device != u.device or f.dtype != dtype:
+            if f.device != first.device or f.dtype != dtype:
                 raise ValueError(
                     "faces must share the fields' device and dtype; got "
-                    f"{f.device} {f.dtype} for {u.device} {dtype}"
+                    f"{f.device} {f.dtype} for {first.device} {dtype}"
                 )
-        face_ptrs = (ctypes.c_void_p * len(faces))(
-            *[f.data_ptr() for f in faces]
-        )
+        face_ptrs = _pointers(faces)
     params_vec = torch.stack(
-        [getattr(params, f).to(device=u.device, dtype=dtype)
+        [getattr(params, f).to(device=first.device, dtype=dtype)
          for f in spec.param_fields]
     )
-    u_out = torch.empty_like(u)
-    v_out = torch.empty_like(v)
-    fn = getattr(_lib(), f"gs_stencil_chain_{_DTYPES[dtype]}")
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
+    outs = tuple(torch.empty_like(f) for f in fields)
+    bounds = (ctypes.c_double * spec.n_fields)(*spec.boundaries)
+    lib = _lib(spec)
+    fn = getattr(lib, f"gs_stencil_chain_{_DTYPES[dtype]}")
+    in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream(first.device).cuda_stream
         rc = fn(
-            u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            ctypes.cast(in_ptrs, ctypes.c_void_p),
+            ctypes.cast(out_ptrs, ctypes.c_void_p),
             params_vec.data_ptr(),
             ctypes.cast(face_ptrs, ctypes.c_void_p) if faces else None,
+            ctypes.cast(bounds, ctypes.c_void_p),
             MODES[mode],
             int(seeds[0]) & 0xFFFFFFFF, int(seeds[1]) & 0xFFFFFFFF,
             int(seeds[2]) & 0xFFFFFFFF,
             offsets[0], offsets[1], offsets[2], row & 0xFFFFFFFF,
-            nx, ny, nz, fuse, int(bool(use_noise)),
-            spec.boundaries[0], spec.boundaries[1], stream,
+            nx, ny, nz, fuse, int(bool(use_noise)), stream,
         )
     if rc != 0:
-        msg = _lib().gs_error_string(rc).decode()
+        msg = lib.gs_error_string(rc).decode()
         raise RuntimeError(
-            f"stencil_chain launch failed (mode={mode}, fuse={fuse}, "
-            f"shape={tuple(u.shape)}, {dtype}): CUDA error {rc}: {msg}"
+            f"stencil_chain launch failed (model={spec.name}, mode={mode}, "
+            f"fuse={fuse}, shape={tuple(first.shape)}, {dtype}): CUDA error "
+            f"{rc}: {msg}"
         )
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
-    return u_out, v_out
+    MODEL_LAUNCHES[spec.name] = MODEL_LAUNCHES.get(spec.name, 0) + 1
+    return outs

@@ -7,10 +7,10 @@ z-1, z+1) with ``1/6`` rounded to the field dtype. Arrays here are
 ghost-padded ``(nx+2, ny+2, nz+2)`` blocks; results are interior-shaped.
 
 Each line below is one torch operation, so on the card every product
-and sum is rounded on its own (no fused multiply-add): the hand-written
-kernel (``ops/csrc/stencil_chain.cu``, built with ``--fmad=false``)
-performs the same IEEE operations in the same order and equals these
-functions bitwise.
+and sum is rounded on its own (no fused multiply-add): the generated
+kernel (``ops/csrc/stencil_chain.cu`` with the model's reaction emitted
+by ``ops/kernelgen.py``, built with ``--fmad=false``) performs the same
+IEEE operations in the same order and equals these functions bitwise.
 """
 
 from __future__ import annotations

@@ -3,6 +3,10 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
 
 * :func:`initialization` parses the config and builds a ready
   :class:`Simulation`.
+* :func:`select_kernel` applies the kernel generator's gate at
+  construction: every model it accepts runs its generated CUDA kernel;
+  one it refuses raises under ``CUDA``/``Pallas`` and runs the plain
+  path under ``Auto``, the decision recorded in ``kernel_selection``.
 * The grid is decomposed over a :class:`~.parallel.mesh.DeviceMesh`:
   one block per mesh position, each on its device (a device may hold
   several blocks). On the card the default mesh spans every visible
@@ -10,7 +14,7 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
   asks for more. ``GS_TPU_MESH_DIMS`` or ``mesh_dims`` picks the
   factorization, as in the reference.
 * :meth:`Simulation.iterate` advances n steps. A single block runs
-  ``divmod(n, fuse)`` launches of the fused CUDA kernel, then one
+  ``divmod(n, fuse)`` launches of the model's fused CUDA kernel, then one
   shallower launch for the remainder, each seeded by its absolute step;
   on the plain path, n plain torch steps. A sharded run takes the
   reference's branches (``_local_run``) over all blocks: the 6n-face
@@ -28,6 +32,7 @@ trajectory is the same bitwise for every mesh, depth and chunking.
 
 from __future__ import annotations
 
+import sys
 import warnings
 from typing import List, Optional, Sequence, Tuple
 
@@ -80,6 +85,47 @@ def base_key(seed: int) -> Tuple[int, int]:
     return 0, int(seed)
 
 
+def select_kernel(model, language: str, lang: str):
+    """The kernel path of a run and its provenance: ``(path,
+    kernel_selection)`` for the settings' ``kernel_language`` string
+    (``language``) resolved to ``lang`` (``"cuda"`` or ``"plain"``).
+
+    The generator's gate (:func:`~.ops.kernelgen.generation_gate_reason`)
+    decides, as in the reference (its ``simulation.py`` Pallas
+    validation and Auto branch): a model it refuses raises under an
+    explicit ``CUDA``/``Pallas``, and under ``Auto`` takes the plain
+    path — on the run's device, the card included — with the reason
+    recorded and printed once to stderr. ``Auto`` on a model it accepts
+    records the generated kernel. Build and launch errors are not
+    decided here: they raise where they happen."""
+    if lang != "cuda":
+        return lang, None
+    reason = kernelgen.generation_gate_reason(model)
+    auto = language.strip().lower() == "auto"
+    if reason is None:
+        if not auto:
+            return "cuda", None
+        return "cuda", {
+            "reason": (f"generated CUDA kernel for model '{model.name}' "
+                       f"(generator v{kernelgen.GENERATOR_VERSION})"),
+            "kernel_gate": {"model": model.name, "generated": True,
+                            "reason": None},
+        }
+    if not auto:
+        raise SettingsError(
+            f"kernel_language = {language!r} cannot be generated for "
+            f"model {model.name!r}: {reason} (use 'Plain' or 'Auto')"
+        )
+    selection = {
+        "reason": (f"no CUDA kernel can be generated for model "
+                   f"'{model.name}' ({reason}); plain torch path"),
+        "kernel_gate": {"model": model.name, "generated": False,
+                        "reason": reason},
+    }
+    print(f"gray-scott-torch: {selection['reason']}", file=sys.stderr)
+    return "plain", selection
+
+
 class Simulation:
     """One registered model (Gray-Scott by default) on a mesh of
     blocks. ``devices`` is the explicit, possibly repeating, device list
@@ -93,24 +139,24 @@ class Simulation:
         self.settings = settings
         config.check_ported(settings)
         self.model = config.resolve_model(settings)
-        _, self.kernel_language = config.load_backend_and_lang(settings)
+        _, lang = config.load_backend_and_lang(settings)
         kind = config.resolve_device(settings).type
         self.dtype = config.resolve_precision(settings)
-        if self.kernel_language == "cuda" and kind == "cuda":
-            reason = kernelgen.generation_gate_reason(self.model)
-            if reason is not None:
-                raise SettingsError(
-                    f"kernel_language = {settings.kernel_language!r} on "
-                    f"the card cannot run model {self.model.name!r}: "
-                    f"{reason} (use 'Plain')"
-                )
+        #: The kernel path (``"cuda"`` or ``"plain"``) and, under
+        #: ``Auto``, the decision's provenance (None for a language the
+        #: user pinned), as the reference records it.
+        self.kernel_language, self.kernel_selection = select_kernel(
+            self.model, settings.kernel_language, lang)
         devices = select_devices(kind, n_devices, devices)
         self.domain = CartDomain.create(len(devices), settings.L,
                                         dims=mesh_dims)
         self.mesh = DeviceMesh(self.domain.dims, devices)
         self.sharded = self.domain.n_blocks > 1
         self.device = devices[0]
-        self.spec = kernelgen.get_spec(self.model)
+        #: The generated kernel's spec; the plain path runs the model's
+        #: declaration itself.
+        self.spec = (kernelgen.get_spec(self.model)
+                     if self.kernel_language == "cuda" else self.model)
         self.fuse = default_fuse(self.dtype, self.device)
         self._params = {
             d: self.model.make_params(settings, self.dtype, d)

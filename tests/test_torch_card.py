@@ -1,14 +1,15 @@
-"""The CUDA kernel on the card (tests marked ``cuda``; each skips where
-``torch.cuda.is_available()`` is false).
+"""The generated CUDA kernels on the card (tests marked ``cuda``; each
+skips where ``torch.cuda.is_available()`` is false).
 
 Imports neither JAX nor the reference package, so it runs on a machine
 with only torch and nvcc:
 
     GS_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_card.py
 
-(``GS_TPU_TESTS=1`` keeps tests/conftest.py from pinning JAX.) The
-kernel must equal its plain torch version bitwise: both perform the
-same IEEE operations in the same order (``--fmad=false``)."""
+(``GS_TPU_TESTS=1`` keeps tests/conftest.py from pinning JAX.) Each
+model's kernel must equal its plain torch version bitwise: both perform
+the same IEEE operations in the same order (``--fmad=false``); only the
+math-library ops are held at a stated tolerance."""
 
 import pytest
 import torch
@@ -57,15 +58,217 @@ def test_kernel_equals_plain_on_card(dtype, noise):
             assert torch.equal(a, b), (fuse, (a - b).abs().max().item())
 
 
+def _sum_reaction(fields, laps, noise, params):
+    (t,) = fields
+    return (params.D * laps[0] + (t.sum() - t) * 1e-3 + noise,)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_models_it_does_not_carry():
+    """A model the generator refuses has no kernel: no spec, CUDA raises
+    at construction, and Auto runs the plain path on the card (no
+    launch), recording the gate."""
     _card()
+    from grayscott_jl_tpu_torch import Simulation
+    from grayscott_jl_tpu_torch.models import SettingsError, base
+
     heat = get_model("heat")
-    params = heat.make_params(Settings(), torch.float32, "cuda")
-    f = (torch.zeros((8, 8, 8), device="cuda"),)
-    with pytest.raises(kernelgen.KernelGenError, match="Queue 2 item 4"):
-        cuda_stencil.fused_step(f, params, (0, 0, 0),
-                                spec=kernelgen.get_spec(heat))
+    model = base.register(base.Model(
+        name="sum_card_fixture", field_names=("t",), boundaries=(0.0,),
+        param_decls={"D": 0.1}, reaction=_sum_reaction, init=heat.init))
+    try:
+        with pytest.raises(kernelgen.KernelGenError, match="'sum'"):
+            kernelgen.get_spec(model)
+        s = Settings(L=16, noise=0.1, precision="Float32", backend="CUDA",
+                     model=model.name, kernel_language="CUDA")
+        with pytest.raises(SettingsError, match="non-elementwise"):
+            Simulation(s)
+        s.kernel_language = "Auto"
+        sim = Simulation(s)
+        assert sim.kernel_language == "plain"
+        assert sim.kernel_selection["kernel_gate"]["generated"] is False
+        launches = cuda_stencil.LAUNCHES
+        sim.iterate(3)
+        torch.cuda.synchronize()
+        assert cuda_stencil.LAUNCHES == launches
+        assert sim.blocks[0][0].is_cuda
+        assert all(torch.isfinite(f).all() for f in sim.blocks[0])
+    finally:
+        base._REGISTRY.pop("sum_card_fixture", None)
+
+
+#: Each model's physics (examples/settings-<model>.toml; Gray-Scott's
+#: from the kernel tests above).
+PHYSICS = {
+    "grayscott": KW,
+    "brusselator": dict(model_params={"A": 1.0, "B": 3.0, "Du": 0.2,
+                                      "Dv": 0.02}, dt=0.05),
+    "fhn": dict(model_params={"a": 0.7, "b": 0.8, "eps": 0.08, "I": 0.5,
+                              "Dv": 0.2, "Dw": 0.0}, dt=0.05),
+    "heat": dict(model_params={"D": 0.2}, dt=0.05),
+}
+
+
+def _model_case(name, dtype, noise):
+    model = get_model(name)
+    settings = Settings(noise=noise, model=name, **PHYSICS[name])
+    return (kernelgen.get_spec(model),
+            model.make_params(settings, dtype, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grayscott", "brusselator", "fhn", "heat"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("noise", [0.0, 0.1])
+def test_generated_kernel_equals_plain_in_every_mode(name, dtype, noise):
+    """Each model's generated kernel in every mode — the chain at every
+    depth up to the model's ledger cap, the 6n-face step, the x-chain
+    and the xy-chain operand — bitwise equal to its plain version, and
+    every launch counted for the model."""
+    _card()
+    spec, params = _model_case(name, dtype, noise)
+    use = noise != 0
+    n = spec.n_fields
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
+
+    cuda_stencil.reset_launches()
+    L, steps = 20, 12
+    f0 = tuple(rand((L, L, L)) for _ in range(n))
+    plain = cuda_stencil.plain_chain(f0, params, (0, 2, 0), spec=spec,
+                                     use_noise=use, fuse=steps)
+    cap = cuda_stencil.max_feasible_fuse(f0[0].element_size(), n)
+    expected = 0
+    for fuse in range(1, cap + 1):
+        f, done = f0, 0
+        while done < steps:
+            k = min(fuse, steps - done)
+            f = cuda_stencil.fused_step(f, params, (0, 2, done), spec=spec,
+                                        use_noise=use, fuse=k)
+            done += k
+            expected += 1
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(f, plain)), (name, fuse)
+    shape = (12, 10, 36)
+    f = tuple(rand(shape) for _ in range(n))
+    nx, ny, nz = shape
+    faces = tuple(rand(x) for x in [(1, ny, nz)] * (2 * n)
+                  + [(nx, 1, nz)] * (2 * n) + [(nx, ny, 1)] * (2 * n))
+    a = cuda_stencil.fused_step(f, params, (0, 1, 4), faces, spec=spec,
+                                use_noise=use, offsets=(12, 10, 0), row=48)
+    b = cuda_stencil.plain_step(f, params, (0, 1, 4), faces, spec=spec,
+                                use_noise=use, offsets=(12, 10, 0), row=48)
+    expected += 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), (name, "faces6")
+    for k in range(2, cap + 1):
+        for y_halo, offs in ((0, (12, 0, 0)), (k, (12, -k, 0))):
+            faces = tuple(rand((k, ny, nz)) for _ in range(2 * n))
+            a = cuda_stencil.fused_step(
+                f, params, (0, 1, 4), faces, spec=spec, use_noise=use,
+                fuse=k, offsets=offs, row=30, y_halo=y_halo)
+            b = cuda_stencil.plain_xchain(
+                f, params, (0, 1, 4), faces, spec=spec, use_noise=use,
+                fuse=k, offsets=offs, row=30)
+            expected += 1
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (name, k)
+    assert cuda_stencil.MODEL_LAUNCHES == {name: expected}
+
+
+def _exact_ops(fields, laps, noise, params):
+    """The whitelisted ops that lower to correctly rounded arithmetic
+    (square roots and quotients of ``u = t * t + 1 >= 1``, so no value
+    turns NaN)."""
+    (t,) = fields
+    (lap,) = laps
+    u = t * t + 1.0
+    a = (t / 3.0 + 2.0 / u) * t.new_tensor(0.5) - torch.sqrt(u) ** 3
+    b = torch.maximum(-a, abs(lap)) + torch.minimum(t ** 2, u / params.D)
+    c = torch.square(b) - u.reciprocal() + (u ** 0.5).clone()
+    return (params.D * lap + c * 1e-2 + noise,)
+
+
+def _libm_ops(fields, laps, noise, params):
+    """The whitelisted ops lowered through CUDA's math library (on
+    ``u = t * t + 1 >= 1``)."""
+    (t,) = fields
+    (lap,) = laps
+    u = t * t + 1.0
+    d = (torch.exp(-u) + torch.tanh(lap) * torch.sigmoid(t)
+         - torch.log1p(u) + torch.expm1(t * 0.1) - torch.log(u)
+         + torch.sin(t) * torch.cos(lap) + torch.rsqrt(u) + u ** 1.5)
+    return (params.D * lap + d * 1e-2 + noise,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reaction,atol", [
+    (_exact_ops, None), (_libm_ops, {torch.float32: 1e-6,
+                                     torch.float64: 1e-14}),
+])
+def test_generated_ops_on_card(reaction, atol, dtype):
+    """Every op the emitter lowers, on the card against the plain torch
+    version of the same reaction: the exactly rounded ops bitwise; the
+    math-library ops (CUDA's libm need not equal torch's kernels bit for
+    bit) within atol 1e-6 (float32) / 1e-14 (float64) after 4 steps of
+    fields in (0, 1), a few ulps of the derivative scaled by dt = 0.05."""
+    _card()
+    from grayscott_jl_tpu_torch.models import base
+
+    heat = get_model("heat")
+    model = base.Model(name=f"{reaction.__name__}_fixture",
+                       field_names=("t",), boundaries=(0.5,),
+                       param_decls={"D": 0.2}, reaction=reaction,
+                       init=heat.init)
+    spec = kernelgen.get_spec(model)
+    assert spec.programs[str(dtype).split(".")[1]].exact == (atol is None)
+    params = model.make_params(Settings(noise=0.1, dt=0.05), dtype, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f0 = (torch.rand((24, 24, 24), generator=gen, device="cuda",
+                     dtype=dtype) + 0.01,)
+    got = f0
+    for s in range(4):
+        got = cuda_stencil.fused_step(got, params, (0, 5, s), spec=spec)
+    want = cuda_stencil.plain_chain(f0, params, (0, 5, 0), spec=spec,
+                                    fuse=4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want[0]).all()
+    if atol is None:
+        assert torch.equal(got[0], want[0]), (
+            (got[0] - want[0]).abs().max().item())
+    else:
+        err = (got[0] - want[0]).abs().max().item()
+        assert err <= atol[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["brusselator", "fhn", "heat"])
+@pytest.mark.parametrize("dims,fuse,mode", [
+    ((2, 2, 2), "1", "faces6"), ((8, 1, 1), "2", "xchain"),
+    ((2, 2, 2), "2", "xychain"),
+])
+def test_other_models_sharded_on_one_card(name, dims, fuse, mode,
+                                          monkeypatch):
+    """The sharded path with one field and with two non-Gray-Scott
+    fields: every round through the model's generated kernel's face
+    mode, bitwise equal to the single block."""
+    _card()
+    monkeypatch.setenv("GS_FUSE", fuse)
+    from grayscott_jl_tpu_torch import Simulation
+
+    s = Settings(L=32, noise=0.1, precision="Float32", backend="CUDA",
+                 model=name, **PHYSICS[name])
+    single = Simulation(s, n_devices=1, seed=2)
+    n = dims[0] * dims[1] * dims[2]
+    mesh = Simulation(s, seed=2, mesh_dims=dims, devices=["cuda:0"] * n)
+    cuda_stencil.reset_launches()
+    mesh.iterate(12)
+    assert cuda_stencil.MODE_LAUNCHES[mode] == n * (12 // int(fuse))
+    assert cuda_stencil.MODEL_LAUNCHES == {name: cuda_stencil.LAUNCHES}
+    single.iterate(12)
+    for a, b in zip(single.get_fields(), mesh.get_fields()):
+        assert (a == b).all()
 
 
 def _faces(shape, dtype, gen, mode, k=0):

@@ -161,7 +161,24 @@ def test_arity_and_depth_checks():
 
 
 def test_generation_gate_names_the_generator():
-    assert kernelgen.generation_gate_reason(grayscott.MODEL) is None
-    for name in ("brusselator", "fhn", "heat"):
-        reason = kernelgen.generation_gate_reason(get_model(name))
-        assert "Queue 2 item 4" in reason and name in reason
+    """Every built-in model passes the generator's gate; a reaction with
+    a cross-cell op is refused with the generator's reason, which names
+    the op."""
+    for name in ("grayscott", "brusselator", "fhn", "heat"):
+        assert kernelgen.generation_gate_reason(get_model(name)) is None
+        assert kernelgen.get_spec(get_model(name)).n_fields == (
+            get_model(name).n_fields)
+
+    def reaction(fields, laps, noise, params):
+        (t,) = fields
+        return (params.D * laps[0] + t.sum() - t,)
+
+    heat = get_model("heat")
+    refused = type(heat)(name="sum_fixture", field_names=("t",),
+                         boundaries=(0.0,), param_decls={"D": 0.1},
+                         reaction=reaction, init=heat.init)
+    reason = kernelgen.generation_gate_reason(refused)
+    assert reason.startswith("reaction uses non-elementwise primitive(s)")
+    assert "'sum'" in reason
+    with pytest.raises(kernelgen.KernelGenError, match="sum_fixture"):
+        kernelgen.get_spec(refused)

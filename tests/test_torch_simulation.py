@@ -20,12 +20,13 @@ from grayscott_jl_tpu.config.settings import Settings as RefSettings
 from grayscott_jl_tpu.models import get_model as ref_get_model
 from grayscott_jl_tpu.simulation import Simulation as RefSimulation
 from grayscott_jl_tpu_torch import Settings, Simulation, parse_settings_toml
+from grayscott_jl_tpu_torch import simulation
 from grayscott_jl_tpu_torch.carry import (
     fields_from_reference,
     params_from_reference,
 )
 from grayscott_jl_tpu_torch.config import settings as config
-from grayscott_jl_tpu_torch.models import SettingsError, get_model
+from grayscott_jl_tpu_torch.models import SettingsError, base, get_model
 from grayscott_jl_tpu_torch.ops import cuda_stencil
 
 GS = dict(F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0)
@@ -198,9 +199,37 @@ def test_default_backend_is_the_card(monkeypatch):
 
 
 def test_kernel_path_refuses_uncarried_model_on_card(monkeypatch):
+    """On a (monkeypatched) card, heat under Auto builds with its
+    generated kernel; a model the generator refuses raises under CUDA
+    and takes the plain path under Auto, with the gate recorded."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SettingsError, match="Queue 2 item 4"):
-        Simulation(Settings(L=8, model="heat", kernel_language="Auto"))
+    # Blocks on the host's device: the gate is all this test reaches.
+    monkeypatch.setattr(simulation, "select_devices",
+                        lambda kind, n, devices: [torch.device("cpu")])
+    sim = Simulation(Settings(L=8, model="heat", kernel_language="Auto"))
+    assert sim.kernel_language == "cuda"
+    assert sim.kernel_selection["kernel_gate"] == {
+        "model": "heat", "generated": True, "reason": None}
+    assert sim.spec.n_fields == 1 and sim.spec.name == "heat"
+
+    def reaction(fields, laps, noise, params):
+        (t,) = fields
+        return (params.D * laps[0] + t.mean() - t,)
+
+    heat = get_model("heat")
+    base.register(type(heat)(name="mean_fixture", field_names=("t",),
+                             boundaries=(0.0,), param_decls={"D": 0.1},
+                             reaction=reaction, init=heat.init))
+    try:
+        with pytest.raises(SettingsError, match="'mean'"):
+            Simulation(Settings(L=8, model="mean_fixture",
+                                kernel_language="CUDA"))
+        sim = Simulation(Settings(L=8, model="mean_fixture",
+                                  kernel_language="Auto"))
+        assert sim.kernel_language == "plain"
+        assert sim.kernel_selection["kernel_gate"]["generated"] is False
+    finally:
+        base._REGISTRY.pop("mean_fixture", None)
 
 
 @pytest.mark.parametrize("backend", ["TPU", "AMDGPU", "quantum"])
