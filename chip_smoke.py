@@ -13,9 +13,15 @@ Phases, each of which stops the run on failure:
    brusselator, fhn, heat; one ``nvcc`` per model, all started
    together), timed;
 3. every model's kernel in every mode against its plain torch version on
-   the card: float32 and float64, noise 0 and 0.1, every chain depth up
-   to the model's shared-memory ledger cap. The single-block chain at
-   L = 64, 100 (ragged tiles) and 256, 20 steps from random fields,
+   the card: float32 and float64, and bfloat16 fields with bf16 params
+   (``BFloat16``) and with float32 params (``bf16_f32acc``) against the
+   oracle form of the plain version (widen, compute in float32, round
+   once per stage), noise 0 and 0.1, every chain depth up to the
+   model's shared-memory ledger cap (8 for two bf16 fields, 12 for
+   one); and the float32 chain with bf16 mid windows (``GS_MID_BF16=1``,
+   depth 2..cap at L = 100 and 256, and the xy-chain operand) against
+   its oracle. The single-block chain at
+   L = 64, 100 (ragged tiles) and 256, 12 steps from random fields,
    bitwise equal and depth k bitwise equal to k launches of depth 1;
    the 6n-face step at blocks (128,128,128) and (100,64,96), the x-chain
    at (32,256,256) and (34,100,100), and the xy-chain operand
@@ -37,22 +43,36 @@ Phases, each of which stops the run on failure:
    the stored step 50, and L=250 on (3,1,1) (pad-and-mask) bitwise equal
    to a single-block run. The other models, each with the physics of
    its ``examples/settings-<model>.toml`` (dt 0.05) at L=256, noise 0.1,
-   ``kernel_language = "Auto"``: brusselator 200 steps (plotgap 50,
-   checkpoint every 100), fhn and heat 50 steps (plotgap and checkpoint
+   ``kernel_language = "Auto"``: brusselator 100 steps (plotgap and
+   checkpoint every 50), fhn and heat 50 steps (plotgap and checkpoint
    every 25) — every launch the model's generated kernel, the store
    bitwise equal to the plain path on the card, a restart from the last
    checkpoint before the end reproducing it, the (2,2,2) mesh on
    ``cuda:0`` (8 6n-face launches per step) and ``GS_FUSE=2`` on (8,1,1)
-   and (2,2,2) bitwise equal to the single block;
-5. times at the main path's shapes (Gray-Scott: L=256 and 512, float32,
-   every chain depth, and each face mode at the sharded path's block
+   and (2,2,2) up to the first stored step bitwise equal to the single
+   block. The bf16 paths:
+   ``precision = "BFloat16"`` at L=256, 200 steps (200 launches of the
+   bf16 entry point, a store of bf16 values named ``"bfloat16"`` bitwise
+   equal to the kernel's oracle run on the card, a bitwise restart, and
+   ``GS_FUSE=2`` on (8,1,1) and (2,2,2) equal to its step 50);
+   ``compute_precision = "bf16_f32acc"`` with ``snapshot_bits = "8"``,
+   single block and a (2,2,2) mesh on ``cuda:0`` (the coded output
+   within its error bound of the exact checkpoints, the mesh's payloads,
+   ranges and checkpoints equal to the single block's); and
+   ``GS_MID_BF16=1`` at ``GS_FUSE=2`` (100 launches of the bf16-mid
+   entry point, the store equal to the oracle in the same rounds);
+5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
+   chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
    events, after warm-up, and the profiler's device time), its plain
    version, and the least time the card could take (each field read
    and written once over the memory rate, or the generated program's
    floating-point operations over the float32 rate); and the sharded
    path's ms per step on one card against the single block's, with the
-   halo exchange timed on its own.
+   halo exchange timed on its own; then row 1f: the bf16 kernel at
+   L=256 depth 1 and each bf16 face mode (bound: 2 B a cell a field),
+   and the float32 chain with bf16 mids at depth 2..5 beside the exact
+   float32 chain, interleaved.
 
 Prints the kernels' JSON line, then the ``nvidia-smi`` line, then the
 result line ``{"ok": true, "device": {...}}`` last; writes the full
@@ -91,6 +111,8 @@ REPLACES = {
     "xchain": "grayscott_jl_tpu/ops/pallas_stencil.py:663",
     "xychain": "grayscott_jl_tpu/parallel/temporal.py:422",
     "generated": "grayscott_jl_tpu/ops/kernelgen.py:136",
+    "bf16": "grayscott_jl_tpu/ops/pallas_stencil.py:173",
+    "mid_bf16": "grayscott_jl_tpu/ops/pallas_stencil.py:181",
 }
 
 #: Gray-Scott's physics in the kernel checks and its main path.
@@ -104,9 +126,21 @@ PHYSICS = {
             "Dw": 0.0},
     "heat": {"D": 0.2},
 }
-MODEL_PATHS = {"brusselator": (200, 50, 100), "fhn": (50, 25, 25),
+MODEL_PATHS = {"brusselator": (100, 50, 50), "fhn": (50, 25, 25),
                "heat": (50, 25, 25)}
 MODELS = ("grayscott",) + tuple(MODEL_PATHS)
+
+#: The parity phases' precision cases: (label, field dtype, params dtype,
+#: compared with the kernel's oracle form of the plain version). float32
+#: and float64 compare with the plain version itself (the same
+#: computation); bf16 fields with bf16 params are ``BFloat16``, with
+#: float32 params ``bf16_f32acc``.
+PRECISION_CASES = (
+    ("Float32", "float32", "float32", False),
+    ("Float64", "float64", "float64", False),
+    ("BFloat16", "bfloat16", "bfloat16", True),
+    ("bf16_f32acc", "bfloat16", "float32", True),
+)
 
 
 def physics(name):
@@ -123,6 +157,17 @@ def log(msg):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def timed(report, key, fn, *args):
+    """``fn(*args)``, its wall seconds recorded under ``report["phase_s"]``
+    and logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds = time.perf_counter() - t0
+    report.setdefault("phase_s", {})[key] = seconds
+    log(f"  [{key}: {seconds:.1f} s]")
+    return out
 
 
 def nvidia_smi(query):
@@ -170,31 +215,36 @@ def face_mode_work(mode, shape, fuse, flops, itemsize=4, n_fields=2):
     return moved, cells * flops
 
 
+def group(label):
+    """The kernels-line group of a precision case: ``bf16`` for bf16
+    fields, else ``f``."""
+    return "bf16" if label in ("BFloat16", "bf16_f32acc") else "f"
+
+
 def phase_parity(torch, gs, cuda_stencil, spec, report):
-    """Kernel vs plain, bitwise, and depth k vs k x depth 1, for the
-    model of ``spec``."""
-    steps = 20
-    worst = 0.0
+    """Kernel vs its plain version (for bf16 fields its oracle form),
+    bitwise, and depth k vs k x depth 1, for the model of ``spec`` in
+    every precision case; returns the worst |diff| per group."""
+    steps = 12
+    worst = {"f": 0.0, "bf16": 0.0}
     rows = []
-    for dtype, prec in ((torch.float32, "Float32"), (torch.float64, "Float64")):
-        cap = cuda_stencil.max_feasible_fuse(
-            torch.empty((), dtype=dtype).element_size(), spec.n_fields
-        )
+    for prec, dname, pname, oracle in PRECISION_CASES:
+        dtype, pdtype = getattr(torch, dname), getattr(torch, pname)
+        cap = cuda_stencil.chain_cap(dtype, spec.n_fields)
         for L in (64, 100, 256):
             for noise in (0.0, 0.1):
-                settings = gs.Settings(L=L, noise=noise, precision=prec,
-                                       **physics(spec.name))
-                params = spec.model.make_params(settings, dtype, "cuda")
+                settings = gs.Settings(L=L, noise=noise, **physics(spec.name))
+                params = spec.model.make_params(settings, pdtype, "cuda")
                 gen = torch.Generator(device="cuda").manual_seed(1000 + L)
                 f0 = tuple(
                     torch.rand((L, L, L), generator=gen, device="cuda",
-                               dtype=dtype)
+                               dtype=torch.float32).to(dtype)
                     for _ in range(spec.n_fields)
                 )
                 seeds = (0, 11, 40)
                 plain = cuda_stencil.plain_chain(
                     f0, params, seeds, spec=spec, use_noise=noise != 0,
-                    fuse=steps, row=L,
+                    fuse=steps, row=L, oracle=oracle,
                 )
                 by_fuse = {}
                 for fuse in range(1, cap + 1):
@@ -211,11 +261,12 @@ def phase_parity(torch, gs, cuda_stencil, spec, report):
                         (a.double() - b.double()).abs().max().item()
                         for a, b in zip(f, plain)
                     )
-                    worst = max(worst, err)
+                    worst[group(prec)] = max(worst[group(prec)], err)
                     check(all(torch.isfinite(a).all().item() for a in f),
                           f"non-finite {spec.name} kernel output {prec} "
                           f"L={L} fuse={fuse}")
-                    check(all(torch.equal(a, b) for a, b in zip(f, plain)),
+                    check(all(a.dtype == dtype and torch.equal(a, b)
+                              for a, b in zip(f, plain)),
                           f"{spec.name} kernel != plain: {prec} L={L} "
                           f"noise={noise} fuse={fuse}, max |diff| {err}")
                     by_fuse[fuse] = f
@@ -226,27 +277,102 @@ def phase_parity(torch, gs, cuda_stencil, spec, report):
                           f"{spec.name} fuse={fuse} != {fuse} x fuse=1: "
                           f"{prec} L={L}")
         log(f"  {spec.name} {prec} L=64/100/256 noise 0/0.1: fuse "
-            f"1..{cap} bitwise equal to plain and to k x fuse=1")
+            f"1..{cap} bitwise equal to {'the oracle' if oracle else 'plain'}"
+            " and to k x fuse=1")
     report.setdefault("parity", {})[spec.name] = rows
     return worst
 
 
+def phase_mid_bf16_parity(torch, gs, cuda_stencil, spec, report):
+    """``GS_MID_BF16=1``: the float32 chain with bf16 mid windows at
+    every depth 2..cap, and the xy-chain operand, bitwise equal to the
+    oracle (the same rounds of the plain chain, mid stages stored as
+    bf16); returns the worst |diff|."""
+    os.environ["GS_MID_BF16"] = "1"
+    worst = 0.0
+    rows = []
+    try:
+        cap = cuda_stencil.chain_cap(torch.float32, spec.n_fields)
+        gen = torch.Generator(device="cuda").manual_seed(77)
+        for L in (100, 256):
+            for noise in (0.0, 0.1):
+                params = spec.model.make_params(
+                    gs.Settings(noise=noise, **physics(spec.name)),
+                    torch.float32, "cuda")
+                f0 = tuple(torch.rand((L, L, L), generator=gen, device="cuda")
+                           for _ in range(spec.n_fields))
+                for fuse in range(2, cap + 1):
+                    got = want = f0
+                    for done in range(0, 2 * fuse, fuse):
+                        seeds = (0, 11, 40 + done)
+                        got = cuda_stencil.fused_step(
+                            got, params, seeds, spec=spec,
+                            use_noise=noise != 0, fuse=fuse, row=L)
+                        want = cuda_stencil.plain_chain(
+                            want, params, seeds, spec=spec,
+                            use_noise=noise != 0, fuse=fuse, row=L,
+                            oracle=True, mid_bf16=True)
+                    torch.cuda.synchronize()
+                    err = max((a - b).abs().max().item()
+                              for a, b in zip(got, want))
+                    worst = max(worst, err)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"{spec.name} GS_MID_BF16 chain != oracle: L={L} "
+                          f"noise={noise} fuse={fuse}, max |diff| {err}")
+                    rows.append(["chain", L, noise, fuse, err])
+        shape = (64, 64, 64)
+        for k in range(2, cap + 1):
+            nx, ny, nz = shape[0], shape[1] + 2 * k, shape[2]
+            f = tuple(torch.rand((nx, ny, nz), generator=gen, device="cuda")
+                      for _ in range(spec.n_fields))
+            faces = tuple(torch.rand((k, ny, nz), generator=gen,
+                                     device="cuda")
+                          for _ in range(2 * spec.n_fields))
+            params = spec.model.make_params(
+                gs.Settings(noise=0.1, **physics(spec.name)),
+                torch.float32, "cuda")
+            got = cuda_stencil.fused_step(
+                f, params, (0, 11, 40), faces, spec=spec, fuse=k,
+                offsets=(64, -k, 0), row=MAIN_L, y_halo=k)
+            want = cuda_stencil.plain_xchain(
+                f, params, (0, 11, 40), faces, spec=spec, fuse=k,
+                use_noise=True, offsets=(64, -k, 0), row=MAIN_L,
+                oracle=True, mid_bf16=True)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            worst = max(worst, err)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{spec.name} GS_MID_BF16 xy-chain != oracle: k={k}, "
+                  f"max |diff| {err}")
+            rows.append(["xychain", list(shape), 0.1, k, err])
+    finally:
+        del os.environ["GS_MID_BF16"]
+    log(f"  {spec.name} GS_MID_BF16=1 float32: chain fuse 2..{cap} (L=100, "
+        f"256) and xy-chain k=2..{cap} bitwise equal to the oracle")
+    report.setdefault("mid_bf16_parity", {})[spec.name] = rows
+    return worst
+
+
 def phase_face_parity(torch, gs, cuda_stencil, spec, report):
-    """Each face mode of the model's kernel against its plain version,
-    bitwise over the whole output (the computed out-of-domain rows of a
-    y-extended operand included), from random fields and faces."""
-    worst = {"faces6": 0.0, "xchain": 0.0, "xychain": 0.0}
+    """Each face mode of the model's kernel against its plain version
+    (for bf16 fields its oracle form), bitwise over the whole output
+    (the computed out-of-domain rows of a y-extended operand included),
+    from random fields and faces, in every precision case; returns the
+    worst |diff| per (mode, group)."""
+    worst = {(m, g): 0.0 for m in ("faces6", "xchain", "xychain")
+             for g in ("f", "bf16")}
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2024)
 
     def rand(shape, dtype):
-        return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
+        return torch.rand(shape, generator=gen, device="cuda",
+                          dtype=torch.float32).to(dtype)
 
-    def compare(mode, got, want, what):
+    def compare(mode, prec, got, want, what):
         torch.cuda.synchronize()
         err = max((a.double() - b.double()).abs().max().item()
                   for a, b in zip(got, want))
-        worst[mode] = max(worst[mode], err)
+        worst[mode, group(prec)] = max(worst[mode, group(prec)], err)
         check(all(torch.isfinite(a).all().item() for a in got),
               f"non-finite {spec.name} {mode} output: {what}")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -255,14 +381,13 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
         rows.append([mode, what, err])
 
     n = spec.n_fields
-    for dtype, prec in ((torch.float32, "Float32"),
-                        (torch.float64, "Float64")):
-        cap = cuda_stencil.max_feasible_fuse(
-            torch.empty((), dtype=dtype).element_size(), n)
+    for prec, dname, pname, oracle in PRECISION_CASES:
+        dtype, pdtype = getattr(torch, dname), getattr(torch, pname)
+        cap = cuda_stencil.chain_cap(dtype, n)
         for noise in (0.0, 0.1):
             params = spec.model.make_params(
-                gs.Settings(noise=noise, precision=prec,
-                            **physics(spec.name)), dtype, "cuda")
+                gs.Settings(noise=noise, **physics(spec.name)), pdtype,
+                "cuda")
             use = noise != 0
             seeds = (0, 11, 40)
             for shape, offs in (((128, 128, 128), (128, 0, 128)),
@@ -278,8 +403,9 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                     offsets=offs, row=MAIN_L)
                 want = cuda_stencil.plain_step(
                     f, params, seeds, faces, spec=spec, use_noise=use,
-                    offsets=offs, row=MAIN_L)
-                compare("faces6", got, want, f"{prec} {shape} noise={noise}")
+                    offsets=offs, row=MAIN_L, oracle=oracle)
+                compare("faces6", prec, got, want,
+                        f"{prec} {shape} noise={noise}")
             for shape, offs, row in (((32, 256, 256), (32, 0, 0), MAIN_L),
                                      ((34, 100, 100), (68, 0, 0), 100)):
                 f = tuple(rand(shape, dtype) for _ in range(n))
@@ -291,8 +417,8 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                         fuse=k, offsets=offs, row=row)
                     want = cuda_stencil.plain_xchain(
                         f, params, seeds, faces, spec=spec, use_noise=use,
-                        fuse=k, offsets=offs, row=row)
-                    compare("xchain", got, want,
+                        fuse=k, offsets=offs, row=row, oracle=oracle)
+                    compare("xchain", prec, got, want,
                             f"{prec} {shape} k={k} noise={noise}")
             for k in range(2, cap + 1):
                 shape = (128, 128 + 2 * k, 128)
@@ -305,12 +431,12 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                     fuse=k, offsets=offs, row=MAIN_L, y_halo=k)
                 want = cuda_stencil.plain_xchain(
                     f, params, seeds, faces, spec=spec, use_noise=use,
-                    fuse=k, offsets=offs, row=MAIN_L)
-                compare("xychain", got, want,
+                    fuse=k, offsets=offs, row=MAIN_L, oracle=oracle)
+                compare("xychain", prec, got, want,
                         f"{prec} {shape} k={k} noise={noise}")
             log(f"  {spec.name} {prec} noise={noise}: 6n-face, x-chain "
                 f"(k=2..{cap}) and xy-chain (k=2..{cap}) bitwise equal to "
-                "plain")
+                f"{'the oracle' if oracle else 'plain'}")
     report.setdefault("face_parity", {})[spec.name] = rows
     return worst
 
@@ -551,26 +677,30 @@ def phase_model_path(torch, gs, cuda_stencil, name, workdir, report):
     log(f"  {name}: (2,2,2) mesh on cuda:0, {counts['faces6']} 6n-face "
         f"launches in {mesh_wall:.3f} s, store bitwise equal at every step")
     fuse2 = {}
-    at50 = next(s for s in stored if s[0] == 50)
+    first = stored[0]  # the first stored step, ``gap``
     os.environ["GS_FUSE"] = "2"
     try:
         for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain")):
             sim = mesh_sim(gs, gs.Settings(**common), dims)
             cuda_stencil.reset_launches()
-            sim.iterate(50)
+            sim.iterate(gap)
             sim.block_until_ready()
             counts = dict(cuda_stencil.MODE_LAUNCHES)
-            check(counts[mode] == 8 * 25
-                  and cuda_stencil.MODEL_LAUNCHES == {name: 8 * 25},
+            # Rounds of depth 2, and one of depth 1 (6n faces) for an
+            # odd ``gap``.
+            n = 8 * -(-gap // 2)
+            check(counts[mode] == 8 * (gap // 2)
+                  and counts["faces6"] == n - 8 * (gap // 2)
+                  and cuda_stencil.MODEL_LAUNCHES == {name: n},
                   f"{name} GS_FUSE=2 on {dims} launched {counts}")
             check(all(np.array_equal(a, b)
-                      for a, b in zip(sim.get_fields(), at50[1:])),
-                  f"{name} GS_FUSE=2 on {dims} != the stored step 50")
+                      for a, b in zip(sim.get_fields(), first[1:])),
+                  f"{name} GS_FUSE=2 on {dims} != the stored step {gap}")
             fuse2["x".join(map(str, dims))] = counts[mode]
     finally:
         del os.environ["GS_FUSE"]
     log(f"  {name}: GS_FUSE=2 on (8,1,1) and (2,2,2), {fuse2} launches, "
-        "bitwise equal to the stored step 50")
+        f"bitwise equal to the stored step {gap}")
     report.setdefault("model_paths", {})[name] = {
         "steps": steps, "wall_s": wall, "launches": launches,
         "run_stats": stats, "mesh_wall_s": mesh_wall,
@@ -714,6 +844,239 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
     return runs
 
 
+def oracle_run(torch, cuda_stencil, sim, steps, fuse=1, mid_bf16=False):
+    """``steps`` steps of ``sim``'s start fields through the kernel's
+    oracle on the card, in rounds of ``fuse`` as the simulation launches
+    them (the mid stages of a round stored as bf16 under
+    ``mid_bf16``)."""
+    f = sim.blocks[0]
+    for step in range(0, steps, fuse):
+        f = cuda_stencil.plain_chain(
+            f, sim.params, sim._seeds(step), spec=sim.spec,
+            use_noise=sim.use_noise, fuse=min(fuse, steps - step),
+            row=sim.settings.L, oracle=True, mid_bf16=mid_bf16)
+    return [x.float().cpu().numpy() for x in f]
+
+
+def run_main(torch, gs, cuda_stencil, cfg, factory=None):
+    """``driver.main`` (or ``driver.run_once`` with ``factory``) on
+    ``cfg`` with the launch counts set to 0 just before and read just
+    after; returns ``(sim, wall, counts)``."""
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+
+    cuda_stencil.reset_launches()
+    t0 = time.perf_counter()
+    if factory is None:
+        sim = driver.main([cfg])
+    else:
+        sim = driver.run_once(get_settings([cfg]), sim_factory=factory)
+    sim.block_until_ready()
+    wall = time.perf_counter() - t0
+    counts = {"launches": cuda_stencil.LAUNCHES,
+              "modes": dict(cuda_stencil.MODE_LAUNCHES),
+              "entries": dict(cuda_stencil.DTYPE_LAUNCHES),
+              "models": dict(cuda_stencil.MODEL_LAUNCHES)}
+    return sim, wall, counts
+
+
+def phase_bf16_main_path(torch, gs, cuda_stencil, workdir, report):
+    """The ``BFloat16`` main path at L=256: 200 launches of the bf16
+    entry, a store of bf16 values (dtype name ``"bfloat16"``) bitwise
+    equal to the kernel's oracle run on the card, a bitwise restart, and
+    ``GS_FUSE=2`` on (8,1,1) and (2,2,2) equal to the stored step 50."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.io.bplite import BpReader, bf16_round
+
+    common = main_settings(precision="BFloat16")
+    out = os.path.join(workdir, "bf16.bp")
+    ckpt = os.path.join(workdir, "bf16_ckpt.bp")
+    cfg = os.path.join(workdir, "bf16.toml")
+    write_config(cfg, **common, output=out, checkpoint=True,
+                 checkpoint_freq=100, checkpoint_output=ckpt)
+    sim, wall, counts = run_main(torch, gs, cuda_stencil, cfg)
+    n = counts["launches"]
+    check(sim.dtype == torch.bfloat16 and not sim.sharded,
+          f"BFloat16 main path ran {sim.dtype} on {sim.domain.dims}")
+    check(n == MAIN_STEPS // sim.fuse and counts["entries"]["bf16"] == n
+          and counts["modes"]["chain"] == n,
+          f"BFloat16 main path launched {counts}, expected "
+          f"{MAIN_STEPS // sim.fuse} bf16 chain launches and no other")
+    stored = read_store(out)
+    with BpReader(out) as r:
+        check(r.inquire_variable("U").stored == "bfloat16",
+              f"bf16 store variable dtype {r.inquire_variable('U').stored}")
+    for step, u, v in stored:
+        check(np.array_equal(u, bf16_round(u))
+              and bool((u >= -0.2).all() and (u <= 1.5).all())
+              and bool((v >= 0.0).all() and (v <= 1.0).all()),
+              f"bf16 store at step {step}: not bf16 values or out of range")
+    want = oracle_run(torch, cuda_stencil, gs.Simulation(gs.Settings(
+        **common)), MAIN_STEPS)
+    check(all(np.array_equal(a, b) for a, b in zip(want, stored[-1][1:])),
+          "BFloat16 store != the kernel's oracle on the card: max |diff| "
+          f"{max(np.abs(a - b).max() for a, b in zip(want, stored[-1][1:]))}")
+    out2 = os.path.join(workdir, "bf16_restart.bp")
+    cfg2 = os.path.join(workdir, "bf16_restart.toml")
+    write_config(cfg2, **common, output=out2, restart=True,
+                 restart_input=ckpt, restart_step=100)
+    run_main(torch, gs, cuda_stencil, cfg2)
+    end = read_store(out2)[-1]
+    check(end[0] == MAIN_STEPS and all(
+        np.array_equal(a, b) for a, b in zip(end[1:], stored[-1][1:])),
+        "BFloat16 restart from step 100 != the stored step 200")
+    log(f"  BFloat16: driver.main {MAIN_STEPS} steps at L={MAIN_L} in "
+        f"{wall:.3f} s, {n} bf16 launches; store (dtype name bfloat16) "
+        "bitwise equal to the oracle on the card; restart bitwise")
+    fuse2 = {}
+    at50 = next(x for x in stored if x[0] == 50)
+    os.environ["GS_FUSE"] = "2"
+    try:
+        for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain")):
+            msim = mesh_sim(gs, gs.Settings(**common), dims)
+            cuda_stencil.reset_launches()
+            msim.iterate(50)
+            msim.block_until_ready()
+            got = (cuda_stencil.MODE_LAUNCHES[mode],
+                   cuda_stencil.DTYPE_LAUNCHES["bf16"], cuda_stencil.LAUNCHES)
+            check(got == (8 * 25,) * 3,
+                  f"BFloat16 GS_FUSE=2 on {dims} launched {got}")
+            check(all(np.array_equal(a, b)
+                      for a, b in zip(msim.get_fields(), at50[1:])),
+                  f"BFloat16 GS_FUSE=2 on {dims} != the stored step 50")
+            fuse2["x".join(map(str, dims))] = got[0]
+    finally:
+        del os.environ["GS_FUSE"]
+    log(f"  BFloat16 GS_FUSE=2 on (8,1,1) and (2,2,2): {fuse2} bf16 "
+        "launches, bitwise equal to the stored step 50 (z bands in the "
+        "kernel's posture)")
+    report["bf16_main_path"] = {"wall_s": wall, "counts": counts,
+                                "fuse2_launches": fuse2}
+    return n, fuse2
+
+
+def phase_bf16acc_codec(torch, gs, cuda_stencil, workdir, report):
+    """``bf16_f32acc`` with ``snapshot_bits = "8"`` at L=256: the single
+    block (200 bf16 launches) and a (2,2,2) mesh on ``cuda:0`` (1,600
+    bf16 6n-face launches), coded output decoding within its bound of
+    the exact checkpoints, the mesh's store equal to the single block's
+    bitwise (payloads, ranges and checkpoints)."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.io import codec
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+
+    common = main_settings(compute_precision="bf16_f32acc",
+                           snapshot_bits="8")
+    runs = {}
+    for name, factory in (("single", None), ("mesh", lambda settings, *,
+                          n_devices, seed: mesh_sim(gs, settings, MESH,
+                                                    seed))):
+        out = os.path.join(workdir, f"acc_{name}.bp")
+        ckpt = os.path.join(workdir, f"acc_{name}_ckpt.bp")
+        cfg = os.path.join(workdir, f"acc_{name}.toml")
+        stats_path = os.path.join(workdir, f"acc_{name}_stats.json")
+        write_config(cfg, **common, output=out, checkpoint=True,
+                     checkpoint_freq=100, checkpoint_output=ckpt)
+        os.environ["GS_TPU_STATS"] = stats_path
+        try:
+            sim, wall, counts = run_main(torch, gs, cuda_stencil, cfg,
+                                         factory)
+        finally:
+            del os.environ["GS_TPU_STATS"]
+        with open(stats_path, encoding="utf-8") as f:
+            stats = json.load(f)
+        check(stats["config"]["compute_precision"] == "bf16_f32acc"
+              and stats["config"]["snapshot_codec"]["output"] == {
+                  "u": 8, "v": 8},
+              f"bf16_f32acc {name} RunStats config {stats['config']}")
+        blocks = 1 if factory is None else MESH[0] * MESH[1] * MESH[2]
+        mode = "chain" if factory is None else "faces6"
+        check(sim.dtype == torch.bfloat16
+              and counts["modes"][mode] == blocks * MAIN_STEPS
+              and counts["entries"]["bf16"] == counts["launches"]
+              == blocks * MAIN_STEPS,
+              f"bf16_f32acc {name} launched {counts}")
+        with BpReader(out) as r:
+            attr = json.loads(r.attributes()["snapshot_codec"])
+            check(attr == {"U": {"bits": 8, "dtype": "bfloat16"},
+                           "V": {"bits": 8, "dtype": "bfloat16"}}
+                  and r.inquire_variable("U").dtype == np.uint8,
+                  f"coded store schema {attr}")
+            coded = [(int(r.get("step", step=i)),)
+                     + tuple((r.get(n, step=i),
+                              float(r.get(f"{n}__qlo", step=i)),
+                              float(r.get(f"{n}__qhi", step=i)))
+                             for n in ("U", "V"))
+                     for i in range(r.num_steps())]
+        exact = read_store(ckpt, ("u", "v"))
+        for step, *fields in exact:
+            entry = next(c for c in coded if c[0] == step)
+            for (dec, lo, hi), x in zip(entry[1:], fields):
+                err = float(np.abs(dec - x).max())
+                bound = codec.error_bound(lo, hi, 8, "bfloat16")
+                check(err <= bound, f"{name} step {step}: codec error {err} "
+                      f"> bound {bound}")
+        runs[name] = {"wall_s": wall, "counts": counts, "coded": coded,
+                      "exact": exact, "run_stats": stats}
+    a, b = runs["single"], runs["mesh"]
+    check(len(a["coded"]) == len(b["coded"]) == MAIN_STEPS // 50
+          and all(x[0] == y[0] and all(
+              np.array_equal(p[0], q[0]) and p[1:] == q[1:]
+              for p, q in zip(x[1:], y[1:]))
+              for x, y in zip(a["coded"], b["coded"])),
+          "bf16_f32acc (2,2,2) coded store != the single block's")
+    check(all(x[0] == y[0] and all(np.array_equal(p, q)
+                                   for p, q in zip(x[1:], y[1:]))
+              for x, y in zip(a["exact"], b["exact"])),
+          "bf16_f32acc (2,2,2) checkpoints != the single block's")
+    log(f"  bf16_f32acc + snapshot_bits=8: single block {a['wall_s']:.3f} s "
+        f"({a['counts']['launches']} bf16 launches), (2,2,2) mesh "
+        f"{b['wall_s']:.3f} s ({b['counts']['modes']['faces6']} bf16 6n-face "
+        "launches); coded output within its bound of the exact checkpoints;"
+        " the mesh's store bitwise equal to the single block's")
+    report["bf16acc_codec"] = {
+        k: {"wall_s": v["wall_s"], "counts": v["counts"],
+            "run_stats": v["run_stats"],
+            "ranges": [[c[0]] + [list(f[1:]) for f in c[1:]]
+                       for c in v["coded"]]}
+        for k, v in runs.items()}
+    return a["counts"]["launches"], b["counts"]["modes"]["faces6"]
+
+
+def phase_mid_bf16_path(torch, gs, cuda_stencil, workdir, report):
+    """``GS_MID_BF16=1`` with ``GS_FUSE=2`` on the float32 main path:
+    100 launches of the bf16-mid entry, the store's last step bitwise
+    equal to the oracle in the same rounds."""
+    import numpy as np
+
+    common = main_settings()
+    out = os.path.join(workdir, "mid.bp")
+    cfg = os.path.join(workdir, "mid.toml")
+    write_config(cfg, **common, output=out)
+    os.environ.update(GS_MID_BF16="1", GS_FUSE="2")
+    try:
+        sim, wall, counts = run_main(torch, gs, cuda_stencil, cfg)
+        n = counts["launches"]
+        check(sim.fuse == 2 and n == MAIN_STEPS // 2
+              and counts["entries"]["f32_mid_bf16"] == n,
+              f"GS_MID_BF16 main path launched {counts}")
+        want = oracle_run(torch, cuda_stencil, gs.Simulation(gs.Settings(
+            **common)), MAIN_STEPS, fuse=2, mid_bf16=True)
+    finally:
+        del os.environ["GS_MID_BF16"], os.environ["GS_FUSE"]
+    end = read_store(out)[-1]
+    check(end[0] == MAIN_STEPS and all(
+        np.array_equal(a, b) for a, b in zip(want, end[1:])),
+        "GS_MID_BF16 store != the oracle on the card")
+    log(f"  GS_MID_BF16=1 GS_FUSE=2: driver.main {MAIN_STEPS} steps in "
+        f"{wall:.3f} s, {n} launches of the bf16-mid entry; store bitwise "
+        "equal to the oracle")
+    report["mid_bf16_path"] = {"wall_s": wall, "counts": counts}
+    return n
+
+
 def time_calls(torch, fn, min_ms=200.0):
     """Mean ms per call of ``fn`` with CUDA events, after warm-up."""
     fn()
@@ -779,7 +1142,7 @@ def phase_times(torch, gs, cuda_stencil, spec, report):
         gen = torch.Generator(device="cuda").manual_seed(7)
         f0 = tuple(torch.rand((L, L, L), generator=gen, device="cuda")
                    for _ in range(2))
-        for fuse in range(1, cap + 1):
+        for fuse in range(1, (cap if L == MAIN_L else 2) + 1):
             def kernel():
                 return cuda_stencil.fused_step(
                     f0, params, (0, 3, 0), spec=spec, fuse=fuse, row=L)
@@ -811,16 +1174,21 @@ def phase_times(torch, gs, cuda_stencil, spec, report):
     return rows
 
 
-def phase_face_times(torch, gs, cuda_stencil, spec, report):
+def phase_face_times(torch, gs, cuda_stencil, spec, report,
+                     dtype_name="float32"):
     """Per-launch times of each face mode at the sharded path's block
-    shapes (float32, noise on, depth 2 for the chains)."""
+    shapes (noise on, depth 2 for the chains), float32 or bfloat16 (bf16
+    params and the oracle as the plain version)."""
+    dtype = getattr(torch, dtype_name)
+    oracle = dtype == torch.bfloat16
+    itemsize = torch.empty((), dtype=dtype).element_size()
     params = spec.model.make_params(
-        gs.Settings(noise=0.1, F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0,
-                    precision="Float32"), torch.float32, "cuda")
+        gs.Settings(noise=0.1, F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0),
+        dtype, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(8)
 
     def rand(shape):
-        return torch.rand(shape, generator=gen, device="cuda")
+        return torch.rand(shape, generator=gen, device="cuda").to(dtype)
 
     k = 2
     cases = (
@@ -840,14 +1208,14 @@ def phase_face_times(torch, gs, cuda_stencil, spec, report):
             def plain():
                 return cuda_stencil.plain_step(
                     f, params, (0, 3, 0), faces, spec=spec, offsets=offs,
-                    row=MAIN_L)
+                    row=MAIN_L, oracle=oracle)
         else:
             faces = tuple(rand((fuse, ny, nz)) for _ in range(4))
 
             def plain():
                 return cuda_stencil.plain_xchain(
                     f, params, (0, 3, 0), faces, spec=spec, fuse=fuse,
-                    use_noise=True, offsets=offs, row=MAIN_L)
+                    use_noise=True, offsets=offs, row=MAIN_L, oracle=oracle)
 
         def kernel():
             return cuda_stencil.fused_step(
@@ -859,7 +1227,7 @@ def phase_face_times(torch, gs, cuda_stencil, spec, report):
         k2 = time_calls(torch, kernel)
         p2 = time_calls(torch, plain, 100.0)
         b_ms, b_by = bound_of(*face_mode_work(
-            mode, shape, fuse, spec.flops_per_cell_step()))
+            mode, shape, fuse, spec.flops_per_cell_step(), itemsize))
         prof = device_profile(torch, kernel)
         rows[mode] = {
             "shape": list(shape), "fuse": fuse, "ms": (k1 + k2) / 2,
@@ -869,10 +1237,11 @@ def phase_face_times(torch, gs, cuda_stencil, spec, report):
         }
         dev = ("not measured" if prof is None
                else f"{prof['kernel_ms']:.4f} ms")
-        log(f"  {mode} {shape} fuse={fuse}: kernel {(k1 + k2) / 2:.4f} "
+        log(f"  {dtype_name} {mode} {shape} fuse={fuse}: kernel "
+            f"{(k1 + k2) / 2:.4f} "
             f"ms/call (device time of the kernel alone {dev}), plain "
             f"{(p1 + p2) / 2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    report["face_times"] = rows
+    report["face_times" if not oracle else "face_times_bf16"] = rows
     return rows
 
 
@@ -916,14 +1285,87 @@ def phase_model_times(torch, gs, cuda_stencil, spec, report):
     return row
 
 
+def phase_bf16_times(torch, gs, cuda_stencil, spec, report):
+    """Row 1f: the bf16 kernel at the main path's shape (L=256, fuse 1,
+    bf16 params, noise on) against its oracle and its byte bound (2 B a
+    cell a field); and the float32 chain with bf16 mids at fuse 2..cap
+    against the exact float32 chain, interleaved (mid, exact, exact,
+    mid)."""
+    params = spec.model.make_params(
+        gs.Settings(noise=0.1, **GS_PHYSICS), torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f0 = tuple(torch.rand((MAIN_L,) * 3, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+
+    def kernel():
+        return cuda_stencil.fused_step(f0, params, (0, 3, 0), spec=spec,
+                                       row=MAIN_L)
+
+    def plain():
+        return cuda_stencil.plain_chain(f0, params, (0, 3, 0), spec=spec,
+                                        row=MAIN_L, oracle=True)
+
+    p1 = time_calls(torch, plain, 100.0)
+    k1 = time_calls(torch, kernel)
+    k2 = time_calls(torch, kernel)
+    p2 = time_calls(torch, plain, 100.0)
+    flops = spec.flops_per_cell_step()
+    b_ms, b_by = bound_ms(MAIN_L, 1, flops, itemsize=2)
+    prof = device_profile(torch, kernel)
+    row = {"L": MAIN_L, "fuse": 1, "ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
+           "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+           "bound_ms": b_ms, "bound_by": b_by, "profile": prof}
+    dev = "not measured" if prof is None else f"{prof['kernel_ms']:.4f} ms"
+    log(f"  bf16 L={MAIN_L} fuse=1: kernel {row['ms']:.4f} ms/launch (device "
+        f"time {dev}), oracle {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    del f0
+    params32 = spec.model.make_params(
+        gs.Settings(noise=0.1, **GS_PHYSICS), torch.float32, "cuda")
+    f32 = tuple(torch.rand((MAIN_L,) * 3, generator=gen, device="cuda")
+                for _ in range(2))
+    mid_rows = []
+    cap = cuda_stencil.max_feasible_fuse(4, mid_itemsize=2)
+    for fuse in range(2, cap + 1):
+        def exact():
+            return cuda_stencil.fused_step(f32, params32, (0, 3, 0),
+                                           spec=spec, fuse=fuse, row=MAIN_L)
+
+        def mid():
+            os.environ["GS_MID_BF16"] = "1"
+            try:
+                return exact()
+            finally:
+                del os.environ["GS_MID_BF16"]
+
+        def mid_plain():
+            return cuda_stencil.plain_chain(
+                f32, params32, (0, 3, 0), spec=spec, fuse=fuse, row=MAIN_L,
+                oracle=True, mid_bf16=True)
+
+        m1 = time_calls(torch, mid)
+        e1 = time_calls(torch, exact)
+        e2 = time_calls(torch, exact)
+        m2 = time_calls(torch, mid)
+        mp = time_calls(torch, mid_plain, 100.0)
+        mb_ms, mb_by = bound_ms(MAIN_L, fuse, flops)
+        mid_rows.append({"fuse": fuse, "ms": (m1 + m2) / 2, "ms_runs": [m1, m2],
+                         "exact_ms": (e1 + e2) / 2, "exact_runs": [e1, e2],
+                         "plain_ms": mp, "bound_ms": mb_ms, "bound_by": mb_by})
+        log(f"  float32 fuse={fuse}: bf16 mids {(m1 + m2) / 2:.4f} ms/launch, "
+            f"exact {(e1 + e2) / 2:.4f} ms, oracle {mp:.4f} ms")
+    report["bf16_times"] = {"bf16": row, "mid_bf16": mid_rows}
+    return row, mid_rows
+
+
 def phase_sharded_times(torch, gs, report):
     """ms per step of the sharded path on one card (8 blocks of the
     (2,2,2) mesh on cuda:0, and the GS_FUSE=2 chain forms) against the
-    single block, host clock around work that ends in a synchronise;
-    and the 6n-face halo exchange alone."""
+    single block, host clock around 20 steps that end in a synchronise
+    (after 20 of warm-up); and the 6n-face halo exchange alone."""
     from grayscott_jl_tpu_torch.parallel import halo
 
-    steps = 50
+    steps = 20
     settings = gs.Settings(**main_settings())
 
     def per_step(sim):
@@ -1011,50 +1453,73 @@ def main():
           f"built {sorted(built)}, expected every model {sorted(MODELS)}")
     log(f"phase 2: built the generated kernels of {sorted(built)} in "
         f"{build_s:.2f} s (one nvcc each, in parallel)")
-    for name, info in sorted(built.items()):
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = {name: [line.strip() for line in info["log"].splitlines()
+                    if "Compiling" in line or "registers" in line
+                    or "spill" in line]
+             for name, info in built.items()}
+    for line in ptxas["grayscott"]:
+        log(f"  grayscott: {line}")
     report["build_s"] = build_s
     report["build"] = {n: {"source": os.path.relpath(i["source"], REPO),
-                           "seconds": i["seconds"]}
+                           "seconds": i["seconds"], "ptxas": ptxas[n]}
                        for n, i in built.items()}
 
     specs = {name: kernelgen.get_spec(get_model(name)) for name in MODELS}
     spec = specs["grayscott"]
-    log("phase 3: every model's kernel vs plain on the card")
+    log("phase 3: every model's kernel vs plain (bf16: its oracle) on "
+        "the card")
     worst = {}
     for name, sp in specs.items():
-        chain = phase_parity(torch, gs, cuda_stencil, sp, report)
-        faces = phase_face_parity(torch, gs, cuda_stencil, sp, report)
-        worst[name] = {"chain": chain, **faces}
+        args = (torch, gs, cuda_stencil, sp, report)
+        chain = timed(report, f"parity {name}", phase_parity, *args)
+        faces = timed(report, f"face parity {name}", phase_face_parity,
+                      *args)
+        mid = timed(report, f"mid_bf16 parity {name}",
+                    phase_mid_bf16_parity, *args)
+        worst[name] = {"chain": chain["f"], "chain_bf16": chain["bf16"],
+                       "mid_bf16": mid}
+        for (mode, grp), err in faces.items():
+            worst[name][mode if grp == "f" else f"{mode}_bf16"] = err
 
     log("phase 4: main paths, single block and sharded")
     workdir = tempfile.mkdtemp(prefix="gs_chip_smoke_")
     try:
-        launches, main_fuse, stored = phase_main_path(
-            torch, gs, cuda_stencil, workdir, report)
-        faces6_launches = phase_sharded(
-            torch, gs, cuda_stencil, workdir, stored, report)
-        fuse2 = phase_fuse2(torch, gs, cuda_stencil, stored, report)
+        args = (torch, gs, cuda_stencil, workdir, report)
+        launches, main_fuse, stored = timed(report, "main path",
+                                            phase_main_path, *args)
+        faces6_launches = timed(report, "sharded", phase_sharded, torch, gs,
+                                cuda_stencil, workdir, stored, report)
+        fuse2 = timed(report, "fuse2", phase_fuse2, torch, gs, cuda_stencil,
+                      stored, report)
         del stored
         model_launches = {
-            name: phase_model_path(torch, gs, cuda_stencil, name, workdir,
-                                   report)
+            name: timed(report, f"{name} path", phase_model_path, torch, gs,
+                        cuda_stencil, name, workdir, report)
             for name in MODEL_PATHS
         }
+        bf16_launches, bf16_fuse2 = timed(report, "bf16 path",
+                                          phase_bf16_main_path, *args)
+        acc_launches, acc_faces6 = timed(report, "bf16_f32acc codec path",
+                                         phase_bf16acc_codec, *args)
+        mid_launches = timed(report, "mid_bf16 path", phase_mid_bf16_path,
+                             *args)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log("phase 5: times (float32)")
+    log("phase 5: times (float32, then bfloat16)")
     report["clocks_before"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
-    rows = phase_times(torch, gs, cuda_stencil, spec, report)
-    face_rows = phase_face_times(torch, gs, cuda_stencil, spec, report)
+    args = (torch, gs, cuda_stencil, spec, report)
+    rows = timed(report, "times", phase_times, *args)
+    face_rows = timed(report, "face times", phase_face_times, *args)
     model_rows = {name: phase_model_times(torch, gs, cuda_stencil,
                                           specs[name], report)
                   for name in MODEL_PATHS}
-    phase_sharded_times(torch, gs, report)
+    timed(report, "sharded times", phase_sharded_times, torch, gs, report)
+    bf16_row, mid_rows = timed(report, "bf16 times", phase_bf16_times,
+                               *args)
+    bf16_faces = timed(report, "bf16 face times", phase_face_times, *args,
+                       "bfloat16")
     report["clocks_after"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     main_row = next(r for r in rows
@@ -1078,7 +1543,19 @@ def main():
         (f"stencil_chain_{name}", "generated", model_launches[name],
          max(worst[name].values()), model_rows[name])
         for name in MODEL_PATHS
+    ] + [
+        ("stencil_chain_bf16", "bf16", bf16_launches,
+         worst["grayscott"]["chain_bf16"], bf16_row),
+        ("stencil_faces6_bf16", "bf16", acc_faces6,
+         worst["grayscott"]["faces6_bf16"], bf16_faces["faces6"]),
+        ("stencil_xchain_bf16", "bf16", bf16_fuse2["8x1x1"],
+         worst["grayscott"]["xchain_bf16"], bf16_faces["xchain"]),
+        ("stencil_xychain_bf16", "bf16", bf16_fuse2["2x2x2"],
+         worst["grayscott"]["xychain_bf16"], bf16_faces["xychain"]),
+        ("stencil_chain_mid_bf16", "mid_bf16", mid_launches,
+         worst["grayscott"]["mid_bf16"], mid_rows[0]),
     ]
+    report["bf16_acc_launches"] = acc_launches
     kernels = {"kernels": [
         {
             "name": name,

@@ -7,7 +7,8 @@ no rounding in between. The tests use these to feed both packages the
 same state; restarting from a checkpoint written by the reference is the
 file form of the same hand-over. :func:`blocks_from_reference` hands a
 reference run's global fields to a sharded simulation of this package,
-block by block.
+block by block. bfloat16 arrays (``ml_dtypes`` arrays on the reference
+side) cross as float32, which holds every bf16 value exactly.
 """
 
 from __future__ import annotations
@@ -17,11 +18,20 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from .io.bplite import BF16, dtype_name
+
 
 def _torch_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return dtype
-    return getattr(torch, np.dtype(dtype).name)
+    return getattr(torch, dtype_name(dtype))
+
+
+def _numpy(a) -> np.ndarray:
+    """``a`` as a numpy array torch can take: a bfloat16 array widened
+    exactly to float32."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == BF16 else a
 
 
 def params_from_reference(params_np: Mapping, dtype, device, model=None):
@@ -36,8 +46,7 @@ def params_from_reference(params_np: Mapping, dtype, device, model=None):
     if missing:
         raise ValueError(f"params lack {sorted(missing)}")
     return model.params_cls(**{
-        f: torch.tensor(np.asarray(params_np[f]), dtype=dtype,
-                        device=device)
+        f: torch.tensor(_numpy(params_np[f]), dtype=dtype, device=device)
         for f in model.params_cls._fields
     })
 
@@ -46,7 +55,8 @@ def fields_from_reference(fields_np: Sequence, device):
     """The reference's fields, as numpy arrays, as contiguous tensors
     of the same dtype on ``device``."""
     return tuple(
-        torch.from_numpy(np.array(f, copy=True, order="C")).to(device)
+        torch.from_numpy(np.array(_numpy(f), copy=True, order="C")).to(
+            device=device, dtype=_torch_dtype(np.asarray(f).dtype))
         for f in fields_np
     )
 
@@ -63,12 +73,12 @@ def blocks_from_reference(fields_np: Sequence, sim):
             f"got {len(fields_np)} fields; model {sim.model.name!r} "
             f"declares {sim.model.n_fields}"
         )
-    want = torch.empty((), dtype=sim.dtype).numpy().dtype
+    want = dtype_name(sim.dtype)
     shapes = ((sim.settings.L,) * 3, tuple(sim.domain.storage_shape))
     for f in fields_np:
-        if f.dtype != want or f.shape not in shapes:
+        if f.dtype.name != want or f.shape not in shapes:
             raise ValueError(
                 f"reference field {f.dtype} {f.shape} does not match the "
                 f"run's {want} {shapes[0]} (or storage {shapes[1]})"
             )
-    return sim.scatter(fields_np)
+    return sim.scatter([_numpy(f) for f in fields_np])

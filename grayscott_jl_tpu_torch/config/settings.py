@@ -14,7 +14,9 @@ PyTorch:
   ``"XLA"`` / ``"KernelAbstractions"`` select the plain torch path, and
   otherwise only ``"Auto"`` does, for a model the kernel generator
   refuses (``simulation.select_kernel``).
-* ``precision``: ``Float32`` / ``Float64`` map to torch dtypes.
+* ``precision``: ``Float32`` / ``Float64`` / ``BFloat16`` map to torch
+  dtypes; ``compute_precision`` (``GS_COMPUTE_PRECISION``) picks the
+  mixed-precision posture (:func:`resolve_compute_precision`).
 
 Keys the reference package acts on whose subsystem is not in this
 package yet raise :class:`SettingsError` when set to anything but their
@@ -93,23 +95,28 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 #: the values that mean "feature off" and the ROADMAP item that ports
 #: it. Any other value raises at construction (:func:`check_ported`).
 NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
-    "compute_precision": (("", "f32", "float32", "fp32"),
-                          "Queue 1 item 16 / Queue 2 item 5"),
     "halo_depth": ((0, 1), "Queue 1 item 13b"),
     "comm_overlap": (("auto", "off"), "Queue 1 item 13a"),
     "autotune": (("", "off", "cached"), "Queue 1 item 20"),
-    "snapshot_bits": (("",), "Queue 1 item 16"),
-    "snapshot_bits_ckpt": ((False,), "Queue 1 item 16"),
     "supervise": ((False,), "Queue 1 item 17"),
     "faults": (("",), "Queue 1 item 17"),
     "numerics": (("", "off"), "Queue 1 item 16"),
+    "watchdog": (("", "auto", "off", "0", "false", "no"), "Queue 1 item 17"),
+    "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21"),
     "ensemble": ((None,), "Queue 1 item 19"),
 }
 
 PRECISIONS: Dict[str, str] = {
     "Float32": "float32",
     "Float64": "float64",
+    "BFloat16": "bfloat16",
 }
+
+#: Valid mixed-precision compute postures: ``f32`` (the precision as
+#: given), ``bf16_f32acc`` (a Float32 run with bfloat16 storage and
+#: float32 accumulation) and ``equality`` (``f32`` that also refuses the
+#: lossy snapshot codec).
+COMPUTE_PRECISIONS = ("f32", "bf16_f32acc", "equality")
 
 #: Backend strings -> torch device types.
 BACKENDS: Dict[str, str] = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
@@ -242,11 +249,6 @@ def resolve_precision(settings: Settings):
     """Precision string -> torch dtype."""
     import torch
 
-    if settings.precision == "BFloat16":
-        raise NotImplementedError(
-            "precision = 'BFloat16' is not ported yet (bf16 storage with "
-            "f32 compute in the kernel: ROADMAP Queue 2 item 5)"
-        )
     name = PRECISIONS.get(settings.precision)
     if name is None:
         raise SettingsError(
@@ -256,22 +258,61 @@ def resolve_precision(settings: Settings):
     return getattr(torch, name)
 
 
+def resolve_compute_precision(settings: Settings) -> str:
+    """The mixed-precision compute posture: ``"f32"``, ``"bf16_f32acc"``
+    or ``"equality"``. ``GS_COMPUTE_PRECISION`` wins over the
+    ``compute_precision`` key; unset is ``"f32"``. ``bf16_f32acc``
+    requires ``precision = "Float32"`` (for Float64 it would quarter the
+    mantissa silently, for BFloat16 it is the precision itself)."""
+    raw = os.environ.get("GS_COMPUTE_PRECISION")
+    if raw is None:
+        raw = settings.compute_precision or ""
+    v = raw.strip().lower() or "f32"
+    v = {"float32": "f32", "fp32": "f32"}.get(v, v)
+    if v not in COMPUTE_PRECISIONS:
+        raise SettingsError(
+            f"compute_precision / GS_COMPUTE_PRECISION must be one of "
+            f"{'|'.join(COMPUTE_PRECISIONS)}, got {raw!r}"
+        )
+    if v == "bf16_f32acc" and settings.precision != "Float32":
+        raise SettingsError(
+            f"compute_precision = 'bf16_f32acc' requires precision = "
+            f"'Float32' (got {settings.precision!r}): the posture is "
+            "bf16 storage with f32 accumulation of an f32 run — use "
+            "precision = 'BFloat16' for end-to-end bf16"
+        )
+    return v
+
+
+#: Values of a boolean knob that mean "off".
+_OFF = ("", "0", "off", "false", "no")
+
 #: Environment variables the reference acts on whose subsystem is not
 #: in this package yet: what they turn on, the values that mean "off",
-#: and the ROADMAP item that ports it. The first two override the
-#: :data:`NOT_PORTED` keys above; the last two launch several
-#: processes.
+#: and the ROADMAP item that ports it. Each changes what a run computes
+#: or writes, so a value outside "off" raises at construction rather
+#: than being ignored. Several override :data:`NOT_PORTED` keys; the
+#: two launch variables start several processes.
 NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_COMM_OVERLAP": ("split-phase overlap",
-                        ("", "auto", "off", "0", "false", "no"),
+    "GS_COMM_OVERLAP": ("split-phase overlap", _OFF + ("auto",),
                         "Queue 1 item 13a"),
     "GS_HALO_DEPTH": ("halo_depth > 1", ("", "auto", "0", "1"),
                       "Queue 1 item 13b"),
     "GS_TPU_COORDINATOR": ("multi-process launch", ("",),
                            "Queue 1 item 14"),
-    "GS_TPU_DISTRIBUTED": ("multi-process launch",
-                           ("", "0", "off", "false", "no"),
-                           "Queue 1 item 14"),
+    "GS_TPU_DISTRIBUTED": ("multi-process launch", _OFF, "Queue 1 item 14"),
+    "GS_NUMERICS": ("numerics probes", ("", "off"), "Queue 1 item 16"),
+    "GS_SUPERVISE": ("the supervisor", _OFF, "Queue 1 item 17"),
+    "GS_FAULTS": ("fault injection", ("",), "Queue 1 item 17"),
+    "GS_WATCHDOG": ("the hang watchdog", _OFF + ("auto",),
+                    "Queue 1 item 17"),
+    "GS_SDC_CHECK": ("SDC screening", ("", "off"), "Queue 1 item 17"),
+    "GS_CKPT_REPLICAS": ("checkpoint replicas", ("", "1"),
+                         "Queue 1 item 7"),
+    "GS_SCRUB": ("the checkpoint scrubber", _OFF, "Queue 1 item 7"),
+    "GS_AUTOTUNE": ("the measured autotuner", ("", "off", "cached"),
+                    "Queue 1 item 20"),
+    "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21"),
 }
 
 

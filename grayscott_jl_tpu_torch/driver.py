@@ -8,6 +8,11 @@ output step and/or the checkpoint -> close. The steps between two
 boundaries are enqueued on the device as one chunk; the host waits for
 the device only at the boundary.
 
+With the lossy snapshot codec (``snapshot_bits``), a boundary quantizes
+the coded fields on the device and captures exact copies only when a
+target needs them: the output store takes the codec form, checkpoints
+stay exact unless ``snapshot_bits_ckpt`` codes them too.
+
 A sharded run writes one block per mesh position into each store step,
 each with its global ``(start, count)`` box; the store serves the same
 assembled arrays as a single-block run's, and a checkpoint restarts a
@@ -83,13 +88,22 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
             f"Restarted from {settings.restart_input} at step {restart_step}"
         )
     resume = restart_step if settings.restart else None
+    codec = sim.snapshot_codec
+    #: field index -> bits for the snapshot's device-side encoder.
+    enc_spec = {
+        i: codec.output[n.lower()]
+        for i, n in enumerate(sim.model.field_names)
+        if n.lower() in codec.output
+    }
+    ckpt_lossy = bool(codec.ckpt)
     stream = ckpt = None
     launches0 = cuda_stencil.LAUNCHES
     try:
         stream = SimStream(settings, sim.domain, sim.dtype,
-                           resume_step=resume)
+                           resume_step=resume, codec=codec.output)
         if settings.checkpoint:
-            ckpt = CheckpointWriter(settings, sim.dtype, resume_step=resume)
+            ckpt = CheckpointWriter(settings, sim.dtype, resume_step=resume,
+                                    codec=codec.ckpt)
         stats = RunStats(settings.L, config={
             "model": sim.model.name,
             "device": str(sim.device),
@@ -97,6 +111,9 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
             "kernel_selection": sim.kernel_selection,
             "fuse": sim.fuse,
             "precision": settings.precision,
+            "compute_precision": sim.compute_precision,
+            "dtype": str(sim.dtype).replace("torch.", ""),
+            "snapshot_codec": codec.describe(),
             "n_devices": sim.domain.n_blocks,
             "mesh_dims": list(sim.domain.dims),
         })
@@ -123,8 +140,13 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
             )
             if not (at_plot or at_ckpt):
                 continue
+            want_enc = bool(enc_spec) and (at_plot or (at_ckpt
+                                                       and ckpt_lossy))
+            want_exact = ((at_ckpt and not ckpt_lossy)
+                          or (at_plot and not enc_spec))
             with stats.phase("device_to_host"):
-                blocks = sim.snapshot()
+                blocks = sim.snapshot(encode=enc_spec if want_enc else None,
+                                      exact=want_exact)
             if at_plot:
                 log.info(
                     f"Simulation at step {step} writing output step "

@@ -59,8 +59,47 @@ FORMAT_NAME = "bplite-1"
 #: Valid ``GS_CKPT_VERIFY`` modes (``full`` reads like ``read`` here).
 VERIFY_MODES = ("off", "read", "full")
 
-#: The reference's lossy snapshot-codec attribute.
-CODEC_ATTR = "snapshot_codec"
+#: The dtype name of bfloat16 variables (numpy has no bfloat16; the
+#: reference names it so through ``ml_dtypes``).
+BF16 = "bfloat16"
+
+
+def dtype_name(dtype) -> str:
+    """The store's name of a numpy dtype, a torch dtype or a dtype name;
+    bfloat16 is ``"bfloat16"``."""
+    name = str(dtype).replace("torch.", "")
+    if name == BF16:
+        return BF16
+    return np.dtype(name if name.isidentifier() else dtype).name
+
+
+def _storage_dtype(name: str) -> np.dtype:
+    """The numpy dtype of a variable's payload bytes: bfloat16 values
+    are read and written as their uint16 bit patterns."""
+    return np.dtype(np.uint16) if name == BF16 else np.dtype(name)
+
+
+def bf16_bits(a) -> np.ndarray:
+    """Float values rounded to bfloat16 (nearest, ties to even; NaN
+    stays NaN), as uint16 bit patterns. torch does the rounding (a
+    vectorized pass; numpy has no bfloat16), imported here so that the
+    format itself needs only numpy."""
+    import torch
+
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    return (torch.from_numpy(a).to(torch.bfloat16).view(torch.int16)
+            .numpy().view(np.uint16))
+
+
+def bf16_widen(bits) -> np.ndarray:
+    """uint16 bfloat16 bit patterns as float32 values (exact)."""
+    bits = np.ascontiguousarray(bits, dtype=np.uint16)
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_round(a) -> np.ndarray:
+    """Float values rounded to bfloat16, as a float32 array."""
+    return bf16_widen(bf16_bits(a))
 
 
 class CorruptionError(RuntimeError):
@@ -238,7 +277,7 @@ def _block_nbytes(variables: dict, name: str, block: dict) -> Optional[int]:
     if var is None:
         return None
     try:
-        itemsize = np.dtype(var["dtype"]).itemsize
+        itemsize = _storage_dtype(var["dtype"]).itemsize
     except (KeyError, TypeError):
         return None
     n = 1
@@ -430,8 +469,10 @@ class BpWriter:
     def define_variable(
         self, name: str, dtype, shape: Sequence[int] = ()
     ) -> None:
+        """Define ``name``; ``dtype`` is a numpy or torch dtype or a
+        dtype name (``"bfloat16"`` for bf16)."""
         self._md["variables"][name] = {
-            "dtype": np.dtype(dtype).name,
+            "dtype": dtype_name(dtype),
             "shape": [int(s) for s in shape],
         }
 
@@ -455,6 +496,8 @@ class BpWriter:
 
         ``start``/``count`` give the block's box in the global array
         (``IO.jl:60-67`` semantics); both default to the full variable.
+        A ``"bfloat16"`` variable takes float values, rounded to bf16
+        (exact for values that are bf16 already).
         """
         if not self._in_step:
             raise RuntimeError("put called outside begin_step/end_step")
@@ -462,7 +505,10 @@ class BpWriter:
         if var is None:
             raise KeyError(f"Variable {name!r} not defined")
         shape = var["shape"]
-        arr = np.asarray(value, dtype=var["dtype"])
+        if var["dtype"] == BF16:
+            arr = bf16_bits(value)
+        else:
+            arr = np.asarray(value, dtype=var["dtype"])
         if not shape:
             # scalar variable: ascontiguousarray would promote 0-d to 1-d
             arr = arr.reshape(())
@@ -530,9 +576,14 @@ class BpWriter:
 
 
 class VarInfo:
+    """A variable's name, shape and the dtype :meth:`BpReader.get`
+    returns (float32 for a ``"bfloat16"`` variable, whose stored name is
+    ``stored``)."""
+
     def __init__(self, name: str, dtype: str, shape: Tuple[int, ...]):
         self.name = name
-        self.dtype = np.dtype(dtype)
+        self.stored = dtype
+        self.dtype = np.dtype(np.float32 if dtype == BF16 else dtype)
         self.shape = shape
 
     def __repr__(self):
@@ -747,17 +798,12 @@ class BpReader:
 
     # -- data --------------------------------------------------------------
 
-    def _coded(self, name: str) -> bool:
-        """Whether the reference's lossy snapshot codec wrote ``name``
-        (its ``snapshot_codec`` attribute is a JSON object keyed by the
-        coded variables; a torn one reads as exact, as there)."""
-        raw = self.attributes().get(CODEC_ATTR)
-        if not raw:
-            return False
-        try:
-            return name in json.loads(raw)
-        except (ValueError, TypeError):
-            return False
+    def _codec_info(self) -> Dict[str, dict]:
+        """The store's snapshot-codec registry, ``{var_name: {"bits",
+        "dtype"}}``; empty for exact stores."""
+        from .codec import decode_attr
+
+        return decode_attr(self.attributes())
 
     def get(
         self,
@@ -772,13 +818,11 @@ class BpReader:
         ``set_selection``). Assembles the box from the step's blocks.
         A CRC-mismatching block surfaces as a :class:`CorruptionError`
         naming the variable and step entry alongside the file/offset/CRC
-        pair. A variable the lossy snapshot codec wrote is refused."""
-        if self._coded(name):
-            raise NotImplementedError(
-                f"{self.path}: variable {name!r} was written by the lossy "
-                "snapshot codec, which this package does not decode yet "
-                "(ROADMAP Queue 1 item 16)"
-            )
+        pair. A ``"bfloat16"`` variable is returned as float32 holding
+        the bf16 values exactly. A variable the lossy snapshot codec
+        wrote is CRC-checked as stored, then decoded against the step's
+        ``<NAME>__qlo``/``__qhi`` range to its original dtype (float32
+        for bfloat16)."""
         try:
             out = self._get(name, step=step, start=start, count=count)
         except CorruptionError as e:
@@ -789,6 +833,14 @@ class BpReader:
                     step=step if step is not None else self._consumed,
                 ) from e
             raise
+        info = self._codec_info().get(name)
+        if info is not None:
+            from .codec import dequantize, qhi_var, qlo_var
+
+            idx = step if step is not None else self._consumed
+            lo = float(self._get(qlo_var(name), step=idx))
+            hi = float(self._get(qhi_var(name), step=idx))
+            return dequantize(out, lo, hi, info["bits"], info["dtype"])
         return out
 
     def _get(
@@ -811,9 +863,16 @@ class BpReader:
         if blocks is None:
             raise KeyError(f"Variable {name!r} has no data at this step")
         info = self.inquire_variable(name)
+        stored = _storage_dtype(info.stored)
+        if info.stored == BF16:
+            return bf16_widen(self._get_stored(blocks, info, stored, start,
+                                               count, name))
+        return self._get_stored(blocks, info, stored, start, count, name)
 
+    def _get_stored(self, blocks, info, stored, start, count, name):
+        """The box of ``name`` from ``blocks`` as stored (``stored``)."""
         if not info.shape:  # scalar
-            return self._read_block(blocks[0], info.dtype, ())
+            return self._read_block(blocks[0], stored, ())
 
         if start is None:
             sel = self._selections.get(name)
@@ -825,7 +884,7 @@ class BpReader:
         else:
             start = [int(s) for s in start]
             count = [int(c) for c in count]
-        out = np.empty(count, dtype=info.dtype)
+        out = np.empty(count, dtype=stored)
         filled = np.zeros(count, dtype=bool)
         sel_lo = np.array(start)
         sel_hi = sel_lo + np.array(count)
@@ -836,7 +895,7 @@ class BpReader:
             hi = np.minimum(sel_hi, b_hi)
             if np.any(lo >= hi):
                 continue
-            data = self._read_block(b, info.dtype, tuple(b["count"]))
+            data = self._read_block(b, stored, tuple(b["count"]))
             src = tuple(
                 slice(int(l - bl), int(h - bl))
                 for l, h, bl in zip(lo, hi, b_lo)

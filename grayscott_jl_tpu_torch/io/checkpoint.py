@@ -5,20 +5,24 @@ to the BP-lite store ``checkpoint_output``; ``restart = true`` resumes
 from ``restart_input``. The noise is keyed on the absolute step, so a
 resumed run reproduces the uninterrupted trajectory. The store layout
 and attributes are the reference's, so a checkpoint written by either
-package restarts the other. Replicas and the integrity read-back
-(``GS_CKPT_REPLICAS``, ``GS_CKPT_VERIFY=full``) are not ported yet.
+package restarts the other; a bfloat16 checkpoint restarts bitwise.
+Checkpoints are exact unless ``snapshot_bits_ckpt`` opts them into the
+lossy codec (``codec``), and a restart from a coded one is value-close.
+Replicas and the integrity read-back (``GS_CKPT_REPLICAS``,
+``GS_CKPT_VERIFY=full``) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from ..config.settings import Settings, resolve_model
 from . import count_steps_upto, open_writer
 from .bplite import BpReader
-from .stream import numpy_dtype
+from .codec import CODEC_ATTR, codec_attr_value
+from .stream import define_fields, put_fields
 
 
 class CheckpointWriter:
@@ -30,9 +34,11 @@ class CheckpointWriter:
         writer_id: int = 0,
         nwriters: int = 1,
         resume_step: Optional[int] = None,
+        codec: Optional[Dict[str, int]] = None,
     ):
         L = settings.L
         model = resolve_model(settings)
+        self.codec = dict(codec or {})
         self.field_names = model.field_names
         self.path = settings.checkpoint_output
         # On restart, append (checkpoint_output may be the store the run
@@ -50,19 +56,21 @@ class CheckpointWriter:
             w.define_attribute("precision", settings.precision)
             w.define_attribute("model", model.name)
             w.define_attribute("fields", list(self.field_names))
+            if self.codec:
+                w.define_attribute(
+                    CODEC_ATTR,
+                    codec_attr_value(self.codec, self.field_names, dtype))
         w.define_variable("step", np.int32)
-        for name in self.field_names:
-            w.define_variable(name, numpy_dtype(dtype).name, (L, L, L))
+        define_fields(w, self.field_names, dtype, L, self.codec)
 
     def save(self, step: int, blocks) -> None:
-        """``blocks``: ``[(offsets, sizes, *field_blocks)]`` in model
-        declaration order."""
+        """``blocks``: a snapshot (``[(offsets, sizes, *field_blocks)]``
+        in model declaration order, with the codec form on ``encoded``
+        for a coded checkpoint)."""
         w = self.writer
         w.begin_step()
         w.put("step", np.int32(step))
-        for offsets, sizes, *fblocks in blocks:
-            for name, fb in zip(self.field_names, fblocks):
-                w.put(name, fb, start=offsets, count=sizes)
+        put_fields(w, self.field_names, blocks, bool(self.codec))
         w.end_step()
 
     def close(self) -> None:
@@ -129,7 +137,8 @@ def load_checkpoint(
     path: str, settings: Settings, restart_step: int = -1
 ) -> Tuple:
     """``(*fields, step)`` of one checkpoint entry, fields in the
-    model's declaration order."""
+    model's declaration order (bfloat16 ones, and coded ones decoded, as
+    float32 arrays)."""
     r, idx, step = open_checkpoint(path, settings, restart_step)
     with r:
         fields = tuple(

@@ -5,26 +5,64 @@ parameters, ``dt``, ``noise``, ``model``, ``fields``), the Fides and VTK
 ImageData schema attributes, and per-step ``step`` plus one variable per
 field (upper-cased: ``U``/``V`` for Gray-Scott) with their
 ``(shape, start, count)`` boxes — attribute for attribute what the
-reference writes, so its readers and tools open these stores. The
+reference writes, so its readers and tools open these stores. bfloat16
+fields are stored under the dtype name ``"bfloat16"``. Fields the lossy
+snapshot codec codes (``codec``, ``io/codec.py``) are stored at their
+uint payload dtype beside per-step ``<NAME>__qlo``/``__qhi`` range
+scalars, and the ``snapshot_codec`` attribute names them. The
 reference's ``.vti`` side files are not written yet (ROADMAP Queue 1
 item 7).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..config.settings import Settings, resolve_model
 from ..parallel.domain import CartDomain
 from . import open_writer
+from .codec import (CODEC_ATTR, EncodedField, codec_attr_value,
+                    payload_dtype, qhi_var, qlo_var)
 
 
-def numpy_dtype(dtype) -> np.dtype:
-    """The numpy dtype of a torch (or numpy) dtype."""
-    name = str(dtype).replace("torch.", "")
-    return np.dtype(name)
+def define_fields(writer, names, dtype, L: int,
+                  codec: Optional[Dict[str, int]]) -> None:
+    """Define the field variables ``names`` at ``dtype`` (a torch or
+    numpy dtype; bf16 as ``"bfloat16"``), a coded one at its payload
+    dtype with its range scalars."""
+    for name in names:
+        bits = (codec or {}).get(name.lower())
+        if bits is None:
+            writer.define_variable(name, dtype, (L, L, L))
+        else:
+            writer.define_variable(name, payload_dtype(bits), (L, L, L))
+            writer.define_variable(qlo_var(name), np.float32)
+            writer.define_variable(qhi_var(name), np.float32)
+
+
+def put_fields(writer, names, blocks, coded: bool) -> None:
+    """Put one step's field blocks: ``blocks`` is a snapshot
+    (``[(offsets, sizes, *field_blocks)]``); a ``coded`` store takes its
+    codec form (``encoded``), writing each coded field's range once."""
+    if coded:
+        if getattr(blocks, "encoded", None) is None:
+            raise ValueError(
+                "a coded store takes a snapshot's codec form: snapshot "
+                "the boundary with encode= (Simulation.snapshot)")
+        blocks = blocks.encoded
+    ranges_done = set()
+    for offsets, sizes, *fblocks in blocks:
+        for name, fb in zip(names, fblocks):
+            if isinstance(fb, EncodedField):
+                writer.put(name, fb.q, start=offsets, count=sizes)
+                if name not in ranges_done:
+                    writer.put(qlo_var(name), np.float32(fb.lo))
+                    writer.put(qhi_var(name), np.float32(fb.hi))
+                    ranges_done.add(name)
+            else:
+                writer.put(name, fb, start=offsets, count=sizes)
 
 
 def fides_vtk_schemas(L: int, var_names: Sequence[str] = ("U", "V")) -> dict:
@@ -74,9 +112,11 @@ class SimStream:
         writer_id: int = 0,
         nwriters: int = 1,
         resume_step: Optional[int] = None,
+        codec: Optional[Dict[str, int]] = None,
     ):
         self.settings = settings
         self.domain = domain
+        self.codec = dict(codec or {})
         L = settings.L
         model = resolve_model(settings)
         self.model = model
@@ -98,23 +138,23 @@ class SimStream:
             self.writer.define_attribute("noise", settings.noise)
             self.writer.define_attribute("model", model.name)
             self.writer.define_attribute("fields", list(self.var_names))
+            if self.codec:
+                self.writer.define_attribute(
+                    CODEC_ATTR,
+                    codec_attr_value(self.codec, self.var_names, dtype))
             for name, value in fides_vtk_schemas(L, self.var_names).items():
                 self.writer.define_attribute(name, value)
         self.writer.define_variable("step", np.int32)
-        for name in self.var_names:
-            self.writer.define_variable(
-                name, numpy_dtype(dtype).name, (L, L, L)
-            )
+        define_fields(self.writer, self.var_names, dtype, L, self.codec)
 
     def write_step(self, step: int, blocks) -> None:
-        """Write one output step; ``blocks`` is ``[(offsets, sizes,
-        *field_blocks)]`` in model declaration order."""
+        """Write one output step; ``blocks`` is a snapshot
+        (``[(offsets, sizes, *field_blocks)]`` in model declaration
+        order, with the codec form on ``encoded`` for a coded store)."""
         w = self.writer
         w.begin_step()
         w.put("step", np.int32(step))
-        for offsets, sizes, *fblocks in blocks:
-            for name, fb in zip(self.var_names, fblocks):
-                w.put(name, fb, start=offsets, count=sizes)
+        put_fields(w, self.var_names, blocks, bool(self.codec))
         w.end_step()
 
     def close(self) -> None:

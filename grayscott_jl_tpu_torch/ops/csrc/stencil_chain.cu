@@ -4,13 +4,13 @@
 // Replaces the Pallas TPU kernel grayscott_jl_tpu/ops/pallas_stencil.py
 // (_make_kernel, launched by _fused_call through pl.pallas_call) as the
 // reference's generator (grayscott_jl_tpu/ops/kernelgen.py) instantiates
-// it for any registered model, in the float32/float64 postures. This
-// file is not compiled on its own: ops/kernelgen.py emits, per model,
-// the field and parameter counts and the model's reaction as a device
-// function, ops/_build.py writes them where the marker line below
-// stands and compiles the result (one library per model). One launch
-// advances every cell of the block `fuse` explicit-Euler steps. A
-// template argument selects the mode:
+// it for any registered model, in its float32, float64 and bfloat16
+// postures (_compute_dtype, _mid_store_dtype). This file is not compiled
+// on its own: ops/kernelgen.py emits, per model, the field and parameter
+// counts and the model's reaction as a device function, ops/_build.py
+// writes them where the marker line below stands and compiles the result
+// (one library per model). One launch advances every cell of the block
+// `fuse` explicit-Euler steps. A template argument selects the mode:
 //   * kBlock  — faces=None: compute1 (fuse = 1) and compute_k
 //               (fuse = k >= 2) on a whole grid with a frozen ghost
 //               shell (rows 1a, 1b of PERF.md's kernel table);
@@ -21,17 +21,23 @@
 //               boundary from k-deep x slabs, pinned on GLOBAL
 //               coordinates (row 1d); the same mode on the y-extended
 //               operand of parallel/temporal.py xy_chain is row 1e.
+// Three types parametrize the kernel (row 1f), as the reference separates
+// them: T, the storage type of the fields and faces (float, double or
+// __nv_bfloat16); C = Compute<T>, the type every operation runs in
+// (float for bf16, else T); M, the type of the chain's mid-stage windows
+// in shared memory (T, or bf16 for float fields under GS_MID_BF16=1).
 //
 // What bounds it: device-memory bytes. A step reads and writes every
-// field, 8 B/cell/field for float (16 for double), against ~10
-// floating-point operations per field plus the reaction's program and
-// one 32-bit hash per cell. The design answer is temporal blocking in
+// field, 8 B/cell/field for float (16 for double, 4 for bf16), against
+// ~10 floating-point operations per field plus the reaction's program
+// and one 32-bit hash per cell. The design answer is temporal blocking in
 // shared memory: each block loads its tile plus a `fuse`-cell halo
 // once, advances it `fuse` steps on-chip, and writes the interior once,
 // so the bytes per step fall ~1/fuse while the halo is recomputed (the
 // window shrinks one cell per side in x, y and z per stage). The face
 // modes add only the face bytes, read once where the window crosses
-// the block's edge.
+// the block's edge. bf16 storage halves the bytes; the arithmetic stays
+// float.
 //
 // Design, per block of NTHREADS threads:
 //   * the block owns an interior tile of TX x TY x TZ cells (z is the
@@ -45,39 +51,47 @@
 //     the operand's own y and z extent it reads the boundary value, as
 //     the reference's _xla_xchain_fallback re-pads y and z each stage);
 //   * stage s computes step step0 + s on the window shrunk by s + 1
-//     cells per side, reading one ping-pong buffer and writing the
-//     other. kBlock and kFaces6 compute the block's cells and pin every
-//     other cell to the boundary value. kXChain computes every cell of
-//     the operand's y/z extent, so an interior shard recomputes its
-//     neighbour's ring, and pins a mid-stage cell only when its GLOBAL
-//     coordinate (offset + local) falls outside [0, row) on any axis;
-//     every value is stored as T, so each stage equals one single step
-//     bit for bit;
+//     cells per side, reading one window and writing the next. kBlock and
+//     kFaces6 compute the block's cells and pin every other cell to the
+//     boundary value. kXChain computes every cell of the operand's y/z
+//     extent, so an interior shard recomputes its neighbour's ring, and
+//     pins a mid-stage cell only when its GLOBAL coordinate (offset +
+//     local) falls outside [0, row) on any axis. Values are widened to C
+//     when read and rounded once to the window's type when written, so
+//     with M == T each stage equals one single step bit for bit;
 //   * the last stage writes the tile's block cells to global memory,
 //     unpinned (pad cells of a non-divisible grid are re-pinned by the
 //     caller, as in the reference).
 // Blocks are independent and use no atomics: results are deterministic.
 //
-// Shared memory: kNF fields x 2 buffers x (TX+2f)(TY+2f)(TZ+2f) x
-// sizeof(T) — 217,728 B for two float fields at fuse = 5, above the
-// 48 KB static limit, so it is dynamic shared memory enabled per launch
-// with cudaFuncSetAttribute. The Python ledger (ops/cuda_stencil.py,
-// smem_bytes / max_feasible_fuse) caps fuse from the same arithmetic;
-// the face modes use the same window.
+// Shared memory, per field: with M == T two ping-pong windows of T —
+// 217,728 B for two float fields at fuse = 5, 221,184 B for two bf16
+// fields at fuse = 8; with M != T one input window of T plus the mid
+// windows of M the chain needs (none at fuse 1, one at 2, two deeper).
+// Above the 48 KB static limit, so it is dynamic shared memory enabled
+// per launch with cudaFuncSetAttribute. The Python ledger
+// (ops/cuda_stencil.py, smem_bytes / max_feasible_fuse) caps fuse from
+// the same arithmetic; the face modes use the same window.
 //
 // Numerics: every sum, difference, product and quotient is an
 // explicitly rounded intrinsic (__fmul_rn, __fadd_rn, ...), the
 // generated reaction uses the same helpers, and the file is built with
 // --fmad=false, so the kernel performs the same IEEE operations, in the
 // same order, as the plain torch version (ops/stencil.py, the model's
-// reaction) and equals it bitwise. The noise is the position-keyed
+// reaction; for bf16 and bf16 mids its oracle form in
+// ops/cuda_stencil.py: widen, compute in float, round once per stage)
+// and equals it bitwise. The noise is the position-keyed
 // lowbias32 stream of ops/noise.py, evaluated per cell at its global
 // coordinate and absolute step (a negative coordinate wraps as uint32,
 // as in the torch version), so halo cells recomputed by a neighbouring
-// block or shard draw the owner's bits.
+// block or shard draw the owner's bits; its unit is drawn in float and
+// scaled in C, as the reference kernel draws it in its compute dtype.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -100,6 +114,30 @@ __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, 
 __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 
+// Storage type -> compute type: bf16 fields compute in float.
+template <typename T>
+struct Compute {
+  using type = T;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+
+// A stored value in its compute type (exact).
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+
+// Store a compute value at *p: bf16 rounds once, to nearest even.
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(double* p, double v) { *p = v; }
+
 // torch.maximum / torch.minimum: a NaN operand wins.
 template <typename T>
 __device__ __forceinline__ T nan_or(T a, T b, T m) {
@@ -114,12 +152,12 @@ __device__ __forceinline__ T nan_or(T a, T b, T m) {
 // @generated-reaction@
 
 // Per-field operands: input and output pointers and the frozen boundary
-// value.
-template <typename T>
+// value (in the compute type C).
+template <typename T, typename C>
 struct Fields {
   const T* in[kNF];
   T* out[kNF];
-  T bound[kNF];
+  C bound[kNF];
 };
 
 // Face operands in the reference's order: axis-major, then field-major,
@@ -158,42 +196,53 @@ __device__ __forceinline__ float bits_to_pm1(uint32_t bits) {
 }
 
 // (x-1, x+1, y-1, y+1, z-1, z+1) summed left to right, then * (1/6) - c:
-// ops/stencil.py laplacian.
-template <typename T>
-__device__ __forceinline__ T lap7(const T* w, int c, int sx, int sy, T inv6) {
-  const T total = add(add(add(add(add(w[c - sx], w[c + sx]), w[c - sy]),
-                                  w[c + sy]), w[c - 1]), w[c + 1]);
-  return sub(mul(total, inv6), w[c]);
+// ops/stencil.py laplacian, in C over a window of S.
+template <typename C, typename S>
+__device__ __forceinline__ C lap7(const S* w, int c, int sx, int sy, C inv6) {
+  const C total =
+      add(add(add(add(add(widen(w[c - sx]), widen(w[c + sx])), widen(w[c - sy])),
+                  widen(w[c + sy])),
+              widen(w[c - 1])),
+          widen(w[c + 1]));
+  return sub(mul(total, inv6), widen(w[c]));
 }
 
 __device__ __forceinline__ bool outside(int g, int row) {
   return g < 0 || g >= row;
 }
 
-template <typename T, int MODE>
+template <typename T, typename M, int MODE>
 __global__ void __launch_bounds__(NTHREADS)
-stencil_chain_kernel(const Fields<T> fs, const T* __restrict__ params,
+stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
+                     const typename Compute<T>::type* __restrict__ params,
                      const Faces<T> faces, uint32_t k0, uint32_t k1,
                      uint32_t step0, int ox, int oy, int oz, uint32_t row,
                      int nx, int ny, int nz, int fuse, int use_noise) {
+  using C = typename Compute<T>::type;
+  // An input window of T apart from the mid windows of M, or (M == T)
+  // two ping-pong windows, the input in the first.
+  constexpr bool kSplit = !std::is_same<T, M>::value;
   extern __shared__ unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
   const int h = fuse;
   const int WX = TX + 2 * h, WY = TY + 2 * h, WZ = TZ + 2 * h;
   const int wvol = WX * WY * WZ;
   const int sx = WY * WZ, sy = WZ;
   const int irow = (int)row;
-  // Buffer b of field f starts at smem + (b * kNF + f) * wvol.
+  // Window b of field f starts at mids + (b * kNF + f) * wvol; the input
+  // window of field f at in + f * wvol (in == mids when M == T).
+  T* in = reinterpret_cast<T*>(smem_raw);
+  M* mids = reinterpret_cast<M*>(
+      smem_raw + (kSplit ? (size_t)kNF * wvol * sizeof(T) : 0));
 
   // Window origin in block coordinates (may be negative).
   const int x0 = blockIdx.z * TX - h;
   const int y0 = blockIdx.y * TY - h;
   const int z0 = blockIdx.x * TZ - h;
 
-  T p[kNP];
+  C p[kNP];
 #pragma unroll
   for (int i = 0; i < kNP; ++i) p[i] = params[i];
-  const T inv6 = T(1.0 / 6.0);
+  const C inv6 = C(1.0 / 6.0);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -216,7 +265,7 @@ stencil_chain_kernel(const Fields<T> fs, const T* __restrict__ params,
       // the fields' loads are in flight together.
       T a[kNF];
 #pragma unroll
-      for (int f = 0; f < kNF; ++f) a[f] = fs.bound[f];
+      for (int f = 0; f < kNF; ++f) put(&a[f], fs.bound[f]);
       if (in_x && in_y && in_z) {
 #pragma unroll
         for (int f = 0; f < kNF; ++f) a[f] = __ldg(fs.in[f] + base + gz);
@@ -259,14 +308,14 @@ stencil_chain_kernel(const Fields<T> fs, const T* __restrict__ params,
         }
       }
 #pragma unroll
-      for (int f = 0; f < kNF; ++f) smem[f * wvol + c] = a[f];
+      for (int f = 0; f < kNF; ++f) in[f * wvol + c] = a[f];
     }
   }
   __syncthreads();
 
-  for (int s = 0; s < fuse; ++s) {
-    const T* cur = smem + (s & 1) * kNF * wvol;
-    T* nxt = smem + ((s + 1) & 1) * kNF * wvol;
+  // Stage s: read window `cur` (T at stage 0, else M), write `nxt` (M),
+  // or the output at the last stage.
+  auto stage = [&](const auto* cur, M* nxt, int s) {
     const bool last = s == fuse - 1;
     const int lo = s + 1;  // this stage's output window is [lo, W - lo)
     const int ex = WX - 2 * lo, ey = WY - 2 * lo, ez = WZ - 2 * lo;
@@ -298,21 +347,21 @@ stencil_chain_kernel(const Fields<T> fs, const T* __restrict__ params,
           compute = compute && !outside(oz + gz, irow);
         }
         const int c = (wx * WY + wy) * WZ + wz;
-        T res[kNF];  // pinned cells hold the boundary value
+        C res[kNF];  // pinned cells hold the boundary value
 #pragma unroll
         for (int f = 0; f < kNF; ++f) res[f] = fs.bound[f];
         if (compute) {
-          T val[kNF], lap[kNF], d[kNF];
+          C val[kNF], lap[kNF], d[kNF];
 #pragma unroll
           for (int f = 0; f < kNF; ++f) {
-            val[f] = cur[f * wvol + c];
+            val[f] = widen(cur[f * wvol + c]);
             lap[f] = lap7(cur + f * wvol, c, sx, sy, inv6);
           }
-          T noise = T(0);
+          C noise = C(0);
           if (use_noise) {
             const uint32_t bits =
                 hash32(cell_hash(iy, (uint32_t)(oz + gz), row) ^ pseed);
-            noise = mul(p[kNoise], (T)bits_to_pm1(bits));
+            noise = mul(p[kNoise], (C)bits_to_pm1(bits));
           }
           gs_reaction(val, lap, noise, p, d);
 #pragma unroll
@@ -321,46 +370,64 @@ stencil_chain_kernel(const Fields<T> fs, const T* __restrict__ params,
 #pragma unroll
         for (int f = 0; f < kNF; ++f) {
           if (last) {
-            fs.out[f][gbase + gz] = res[f];
+            put(&fs.out[f][gbase + gz], res[f]);
           } else {
-            nxt[f * wvol + c] = res[f];
+            put(&nxt[f * wvol + c], res[f]);
           }
         }
       }
     }
     __syncthreads();
+  };
+
+  if constexpr (kSplit) {
+    stage(in, mids, 0);
+    for (int s = 1; s < fuse; ++s) {
+      stage(mids + ((s - 1) & 1) * kNF * wvol, mids + (s & 1) * kNF * wvol,
+            s);
+    }
+  } else {
+    for (int s = 0; s < fuse; ++s) {
+      stage(mids + (s & 1) * kNF * wvol, mids + ((s + 1) & 1) * kNF * wvol,
+            s);
+    }
   }
 }
 
-template <typename T>
+template <typename T, typename M>
 size_t smem_bytes(int fuse) {
-  return (size_t)2 * kNF * (TX + 2 * fuse) * (TY + 2 * fuse) *
-         (TZ + 2 * fuse) * sizeof(T);
+  const size_t window =
+      (size_t)(TX + 2 * fuse) * (TY + 2 * fuse) * (TZ + 2 * fuse);
+  if (std::is_same<T, M>::value) return 2 * kNF * window * sizeof(T);
+  const int n_mid = fuse - 1 < 2 ? fuse - 1 : 2;
+  return kNF * window * (sizeof(T) + n_mid * sizeof(M));
 }
 
-template <typename T, int MODE>
-int run(const Fields<T>& fs, const T* params, const Faces<T>& faces,
+template <typename T, typename M, int MODE>
+int run(const Fields<T, typename Compute<T>::type>& fs,
+        const typename Compute<T>::type* params, const Faces<T>& faces,
         uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
         uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
         cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(fuse);
+  const size_t smem = smem_bytes<T, M>(fuse);
   cudaError_t err = cudaFuncSetAttribute(
-      stencil_chain_kernel<T, MODE>,
+      stencil_chain_kernel<T, M, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
-  stencil_chain_kernel<T, MODE><<<grid, NTHREADS, smem, stream>>>(
+  stencil_chain_kernel<T, M, MODE><<<grid, NTHREADS, smem, stream>>>(
       fs, params, faces, k0, k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,
       use_noise);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename M>
 int launch(const void* const* in, void* const* out, const void* params,
            const void* const* face_ptrs, const double* bounds, int mode,
            uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
            uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
            void* stream) {
+  using C = typename Compute<T>::type;
   const int n_faces = mode == kFaces6 ? 6 * kNF : mode == kXChain ? 2 * kNF : 0;
   if (fuse < 1 || nx < 1 || ny < 1 || nz < 1 || mode < kBlock ||
       mode > kXChain || (mode == kFaces6 && fuse != 1) || in == nullptr ||
@@ -368,28 +435,28 @@ int launch(const void* const* in, void* const* out, const void* params,
       (n_faces > 0 && face_ptrs == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Fields<T> fs = {};
+  Fields<T, C> fs = {};
   for (int f = 0; f < kNF; ++f) {
     fs.in[f] = static_cast<const T*>(in[f]);
     fs.out[f] = static_cast<T*>(out[f]);
-    fs.bound[f] = static_cast<T>(bounds[f]);
+    fs.bound[f] = static_cast<C>(bounds[f]);
   }
   Faces<T> faces = {};
   for (int i = 0; i < n_faces; ++i) {
     faces.p[i] = static_cast<const T*>(face_ptrs[i]);
   }
-  const T* pv = static_cast<const T*>(params);
+  const C* pv = static_cast<const C*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kFaces6:
-      return run<T, kFaces6>(fs, pv, faces, k0, k1, step0, ox, oy, oz, row,
-                             nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kFaces6>(fs, pv, faces, k0, k1, step0, ox, oy, oz,
+                                row, nx, ny, nz, fuse, use_noise, st);
     case kXChain:
-      return run<T, kXChain>(fs, pv, faces, k0, k1, step0, ox, oy, oz, row,
-                             nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kXChain>(fs, pv, faces, k0, k1, step0, ox, oy, oz,
+                                row, nx, ny, nz, fuse, use_noise, st);
     default:
-      return run<T, kBlock>(fs, pv, faces, k0, k1, step0, ox, oy, oz, row,
-                            nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kBlock>(fs, pv, faces, k0, k1, step0, ox, oy, oz,
+                               row, nx, ny, nz, fuse, use_noise, st);
   }
 }
 
@@ -412,29 +479,25 @@ const char* gs_error_string(int code) {
 }
 
 // in, out: host arrays of kNF device pointers; params: a device vector
-// of kNP values of the fields' type; face_ptrs: a host array of device
-// pointers (6 kNF for mode 1, 2 kNF for mode 2) or NULL for mode 0;
-// bounds: a host array of kNF boundary values.
-int gs_stencil_chain_f32(const void* const* in, void* const* out,
-                         const void* params, const void* const* face_ptrs,
-                         const double* bounds, int mode, uint32_t k0,
-                         uint32_t k1, uint32_t step0, int ox, int oy, int oz,
-                         uint32_t row, int nx, int ny, int nz, int fuse,
-                         int use_noise, void* stream) {
-  return launch<float>(in, out, params, face_ptrs, bounds, mode, k0, k1,
-                       step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise,
-                       stream);
-}
+// of kNP values of the compute type (float for bf16 fields); face_ptrs: a
+// host array of device pointers (6 kNF for mode 1, 2 kNF for mode 2) or
+// NULL for mode 0; bounds: a host array of kNF boundary values. One entry
+// point per posture: f32, f64, bf16 (bf16 storage and windows, float
+// compute) and f32_mid_bf16 (float fields, bf16 mid windows).
+#define GS_ENTRY(NAME, T, M)                                                \
+  int NAME(const void* const* in, void* const* out, const void* params,      \
+           const void* const* face_ptrs, const double* bounds, int mode,     \
+           uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz, \
+           uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,    \
+           void* stream) {                                                   \
+    return launch<T, M>(in, out, params, face_ptrs, bounds, mode, k0, k1,    \
+                        step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise, \
+                        stream);                                             \
+  }
 
-int gs_stencil_chain_f64(const void* const* in, void* const* out,
-                         const void* params, const void* const* face_ptrs,
-                         const double* bounds, int mode, uint32_t k0,
-                         uint32_t k1, uint32_t step0, int ox, int oy, int oz,
-                         uint32_t row, int nx, int ny, int nz, int fuse,
-                         int use_noise, void* stream) {
-  return launch<double>(in, out, params, face_ptrs, bounds, mode, k0, k1,
-                        step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise,
-                        stream);
-}
+GS_ENTRY(gs_stencil_chain_f32, float, float)
+GS_ENTRY(gs_stencil_chain_f64, double, double)
+GS_ENTRY(gs_stencil_chain_bf16, __nv_bfloat16, __nv_bfloat16)
+GS_ENTRY(gs_stencil_chain_f32_mid_bf16, float, __nv_bfloat16)
 
 }  // extern "C"

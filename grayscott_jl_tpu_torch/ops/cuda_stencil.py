@@ -12,41 +12,63 @@ model's kernel, generated by ``ops/kernelgen.py`` from the hand-written
 template ``ops/csrc/stencil_chain.cu`` (one library per model, built by
 ``ops/_build.py``) — or raises: a build or launch error, or a dtype it
 does not take, stops the run; a model the generator refuses has no
-spec. For tensors on the CPU it runs the plain torch version of the
-same function, which is also the kernel's oracle on the card.
+spec. For tensors on the CPU it runs the plain torch version.
 
-The plain versions: :func:`plain_step` is the torch form of the
-reference's ``_xla_fallback`` (one step on ghost-padded fields with the
-position-keyed noise; with 6n faces the ghosts come from
-:func:`pad_from_faces`), :func:`plain_chain` is ``fuse`` plain steps
-with the seed step advanced — which the kernel's ``fuse``-stage chain
-equals bitwise, as the reference's chain equals ``fuse`` single steps —
-and :func:`plain_xchain` is ``_xla_xchain_fallback``.
+Precision postures (the reference's ``_compute_dtype`` and
+``_mid_store_dtype``): float32 and float64 fields are computed in their
+own dtype; bfloat16 fields are stored bf16 (in memory and in the
+kernel's shared-memory windows) and computed in float32, rounding once
+per stage; ``GS_MID_BF16=1`` keeps float32 fields and their input
+window in float32 but stores the chain's mid-stage windows as bf16 (an
+opt-in trade that is not bitwise equal to single steps).
+
+The plain versions, and why there are two for bf16:
+
+* :func:`plain_step` is the torch form of the reference's
+  ``_xla_fallback`` (one step on ghost-padded fields with the
+  position-keyed noise; with 6n faces the ghosts come from
+  :func:`pad_from_faces`), :func:`plain_chain` is ``fuse`` plain steps
+  with the seed step advanced, and :func:`plain_xchain` is
+  ``_xla_xchain_fallback``. This is the port's Plain kernel language
+  and its CPU path. Its noise unit is drawn in the storage dtype and it
+  accumulates in the params' dtype when that differs from the storage
+  (``bf16_f32acc``), so under ``BFloat16`` it computes in bf16.
+* The same functions with ``oracle=True`` are the kernel's oracle: the
+  padded fields and the params widened to the kernel's compute dtype,
+  the noise unit drawn in it, one rounding to the stage's output dtype
+  (the storage dtype, or the mid dtype for the first ``fuse - 1``
+  stages of a chain). For float32 and float64 without ``GS_MID_BF16``
+  this is the same computation as the plain one. The kernel equals its
+  oracle bitwise, as the reference's bf16 kernel equals this emulation
+  and not its own XLA path.
 
 The shared-memory ledger (:func:`smem_bytes`, :func:`max_feasible_fuse`)
-replaces the reference's VMEM slab ledger: the kernel keeps two
-ping-pong buffers of the window of each of the model's fields — the
-``TILE`` plus a ``fuse``-cell halo per side — in shared memory. Without
-faces, a requested depth above what fits runs as a sequence of
-shallower launches; an x-chain's depth is its slabs' width, so the
-caller caps it (the simulation does, with a warning) and a deeper one
-raises.
+replaces the reference's VMEM slab ledger: the kernel keeps the window
+of each of the model's fields — the ``TILE`` plus a ``fuse``-cell halo
+per side — in shared memory, as two ping-pong buffers of the storage
+type, or, under ``GS_MID_BF16``, one float32 input window plus bf16 mid
+windows. Without faces, a requested depth above what fits runs as a
+sequence of shallower launches; an x-chain's depth is its slabs' width,
+so the caller caps it (the simulation does, with a warning) and a
+deeper one raises.
 
 ``LAUNCHES`` counts kernel launches (not plain-path calls),
-``MODE_LAUNCHES`` splits them by mode and ``MODEL_LAUNCHES`` by model:
-a run reads them to show that its steps went through the kernel
-generated for its model.
+``MODE_LAUNCHES`` splits them by mode, ``MODEL_LAUNCHES`` by model and
+``DTYPE_LAUNCHES`` by entry point (``f32``, ``f64``, ``bf16``,
+``f32_mid_bf16``): a run reads them to show that its steps went through
+the kernel generated for its model at its precision.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..config.env import env_raw
 from . import stencil
 from .noise import uniform_pm1_block
 
@@ -66,6 +88,18 @@ MODE_LAUNCHES: Dict[str, int] = dict.fromkeys(MODES, 0)
 #: :data:`LAUNCHES`.
 MODEL_LAUNCHES: Dict[str, int] = {}
 
+#: The kernel's entry points: (field dtype, bf16 mids) -> the suffix of
+#: ``gs_stencil_chain_<suffix>`` in the library.
+ENTRIES: Dict[Tuple[torch.dtype, bool], str] = {
+    (torch.float32, False): "f32",
+    (torch.float64, False): "f64",
+    (torch.bfloat16, False): "bf16",
+    (torch.float32, True): "f32_mid_bf16",
+}
+
+#: Launches per entry point, counted beside :data:`LAUNCHES`.
+DTYPE_LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRIES.values(), 0)
+
 #: Interior tile of one thread block, (x, y, z); z is contiguous. Must
 #: equal TX/TY/TZ in stencil_chain.cu (checked when the library loads).
 TILE = (8, 8, 32)
@@ -73,39 +107,77 @@ TILE = (8, 8, 32)
 #: Shared memory one block may use on Hopper (227 KB of the SM's 256).
 SMEM_LIMIT = 232_448
 
-#: Ping-pong window buffers per field.
+#: Ping-pong window buffers per field when the windows share one type.
 N_BUFFERS = 2
-
-_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launches() -> None:
-    """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES` and
-    :data:`MODEL_LAUNCHES` count to 0."""
+    """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES`,
+    :data:`MODEL_LAUNCHES` and :data:`DTYPE_LAUNCHES` count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for mode in MODE_LAUNCHES:
-        MODE_LAUNCHES[mode] = 0
+    for counts in (MODE_LAUNCHES, DTYPE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
     MODEL_LAUNCHES.clear()
 
 
+def compute_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """The kernel's compute dtype for fields of ``dtype`` (the
+    reference's ``_compute_dtype``): float32 for bfloat16, else the
+    dtype itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def mid_bf16_requested(dtype: torch.dtype) -> bool:
+    """Whether ``GS_MID_BF16=1`` stores the chain's mid windows as bf16
+    for fields of ``dtype``: only float32 fields, read exactly as the
+    reference's ``fused_step`` reads it."""
+    return env_raw("GS_MID_BF16") == "1" and dtype == torch.float32
+
+
+def mid_dtype_of(dtype: torch.dtype, mid_bf16: bool = False) -> torch.dtype:
+    """The dtype the chain's mid stages are stored in (the reference's
+    ``_mid_store_dtype``)."""
+    return torch.bfloat16 if mid_bf16 else dtype
+
+
 def smem_bytes(itemsize: int, fuse: int, n_fields: int = 2,
-               tile: Tuple[int, int, int] = TILE) -> int:
-    """Dynamic shared memory of one block at chain depth ``fuse``."""
+               tile: Tuple[int, int, int] = TILE,
+               mid_itemsize: Optional[int] = None) -> int:
+    """Dynamic shared memory of one block at chain depth ``fuse``: two
+    ping-pong windows of ``itemsize`` per field, or — when the mid
+    windows are narrower (``mid_itemsize``, ``GS_MID_BF16``) — one input
+    window of ``itemsize`` plus the mid windows the chain needs (none at
+    depth 1, one at depth 2, two deeper), as the reference's
+    ``_slab_fits`` counts them."""
     window = math.prod(t + 2 * fuse for t in tile)
-    return n_fields * N_BUFFERS * window * itemsize
+    if mid_itemsize is None or mid_itemsize == itemsize:
+        return n_fields * N_BUFFERS * window * itemsize
+    n_mid = min(fuse - 1, N_BUFFERS)
+    return n_fields * window * (itemsize + n_mid * mid_itemsize)
 
 
 def max_feasible_fuse(itemsize: int, n_fields: int = 2,
-                      limit: int = SMEM_LIMIT) -> int:
-    """Deepest chain whose windows fit in shared memory: 5 for float32
-    and 2 for float64 with two fields, 8 and 5 with one. The face modes
-    use the same window, so this also caps the x-chain and the
-    xy-chain."""
+                      limit: int = SMEM_LIMIT,
+                      mid_itemsize: Optional[int] = None) -> int:
+    """Deepest chain whose windows fit in shared memory: with two fields
+    8 for bfloat16, 5 for float32 (with or without bf16 mids) and 2 for
+    float64; with one field 12, 8 and 5. The face modes use the same
+    window, so this also caps the x-chain and the xy-chain."""
     k = 0
-    while smem_bytes(itemsize, k + 1, n_fields) <= limit:
+    while smem_bytes(itemsize, k + 1, n_fields,
+                     mid_itemsize=mid_itemsize) <= limit:
         k += 1
     return k
+
+
+def chain_cap(dtype: torch.dtype, n_fields: int = 2) -> int:
+    """:func:`max_feasible_fuse` for fields of ``dtype`` under the
+    current ``GS_MID_BF16`` setting."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    mid = 2 if mid_bf16_requested(dtype) else None
+    return max_feasible_fuse(itemsize, n_fields, mid_itemsize=mid)
 
 
 def pad_from_faces(x, xlo, xhi, ylo, yhi, zlo, zhi):
@@ -126,12 +198,42 @@ def _model(spec):
     return getattr(spec, "model", spec)
 
 
+def widen_params(params, dtype):
+    """``params`` with every scalar cast to ``dtype`` (exact for a
+    wider dtype), as the kernel reads its params vector."""
+    return type(params)(*(p.to(dtype) for p in params))
+
+
+def _stage(pads, params, spec, unit_at, *, use_noise, oracle, out_dtype):
+    """One stage on ghost-padded fields ``pads`` (in the stage input's
+    dtype): the Plain language's step, or with ``oracle`` the kernel's
+    (see the module doc). ``unit_at(dtype)`` draws the unit noise."""
+    dtype = pads[0].dtype
+    if oracle:
+        cdt = compute_dtype_of(dtype)
+        pads = tuple(p.to(cdt) for p in pads)
+        params = widen_params(params, cdt)
+        unit_dtype, acc = cdt, None
+    else:
+        pdt = params.noise.dtype
+        unit_dtype, acc = dtype, (None if pdt == dtype else pdt)
+    noise_term = (stencil.scaled_noise(params.noise, unit_at(unit_dtype))
+                  if use_noise else 0.0)
+    out = stencil.reaction_update(pads, noise_term, params, _model(spec),
+                                  compute_dtype=acc)
+    if oracle:
+        out = tuple(o.to(out_dtype or dtype) for o in out)
+    return out
+
+
 def plain_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
-               offsets=None, row=None):
+               offsets=None, row=None, oracle=False, out_dtype=None):
     """One step on interior-shaped fields in plain torch (the reference's
-    ``_xla_fallback``): pad with the frozen boundary, or with the 6n
-    ``faces`` of a sharded block, draw the step's noise at the block's
-    global ``offsets``, and apply :func:`~.stencil.reaction_update`."""
+    ``_xla_fallback``, or with ``oracle`` the kernel's computation, the
+    result in ``out_dtype``, by default the fields' dtype): pad with the
+    frozen boundary, or with the 6n ``faces`` of a sharded block, draw
+    the step's noise at the block's global ``offsets``, and apply
+    :func:`~.stencil.reaction_update`."""
     n_f = spec.n_fields
     if faces is None:
         pads = tuple(
@@ -148,42 +250,50 @@ def plain_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
             for i in range(n_f)
         )
     shape = fields[0].shape
-    if use_noise:
-        unit = uniform_pm1_block(
+
+    def unit_at(dtype):
+        return uniform_pm1_block(
             seeds[:2], seeds[2], offsets or (0, 0, 0), shape,
-            shape[2] if row is None else row, fields[0].dtype,
+            shape[2] if row is None else row, dtype,
             device=fields[0].device,
         )
-        noise_term = params.noise * unit
-    else:
-        noise_term = 0.0
-    return stencil.reaction_update(pads, noise_term, params, _model(spec))
+
+    return _stage(pads, params, spec, unit_at, use_noise=use_noise,
+                  oracle=oracle, out_dtype=out_dtype)
 
 
 def plain_chain(fields, params, seeds, *, spec, use_noise=True, fuse=1,
-                offsets=None, row=None):
-    """``fuse`` plain steps, step ``s`` seeded at ``seeds[2] + s``."""
+                offsets=None, row=None, oracle=False, mid_bf16=False):
+    """``fuse`` plain steps, step ``s`` seeded at ``seeds[2] + s``. With
+    ``oracle`` and ``mid_bf16`` (float32 fields), the first ``fuse - 1``
+    steps' results are stored as bf16, as the kernel's mid windows are
+    under ``GS_MID_BF16=1``."""
     fields = tuple(fields)
+    dtype = fields[0].dtype
+    mid = mid_dtype_of(dtype, mid_bf16)
     for s in range(fuse):
         fields = plain_step(
             fields, params, (seeds[0], seeds[1], seeds[2] + s), spec=spec,
-            use_noise=use_noise, offsets=offsets, row=row,
+            use_noise=use_noise, offsets=offsets, row=row, oracle=oracle,
+            out_dtype=dtype if s == fuse - 1 else mid,
         )
     return fields
 
 
 def plain_xchain(fields, params, seeds, faces, *, spec, fuse, use_noise,
-                 offsets, row):
+                 offsets, row, oracle=False, mid_bf16=False):
     """The x-chain in plain torch (the reference's
-    ``_xla_xchain_fallback``): ``fuse`` stages on the x-extended window
-    ``[lo face | block | hi face]``, y and z re-padded with the boundary
-    value each stage, and every mid-stage cell whose GLOBAL coordinate
-    (``offsets`` + local) lies outside ``[0, row)`` on any axis pinned to
-    it. The final stage is unpinned: the out-of-domain rows of a
-    y-extended operand hold computed values, as in the kernel."""
+    ``_xla_xchain_fallback``, or with ``oracle`` the kernel's
+    computation): ``fuse`` stages on the x-extended window ``[lo face |
+    block | hi face]``, y and z re-padded with the boundary value each
+    stage, and every mid-stage cell whose GLOBAL coordinate (``offsets``
+    + local) lies outside ``[0, row)`` on any axis pinned to it. The
+    final stage is unpinned: the out-of-domain rows of a y-extended
+    operand hold computed values, as in the kernel."""
     n_f = spec.n_fields
     nx, ny, nz = fields[0].shape
     dtype, device = fields[0].dtype, fields[0].device
+    mid = mid_dtype_of(dtype, mid_bf16)
     k = fuse
     wins = [
         torch.cat([faces[2 * i], fields[i], faces[2 * i + 1]], dim=0)
@@ -199,19 +309,19 @@ def plain_xchain(fields, params, seeds, faces, *, spec, fuse, use_noise,
     for s in range(k):
         m_out = k - 1 - s
         w_out = nx + 2 * m_out
-        if use_noise:
-            unit = uniform_pm1_block(
+
+        def unit_at(dt, s=s, m_out=m_out, w_out=w_out):
+            return uniform_pm1_block(
                 seeds[:2], seeds[2] + s,
                 (offsets[0] - m_out, offsets[1], offsets[2]),
-                (w_out, ny, nz), row, dtype, device=device,
+                (w_out, ny, nz), row, dt, device=device,
             )
-            noise_term = params.noise * unit
-        else:
-            noise_term = 0.0
-        wins = list(stencil.reaction_update(
+
+        wins = list(_stage(
             tuple(F.pad(w, (1, 1, 1, 1), value=bv)
                   for w, bv in zip(wins, spec.boundaries)),
-            noise_term, params, _model(spec),
+            params, spec, unit_at, use_noise=use_noise, oracle=oracle,
+            out_dtype=dtype if s == k - 1 else mid,
         ))
         if s == k - 1:
             break
@@ -274,8 +384,10 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     cover global ``[offsets[1], offsets[1] + ny)``; it must equal
     ``fuse``, and the launch counts as an ``xychain`` one.
 
-    CUDA tensors go through the kernel (or raise); CPU tensors through
-    the plain versions. Returns the new field tuple."""
+    CUDA tensors go through the kernel (or raise) at the fields' dtype
+    (float32, float64 or bfloat16; ``GS_MID_BF16=1`` selects bf16 mids
+    for float32); CPU tensors through the plain versions (the Plain
+    language). Returns the new field tuple."""
     fields = tuple(fields)
     n_f = spec.n_fields
     if len(fields) != n_f:
@@ -308,7 +420,8 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
         return plain_xchain(fields, params, seeds, faces, spec=spec,
                             fuse=fuse, use_noise=use_noise, offsets=offsets,
                             row=row)
-    cap = max_feasible_fuse(fields[0].element_size(), n_f)
+    mid_bf16 = mid_bf16_requested(fields[0].dtype)
+    cap = chain_cap(fields[0].dtype, n_f)
     if mode != "chain":
         if fuse > cap:
             raise ValueError(
@@ -318,14 +431,14 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
             )
         return _launch(fields, params, seeds, spec=spec, use_noise=use_noise,
                        fuse=fuse, offsets=offsets, row=row, faces=faces,
-                       mode=mode)
+                       mode=mode, mid_bf16=mid_bf16)
     step = int(seeds[2])
     done = 0
     while done < fuse:
         k = min(cap, fuse - done)
         fields = _launch(fields, params, (seeds[0], seeds[1], step + done),
                          spec=spec, use_noise=use_noise, fuse=k,
-                         offsets=offsets, row=row)
+                         offsets=offsets, row=row, mid_bf16=mid_bf16)
         done += k
     return fields
 
@@ -349,7 +462,7 @@ def _lib(spec):
             )
         lib.gs_error_string.argtypes = [ctypes.c_int]
         lib.gs_error_string.restype = ctypes.c_char_p
-        for suffix in _DTYPES.values():
+        for suffix in ENTRIES.values():
             fn = getattr(lib, f"gs_stencil_chain_{suffix}")
             fn.argtypes = (
                 [ctypes.c_void_p] * 5
@@ -371,16 +484,19 @@ def _pointers(tensors):
 
 
 def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
-            faces=None, mode="chain"):
+            faces=None, mode="chain", mid_bf16=False):
     """One launch of ``spec``'s generated kernel advancing ``fuse``
     steps (``fuse`` <= the ledger's cap) in ``mode``; returns the new
     field tuple."""
     global LAUNCHES
     first = fields[0]
     dtype = first.dtype
-    if dtype not in _DTYPES:
+    entry = ENTRIES.get((dtype, bool(mid_bf16)))
+    if entry is None:
         raise TypeError(
-            f"the CUDA kernel takes float32 or float64 fields, got {dtype}"
+            "the CUDA kernel takes float32, float64 or bfloat16 fields "
+            f"(bf16 mids for float32 only), got {dtype}"
+            + (" with bf16 mids" if mid_bf16 else "")
         )
     for f in fields:
         if (f.device != first.device or f.dtype != dtype
@@ -406,14 +522,17 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
                     f"{f.device} {f.dtype} for {first.device} {dtype}"
                 )
         face_ptrs = _pointers(faces)
+    # The params vector is at least float32, as the reference keeps its
+    # SMEM scalars: bf16 fields take float32 params (bf16-valued ones
+    # widen exactly) and compute in float32. One stack and at most one
+    # cast: the wrapper's launches are host time on every call.
     params_vec = torch.stack(
-        [getattr(params, f).to(device=first.device, dtype=dtype)
-         for f in spec.param_fields]
-    )
+        [getattr(params, f) for f in spec.param_fields]
+    ).to(device=first.device, dtype=compute_dtype_of(dtype))
     outs = tuple(torch.empty_like(f) for f in fields)
     bounds = (ctypes.c_double * spec.n_fields)(*spec.boundaries)
     lib = _lib(spec)
-    fn = getattr(lib, f"gs_stencil_chain_{_DTYPES[dtype]}")
+    fn = getattr(lib, f"gs_stencil_chain_{entry}")
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream(first.device).cuda_stream
@@ -433,10 +552,11 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
         msg = lib.gs_error_string(rc).decode()
         raise RuntimeError(
             f"stencil_chain launch failed (model={spec.name}, mode={mode}, "
-            f"fuse={fuse}, shape={tuple(first.shape)}, {dtype}): CUDA error "
-            f"{rc}: {msg}"
+            f"fuse={fuse}, shape={tuple(first.shape)}, {entry}): CUDA "
+            f"error {rc}: {msg}"
         )
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
+    DTYPE_LAUNCHES[entry] += 1
     MODEL_LAUNCHES[spec.name] = MODEL_LAUNCHES.get(spec.name, 0) + 1
     return outs

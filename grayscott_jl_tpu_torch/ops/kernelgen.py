@@ -16,7 +16,11 @@ this module emits the reaction into it:
    noise, a parameter, a constant or an earlier op. The program is
    traced once per dtype, so a constant such as FHN's
    ``v.new_tensor(1/3)`` holds the value the reaction computes at that
-   dtype.
+   dtype. bfloat16 fields run the float32 program (:data:`DTYPES`): the
+   kernel computes them in float32, as the reference traces the
+   reaction on its float32 compute values, so there FHN's constant is
+   the float32 1/3 (the bf16 one only on the Plain language's bf16
+   path).
 2. **Gate.** :func:`generation_gate_reason` refuses a reaction that
    fails to trace, returns the wrong number or shape of derivatives, or
    calls a torch op outside the elementwise whitelist — the reference's
@@ -67,7 +71,8 @@ GENERATOR_VERSION = 1
 #: Shape of the dummies the reaction is traced over (the reference's).
 TRACE_SHAPE = (4, 4, 4)
 
-#: Dtypes a program is emitted for, with their C++ type names.
+#: Dtypes a program is emitted for, with their C++ type names; bfloat16
+#: fields compute with the float32 program.
 DTYPES = {"float32": "float", "float64": "double"}
 
 #: torch op (as ``__torch_function__`` sees it, dunders stripped; an

@@ -41,16 +41,43 @@ def laplacian(padded: torch.Tensor) -> torch.Tensor:
     return total * inv6 - center
 
 
+def scaled_noise(noise, unit: torch.Tensor) -> torch.Tensor:
+    """``noise * unit`` in the dtype JAX promotes the pair to: torch
+    keeps a dimensioned tensor's dtype against a 0-dim one, so a
+    float32 ``noise`` times a bfloat16 ``unit`` would round the product
+    to bfloat16, where the reference widens ``unit`` and multiplies in
+    float32. Matching dtypes (float32, float64, pure bfloat16) multiply
+    as they are."""
+    return noise * unit.to(torch.promote_types(noise.dtype, unit.dtype))
+
+
 def reaction_update(
     fields_pad: Sequence[torch.Tensor],
     noise_term,
     params,
     model,
+    compute_dtype=None,
 ) -> Tuple[torch.Tensor, ...]:
     """One explicit-Euler step of ``model`` on ghost-padded fields:
     ``f_i' = f_i + d_i * dt`` with ``(d_1..d_n) = model.reaction(...)``.
-    ``noise_term`` is the pre-scaled noise field (or ``0.0``)."""
+    ``noise_term`` is the pre-scaled noise field (or ``0.0``).
+
+    ``compute_dtype`` (the ``bf16_f32acc`` posture) widens the
+    accumulation: the padded fields and the noise term are cast to it
+    once, the step runs at that dtype, and the result rounds back to the
+    fields' dtype once. ``None`` or the fields' own dtype casts
+    nothing."""
+    store_dtype = fields_pad[0].dtype
+    if compute_dtype is not None and compute_dtype != store_dtype:
+        fields_pad = tuple(f.to(compute_dtype) for f in fields_pad)
+        if isinstance(noise_term, torch.Tensor):
+            noise_term = noise_term.to(compute_dtype)
+    else:
+        compute_dtype = None
     fields = tuple(f[1:-1, 1:-1, 1:-1] for f in fields_pad)
     laps = tuple(laplacian(f) for f in fields_pad)
     derivs = model.reaction(fields, laps, noise_term, params)
-    return tuple(f + d * params.dt for f, d in zip(fields, derivs))
+    out = tuple(f + d * params.dt for f, d in zip(fields, derivs))
+    if compute_dtype is not None:
+        out = tuple(f.to(store_dtype) for f in out)
+    return out

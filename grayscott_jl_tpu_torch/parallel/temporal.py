@@ -35,6 +35,7 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from ..ops import stencil
 from . import halo
 from .mesh import DeviceMesh
 
@@ -58,7 +59,7 @@ def pin_out_of_domain(arr: torch.Tensor, bv: float, origin,
 
 def window_chain(fields_w, params, model, *, depth, step, origin, row,
                  use_noise, unit_noise, boundaries: Sequence[float],
-                 final_pin: bool = True):
+                 final_pin: bool = True, compute_dtype=None):
     """``depth`` plain steps on ghost-inclusive field windows, shrinking
     one cell per side per stage; returns the (shape - 2*depth) cores.
 
@@ -68,22 +69,22 @@ def window_chain(fields_w, params, model, *, depth, step, origin, row,
     ``unit_noise(step, origin, shape, device)`` draws the
     position-keyed noise.
     ``final_pin=False`` skips the last stage's pin, legal when every
-    output cell is in the domain. Same operations in the same order as
-    the kernel, so a band computed here sits next to kernel cells
-    seamlessly."""
-    from ..ops import stencil
-
+    output cell is in the domain. ``compute_dtype`` is
+    :func:`~..ops.stencil.reaction_update`'s (``bf16_f32acc``): each
+    stage accumulates in it and rounds back to the storage dtype. Same
+    operations in the same order as the kernel, so a band computed here
+    sits next to kernel cells seamlessly."""
     fields_w = tuple(fields_w)
     for s in range(depth):
         shape = tuple(d - 2 for d in fields_w[0].shape)
         o = tuple(int(c) + s + 1 for c in origin)
         if use_noise:
-            noise_term = params.noise * unit_noise(
-                step + s, o, shape, fields_w[0].device)
+            noise_term = stencil.scaled_noise(params.noise, unit_noise(
+                step + s, o, shape, fields_w[0].device))
         else:
             noise_term = 0.0
         fields_w = stencil.reaction_update(fields_w, noise_term, params,
-                                           model)
+                                           model, compute_dtype)
         if s + 1 < depth or final_pin:
             fields_w = tuple(
                 pin_out_of_domain(f, bv, o, row)
@@ -95,7 +96,8 @@ def window_chain(fields_w, params, model, *, depth, step, origin, row,
 def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
                             step, offs, row, axis_sizes, use_noise,
                             unit_noise, boundaries: Sequence[float],
-                            dims_to_stitch: Sequence[int] = (0, 1, 2)):
+                            dims_to_stitch: Sequence[int] = (0, 1, 2),
+                            compute_dtype=None):
     """Overwrite the ``depth``-thick boundary bands of one block's
     results ``fields_i`` with :func:`window_chain` recomputes from its
     exchanged corner-propagated frame ``fields_w``
@@ -103,7 +105,8 @@ def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
     from a 3k-deep frame window spanning the frame's full extent on the
     other axes, so corner cells in two bands get the same values twice.
     Axes with a single block, or not in ``dims_to_stitch``, are skipped.
-    ``offs`` is the block's global origin. Returns new tensors."""
+    ``offs`` is the block's global origin; ``compute_dtype`` is
+    :func:`window_chain`'s. Returns new tensors."""
     k = depth
     fields_i = [f.clone() for f in fields_i]
     base = [int(o) - k for o in offs]  # global origin of the frame
@@ -119,7 +122,7 @@ def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
                 tuple(f.narrow(dim, w0, 3 * k) for f in fields_w), params,
                 model, depth=k, step=step, origin=origin, row=row,
                 use_noise=use_noise, unit_noise=unit_noise,
-                boundaries=boundaries,
+                boundaries=boundaries, compute_dtype=compute_dtype,
             )
             for fi, b in zip(fields_i, bands):
                 fi.narrow(dim, d0, k).copy_(b)
@@ -128,13 +131,17 @@ def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
 
 def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
              chain_kernel: Callable, use_noise, unit_noise, row,
-             mesh: DeviceMesh, boundaries: Sequence[float]) -> List[tuple]:
+             mesh: DeviceMesh, boundaries: Sequence[float],
+             compute_dtype=None) -> List[tuple]:
     """``depth`` fused steps on every block of an (n, m, p) mesh: the
     kernel's chain crosses x and y block boundaries, and sharded z sides
     get the band recompute. ``blocks`` is every block's field tuple
     (rank order), ``offsets`` their global origins, ``params_of(rank)``
     the params on that block's device.
 
+    ``params_of``, ``unit_noise`` and ``compute_dtype`` serve the z-band
+    recompute (:func:`stitch_bands_from_frame`): the caller passes the
+    kernel's posture there, so the bands equal the kernel's cells.
     ``chain_kernel(rank, fields_p, faces, step, offs_p)`` runs the
     kernel (or its plain version) at ``fuse=depth`` on one block's
     y-extended operand: ``fields_p`` are ``(nx, ny + 2k, nz)`` with rows
@@ -198,6 +205,7 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
                 step=step, offs=offs, row=row, axis_sizes=dims,
                 use_noise=use_noise, unit_noise=unit_noise,
                 boundaries=bvs, dims_to_stitch=(2,),
+                compute_dtype=compute_dtype,
             )
         out.append(res)
     return out

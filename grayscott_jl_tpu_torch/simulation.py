@@ -22,7 +22,15 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
   xy-chain on the others at depth k >= 2, or the plain halo-padded step
   and window chain. It never waits for the device.
 * :meth:`Simulation.get_fields` / :meth:`Simulation.snapshot` copy the
-  fields to the host; :meth:`Simulation.restore_fields` loads them back.
+  fields to the host (bfloat16 fields as float32 arrays holding the bf16
+  values; the snapshot quantizes coded fields on the device first);
+  :meth:`Simulation.restore_fields` loads them back.
+* Precision: ``precision`` gives the storage dtype; under
+  ``compute_precision = "bf16_f32acc"`` a Float32 run stores bfloat16
+  and accumulates in float32 (``compute_dtype``). The params live at the
+  compute dtype. The kernel computes bfloat16 fields in float32 either
+  way; the plain path computes in the params' dtype, as the reference's
+  XLA path does.
 
 The noise key is the integer pair ``(0, seed)``: the int32 words of the
 reference's ``jax.random.PRNGKey(seed)``, so a seed draws the same
@@ -42,6 +50,8 @@ import torch
 from .config import settings as config
 from .config.env import env_str
 from .config.settings import Settings
+from .io.codec import (BoundaryBlocks, EncodedField, device_quantize,
+                       resolve_snapshot_codec)
 from .models import SettingsError
 from .ops import cuda_stencil, kernelgen, stencil
 from .ops.noise import uniform_pm1_block
@@ -57,11 +67,11 @@ from .parallel.mesh import DeviceMesh, select_devices
 MEASURED_BEST_FUSE = 1
 
 
-def default_fuse(dtype, device) -> int:
+def default_fuse(dtype, device, n_fields: int = 2) -> int:
     """Temporal-blocking depth of the kernel path: ``GS_FUSE`` when set,
     else on the card :data:`MEASURED_BEST_FUSE` within the shared-memory
-    ledger's cap for ``dtype``, and 2 on the CPU (the reference's
-    off-chip depth)."""
+    ledger's cap for ``dtype`` (and ``GS_MID_BF16``), and 2 on the CPU
+    (the reference's off-chip depth)."""
     v = env_str("GS_FUSE", "")
     if v:
         try:
@@ -71,9 +81,8 @@ def default_fuse(dtype, device) -> int:
                 f"GS_FUSE must be a positive integer, got {v!r}"
             ) from e
     if torch.device(device).type == "cuda":
-        itemsize = torch.empty((), dtype=dtype).element_size()
         return min(MEASURED_BEST_FUSE,
-                   cuda_stencil.max_feasible_fuse(itemsize))
+                   cuda_stencil.chain_cap(dtype, n_fields))
     return 2
 
 
@@ -142,11 +151,27 @@ class Simulation:
         _, lang = config.load_backend_and_lang(settings)
         kind = config.resolve_device(settings).type
         self.dtype = config.resolve_precision(settings)
+        #: The mixed-precision posture ("f32", "bf16_f32acc" or
+        #: "equality"); under bf16_f32acc the fields are stored bf16 and
+        #: the params (and the plain path's accumulation) stay float32.
+        self.compute_precision = config.resolve_compute_precision(settings)
+        self.compute_dtype = self.dtype
+        if self.compute_precision == "bf16_f32acc":
+            self.dtype = torch.bfloat16
+        #: The lossy snapshot codec, resolved here so that a bad spec (an
+        #: unknown field, equality with a codec) fails at construction.
+        self.snapshot_codec = resolve_snapshot_codec(
+            settings, self.model.field_names)
         #: The kernel path (``"cuda"`` or ``"plain"``) and, under
         #: ``Auto``, the decision's provenance (None for a language the
         #: user pinned), as the reference records it.
         self.kernel_language, self.kernel_selection = select_kernel(
             self.model, settings.kernel_language, lang)
+        if isinstance(self.kernel_selection, dict):
+            self.kernel_selection["compute_precision"] = (
+                self.compute_precision)
+            self.kernel_selection["snapshot_codec"] = (
+                self.snapshot_codec.posture())
         devices = select_devices(kind, n_devices, devices)
         self.domain = CartDomain.create(len(devices), settings.L,
                                         dims=mesh_dims)
@@ -157,9 +182,10 @@ class Simulation:
         #: declaration itself.
         self.spec = (kernelgen.get_spec(self.model)
                      if self.kernel_language == "cuda" else self.model)
-        self.fuse = default_fuse(self.dtype, self.device)
+        self.fuse = default_fuse(self.dtype, self.device,
+                                 self.model.n_fields)
         self._params = {
-            d: self.model.make_params(settings, self.dtype, d)
+            d: self.model.make_params(settings, self.compute_dtype, d)
             for d in dict.fromkeys(devices)
         }
         self.params = self._params[self.device]
@@ -287,10 +313,24 @@ class Simulation:
             return blocks
 
         if self.kernel_language == "cuda":
-            cap = cuda_stencil.max_feasible_fuse(
-                torch.empty((), dtype=self.dtype).element_size(),
-                spec.n_fields,
-            )
+            cap = cuda_stencil.chain_cap(self.dtype, spec.n_fields)
+            # The z-band recompute of the xy-chain in the posture of what
+            # runs the chain: on the card the kernel's (params and noise
+            # unit at its compute dtype, one rounding per stage), on the
+            # CPU the plain version's, so the bands equal its cells.
+            band_params_of, band_unit_noise = self._params_of, unit_noise
+            band_dtype = self.compute_dtype
+            if self.device.type == "cuda":
+                band_dtype = cuda_stencil.compute_dtype_of(self.dtype)
+
+                def band_params_of(rank):
+                    return cuda_stencil.widen_params(self._params_of(rank),
+                                                      band_dtype)
+
+                def band_unit_noise(step_idx, origin, shape, device):
+                    return uniform_pm1_block(self.base_key, step_idx, origin,
+                                             shape, L, band_dtype,
+                                             device=device)
 
             def faces_round(blocks, step):
                 faces = halo.exchange_faces(blocks, bvs, mesh)
@@ -346,26 +386,29 @@ class Simulation:
                     )
 
                 return pin_blocks(temporal.xy_chain(
-                    blocks, self._params_of, self.model, depth=depth,
+                    blocks, band_params_of, self.model, depth=depth,
                     step=step, offsets=self.offsets,
                     chain_kernel=chain_kernel, use_noise=self.use_noise,
-                    unit_noise=unit_noise, row=L, mesh=mesh,
-                    boundaries=bvs,
+                    unit_noise=band_unit_noise, row=L, mesh=mesh,
+                    boundaries=bvs, compute_dtype=band_dtype,
                 ))
 
             return run_chain_rounds(chain, fuse, blocks)
 
         # ---- plain path ----
+        cdt = self.compute_dtype
         if nsteps < 2:
             pads = halo.halo_pad(blocks, bvs, mesh)
             out = []
             for r, fp in enumerate(pads):
                 noise_term = 0.0
                 if self.use_noise:
-                    noise_term = self._params_of(r).noise * unit_noise(
-                        step0, self.offsets[r], local, fp[0].device)
+                    noise_term = stencil.scaled_noise(
+                        self._params_of(r).noise,
+                        unit_noise(step0, self.offsets[r], local,
+                                   fp[0].device))
                 out.append(stencil.reaction_update(
-                    fp, noise_term, self._params_of(r), self.model))
+                    fp, noise_term, self._params_of(r), self.model, cdt))
             return pin_blocks(out)
 
         # One width-k exchange feeds k steps: each stage recomputes on a
@@ -381,7 +424,7 @@ class Simulation:
                     step=step,
                     origin=tuple(o - depth for o in self.offsets[r]),
                     row=L, use_noise=self.use_noise, unit_noise=unit_noise,
-                    boundaries=bvs, final_pin=padded,
+                    boundaries=bvs, final_pin=padded, compute_dtype=cdt,
                 )
                 for r, fw in enumerate(frames)
             ]
@@ -403,31 +446,68 @@ class Simulation:
 
     def get_fields(self) -> Tuple[np.ndarray, ...]:
         """Host copies of the model's fields (declaration order), the
-        blocks assembled and clipped to the true ``L^3`` domain."""
+        blocks assembled and clipped to the true ``L^3`` domain; bfloat16
+        fields come back as float32 arrays holding their values (numpy
+        has no bfloat16)."""
         if not self.sharded:
-            return tuple(f.cpu().numpy() for f in self.blocks[0])
+            return tuple(_host(f) for f in self.blocks[0])
         L = self.settings.L
         storage = self.domain.storage_shape
-        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
-        out = [np.empty(storage, dtype=np_dtype) for _ in self.blocks[0]]
+        out = [np.empty(storage, dtype=_host_dtype(self.dtype))
+               for _ in self.blocks[0]]
         for offs, fields in zip(self.offsets, self.blocks):
             for o, f in zip(out, fields):
                 o[tuple(slice(s, s + n) for s, n in zip(offs, f.shape))] = (
-                    f.cpu().numpy())
+                    _host(f))
         return tuple(o[:L, :L, :L] for o in out)
 
-    def snapshot(self):
+    def snapshot(self, encode=None, exact: bool = True) -> BoundaryBlocks:
         """Host blocks ``[(offsets, sizes, *fields)]`` for the output and
         checkpoint stores: one per block, each clipped to the true
-        domain (a non-divisible L stores pad cells past L)."""
+        domain (a non-divisible L stores pad cells past L); bfloat16
+        fields as float32 arrays holding their values.
+
+        ``encode`` (``{field index: bits}``, the lossy snapshot codec)
+        quantizes those fields on the device, with the global range over
+        every block's storage (:func:`~.io.codec.device_quantize`), and
+        puts the codec form on the result's ``encoded`` (coded fields as
+        :class:`~.io.codec.EncodedField`); ``exact=False`` skips the
+        exact copies (a boundary whose targets all take the codec
+        form)."""
+        if not exact and not encode:
+            raise ValueError("snapshot(exact=False) needs an encode spec")
         L = self.settings.L
-        out = []
+        clips = []
         for offs, fields in zip(self.offsets, self.blocks):
             true = tuple(min(L - o, s) for o, s in zip(offs,
                                                        fields[0].shape))
-            sl = tuple(slice(0, t) for t in true)
-            out.append((offs, true)
-                       + tuple(f.cpu().numpy()[sl] for f in fields))
+            clips.append((offs, true, tuple(slice(0, t) for t in true)))
+        out = BoundaryBlocks(
+            [(offs, true) + tuple(_host(f)[sl] for f in fields)
+             for (offs, true, sl), fields in zip(clips, self.blocks)]
+            if exact else [])
+        if encode:
+            coded = {}
+            for i, bits in encode.items():
+                qs, lo, hi = device_quantize([b[i] for b in self.blocks],
+                                             bits)
+                coded[i] = (bits, qs, lo, hi)
+            enc = []
+            for r, ((offs, true, sl), fields) in enumerate(
+                    zip(clips, self.blocks)):
+                entries = []
+                for i, f in enumerate(fields):
+                    if i not in coded:
+                        entries.append(_host(f)[sl])
+                        continue
+                    bits, qs, lo, hi = coded[i]
+                    q = qs[r].cpu().numpy()
+                    if bits > 8:
+                        q = q.view(np.uint16)
+                    entries.append(EncodedField(q[sl], lo, hi, bits,
+                                                self.dtype))
+                enc.append((offs, true) + tuple(entries))
+            out.encoded = enc
         return out
 
     def restore_fields(self, fields, step: int) -> None:
@@ -478,6 +558,20 @@ class Simulation:
         for d in dict.fromkeys(self.mesh.devices):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
+
+
+def _host_dtype(dtype):
+    """The numpy dtype of a field's host copy: float32 for bfloat16."""
+    return np.float32 if dtype == torch.bfloat16 else (
+        torch.empty((), dtype=dtype).numpy().dtype)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A field tensor as a host array (bfloat16 widened exactly to
+    float32 after the copy, so only two bytes a cell cross to the
+    host)."""
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def initialization(args, *, n_devices: Optional[int] = None, seed: int = 0):

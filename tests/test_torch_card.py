@@ -381,3 +381,153 @@ def test_sharded_run_across_cards_equals_single_block(dims, fuse,
     assert placed == [d for d in devices for _ in range(2)]
     for a, b in zip(single.get_fields(), mesh.get_fields()):
         assert (a == b).all()
+
+
+# ------------------------------------------------------------- bfloat16
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grayscott", "brusselator", "fhn", "heat"])
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("noise", [0.0, 0.1])
+def test_bf16_kernel_equals_oracle_in_every_mode(name, pdtype, noise):
+    """bf16 fields (bf16 params: ``BFloat16``; float32 params:
+    ``bf16_f32acc``) in every mode, the chain at every depth up to the
+    ledger's cap (8 for two fields, 12 for one), bitwise equal to the
+    oracle form of the plain version, every launch on the bf16 entry."""
+    _card()
+    spec, params = _model_case(name, pdtype, noise)
+    use = noise != 0
+    n = spec.n_fields
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    cuda_stencil.reset_launches()
+    L, steps = 20, 12
+    f0 = tuple(rand((L, L, L)) for _ in range(n))
+    want = cuda_stencil.plain_chain(f0, params, (0, 2, 0), spec=spec,
+                                    use_noise=use, fuse=steps, oracle=True)
+    cap = cuda_stencil.chain_cap(torch.bfloat16, n)
+    assert cap == (8 if n == 2 else 12)
+    deep = cuda_stencil.fused_step(f0, params, (0, 2, 0), spec=spec,
+                                   use_noise=use, fuse=steps)
+    assert all(torch.equal(a, b) for a, b in zip(deep, want))
+    for fuse in range(1, cap + 1):
+        got = f0
+        for done in range(0, steps, fuse):
+            got = cuda_stencil.fused_step(
+                got, params, (0, 2, done), spec=spec, use_noise=use,
+                fuse=min(fuse, steps - done))
+        torch.cuda.synchronize()
+        assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                   for a, b in zip(got, want)), (name, fuse)
+    shape = (12, 10, 36)
+    nx, ny, nz = shape
+    f = tuple(rand(shape) for _ in range(n))
+    faces = tuple(rand(x) for x in [(1, ny, nz)] * (2 * n)
+                  + [(nx, 1, nz)] * (2 * n) + [(nx, ny, 1)] * (2 * n))
+    a = cuda_stencil.fused_step(f, params, (0, 1, 4), faces, spec=spec,
+                                use_noise=use, offsets=(12, 10, 0), row=48)
+    b = cuda_stencil.plain_step(f, params, (0, 1, 4), faces, spec=spec,
+                                use_noise=use, offsets=(12, 10, 0), row=48,
+                                oracle=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), (name, "faces6")
+    for k in range(2, cap + 1):
+        for y_halo, offs in ((0, (12, 0, 0)), (k, (12, -k, 0))):
+            faces = tuple(rand((k, ny, nz)) for _ in range(2 * n))
+            a = cuda_stencil.fused_step(
+                f, params, (0, 1, 4), faces, spec=spec, use_noise=use,
+                fuse=k, offsets=offs, row=30, y_halo=y_halo)
+            b = cuda_stencil.plain_xchain(
+                f, params, (0, 1, 4), faces, spec=spec, use_noise=use,
+                fuse=k, offsets=offs, row=30, oracle=True)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (name, k)
+    assert cuda_stencil.DTYPE_LAUNCHES["bf16"] == cuda_stencil.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [0.0, 0.1])
+def test_mid_bf16_chain_equals_oracle(noise, monkeypatch):
+    """``GS_MID_BF16=1``: the float32 chain with bf16 mid windows at
+    depth 2..5 and the xy-chain operand, bitwise equal to the oracle;
+    the exact chain is restored once the variable is unset."""
+    _card()
+    params = grayscott.MODEL.make_params(Settings(noise=noise, **KW),
+                                         torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f0 = tuple(torch.rand((24, 24, 24), generator=gen, device="cuda")
+               for _ in range(2))
+    monkeypatch.setenv("GS_MID_BF16", "1")
+    cap = cuda_stencil.chain_cap(torch.float32)
+    assert cap == 5
+    cuda_stencil.reset_launches()
+    for fuse in range(2, cap + 1):
+        got = cuda_stencil.fused_step(f0, params, (0, 2, 3), spec=SPEC,
+                                      use_noise=noise != 0, fuse=fuse)
+        want = cuda_stencil.plain_chain(f0, params, (0, 2, 3), spec=SPEC,
+                                        use_noise=noise != 0, fuse=fuse,
+                                        oracle=True, mid_bf16=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), fuse
+    shape = (12, 14, 36)
+    f = tuple(torch.rand(shape, generator=gen, device="cuda")
+              for _ in range(2))
+    faces = _faces(shape, torch.float32, gen, "xchain", 2)
+    a = cuda_stencil.fused_step(f, params, (0, 1, 4), faces, spec=SPEC,
+                                use_noise=noise != 0, fuse=2,
+                                offsets=(12, -2, 0), row=30, y_halo=2)
+    b = cuda_stencil.plain_xchain(f, params, (0, 1, 4), faces, spec=SPEC,
+                                  use_noise=noise != 0, fuse=2,
+                                  offsets=(12, -2, 0), row=30, oracle=True,
+                                  mid_bf16=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert cuda_stencil.DTYPE_LAUNCHES["f32_mid_bf16"] == cap
+    monkeypatch.delenv("GS_MID_BF16")
+    exact = cuda_stencil.fused_step(f0, params, (0, 2, 3), spec=SPEC,
+                                    use_noise=noise != 0, fuse=3)
+    plain = cuda_stencil.plain_chain(f0, params, (0, 2, 3), spec=SPEC,
+                                     use_noise=noise != 0, fuse=3)
+    assert all(torch.equal(x, y) for x, y in zip(exact, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("posture", ["BFloat16", "bf16_f32acc"])
+@pytest.mark.parametrize("dims,fuse,mode", [
+    ((2, 2, 2), "1", "faces6"), ((4, 1, 1), "2", "xchain"),
+    ((2, 2, 2), "2", "xychain"), ((2, 2, 1), "3", "xychain"),
+])
+def test_bf16_sharded_on_one_card_equals_single_block(posture, dims, fuse,
+                                                      mode, monkeypatch):
+    """A bf16 mesh's blocks all on cuda:0, every round on the bf16 entry
+    point (the z bands in the kernel's posture), bitwise equal to the
+    single block."""
+    _card()
+    monkeypatch.setenv("GS_FUSE", fuse)
+    from grayscott_jl_tpu_torch import Simulation
+
+    prec = (dict(precision="BFloat16") if posture == "BFloat16" else
+            dict(precision="Float32", compute_precision="bf16_f32acc"))
+    s = Settings(L=24, noise=0.1, backend="CUDA", **prec, **KW)
+    single = Simulation(s, n_devices=1, seed=2)
+    n = dims[0] * dims[1] * dims[2]
+    mesh = Simulation(s, seed=2, mesh_dims=dims, devices=["cuda:0"] * n)
+    cuda_stencil.reset_launches()
+    mesh.iterate(12)
+    assert cuda_stencil.MODE_LAUNCHES[mode] == n * (12 // int(fuse))
+    assert cuda_stencil.DTYPE_LAUNCHES["bf16"] == cuda_stencil.LAUNCHES
+    single.iterate(12)
+    for a, b in zip(single.get_fields(), mesh.get_fields()):
+        assert (a == b).all()
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_other_dtypes_on_card():
+    _card()
+    params = grayscott.MODEL.make_params(Settings(**KW), torch.float32,
+                                         "cuda")
+    f = tuple(torch.rand((8, 8, 8), device="cuda", dtype=torch.float16)
+              for _ in range(2))
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_stencil.fused_step(f, params, (0, 0, 0), spec=SPEC)

@@ -247,18 +247,33 @@ def test_kernel_language_mapping(lang, path):
     assert config.load_backend_and_lang(s) == ("cpu", path)
 
 
-def test_bfloat16_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        Simulation(Settings(L=8, backend="CPU", precision="BFloat16"))
-    with pytest.raises(SettingsError):
+def test_unsupported_precision_raises():
+    with pytest.raises(SettingsError, match="Float16"):
         config.resolve_precision(Settings(precision="Float16"))
 
 
+@pytest.mark.parametrize("key,value,dtype", [
+    ("precision", "BFloat16", torch.bfloat16),
+    ("compute_precision", "bf16_f32acc", torch.bfloat16),
+    ("snapshot_bits", "8", torch.float32),
+    ("snapshot_bits_ckpt", True, torch.float32),
+])
+def test_precision_settings_run(key, value, dtype):
+    """The settings that raised before the bf16 path was ported now run:
+    the fields take the posture's storage dtype and stay finite."""
+    s = dataclasses.replace(Settings(L=8, backend="CPU", noise=0.1,
+                                     precision="Float32", **GS),
+                            **{key: value})
+    sim = Simulation(s)
+    sim.iterate(3)
+    assert all(f.dtype == dtype and torch.isfinite(f).all()
+               for f in sim.blocks[0])
+
+
 @pytest.mark.parametrize("key,value", [
-    ("compute_precision", "bf16_f32acc"), ("halo_depth", 2),
-    ("autotune", "quick"), ("snapshot_bits", "8"),
-    ("snapshot_bits_ckpt", True), ("supervise", True),
+    ("halo_depth", 2), ("autotune", "quick"), ("supervise", True),
     ("faults", "step=3:kind=nan"), ("numerics", "boundary"),
+    ("watchdog", "on"), ("xstats", "on"),
 ])
 def test_unported_keys_raise_at_construction(key, value):
     s = dataclasses.replace(Settings(L=8, backend="CPU"), **{key: value})
