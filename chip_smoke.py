@@ -72,7 +72,19 @@ Phases, each of which stops the run on failure:
    halo exchange timed on its own; then row 1f: the bf16 kernel at
    L=256 depth 1 and each bf16 face mode (bound: 2 B a cell a field),
    and the float32 chain with bf16 mids at depth 2..5 beside the exact
-   float32 chain, interleaved.
+   float32 chain, interleaved;
+6. the envelope probes (``ops/envelope.py``, built into Gray-Scott's
+   second library in phase 2): the copy walk equal to its input bitwise
+   at L = 256 and (20,24,40), depth 1..5; the compute walk and its six
+   variants equal to their plain versions bitwise on the defined tile
+   (and the default to the production chain's tile (0,0,0)) at the same
+   shapes, depths and noise 0 and 0.1; then the probe's entry point,
+   ``probes/envelope_probe.main``, at L=256 noise 0.1, depth 1 and 2
+   with the variants (``GS_PROBE_COMPUTE_VARIANTS=1``), depth 3..5, and
+   L=512 depth 1, each with the launch counts set to 0 just before and
+   read just after (one launch per pass of each probe case); the probe
+   kernels' device times under the profiler and their plain versions'
+   times at L=256 depth 1.
 
 Prints the kernels' JSON line, then the ``nvidia-smi`` line, then the
 result line ``{"ok": true, "device": {...}}`` last; writes the full
@@ -113,7 +125,15 @@ REPLACES = {
     "generated": "grayscott_jl_tpu/ops/kernelgen.py:136",
     "bf16": "grayscott_jl_tpu/ops/pallas_stencil.py:173",
     "mid_bf16": "grayscott_jl_tpu/ops/pallas_stencil.py:181",
+    "dma_walk": "benchmarks/envelope_probe.py:164",
+    "compute_walk": "benchmarks/envelope_probe.py:400",
 }
+
+#: The envelope probe's runs in phase 6: (L, depth, with the variants).
+PROBE_RUNS = ((MAIN_L, 1, True), (MAIN_L, 2, True), (MAIN_L, 3, False),
+              (MAIN_L, 4, False), (MAIN_L, 5, False), (512, 1, False))
+PROBE_STEPS = 20
+PROBE_ROUNDS = 3
 
 #: Gray-Scott's physics in the kernel checks and its main path.
 GS_PHYSICS = dict(F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0)
@@ -1425,6 +1445,168 @@ def phase_sharded_times(torch, gs, report):
     return row
 
 
+def phase_envelope_parity(torch, cuda_stencil, spec, report):
+    """The copy walk against its input and every compute-walk variant
+    against its plain version, bitwise, at L=256 and (20,24,40), depth
+    1..cap, noise 0 and 0.1; the default compute walk also against the
+    production chain's tile (0,0,0). Returns the worst |diff| per
+    kernel."""
+    from grayscott_jl_tpu_torch.ops import envelope
+    from grayscott_jl_tpu_torch.probes import envelope_probe
+
+    cap = cuda_stencil.max_feasible_fuse(4)
+    worst = dict.fromkeys(("copy_walk",) + envelope.VARIANTS, 0.0)
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def diff(got, want):
+        return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+    for shape in ((MAIN_L,) * 3, (20, 24, 40)):
+        f = tuple(torch.rand(shape, generator=gen, device="cuda")
+                  for _ in range(2))
+        cut = envelope.defined_tile(shape)
+        for fuse in range(1, cap + 1):
+            got = envelope.copy_walk(f, fuse=fuse)
+            torch.cuda.synchronize()
+            err = diff(got, f)
+            worst["copy_walk"] = max(worst["copy_walk"], err)
+            check(all(torch.equal(a, b) for a, b in zip(got, f)),
+                  f"copy_walk != its input: {shape} fuse={fuse}, max |diff| "
+                  f"{err}")
+            rows.append(["copy_walk", list(shape), None, fuse, err])
+        for noise in (0.0, 0.1):
+            params = envelope_probe.make_params(noise, "cuda")
+            for fuse in range(1, cap + 1):
+                seeds = (1, 2, 3 * fuse)
+                chain = cuda_stencil.fused_step(
+                    f, params, seeds, spec=spec, use_noise=noise != 0,
+                    fuse=fuse)
+                for variant in envelope.VARIANTS:
+                    got = envelope.compute_walk(
+                        f, params, seeds, spec=spec, fuse=fuse,
+                        use_noise=noise != 0, variant=variant)
+                    want = envelope.plain_compute_walk(
+                        f, params, seeds, spec=spec, fuse=fuse,
+                        use_noise=noise != 0, variant=variant)
+                    torch.cuda.synchronize()
+                    tile = tuple(a[cut] for a in got)
+                    err = diff(tile, want)
+                    worst[variant] = max(worst[variant], err)
+                    check(all(torch.isfinite(a).all().item() for a in tile)
+                          and all(torch.equal(a, b)
+                                  for a, b in zip(tile, want)),
+                          f"compute_walk {variant} != plain: {shape} "
+                          f"fuse={fuse} noise={noise}, max |diff| {err}")
+                    if variant == "chain":
+                        check(all(torch.equal(a, b[cut])
+                                  for a, b in zip(tile, chain)),
+                              f"compute_walk != the production chain's tile "
+                              f"(0,0,0): {shape} fuse={fuse} noise={noise}")
+                    rows.append([variant, list(shape), noise, fuse, err])
+    log(f"  copy_walk bitwise equal to its input, the compute walk and its "
+        f"six variants bitwise equal to their plain versions (the default "
+        f"also to the production chain's tile (0,0,0)): L={MAIN_L} and "
+        f"(20,24,40), fuse 1..{cap}, noise 0/0.1")
+    report["envelope_parity"] = rows
+    return worst
+
+
+def phase_envelope(torch, cuda_stencil, spec, workdir, report):
+    """The probe's entry point (``envelope_probe.main``) at each of
+    ``PROBE_RUNS``, the launch counts set to 0 just before each and read
+    just after; then the probe kernels' device times (profiler) and their
+    plain versions' times at L=256 depth 1. Returns the first run's
+    launch counts, its rows by case, and the times."""
+    import contextlib
+    import io
+
+    from grayscott_jl_tpu_torch.ops import envelope
+    from grayscott_jl_tpu_torch.probes import envelope_probe
+
+    runs = []
+    first = None
+    for L, fuse, variants in PROBE_RUNS:
+        out = os.path.join(workdir, f"probe_{L}_{fuse}.jsonl")
+        argv = ["--l", str(L), "--fuse", str(fuse), "--steps",
+                str(PROBE_STEPS), "--rounds", str(PROBE_ROUNDS), "--noise",
+                "0.1", "--out", out]
+        os.environ["GS_PROBE_COMPUTE_VARIANTS"] = "1" if variants else "0"
+        try:
+            cuda_stencil.reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = envelope_probe.main(argv)
+            modes = dict(cuda_stencil.MODE_LAUNCHES)
+            variant_counts = dict(cuda_stencil.VARIANT_LAUNCHES)
+        finally:
+            del os.environ["GS_PROBE_COMPUTE_VARIANTS"]
+        with open(out, encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        n_passes = max(1, PROBE_STEPS // fuse)
+        per_case = n_passes * (1 + PROBE_ROUNDS)
+        want_variants = envelope.VARIANTS if variants else ("chain",)
+        check(rc == 0 and modes["copy_walk"] == per_case
+              and modes["chain"] == per_case
+              and variant_counts == {v: per_case if v in want_variants
+                                     else 0 for v in envelope.VARIANTS}
+              and modes["compute_walk"] == per_case * len(want_variants),
+              f"envelope probe L={L} fuse={fuse} launched {modes} "
+              f"{variant_counts}, expected {per_case} per case")
+        check(all(r["timer"] == "cuda_events" and r["best_us_per_pass"] > 0
+                  and math.isfinite(r["median_us_per_pass"]) for r in rows),
+              f"envelope probe L={L} fuse={fuse} rows {rows}")
+        for r in rows:
+            log(f"  L={L} fuse={fuse} {r['case']:16s} median "
+                f"{r['median_us_per_pass']:9.2f} us/pass (best "
+                f"{r['best_us_per_pass']:9.2f}), bound "
+                f"{r['bound_us_per_pass']:8.2f} ({r['bound_by']}), "
+                f"{r['effective_gbps']:8.1f} GB/s unique")
+        runs.append({"L": L, "fuse": fuse, "variants": variants,
+                     "modes": modes, "variant_launches": variant_counts,
+                     "rows": rows})
+        if first is None:
+            first = {"modes": modes, "variants": variant_counts,
+                     "rows": {r["case"]: r for r in rows}}
+
+    # Device time of each probe kernel and its plain version's time at
+    # L=256 depth 1.
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    f = tuple(torch.rand((MAIN_L,) * 3, generator=gen, device="cuda")
+              for _ in range(2))
+    params = envelope_probe.make_params(0.1, "cuda")
+    times = {}
+
+    def profile(fn):
+        prof = device_profile(torch, fn)
+        return None if prof is None else prof["kernel_ms"]
+
+    times["copy_walk"] = {
+        "device_ms": profile(lambda: envelope.copy_walk(f, fuse=1)),
+        "plain_ms": time_calls(
+            torch, lambda: envelope.plain_copy_walk(f, fuse=1), 100.0),
+        "library_ms": time_calls(torch, lambda: envelope.torch_copy(f),
+                                 100.0),
+    }
+    for variant in envelope.VARIANTS:
+        kw = dict(spec=spec, fuse=1, use_noise=True, variant=variant)
+        times[variant] = {
+            "device_ms": profile(lambda: envelope.compute_walk(
+                f, params, (1, 2, 0), **kw)),
+            "plain_ms": time_calls(torch, lambda: envelope.plain_compute_walk(
+                f, params, (1, 2, 0), **kw), 100.0),
+            "library_ms": None,
+        }
+    for name, t in times.items():
+        dev = ("not measured" if t["device_ms"] is None
+               else f"{t['device_ms']:.4f} ms")
+        log(f"  L={MAIN_L} fuse=1 {name}: device time {dev}, plain "
+            f"{t['plain_ms']:.4f} ms"
+            + ("" if t["library_ms"] is None
+               else f", Tensor.copy_ {t['library_ms']:.4f} ms"))
+    report["envelope"] = {"runs": runs, "times": times}
+    return first, times
+
+
 def main():
     import torch
 
@@ -1447,18 +1629,19 @@ def main():
                       "torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all(envelope=True)
     build_s = time.perf_counter() - t0
-    check(sorted(built) == sorted(MODELS),
-          f"built {sorted(built)}, expected every model {sorted(MODELS)}")
+    libs = sorted(MODELS + ("grayscott_envelope",))
+    check(sorted(built) == libs, f"built {sorted(built)}, expected {libs}")
     log(f"phase 2: built the generated kernels of {sorted(built)} in "
         f"{build_s:.2f} s (one nvcc each, in parallel)")
     ptxas = {name: [line.strip() for line in info["log"].splitlines()
                     if "Compiling" in line or "registers" in line
                     or "spill" in line]
              for name, info in built.items()}
-    for line in ptxas["grayscott"]:
-        log(f"  grayscott: {line}")
+    for name in ("grayscott", "grayscott_envelope"):
+        for line in ptxas[name]:
+            log(f"  {name}: {line}")
     report["build_s"] = build_s
     report["build"] = {n: {"source": os.path.relpath(i["source"], REPO),
                            "seconds": i["seconds"], "ptxas": ptxas[n]}
@@ -1520,6 +1703,16 @@ def main():
                                *args)
     bf16_faces = timed(report, "bf16 face times", phase_face_times, *args,
                        "bfloat16")
+    log("phase 6: the envelope probes")
+    probe_worst = timed(report, "envelope parity", phase_envelope_parity,
+                        torch, cuda_stencil, spec, report)
+    probe_dir = tempfile.mkdtemp(prefix="gs_chip_smoke_probe_")
+    try:
+        probe_first, probe_times = timed(report, "envelope probe",
+                                         phase_envelope, torch, cuda_stencil,
+                                         spec, probe_dir, report)
+    finally:
+        shutil.rmtree(probe_dir, ignore_errors=True)
     report["clocks_after"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     main_row = next(r for r in rows
@@ -1555,6 +1748,26 @@ def main():
         ("stencil_chain_mid_bf16", "mid_bf16", mid_launches,
          worst["grayscott"]["mid_bf16"], mid_rows[0]),
     ]
+    from grayscott_jl_tpu_torch.ops import envelope
+
+    for variant in ("copy_walk",) + envelope.VARIANTS:
+        case = ("copy_walk" if variant == "copy_walk"
+                else envelope.case_name(variant))
+        probe_row = probe_first["rows"][case]
+        unique, _, flops = envelope.work(case, (MAIN_L,) * 3, 1)
+        b_ms, b_by = bound_of(unique, flops)
+        library = (probe_first["rows"]["torch_copy"]["median_us_per_pass"]
+                   / 1e3 if variant == "copy_walk" else None)
+        entries.append((
+            f"envelope_{case}",
+            "dma_walk" if variant == "copy_walk" else "compute_walk",
+            (probe_first["modes"]["copy_walk"] if variant == "copy_walk"
+             else probe_first["variants"][variant]),
+            probe_worst[variant],
+            {"ms": probe_row["median_us_per_pass"] / 1e3,
+             "plain_ms": probe_times[variant]["plain_ms"], "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": library},
+        ))
     report["bf16_acc_launches"] = acc_launches
     kernels = {"kernels": [
         {
@@ -1568,7 +1781,7 @@ def main():
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
         }
         for name, mode, n, err, row in entries
     ]}

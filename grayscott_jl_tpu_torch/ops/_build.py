@@ -11,6 +11,13 @@ side, named by the model and a hash of the template, the emitted text
 and the flags, at first use; a later call in any process reuses them.
 :func:`build_all` starts one ``nvcc`` per spec at once.
 
+Gray-Scott has a second library, built from the same emitted source
+with ``GS_ENVELOPE_PROBES`` defined (:data:`PROBE_DEFINE`): it holds the
+envelope probes' entry points (``ops/envelope.py``) in place of the
+production ones, so the probes replay the production kernel's code
+while the production library stays as it was; ``build_all(...,
+envelope=True)`` compiles it beside the others.
+
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed build raises.
 """
@@ -45,7 +52,13 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-#: Loaded libraries by spec (specs are memoized per model object).
+#: The first line of the envelope probes' source, and the model whose
+#: kernel they take apart (as ``benchmarks/envelope_probe.py`` does).
+PROBE_DEFINE = "#define GS_ENVELOPE_PROBES 1"
+PROBE_MODEL = "grayscott"
+
+#: Loaded libraries by (spec, envelope) (specs are memoized per model
+#: object).
 _LIBS: Dict[object, ctypes.CDLL] = {}
 
 
@@ -70,23 +83,41 @@ def find_nvcc() -> str:
     )
 
 
-def emitted_source(spec) -> str:
+def _check_envelope(spec, envelope):
+    """Only Gray-Scott has the envelope probes."""
+    if envelope and spec.name != PROBE_MODEL:
+        raise ValueError(
+            f"the envelope probes take apart {PROBE_MODEL!r}'s kernel; "
+            f"{spec.name!r} has none")
+
+
+def emitted_source(spec, envelope: bool = False) -> str:
     """The full CUDA source of ``spec``'s kernel: the template with the
-    generated part in place of its marker line."""
+    generated part in place of its marker line; with ``envelope``, the
+    same source under :data:`PROBE_DEFINE` (Gray-Scott only)."""
+    _check_envelope(spec, envelope)
     with open(os.path.join(CSRC, TEMPLATE), encoding="utf-8") as f:
         template = f.read()
     if template.count(MARKER) != 1:
         raise RuntimeError(
             f"{TEMPLATE} must hold the marker line {MARKER!r} once")
-    return template.replace(MARKER, spec.cuda_source.rstrip("\n"))
+    source = template.replace(MARKER, spec.cuda_source.rstrip("\n"))
+    return f"{PROBE_DEFINE}\n{source}" if envelope else source
 
 
-def library_path(spec) -> str:
-    """Where the library of ``spec``'s kernel is (or will be) built; the
-    emitted source sits beside it with the suffix ``.cu``."""
-    digest = hashlib.sha256(emitted_source(spec).encode())
+def target_name(spec, envelope: bool = False) -> str:
+    """The library's name: the model's, ``_envelope`` for the probes."""
+    return f"{spec.name}_envelope" if envelope else spec.name
+
+
+def library_path(spec, envelope: bool = False) -> str:
+    """Where the library of ``spec``'s kernel (or its envelope probes)
+    is (or will be) built; the emitted source sits beside it with the
+    suffix ``.cu``."""
+    digest = hashlib.sha256(emitted_source(spec, envelope).encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{spec.name}.{digest.hexdigest()[:16]}.so")
+    return os.path.join(
+        BUILD_DIR, f"{target_name(spec, envelope)}.{digest.hexdigest()[:16]}.so")
 
 
 def all_specs():
@@ -99,37 +130,46 @@ def all_specs():
             if kernelgen.generation_gate_reason(m) is None]
 
 
-def build_all(specs: Optional[Iterable] = None) -> Dict[str, dict]:
+def build_all(specs: Optional[Iterable] = None,
+              envelope: bool = False) -> Dict[str, dict]:
     """Compile the kernels of ``specs`` (every registered model the
-    generator accepts, by default) that are not built yet, one ``nvcc``
-    process per spec, all started together.
+    generator accepts, by default) that are not built yet, and with
+    ``envelope`` Gray-Scott's envelope probes too, one ``nvcc`` process
+    per library, all started together.
 
-    Returns ``{model name: {"path", "source", "seconds", "log"}}``;
-    ``log`` is nvcc's output (register and shared-memory use from
-    ``-Xptxas=-v``), empty for a library that was already built. Raises
-    on any failure, after every started process has ended."""
-    specs = list(all_specs() if specs is None else specs)
+    Returns ``{library name: {"path", "source", "seconds", "log"}}``
+    (:func:`target_name`); ``log`` is nvcc's output (register and
+    shared-memory use from ``-Xptxas=-v``), empty for a library that was
+    already built. Raises on any failure, after every started process
+    has ended."""
+    targets = [(spec, False)
+               for spec in (all_specs() if specs is None else specs)]
+    if envelope:
+        from ..models import get_model
+        from . import kernelgen
+
+        targets.append((kernelgen.get_spec(get_model(PROBE_MODEL)), True))
     os.makedirs(BUILD_DIR, exist_ok=True)
     result: Dict[str, dict] = {}
     running = []
     nvcc = None
-    for spec in specs:
-        path = library_path(spec)
+    for spec, probes in targets:
+        name = target_name(spec, probes)
+        path = library_path(spec, probes)
         source = path[:-len(".so")] + ".cu"
         if os.path.isfile(path):
-            result[spec.name] = {"path": path, "source": source,
-                                 "seconds": 0.0, "log": ""}
+            result[name] = {"path": path, "source": source,
+                            "seconds": 0.0, "log": ""}
             continue
         with open(source, "w", encoding="utf-8") as f:
-            f.write(emitted_source(spec))
+            f.write(emitted_source(spec, probes))
         nvcc = nvcc or find_nvcc()
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        running.append((spec.name, path, source, tmp, proc,
-                        time.perf_counter()))
+        running.append((name, path, source, tmp, proc, time.perf_counter()))
     failures = []
     for name, path, source, tmp, proc, t0 in running:
         log, _ = proc.communicate()
@@ -146,9 +186,16 @@ def build_all(specs: Optional[Iterable] = None) -> Dict[str, dict]:
     return result
 
 
-def load(spec) -> ctypes.CDLL:
-    """The loaded library of ``spec``'s kernel, built first if needed."""
-    lib = _LIBS.get(spec)
+def load(spec, envelope: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``spec``'s kernel (with ``envelope``, of
+    its envelope probes), built first if needed."""
+    lib = _LIBS.get((spec, envelope))
     if lib is None:
-        lib = _LIBS[spec] = ctypes.CDLL(build_all([spec])[spec.name]["path"])
+        if envelope:
+            _check_envelope(spec, envelope)
+            built = build_all([], envelope=True)
+        else:
+            built = build_all([spec])
+        path = built[target_name(spec, envelope)]["path"]
+        lib = _LIBS[spec, envelope] = ctypes.CDLL(path)
     return lib

@@ -64,6 +64,40 @@
 //     caller, as in the reference).
 // Blocks are independent and use no atomics: results are deterministic.
 //
+// The envelope probes (built only into Gray-Scott's second library,
+// under GS_ENVELOPE_PROBES; see the entry points at the end) replace
+// the two measurement kernels of benchmarks/envelope_probe.py, and
+// take apart THIS kernel, not the TPU's slab walk, so they are modes of
+// this template and replay its load loop and stage function:
+//   * kCopyWalk (dma_walk, envelope_probe.py:164): the stage-0 load
+//     loop exactly as kBlock runs it at depth `fuse`, one barrier, then
+//     the tile's interior from shared memory to the output — no
+//     arithmetic, the identity on every field, the production
+//     footprint (so the production occupancy). The halo stores are
+//     never read back, but the reads are at computed indices into the
+//     same dynamic array, so the compiler cannot drop them;
+//   * kComputeWalk (compute_walk, envelope_probe.py:400): every block
+//     loads the window of tile (0,0,0), so device memory serves about
+//     one window and L2 the rest, then runs the production stage chain
+//     on it with its OWN block coordinates for pins and noise keys, and
+//     writes its last stage into the free shared window (every block
+//     stores, so no block's chain can be sunk into a branch); only
+//     block (0,0,0) copies that tile out. Its defined output, tile
+//     (0,0,0), equals the production chain's tile (0,0,0) bitwise; the
+//     rest is left unwritten. VARIANT selects the probe's variants
+//     (envelope_probe.py:452-465), each changing what its JAX namesake
+//     changes: no noise; no pins in mid stages (noselect); the y/z
+//     neighbours read as the centre, pins dropped too (noyz: the JAX
+//     case sets selects=False and rolls=False); the dt-folded
+//     coefficient form (fma: dt folding, not hardware FMA — still one
+//     rounding per operation); one multiply per field per stage with
+//     the same window reads and stores (minimal); every stage from the
+//     resident input window at the tile's cells into register
+//     accumulators, one final store (nomid: without mid windows nothing
+//     reads the halo ring, so the ring is not recomputed; the loop runs
+//     cell-major, each cell's stages in order, so the accumulators stay
+//     two registers).
+//
 // Shared memory, per field: with M == T two ping-pong windows of T —
 // 217,728 B for two float fields at fuse = 5, 221,184 B for two bf16
 // fields at fuse = 8; with M != T one input window of T plus the mid
@@ -101,7 +135,18 @@ constexpr int TZ = 32;
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 
-enum Mode { kBlock = 0, kFaces6 = 1, kXChain = 2 };
+enum Mode { kBlock = 0, kFaces6 = 1, kXChain = 2, kCopyWalk = 3, kComputeWalk = 4 };
+
+// kComputeWalk's variants, in the order of ops/envelope.py VARIANTS.
+enum Variant {
+  kChain = 0,
+  kNoNoise = 1,
+  kNoSelect = 2,
+  kNoYZ = 3,
+  kFma = 4,
+  kMinimal = 5,
+  kNoMid = 6
+};
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -207,11 +252,22 @@ __device__ __forceinline__ C lap7(const S* w, int c, int sx, int sy, C inv6) {
   return sub(mul(total, inv6), widen(w[c]));
 }
 
+// lap7's neighbour sum alone; with YZ false the four y/z neighbours
+// read the centre, as the noyz probe's rolls=False returns c.
+template <bool YZ, typename C, typename S>
+__device__ __forceinline__ C nsum6(const S* w, int c, int sx, int sy) {
+  const C ctr = widen(w[c]);
+  const C ym = YZ ? widen(w[c - sy]) : ctr, yp = YZ ? widen(w[c + sy]) : ctr;
+  const C zm = YZ ? widen(w[c - 1]) : ctr, zp = YZ ? widen(w[c + 1]) : ctr;
+  return add(add(add(add(add(widen(w[c - sx]), widen(w[c + sx])), ym), yp), zm),
+             zp);
+}
+
 __device__ __forceinline__ bool outside(int g, int row) {
   return g < 0 || g >= row;
 }
 
-template <typename T, typename M, int MODE>
+template <typename T, typename M, int MODE, int VARIANT = kChain>
 __global__ void __launch_bounds__(NTHREADS)
 stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
                      const typename Compute<T>::type* __restrict__ params,
@@ -222,6 +278,14 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
   // An input window of T apart from the mid windows of M, or (M == T)
   // two ping-pong windows, the input in the first.
   constexpr bool kSplit = !std::is_same<T, M>::value;
+  constexpr bool kProbe = MODE == kCopyWalk || MODE == kComputeWalk;
+  static_assert(!(kProbe && kSplit), "the probes use one window type");
+  static_assert(VARIANT == kChain || MODE == kComputeWalk,
+                "variants are the compute walk's");
+  // What the compute walk's variants keep of the production stage.
+  constexpr bool kPins =
+      VARIANT != kNoSelect && VARIANT != kNoYZ && VARIANT != kMinimal;
+  constexpr bool kNoiseTerm = VARIANT != kNoNoise && VARIANT != kMinimal;
   extern __shared__ unsigned char smem_raw[];
   const int h = fuse;
   const int WX = TX + 2 * h, WY = TY + 2 * h, WZ = TZ + 2 * h;
@@ -238,10 +302,15 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
   const int x0 = blockIdx.z * TX - h;
   const int y0 = blockIdx.y * TY - h;
   const int z0 = blockIdx.x * TZ - h;
+  // The window loaded: the compute walk's is tile (0,0,0)'s in every
+  // block.
+  const int lx0 = MODE == kComputeWalk ? -h : x0;
+  const int ly0 = MODE == kComputeWalk ? -h : y0;
+  const int lz0 = MODE == kComputeWalk ? -h : z0;
 
   C p[kNP];
 #pragma unroll
-  for (int i = 0; i < kNP; ++i) p[i] = params[i];
+  for (int i = 0; i < kNP; ++i) p[i] = MODE == kCopyWalk ? C(0) : params[i];
   const C inv6 = C(1.0 / 6.0);
 
   const int warp = threadIdx.x / 32;
@@ -253,12 +322,12 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
   // to local memory in every thread.
   for (int r = warp; r < WX * WY; r += NWARPS) {
     const int wx = r / WY, wy = r % WY;
-    const int gx = x0 + wx, gy = y0 + wy;
+    const int gx = lx0 + wx, gy = ly0 + wy;
     const bool in_x = gx >= 0 && gx < nx;
     const bool in_y = gy >= 0 && gy < ny;
     const size_t base = in_x && in_y ? ((size_t)gx * ny + gy) * nz : 0;
     for (int wz = lane; wz < WZ; wz += 32) {
-      const int gz = z0 + wz;
+      const int gz = lz0 + wz;
       const bool in_z = gz >= 0 && gz < nz;
       const int c = r * WZ + wz;
       // Each branch is decided once per cell and loads every field, so
@@ -313,8 +382,42 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
   }
   __syncthreads();
 
+  // The probes' output: the block's tile cells of window `win`, every
+  // field, in the last stage's thread layout.
+  auto store_tile = [&](const T* win) {
+    for (int r = warp; r < TX * TY; r += NWARPS) {
+      const int wx = h + r / TY, wy = h + r % TY;
+      const int gx = x0 + wx, gy = y0 + wy;
+      if (gx >= nx || gy >= ny) continue;
+      const size_t gbase = ((size_t)gx * ny + gy) * nz;
+      for (int wz = h + lane; wz < h + TZ; wz += 32) {
+        const int gz = z0 + wz;
+        if (gz >= nz) continue;
+        const int c = (wx * WY + wy) * WZ + wz;
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) fs.out[f][gbase + gz] = win[f * wvol + c];
+      }
+    }
+  };
+  if constexpr (MODE == kCopyWalk) {
+    store_tile(in);
+    return;
+  }
+
+  // The fma and minimal probes' coefficients, once per launch
+  // (envelope_probe.py:264-270; Gray-Scott's params Du, Dv, F, k).
+  C au = C(0), bu = C(0), cu = C(0), av = C(0), bv2 = C(0), noise_dt = C(0);
+  if constexpr (VARIANT == kFma || VARIANT == kMinimal) {
+    au = sub(C(1), mul(p[kDt], add(p[0], p[2])));
+    bu = mul(mul(p[kDt], p[0]), inv6);
+    cu = mul(p[kDt], p[2]);
+    av = sub(C(1), mul(p[kDt], add(add(p[1], p[2]), p[3])));
+    bv2 = mul(mul(p[kDt], p[1]), inv6);
+    noise_dt = mul(p[kNoise], p[kDt]);
+  }
+
   // Stage s: read window `cur` (T at stage 0, else M), write `nxt` (M),
-  // or the output at the last stage.
+  // or the output at the last stage (the compute walk: `nxt` still).
   auto stage = [&](const auto* cur, M* nxt, int s) {
     const bool last = s == fuse - 1;
     const int lo = s + 1;  // this stage's output window is [lo, W - lo)
@@ -335,7 +438,9 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
                (last || !(outside(ox + gx, irow) || outside(oy + gy, irow)));
       }
       const uint32_t pseed =
-          use_noise ? plane_seed(k0, k1, step, (uint32_t)(ox + gx)) : 0u;
+          kNoiseTerm && use_noise
+              ? plane_seed(k0, k1, step, (uint32_t)(ox + gx))
+              : 0u;
       const uint32_t iy = (uint32_t)(oy + gy);
       const size_t gbase = last ? ((size_t)gx * ny + gy) * nz : 0;
       for (int wz = lo + lane; wz < lo + ez; wz += 32) {
@@ -346,30 +451,55 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
         if (MODE == kXChain && !last) {
           compute = compute && !outside(oz + gz, irow);
         }
+        if (!kPins) compute = true;
         const int c = (wx * WY + wy) * WZ + wz;
         C res[kNF];  // pinned cells hold the boundary value
 #pragma unroll
         for (int f = 0; f < kNF; ++f) res[f] = fs.bound[f];
         if (compute) {
-          C val[kNF], lap[kNF], d[kNF];
+          if constexpr (VARIANT == kMinimal) {
+            res[0] = mul(widen(cur[c]), au);
+            res[1] = mul(widen(cur[wvol + c]), av);
+          } else if constexpr (VARIANT == kFma) {
+            const C u = widen(cur[c]), v = widen(cur[wvol + c]);
+            const C uvv_dt = mul(mul(mul(u, v), v), p[kDt]);
+            const C su = nsum6<true, C>(cur, c, sx, sy);
+            const C sv = nsum6<true, C>(cur + wvol, c, sx, sy);
+            res[0] = sub(add(add(mul(u, au), mul(bu, su)), cu), uvv_dt);
+            res[1] = add(add(mul(v, av), mul(bv2, sv)), uvv_dt);
+            if (use_noise) {
+              const uint32_t bits =
+                  hash32(cell_hash(iy, (uint32_t)(oz + gz), row) ^ pseed);
+              res[0] = add(res[0], mul(noise_dt, (C)bits_to_pm1(bits)));
+            }
+          } else {
+            C val[kNF], lap[kNF], d[kNF];
 #pragma unroll
-          for (int f = 0; f < kNF; ++f) {
-            val[f] = widen(cur[f * wvol + c]);
-            lap[f] = lap7(cur + f * wvol, c, sx, sy, inv6);
-          }
-          C noise = C(0);
-          if (use_noise) {
-            const uint32_t bits =
-                hash32(cell_hash(iy, (uint32_t)(oz + gz), row) ^ pseed);
-            noise = mul(p[kNoise], (C)bits_to_pm1(bits));
-          }
-          gs_reaction(val, lap, noise, p, d);
+            for (int f = 0; f < kNF; ++f) {
+              val[f] = widen(cur[f * wvol + c]);
+              if constexpr (VARIANT == kNoYZ) {
+                lap[f] = sub(mul(nsum6<false, C>(cur + f * wvol, c, sx, sy), inv6),
+                             val[f]);
+              } else {
+                lap[f] = lap7(cur + f * wvol, c, sx, sy, inv6);
+              }
+            }
+            C noise = C(0);
+            if (kNoiseTerm && use_noise) {
+              const uint32_t bits =
+                  hash32(cell_hash(iy, (uint32_t)(oz + gz), row) ^ pseed);
+              noise = mul(p[kNoise], (C)bits_to_pm1(bits));
+            }
+            gs_reaction(val, lap, noise, p, d);
 #pragma unroll
-          for (int f = 0; f < kNF; ++f) res[f] = add(val[f], mul(d[f], p[kDt]));
+            for (int f = 0; f < kNF; ++f) {
+              res[f] = add(val[f], mul(d[f], p[kDt]));
+            }
+          }
         }
 #pragma unroll
         for (int f = 0; f < kNF; ++f) {
-          if (last) {
+          if (last && MODE != kComputeWalk) {
             put(&fs.out[f][gbase + gz], res[f]);
           } else {
             put(&nxt[f * wvol + c], res[f]);
@@ -380,7 +510,49 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
     __syncthreads();
   };
 
-  if constexpr (kSplit) {
+  if constexpr (VARIANT == kNoMid) {
+    // Per tile cell (the last stage's layout), every stage from the
+    // input window into the cell's accumulators, then one store to the
+    // free window. Cell-major, so the accumulators stay kNF registers.
+    for (int r = warp; r < TX * TY; r += NWARPS) {
+      const int wx = h + r / TY, wy = h + r % TY;
+      const int gx = x0 + wx, gy = y0 + wy;
+      if (gx >= nx || gy >= ny) continue;
+      for (int wz = h + lane; wz < h + TZ; wz += 32) {
+        const int gz = z0 + wz;
+        if (gz >= nz) continue;
+        const int c = (wx * WY + wy) * WZ + wz;
+        C acc[kNF];
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) acc[f] = widen(in[f * wvol + c]);
+        for (int s = 0; s < fuse; ++s) {
+          C val[kNF], lap[kNF], d[kNF];
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            val[f] = widen(in[f * wvol + c]);
+            lap[f] = lap7(in + f * wvol, c, sx, sy, inv6);
+          }
+          C noise = C(0);
+          if (use_noise) {
+            const uint32_t pseed = plane_seed(
+                k0, k1, step0 + (uint32_t)s, (uint32_t)(ox + gx));
+            const uint32_t bits = hash32(
+                cell_hash((uint32_t)(oy + gy), (uint32_t)(oz + gz), row) ^
+                pseed);
+            noise = mul(p[kNoise], (C)bits_to_pm1(bits));
+          }
+          gs_reaction(val, lap, noise, p, d);
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) {
+            acc[f] = add(acc[f], add(val[f], mul(d[f], p[kDt])));
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) put(&mids[(kNF + f) * wvol + c], acc[f]);
+      }
+    }
+    __syncthreads();
+  } else if constexpr (kSplit) {
     stage(in, mids, 0);
     for (int s = 1; s < fuse; ++s) {
       stage(mids + ((s - 1) & 1) * kNF * wvol, mids + (s & 1) * kNF * wvol,
@@ -390,6 +562,12 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
     for (int s = 0; s < fuse; ++s) {
       stage(mids + (s & 1) * kNF * wvol, mids + ((s + 1) & 1) * kNF * wvol,
             s);
+    }
+  }
+  if constexpr (MODE == kComputeWalk) {
+    // The last stage is in window fuse & 1 (nomid's sum in window 1).
+    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+      store_tile(mids + (VARIANT == kNoMid ? 1 : fuse & 1) * kNF * wvol);
     }
   }
 }
@@ -403,7 +581,7 @@ size_t smem_bytes(int fuse) {
   return kNF * window * (sizeof(T) + n_mid * sizeof(M));
 }
 
-template <typename T, typename M, int MODE>
+template <typename T, typename M, int MODE, int VARIANT = kChain>
 int run(const Fields<T, typename Compute<T>::type>& fs,
         const typename Compute<T>::type* params, const Faces<T>& faces,
         uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
@@ -411,11 +589,11 @@ int run(const Fields<T, typename Compute<T>::type>& fs,
         cudaStream_t stream) {
   const size_t smem = smem_bytes<T, M>(fuse);
   cudaError_t err = cudaFuncSetAttribute(
-      stencil_chain_kernel<T, M, MODE>,
+      stencil_chain_kernel<T, M, MODE, VARIANT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
-  stencil_chain_kernel<T, M, MODE><<<grid, NTHREADS, smem, stream>>>(
+  stencil_chain_kernel<T, M, MODE, VARIANT><<<grid, NTHREADS, smem, stream>>>(
       fs, params, faces, k0, k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,
       use_noise);
   return (int)cudaGetLastError();
@@ -460,6 +638,67 @@ int launch(const void* const* in, void* const* out, const void* params,
   }
 }
 
+#ifdef GS_ENVELOPE_PROBES
+static_assert(kNF == 2 && kNP == 6, "the envelope probes are Gray-Scott's");
+
+template <int VARIANT>
+int compute_walk(const Fields<float, float>& fs, const float* params,
+                 uint32_t k0, uint32_t k1, uint32_t step0, uint32_t row,
+                 int nx, int ny, int nz, int fuse, int use_noise,
+                 cudaStream_t st) {
+  return run<float, float, kComputeWalk, VARIANT>(
+      fs, params, Faces<float>{}, k0, k1, step0, 0, 0, 0, row, nx, ny, nz,
+      fuse, use_noise, st);
+}
+
+int probe(int mode, int variant, const void* const* in, void* const* out,
+          const void* params, const double* bounds, uint32_t k0,
+          uint32_t k1, uint32_t step0, uint32_t row, int nx, int ny, int nz,
+          int fuse, int use_noise, void* stream) {
+  if (fuse < 1 || nx < 1 || ny < 1 || nz < 1 || in == nullptr ||
+      out == nullptr || bounds == nullptr ||
+      (mode == kComputeWalk &&
+       (params == nullptr || variant < kChain || variant > kNoMid))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Fields<float, float> fs = {};
+  for (int f = 0; f < kNF; ++f) {
+    fs.in[f] = static_cast<const float*>(in[f]);
+    fs.out[f] = static_cast<float*>(out[f]);
+    fs.bound[f] = static_cast<float>(bounds[f]);
+  }
+  const float* pv = static_cast<const float*>(params);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kCopyWalk) {
+    return run<float, float, kCopyWalk>(fs, pv, Faces<float>{}, 0, 0, 0, 0,
+                                        0, 0, row, nx, ny, nz, fuse, 0, st);
+  }
+  switch (variant) {
+    case kNoNoise:
+      return compute_walk<kNoNoise>(fs, pv, k0, k1, step0, row, nx, ny, nz,
+                                    fuse, use_noise, st);
+    case kNoSelect:
+      return compute_walk<kNoSelect>(fs, pv, k0, k1, step0, row, nx, ny, nz,
+                                     fuse, use_noise, st);
+    case kNoYZ:
+      return compute_walk<kNoYZ>(fs, pv, k0, k1, step0, row, nx, ny, nz,
+                                 fuse, use_noise, st);
+    case kFma:
+      return compute_walk<kFma>(fs, pv, k0, k1, step0, row, nx, ny, nz, fuse,
+                                use_noise, st);
+    case kMinimal:
+      return compute_walk<kMinimal>(fs, pv, k0, k1, step0, row, nx, ny, nz,
+                                    fuse, use_noise, st);
+    case kNoMid:
+      return compute_walk<kNoMid>(fs, pv, k0, k1, step0, row, nx, ny, nz,
+                                  fuse, use_noise, st);
+    default:
+      return compute_walk<kChain>(fs, pv, k0, k1, step0, row, nx, ny, nz,
+                                  fuse, use_noise, st);
+  }
+}
+#endif  // GS_ENVELOPE_PROBES
+
 }  // namespace
 
 extern "C" {
@@ -495,9 +734,32 @@ const char* gs_error_string(int code) {
                         stream);                                             \
   }
 
+#ifndef GS_ENVELOPE_PROBES
 GS_ENTRY(gs_stencil_chain_f32, float, float)
 GS_ENTRY(gs_stencil_chain_f64, double, double)
 GS_ENTRY(gs_stencil_chain_bf16, __nv_bfloat16, __nv_bfloat16)
 GS_ENTRY(gs_stencil_chain_f32_mid_bf16, float, __nv_bfloat16)
+#else
+// The envelope probes' library (Gray-Scott, float32 fields) holds these
+// two entry points instead. in, out: host arrays of kNF device
+// pointers; bounds: a host array of kNF boundary values; the copy walk
+// reads no params. variant: kComputeWalk's Variant.
+int gs_envelope_copy_walk_f32(const void* const* in, void* const* out,
+                              const double* bounds, int nx, int ny, int nz,
+                              int fuse, void* stream) {
+  return probe(kCopyWalk, kChain, in, out, nullptr, bounds, 0, 0, 0, 0, nx,
+               ny, nz, fuse, 0, stream);
+}
+
+int gs_envelope_compute_walk_f32(const void* const* in, void* const* out,
+                                 const void* params, const double* bounds,
+                                 int variant, uint32_t k0, uint32_t k1,
+                                 uint32_t step0, uint32_t row, int nx, int ny,
+                                 int nz, int fuse, int use_noise,
+                                 void* stream) {
+  return probe(kComputeWalk, variant, in, out, params, bounds, k0, k1, step0,
+               row, nx, ny, nz, fuse, use_noise, stream);
+}
+#endif  // GS_ENVELOPE_PROBES
 
 }  // extern "C"

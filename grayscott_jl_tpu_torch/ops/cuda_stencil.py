@@ -56,7 +56,11 @@ deeper one raises.
 ``MODE_LAUNCHES`` splits them by mode, ``MODEL_LAUNCHES`` by model and
 ``DTYPE_LAUNCHES`` by entry point (``f32``, ``f64``, ``bf16``,
 ``f32_mid_bf16``): a run reads them to show that its steps went through
-the kernel generated for its model at its precision.
+the kernel generated for its model at its precision. The envelope
+probes (``ops/envelope.py``) are modes of the same template: their
+launches count in ``LAUNCHES`` and ``MODE_LAUNCHES`` (``copy_walk``,
+``compute_walk``), the compute walk's also per variant in
+``VARIANT_LAUNCHES``, and in neither per-model nor per-entry count.
 """
 
 from __future__ import annotations
@@ -81,8 +85,18 @@ LAUNCHES = 0
 #: operand (``xychain``). The integer is the kernel's ``Mode``.
 MODES: Dict[str, int] = {"chain": 0, "faces6": 1, "xchain": 2, "xychain": 2}
 
-#: Launches per mode, counted beside :data:`LAUNCHES`.
-MODE_LAUNCHES: Dict[str, int] = dict.fromkeys(MODES, 0)
+#: The envelope probes' modes (``Mode`` 3 and 4 of the kernel).
+PROBE_MODES = ("copy_walk", "compute_walk")
+
+#: The compute walk's variants, in the order of the kernel's ``Variant``.
+PROBE_VARIANTS = ("chain", "nonoise", "noselect", "noyz", "fma", "minimal",
+                  "nomid")
+
+#: Launches per mode (the probes' too), counted beside :data:`LAUNCHES`.
+MODE_LAUNCHES: Dict[str, int] = dict.fromkeys((*MODES, *PROBE_MODES), 0)
+
+#: Compute-walk launches per variant.
+VARIANT_LAUNCHES: Dict[str, int] = dict.fromkeys(PROBE_VARIANTS, 0)
 
 #: Launches per model (the generated kernel that ran), counted beside
 #: :data:`LAUNCHES`.
@@ -113,10 +127,11 @@ N_BUFFERS = 2
 
 def reset_launches() -> None:
     """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES`,
-    :data:`MODEL_LAUNCHES` and :data:`DTYPE_LAUNCHES` count to 0."""
+    :data:`VARIANT_LAUNCHES`, :data:`MODEL_LAUNCHES` and
+    :data:`DTYPE_LAUNCHES` count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (MODE_LAUNCHES, DTYPE_LAUNCHES):
+    for counts in (MODE_LAUNCHES, VARIANT_LAUNCHES, DTYPE_LAUNCHES):
         for key in counts:
             counts[key] = 0
     MODEL_LAUNCHES.clear()

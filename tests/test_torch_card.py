@@ -531,3 +531,84 @@ def test_kernel_refuses_other_dtypes_on_card():
               for _ in range(2))
     with pytest.raises(TypeError, match="bfloat16"):
         cuda_stencil.fused_step(f, params, (0, 0, 0), spec=SPEC)
+
+
+# ------------------------------------------------------- envelope probes
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 64), (20, 24, 40), (9, 8, 33)])
+def test_copy_walk_is_the_identity_on_card(shape):
+    """The copy walk (``dma_walk``'s counterpart) at every depth the
+    ledger admits: its output equals its input bitwise, one launch per
+    call."""
+    _card()
+    from grayscott_jl_tpu_torch.ops import envelope
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f = tuple(torch.rand(shape, generator=gen, device="cuda")
+              for _ in range(2))
+    for fuse in range(1, cuda_stencil.max_feasible_fuse(4) + 1):
+        cuda_stencil.reset_launches()
+        got = envelope.copy_walk(f, fuse=fuse)
+        torch.cuda.synchronize()
+        assert cuda_stencil.MODE_LAUNCHES["copy_walk"] == 1
+        for a, b in zip(got, f):
+            assert torch.equal(a, b), (fuse, (a - b).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(40, 40, 64), (6, 5, 20)])
+def test_compute_walk_equals_plain_on_card(shape, noise):
+    """Every compute-walk variant at depth 1..5: its defined tile equals
+    its plain version bitwise, and the default chain's equals the
+    production chain's tile (0,0,0)."""
+    _card()
+    from grayscott_jl_tpu_torch.ops import envelope
+    from grayscott_jl_tpu_torch.probes import envelope_probe
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    f = tuple(torch.rand(shape, generator=gen, device="cuda")
+              for _ in range(2))
+    params = envelope_probe.make_params(noise, "cuda")
+    cut = envelope.defined_tile(shape)
+    for fuse in range(1, cuda_stencil.max_feasible_fuse(4) + 1):
+        chain = cuda_stencil.fused_step(f, params, (1, 2, 9), spec=SPEC,
+                                        use_noise=noise != 0, fuse=fuse)
+        for variant in envelope.VARIANTS:
+            got = envelope.compute_walk(
+                f, params, (1, 2, 9), spec=SPEC, fuse=fuse,
+                use_noise=noise != 0, variant=variant)
+            want = envelope.plain_compute_walk(
+                f, params, (1, 2, 9), spec=SPEC, fuse=fuse,
+                use_noise=noise != 0, variant=variant)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a[cut], b), (variant, fuse)
+            if variant == "chain":
+                for a, b in zip(got, chain):
+                    assert torch.equal(a[cut], b[cut]), fuse
+
+
+@pytest.mark.cuda
+def test_envelope_probe_counts_one_launch_per_pass():
+    """The probe's entry point on the card: each probe case launches its
+    kernel once per pass, in the warm-up and in every round."""
+    _card()
+    from grayscott_jl_tpu_torch.ops import envelope
+    from grayscott_jl_tpu_torch.probes import envelope_probe
+
+    steps, rounds = 4, 2
+    cuda_stencil.reset_launches()
+    rows = envelope_probe.run(32, 1, steps, rounds, 0.1, variants=True)
+    per_case = steps * (1 + rounds)
+    assert cuda_stencil.MODE_LAUNCHES["copy_walk"] == per_case
+    assert cuda_stencil.MODE_LAUNCHES["chain"] == per_case  # full
+    assert cuda_stencil.VARIANT_LAUNCHES == dict.fromkeys(
+        envelope.VARIANTS, per_case)
+    assert cuda_stencil.MODE_LAUNCHES["compute_walk"] == (
+        per_case * len(envelope.VARIANTS))
+    assert [r["case"] for r in rows][:5] == [
+        "torch_stream", "torch_copy", "copy_walk", "compute_walk", "full"]
+    assert all(r["timer"] == "cuda_events" and r["best_us_per_pass"] > 0
+               for r in rows)

@@ -70,3 +70,31 @@ def test_no_jax_or_reference_imports(path):
         if name.split(".")[0] in FORBIDDEN
     ]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+PROBE_CLI = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from grayscott_jl_tpu_torch.probes import envelope_probe
+rows = envelope_probe.run(8, 1, 1, 1, 0.1, cpu=True, variants=True)
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok", len(rows))
+"""
+
+
+def test_envelope_probe_stands_alone():
+    """The envelope probe and its kernels' wrappers are in the no-JAX
+    check, and the probe runs its every case with JAX blocked."""
+    checked = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"grayscott_jl_tpu_torch/ops/envelope.py",
+            "grayscott_jl_tpu_torch/probes/envelope_probe.py",
+            "grayscott_jl_tpu_torch/probes/__init__.py"} <= checked
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE_CLI], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok 11"
