@@ -26,7 +26,10 @@ Phases, each of which stops the run on failure:
    the 6n-face step at blocks (128,128,128) and (100,64,96), the x-chain
    at (32,256,256) and (34,100,100), and the xy-chain operand
    (128,128+2k,128) with ``offsets[1] = -k``, from random fields and
-   faces, bitwise equal over the whole output;
+   faces, bitwise equal over the whole output. Every check runs on each
+   window load the operand takes (``cuda_stencil.override``): TMA and
+   cp.async; the L = 41 chain and the (20,24,41) 6n-face and (10,24,41)
+   x-chain operands (rows of 41 cells, which TMA refuses) on cp.async;
 4. the main paths, with the kernel launch counts set to 0 just before
    each and read just after. Gray-Scott: ``driver.main`` on an L=256
    float32 config with noise, plotgap 50, a checkpoint every 100 steps,
@@ -41,7 +44,9 @@ Phases, each of which stops the run on failure:
    50 steps at ``GS_FUSE=2`` on (8,1,1) (x-chain), (2,2,2) (xy-chain
    with z bands) and (2,2,1) (xy-chain slab form), each bitwise equal to
    the stored step 50, and L=250 on (3,1,1) (pad-and-mask) bitwise equal
-   to a single-block run. The other models, each with the physics of
+   to a single-block run, its windows loaded by cp.async (1,000 B
+   rows); the Gray-Scott single-block and mesh paths all by TMA
+   (``LOAD_PATH_LAUNCHES``). The other models, each with the physics of
    its ``examples/settings-<model>.toml`` (dt 0.05) at L=256, noise 0.1,
    ``kernel_language = "Auto"``: brusselator 100 steps (plotgap and
    checkpoint every 50), fhn and heat 50 steps (plotgap and checkpoint
@@ -60,7 +65,9 @@ Phases, each of which stops the run on failure:
    within its error bound of the exact checkpoints, the mesh's payloads,
    ranges and checkpoints equal to the single block's); and
    ``GS_MID_BF16=1`` at ``GS_FUSE=2`` (100 launches of the bf16-mid
-   entry point, the store equal to the oracle in the same rounds);
+   entry point, the store equal to the oracle in the same rounds); and
+   the blow-up configuration (ROADMAP F1: L=16, dt=400) that the health
+   guard stops at step 10 with no step written (``warn`` writes both);
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -72,21 +79,27 @@ Phases, each of which stops the run on failure:
    halo exchange timed on its own; then row 1f: the bf16 kernel at
    L=256 depth 1 and each bf16 face mode (bound: 2 B a cell a field),
    and the float32 chain with bf16 mids at depth 2..5 beside the exact
-   float32 chain, interleaved;
+   float32 chain, interleaved; the window load's two paths in turns
+   (TMA, cp.async) on the L=256 chain and the (128,128,128) 6n-face
+   step, float32 and bf16; and the health probe's cost: the L=256
+   single block's boundary snapshot with and without it, in turns;
 6. the envelope probes (``ops/envelope.py``, built into Gray-Scott's
    second library in phase 2): the copy walk equal to its input bitwise
-   at L = 256 and (20,24,40), depth 1..5; the compute walk and its six
+   at L = 256, (20,24,40) and (20,24,41), depth 1..5, on each load path
+   the operand takes; the compute walk and its six
    variants equal to their plain versions bitwise on the defined tile
    (and the default to the production chain's tile (0,0,0)) at the same
    shapes, depths and noise 0 and 0.1; then the probe's entry point,
    ``probes/envelope_probe.main``, at L=256 noise 0.1, depth 1 and 2
-   with the variants (``GS_PROBE_COMPUTE_VARIANTS=1``), depth 3..5, and
+   with the variants (``GS_PROBE_COMPUTE_VARIANTS=1``), depth 3 and 4,
+   depth 5 with the variants, and
    L=512 depth 1, each with the launch counts set to 0 just before and
    read just after (one launch per pass of each probe case); the probe
    kernels' device times under the profiler and their plain versions'
    times at L=256 depth 1.
 
-Prints the kernels' JSON line, then the ``nvidia-smi`` line, then the
+Prints the kernels' JSON line (each kernel with the load path its main
+path took), then the ``nvidia-smi`` line, then the
 result line ``{"ok": true, "device": {...}}`` last; writes the full
 report to ``chiprun_out/chip_smoke_report.json``. Exits non-zero with
 no result line when there is no card or any phase fails. Imports
@@ -129,9 +142,15 @@ REPLACES = {
     "compute_walk": "benchmarks/envelope_probe.py:400",
 }
 
+#: The operand shape each face-mode kernel takes on its main path (the
+#: others take L^3 fields).
+MAIN_SHAPES = {"stencil_faces6": (128, 128, 128),
+               "stencil_xchain": (32, 256, 256),
+               "stencil_xychain": (128, 132, 128)}
+
 #: The envelope probe's runs in phase 6: (L, depth, with the variants).
 PROBE_RUNS = ((MAIN_L, 1, True), (MAIN_L, 2, True), (MAIN_L, 3, False),
-              (MAIN_L, 4, False), (MAIN_L, 5, False), (512, 1, False))
+              (MAIN_L, 4, False), (MAIN_L, 5, True), (512, 1, False))
 PROBE_STEPS = 20
 PROBE_ROUNDS = 3
 
@@ -241,6 +260,32 @@ def group(label):
     return "bf16" if label in ("BFloat16", "bf16_f32acc") else "f"
 
 
+def took(report, cuda_stencil, name):
+    """Record the window load path kernel-line entry ``name`` took on its
+    main path, read from ``LOAD_PATH_LAUNCHES`` just after that run
+    (counts set to 0 just before it): every launch of the run must have
+    gone through one path. Returns the path."""
+    counts = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+    total = cuda_stencil.LAUNCHES
+    paths = [p for p, n in counts.items() if n]
+    check(total > 0 and len(paths) == 1 and counts[paths[0]] == total,
+          f"{name}: {total} launches loaded their windows {counts}, not "
+          "all by one path")
+    report.setdefault("load_path", {})[name] = {"path": paths[0],
+                                                "launches": total}
+    return paths[0]
+
+
+def loads(torch, cuda_stencil, shape, dtype):
+    """The load paths a parity check runs on an operand of ``shape``: TMA
+    and cp.async where TMA takes the operand, cp.async alone where it
+    refuses it."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if cuda_stencil.load_path(shape, itemsize, (0,)) == "tma":
+        return ["tma", "cp_async"]
+    return ["cp_async"]
+
+
 def phase_parity(torch, gs, cuda_stencil, spec, report):
     """Kernel vs its plain version (for bf16 fields its oracle form),
     bitwise, and depth k vs k x depth 1, for the model of ``spec`` in
@@ -251,7 +296,7 @@ def phase_parity(torch, gs, cuda_stencil, spec, report):
     for prec, dname, pname, oracle in PRECISION_CASES:
         dtype, pdtype = getattr(torch, dname), getattr(torch, pname)
         cap = cuda_stencil.chain_cap(dtype, spec.n_fields)
-        for L in (64, 100, 256):
+        for L in (41, 64, 100, 256):
             for noise in (0.0, 0.1):
                 settings = gs.Settings(L=L, noise=noise, **physics(spec.name))
                 params = spec.model.make_params(settings, pdtype, "cuda")
@@ -268,37 +313,40 @@ def phase_parity(torch, gs, cuda_stencil, spec, report):
                 )
                 by_fuse = {}
                 for fuse in range(1, cap + 1):
-                    f, done = f0, 0
-                    while done < steps:
-                        k = min(fuse, steps - done)
-                        f = cuda_stencil.fused_step(
-                            f, params, (0, 11, 40 + done), spec=spec,
-                            use_noise=noise != 0, fuse=k, row=L,
+                    for load in loads(torch, cuda_stencil, (L,) * 3, dtype):
+                        f, done = f0, 0
+                        with cuda_stencil.override(load):
+                            while done < steps:
+                                k = min(fuse, steps - done)
+                                f = cuda_stencil.fused_step(
+                                    f, params, (0, 11, 40 + done), spec=spec,
+                                    use_noise=noise != 0, fuse=k, row=L,
+                                )
+                                done += k
+                        torch.cuda.synchronize()
+                        err = max(
+                            (a.double() - b.double()).abs().max().item()
+                            for a, b in zip(f, plain)
                         )
-                        done += k
-                    torch.cuda.synchronize()
-                    err = max(
-                        (a.double() - b.double()).abs().max().item()
-                        for a, b in zip(f, plain)
-                    )
-                    worst[group(prec)] = max(worst[group(prec)], err)
-                    check(all(torch.isfinite(a).all().item() for a in f),
-                          f"non-finite {spec.name} kernel output {prec} "
-                          f"L={L} fuse={fuse}")
-                    check(all(a.dtype == dtype and torch.equal(a, b)
-                              for a, b in zip(f, plain)),
-                          f"{spec.name} kernel != plain: {prec} L={L} "
-                          f"noise={noise} fuse={fuse}, max |diff| {err}")
-                    by_fuse[fuse] = f
-                    rows.append([prec, L, noise, fuse, err])
+                        worst[group(prec)] = max(worst[group(prec)], err)
+                        what = (f"{prec} L={L} noise={noise} fuse={fuse} "
+                                f"load {load}")
+                        check(all(torch.isfinite(a).all().item() for a in f),
+                              f"non-finite {spec.name} kernel output {what}")
+                        check(all(a.dtype == dtype and torch.equal(a, b)
+                                  for a, b in zip(f, plain)),
+                              f"{spec.name} kernel != plain: {what}, max "
+                              f"|diff| {err}")
+                        by_fuse.setdefault(fuse, f)
+                        rows.append([prec, L, noise, fuse, load, err])
                 for fuse, f in by_fuse.items():
                     check(all(torch.equal(a, b)
                               for a, b in zip(f, by_fuse[1])),
                           f"{spec.name} fuse={fuse} != {fuse} x fuse=1: "
                           f"{prec} L={L}")
-        log(f"  {spec.name} {prec} L=64/100/256 noise 0/0.1: fuse "
-            f"1..{cap} bitwise equal to {'the oracle' if oracle else 'plain'}"
-            " and to k x fuse=1")
+        log(f"  {spec.name} {prec} L=41/64/100/256 noise 0/0.1: fuse "
+            f"1..{cap}, on each load path the operand takes, bitwise equal "
+            f"to {'the oracle' if oracle else 'plain'} and to k x fuse=1")
     report.setdefault("parity", {})[spec.name] = rows
     return worst
 
@@ -321,13 +369,17 @@ def phase_mid_bf16_parity(torch, gs, cuda_stencil, spec, report):
                     torch.float32, "cuda")
                 f0 = tuple(torch.rand((L, L, L), generator=gen, device="cuda")
                            for _ in range(spec.n_fields))
-                for fuse in range(2, cap + 1):
+                for fuse, load in (
+                        (k, path) for k in range(2, cap + 1)
+                        for path in loads(torch, cuda_stencil, (L,) * 3,
+                                          torch.float32)):
                     got = want = f0
                     for done in range(0, 2 * fuse, fuse):
                         seeds = (0, 11, 40 + done)
-                        got = cuda_stencil.fused_step(
-                            got, params, seeds, spec=spec,
-                            use_noise=noise != 0, fuse=fuse, row=L)
+                        with cuda_stencil.override(load):
+                            got = cuda_stencil.fused_step(
+                                got, params, seeds, spec=spec,
+                                use_noise=noise != 0, fuse=fuse, row=L)
                         want = cuda_stencil.plain_chain(
                             want, params, seeds, spec=spec,
                             use_noise=noise != 0, fuse=fuse, row=L,
@@ -338,8 +390,9 @@ def phase_mid_bf16_parity(torch, gs, cuda_stencil, spec, report):
                     worst = max(worst, err)
                     check(all(torch.equal(a, b) for a, b in zip(got, want)),
                           f"{spec.name} GS_MID_BF16 chain != oracle: L={L} "
-                          f"noise={noise} fuse={fuse}, max |diff| {err}")
-                    rows.append(["chain", L, noise, fuse, err])
+                          f"noise={noise} fuse={fuse} load {load}, max "
+                          f"|diff| {err}")
+                    rows.append(["chain", L, noise, fuse, load, err])
         shape = (64, 64, 64)
         for k in range(2, cap + 1):
             nx, ny, nz = shape[0], shape[1] + 2 * k, shape[2]
@@ -388,7 +441,20 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
         return torch.rand(shape, generator=gen, device="cuda",
                           dtype=torch.float32).to(dtype)
 
+    def launch(shape, dtype, *args, **kw):
+        """``fused_step`` on every load path the operand takes:
+        ``[(path name, outputs)]``."""
+        outs = []
+        for load in loads(torch, cuda_stencil, shape, dtype):
+            with cuda_stencil.override(load):
+                outs.append((load, cuda_stencil.fused_step(*args, **kw)))
+        return outs
+
     def compare(mode, prec, got, want, what):
+        if isinstance(got, list):
+            for name, out in got:
+                compare(mode, prec, out, want, f"{what} load {name}")
+            return
         torch.cuda.synchronize()
         err = max((a.double() - b.double()).abs().max().item()
                   for a, b in zip(got, want))
@@ -411,30 +477,32 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
             use = noise != 0
             seeds = (0, 11, 40)
             for shape, offs in (((128, 128, 128), (128, 0, 128)),
-                                ((100, 64, 96), (100, 64, 0))):
+                                ((100, 64, 96), (100, 64, 0)),
+                                ((20, 24, 41), (20, 0, 41))):
                 nx, ny, nz = shape
                 f = tuple(rand(shape, dtype) for _ in range(n))
                 faces = tuple(rand(x, dtype) for x in
                               [(1, ny, nz)] * (2 * n)
                               + [(nx, 1, nz)] * (2 * n)
                               + [(nx, ny, 1)] * (2 * n))
-                got = cuda_stencil.fused_step(
-                    f, params, seeds, faces, spec=spec, use_noise=use,
-                    offsets=offs, row=MAIN_L)
+                got = launch(shape, dtype, f, params, seeds, faces,
+                             spec=spec, use_noise=use, offsets=offs,
+                             row=MAIN_L)
                 want = cuda_stencil.plain_step(
                     f, params, seeds, faces, spec=spec, use_noise=use,
                     offsets=offs, row=MAIN_L, oracle=oracle)
                 compare("faces6", prec, got, want,
                         f"{prec} {shape} noise={noise}")
             for shape, offs, row in (((32, 256, 256), (32, 0, 0), MAIN_L),
-                                     ((34, 100, 100), (68, 0, 0), 100)):
+                                     ((34, 100, 100), (68, 0, 0), 100),
+                                     ((10, 24, 41), (10, 0, 0), 41)):
                 f = tuple(rand(shape, dtype) for _ in range(n))
                 for k in range(2, cap + 1):
                     faces = tuple(rand((k,) + shape[1:], dtype)
                                   for _ in range(2 * n))
-                    got = cuda_stencil.fused_step(
-                        f, params, seeds, faces, spec=spec, use_noise=use,
-                        fuse=k, offsets=offs, row=row)
+                    got = launch(shape, dtype, f, params, seeds, faces,
+                                 spec=spec, use_noise=use, fuse=k,
+                                 offsets=offs, row=row)
                     want = cuda_stencil.plain_xchain(
                         f, params, seeds, faces, spec=spec, use_noise=use,
                         fuse=k, offsets=offs, row=row, oracle=oracle)
@@ -446,16 +514,18 @@ def phase_face_parity(torch, gs, cuda_stencil, spec, report):
                 faces = tuple(rand((k,) + shape[1:], dtype)
                               for _ in range(2 * n))
                 offs = (128, -k, 0)
-                got = cuda_stencil.fused_step(
-                    f, params, seeds, faces, spec=spec, use_noise=use,
-                    fuse=k, offsets=offs, row=MAIN_L, y_halo=k)
+                got = launch(shape, dtype, f, params, seeds, faces,
+                             spec=spec, use_noise=use, fuse=k, offsets=offs,
+                             row=MAIN_L, y_halo=k)
                 want = cuda_stencil.plain_xchain(
                     f, params, seeds, faces, spec=spec, use_noise=use,
                     fuse=k, offsets=offs, row=MAIN_L, oracle=oracle)
                 compare("xychain", prec, got, want,
                         f"{prec} {shape} k={k} noise={noise}")
             log(f"  {spec.name} {prec} noise={noise}: 6n-face, x-chain "
-                f"(k=2..{cap}) and xy-chain (k=2..{cap}) bitwise equal to "
+                f"(k=2..{cap}) and xy-chain (k=2..{cap}), on each load path "
+                f"the operand takes (TMA refuses the (20,24,41) and "
+                f"(10,24,41) operands), bitwise equal to "
                 f"{'the oracle' if oracle else 'plain'}")
     report.setdefault("face_parity", {})[spec.name] = rows
     return worst
@@ -518,6 +588,10 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
     check(cuda_stencil.MODEL_LAUNCHES == {"grayscott": launches},
           f"the main path launched {cuda_stencil.MODEL_LAUNCHES}, not only "
           "Gray-Scott's generated kernel")
+    loads_main = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+    check(took(report, cuda_stencil, "stencil_chain") == "tma",
+          f"the L={MAIN_L} main path loaded its windows {loads_main}, not "
+          "all by TMA")
     del os.environ["GS_TPU_STATS"]
     with open(stats_path, encoding="utf-8") as f:
         stats = json.load(f)
@@ -577,11 +651,54 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
     log("  restart from step 100 reproduces step 200 bitwise")
     report["main_path"] = {
         "wall_s": wall, "launches": launches, "fuse": sim.fuse,
+        "load_paths": loads_main,
         "run_stats": stats,
         "u_range": [float(u_end.min()), float(u_end.max())],
         "v_range": [float(v_end.min()), float(v_end.max())],
     }
     return launches, sim.fuse, stored
+
+
+def phase_health(torch, gs, cuda_stencil, workdir, report):
+    """The blow-up configuration (ROADMAP F1: L=16 float32, dt=400, 20
+    steps, plotgap 10) through ``driver.main`` on the card: the health
+    guard raises HealthError at step 10 under the default policy and the
+    store holds no step; under ``warn`` both NaN steps are written."""
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.resilience.health import HealthError
+
+    f1 = dict(L=16, F=0.02, k=0.048, dt=400.0, Du=0.2, Dv=0.1, noise=0.0,
+              steps=20, plotgap=10, precision="Float32", backend="CUDA")
+    out = {}
+    for policy in ("abort", "warn"):
+        store = os.path.join(workdir, f"f1_{policy}.bp")
+        cfg = os.path.join(workdir, f"f1_{policy}.toml")
+        write_config(cfg, **f1, output=store, health_policy=policy)
+        cuda_stencil.reset_launches()
+        try:
+            driver.main([cfg])
+            raised = None
+        except HealthError as e:
+            raised = e
+        with BpReader(store) as r:
+            n = r.num_steps()
+        out[policy] = {"raised_at": None if raised is None else raised.step,
+                       "steps_written": n,
+                       "launches": cuda_stencil.LAUNCHES,
+                       "load_paths": dict(cuda_stencil.LOAD_PATH_LAUNCHES),
+                       "message": None if raised is None else str(raised)}
+    check(out["abort"]["raised_at"] == 10
+          and out["abort"]["steps_written"] == 0
+          and out["abort"]["launches"] == 10,
+          f"F1 under abort: {out['abort']}")
+    check(out["warn"]["raised_at"] is None
+          and out["warn"]["steps_written"] == 2,
+          f"F1 under warn: {out['warn']}")
+    log(f"  F1 config on the card: HealthError at step 10 after "
+        f"{out['abort']['launches']} launches, no step written "
+        f"({out['abort']['message']}); warn writes both NaN steps")
+    report["health"] = out
 
 
 def read_store(path, names=("U", "V")):
@@ -629,6 +746,7 @@ def phase_model_path(torch, gs, cuda_stencil, name, workdir, report):
     launches = cuda_stencil.LAUNCHES
     models = dict(cuda_stencil.MODEL_LAUNCHES)
     modes = dict(cuda_stencil.MODE_LAUNCHES)
+    took(report, cuda_stencil, f"stencil_chain_{name}")
     del os.environ["GS_TPU_STATS"]
     with open(stats_path, encoding="utf-8") as f:
         stats = json.load(f)
@@ -770,10 +888,14 @@ def phase_sharded(torch, gs, cuda_stencil, workdir, stored, report):
     sim = driver.run_once(get_settings([cfg]), sim_factory=factory)
     wall = time.perf_counter() - t0
     counts = dict(cuda_stencil.MODE_LAUNCHES)
+    loads_mesh = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+    took(report, cuda_stencil, "stencil_faces6")
     del os.environ["GS_TPU_STATS"]
     with open(stats_path, encoding="utf-8") as f:
         stats = json.load(f)
     n = MESH[0] * MESH[1] * MESH[2]
+    check(loads_mesh == {"tma": n * MAIN_STEPS, "cp_async": 0},
+          f"the sharded main path loaded its windows {loads_mesh}")
     check(sim.domain.dims == MESH and sim.fuse == 1,
           f"sharded path ran {sim.domain.dims} at fuse {sim.fuse}")
     check(counts["faces6"] == n * MAIN_STEPS
@@ -805,7 +927,7 @@ def phase_sharded(torch, gs, cuda_stencil, workdir, stored, report):
     log("  sharded restart from step 100 reproduces step 200 bitwise")
     report["sharded_main_path"] = {
         "mesh": list(MESH), "wall_s": wall, "launches": counts,
-        "run_stats": stats,
+        "load_paths": loads_mesh, "run_stats": stats,
     }
     return counts["faces6"]
 
@@ -834,6 +956,8 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
                   and sum(counts.values()) == counts[mode],
                   f"GS_FUSE=2 on {dims} launched {counts}, expected "
                   f"{n * 25} {mode} launches and no other")
+            if dims != (2, 2, 1):  # the kernels line's x- and xy-chain
+                took(report, cuda_stencil, f"stencil_{mode}")
             u, v = sim.get_fields()
             check(np.array_equal(u, u50) and np.array_equal(v, v50),
                   f"GS_FUSE=2 on {dims} != the stored step 50")
@@ -851,13 +975,18 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
         sim.iterate(50)
         xchain = cuda_stencil.MODE_LAUNCHES["xchain"]
         check(xchain == 3 * 25, f"L=250 launched {xchain} x-chain kernels")
+        loads_250 = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+        check(loads_250 == {"tma": 0, "cp_async": xchain},
+              f"L=250 (nz = 250: 1,000 B rows, which TMA refuses) loaded "
+              f"its windows {loads_250}")
         single.iterate(50)
         for a, b in zip(single.get_fields(), sim.get_fields()):
             check(a.shape == (L,) * 3 and np.array_equal(a, b),
                   "L=250 on (3,1,1) != the single-block L=250 run")
-        runs["L250_3x1x1"] = {"mode": "xchain", "launches": xchain}
-        log("  L=250 on (3,1,1) (pad-and-mask): bitwise equal to the "
-            "single-block run")
+        runs["L250_3x1x1"] = {"mode": "xchain", "launches": xchain,
+                              "load_paths": loads_250}
+        log("  L=250 on (3,1,1) (pad-and-mask, cp.async loads): bitwise "
+            "equal to the single-block run")
     finally:
         del os.environ["GS_FUSE"]
     report["fuse2_runs"] = runs
@@ -916,6 +1045,7 @@ def phase_bf16_main_path(torch, gs, cuda_stencil, workdir, report):
     write_config(cfg, **common, output=out, checkpoint=True,
                  checkpoint_freq=100, checkpoint_output=ckpt)
     sim, wall, counts = run_main(torch, gs, cuda_stencil, cfg)
+    took(report, cuda_stencil, "stencil_chain_bf16")
     n = counts["launches"]
     check(sim.dtype == torch.bfloat16 and not sim.sharded,
           f"BFloat16 main path ran {sim.dtype} on {sim.domain.dims}")
@@ -962,6 +1092,7 @@ def phase_bf16_main_path(torch, gs, cuda_stencil, workdir, report):
                    cuda_stencil.DTYPE_LAUNCHES["bf16"], cuda_stencil.LAUNCHES)
             check(got == (8 * 25,) * 3,
                   f"BFloat16 GS_FUSE=2 on {dims} launched {got}")
+            took(report, cuda_stencil, f"stencil_{mode}_bf16")
             check(all(np.array_equal(a, b)
                       for a, b in zip(msim.get_fields(), at50[1:])),
                   f"BFloat16 GS_FUSE=2 on {dims} != the stored step 50")
@@ -1003,6 +1134,8 @@ def phase_bf16acc_codec(torch, gs, cuda_stencil, workdir, report):
         try:
             sim, wall, counts = run_main(torch, gs, cuda_stencil, cfg,
                                          factory)
+            if factory is not None:
+                took(report, cuda_stencil, "stencil_faces6_bf16")
         finally:
             del os.environ["GS_TPU_STATS"]
         with open(stats_path, encoding="utf-8") as f:
@@ -1078,6 +1211,7 @@ def phase_mid_bf16_path(torch, gs, cuda_stencil, workdir, report):
     os.environ.update(GS_MID_BF16="1", GS_FUSE="2")
     try:
         sim, wall, counts = run_main(torch, gs, cuda_stencil, cfg)
+        took(report, cuda_stencil, "stencil_chain_mid_bf16")
         n = counts["launches"]
         check(sim.fuse == 2 and n == MAIN_STEPS // 2
               and counts["entries"]["f32_mid_bf16"] == n,
@@ -1262,6 +1396,105 @@ def phase_face_times(torch, gs, cuda_stencil, spec, report,
             f"ms/call (device time of the kernel alone {dev}), plain "
             f"{(p1 + p2) / 2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     report["face_times" if not oracle else "face_times_bf16"] = rows
+    return rows
+
+
+def phase_load_times(torch, gs, cuda_stencil, spec, report):
+    """The window load's two paths on one operand, in turns: TMA and
+    cp.async — the chain at L=256 and the 6n-face step at
+    (128,128,128), depth 1, float32 and bfloat16, noise on. CUDA-event
+    ms per call (the runs in the order a b b a) and the profiler's
+    device time per launch."""
+    variants = ("tma", "cp_async")
+    rows = []
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        params = spec.model.make_params(
+            gs.Settings(noise=0.1, **GS_PHYSICS), dtype, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(9)
+
+        def rand(shape):
+            return torch.rand(shape, generator=gen, device="cuda").to(dtype)
+
+        for mode, shape in (("chain", (MAIN_L,) * 3),
+                            ("faces6", (128, 128, 128))):
+            nx, ny, nz = shape
+            f = (rand(shape), rand(shape))
+            faces = None
+            if mode == "faces6":
+                faces = tuple(rand(x) for x in [(1, ny, nz)] * 4
+                              + [(nx, 1, nz)] * 4 + [(nx, ny, 1)] * 4)
+
+            def kernel():
+                return cuda_stencil.fused_step(
+                    f, params, (0, 3, 0), faces, spec=spec,
+                    offsets=(128, 128, 128) if faces else None, row=MAIN_L)
+
+            runs = {v: [] for v in variants}
+            for v in variants + variants[::-1]:
+                with cuda_stencil.override(v):
+                    runs[v].append(time_calls(torch, kernel))
+            for v in variants:
+                with cuda_stencil.override(v):
+                    prof = device_profile(torch, kernel)
+                row = {"dtype": dname, "mode": mode, "shape": list(shape),
+                       "load": v,
+                       "ms": sum(runs[v]) / 2, "ms_runs": runs[v],
+                       "device_ms": None if prof is None
+                       else prof["kernel_ms"]}
+                rows.append(row)
+                dev = ("not measured" if prof is None
+                       else f"{prof['kernel_ms']:.4f} ms")
+                log(f"  {dname} {mode} {shape} load {v}: "
+                    f"{row['ms']:.4f} ms/call (device time {dev})")
+    report["load_times"] = rows
+    return rows
+
+
+def phase_health_times(torch, gs, report, reps=5):
+    """The health probe's cost at a boundary: ``Simulation.snapshot``
+    with and without it (host clock, each the mean of ``reps``
+    snapshots, in the order with, without, without, with) on the L=256
+    single block and the (2,2,2) mesh on ``cuda:0``, and the probe alone
+    on the single block's fields (the profiler's device time)."""
+    from grayscott_jl_tpu_torch.resilience.health import device_probe
+
+    rows = {}
+    for name, dims in (("single", None), ("mesh", MESH)):
+        settings = gs.Settings(**main_settings())
+        sim = (gs.Simulation(settings) if dims is None
+               else mesh_sim(gs, settings, dims))
+        sim.iterate(10)
+        sim.block_until_ready()
+
+        def snap(health):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = sim.snapshot(health=health)
+                check((out.health is not None) == health
+                      and (not health or out.health.finite),
+                      f"{name} snapshot(health={health}): {out.health}")
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        snap(True)
+        runs = {True: [], False: []}
+        for health in (True, False, False, True):
+            runs[health].append(snap(health))
+        row = {"with_ms": sum(runs[True]) / 2,
+               "without_ms": sum(runs[False]) / 2,
+               "with_runs": runs[True], "without_runs": runs[False]}
+        if dims is None:
+            prof = device_profile(torch, lambda: device_probe(*sim.blocks[0]))
+            row["probe_device_ms"] = (None if prof is None
+                                      else prof["device_busy_ms"])
+        rows[name] = row
+        log(f"  {name}: snapshot with the health probe {row['with_ms']:.3f}"
+            f" ms, without {row['without_ms']:.3f} ms (runs "
+            f"{runs[True]}, {runs[False]})"
+            + ("" if dims is not None else
+               f"; the probe's device time {row['probe_device_ms']} ms"))
+        del sim
+    report["health_times"] = rows
     return rows
 
 
@@ -1462,19 +1695,22 @@ def phase_envelope_parity(torch, cuda_stencil, spec, report):
     def diff(got, want):
         return max((a - b).abs().max().item() for a, b in zip(got, want))
 
-    for shape in ((MAIN_L,) * 3, (20, 24, 40)):
+    for shape in ((MAIN_L,) * 3, (20, 24, 40), (20, 24, 41)):
         f = tuple(torch.rand(shape, generator=gen, device="cuda")
                   for _ in range(2))
         cut = envelope.defined_tile(shape)
         for fuse in range(1, cap + 1):
-            got = envelope.copy_walk(f, fuse=fuse)
-            torch.cuda.synchronize()
-            err = diff(got, f)
-            worst["copy_walk"] = max(worst["copy_walk"], err)
-            check(all(torch.equal(a, b) for a, b in zip(got, f)),
-                  f"copy_walk != its input: {shape} fuse={fuse}, max |diff| "
-                  f"{err}")
-            rows.append(["copy_walk", list(shape), None, fuse, err])
+            for load in loads(torch, cuda_stencil, shape, torch.float32):
+                with cuda_stencil.override(load):
+                    got = envelope.copy_walk(f, fuse=fuse)
+                torch.cuda.synchronize()
+                err = diff(got, f)
+                worst["copy_walk"] = max(worst["copy_walk"], err)
+                check(all(torch.equal(a, b) for a, b in zip(got, f)),
+                      f"copy_walk != its input: {shape} fuse={fuse} load "
+                      f"{load}, max |diff| {err}")
+                rows.append(["copy_walk", list(shape), None, fuse, load,
+                             err])
         for noise in (0.0, 0.1):
             params = envelope_probe.make_params(noise, "cuda")
             for fuse in range(1, cap + 1):
@@ -1506,8 +1742,9 @@ def phase_envelope_parity(torch, cuda_stencil, spec, report):
                     rows.append([variant, list(shape), noise, fuse, err])
     log(f"  copy_walk bitwise equal to its input, the compute walk and its "
         f"six variants bitwise equal to their plain versions (the default "
-        f"also to the production chain's tile (0,0,0)): L={MAIN_L} and "
-        f"(20,24,40), fuse 1..{cap}, noise 0/0.1")
+        f"also to the production chain's tile (0,0,0)): L={MAIN_L}, "
+        f"(20,24,40) and (20,24,41) (cp.async), fuse 1..{cap}, noise 0/0.1;"
+        f" the copy walk on each load path")
     report["envelope_parity"] = rows
     return worst
 
@@ -1538,6 +1775,10 @@ def phase_envelope(torch, cuda_stencil, spec, workdir, report):
                 rc = envelope_probe.main(argv)
             modes = dict(cuda_stencil.MODE_LAUNCHES)
             variant_counts = dict(cuda_stencil.VARIANT_LAUNCHES)
+            if first is None:
+                # Every launch of the run (both probes and the production
+                # chain) took this path, so each probe's launches did.
+                took(report, cuda_stencil, "envelope")
         finally:
             del os.environ["GS_PROBE_COMPUTE_VARIANTS"]
         with open(out, encoding="utf-8") as f:
@@ -1686,6 +1927,7 @@ def main():
                                          phase_bf16acc_codec, *args)
         mid_launches = timed(report, "mid_bf16 path", phase_mid_bf16_path,
                              *args)
+        timed(report, "health", phase_health, *args)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1695,6 +1937,8 @@ def main():
     args = (torch, gs, cuda_stencil, spec, report)
     rows = timed(report, "times", phase_times, *args)
     face_rows = timed(report, "face times", phase_face_times, *args)
+    timed(report, "load times", phase_load_times, *args)
+    timed(report, "health times", phase_health_times, torch, gs, report)
     model_rows = {name: phase_model_times(torch, gs, cuda_stencil,
                                           specs[name], report)
                   for name in MODEL_PATHS}
@@ -1769,6 +2013,24 @@ def main():
              "bound_by": b_by, "library_ms": library},
         ))
     report["bf16_acc_launches"] = acc_launches
+
+    def load_of(name, n):
+        """The load path entry ``name`` took on its main path (``took``,
+        read in the run whose counts give its ``n`` launches; the probes
+        share one run), checked against the path the shape rule picks
+        for that operand."""
+        probe = name.startswith("envelope_")
+        rec = report["load_path"]["envelope" if probe else name]
+        check(rec["launches"] >= n if probe else rec["launches"] == n,
+              f"{name}: {n} launches, but its run counted {rec}")
+        shape = MAIN_SHAPES.get(name.split("_bf16")[0].replace(
+            "_mid", ""), (MAIN_L,) * 3)
+        itemsize = 2 if "bf16" in name and "mid" not in name else 4
+        rule = cuda_stencil.load_path(shape, itemsize, (0,))
+        check(rec["path"] == rule,
+              f"{name} loaded by {rec['path']}, the rule says {rule}")
+        return rec["path"]
+
     kernels = {"kernels": [
         {
             "name": name,
@@ -1782,6 +2044,7 @@ def main():
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
+            "load_path": load_of(name, n),
         }
         for name, mode, n, err, row in entries
     ]}

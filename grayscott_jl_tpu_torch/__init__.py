@@ -32,13 +32,21 @@ def main(args):
 
 
 def julia_main(args=None) -> int:
-    """Exit-code wrapper: 0 on success, 1 on any failure (with the
-    traceback on stderr)."""
+    """Exit-code wrapper: 0 on success; after a SIGTERM/SIGINT that the
+    run turned into a boundary checkpoint (``GracefulShutdown``),
+    ``EXIT_PREEMPTED`` (75) so that a relauncher resumes it; 1 on any
+    other failure (with the traceback on stderr)."""
     import sys
     import traceback
 
+    from .resilience.faults import EXIT_PREEMPTED, GracefulShutdown
+
     try:
         main(sys.argv[1:] if args is None else args)
+    except GracefulShutdown as e:
+        print(f"gray-scott-torch: {e}; exiting {EXIT_PREEMPTED} (restart "
+              "from the checkpoint to resume)", file=sys.stderr)
+        return EXIT_PREEMPTED
     except Exception:  # noqa: BLE001 — the exit code is the product
         traceback.print_exc()
         return 1

@@ -18,9 +18,14 @@ PyTorch:
   dtypes; ``compute_precision`` (``GS_COMPUTE_PRECISION``) picks the
   mixed-precision posture (:func:`resolve_compute_precision`).
 
-Keys the reference package acts on whose subsystem is not in this
-package yet raise :class:`SettingsError` when set to anything but their
-default (:data:`NOT_PORTED`), so no setting is silently dropped.
+Every key and ``GS_*`` variable the reference acts on is acted on here
+too, or refused: a key whose subsystem is not in this package yet
+raises :class:`SettingsError` when set to anything but the value that
+means "off" (:data:`NOT_PORTED`), and so does an environment variable
+that would turn such a subsystem on (:data:`NOT_PORTED_ENV`). Keys at
+their defaults that the reference acts on — ``health_policy``,
+``graceful_shutdown``, ``mesh_type``, ``reshard`` — are acted on
+(``resilience/``, ``io/vtk.py``, :func:`resolve_reshard`).
 """
 
 from __future__ import annotations
@@ -313,6 +318,16 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
     "GS_AUTOTUNE": ("the measured autotuner", ("", "off", "cached"),
                     "Queue 1 item 20"),
     "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21"),
+    "GS_EVENTS": ("the run event stream", ("",), "Queue 1 item 21"),
+    "GS_METRICS": ("the metrics registry", ("",), "Queue 1 item 21"),
+    "GS_TRACE": ("span tracing", ("",), "Queue 1 item 21"),
+    "GS_PROFILE": ("a profiler capture of a step range", ("",),
+                   "Queue 1 item 21"),
+    "GS_TPU_PROFILE": ("a profiler trace of the run", ("",),
+                       "Queue 1 item 21"),
+    "GS_DEVICE_BLOCKLIST": ("device quarantine", ("",), "Queue 1 item 17"),
+    "GS_CKPT_VERIFY": ("the device-side checkpoint checksum (full)",
+                       ("", "off", "read"), "Queue 1 item 16b"),
 }
 
 
@@ -341,6 +356,27 @@ def check_ported(settings: Settings) -> None:
                 f"grayscott_jl_tpu_torch does not support yet (ROADMAP "
                 f"{item}); unset it"
             )
+
+
+#: Restore-time reshard modes: ``auto`` restores a checkpoint on any
+#: block layout, ``off`` refuses a layout other than the checkpoint's.
+RESHARD_MODES = ("auto", "off")
+
+
+def resolve_reshard(settings: Settings) -> str:
+    """The restore-time reshard mode, ``"auto"`` or ``"off"``:
+    ``GS_RESHARD`` wins over the ``reshard`` key (booleans read as
+    auto/off, as in the reference); any other value raises."""
+    raw = os.environ.get("GS_RESHARD")
+    if raw is None:
+        raw = getattr(settings, "reshard", "auto") or "auto"
+    v = raw.strip().lower()
+    v = {"1": "auto", "true": "auto", "yes": "auto", "on": "auto",
+         "0": "off", "false": "off", "no": "off", "": "auto"}.get(v, v)
+    if v not in RESHARD_MODES:
+        raise SettingsError(
+            f"reshard / GS_RESHARD must be auto/off, got {raw!r}")
+    return v
 
 
 def resolve_model(settings: Settings):

@@ -16,12 +16,21 @@ stay exact unless ``snapshot_bits_ckpt`` codes them too.
 A sharded run writes one block per mesh position into each store step,
 each with its global ``(start, count)`` box; the store serves the same
 assembled arrays as a single-block run's, and a checkpoint restarts a
-run on any mesh.
+run on any mesh (unless ``reshard = "off"``, which refuses a layout
+other than the checkpoint's).
+
+At every boundary the snapshot carries the health probe (unless
+``health_policy = "off"``) and the guard acts on it before any store is
+written: ``abort`` raises ``HealthError``, so a blown-up step never
+reaches a store; ``warn`` logs and writes. A SIGTERM or SIGINT is a
+shutdown request, checked after each chunk and after each boundary's
+writes: the run writes a checkpoint at that boundary (when checkpoints
+are on and the boundary wrote none), closes its stores and raises
+``GracefulShutdown``, which the CLI turns into exit code 75.
 
 Not here yet, each a later slice of the port (ROADMAP Queue 1): the
 supervisor and fault injection, the hang watchdog, the observability
-sinks, the asynchronous writer, ``.vti`` files, ensembles and
-multi-process launch.
+sinks, the asynchronous writer, ensembles and multi-process launch.
 """
 
 from __future__ import annotations
@@ -30,10 +39,13 @@ import time
 from typing import List, Optional
 
 from .config.env import env_str
-from .config.settings import Settings, get_settings
+from .config.settings import Settings, get_settings, resolve_reshard
 from .io.checkpoint import CheckpointWriter, load_checkpoint
 from .io.stream import SimStream
 from .ops import cuda_stencil
+from .resilience.faults import (GracefulShutdown, ShutdownListener,
+                                resolve_graceful_shutdown)
+from .resilience.health import HealthGuard
 from .simulation import Simulation
 from .utils.log import Logger
 from .utils.profiler import RunStats
@@ -72,7 +84,21 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     """One simulation run; returns the finished :class:`Simulation`.
     ``sim_factory``, when given, builds the simulation instead of the
     constructor, called as ``sim_factory(settings, n_devices=...,
-    seed=...)`` (e.g. to place a mesh's blocks on chosen devices)."""
+    seed=...)`` (e.g. to place a mesh's blocks on chosen devices).
+    Raises ``HealthError`` at a poisoned boundary under the ``abort``
+    policy and ``GracefulShutdown`` after a shutdown request."""
+    guard = HealthGuard.from_env(settings)
+    reshard = resolve_reshard(settings)
+    # The listener brackets the whole run, construction included: a
+    # signal during set-up still leaves through the first boundary.
+    with ShutdownListener(
+            enabled=resolve_graceful_shutdown(settings)) as shutdown:
+        return _run(settings, guard, shutdown, reshard,
+                    n_devices=n_devices, seed=seed, sim_factory=sim_factory)
+
+
+def _run(settings, guard, shutdown, reshard, *, n_devices, seed,
+         sim_factory) -> Simulation:
     if sim_factory is not None:
         sim = sim_factory(settings, n_devices=n_devices, seed=seed)
     else:
@@ -81,7 +107,8 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     restart_step = 0
     if settings.restart:
         *fields, restart_step = load_checkpoint(
-            settings.restart_input, settings, settings.restart_step
+            settings.restart_input, settings, settings.restart_step,
+            layout=sim.block_boxes() if reshard == "off" else None,
         )
         sim.restore_fields(fields, restart_step)
         log.info(
@@ -98,6 +125,23 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     ckpt_lossy = bool(codec.ckpt)
     stream = ckpt = None
     launches0 = cuda_stencil.LAUNCHES
+
+    def graceful(at_step: int, ckpt_written: bool):
+        """The shutdown path: a checkpoint at this boundary (unless it
+        wrote one), the stores closed, then GracefulShutdown."""
+        ckpt_step = None
+        if ckpt is not None:
+            if not ckpt_written:
+                ckpt.save(at_step, sim.snapshot(
+                    encode=enc_spec if ckpt_lossy else None,
+                    exact=not ckpt_lossy))
+                log.info(f"Graceful-shutdown checkpoint at step {at_step}")
+            ckpt_step = at_step
+        stream.close()
+        if ckpt is not None:
+            ckpt.close()
+        raise GracefulShutdown(shutdown.signum, at_step, ckpt_step)
+
     try:
         stream = SimStream(settings, sim.domain, sim.dtype,
                            resume_step=resume, codec=codec.output)
@@ -139,6 +183,8 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
                 and step % settings.checkpoint_freq == 0
             )
             if not (at_plot or at_ckpt):
+                if shutdown.requested:
+                    graceful(step, ckpt_written=False)
                 continue
             want_enc = bool(enc_spec) and (at_plot or (at_ckpt
                                                        and ckpt_lossy))
@@ -146,7 +192,11 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
                           or (at_plot and not enc_spec))
             with stats.phase("device_to_host"):
                 blocks = sim.snapshot(encode=enc_spec if want_enc else None,
-                                      exact=want_exact)
+                                      exact=want_exact,
+                                      health=guard.enabled)
+            # Before any write: under abort a poisoned step raises here
+            # and reaches no store.
+            guard.check(step, blocks.health, log=log)
             if at_plot:
                 log.info(
                     f"Simulation at step {step} writing output step "
@@ -159,6 +209,10 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
                 with stats.phase("checkpoint"):
                     ckpt.save(step, blocks)
                 stats.count("checkpoints")
+            if shutdown.requested:
+                # After this boundary's writes, so that a resumed run
+                # reproduces the uninterrupted output stream.
+                graceful(step, ckpt_written=at_ckpt)
         elapsed = time.perf_counter() - t0
         stats.count("kernel_launches", cuda_stencil.LAUNCHES - launches0)
         cells = settings.L**3 * (settings.steps - restart_step)
@@ -173,6 +227,8 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
         stream.close()
         if ckpt is not None:
             ckpt.close()
+    except GracefulShutdown:
+        raise
     except BaseException:
         _close_quietly(stream)
         _close_quietly(ckpt)

@@ -40,7 +40,9 @@ On-disk layout of ``name.bp`` (a directory)::
 
 Scalars are zero-dim variables with ``start=count=[]``. The reader
 exposes only steps whose payload is durable, and verifies each block's
-CRC on read (``GS_CKPT_VERIFY``: ``read`` by default, ``off`` to skip).
+CRC on read (``GS_CKPT_VERIFY``: ``read`` by default, ``off`` to skip;
+the reference's ``full`` arms a device checksum this package does not
+have yet and raises).
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ import numpy as np
 
 FORMAT_NAME = "bplite-1"
 
-#: Valid ``GS_CKPT_VERIFY`` modes (``full`` reads like ``read`` here).
-VERIFY_MODES = ("off", "read", "full")
+#: Valid ``GS_CKPT_VERIFY`` modes. The reference's ``full`` adds a
+#: device-side checksum, not ported yet (ROADMAP Queue 1 item 16b).
+VERIFY_MODES = ("off", "read")
 
 #: The dtype name of bfloat16 variables (numpy has no bfloat16; the
 #: reference names it so through ``ml_dtypes``).
@@ -130,8 +133,14 @@ class CorruptionError(RuntimeError):
 
 
 def resolve_verify() -> str:
-    """``GS_CKPT_VERIFY``: ``off`` | ``read`` (default) | ``full``."""
+    """``GS_CKPT_VERIFY``: ``off`` | ``read`` (default); ``full``
+    raises until the device checksum is ported."""
     mode = (os.environ.get("GS_CKPT_VERIFY", "read") or "read").strip().lower()
+    if mode == "full":
+        raise ValueError(
+            "GS_CKPT_VERIFY=full arms the device-side checkpoint checksum, "
+            "which grayscott_jl_tpu_torch does not support yet (ROADMAP "
+            "Queue 1 item 16b); use read or off")
     if mode not in VERIFY_MODES:
         raise ValueError(
             f"GS_CKPT_VERIFY must be one of {'|'.join(VERIFY_MODES)}, "
@@ -782,6 +791,14 @@ class BpReader:
 
     def inquire_variable(self, name: str) -> Optional[VarInfo]:
         return self.available_variables().get(name)
+
+    def boxes(self, name: str, step: int) -> List[Tuple[tuple, tuple]]:
+        """The ``(start, count)`` box of each block of variable ``name``
+        at ``step``, in the order they were written."""
+        if not 0 <= step < len(self._md["steps"]):
+            raise IndexError(f"step {step} out of range")
+        return [(tuple(b["start"]), tuple(b["count"]))
+                for b in self._md["steps"][step].get(name, [])]
 
     def num_steps(self) -> int:
         return len(self._md["steps"])

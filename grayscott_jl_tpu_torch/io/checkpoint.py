@@ -8,7 +8,10 @@ and attributes are the reference's, so a checkpoint written by either
 package restarts the other; a bfloat16 checkpoint restarts bitwise.
 Checkpoints are exact unless ``snapshot_bits_ckpt`` opts them into the
 lossy codec (``codec``), and a restart from a coded one is value-close.
-Replicas and the integrity read-back (``GS_CKPT_REPLICAS``,
+A checkpoint restores on any block layout unless ``reshard = "off"``
+(``GS_RESHARD=off``): then a layout other than the one the entry was
+written on raises :class:`ReshardError`, as in the reference. Replicas
+and the device-side checksum (``GS_CKPT_REPLICAS``,
 ``GS_CKPT_VERIFY=full``) are not ported yet.
 """
 
@@ -23,6 +26,11 @@ from . import count_steps_upto, open_writer
 from .bplite import BpReader
 from .codec import CODEC_ATTR, codec_attr_value
 from .stream import define_fields, put_fields
+
+
+class ReshardError(RuntimeError):
+    """A restore onto another block layout than the checkpoint's, refused
+    under ``reshard = "off"``."""
 
 
 class CheckpointWriter:
@@ -133,17 +141,34 @@ def open_checkpoint(
     return r, idx, sim_step
 
 
+def _describe(boxes) -> str:
+    """A block layout for a message: the mesh its boxes form."""
+    dims = [len({start[a] for start, _ in boxes}) for a in range(3)]
+    return f"{'x'.join(map(str, dims))} ({len(boxes)} block(s))"
+
+
 def load_checkpoint(
-    path: str, settings: Settings, restart_step: int = -1
+    path: str, settings: Settings, restart_step: int = -1, *,
+    layout=None,
 ) -> Tuple:
     """``(*fields, step)`` of one checkpoint entry, fields in the
     model's declaration order (bfloat16 ones, and coded ones decoded, as
-    float32 arrays)."""
+    float32 arrays). ``layout`` — the restoring run's block boxes,
+    ``[(start, count)]``, given under ``reshard = "off"`` — must be the
+    layout the entry was written on, else :class:`ReshardError`."""
     r, idx, step = open_checkpoint(path, settings, restart_step)
     with r:
-        fields = tuple(
-            r.get(name, step=idx)
-            for name in resolve_model(settings).field_names
-        )
+        names = resolve_model(settings).field_names
+        if layout is not None:
+            written = sorted(r.boxes(names[0], idx))
+            wanted = sorted((tuple(o), tuple(c)) for o, c in layout)
+            if written != wanted:
+                raise ReshardError(
+                    f"checkpoint {path} step {step} was written on a "
+                    f"{_describe(written)} layout but this run uses "
+                    f"{_describe(wanted)}, and reshard='off' refuses "
+                    "restore-time layout changes; set reshard='auto' (or "
+                    "GS_RESHARD=auto) to allow elastic resume")
+        fields = tuple(r.get(name, step=idx) for name in names)
     return fields + (step,)
 

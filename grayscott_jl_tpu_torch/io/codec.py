@@ -278,11 +278,17 @@ class EncodedField:
         self.bits = int(bits)
         self.dtype = dtype_name(dtype)
 
+    def decode(self) -> np.ndarray:
+        """The values the store serves for this block (:func:`dequantize`)."""
+        return dequantize(self.q, self.lo, self.hi, self.bits, self.dtype)
+
 
 class BoundaryBlocks(list):
     """A boundary's snapshot: the exact blocks in the list body (empty
     when no target needed them) and the codec form on ``encoded`` (coded
     fields as :class:`EncodedField`, the others as arrays), or None when
-    no codec ran."""
+    no codec ran; and the boundary's health report on ``health`` when
+    the snapshot probed it (``Simulation.snapshot(health=True)``)."""
 
     encoded = None
+    health = None

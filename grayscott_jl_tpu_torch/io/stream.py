@@ -9,9 +9,10 @@ reference writes, so its readers and tools open these stores. bfloat16
 fields are stored under the dtype name ``"bfloat16"``. Fields the lossy
 snapshot codec codes (``codec``, ``io/codec.py``) are stored at their
 uint payload dtype beside per-step ``<NAME>__qlo``/``__qhi`` range
-scalars, and the ``snapshot_codec`` attribute names them. The
-reference's ``.vti`` side files are not written yet (ROADMAP Queue 1
-item 7).
+scalars, and the ``snapshot_codec`` attribute names them. With
+``mesh_type = "image"`` (the default) each output step is also written
+as a ``.vti`` file of the assembled blocks, coded fields decoded first,
+in the series ``<output>.vtk/`` (``io/vtk.py``), as the reference does.
 """
 
 from __future__ import annotations
@@ -146,6 +147,14 @@ class SimStream:
                 self.writer.define_attribute(name, value)
         self.writer.define_variable("step", np.int32)
         define_fields(self.writer, self.var_names, dtype, L, self.codec)
+        self._vtk = None
+        if settings.mesh_type.lower() == "image":
+            from .vtk import VtiSeriesWriter
+
+            self._vtk = VtiSeriesWriter(
+                settings.output, L, append=settings.restart,
+                max_step=resume_step, names=self.var_names,
+            )
 
     def write_step(self, step: int, blocks) -> None:
         """Write one output step; ``blocks`` is a snapshot
@@ -156,6 +165,31 @@ class SimStream:
         w.put("step", np.int32(step))
         put_fields(w, self.var_names, blocks, bool(self.codec))
         w.end_step()
+        if self._vtk is not None:
+            self._vtk.write(step, *self._assembled(blocks))
+
+    def _assembled(self, blocks):
+        """The step's global ``L^3`` arrays for the ``.vti`` file: the
+        blocks placed at their offsets, coded fields decoded to the
+        values the store serves."""
+        if self.codec:
+            blocks = blocks.encoded
+        L = self.settings.L
+        blocks = [(offsets, sizes) + tuple(
+                      fb.decode() if isinstance(fb, EncodedField) else fb
+                      for fb in fblocks)
+                  for offsets, sizes, *fblocks in blocks]
+        if len(blocks) == 1 and tuple(blocks[0][1]) == (L, L, L):
+            return blocks[0][2:]
+        arrays = tuple(np.empty((L, L, L), blocks[0][2].dtype)
+                       for _ in self.var_names)
+        for offsets, sizes, *fblocks in blocks:
+            box = tuple(slice(o, o + s) for o, s in zip(offsets, sizes))
+            for full, fb in zip(arrays, fblocks):
+                full[box] = fb
+        return arrays
 
     def close(self) -> None:
         self.writer.close()
+        if self._vtk is not None:
+            self._vtk.close()

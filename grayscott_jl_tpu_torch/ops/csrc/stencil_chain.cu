@@ -42,14 +42,27 @@
 // Design, per block of NTHREADS threads:
 //   * the block owns an interior tile of TX x TY x TZ cells (z is the
 //     contiguous axis); stage 0 loads the tile plus `fuse` halo cells
-//     per side of every field into shared memory. A window cell outside
-//     the block reads, by mode: the field's frozen boundary value
-//     (kBlock; the reference's pad_with_boundary); the face of the one
-//     axis it lies across (kFaces6; edge and corner ghosts are never
-//     read by the 7-point stencil and hold the boundary value); the
-//     lo/hi x slab for x in [-k, 0) and [nx, nx + k) (kXChain; beyond
-//     the operand's own y and z extent it reads the boundary value, as
-//     the reference's _xla_xchain_fallback re-pads y and z each stage);
+//     per side of every field into shared memory, at z stride WZP (the
+//     window's z extent rounded up to 16 B). The window is one TMA box
+//     per field (cp.async.bulk.tensor.3d, issued by one thread and
+//     completed on an mbarrier) from the window origin — which may be
+//     negative — moved up in z to the next 16 B boundary (a box whose z
+//     start is not 16 B aligned faults on the card); TMA fills the cells
+//     outside the operand with zeros. An operand TMA refuses (a row of
+//     nz cells, or a base address, not 16 B aligned) loads the same
+//     padded window by cp.async over a flat index. The shape picks the
+//     path at launch; neither falls back to the other. Then a ghost pass
+//     writes the first `lead` cells of each row (below the box: at most
+//     3 a row for float32) and the window cells outside the operand, by
+//     mode: the field's frozen boundary value (kBlock; the reference's
+//     pad_with_boundary); the face of the one axis it lies across
+//     (kFaces6; edge and corner ghosts are never read by the 7-point
+//     stencil and hold the boundary value); the lo/hi x slab for x in
+//     [-k, 0) and [nx, nx + k)
+//     (kXChain; beyond the operand's own y and z extent it reads the
+//     boundary value, as the reference's _xla_xchain_fallback re-pads y
+//     and z each stage). It runs after the mbarrier wait: two writes of
+//     one cell, one of them asynchronous, would race;
 //   * stage s computes step step0 + s on the window shrunk by s + 1
 //     cells per side, reading one window and writing the next. kBlock and
 //     kFaces6 compute the block's cells and pin every other cell to the
@@ -68,14 +81,12 @@
 // under GS_ENVELOPE_PROBES; see the entry points at the end) replace
 // the two measurement kernels of benchmarks/envelope_probe.py, and
 // take apart THIS kernel, not the TPU's slab walk, so they are modes of
-// this template and replay its load loop and stage function:
-//   * kCopyWalk (dma_walk, envelope_probe.py:164): the stage-0 load
-//     loop exactly as kBlock runs it at depth `fuse`, one barrier, then
-//     the tile's interior from shared memory to the output — no
-//     arithmetic, the identity on every field, the production
-//     footprint (so the production occupancy). The halo stores are
-//     never read back, but the reads are at computed indices into the
-//     same dynamic array, so the compiler cannot drop them;
+// this template and replay its window load and stage function:
+//   * kCopyWalk (dma_walk, envelope_probe.py:164): the stage-0 window
+//     load exactly as kBlock runs it at depth `fuse` (the same load
+//     path), then the tile's interior from shared memory to the
+//     output — no arithmetic, the identity on every field, the
+//     production footprint (so the production occupancy);
 //   * kComputeWalk (compute_walk, envelope_probe.py:400): every block
 //     loads the window of tile (0,0,0), so device memory serves about
 //     one window and L2 the rest, then runs the production stage chain
@@ -99,13 +110,14 @@
 //     two registers).
 //
 // Shared memory, per field: with M == T two ping-pong windows of T —
-// 217,728 B for two float fields at fuse = 5, 221,184 B for two bf16
-// fields at fuse = 8; with M != T one input window of T plus the mid
-// windows of M the chain needs (none at fuse 1, one at 2, two deeper).
-// Above the 48 KB static limit, so it is dynamic shared memory enabled
-// per launch with cudaFuncSetAttribute. The Python ledger
-// (ops/cuda_stencil.py, smem_bytes / max_feasible_fuse) caps fuse from
-// the same arithmetic; the face modes use the same window.
+// 228,872 B for two float fields at fuse = 5, 221,704 B for two bf16
+// fields at fuse = 8, the mbarrier included; with M != T one input
+// window of T plus the mid windows of M the chain needs (none at fuse 1,
+// one at 2, two deeper), every window at the padded stride. Above the
+// 48 KB static limit, so it is dynamic shared memory enabled per launch
+// with cudaFuncSetAttribute. The Python ledger (ops/cuda_stencil.py,
+// smem_bytes / max_feasible_fuse) caps fuse from the same arithmetic;
+// the face modes use the same window.
 //
 // Numerics: every sum, difference, product and quotient is an
 // explicitly rounded intrinsic (__fmul_rn, __fadd_rn, ...), the
@@ -121,9 +133,11 @@
 // block or shard draw the owner's bits; its unit is drawn in float and
 // scaled in C, as the reference kernel draws it in its compute dtype.
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -136,6 +150,9 @@ constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 
 enum Mode { kBlock = 0, kFaces6 = 1, kXChain = 2, kCopyWalk = 3, kComputeWalk = 4 };
+
+// The mbarrier of the TMA load, after the windows.
+constexpr int kBarrierBytes = 8;
 
 // kComputeWalk's variants, in the order of ops/envelope.py VARIANTS.
 enum Variant {
@@ -189,6 +206,110 @@ __device__ __forceinline__ T nan_or(T a, T b, T m) {
   return a != a ? a : (b != b ? b : m);
 }
 
+__host__ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// A window at depth `fuse` for a storage type of `itemsize` bytes (the
+// Python ledger's cuda_stencil.window_geometry): WX x WY x WZ cells,
+// stored at z stride WZP (WZ rounded up until a row is a multiple of
+// 16 B, as TMA requires of a box's inner dimension). TMA also requires a
+// box to start at a z coordinate whose byte offset is a multiple of
+// 16 B, and the window starts `lead` cells before one (the window's z
+// origin z0 - fuse, with z0 a multiple of TZ): the box starts `lead`
+// cells into each row, and the first `lead` cells of each row are
+// loaded apart. A field's slot of `wvol` elements holds one 128 B lead
+// zone (row 0's first cells sit at its end, so that the box's shared
+// destination is 128 B aligned, as TMA requires) and the box, rounded
+// up to 128 B; the window's cell 0 is at element `base` of the slot.
+struct Window {
+  int WX, WY, WZ, WZP, lead, wvol, base;
+};
+
+__host__ __device__ __forceinline__ Window window_of(int itemsize,
+                                                     int fuse) {
+  Window w;
+  w.WX = TX + 2 * fuse;
+  w.WY = TY + 2 * fuse;
+  w.WZ = TZ + 2 * fuse;
+  const int zq = 16 / itemsize, vq = 128 / itemsize;
+  w.WZP = (w.WZ + zq - 1) / zq * zq;
+  w.lead = fuse % zq;
+  w.wvol = vq + (w.WX * w.WY * w.WZP + vq - 1) / vq * vq;
+  w.base = vq - w.lead;
+  return w;
+}
+
+// The asynchronous copies: TMA tensor tiles completing on an mbarrier,
+// and cp.async for the operands TMA refuses.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 3D tensor map at (z, y, x) (innermost first) into
+// `dst`, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int z, int y, int x,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(z), "r"(y), "r"(x),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One cell by cp.async (4 or 8 B), zero-filled when `full` is false;
+// 2-byte cells by a plain load (cp.async moves 4 B at least).
+template <typename T>
+__device__ __forceinline__ void copy_or_zero(T* dst, const T* src,
+                                             bool full) {
+  if constexpr (sizeof(T) >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"((int)sizeof(T)),
+                 "r"(full ? (int)sizeof(T) : 0)
+                 : "memory");
+  } else {
+    *dst = full ? __ldg(src) : __ushort_as_bfloat16((unsigned short)0);
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // The generated part: kNF (fields), kNP (params), kDt and kNoise (their
 // indices in the params vector) and
 //   __device__ void gs_reaction(const T* f, const T* lap, T noise,
@@ -213,6 +334,35 @@ template <typename T>
 struct Faces {
   const T* p[6 * kNF];
 };
+
+// One TMA tensor map per field input: dims (nz, ny, nx), box (WZP, WY,
+// WX), encoded on the host (gs_window_map) and passed by value as a
+// __grid_constant__ parameter.
+struct WindowMaps {
+  CUtensorMap m[kNF];
+};
+
+// Bytes of every window of one block: with M == T `n_win` windows of T
+// per field (two ping-pong windows; one where nothing is written back to
+// shared memory: fuse 1), else one input window
+// of T plus the mid windows of M the chain needs (none at fuse 1, one at
+// 2, two deeper).
+template <typename T, typename M>
+__host__ __device__ __forceinline__ size_t window_bytes(int fuse,
+                                                        int n_win) {
+  const Window w = window_of((int)sizeof(T), fuse);
+  if (std::is_same<T, M>::value) {
+    return (size_t)n_win * kNF * w.wvol * sizeof(T);
+  }
+  const int n_mid = fuse - 1 < 2 ? fuse - 1 : 2;
+  return (size_t)kNF * w.wvol * (sizeof(T) + n_mid * sizeof(M));
+}
+
+// The windows a launch needs: the second window of a fuse-1 launch holds
+// the compute walk's last stage, else it is never touched.
+__host__ __device__ __forceinline__ int windows_needed(int mode, int fuse) {
+  return fuse == 1 && mode != kComputeWalk ? 1 : 2;
+}
 
 // lowbias32 (ops/noise.py hash32); uint32 arithmetic wraps mod 2**32.
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
@@ -267,11 +417,18 @@ __device__ __forceinline__ bool outside(int g, int row) {
   return g < 0 || g >= row;
 }
 
+// A minimum of 2 resident blocks per SM: with it ptxas emits another
+// schedule (56 registers for the float32 chain, 64 without), 2-20 %
+// faster on an H100 than with no minimum in every case
+// probes/kernel_ab.py times (chain, 6n faces and x-chain at depth 1 and
+// 2, float32 and bf16, the copy walk), and faster than a minimum of 3
+// or 4 in all of them but the bf16 6n-face step (PERF.md).
 template <typename T, typename M, int MODE, int VARIANT = kChain>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 2)
 stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
                      const typename Compute<T>::type* __restrict__ params,
-                     const Faces<T> faces, uint32_t k0, uint32_t k1,
+                     const Faces<T> faces, const __grid_constant__ WindowMaps maps,
+                     int tma, uint32_t k0, uint32_t k1,
                      uint32_t step0, int ox, int oy, int oz, uint32_t row,
                      int nx, int ny, int nz, int fuse, int use_noise) {
   using C = typename Compute<T>::type;
@@ -286,27 +443,23 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
   constexpr bool kPins =
       VARIANT != kNoSelect && VARIANT != kNoYZ && VARIANT != kMinimal;
   constexpr bool kNoiseTerm = VARIANT != kNoNoise && VARIANT != kMinimal;
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int h = fuse;
-  const int WX = TX + 2 * h, WY = TY + 2 * h, WZ = TZ + 2 * h;
-  const int wvol = WX * WY * WZ;
-  const int sx = WY * WZ, sy = WZ;
+  const Window g = window_of(sizeof(T), fuse);
+  const int WX = g.WX, WY = g.WY, WZ = g.WZ, WZP = g.WZP, wvol = g.wvol;
+  const int sx = WY * WZP, sy = WZP;
   const int irow = (int)row;
   // Window b of field f starts at mids + (b * kNF + f) * wvol; the input
-  // window of field f at in + f * wvol (in == mids when M == T).
-  T* in = reinterpret_cast<T*>(smem_raw);
+  // window of field f at in + f * wvol (in == mids when M == T); each
+  // `base` elements into its slot. The mbarrier of the TMA load follows
+  // the windows. With TMA the first `lead` cells of each row are the
+  // ghost pass's.
+  T* in = reinterpret_cast<T*>(smem_raw) + g.base;
   M* mids = reinterpret_cast<M*>(
-      smem_raw + (kSplit ? (size_t)kNF * wvol * sizeof(T) : 0));
-
-  // Window origin in block coordinates (may be negative).
-  const int x0 = blockIdx.z * TX - h;
-  const int y0 = blockIdx.y * TY - h;
-  const int z0 = blockIdx.x * TZ - h;
-  // The window loaded: the compute walk's is tile (0,0,0)'s in every
-  // block.
-  const int lx0 = MODE == kComputeWalk ? -h : x0;
-  const int ly0 = MODE == kComputeWalk ? -h : y0;
-  const int lz0 = MODE == kComputeWalk ? -h : z0;
+      smem_raw + (kSplit ? (size_t)kNF * wvol * sizeof(T) : 0)) + g.base;
+  const int lead = tma ? g.lead : 0;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem_raw + window_bytes<T, M>(fuse, windows_needed(MODE, fuse)));
 
   C p[kNP];
 #pragma unroll
@@ -315,94 +468,6 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-
-  // Stage 0 input: the full window; cells outside the block per mode.
-  // Face pointers are picked with constant indices (the field loop is
-  // unrolled): a computed index into the parameter struct would copy it
-  // to local memory in every thread.
-  for (int r = warp; r < WX * WY; r += NWARPS) {
-    const int wx = r / WY, wy = r % WY;
-    const int gx = lx0 + wx, gy = ly0 + wy;
-    const bool in_x = gx >= 0 && gx < nx;
-    const bool in_y = gy >= 0 && gy < ny;
-    const size_t base = in_x && in_y ? ((size_t)gx * ny + gy) * nz : 0;
-    for (int wz = lane; wz < WZ; wz += 32) {
-      const int gz = lz0 + wz;
-      const bool in_z = gz >= 0 && gz < nz;
-      const int c = r * WZ + wz;
-      // Each branch is decided once per cell and loads every field, so
-      // the fields' loads are in flight together.
-      T a[kNF];
-#pragma unroll
-      for (int f = 0; f < kNF; ++f) put(&a[f], fs.bound[f]);
-      if (in_x && in_y && in_z) {
-#pragma unroll
-        for (int f = 0; f < kNF; ++f) a[f] = __ldg(fs.in[f] + base + gz);
-      } else if (MODE == kFaces6) {
-        // A ghost across exactly one axis reads that axis's face.
-        if (in_y && in_z && (gx == -1 || gx == nx)) {
-          const size_t i = (size_t)gy * nz + gz;
-          const int hi = gx < 0 ? 0 : 1;
-#pragma unroll
-          for (int f = 0; f < kNF; ++f) {
-            a[f] = (hi ? faces.p[2 * f + 1] : faces.p[2 * f])[i];
-          }
-        } else if (in_x && in_z && (gy == -1 || gy == ny)) {
-          const size_t i = (size_t)gx * nz + gz;
-          const int hi = gy < 0 ? 0 : 1;
-#pragma unroll
-          for (int f = 0; f < kNF; ++f) {
-            a[f] = (hi ? faces.p[2 * kNF + 2 * f + 1]
-                       : faces.p[2 * kNF + 2 * f])[i];
-          }
-        } else if (in_x && in_y && (gz == -1 || gz == nz)) {
-          const size_t i = (size_t)gx * ny + gy;
-          const int hi = gz < 0 ? 0 : 1;
-#pragma unroll
-          for (int f = 0; f < kNF; ++f) {
-            a[f] = (hi ? faces.p[4 * kNF + 2 * f + 1]
-                       : faces.p[4 * kNF + 2 * f])[i];
-          }
-        }
-      } else if (MODE == kXChain) {
-        // The k-deep x slabs extend the operand in x only.
-        if (in_y && in_z && gx >= -fuse && gx < nx + fuse) {
-          const bool lo = gx < 0;
-          const size_t i =
-              ((size_t)(lo ? gx + fuse : gx - nx) * ny + gy) * nz + gz;
-#pragma unroll
-          for (int f = 0; f < kNF; ++f) {
-            a[f] = (lo ? faces.p[2 * f] : faces.p[2 * f + 1])[i];
-          }
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < kNF; ++f) in[f * wvol + c] = a[f];
-    }
-  }
-  __syncthreads();
-
-  // The probes' output: the block's tile cells of window `win`, every
-  // field, in the last stage's thread layout.
-  auto store_tile = [&](const T* win) {
-    for (int r = warp; r < TX * TY; r += NWARPS) {
-      const int wx = h + r / TY, wy = h + r % TY;
-      const int gx = x0 + wx, gy = y0 + wy;
-      if (gx >= nx || gy >= ny) continue;
-      const size_t gbase = ((size_t)gx * ny + gy) * nz;
-      for (int wz = h + lane; wz < h + TZ; wz += 32) {
-        const int gz = z0 + wz;
-        if (gz >= nz) continue;
-        const int c = (wx * WY + wy) * WZ + wz;
-#pragma unroll
-        for (int f = 0; f < kNF; ++f) fs.out[f][gbase + gz] = win[f * wvol + c];
-      }
-    }
-  };
-  if constexpr (MODE == kCopyWalk) {
-    store_tile(in);
-    return;
-  }
 
   // The fma and minimal probes' coefficients, once per launch
   // (envelope_probe.py:264-270; Gray-Scott's params Du, Dv, F, k).
@@ -414,6 +479,169 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
     av = sub(C(1), mul(p[kDt], add(add(p[1], p[2]), p[3])));
     bv2 = mul(mul(p[kDt], p[1]), inv6);
     noise_dt = mul(p[kNoise], p[kDt]);
+  }
+
+  // This block's tile (tiles are numbered z fastest, then y, then x;
+  // the grid is 1-D), its window origin in block coordinates (may be
+  // negative), and the origin of the window it loads: its own, or for
+  // the compute walk tile (0,0,0)'s in every block.
+  const int tiles_z = (nz + TZ - 1) / TZ, tiles_y = (ny + TY - 1) / TY;
+  const int t = blockIdx.x;
+  const int z0 = (t % tiles_z) * TZ - h;
+  const int y0 = (t / tiles_z) % tiles_y * TY - h;
+  const int x0 = t / (tiles_z * tiles_y) * TX - h;
+  const bool walk = MODE == kComputeWalk;
+  const int lx0 = walk ? -h : x0, ly0 = walk ? -h : y0, lz0 = walk ? -h : z0;
+
+  // Stage 0 input: the full window of every field at z stride WZP.
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    // One thread: every field's box (WZP, WY, WX) at the window origin
+    // moved `lead` cells up in z (a 16 B boundary), completed on the
+    // mbarrier; TMA fills the cells outside the operand with zeros.
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, (uint32_t)(kNF * WX * WY * WZP * sizeof(T)));
+#pragma unroll
+      for (int f = 0; f < kNF; ++f) {
+        tma_load_3d(in + f * wvol + lead, &maps.m[f], lz0 + lead, ly0, lx0,
+                    bar);
+      }
+    }
+    mbar_wait(bar, 0u);
+  } else {
+    // An operand TMA refuses (a row or base address not 16 B aligned):
+    // the same padded window by cp.async over a flat index (cells
+    // outside the operand zero-filled, as TMA fills them); 2-byte types
+    // are copied by plain loads (cp.async moves 4 B at least).
+    const int n = WX * WY * WZ;
+    for (int j = threadIdx.x; j < n; j += NTHREADS) {
+      const int wz = j % WZ, r = j / WZ;
+      const int wy = r % WY, wx = r / WY;
+      const int gx = lx0 + wx, gy = ly0 + wy, gz = lz0 + wz;
+      const bool inside = gx >= 0 && gx < nx && gy >= 0 && gy < ny &&
+                          gz >= 0 && gz < nz;
+      const size_t off = inside ? ((size_t)gx * ny + gy) * nz + gz : 0;
+      const int c = (wx * WY + wy) * WZP + wz;
+#pragma unroll
+      for (int f = 0; f < kNF; ++f) {
+        copy_or_zero(&in[f * wvol + c], fs.in[f] + off, inside);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // The ghost pass: the window cells outside the operand, by mode, and
+  // the first `lead` cells of each row (outside the TMA box: loaded, or
+  // by mode where outside the operand). With no lead an interior tile
+  // skips it. Face pointers are picked with constant indices (the
+  // field loop is unrolled): a computed index into the parameter
+  // struct would copy it to local memory in every thread.
+  const int ix0 = clampi(-lx0, 0, WX), ix1 = clampi(nx - lx0, 0, WX);
+  const int iy0 = clampi(-ly0, 0, WY), iy1 = clampi(ny - ly0, 0, WY);
+  const int iz0 = clampi(-lz0, 0, WZ), iz1 = clampi(nz - lz0, 0, WZ);
+  if (lead > 0 || !(ix0 == 0 && ix1 == WX && iy0 == 0 && iy1 == WY &&
+                    iz0 == 0 && iz1 == WZ)) {
+    // The lead slab (z below `lead`, every row), then the outside of
+    // the inside box above it as six boxes: x below and above it;
+    // within its x, y below and above; within its x and y, z below and
+    // above.
+    for (int b = 0; b < 7; ++b) {
+      int bx0 = ix0, bx1 = ix1, by0 = 0, by1 = WY, bz0 = lead, bz1 = WZ;
+      if (b == 0) bx0 = 0, bx1 = WX, bz0 = 0, bz1 = lead;
+      if (b == 1) bx0 = 0, bx1 = ix0;
+      if (b == 2) bx0 = ix1, bx1 = WX;
+      if (b == 3) by1 = iy0;
+      if (b == 4) by0 = iy1;
+      if (b >= 5) by0 = iy0, by1 = iy1;
+      if (b == 5) bz1 = iz0 > lead ? iz0 : lead;
+      if (b == 6) bz0 = iz1 > lead ? iz1 : lead;
+      const int ey = by1 - by0, ez = bz1 - bz0;
+      const int n = (bx1 - bx0) * ey * ez;
+      for (int j = threadIdx.x; j < n; j += NTHREADS) {
+        const int wz = bz0 + j % ez, r = j / ez;
+        const int wy = by0 + r % ey, wx = bx0 + r / ey;
+        const int gx = lx0 + wx, gy = ly0 + wy, gz = lz0 + wz;
+        const bool in_x = gx >= 0 && gx < nx;
+        const bool in_y = gy >= 0 && gy < ny;
+        const bool in_z = gz >= 0 && gz < nz;
+        T a[kNF];
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) put(&a[f], fs.bound[f]);
+        if (in_x && in_y && in_z) {
+          const size_t i = ((size_t)gx * ny + gy) * nz + gz;
+#pragma unroll
+          for (int f = 0; f < kNF; ++f) a[f] = __ldg(fs.in[f] + i);
+        } else if (MODE == kFaces6) {
+          // A ghost across exactly one axis reads that axis's face.
+          if (in_y && in_z && (gx == -1 || gx == nx)) {
+            const size_t i = (size_t)gy * nz + gz;
+            const int hi = gx < 0 ? 0 : 1;
+#pragma unroll
+            for (int f = 0; f < kNF; ++f) {
+              a[f] = (hi ? faces.p[2 * f + 1] : faces.p[2 * f])[i];
+            }
+          } else if (in_x && in_z && (gy == -1 || gy == ny)) {
+            const size_t i = (size_t)gx * nz + gz;
+            const int hi = gy < 0 ? 0 : 1;
+#pragma unroll
+            for (int f = 0; f < kNF; ++f) {
+              a[f] = (hi ? faces.p[2 * kNF + 2 * f + 1]
+                         : faces.p[2 * kNF + 2 * f])[i];
+            }
+          } else if (in_x && in_y && (gz == -1 || gz == nz)) {
+            const size_t i = (size_t)gx * ny + gy;
+            const int hi = gz < 0 ? 0 : 1;
+#pragma unroll
+            for (int f = 0; f < kNF; ++f) {
+              a[f] = (hi ? faces.p[4 * kNF + 2 * f + 1]
+                         : faces.p[4 * kNF + 2 * f])[i];
+            }
+          }
+        } else if (MODE == kXChain) {
+          // The k-deep x slabs extend the operand in x only.
+          if (in_y && in_z && gx >= -fuse && gx < nx + fuse) {
+            const bool lo = gx < 0;
+            const size_t i =
+                ((size_t)(lo ? gx + fuse : gx - nx) * ny + gy) * nz + gz;
+#pragma unroll
+            for (int f = 0; f < kNF; ++f) {
+              a[f] = (lo ? faces.p[2 * f] : faces.p[2 * f + 1])[i];
+            }
+          }
+        }
+        const int c = (wx * WY + wy) * WZP + wz;
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) in[f * wvol + c] = a[f];
+      }
+    }
+    __syncthreads();
+  }
+
+  // The probes' output: the block's tile cells of window `w`, every
+  // field, in the last stage's thread layout.
+  auto store_tile = [&](const T* w) {
+    for (int r = warp; r < TX * TY; r += NWARPS) {
+      const int wx = h + r / TY, wy = h + r % TY;
+      const int gx = x0 + wx, gy = y0 + wy;
+      if (gx >= nx || gy >= ny) continue;
+      const size_t gbase = ((size_t)gx * ny + gy) * nz;
+      for (int wz = h + lane; wz < h + TZ; wz += 32) {
+        const int gz = z0 + wz;
+        if (gz >= nz) continue;
+        const int c = (wx * WY + wy) * WZP + wz;
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) fs.out[f][gbase + gz] = w[f * wvol + c];
+      }
+    }
+  };
+  if constexpr (MODE == kCopyWalk) {
+    store_tile(in);
+    return;
   }
 
   // Stage s: read window `cur` (T at stage 0, else M), write `nxt` (M),
@@ -452,7 +680,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
           compute = compute && !outside(oz + gz, irow);
         }
         if (!kPins) compute = true;
-        const int c = (wx * WY + wy) * WZ + wz;
+        const int c = (wx * WY + wy) * WZP + wz;
         C res[kNF];  // pinned cells hold the boundary value
 #pragma unroll
         for (int f = 0; f < kNF; ++f) res[f] = fs.bound[f];
@@ -478,8 +706,9 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
             for (int f = 0; f < kNF; ++f) {
               val[f] = widen(cur[f * wvol + c]);
               if constexpr (VARIANT == kNoYZ) {
-                lap[f] = sub(mul(nsum6<false, C>(cur + f * wvol, c, sx, sy), inv6),
-                             val[f]);
+                lap[f] = sub(
+                    mul(nsum6<false, C>(cur + f * wvol, c, sx, sy), inv6),
+                    val[f]);
               } else {
                 lap[f] = lap7(cur + f * wvol, c, sx, sy, inv6);
               }
@@ -521,7 +750,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
       for (int wz = h + lane; wz < h + TZ; wz += 32) {
         const int gz = z0 + wz;
         if (gz >= nz) continue;
-        const int c = (wx * WY + wy) * WZ + wz;
+        const int c = (wx * WY + wy) * WZP + wz;
         C acc[kNF];
 #pragma unroll
         for (int f = 0; f < kNF; ++f) acc[f] = widen(in[f * wvol + c]);
@@ -566,45 +795,52 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
   }
   if constexpr (MODE == kComputeWalk) {
     // The last stage is in window fuse & 1 (nomid's sum in window 1).
-    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+    if (t == 0) {
       store_tile(mids + (VARIANT == kNoMid ? 1 : fuse & 1) * kNF * wvol);
     }
   }
 }
 
 template <typename T, typename M>
-size_t smem_bytes(int fuse) {
-  const size_t window =
-      (size_t)(TX + 2 * fuse) * (TY + 2 * fuse) * (TZ + 2 * fuse);
-  if (std::is_same<T, M>::value) return 2 * kNF * window * sizeof(T);
-  const int n_mid = fuse - 1 < 2 ? fuse - 1 : 2;
-  return kNF * window * (sizeof(T) + n_mid * sizeof(M));
+size_t smem_bytes(int fuse, int n_win) {
+  return window_bytes<T, M>(fuse, n_win) + kBarrierBytes;
 }
 
 template <typename T, typename M, int MODE, int VARIANT = kChain>
 int run(const Fields<T, typename Compute<T>::type>& fs,
         const typename Compute<T>::type* params, const Faces<T>& faces,
-        uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
-        uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
-        cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, M>(fuse);
-  cudaError_t err = cudaFuncSetAttribute(
-      stencil_chain_kernel<T, M, MODE, VARIANT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        const WindowMaps& maps, int tma, uint32_t k0, uint32_t k1,
+        uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx, int ny,
+        int nz, int fuse, int use_noise, cudaStream_t stream) {
+  auto kernel = stencil_chain_kernel<T, M, MODE, VARIANT>;
+  const long long n_tiles = (long long)((nz + TZ - 1) / TZ) *
+                            ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
+  if (n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T, M>(fuse, windows_needed(MODE, fuse));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
-  stencil_chain_kernel<T, M, MODE, VARIANT><<<grid, NTHREADS, smem, stream>>>(
-      fs, params, faces, k0, k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,
-      use_noise);
+  kernel<<<(int)n_tiles, NTHREADS, smem, stream>>>(
+      fs, params, faces, maps, tma, k0, k1, step0, ox, oy, oz, row, nx, ny,
+      nz, fuse, use_noise);
   return (int)cudaGetLastError();
+}
+
+// The tensor maps of a launch: kNF maps from the host (`maps`, 128 B
+// each, as gs_window_map encodes them), or none for the cp.async load.
+inline WindowMaps maps_of(const void* maps) {
+  WindowMaps wm;
+  memset(&wm, 0, sizeof(wm));
+  if (maps != nullptr) memcpy(&wm, maps, sizeof(wm));
+  return wm;
 }
 
 template <typename T, typename M>
 int launch(const void* const* in, void* const* out, const void* params,
-           const void* const* face_ptrs, const double* bounds, int mode,
-           uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz,
-           uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
-           void* stream) {
+           const void* const* face_ptrs, const void* maps,
+           const double* bounds, int mode, uint32_t k0, uint32_t k1,
+           uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx,
+           int ny, int nz, int fuse, int use_noise, void* stream) {
   using C = typename Compute<T>::type;
   const int n_faces = mode == kFaces6 ? 6 * kNF : mode == kXChain ? 2 * kNF : 0;
   if (fuse < 1 || nx < 1 || ny < 1 || nz < 1 || mode < kBlock ||
@@ -623,19 +859,49 @@ int launch(const void* const* in, void* const* out, const void* params,
   for (int i = 0; i < n_faces; ++i) {
     faces.p[i] = static_cast<const T*>(face_ptrs[i]);
   }
+  const WindowMaps wm = maps_of(maps);
+  const int tma = maps != nullptr;
   const C* pv = static_cast<const C*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kFaces6:
-      return run<T, M, kFaces6>(fs, pv, faces, k0, k1, step0, ox, oy, oz,
-                                row, nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kFaces6>(fs, pv, faces, wm, tma, k0, k1, step0, ox, oy,
+                                oz, row, nx, ny, nz, fuse, use_noise, st);
     case kXChain:
-      return run<T, M, kXChain>(fs, pv, faces, k0, k1, step0, ox, oy, oz,
-                                row, nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kXChain>(fs, pv, faces, wm, tma, k0, k1, step0, ox, oy,
+                                oz, row, nx, ny, nz, fuse, use_noise, st);
     default:
-      return run<T, M, kBlock>(fs, pv, faces, k0, k1, step0, ox, oy, oz,
-                               row, nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kBlock>(fs, pv, faces, wm, tma, k0, k1, step0, ox, oy,
+                               oz, row, nx, ny, nz, fuse, use_noise, st);
   }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library links no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(sym);
+    }
+  }
+  return fn;
 }
 
 #ifdef GS_ENVELOPE_PROBES
@@ -643,18 +909,18 @@ static_assert(kNF == 2 && kNP == 6, "the envelope probes are Gray-Scott's");
 
 template <int VARIANT>
 int compute_walk(const Fields<float, float>& fs, const float* params,
-                 uint32_t k0, uint32_t k1, uint32_t step0, uint32_t row,
-                 int nx, int ny, int nz, int fuse, int use_noise,
-                 cudaStream_t st) {
+                 const WindowMaps& wm, int tma, uint32_t k0, uint32_t k1,
+                 uint32_t step0, uint32_t row, int nx, int ny, int nz,
+                 int fuse, int use_noise, cudaStream_t st) {
   return run<float, float, kComputeWalk, VARIANT>(
-      fs, params, Faces<float>{}, k0, k1, step0, 0, 0, 0, row, nx, ny, nz,
-      fuse, use_noise, st);
+      fs, params, Faces<float>{}, wm, tma, k0, k1, step0, 0, 0, 0, row, nx,
+      ny, nz, fuse, use_noise, st);
 }
 
 int probe(int mode, int variant, const void* const* in, void* const* out,
-          const void* params, const double* bounds, uint32_t k0,
-          uint32_t k1, uint32_t step0, uint32_t row, int nx, int ny, int nz,
-          int fuse, int use_noise, void* stream) {
+          const void* params, const void* maps, const double* bounds,
+          uint32_t k0, uint32_t k1, uint32_t step0, uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,
+          void* stream) {
   if (fuse < 1 || nx < 1 || ny < 1 || nz < 1 || in == nullptr ||
       out == nullptr || bounds == nullptr ||
       (mode == kComputeWalk &&
@@ -667,35 +933,35 @@ int probe(int mode, int variant, const void* const* in, void* const* out,
     fs.out[f] = static_cast<float*>(out[f]);
     fs.bound[f] = static_cast<float>(bounds[f]);
   }
+  const WindowMaps wm = maps_of(maps);
+  const int tma = maps != nullptr;
   const float* pv = static_cast<const float*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kCopyWalk) {
-    return run<float, float, kCopyWalk>(fs, pv, Faces<float>{}, 0, 0, 0, 0,
-                                        0, 0, row, nx, ny, nz, fuse, 0, st);
+    return run<float, float, kCopyWalk>(fs, pv, Faces<float>{}, wm, tma, 0,
+                                        0, 0, 0, 0, 0, row, nx, ny, nz, fuse,
+                                        0, st);
   }
+#define GS_WALK(V)                                                         \
+  compute_walk<V>(fs, pv, wm, tma, k0, k1, step0, row, nx, ny, nz, fuse, \
+                  use_noise, st)
   switch (variant) {
     case kNoNoise:
-      return compute_walk<kNoNoise>(fs, pv, k0, k1, step0, row, nx, ny, nz,
-                                    fuse, use_noise, st);
+      return GS_WALK(kNoNoise);
     case kNoSelect:
-      return compute_walk<kNoSelect>(fs, pv, k0, k1, step0, row, nx, ny, nz,
-                                     fuse, use_noise, st);
+      return GS_WALK(kNoSelect);
     case kNoYZ:
-      return compute_walk<kNoYZ>(fs, pv, k0, k1, step0, row, nx, ny, nz,
-                                 fuse, use_noise, st);
+      return GS_WALK(kNoYZ);
     case kFma:
-      return compute_walk<kFma>(fs, pv, k0, k1, step0, row, nx, ny, nz, fuse,
-                                use_noise, st);
+      return GS_WALK(kFma);
     case kMinimal:
-      return compute_walk<kMinimal>(fs, pv, k0, k1, step0, row, nx, ny, nz,
-                                    fuse, use_noise, st);
+      return GS_WALK(kMinimal);
     case kNoMid:
-      return compute_walk<kNoMid>(fs, pv, k0, k1, step0, row, nx, ny, nz,
-                                  fuse, use_noise, st);
+      return GS_WALK(kNoMid);
     default:
-      return compute_walk<kChain>(fs, pv, k0, k1, step0, row, nx, ny, nz,
-                                  fuse, use_noise, st);
+      return GS_WALK(kChain);
   }
+#undef GS_WALK
 }
 #endif  // GS_ENVELOPE_PROBES
 
@@ -717,21 +983,50 @@ const char* gs_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// The TMA tensor map of one field's windows at depth `fuse` into `out`
+// (128 B): the (nx, ny, nz) tensor at `base` with elements of
+// `itemsize` bytes (4 float, 8 double, 2 bfloat16), box (WZP, WY, WX).
+// Returns 0, the driver's CUresult, or -1 when the driver has no
+// cuTensorMapEncodeTiled.
+int gs_window_map(void* out, const void* base, int itemsize, int nx, int ny,
+                  int nz, int fuse) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return -1;
+  const CUtensorMapDataType type =
+      itemsize == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+      : itemsize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const Window w = window_of(itemsize, fuse);
+  const cuuint64_t dims[3] = {(cuuint64_t)nz, (cuuint64_t)ny, (cuuint64_t)nx};
+  const cuuint64_t strides[2] = {(cuuint64_t)nz * itemsize,
+                                 (cuuint64_t)ny * nz * itemsize};
+  const cuuint32_t box[3] = {(cuuint32_t)w.WZP, (cuuint32_t)w.WY,
+                             (cuuint32_t)w.WX};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return (int)encode(static_cast<CUtensorMap*>(out), type, 3,
+                     const_cast<void*>(base), dims, strides, box, unit,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // in, out: host arrays of kNF device pointers; params: a device vector
 // of kNP values of the compute type (float for bf16 fields); face_ptrs: a
 // host array of device pointers (6 kNF for mode 1, 2 kNF for mode 2) or
-// NULL for mode 0; bounds: a host array of kNF boundary values. One entry
-// point per posture: f32, f64, bf16 (bf16 storage and windows, float
-// compute) and f32_mid_bf16 (float fields, bf16 mid windows).
-#define GS_ENTRY(NAME, T, M)                                                \
-  int NAME(const void* const* in, void* const* out, const void* params,      \
-           const void* const* face_ptrs, const double* bounds, int mode,     \
-           uint32_t k0, uint32_t k1, uint32_t step0, int ox, int oy, int oz, \
-           uint32_t row, int nx, int ny, int nz, int fuse, int use_noise,    \
-           void* stream) {                                                   \
-    return launch<T, M>(in, out, params, face_ptrs, bounds, mode, k0, k1,    \
-                        step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise, \
-                        stream);                                             \
+// NULL for mode 0; maps: kNF tensor maps of the inputs (gs_window_map,
+// 128 B each, at this fuse), or NULL to load by cp.async; bounds: a host
+// array of kNF boundary values. One entry point per posture: f32, f64,
+// bf16 (bf16 storage and windows, float compute) and f32_mid_bf16
+// (float fields, bf16 mid windows).
+#define GS_ENTRY(NAME, T, M)                                                 \
+  int NAME(const void* const* in, void* const* out, const void* params,       \
+           const void* const* face_ptrs, const void* maps,                    \
+           const double* bounds, int mode, uint32_t k0, uint32_t k1,          \
+           uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx,      \
+           int ny, int nz, int fuse, int use_noise, void* stream) {           \
+    return launch<T, M>(in, out, params, face_ptrs, maps, bounds, mode, k0,   \
+                        k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,         \
+                        use_noise, stream);                                   \
   }
 
 #ifndef GS_ENVELOPE_PROBES
@@ -742,23 +1037,24 @@ GS_ENTRY(gs_stencil_chain_f32_mid_bf16, float, __nv_bfloat16)
 #else
 // The envelope probes' library (Gray-Scott, float32 fields) holds these
 // two entry points instead. in, out: host arrays of kNF device
-// pointers; bounds: a host array of kNF boundary values; the copy walk
-// reads no params. variant: kComputeWalk's Variant.
+// pointers; maps as for the production entry points; bounds: a host
+// array of kNF boundary values; the copy walk reads no params. variant:
+// kComputeWalk's Variant.
 int gs_envelope_copy_walk_f32(const void* const* in, void* const* out,
-                              const double* bounds, int nx, int ny, int nz,
-                              int fuse, void* stream) {
-  return probe(kCopyWalk, kChain, in, out, nullptr, bounds, 0, 0, 0, 0, nx,
-               ny, nz, fuse, 0, stream);
+                              const void* maps, const double* bounds, int nx,
+                              int ny, int nz, int fuse, void* stream) {
+  return probe(kCopyWalk, kChain, in, out, nullptr, maps, bounds, 0, 0, 0, 0,
+               nx, ny, nz, fuse, 0, stream);
 }
 
 int gs_envelope_compute_walk_f32(const void* const* in, void* const* out,
-                                 const void* params, const double* bounds,
-                                 int variant, uint32_t k0, uint32_t k1,
-                                 uint32_t step0, uint32_t row, int nx, int ny,
-                                 int nz, int fuse, int use_noise,
-                                 void* stream) {
-  return probe(kComputeWalk, variant, in, out, params, bounds, k0, k1, step0,
-               row, nx, ny, nz, fuse, use_noise, stream);
+                                 const void* params, const void* maps,
+                                 const double* bounds, int variant,
+                                 uint32_t k0, uint32_t k1, uint32_t step0,
+                                 uint32_t row, int nx, int ny, int nz,
+                                 int fuse, int use_noise, void* stream) {
+  return probe(kComputeWalk, variant, in, out, params, maps, bounds, k0, k1,
+               step0, row, nx, ny, nz, fuse, use_noise, stream);
 }
 #endif  // GS_ENVELOPE_PROBES
 

@@ -45,12 +45,21 @@ The plain versions, and why there are two for bf16:
 The shared-memory ledger (:func:`smem_bytes`, :func:`max_feasible_fuse`)
 replaces the reference's VMEM slab ledger: the kernel keeps the window
 of each of the model's fields — the ``TILE`` plus a ``fuse``-cell halo
-per side — in shared memory, as two ping-pong buffers of the storage
-type, or, under ``GS_MID_BF16``, one float32 input window plus bf16 mid
-windows. Without faces, a requested depth above what fits runs as a
-sequence of shallower launches; an x-chain's depth is its slabs' width,
-so the caller caps it (the simulation does, with a warning) and a
-deeper one raises.
+per side, at the padded z stride of :func:`window_geometry` — in shared
+memory, as two ping-pong buffers of the storage type, or, under
+``GS_MID_BF16``, one float32 input window plus bf16 mid windows, and
+the load's mbarrier. Without faces, a requested depth above what fits runs as
+a sequence of shallower launches; an x-chain's depth is its slabs'
+width, so the caller caps it (the simulation does, with a warning) and
+a deeper one raises.
+
+The window load: each field's window is one TMA box, from a tensor map
+encoded on the host (``gs_window_map``) and cached per (data pointers,
+shape, dtype, fuse); an operand TMA refuses loads the same padded window
+by ``cp.async``. :func:`load_path` is the rule; :func:`emulate_window`
+is the load in torch ops (padded stride, zero fill, then the ghost
+pass), which the CPU tests hold to the window's definition in every
+mode. ``LOAD_PATH_LAUNCHES`` counts the launches of each path.
 
 ``LAUNCHES`` counts kernel launches (not plain-path calls),
 ``MODE_LAUNCHES`` splits them by mode, ``MODEL_LAUNCHES`` by model and
@@ -65,9 +74,10 @@ launches count in ``LAUNCHES`` and ``MODE_LAUNCHES`` (``copy_walk``,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,17 +134,95 @@ SMEM_LIMIT = 232_448
 #: Ping-pong window buffers per field when the windows share one type.
 N_BUFFERS = 2
 
+#: The kernel's mbarrier of the TMA load, after the windows.
+BARRIER_BYTES = 8
+
+#: The window load paths: a TMA box per field, or ``cp.async`` for an
+#: operand TMA refuses (:func:`load_path`).
+LOAD_PATHS = ("tma", "cp_async")
+
+#: Launches per load path (the probes' too), counted beside
+#: :data:`LAUNCHES`.
+LOAD_PATH_LAUNCHES: Dict[str, int] = dict.fromkeys(LOAD_PATHS, 0)
+
+#: A load path forced by :func:`override` (the parity checks run every
+#: mode on both paths); None lets :func:`load_path` decide.
+_FORCED_LOAD: Optional[str] = None
+
+#: Encoded tensor maps of kernel inputs, by (data pointers, shape,
+#: itemsize, fuse); a few buffers cycle through the steps of a run.
+_MAPS: Dict[tuple, ctypes.Array] = {}
+_MAPS_LIMIT = 256
+
+#: Bytes of one encoded ``CUtensorMap``.
+MAP_BYTES = 128
+
 
 def reset_launches() -> None:
     """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES`,
-    :data:`VARIANT_LAUNCHES`, :data:`MODEL_LAUNCHES` and
-    :data:`DTYPE_LAUNCHES` count to 0."""
+    :data:`VARIANT_LAUNCHES`, :data:`MODEL_LAUNCHES`,
+    :data:`DTYPE_LAUNCHES` and :data:`LOAD_PATH_LAUNCHES` count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (MODE_LAUNCHES, VARIANT_LAUNCHES, DTYPE_LAUNCHES):
+    for counts in (MODE_LAUNCHES, VARIANT_LAUNCHES, DTYPE_LAUNCHES,
+                   LOAD_PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
     MODEL_LAUNCHES.clear()
+
+
+def load_path(shape: Sequence[int], itemsize: int,
+              pointers: Sequence[int]) -> str:
+    """The window load of a launch on inputs of ``shape`` (x, y, z),
+    ``itemsize`` bytes a cell, at device addresses ``pointers``: ``"tma"``
+    when every TMA rule holds — a row of nz cells (the tensor map's
+    global stride) and every base address multiples of 16 B — else
+    ``"cp_async"`` (e.g. nz = 250 float32). A path forced by
+    :func:`override` wins; a forced TMA on an operand it refuses
+    raises."""
+    tma = (shape[2] * itemsize) % 16 == 0 and all(p % 16 == 0
+                                                   for p in pointers)
+    if _FORCED_LOAD == "cp_async":
+        return "cp_async"
+    if _FORCED_LOAD == "tma" and not tma:
+        raise ValueError(
+            f"TMA refuses inputs of shape {tuple(shape)} at {itemsize} B a "
+            f"cell (pointers {[hex(p) for p in pointers]})")
+    return "tma" if tma else "cp_async"
+
+
+@contextlib.contextmanager
+def override(load: Optional[str] = None):
+    """Within the block, launch on the load path ``load`` (``"tma"`` or
+    ``"cp_async"``; None: by :func:`load_path`'s rule) — for checks and
+    timings that run one operand on both."""
+    global _FORCED_LOAD
+    if load not in (None, *LOAD_PATHS):
+        raise ValueError(f"load must be one of {LOAD_PATHS}, got {load!r}")
+    saved = _FORCED_LOAD
+    _FORCED_LOAD = load
+    try:
+        yield
+    finally:
+        _FORCED_LOAD = saved
+
+
+def window_geometry(itemsize: int, fuse: int,
+                    tile: Tuple[int, int, int] = TILE):
+    """The kernel's window at depth ``fuse`` for ``itemsize``-byte cells
+    (``window_of`` in stencil_chain.cu): ``(WX, WY, WZ, WZP, lead,
+    wvol)`` — the tile plus ``fuse`` cells per side; its rows stored at
+    stride WZP (WZ rounded up until a row is a multiple of 16 B, TMA's
+    rule for a box's inner dimension); ``lead``, the cells from the
+    window's z origin (``fuse`` below a tile's) up to the next 16 B
+    boundary, where TMA requires a box to start; ``wvol`` elements per
+    field slot: a 128 B lead zone and the box rounded up to 128 B (TMA's
+    alignment of a shared-memory destination)."""
+    wx, wy, wz = (t + 2 * fuse for t in tile)
+    zq, vq = 16 // itemsize, 128 // itemsize
+    wzp = -(-wz // zq) * zq
+    wvol = vq - (-(wx * wy * wzp) // vq) * vq
+    return wx, wy, wz, wzp, fuse % zq, wvol
 
 
 def compute_dtype_of(dtype: torch.dtype) -> torch.dtype:
@@ -165,12 +253,16 @@ def smem_bytes(itemsize: int, fuse: int, n_fields: int = 2,
     windows are narrower (``mid_itemsize``, ``GS_MID_BF16``) — one input
     window of ``itemsize`` plus the mid windows the chain needs (none at
     depth 1, one at depth 2, two deeper), as the reference's
-    ``_slab_fits`` counts them."""
-    window = math.prod(t + 2 * fuse for t in tile)
+    ``_slab_fits`` counts them; each window of
+    :func:`window_geometry`'s ``wvol`` cells, and the load's mbarrier.
+    This is the most a launch takes (the cap): a depth-1 launch requests
+    one window per field, as it writes nothing back to shared memory."""
+    wvol = window_geometry(itemsize, fuse, tile)[5]
     if mid_itemsize is None or mid_itemsize == itemsize:
-        return n_fields * N_BUFFERS * window * itemsize
+        return n_fields * N_BUFFERS * wvol * itemsize + BARRIER_BYTES
     n_mid = min(fuse - 1, N_BUFFERS)
-    return n_fields * window * (itemsize + n_mid * mid_itemsize)
+    return (n_fields * wvol * (itemsize + n_mid * mid_itemsize)
+            + BARRIER_BYTES)
 
 
 def max_feasible_fuse(itemsize: int, n_fields: int = 2,
@@ -204,6 +296,115 @@ def pad_from_faces(x, xlo, xhi, ylo, yhi, zlo, zhi):
                    F.pad(yhi, (0, 0, 0, 0, 1, 1))], dim=1)
     return torch.cat([F.pad(zlo, (0, 0, 1, 1, 1, 1)), x,
                       F.pad(zhi, (0, 0, 1, 1, 1, 1))], dim=2)
+
+
+def emulate_window(fields, faces=None, *, mode="chain", fuse=1, origin,
+                   boundaries, load="tma"):
+    """The kernel's window load for one tile, in torch ops: each field's
+    ``(WX, WY, WZP)`` window (:func:`window_geometry`) whose origin in
+    the operand's (x, y, z) coordinates is ``origin`` (negative at a low
+    edge). The cells start undefined (NaN). ``load="tma"``: the box TMA
+    copies, ``lead`` cells up in z, the cells outside the operand zero;
+    ``"cp_async"``: every window cell below z = WZ, zero outside the
+    operand. Then the ghost pass over the lead slab (TMA only: loaded,
+    or by mode outside the operand) and the six boxes that make up the
+    window's cells outside the operand above it, with each mode's value:
+    the boundary value (``chain``), the face of the one axis a ghost lies
+    across (``faces6``; the 6n faces as :func:`fused_step` takes them),
+    the x slabs (``xchain``/``xychain``; the 2n-tuple). Returns the
+    window tensors, in the fields' dtype."""
+    nx, ny, nz = fields[0].shape
+    wx, wy, wz, wzp, lead, _ = window_geometry(fields[0].element_size(),
+                                               fuse)
+    if load == "cp_async":
+        lead = 0
+    o = tuple(int(v) for v in origin)
+    # The copied cells: window z in [lead, lead + WZP) for the TMA box
+    # (the part past WZP is the next row's lead, written over below),
+    # [0, WZ) for cp.async.
+    z_copy = (lead, wzp) if load == "tma" else (0, wz)
+    box = ((0, wx), (0, wy), z_copy)
+    lo = [max(a, -v) for (a, _), v in zip(box, o)]
+    hi = [min(b, n - v) for (_, b), n, v in zip(box, (nx, ny, nz), o)]
+    wins = []
+    for f in fields:
+        w = torch.full((wx, wy, wzp), math.nan, dtype=f.dtype,
+                       device=f.device)
+        w[:, :, z_copy[0]:z_copy[1]] = 0
+        if all(b > a for a, b in zip(lo, hi)):
+            w[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = f[
+                o[0] + lo[0]:o[0] + hi[0], o[1] + lo[1]:o[1] + hi[1],
+                o[2] + lo[2]:o[2] + hi[2]]
+        wins.append(w)
+
+    def clamp(v, n):
+        return max(0, min(n, v))
+
+    ix = (clamp(-o[0], wx), clamp(nx - o[0], wx))
+    iy = (clamp(-o[1], wy), clamp(ny - o[1], wy))
+    iz = (clamp(-o[2], wz), clamp(nz - o[2], wz))
+    above = (lead, wz)
+    boxes = (((0, wx), (0, wy), (0, lead)),
+             ((0, ix[0]), (0, wy), above), ((ix[1], wx), (0, wy), above),
+             (ix, (0, iy[0]), above), (ix, (iy[1], wy), above),
+             (ix, iy, (lead, max(iz[0], lead))),
+             (ix, iy, (max(iz[1], lead), wz)))
+    for box in boxes:
+        if any(b <= a for a, b in box):
+            continue
+        g = [torch.arange(a, b, device=fields[0].device) + v
+             for (a, b), v in zip(box, o)]
+        vals = _ghost_values(fields, faces, mode, fuse, boundaries,
+                             g[0][:, None, None], g[1][None, :, None],
+                             g[2][None, None, :])
+        for w, v in zip(wins, vals):
+            w[tuple(slice(a, b) for a, b in box)] = v
+    return wins
+
+
+def _ghost_values(fields, faces, mode, fuse, boundaries, gx, gy, gz):
+    """Each field's value at the cells (gx, gy, gz) (a broadcast grid)
+    as the kernel's ghost pass computes it: the field's own inside the
+    operand, else by mode."""
+    nx, ny, nz = fields[0].shape
+    n_f = len(fields)
+    in_x, in_y, in_z = ((g >= 0) & (g < n)
+                        for g, n in ((gx, nx), (gy, ny), (gz, nz)))
+    shape = torch.broadcast_shapes(gx.shape, gy.shape, gz.shape)
+
+    def at(face, i, j, k):
+        return face[i.clamp(0, face.shape[0] - 1),
+                    j.clamp(0, face.shape[1] - 1),
+                    k.clamp(0, face.shape[2] - 1)]
+
+    out = []
+    zero = torch.zeros_like(gx)
+    for f in range(n_f):
+        dtype = fields[f].dtype
+        v = torch.full(shape, boundaries[f], dtype=dtype,
+                       device=fields[f].device)
+        inside = in_x & in_y & in_z
+        v = torch.where(inside, at(fields[f], gx, gy, gz), v)
+        if mode == "faces6":
+            for axis, (g, n, take) in enumerate((
+                    (gx, nx, lambda fc: at(fc, zero, gy, gz)),
+                    (gy, ny, lambda fc: at(fc, gx, zero, gz)),
+                    (gz, nz, lambda fc: at(fc, gx, gy, zero)))):
+                others = [m for a, m in enumerate((in_x, in_y, in_z))
+                          if a != axis]
+                near = others[0] & others[1]
+                lo_face = faces[2 * n_f * axis + 2 * f]
+                hi_face = faces[2 * n_f * axis + 2 * f + 1]
+                v = torch.where(near & (g == -1), take(lo_face), v)
+                v = torch.where(near & (g == n), take(hi_face), v)
+        elif mode in ("xchain", "xychain"):
+            slab = in_y & in_z
+            lo = slab & (gx >= -fuse) & (gx < 0)
+            hi = slab & (gx >= nx) & (gx < nx + fuse)
+            v = torch.where(lo, at(faces[2 * f], gx + fuse, gy, gz), v)
+            v = torch.where(hi, at(faces[2 * f + 1], gx - nx, gy, gz), v)
+        out.append(v)
+    return out
 
 
 def _model(spec):
@@ -475,12 +676,11 @@ def _lib(spec):
                 f"the {spec.name!r} kernel's (tile, fields, params) "
                 f"{tuple(layout)} != the ledger's {want}"
             )
-        lib.gs_error_string.argtypes = [ctypes.c_int]
-        lib.gs_error_string.restype = ctypes.c_char_p
+        _type_common(lib)
         for suffix in ENTRIES.values():
             fn = getattr(lib, f"gs_stencil_chain_{suffix}")
             fn.argtypes = (
-                [ctypes.c_void_p] * 5
+                [ctypes.c_void_p] * 6
                 + [ctypes.c_int]
                 + [ctypes.c_uint32] * 3
                 + [ctypes.c_int] * 3
@@ -493,9 +693,60 @@ def _lib(spec):
     return lib
 
 
+def _type_common(lib):
+    """Type the entry points every library of the template holds."""
+    lib.gs_error_string.argtypes = [ctypes.c_int]
+    lib.gs_error_string.restype = ctypes.c_char_p
+    lib.gs_window_map.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    lib.gs_window_map.restype = ctypes.c_int
+
+
 def _pointers(tensors):
     """A host array of the tensors' device pointers."""
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def window_maps(lib, fields, fuse):
+    """The load of a launch on ``fields`` at depth ``fuse``: ``(path,
+    maps)`` — ``"tma"`` with a host buffer of one encoded tensor map per
+    field (cached), or ``"cp_async"`` with None (:func:`load_path`)."""
+    first = fields[0]
+    itemsize = first.element_size()
+    ptrs = tuple(f.data_ptr() for f in fields)
+    path = load_path(first.shape, itemsize, ptrs)
+    if path != "tma":
+        return path, None
+    key = (ptrs, tuple(first.shape), itemsize, fuse)
+    maps = _MAPS.get(key)
+    if maps is None:
+        maps = (ctypes.c_ubyte * (MAP_BYTES * len(fields)))()
+        nx, ny, nz = first.shape
+        for i, p in enumerate(ptrs):
+            rc = lib.gs_window_map(ctypes.addressof(maps) + MAP_BYTES * i, p,
+                                   itemsize, nx, ny, nz, fuse)
+            if rc != 0:
+                raise RuntimeError(
+                    f"cuTensorMapEncodeTiled failed for a {tuple(first.shape)}"
+                    f" {first.dtype} input at depth {fuse}: "
+                    + ("the driver has no such entry point" if rc < 0
+                       else f"CUresult {rc}"))
+        if len(_MAPS) >= _MAPS_LIMIT:
+            _MAPS.clear()
+        _MAPS[key] = maps
+    return path, maps
+
+
+def maps_address(maps):
+    """The host address of a launch's tensor maps, or None (cp.async)."""
+    return ctypes.addressof(maps) if maps is not None else None
+
+
+def count_launch(mode, path):
+    """Count one kernel launch of ``mode`` on load ``path``."""
+    global LAUNCHES
+    LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
+    LOAD_PATH_LAUNCHES[path] += 1
 
 
 def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
@@ -503,7 +754,6 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
     """One launch of ``spec``'s generated kernel advancing ``fuse``
     steps (``fuse`` <= the ledger's cap) in ``mode``; returns the new
     field tuple."""
-    global LAUNCHES
     first = fields[0]
     dtype = first.dtype
     entry = ENTRIES.get((dtype, bool(mid_bf16)))
@@ -550,12 +800,14 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
     fn = getattr(lib, f"gs_stencil_chain_{entry}")
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
     with torch.cuda.device(first.device):
+        path, maps = window_maps(lib, fields, fuse)
         stream = torch.cuda.current_stream(first.device).cuda_stream
         rc = fn(
             ctypes.cast(in_ptrs, ctypes.c_void_p),
             ctypes.cast(out_ptrs, ctypes.c_void_p),
             params_vec.data_ptr(),
             ctypes.cast(face_ptrs, ctypes.c_void_p) if faces else None,
+            maps_address(maps),
             ctypes.cast(bounds, ctypes.c_void_p),
             MODES[mode],
             int(seeds[0]) & 0xFFFFFFFF, int(seeds[1]) & 0xFFFFFFFF,
@@ -567,11 +819,10 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
         msg = lib.gs_error_string(rc).decode()
         raise RuntimeError(
             f"stencil_chain launch failed (model={spec.name}, mode={mode}, "
-            f"fuse={fuse}, shape={tuple(first.shape)}, {entry}): CUDA "
-            f"error {rc}: {msg}"
+            f"fuse={fuse}, shape={tuple(first.shape)}, {entry}, load "
+            f"{path}): CUDA error {rc}: {msg}"
         )
-    LAUNCHES += 1
-    MODE_LAUNCHES[mode] += 1
+    count_launch(mode, path)
     DTYPE_LAUNCHES[entry] += 1
     MODEL_LAUNCHES[spec.name] = MODEL_LAUNCHES.get(spec.name, 0) + 1
     return outs

@@ -4,8 +4,8 @@
 The TPU probes take the TPU kernel apart; these take apart the port's
 kernel, ``ops/csrc/stencil_chain.cu``, and are modes of it (built into
 Gray-Scott's second library, ``ops/_build.py``), so they replay its
-8 x 8 x 32 tiles, its ``fuse``-cell halo, its stage-0 load loop, its
-stage function and its dynamic shared memory
+8 x 8 x 32 tiles, its ``fuse``-cell halo, its window load (TMA or
+``cp.async``), its stage function and its dynamic shared memory
 (:func:`~.cuda_stencil.smem_bytes`):
 
 * :func:`copy_walk` (``dma_walk``, ``envelope_probe.py:164``): every
@@ -38,8 +38,8 @@ the same order; the kernel equals it bitwise on the card. On the CPU
 the entry points run the plain versions; on the card they launch the
 kernel or raise. Launches count in ``cuda_stencil.LAUNCHES``, in
 ``cuda_stencil.MODE_LAUNCHES`` under ``copy_walk`` and
-``compute_walk``, and per variant in
-``cuda_stencil.VARIANT_LAUNCHES``.
+``compute_walk``, per variant in ``cuda_stencil.VARIANT_LAUNCHES`` and
+per window load path in ``cuda_stencil.LOAD_PATH_LAUNCHES``.
 
 What bounds them on the card: the copy walk moves each field's bytes
 once each way plus the halo re-reads (device-memory bytes); the compute
@@ -266,14 +266,17 @@ def copy_walk(fields, *, fuse):
     lib = _lib(spec)
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
     with torch.cuda.device(fields[0].device):
+        path, maps = cuda_stencil.window_maps(lib, fields, fuse)
         stream = torch.cuda.current_stream(fields[0].device).cuda_stream
         rc = lib.gs_envelope_copy_walk_f32(
             ctypes.cast(in_ptrs, ctypes.c_void_p),
             ctypes.cast(out_ptrs, ctypes.c_void_p),
-            ctypes.cast(bounds, ctypes.c_void_p), nx, ny, nz, fuse, stream)
-    _raise_on(lib, rc, f"copy_walk (fuse={fuse}, shape={(nx, ny, nz)})")
-    cuda_stencil.LAUNCHES += 1
-    cuda_stencil.MODE_LAUNCHES["copy_walk"] += 1
+            cuda_stencil.maps_address(maps),
+            ctypes.cast(bounds, ctypes.c_void_p),
+            nx, ny, nz, fuse, stream)
+    _raise_on(lib, rc, f"copy_walk (fuse={fuse}, shape={(nx, ny, nz)}, "
+                       f"load {path})")
+    cuda_stencil.count_launch("copy_walk", path)
     return outs
 
 
@@ -307,18 +310,20 @@ def compute_walk(fields, params, seeds, *, spec, fuse, use_noise,
     lib = _lib(spec)
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
     with torch.cuda.device(fields[0].device):
+        path, maps = cuda_stencil.window_maps(lib, fields, fuse)
         stream = torch.cuda.current_stream(fields[0].device).cuda_stream
         rc = lib.gs_envelope_compute_walk_f32(
             ctypes.cast(in_ptrs, ctypes.c_void_p),
             ctypes.cast(out_ptrs, ctypes.c_void_p), params_vec.data_ptr(),
-            ctypes.cast(bounds, ctypes.c_void_p), VARIANTS.index(variant),
+            cuda_stencil.maps_address(maps),
+            ctypes.cast(bounds, ctypes.c_void_p),
+            VARIANTS.index(variant),
             int(seeds[0]) & 0xFFFFFFFF, int(seeds[1]) & 0xFFFFFFFF,
             int(seeds[2]) & 0xFFFFFFFF, row & 0xFFFFFFFF, nx, ny, nz, fuse,
             int(bool(use_noise)), stream)
     _raise_on(lib, rc, f"compute_walk (variant={variant}, fuse={fuse}, "
-                       f"shape={(nx, ny, nz)})")
-    cuda_stencil.LAUNCHES += 1
-    cuda_stencil.MODE_LAUNCHES["compute_walk"] += 1
+                       f"shape={(nx, ny, nz)}, load {path})")
+    cuda_stencil.count_launch("compute_walk", path)
     cuda_stencil.VARIANT_LAUNCHES[variant] += 1
     return outs
 
@@ -404,13 +409,12 @@ def _lib(spec):
 
     lib = _build.load(spec, envelope=True)
     if not getattr(lib, "_gs_probes_ready", False):
-        lib.gs_error_string.argtypes = [ctypes.c_int]
-        lib.gs_error_string.restype = ctypes.c_char_p
+        cuda_stencil._type_common(lib)
         lib.gs_envelope_copy_walk_f32.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.gs_envelope_copy_walk_f32.restype = ctypes.c_int
         lib.gs_envelope_compute_walk_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_uint32] * 4
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_uint32] * 4
             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.gs_envelope_compute_walk_f32.restype = ctypes.c_int
         lib._gs_probes_ready = True

@@ -1,0 +1,187 @@
+"""Field health guard (counterpart of
+``grayscott_jl_tpu/resilience/health.py``).
+
+A blown-up run (too large a ``dt``, a bad parameter region) turns every
+later output step into NaN. The guard probes the fields at each output
+or checkpoint boundary — an ``isfinite`` AND over every field and each
+field's min and max, reduced on the device by
+``Simulation.snapshot(health=True)`` before the host copy and resolved
+with it — and acts on the report before anything is written.
+
+Policy (``GS_HEALTH_POLICY`` wins over the ``health_policy`` key):
+
+``abort`` (default)
+    Raise :class:`HealthError` at the boundary: the poisoned step is
+    never written and the run stops.
+``warn``
+    Log and write the step anyway.
+``off``
+    No probe at all.
+``rollback``
+    Needs the supervisor, which is not ported yet (ROADMAP Queue 1 item
+    17): :func:`resolve_policy` raises at start-up.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config.env import env_raw
+
+__all__ = [
+    "POLICIES",
+    "HealthError",
+    "HealthGuard",
+    "HealthReport",
+    "device_probe",
+    "resolve_policy",
+]
+
+POLICIES = ("abort", "rollback", "warn", "off")
+
+#: Policies this package acts on; the others raise at start-up.
+PORTED_POLICIES = ("abort", "warn", "off")
+
+
+class HealthReport:
+    """The resolved probe of one boundary: ``finite`` over every field
+    and one ``(min, max)`` range per field, with the model's field
+    names (``u``/``v`` for two unnamed fields, ``f0``... otherwise)."""
+
+    def __init__(self, finite, *minmax, names=None, ranges=None):
+        self.finite = bool(finite)
+        if ranges is None:
+            if len(minmax) % 2:
+                raise ValueError(
+                    "HealthReport needs (min, max) pairs per field")
+            ranges = tuple((float(minmax[i]), float(minmax[i + 1]))
+                           for i in range(0, len(minmax), 2))
+        self.ranges = tuple((float(lo), float(hi)) for lo, hi in ranges)
+        if names is None:
+            names = ("u", "v")[:len(self.ranges)]
+            if len(names) < len(self.ranges):
+                names = tuple(f"f{i}" for i in range(len(self.ranges)))
+        self.names = tuple(names)
+
+    @property
+    def u_min(self) -> float:
+        return self.ranges[0][0]
+
+    @property
+    def u_max(self) -> float:
+        return self.ranges[0][1]
+
+    @property
+    def v_min(self) -> float:
+        return self.ranges[1][0]
+
+    @property
+    def v_max(self) -> float:
+        return self.ranges[1][1]
+
+    def range_summary(self) -> str:
+        return ", ".join(f"{n} in [{lo}, {hi}]"
+                         for n, (lo, hi) in zip(self.names, self.ranges))
+
+    def describe(self) -> dict:
+        return {
+            "finite": self.finite,
+            **{f"{n}_range": [lo, hi]
+               for n, (lo, hi) in zip(self.names, self.ranges)},
+        }
+
+
+class HealthError(RuntimeError):
+    """A field failed the health check at a boundary."""
+
+    def __init__(self, step: int, report, policy: str):
+        super().__init__(
+            f"field health check failed at step {step} "
+            f"(finite={report.finite}, {report.range_summary()}); "
+            f"policy={policy}")
+        self.step = step
+        self.report = report
+        self.policy = policy
+
+
+def device_probe(*fields) -> torch.Tensor:
+    """The probe of one block, reduced on the fields' device: a float64
+    vector ``(finite, min_0, max_0, ..., min_n, max_n)`` (finite as 1.0
+    or 0.0; a NaN anywhere in a field makes its min and max NaN, as
+    the reference's reduction does). Enqueued only: nothing waits."""
+    finite = torch.stack([torch.isfinite(f).all() for f in fields]).all()
+    parts = [finite.to(torch.float64).reshape(1)]
+    for f in fields:
+        lo, hi = torch.aminmax(f)
+        parts.append(torch.stack([lo, hi]).to(torch.float64))
+    return torch.cat(parts)
+
+
+def report_of(probes, names) -> HealthReport:
+    """The boundary's :class:`HealthReport` from the host copies of the
+    blocks' :func:`device_probe` vectors: finite if every block is, the
+    ranges the blocks' min of mins and max of maxes (NaN wins)."""
+    finite = all(bool(p[0]) for p in probes)
+    ranges = []
+    for i in range(len(names)):
+        los = torch.tensor([float(p[1 + 2 * i]) for p in probes],
+                           dtype=torch.float64)
+        his = torch.tensor([float(p[2 + 2 * i]) for p in probes],
+                           dtype=torch.float64)
+        ranges.append((float(los.min()), float(his.max())))
+    return HealthReport(finite, names=names, ranges=ranges)
+
+
+def resolve_policy(settings=None) -> str:
+    """``GS_HEALTH_POLICY``, else the ``health_policy`` key, else
+    ``abort``. An unknown value raises at start-up, and so does
+    ``rollback``, which needs the supervisor (ROADMAP Queue 1 item 17)."""
+    policy = env_raw("GS_HEALTH_POLICY")
+    if policy is None and settings is not None:
+        policy = getattr(settings, "health_policy", "")
+    policy = (policy or "abort").strip().lower()
+    if policy not in POLICIES:
+        raise ValueError(
+            f"Unsupported health policy: {policy!r}. "
+            f"Supported: {', '.join(POLICIES)}")
+    if policy not in PORTED_POLICIES:
+        raise ValueError(
+            f"health policy {policy!r} needs the supervisor, which "
+            "grayscott_jl_tpu_torch does not support yet (ROADMAP Queue 1 "
+            f"item 17); use one of {', '.join(PORTED_POLICIES)}")
+    return policy
+
+
+class HealthGuard:
+    """Boundary-time enforcement of the policy over resolved reports."""
+
+    def __init__(self, policy: str = "abort"):
+        if policy not in PORTED_POLICIES:
+            raise ValueError(f"Unsupported health policy: {policy!r}")
+        self.policy = policy
+
+    @classmethod
+    def from_env(cls, settings=None) -> "HealthGuard":
+        return cls(resolve_policy(settings))
+
+    @property
+    def enabled(self) -> bool:
+        return self.policy != "off"
+
+    def check(self, step: int, report, *, log=None) -> Optional[dict]:
+        """Enforce the policy on one boundary's report. Healthy (or
+        disabled) returns None; unhealthy under ``warn`` logs and
+        returns the event; under ``abort`` raises :class:`HealthError`."""
+        if not self.enabled or report is None or report.finite:
+            return None
+        if self.policy == "warn":
+            event = {"event": "health", "kind": "health", "step": step,
+                     "policy": "warn", "action": "continued",
+                     **report.describe()}
+            if log is not None:
+                log.warn(f"field health check failed at step {step} "
+                         f"(non-finite values); policy=warn, continuing")
+            return event
+        raise HealthError(step, report, self.policy)

@@ -58,6 +58,7 @@ from .ops.noise import uniform_pm1_block
 from .parallel import halo, temporal
 from .parallel.domain import CartDomain
 from .parallel.mesh import DeviceMesh, select_devices
+from .resilience.health import device_probe, report_of
 
 
 #: Chain depth with the least time per step on the card at L=256
@@ -461,11 +462,19 @@ class Simulation:
                     _host(f))
         return tuple(o[:L, :L, :L] for o in out)
 
-    def snapshot(self, encode=None, exact: bool = True) -> BoundaryBlocks:
+    def snapshot(self, encode=None, exact: bool = True,
+                 health: bool = False) -> BoundaryBlocks:
         """Host blocks ``[(offsets, sizes, *fields)]`` for the output and
         checkpoint stores: one per block, each clipped to the true
         domain (a non-divisible L stores pad cells past L); bfloat16
         fields as float32 arrays holding their values.
+
+        ``health`` reduces the health probe on the device first
+        (``resilience/health.device_probe``: every field finite, each
+        field's min and max over each block's storage), copied back
+        with the fields under the boundary's one synchronisation, and
+        puts the :class:`~.resilience.health.HealthReport` on the
+        result's ``health``.
 
         ``encode`` (``{field index: bits}``, the lossy snapshot codec)
         quantizes those fields on the device, with the global range over
@@ -476,12 +485,14 @@ class Simulation:
         form)."""
         if not exact and not encode:
             raise ValueError("snapshot(exact=False) needs an encode spec")
-        L = self.settings.L
-        clips = []
-        for offs, fields in zip(self.offsets, self.blocks):
-            true = tuple(min(L - o, s) for o, s in zip(offs,
-                                                       fields[0].shape))
-            clips.append((offs, true, tuple(slice(0, t) for t in true)))
+        probes = None
+        if health:
+            # Enqueued before the copies below, whose first wait covers
+            # it: the probe adds no synchronisation of its own.
+            probes = [device_probe(*fields).to("cpu", non_blocking=True)
+                      for fields in self.blocks]
+        clips = [(offs, true, tuple(slice(0, t) for t in true))
+                 for offs, true in self.block_boxes()]
         out = BoundaryBlocks(
             [(offs, true) + tuple(_host(f)[sl] for f in fields)
              for (offs, true, sl), fields in zip(clips, self.blocks)]
@@ -508,7 +519,21 @@ class Simulation:
                                                 self.dtype))
                 enc.append((offs, true) + tuple(entries))
             out.encoded = enc
+        if probes is not None:
+            for d in dict.fromkeys(self.mesh.devices):
+                if d.type == "cuda":
+                    torch.cuda.current_stream(d).synchronize()
+            out.health = report_of(probes, self.model.field_names)
         return out
+
+    def block_boxes(self) -> List[Tuple[tuple, tuple]]:
+        """Each block's ``(offsets, sizes)`` in the true ``L^3`` domain
+        (a non-divisible L's pad cells cut off), in rank order: the boxes
+        the stores record."""
+        L = self.settings.L
+        return [(offs, tuple(min(L - o, s)
+                             for o, s in zip(offs, fields[0].shape)))
+                for offs, fields in zip(self.offsets, self.blocks)]
 
     def restore_fields(self, fields, step: int) -> None:
         """Load host field arrays (declaration order, ``L^3`` each) at

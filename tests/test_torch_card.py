@@ -612,3 +612,106 @@ def test_envelope_probe_counts_one_launch_per_pass():
         "torch_stream", "torch_copy", "copy_walk", "compute_walk", "full"]
     assert all(r["timer"] == "cuda_events" and r["best_us_per_pass"] > 0
                for r in rows)
+
+
+def _operands(mode, shape, dtype, fuse, gen):
+    nx, ny, nz = shape
+    f = tuple(torch.rand(shape, generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    faces = None
+    if mode == "faces6":
+        faces = tuple(torch.rand(s, generator=gen, device="cuda").to(dtype)
+                      for s in [(1, ny, nz)] * 4 + [(nx, 1, nz)] * 4
+                      + [(nx, ny, 1)] * 4)
+    elif mode == "xchain":
+        faces = tuple(torch.rand((fuse, ny, nz), generator=gen,
+                                 device="cuda").to(dtype) for _ in range(4))
+    return f, faces
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("mode,shape,fuse", [
+    ("chain", (40, 48, 64), 1), ("chain", (40, 48, 64), 2),
+    ("chain", (20, 24, 41), 1), ("chain", (20, 24, 41), 2),
+    ("faces6", (32, 24, 64), 1), ("faces6", (20, 24, 41), 1),
+    ("xchain", (12, 24, 64), 2), ("xchain", (10, 24, 41), 2),
+])
+def test_every_mode_equals_plain_on_every_load_path(mode, shape, fuse,
+                                                    dtype):
+    """The window load: TMA and cp.async, on the operands TMA takes and on
+    one it refuses (nz = 41: a row is not a multiple of 16 B), each
+    bitwise equal to the plain version (bf16: its oracle) and counted
+    under its path."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f, faces = _operands(mode, shape, dtype, fuse, gen)
+    params = grayscott.MODEL.make_params(
+        Settings(noise=0.1, **KW),
+        torch.float32 if dtype == torch.bfloat16 else dtype, "cuda")
+    offs, row = (16, 0, 0), 128
+    oracle = dtype == torch.bfloat16
+    if mode == "chain":
+        want = cuda_stencil.plain_chain(f, params, (0, 2, 7), spec=SPEC,
+                                        fuse=fuse, offsets=offs, row=row,
+                                        oracle=oracle)
+    elif mode == "faces6":
+        want = cuda_stencil.plain_step(f, params, (0, 2, 7), faces,
+                                       spec=SPEC, offsets=offs, row=row,
+                                       oracle=oracle)
+    else:
+        want = cuda_stencil.plain_xchain(f, params, (0, 2, 7), faces,
+                                         spec=SPEC, fuse=fuse,
+                                         use_noise=True, offsets=offs,
+                                         row=row, oracle=oracle)
+    itemsize = f[0].element_size()
+    rule = cuda_stencil.load_path(shape, itemsize, (f[0].data_ptr(),))
+    runs = ["cp_async"] + (["tma"] if rule == "tma" else [])
+    assert (rule == "tma") == (shape[2] * itemsize % 16 == 0)
+    for load in runs:
+        cuda_stencil.reset_launches()
+        with cuda_stencil.override(load):
+            got = cuda_stencil.fused_step(f, params, (0, 2, 7), faces,
+                                          spec=SPEC, fuse=fuse, offsets=offs,
+                                          row=row)
+        torch.cuda.synchronize()
+        assert cuda_stencil.LOAD_PATH_LAUNCHES[load] == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (load,
+                                       (a.double() - b.double()).abs().max())
+
+
+@pytest.mark.cuda
+def test_copy_walk_on_each_load_path_on_card():
+    from grayscott_jl_tpu_torch.ops import envelope
+
+    _card()
+    f = tuple(torch.rand((48, 40, 96), device="cuda") for _ in range(2))
+    for load in ("tma", "cp_async"):
+        with cuda_stencil.override(load):
+            got = envelope.copy_walk(f, fuse=1)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, f))
+
+
+@pytest.mark.cuda
+def test_f1_config_aborts_on_card_before_any_write(tmp_path):
+    """ROADMAP F1 on the card: the blow-up raises HealthError at step 10
+    and the store holds no step."""
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.resilience.health import HealthError
+
+    _card()
+    settings = Settings(L=16, F=0.02, k=0.048, dt=400.0, Du=0.2, Dv=0.1,
+                        steps=20, plotgap=10, precision="Float32",
+                        backend="CUDA", output=str(tmp_path / "gs.bp"),
+                        health_policy="abort")
+    cuda_stencil.reset_launches()
+    with pytest.raises(HealthError) as e:
+        driver.run_once(settings)
+    assert e.value.step == 10 and not e.value.report.finite
+    assert cuda_stencil.LAUNCHES == 10
+    with BpReader(str(tmp_path / "gs.bp")) as r:
+        assert r.num_steps() == 0

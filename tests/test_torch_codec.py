@@ -237,9 +237,9 @@ def test_boundary_captures_exact_copies_only_when_needed(tmp_path,
     calls = []
     real = Simulation.snapshot
 
-    def spy(self, encode=None, exact=True):
+    def spy(self, encode=None, exact=True, **kw):
         calls.append((bool(encode), exact))
-        return real(self, encode=encode, exact=exact)
+        return real(self, encode=encode, exact=exact, **kw)
 
     monkeypatch.setattr(Simulation, "snapshot", spy)
     kw = dict(precision="BFloat16", snapshot_bits="8", checkpoint=True,

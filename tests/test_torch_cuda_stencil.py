@@ -117,8 +117,11 @@ def test_shared_memory_ledger_caps(itemsize, cap):
     assert cuda_stencil.max_feasible_fuse(itemsize) == cap
     assert cuda_stencil.smem_bytes(itemsize, cap) <= cuda_stencil.SMEM_LIMIT
     assert cuda_stencil.smem_bytes(itemsize, cap + 1) > cuda_stencil.SMEM_LIMIT
-    # float32 at fuse=5: 2 fields x 2 buffers x 18 x 18 x 42 x 4 B.
-    assert cuda_stencil.smem_bytes(4, 5) == 2 * 2 * 18 * 18 * 42 * 4
+    # float32 at fuse=5: 2 fields x 2 buffers x (a 128 B lead zone and
+    # 18 x 18 x 44 cells, the 42-cell z rows padded to 16 B, rounded up
+    # to 128 B) x 4 B, and the mbarrier.
+    assert cuda_stencil.smem_bytes(4, 5) == (
+        2 * 2 * (32 + 18 * 18 * 44 + 16) * 4 + cuda_stencil.BARRIER_BYTES)
     assert cuda_stencil.max_feasible_fuse(itemsize, n_fields=1) >= cap
 
 

@@ -98,3 +98,38 @@ def test_envelope_probe_stands_alone():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "ok 11"
+
+
+def test_resilience_and_vtk_stand_alone():
+    """The health guard, graceful shutdown and .vti writer are in the
+    no-JAX check, and import and run with JAX blocked."""
+    checked = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"grayscott_jl_tpu_torch/resilience/__init__.py",
+            "grayscott_jl_tpu_torch/resilience/health.py",
+            "grayscott_jl_tpu_torch/resilience/faults.py",
+            "grayscott_jl_tpu_torch/io/vtk.py"} <= checked
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import numpy as np, os, tempfile, torch
+from grayscott_jl_tpu_torch.io import vtk
+from grayscott_jl_tpu_torch.resilience import faults, health
+d = tempfile.mkdtemp()
+a = np.arange(8, dtype=np.float32).reshape(2, 2, 2)
+vtk.write_vti(os.path.join(d, "a.vti"), 2, 0, a, a)
+assert (vtk.read_vti(os.path.join(d, "a.vti"))[1]["U"] == a).all()
+p = health.device_probe(torch.ones(2, 2, 2), torch.zeros(2, 2, 2))
+assert p.tolist() == [1.0, 1.0, 1.0, 0.0, 0.0]
+assert faults.EXIT_PREEMPTED == 75
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -291,14 +291,19 @@ def test_oracle_is_the_plain_version_for_float32_and_float64():
 
 
 def test_ledger_counts_window_and_mid_itemsizes():
-    """bf16 windows are 2 B/cell (two fields: depth 8, 221,184 B); bf16
-    mids on float32 keep the float32 input window (depth 5)."""
-    assert cuda_stencil.smem_bytes(2, 8) == 24 * 24 * 48 * 2 * 2 * 2
+    """bf16 windows are 2 B/cell (two fields: depth 8, 221,184 B of
+    cells, a 128 B lead zone per window and the mbarrier); bf16
+    mids on float32 keep the float32 input window (depth 5); every
+    window at the padded z stride."""
+    bars = cuda_stencil.BARRIER_BYTES
+    assert cuda_stencil.smem_bytes(2, 8) == (
+        (64 + 24 * 24 * 48) * 2 * 2 * 2 + bars)
     assert cuda_stencil.max_feasible_fuse(2) == 8
     assert cuda_stencil.max_feasible_fuse(4, mid_itemsize=2) == 5
-    assert cuda_stencil.smem_bytes(4, 1, mid_itemsize=2) == 2 * 10 * 10 * 34 * 4
+    assert cuda_stencil.smem_bytes(4, 1, mid_itemsize=2) == (
+        2 * (32 + 10 * 10 * 36 + 16) * 4 + bars)
     assert cuda_stencil.smem_bytes(4, 3, mid_itemsize=2) == (
-        2 * 14 * 14 * 38 * (4 + 2 * 2))
+        2 * (32 + 14 * 14 * 40) * (4 + 2 * 2) + bars)
     assert cuda_stencil.chain_cap(torch.bfloat16, 1) == 12
 
 

@@ -1,0 +1,122 @@
+"""The settings the reference acts on that the port accepted and
+ignored (ROADMAP Queue 3, F3): each environment variable now raises at
+construction naming the ROADMAP item that ports it, with its "off"
+values still running; ``GS_CKPT_VERIFY=full`` raises in the reader too;
+and ``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore onto
+another block layout, as the reference does."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from grayscott_jl_tpu.config.settings import resolve_reshard as ref_resolve
+from grayscott_jl_tpu_torch import Settings, Simulation, driver
+from grayscott_jl_tpu_torch.config.settings import (NOT_PORTED_ENV,
+                                                    resolve_reshard)
+from grayscott_jl_tpu_torch.io import bplite
+from grayscott_jl_tpu_torch.io.checkpoint import ReshardError
+from grayscott_jl_tpu_torch.models import SettingsError
+
+
+@pytest.mark.parametrize("var,value,off,item", [
+    ("GS_EVENTS", "/tmp/events.jsonl", "", "Queue 1 item 21"),
+    ("GS_METRICS", "/tmp/metrics.jsonl", "", "Queue 1 item 21"),
+    ("GS_TRACE", "/tmp/trace.json", "", "Queue 1 item 21"),
+    ("GS_PROFILE", "10:20", "", "Queue 1 item 21"),
+    ("GS_TPU_PROFILE", "/tmp/profile", "", "Queue 1 item 21"),
+    ("GS_DEVICE_BLOCKLIST", "cuda:1", "", "Queue 1 item 17"),
+    ("GS_CKPT_VERIFY", "full", "read", "Queue 1 item 16b"),
+])
+def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
+                                                    monkeypatch):
+    assert var in NOT_PORTED_ENV
+    monkeypatch.setenv(var, value)
+    with pytest.raises(SettingsError, match=f"{var}.*{item}"):
+        Simulation(Settings(L=8, backend="CPU"))
+    monkeypatch.setenv(var, off)
+    Simulation(Settings(L=8, backend="CPU")).iterate(1)
+
+
+@pytest.mark.parametrize("mode", ["off", "read", "full"])
+def test_ckpt_verify_full_raises_in_the_reader(mode, monkeypatch):
+    monkeypatch.setenv("GS_CKPT_VERIFY", mode)
+    if mode == "full":
+        with pytest.raises(ValueError, match="Queue 1 item 16b"):
+            bplite.resolve_verify()
+    else:
+        assert bplite.resolve_verify() == mode
+    assert "full" not in bplite.VERIFY_MODES
+
+
+@pytest.mark.parametrize("key,env,want", [
+    ("auto", None, "auto"), ("off", None, "off"), ("", None, "auto"),
+    ("auto", "off", "off"), ("off", "1", "auto"), ("off", "FALSE", "off"),
+])
+def test_resolve_reshard_matches_the_reference(key, env, want, monkeypatch):
+    if env is None:
+        monkeypatch.delenv("GS_RESHARD", raising=False)
+    else:
+        monkeypatch.setenv("GS_RESHARD", env)
+    assert resolve_reshard(Settings(reshard=key)) == want
+    assert ref_resolve(Settings(reshard=key)) == want
+
+
+def test_resolve_reshard_refuses_other_values(monkeypatch):
+    monkeypatch.setenv("GS_RESHARD", "sometimes")
+    with pytest.raises(SettingsError, match="auto/off"):
+        resolve_reshard(Settings())
+
+
+def _config(path, **kw):
+    base = dict(L=12, steps=10, plotgap=5, F=0.02, k=0.048, Du=0.2,
+                Dv=0.1, dt=1.0, noise=0.1, precision="Float32",
+                backend="CPU", output=str(path.parent / "gs.bp"))
+    base.update(kw)
+    lines = [f'{k} = "{v}"' if isinstance(v, str)
+             else f"{k} = {'true' if v else 'false'}" if isinstance(v, bool)
+             else f"{k} = {v}" for k, v in base.items()]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.fixture
+def mesh_checkpoint(tmp_path, monkeypatch):
+    """A checkpoint written by a (2,2,2) mesh at step 5."""
+    monkeypatch.delenv("GS_RESHARD", raising=False)
+    ckpt = str(tmp_path / "ckpt.bp")
+    driver.main([_config(tmp_path / "a.toml", checkpoint=True,
+                         checkpoint_freq=5, checkpoint_output=ckpt)],
+                n_devices=8)
+    return ckpt
+
+
+def _restart(tmp_path, ckpt, name, **kw):
+    return _config(tmp_path / f"{name}.toml", restart=True,
+                   restart_input=ckpt, restart_step=5,
+                   output=str(tmp_path / f"{name}.bp"), **kw)
+
+
+def test_reshard_off_refuses_another_layout(tmp_path, mesh_checkpoint):
+    with pytest.raises(ReshardError, match=r"2x2x2 \(8 block\(s\)\).*"
+                       r"1x1x1 \(1 block\(s\)\).*reshard='off'"):
+        driver.main([_restart(tmp_path, mesh_checkpoint, "one",
+                              reshard="off")])
+
+
+def test_gs_reshard_off_wins_over_the_key(tmp_path, mesh_checkpoint,
+                                          monkeypatch):
+    monkeypatch.setenv("GS_RESHARD", "off")
+    with pytest.raises(ReshardError):
+        driver.main([_restart(tmp_path, mesh_checkpoint, "env",
+                              reshard="auto")])
+
+
+def test_reshard_off_restores_the_same_layout_bitwise(tmp_path,
+                                                      mesh_checkpoint):
+    same = driver.main([_restart(tmp_path, mesh_checkpoint, "same",
+                                 reshard="off")], n_devices=8)
+    moved = driver.main([_restart(tmp_path, mesh_checkpoint, "moved")])
+    assert same.step == moved.step == 10
+    for a, b in zip(same.get_fields(), moved.get_fields()):
+        np.testing.assert_array_equal(a, b)
