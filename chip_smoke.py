@@ -67,7 +67,27 @@ Phases, each of which stops the run on failure:
    ``GS_MID_BF16=1`` at ``GS_FUSE=2`` (100 launches of the bf16-mid
    entry point, the store equal to the oracle in the same rounds); and
    the blow-up configuration (ROADMAP F1: L=16, dt=400) that the health
-   guard stops at step 10 with no step written (``warn`` writes both);
+   guard stops at step 10 with no step written (``warn`` writes both),
+   at the output pipeline's default depth 2. Every main path writes
+   through the pipeline (``io/async_writer.py``) and the native C++
+   store engine (``io/native.py``, built with g++ at first use). Then
+   (i) the output pipeline: Gray-Scott's config (a) (L=256, 200 steps,
+   plotgap 50, a checkpoint every 100) at ``GS_ASYNC_IO_DEPTH`` 0 and 2,
+   the single block in the order 0, 2, 2, 0 and the (2,2,2) mesh on
+   ``cuda:0`` 0, 2: every run's files byte-identical to the other
+   depth's and its store bitwise equal to phase 4's, the engine native,
+   every device or stream synchronise on the driver thread (the writer
+   waits on copy events), with wall, output, hidden and exposed
+   seconds; (ii) integrity on (a) at depth 2 with
+   ``GS_CKPT_VERIFY=full``, ``GS_CKPT_REPLICAS=2`` and ``GS_SCRUB=1``
+   and the primary's step-100 checkpoint corrupted mid-run: the device
+   checksums equal the host checksums of every stored step, the scrub
+   quarantines the entry, a restart from step 100 fails over to the
+   mirror and reproduces step 200 bitwise, the bitflip hook at step 100
+   raises ``CorruptionError`` with only step 50 written, and the
+   checksum's device time at L=256 (CUDA events) and the read-back's
+   seconds; and F2 at depth 2 (a SIGTERM mid-run: a checkpoint at the
+   next boundary, then a bitwise restart);
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -930,6 +950,516 @@ def phase_sharded(torch, gs, cuda_stencil, workdir, stored, report):
         "load_paths": loads_mesh, "run_stats": stats,
     }
     return counts["faces6"]
+
+
+def tree_digest(root, skip=(".toml", ".json")):
+    """sha256 of every file the run wrote under ``root`` (the stores, the
+    .vti series; not its config and stats), by relative path. Store
+    metadata (``md.json``, ``integrity.json``) is included."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in sorted(names):
+            path = os.path.join(dirpath, name)
+            if name.endswith(skip) and name not in ("md.json",
+                                                    "integrity.json"):
+                continue
+            h = hashlib.sha256()
+            with open(path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 24), b""):
+                    h.update(chunk)
+            out[os.path.relpath(path, root)] = h.hexdigest()
+    return out
+
+
+def watch_synchronize(torch):
+    """Record the thread of every device-wide or stream synchronise
+    (``torch.cuda.synchronize``, ``Stream.synchronize``) and of every
+    ``Event.synchronize`` until the returned ``stop()`` is called."""
+    import threading
+
+    calls = {"device": [], "event": []}
+    real = (torch.cuda.synchronize, torch.cuda.Stream.synchronize,
+            torch.cuda.Event.synchronize)
+
+    def device_sync(*a, **k):
+        calls["device"].append(threading.current_thread().name)
+        return real[0](*a, **k)
+
+    def stream_sync(self):
+        calls["device"].append(threading.current_thread().name)
+        return real[1](self)
+
+    def event_sync(self):
+        calls["event"].append(threading.current_thread().name)
+        return real[2](self)
+
+    torch.cuda.synchronize = device_sync
+    torch.cuda.Stream.synchronize = stream_sync
+    torch.cuda.Event.synchronize = event_sync
+
+    def stop():
+        (torch.cuda.synchronize, torch.cuda.Stream.synchronize,
+         torch.cuda.Event.synchronize) = real
+        return calls
+
+    return stop
+
+
+def run_store(torch, gs, cuda_stencil, workdir, name, depth, factory=None,
+              env=None, **kw):
+    """The main path's config (a) — ``main_settings()`` with a checkpoint
+    every 100 steps — through ``driver.main`` (``driver.run_once`` with
+    ``factory``) at ``GS_ASYNC_IO_DEPTH=depth``, under ``env``, with the
+    launch counts set to 0 just before and read just after. Returns
+    ``(run directory, RunStats summary, wall s, launches)``."""
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+
+    d = os.path.join(workdir, name)
+    os.makedirs(d)
+    cfg = os.path.join(d, "cfg.toml")
+    write_config(cfg, **{**main_settings(), **kw},
+                 output=os.path.join(d, "gs.bp"), checkpoint=True,
+                 checkpoint_freq=100,
+                 checkpoint_output=os.path.join(d, "ckpt.bp"))
+    stats = os.path.join(d, "stats.json")
+    saved = {k: os.environ.get(k) for k in
+             ["GS_ASYNC_IO_DEPTH", "GS_TPU_STATS"] + list(env or {})}
+    os.environ.update({"GS_ASYNC_IO_DEPTH": str(depth),
+                       "GS_TPU_STATS": stats, **(env or {})})
+    try:
+        cuda_stencil.reset_launches()
+        t0 = time.perf_counter()
+        if factory is None:
+            driver.main([cfg])
+        else:
+            driver.run_once(get_settings([cfg]), sim_factory=factory)
+        wall = time.perf_counter() - t0
+        launches = cuda_stencil.LAUNCHES
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(stats, encoding="utf-8") as f:
+        summary = json.load(f)
+    return d, summary, wall, launches
+
+
+def output_breakdown(workdir, rounds=2):
+    """Host seconds of the parts of one L=256 output step on the writer
+    thread, each the mean of ``rounds`` in turns: the ``.vti`` file of u
+    and v (``io/vtk.write_vti``: transposition and write), one store
+    step of u and v on the native engine (staging and CRC32, then the
+    drain: write and fsync on its thread) and on the Python engine
+    (write, CRC32, fsync), and CRC32 alone over one field."""
+    import zlib
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.io import bplite, native, vtk
+
+    rng = np.random.default_rng(0)
+    u, v = (rng.random((MAIN_L,) * 3, dtype=np.float32) for _ in range(2))
+    out = {"vti_s": [], "native_stage_s": [], "native_drain_s": [],
+           "python_step_s": [], "crc32_field_s": []}
+    for i in range(rounds):
+        t0 = time.perf_counter()
+        vtk.write_vti(os.path.join(workdir, f"b{i}.vti"), MAIN_L, 0, u, v)
+        out["vti_s"].append(time.perf_counter() - t0)
+        for engine in ("native", "python"):
+            path = os.path.join(workdir, f"b{i}_{engine}.bp")
+            w = (native.NativeBpWriter(path) if engine == "native"
+                 else bplite.BpWriter(path))
+            for name in ("U", "V"):
+                w.define_variable(name, np.float32, (MAIN_L,) * 3)
+            t0 = time.perf_counter()
+            w.begin_step()
+            w.put("U", u)
+            w.put("V", v)
+            w.end_step()
+            t1 = time.perf_counter()
+            if engine == "native":
+                w.drain()
+                out["native_stage_s"].append(t1 - t0)
+                out["native_drain_s"].append(time.perf_counter() - t1)
+            else:
+                out["python_step_s"].append(t1 - t0)
+            w.close()
+            shutil.rmtree(path)
+        t0 = time.perf_counter()
+        zlib.crc32(u)
+        out["crc32_field_s"].append(time.perf_counter() - t0)
+        os.remove(os.path.join(workdir, f"b{i}.vti"))
+    mean = {k: sum(x) / len(x) for k, x in out.items()}
+    log("  one L=256 output step, host s (mean of "
+        f"{rounds}): .vti {mean['vti_s']:.4f}; native store stage "
+        f"{mean['native_stage_s']:.4f} + drain {mean['native_drain_s']:.4f};"
+        f" Python store {mean['python_step_s']:.4f}; CRC32 of one field "
+        f"{mean['crc32_field_s']:.4f}")
+    return {"runs": out, "mean": mean}
+
+
+def phase_async_main_path(torch, gs, cuda_stencil, workdir, stored, report):
+    """Phase 4 (i): the main path's config (a) through the output
+    pipeline at ``GS_ASYNC_IO_DEPTH`` 0 and 2 with the native engine, on
+    the single block (runs in the order 0, 2, 2, 0) and on the (2,2,2)
+    mesh on ``cuda:0`` (0, 2): every run's files byte-identical to the
+    other depth's, its store bitwise equal to phase 4's, the engine
+    native, and no device-wide or stream synchronise on the writer
+    thread (it waits on each snapshot's copy event)."""
+    import numpy as np
+
+    def factory(settings, *, n_devices, seed):
+        return mesh_sim(gs, settings, MESH, seed)
+
+    rows = {}
+    stop = watch_synchronize(torch)
+    try:
+        for layout, fac, order in (("single", None, (0, 2, 2, 0)),
+                                   ("mesh", factory, (0, 2))):
+            digests = {}
+            for i, depth in enumerate(order):
+                d, summary, wall, launches = run_store(
+                    torch, gs, cuda_stencil, workdir,
+                    f"async_{layout}_{depth}_{i}", depth, fac)
+                cfg, io = summary["config"], summary["io"]
+                check(cfg["io_engine"] == "native",
+                      f"{layout} depth {depth}: store engine "
+                      f"{cfg['io_engine']}, not native")
+                check(cfg["async_io_depth"] == depth == io["depth"],
+                      f"{layout}: depth {cfg['async_io_depth']} / "
+                      f"{io['depth']}, asked {depth}")
+                check(launches > 0, f"{layout} depth {depth}: no launch")
+                digest = tree_digest(d)
+                check(any(k.endswith(".vti") for k in digest)
+                      and "gs.bp/data.0" in digest,
+                      f"{layout}: files {sorted(digest)}")
+                if depth in digests:
+                    check(digest == digests[depth],
+                          f"{layout} depth {depth}: files differ run to run")
+                else:
+                    got = read_store(os.path.join(d, "gs.bp"))
+                    check([s for s, *_ in got] == [s for s, *_ in stored],
+                          f"{layout} depth {depth}: steps "
+                          f"{[s for s, *_ in got]}")
+                    for (step, u, v), (_, u1, v1) in zip(got, stored):
+                        check(np.array_equal(u, u1)
+                              and np.array_equal(v, v1),
+                              f"{layout} depth {depth}: store != phase 4's "
+                              f"at step {step}")
+                    digests[depth] = digest
+                shutil.rmtree(d)
+                row = {"wall_s": wall, "launches": launches,
+                       "phases_s": summary["phases_s"],
+                       "hidden_s": io["hidden_total_s"],
+                       "exposed_s": io["exposed_total_s"],
+                       "busy_s": io["busy_s"],
+                       "submit_wait_s": io["submit_wait_s"],
+                       "drain_wait_s": io["drain_wait_s"],
+                       "queue_depth_hwm": io["queue_depth_hwm"],
+                       "host_ring_bytes": cfg["host_ring_bytes"],
+                       "engine": cfg["io_engine"]}
+                rows.setdefault(layout, {}).setdefault(
+                    str(depth), []).append(row)
+                ph = summary["phases_s"]
+                log(f"  {layout} depth {depth} ({cfg['io_engine']}): wall "
+                    f"{wall:.4f} s, compute {ph.get('compute', 0):.4f}, "
+                    f"device_to_host {ph.get('device_to_host', 0):.4f}, "
+                    f"output {ph.get('output', 0):.4f}, checkpoint "
+                    f"{ph.get('checkpoint', 0):.4f}, io_drain "
+                    f"{ph.get('io_drain', 0):.4f}; writer busy "
+                    f"{sum(io['busy_s'].values()):.4f} s = hidden "
+                    f"{io['hidden_total_s']:.4f} + exposed "
+                    f"{io['exposed_total_s']:.4f}; {launches} launches")
+            if layout == "single":
+                digests_single = digests
+            check(digests[0] == digests[2],
+                  f"{layout}: depth 0 and 2 files differ: "
+                  f"{[k for k in digests[0] if digests[0][k] != digests[2].get(k)]}")
+            log(f"  {layout}: depth 0 and 2 write byte-identical files "
+                f"({len(digests[0])} files), equal to phase 4's store")
+    finally:
+        calls = stop()
+    # The Python engine on the same run (depth 2), for the engines'
+    # writer time side by side.
+    d, summary, wall, _ = run_store(torch, gs, cuda_stencil, workdir,
+                                    "async_single_python", 2,
+                                    env={"GS_TPU_NATIVE_IO": "0"})
+    check(summary["config"]["io_engine"] == "python",
+          f"GS_TPU_NATIVE_IO=0 wrote with {summary['config']['io_engine']}")
+    check(tree_digest(d)["gs.bp/data.0"] == digests_single[0]["gs.bp/data.0"],
+          "the Python engine's payload != the native engine's")
+    shutil.rmtree(d)
+    io = summary["io"]
+    rows["single_python"] = {"2": [{
+        "wall_s": wall, "phases_s": summary["phases_s"],
+        "hidden_s": io["hidden_total_s"], "exposed_s": io["exposed_total_s"],
+        "busy_s": io["busy_s"], "engine": "python"}]}
+    log(f"  single depth 2 (python engine): wall {wall:.4f} s; writer busy "
+        f"{io['busy_s']}")
+    rows["output_breakdown"] = output_breakdown(workdir)
+    off_main = [t for t in calls["device"] if t != "MainThread"]
+    check(not off_main, f"device or stream synchronise off the driver "
+          f"thread: {sorted(set(off_main))}")
+    writer_waits = sum(t == "gs-async-io" for t in calls["event"])
+    check(writer_waits > 0, "the writer thread never waited on a copy event")
+    log(f"  synchronise calls: {len(calls['device'])} device/stream, all on "
+        f"the driver thread; {writer_waits} copy-event waits on the writer "
+        "thread")
+    report["async_main_path"] = {"rows": rows, "writer_event_waits":
+                                 writer_waits,
+                                 "device_syncs": len(calls["device"])}
+    return rows
+
+
+def phase_integrity(torch, gs, cuda_stencil, workdir, stored, report):
+    """Phase 4 (ii): integrity on config (a) at depth 2. With
+    ``GS_CKPT_VERIFY=full``, ``GS_CKPT_REPLICAS=2`` and ``GS_SCRUB=1``,
+    and the primary checkpoint's step-100 entry corrupted once it is
+    durable (before step 200's boundary): the run completes (the device
+    and host checksums agreed at every boundary; each store's sidecar
+    holds the device checksums, equal to the host checksums of the
+    stored steps), the store equals phase 4's, the scrub quarantines the
+    entry, and a restart from step 100 fails over to the mirror and
+    reproduces step 200 bitwise. The bitflip hook at step 100 raises
+    ``CorruptionError`` with only step 50 written. Then the checksum's
+    device time at L=256 (CUDA events) beside the host's, and the
+    read-back's seconds."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.io.async_writer import AsyncIOError
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.io.checkpoint import latest_durable_step
+    from grayscott_jl_tpu_torch.resilience import integrity
+
+    env = {"GS_CKPT_VERIFY": "full", "GS_CKPT_REPLICAS": "2",
+           "GS_SCRUB": "1"}
+
+    class CorruptAt(gs.Simulation):
+        def iterate(self, nsteps=1):
+            if self.step == 150:
+                # Once the writer is on step 150's output, step 100's
+                # checkpoint is written and read back.
+                out = self.settings.output
+                deadline = time.monotonic() + 60
+                while not os.path.isfile(os.path.join(out, "md.json")) or (
+                        BpReader(out).num_steps() < 3):
+                    check(time.monotonic() < deadline,
+                          "output step 150 never became durable")
+                    time.sleep(0.005)
+                ckpt = self.settings.checkpoint_output
+                check(latest_durable_step(ckpt) == 100,
+                      f"checkpoint at {latest_durable_step(ckpt)}")
+                info = integrity.corrupt_store_byte(ckpt)
+                check(info is not None and info["step_index"] == 0,
+                      f"corrupted {info}")
+            super().iterate(nsteps)
+
+    d, summary, wall, launches = run_store(
+        torch, gs, cuda_stencil, workdir, "integrity", 2,
+        lambda s, **kw: CorruptAt(s, **kw), env=env)
+    icfg = summary["config"]["integrity"]
+    check(icfg["verify"] == "full" and icfg["replicas"] == 2
+          and icfg["scrub"] and icfg["corrupt_found"] == 1,
+          f"integrity config {icfg}")
+    got = read_store(os.path.join(d, "gs.bp"))
+    for (step, u, v), (_, u1, v1) in zip(got, stored):
+        check(np.array_equal(u, u1) and np.array_equal(v, v1),
+              f"verify=full store != phase 4's at step {step}")
+    check(len(got) == len(stored), f"{len(got)} steps")
+    rows = []
+    for store, steps, names in (("gs.bp", [s for s, *_ in stored],
+                                 ("U", "V")),
+                                ("ckpt.bp.r1", [100, 200], ("u", "v"))):
+        with open(os.path.join(d, store, "integrity.json"),
+                  encoding="utf-8") as f:
+            device = json.load(f)["device"]
+        with BpReader(os.path.join(d, store)) as r:
+            check([int(r.get("step", step=i)) for i in
+                   range(r.num_steps())] == steps, f"{store} steps")
+            for i, step in enumerate(steps):
+                host = {n.lower(): integrity.host_field_checksum(
+                    r.get(n, step=i)) for n in names}
+                check(device[i] == host,
+                      f"{store} step {step}: device checksums {device[i]} "
+                      f"!= host {host}")
+                rows.append({"store": store, "step": step, **host})
+    log(f"  verify=full: device == host checksum at all {len(rows)} "
+        f"store steps (e.g. step {rows[0]['step']}: u {rows[0]['u']:#010x},"
+        f" v {rows[0]['v']:#010x})")
+    primary = os.path.join(d, "ckpt.bp")
+    check(integrity.read_quarantine(primary) == {0},
+          f"quarantine {integrity.read_quarantine(primary)}")
+    t0 = time.perf_counter()
+    integrity.verify_last_step(os.path.join(d, "ckpt.bp.r1"))
+    readback_s = time.perf_counter() - t0
+    log(f"  scrub quarantined the corrupted step-100 entry; read-back of "
+        f"one L={MAIN_L} checkpoint step {readback_s:.4f} s; run wall "
+        f"{wall:.4f} s, phases {summary['phases_s']}")
+
+    # The same run with GS_CKPT_VERIFY=full alone and no corruption hook,
+    # beside one without it, for the cost of the checksum and read-back.
+    walls = {}
+    for name, env_i in (("read", {}), ("full", {"GS_CKPT_VERIFY": "full"})):
+        d_i, summary_i, wall_i, _ = run_store(
+            torch, gs, cuda_stencil, workdir, f"verify_{name}", 2,
+            env=env_i)
+        shutil.rmtree(d_i)
+        walls[name] = {"wall_s": wall_i, "busy_s": summary_i["io"]["busy_s"],
+                       "hidden_s": summary_i["io"]["hidden_total_s"]}
+    log(f"  depth 2: GS_CKPT_VERIFY=read wall {walls['read']['wall_s']:.4f}"
+        f" s (writer {walls['read']['busy_s']}), full "
+        f"{walls['full']['wall_s']:.4f} s (writer "
+        f"{walls['full']['busy_s']})")
+
+    # The restart from step 100: the primary's entry is corrupt (and
+    # quarantined), the mirror's is whole.
+    restart = os.path.join(workdir, "integrity_restart")
+    os.makedirs(restart)
+    cfg = os.path.join(restart, "cfg.toml")
+    write_config(cfg, **main_settings(), output=os.path.join(restart,
+                                                             "gs.bp"),
+                 restart=True, restart_input=primary, restart_step=100)
+    stats_path = os.path.join(restart, "stats.json")
+    os.environ["GS_TPU_STATS"] = stats_path
+    try:
+        driver.main([cfg])
+    finally:
+        del os.environ["GS_TPU_STATS"]
+    with open(stats_path, encoding="utf-8") as f:
+        events = json.load(f)["config"]["integrity"].get("events", [])
+    check(any(e["event"] == "replica_failover" for e in events),
+          f"no failover recorded: {events}")
+    step2, u2, v2 = read_store(os.path.join(restart, "gs.bp"))[-1]
+    step1, u1, v1 = stored[-1]
+    check(step2 == step1 and np.array_equal(u2, u1)
+          and np.array_equal(v2, v1),
+          "restart through failover != the stored step 200")
+    log("  restart from step 100 failed over to the mirror and reproduced "
+        "step 200 bitwise")
+    shutil.rmtree(d)
+    shutil.rmtree(restart)
+
+    class FlipAt(gs.Simulation):
+        def snapshot_async(self, **kw):
+            if self.step == 100 and kw.get("exact", True):
+                kw["bitflip"] = True
+            return super().snapshot_async(**kw)
+
+    try:
+        run_store(torch, gs, cuda_stencil, workdir, "bitflip", 2,
+                  lambda s, **kw: FlipAt(s, **kw), env=env)
+        raised = None
+    except AsyncIOError as e:
+        raised = e
+    check(raised is not None
+          and isinstance(raised.original, integrity.CorruptionError)
+          and raised.step == 100,
+          f"the bitflip hook raised {raised!r}")
+    flip = os.path.join(workdir, "bitflip")
+    check([s for s, *_ in read_store(os.path.join(flip, "gs.bp"))] == [50]
+          and read_store(os.path.join(flip, "ckpt.bp"), ("u", "v")) == [],
+          "the bitflipped boundary reached a store")
+    log(f"  bitflip at step 100: {raised.original}; only step 50 written")
+    shutil.rmtree(flip)
+
+    from grayscott_jl_tpu_torch.resilience.integrity import (
+        device_field_checksum, host_field_checksum)
+
+    sim = gs.Simulation(gs.Settings(**main_settings()))
+    sim.iterate(10)
+    u, v = sim.blocks[0]
+    device_ms = time_calls(torch, lambda: device_field_checksum(u, v))
+    want = [int(x) for x in device_field_checksum(u, v)]
+    hu, hv = u.cpu().numpy(), v.cpu().numpy()
+    check(want == [host_field_checksum(hu), host_field_checksum(hv)],
+          "device != host checksum on the L=256 fields")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        host_field_checksum(hu), host_field_checksum(hv)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    bytes_read = 2 * u.numel() * u.element_size()
+    check_bound = bytes_read / HBM_BYTES_PER_S * 1e3
+    log(f"  checksum of u and v at L={MAIN_L}: device {device_ms:.4f} ms "
+        f"(CUDA events; bound {check_bound:.4f} ms for "
+        f"{bytes_read / 1e6:.1f} MB), host {host_ms:.3f} ms")
+    del sim, u, v
+    report["integrity"] = {
+        "wall_s": wall, "launches": launches,
+        "phases_s": summary["phases_s"], "io": summary["io"],
+        "config": icfg, "checksums": rows, "readback_s": readback_s,
+        "checksum_device_ms": device_ms, "checksum_host_ms": host_ms,
+        "checksum_bound_ms": check_bound, "verify_walls": walls,
+        "bitflip": str(raised.original),
+    }
+
+
+def phase_shutdown(torch, gs, cuda_stencil, workdir, report):
+    """F2 on the card at depth 2: a SIGTERM while stepping from step 25
+    (L=128, plotgap 25) gives ``GracefulShutdown`` after a checkpoint at
+    step 50 with steps 25 and 50 written, and the restart from it
+    reproduces the uninterrupted run's step 100 bitwise."""
+    import numpy as np
+
+    import signal
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.resilience.faults import GracefulShutdown
+
+    class SignalAt(gs.Simulation):
+        def iterate(self, nsteps=1):
+            if self.step == 25:
+                os.kill(os.getpid(), signal.SIGTERM)
+            super().iterate(nsteps)
+
+    common = main_settings(L=128, steps=100, plotgap=25)
+    ckpt = os.path.join(workdir, "f2_ckpt.bp")
+    cfg = os.path.join(workdir, "f2.toml")
+    write_config(cfg, **common, output=os.path.join(workdir, "f2.bp"),
+                 checkpoint=True, checkpoint_freq=1000,
+                 checkpoint_output=ckpt)
+    os.environ["GS_ASYNC_IO_DEPTH"] = "2"
+    try:
+        try:
+            driver.run_once(get_settings([cfg]),
+                            sim_factory=lambda s, **kw: SignalAt(s, **kw))
+            raised = None
+        except GracefulShutdown as e:
+            raised = e
+        check(raised is not None and raised.step == 50
+              and raised.checkpoint_step == 50,
+              f"F2 at depth 2: {raised!r}")
+        written = [s for s, *_ in read_store(os.path.join(workdir,
+                                                           "f2.bp"))]
+        ckpts = [s for s, *_ in read_store(ckpt, ("u", "v"))]
+        check(written == [25, 50] and ckpts == [50],
+              f"F2 stores: output {written}, checkpoints {ckpts}")
+        cfg2 = os.path.join(workdir, "f2_resume.toml")
+        write_config(cfg2, **common,
+                     output=os.path.join(workdir, "f2_resume.bp"),
+                     restart=True, restart_input=ckpt)
+        resumed = driver.main([cfg2])
+        cfg3 = os.path.join(workdir, "f2_whole.toml")
+        write_config(cfg3, **common,
+                     output=os.path.join(workdir, "f2_whole.bp"))
+        whole = driver.main([cfg3])
+    finally:
+        del os.environ["GS_ASYNC_IO_DEPTH"]
+    check(all(np.array_equal(a, b) for a, b in
+              zip(resumed.get_fields(), whole.get_fields())),
+          "F2 restart != the uninterrupted run")
+    log("  F2 at depth 2: SIGTERM -> checkpoint at step 50, steps 25 and 50 "
+        "written, GracefulShutdown (exit 75); the restart reproduces step "
+        "100 bitwise")
+    report["shutdown"] = {"step": raised.step,
+                          "checkpoint_step": raised.checkpoint_step}
 
 
 def phase_fuse2(torch, gs, cuda_stencil, stored, report):
@@ -1869,9 +2399,25 @@ def main():
     report["card"] = {"nvidia_smi": smi, "torch_name": kind,
                       "torch": torch.__version__, "cuda": torch.version.cuda}
 
+    import threading
+
+    from grayscott_jl_tpu_torch.io import native
+
     t0 = time.perf_counter()
+    # The store engine's library (g++) builds beside the kernels (nvcc).
+    native_s = {}
+    native_thread = threading.Thread(target=lambda: native_s.update(
+        ok=native.available(),
+        seconds=time.perf_counter() - t0))
+    native_thread.start()
     built = _build.build_all(envelope=True)
     build_s = time.perf_counter() - t0
+    native_thread.join()
+    check(native_s["ok"], f"the native store engine did not build: "
+          f"{native.BUILD_ERROR}")
+    log(f"  the native store engine ({native.library_path()}) built with "
+        f"g++ in {native_s['seconds']:.2f} s, beside nvcc")
+    report["native_build_s"] = native_s["seconds"]
     libs = sorted(MODELS + ("grayscott_envelope",))
     check(sorted(built) == libs, f"built {sorted(built)}, expected {libs}")
     log(f"phase 2: built the generated kernels of {sorted(built)} in "
@@ -1915,6 +2461,14 @@ def main():
                                 cuda_stencil, workdir, stored, report)
         fuse2 = timed(report, "fuse2", phase_fuse2, torch, gs, cuda_stencil,
                       stored, report)
+        log("phase 4 (i): the output pipeline at depth 0 and 2")
+        timed(report, "async main path", phase_async_main_path, torch, gs,
+              cuda_stencil, workdir, stored, report)
+        log("phase 4 (ii): integrity (GS_CKPT_VERIFY=full, replicas, "
+            "scrub, bitflip) and F2 at depth 2")
+        timed(report, "integrity", phase_integrity, torch, gs, cuda_stencil,
+              workdir, stored, report)
+        timed(report, "shutdown", phase_shutdown, *args)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,

@@ -25,7 +25,13 @@ means "off" (:data:`NOT_PORTED`), and so does an environment variable
 that would turn such a subsystem on (:data:`NOT_PORTED_ENV`). Keys at
 their defaults that the reference acts on — ``health_policy``,
 ``graceful_shutdown``, ``mesh_type``, ``reshard`` — are acted on
-(``resilience/``, ``io/vtk.py``, :func:`resolve_reshard`).
+(``resilience/``, ``io/vtk.py``, :func:`resolve_reshard`), and so are
+the output and integrity variables: ``GS_ASYNC_IO_DEPTH`` (the output
+pipeline's depth, ``io/async_writer.resolve_depth``), ``GS_TPU_NATIVE_IO``
+(``0`` forces the Python store engine, ``io/__init__.py``),
+``GS_CKPT_REPLICAS``, ``GS_CKPT_VERIFY`` (``off``/``read``/``full``),
+``GS_SCRUB`` and ``GS_SCRUB_EVERY`` (``resilience/integrity.py``); their
+bad values raise at start-up, as in the reference.
 """
 
 from __future__ import annotations
@@ -312,9 +318,6 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
     "GS_WATCHDOG": ("the hang watchdog", _OFF + ("auto",),
                     "Queue 1 item 17"),
     "GS_SDC_CHECK": ("SDC screening", ("", "off"), "Queue 1 item 17"),
-    "GS_CKPT_REPLICAS": ("checkpoint replicas", ("", "1"),
-                         "Queue 1 item 7"),
-    "GS_SCRUB": ("the checkpoint scrubber", _OFF, "Queue 1 item 7"),
     "GS_AUTOTUNE": ("the measured autotuner", ("", "off", "cached"),
                     "Queue 1 item 20"),
     "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21"),
@@ -326,8 +329,6 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
     "GS_TPU_PROFILE": ("a profiler trace of the run", ("",),
                        "Queue 1 item 21"),
     "GS_DEVICE_BLOCKLIST": ("device quarantine", ("",), "Queue 1 item 17"),
-    "GS_CKPT_VERIFY": ("the device-side checkpoint checksum (full)",
-                       ("", "off", "read"), "Queue 1 item 16b"),
 }
 
 

@@ -2,11 +2,22 @@
 (counterpart of the core of ``grayscott_jl_tpu/driver.py::run_once``).
 
 Flow: settings -> simulation (restored from ``restart_input`` when
-``restart = true``) -> output stream and checkpoint store -> advance to
-each ``plotgap`` / ``checkpoint_freq`` boundary -> snapshot -> write the
-output step and/or the checkpoint -> close. The steps between two
-boundaries are enqueued on the device as one chunk; the host waits for
-the device only at the boundary.
+``restart = true``, through replica failover) -> output stream and
+checkpoint store -> advance to each ``plotgap`` / ``checkpoint_freq``
+boundary -> snapshot -> hand the output step and/or the checkpoint to
+the output pipeline -> drain -> close. The steps between two boundaries
+are enqueued on the device as one chunk; the host waits for the device
+only at the boundary.
+
+Output overlaps compute, as in the reference: each boundary takes a
+:class:`~.simulation.FieldSnapshot` (its copies in flight on a copy
+stream, into a ring of pinned host buffers) and submits it to the
+bounded background writer (``io/async_writer.py``), so the stores are
+written while the next chunk computes. ``GS_ASYNC_IO_DEPTH`` bounds the
+steps in flight (default 2; 0 writes inline, the synchronous flow); the
+stores are byte-identical at every depth. The pipeline keeps step
+order, raises a writer's error on this thread as ``AsyncIOError``
+naming the step, and is drained before the stores close, on every exit.
 
 With the lossy snapshot codec (``snapshot_bits``), a boundary quantizes
 the coded fields on the device and captures exact copies only when a
@@ -20,17 +31,23 @@ run on any mesh (unless ``reshard = "off"``, which refuses a layout
 other than the checkpoint's).
 
 At every boundary the snapshot carries the health probe (unless
-``health_policy = "off"``) and the guard acts on it before any store is
-written: ``abort`` raises ``HealthError``, so a blown-up step never
-reaches a store; ``warn`` logs and writes. A SIGTERM or SIGINT is a
-shutdown request, checked after each chunk and after each boundary's
-writes: the run writes a checkpoint at that boundary (when checkpoints
-are on and the boundary wrote none), closes its stores and raises
-``GracefulShutdown``, which the CLI turns into exit code 75.
+``health_policy = "off"``), resolved on this thread before the step is
+submitted: ``abort`` raises ``HealthError``, so a blown-up step never
+reaches a store; ``warn`` logs and writes. Data integrity
+(``resilience/integrity.py``): ``GS_CKPT_VERIFY=full`` adds the device
+checksum to every snapshot with exact copies (checked against the
+landed bytes before any write, and recorded in the stores' integrity
+sidecars) and reads every checkpoint back; ``GS_CKPT_REPLICAS`` mirrors
+the checkpoints; ``GS_SCRUB`` audits them at checkpoint boundaries.
+A SIGTERM or SIGINT is a shutdown request, checked after each chunk and
+after each boundary's submission: the run submits a checkpoint at that
+boundary (when checkpoints are on and the boundary wrote none), drains
+the pipeline, closes its stores and raises ``GracefulShutdown``, which
+the CLI turns into exit code 75.
 
 Not here yet, each a later slice of the port (ROADMAP Queue 1): the
 supervisor and fault injection, the hang watchdog, the observability
-sinks, the asynchronous writer, ensembles and multi-process launch.
+sinks, ensembles and multi-process launch.
 """
 
 from __future__ import annotations
@@ -40,13 +57,15 @@ from typing import List, Optional
 
 from .config.env import env_str
 from .config.settings import Settings, get_settings, resolve_reshard
+from .io.async_writer import AsyncStepWriter, resolve_depth
 from .io.checkpoint import CheckpointWriter, load_checkpoint
 from .io.stream import SimStream
 from .ops import cuda_stencil
+from .resilience import integrity
 from .resilience.faults import (GracefulShutdown, ShutdownListener,
                                 resolve_graceful_shutdown)
 from .resilience.health import HealthGuard
-from .simulation import Simulation
+from .simulation import HostRing, Simulation
 from .utils.log import Logger
 from .utils.profiler import RunStats
 
@@ -69,6 +88,16 @@ def main(args: List[str], *, n_devices: Optional[int] = None,
     return run_once(settings, n_devices=n_devices, seed=seed)
 
 
+def _with_checksums(fn, checksums):
+    """A write target with the boundary's device checksums bound to its
+    ``checksums`` argument."""
+
+    def wrapped(step, blocks):
+        return fn(step, blocks, checksums=checksums)
+
+    return wrapped
+
+
 def _close_quietly(store) -> None:
     """Close on the failure path without masking the error in flight."""
     if store is None:
@@ -86,29 +115,35 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     constructor, called as ``sim_factory(settings, n_devices=...,
     seed=...)`` (e.g. to place a mesh's blocks on chosen devices).
     Raises ``HealthError`` at a poisoned boundary under the ``abort``
-    policy and ``GracefulShutdown`` after a shutdown request."""
+    policy, ``GracefulShutdown`` after a shutdown request, and
+    ``AsyncIOError`` (or, at depth 0, the error itself) when a write
+    fails."""
     guard = HealthGuard.from_env(settings)
     reshard = resolve_reshard(settings)
+    depth = resolve_depth()
+    icfg = integrity.resolve_config(settings)
     # The listener brackets the whole run, construction included: a
     # signal during set-up still leaves through the first boundary.
     with ShutdownListener(
             enabled=resolve_graceful_shutdown(settings)) as shutdown:
-        return _run(settings, guard, shutdown, reshard,
+        return _run(settings, guard, shutdown, reshard, depth, icfg,
                     n_devices=n_devices, seed=seed, sim_factory=sim_factory)
 
 
-def _run(settings, guard, shutdown, reshard, *, n_devices, seed,
-         sim_factory) -> Simulation:
+def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
+         seed, sim_factory) -> Simulation:
     if sim_factory is not None:
         sim = sim_factory(settings, n_devices=n_devices, seed=seed)
     else:
         sim = Simulation(settings, n_devices=n_devices, seed=seed)
     log = Logger(verbose=settings.verbose)
+    journal = integrity.IntegrityLog(log)
     restart_step = 0
     if settings.restart:
         *fields, restart_step = load_checkpoint(
             settings.restart_input, settings, settings.restart_step,
             layout=sim.block_boxes() if reshard == "off" else None,
+            journal=journal, log=log,
         )
         sim.restore_fields(fields, restart_step)
         log.info(
@@ -123,20 +158,41 @@ def _run(settings, guard, shutdown, reshard, *, n_devices, seed,
         if n.lower() in codec.output
     }
     ckpt_lossy = bool(codec.ckpt)
+    snapshot_checksum = icfg["verify"] == "full"
     stream = ckpt = None
     launches0 = cuda_stencil.LAUNCHES
 
+    def capture(targets, **kw):
+        """A snapshot into the ring's next buffers, once the pipeline
+        has written the step that used them last (that wait is recorded
+        under the ``targets``' phases)."""
+        pipe.reserve([phase for phase, _ in targets])
+        with stats.phase("device_to_host"):
+            return sim.snapshot_async(ring=ring, **kw)
+
+    def with_checksums(snap, targets):
+        if not snap.has_checksums():
+            return targets
+        sums = snap.checksum_report()
+        return [(phase, _with_checksums(fn, sums)) for phase, fn in targets]
+
     def graceful(at_step: int, ckpt_written: bool):
         """The shutdown path: a checkpoint at this boundary (unless it
-        wrote one), the stores closed, then GracefulShutdown."""
+        wrote one), the pipeline drained, the stores closed, then
+        GracefulShutdown."""
         ckpt_step = None
         if ckpt is not None:
             if not ckpt_written:
-                ckpt.save(at_step, sim.snapshot(
-                    encode=enc_spec if ckpt_lossy else None,
-                    exact=not ckpt_lossy))
+                targets = [("checkpoint", ckpt.save)]
+                snap = capture(
+                    targets, encode=enc_spec if ckpt_lossy else None,
+                    exact=not ckpt_lossy,
+                    checksum=snapshot_checksum and not ckpt_lossy)
+                pipe.submit(at_step, snap, with_checksums(snap, targets))
+                stats.count("checkpoints")
                 log.info(f"Graceful-shutdown checkpoint at step {at_step}")
             ckpt_step = at_step
+        pipe.close()
         stream.close()
         if ckpt is not None:
             ckpt.close()
@@ -160,61 +216,92 @@ def _run(settings, guard, shutdown, reshard, *, n_devices, seed,
             "snapshot_codec": codec.describe(),
             "n_devices": sim.domain.n_blocks,
             "mesh_dims": list(sim.domain.dims),
+            "io_engine": stream.engine,
+            "async_io_depth": depth,
+            "integrity": dict(icfg),
         })
+        scrubber = (
+            integrity.Scrubber(settings, journal=journal,
+                               every=icfg["scrub_every"])
+            if icfg["scrub"] and ckpt is not None else None
+        )
+        pipe = AsyncStepWriter(depth=depth, stats=stats)
+        ring = HostRing(pipe.depth + 1)
         step = restart_step
         t0 = time.perf_counter()
-        while step < settings.steps:
-            boundary = min(
-                _next_boundary(step, settings.plotgap, settings.steps),
-                _next_boundary(
-                    step,
-                    settings.checkpoint_freq if ckpt is not None else 0,
-                    settings.steps,
-                ),
-            )
-            with stats.phase("compute"):
-                sim.iterate(boundary - step)
-                sim.block_until_ready()
-            stats.count("steps", boundary - step)
-            step = boundary
-            at_plot = settings.plotgap > 0 and step % settings.plotgap == 0
-            at_ckpt = (
-                ckpt is not None and settings.checkpoint_freq > 0
-                and step % settings.checkpoint_freq == 0
-            )
-            if not (at_plot or at_ckpt):
-                if shutdown.requested:
-                    graceful(step, ckpt_written=False)
-                continue
-            want_enc = bool(enc_spec) and (at_plot or (at_ckpt
-                                                       and ckpt_lossy))
-            want_exact = ((at_ckpt and not ckpt_lossy)
-                          or (at_plot and not enc_spec))
-            with stats.phase("device_to_host"):
-                blocks = sim.snapshot(encode=enc_spec if want_enc else None,
-                                      exact=want_exact,
-                                      health=guard.enabled)
-            # Before any write: under abort a poisoned step raises here
-            # and reaches no store.
-            guard.check(step, blocks.health, log=log)
-            if at_plot:
-                log.info(
-                    f"Simulation at step {step} writing output step "
-                    f"{step // settings.plotgap}"
+        with pipe:
+            while step < settings.steps:
+                boundary = min(
+                    _next_boundary(step, settings.plotgap, settings.steps),
+                    _next_boundary(
+                        step,
+                        settings.checkpoint_freq if ckpt is not None else 0,
+                        settings.steps,
+                    ),
                 )
-                with stats.phase("output"):
-                    stream.write_step(step, blocks)
-                stats.count("output_steps")
-            if at_ckpt:
-                with stats.phase("checkpoint"):
-                    ckpt.save(step, blocks)
-                stats.count("checkpoints")
-            if shutdown.requested:
-                # After this boundary's writes, so that a resumed run
-                # reproduces the uninterrupted output stream.
-                graceful(step, ckpt_written=at_ckpt)
+                with stats.phase("compute"):
+                    sim.iterate(boundary - step)
+                    sim.block_until_ready()
+                stats.count("steps", boundary - step)
+                step = boundary
+                at_plot = settings.plotgap > 0 and step % settings.plotgap == 0
+                at_ckpt = (
+                    ckpt is not None and settings.checkpoint_freq > 0
+                    and step % settings.checkpoint_freq == 0
+                )
+                if not (at_plot or at_ckpt):
+                    if shutdown.requested:
+                        graceful(step, ckpt_written=False)
+                    continue
+                targets = []
+                if at_plot:
+                    log.info(
+                        f"Simulation at step {step} writing output step "
+                        f"{step // settings.plotgap}"
+                    )
+                    targets.append(("output", stream.write_step))
+                if at_ckpt:
+                    targets.append(("checkpoint", ckpt.save))
+                want_enc = bool(enc_spec) and (at_plot or (at_ckpt
+                                                           and ckpt_lossy))
+                want_exact = ((at_ckpt and not ckpt_lossy)
+                              or (at_plot and not enc_spec))
+                snap = capture(
+                    targets, health=guard.enabled,
+                    checksum=snapshot_checksum and want_exact,
+                    encode=enc_spec if want_enc else None,
+                    exact=want_exact)
+                if pipe.synchronous:
+                    # Depth 0: the copies land (and are checked) here,
+                    # and submit writes inline.
+                    with stats.phase("device_to_host"):
+                        snap.blocks()
+                targets = with_checksums(snap, targets)
+                # Before the step is submitted: under abort a poisoned
+                # step raises here and reaches no store.
+                guard.check(step, snap.health_report(), log=log)
+                pipe.submit(step, snap, targets)
+                if at_plot:
+                    stats.count("output_steps")
+                if at_ckpt:
+                    stats.count("checkpoints")
+                    if scrubber is not None:
+                        scrubber.maybe_scrub(step)
+                if shutdown.requested:
+                    # After this boundary's submission, so that a
+                    # resumed run reproduces the uninterrupted stream.
+                    graceful(step, ckpt_written=at_ckpt)
+            # Inside the timed region: the run is complete once every
+            # accepted step is written.
+            pipe.close()
         elapsed = time.perf_counter() - t0
         stats.count("kernel_launches", cuda_stencil.LAUNCHES - launches0)
+        stats.record_io(pipe.overlap_stats())
+        if scrubber is not None:
+            stats.config["integrity"].update(scrubber.describe())
+        if journal.events:
+            stats.config["integrity"]["events"] = list(journal.events)
+        stats.config["host_ring_bytes"] = ring.nbytes
         cells = settings.L**3 * (settings.steps - restart_step)
         log.info(
             f"Completed {settings.steps - restart_step} steps in "
@@ -230,6 +317,8 @@ def _run(settings, guard, shutdown, reshard, *, n_devices, seed,
     except GracefulShutdown:
         raise
     except BaseException:
+        # The pipeline has drained (``with pipe``) before this closes
+        # the stores.
         _close_quietly(stream)
         _close_quietly(ckpt)
         raise

@@ -5,11 +5,12 @@ and pure-Python engine), kept in this package so that it imports
 nothing of the reference. The on-disk format, the attributes and the
 integrity sidecar are byte-compatible: a store either package writes
 opens in the other's reader. What differs from the reference module:
-the resilience hooks it imports lazily are local here
-(:class:`CorruptionError`, :func:`resolve_verify`,
-:func:`read_quarantine`), and a variable written through the
-reference's lossy snapshot codec is refused with a clear error, since
-the codec is not ported yet.
+the integrity hooks it needs are local here (:class:`CorruptionError`,
+:func:`resolve_verify`, :func:`read_quarantine`, which
+``resilience/integrity.py`` re-exports), bfloat16 variables are stored
+as their bit patterns under the dtype name ``"bfloat16"``, and a block
+is checksummed and written from a byte view of its array, never a copy.
+The native C++ engine (``io/native.py``) writes the same format.
 
 Writer semantics are ADIOS2's (``begin_step / put / end_step``, global
 arrays in per-writer ``(shape, start, count)`` blocks, typed
@@ -40,9 +41,9 @@ On-disk layout of ``name.bp`` (a directory)::
 
 Scalars are zero-dim variables with ``start=count=[]``. The reader
 exposes only steps whose payload is durable, and verifies each block's
-CRC on read (``GS_CKPT_VERIFY``: ``read`` by default, ``off`` to skip;
-the reference's ``full`` arms a device checksum this package does not
-have yet and raises).
+CRC on read (``GS_CKPT_VERIFY``: ``read`` by default, ``off`` to skip,
+``full`` to also read back every checkpoint after it is written and
+check the snapshot's device checksum, ``resilience/integrity.py``).
 """
 
 from __future__ import annotations
@@ -58,9 +59,9 @@ import numpy as np
 
 FORMAT_NAME = "bplite-1"
 
-#: Valid ``GS_CKPT_VERIFY`` modes. The reference's ``full`` adds a
-#: device-side checksum, not ported yet (ROADMAP Queue 1 item 16b).
-VERIFY_MODES = ("off", "read")
+#: Valid ``GS_CKPT_VERIFY`` modes, the reference's: ``full`` is ``read``
+#: plus the checkpoint read-back and the snapshot's device checksum.
+VERIFY_MODES = ("off", "read", "full")
 
 #: The dtype name of bfloat16 variables (numpy has no bfloat16; the
 #: reference names it so through ``ml_dtypes``).
@@ -133,14 +134,9 @@ class CorruptionError(RuntimeError):
 
 
 def resolve_verify() -> str:
-    """``GS_CKPT_VERIFY``: ``off`` | ``read`` (default); ``full``
-    raises until the device checksum is ported."""
+    """``GS_CKPT_VERIFY``: ``off`` | ``read`` (default) | ``full``; any
+    other value raises."""
     mode = (os.environ.get("GS_CKPT_VERIFY", "read") or "read").strip().lower()
-    if mode == "full":
-        raise ValueError(
-            "GS_CKPT_VERIFY=full arms the device-side checkpoint checksum, "
-            "which grayscott_jl_tpu_torch does not support yet (ROADMAP "
-            "Queue 1 item 16b); use read or off")
     if mode not in VERIFY_MODES:
         raise ValueError(
             f"GS_CKPT_VERIFY must be one of {'|'.join(VERIFY_MODES)}, "
@@ -149,10 +145,16 @@ def resolve_verify() -> str:
     return mode
 
 
+def byte_view(arr: np.ndarray) -> memoryview:
+    """The bytes of a C-contiguous array as a flat memoryview (no copy):
+    what a writer checksums and writes."""
+    return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
 def read_quarantine(store: str) -> frozenset:
     """Quarantined step-entry indices of a store (``quarantine.json``,
-    written by the reference's scrubber); a missing or torn marker
-    means none."""
+    written by the scrubber, ``resilience/integrity.py``); a missing or
+    torn marker means none."""
     try:
         with open(os.path.join(store, "quarantine.json"),
                   encoding="utf-8") as f:
@@ -367,6 +369,9 @@ class BpWriter:
     publishes a step only once every writer has committed it.
     """
 
+    #: The engine's name in ``RunStats.config["io_engine"]``.
+    engine = "python"
+
     def __init__(
         self,
         path: str,
@@ -537,13 +542,20 @@ class BpWriter:
             "start": [int(s) for s in start],
             "count": [int(c) for c in count],
         }
-        data = arr.tobytes()
+        data = byte_view(arr)
         self._integrity.record_block(
             os.path.basename(self._data_path), self._offset, data
         )
         self._data.write(data)
         self._offset += len(data)
         self._step_blocks.setdefault(name, []).append(block)
+
+    def record_device_checksums(self, step: int, checksums) -> None:
+        """Attach the boundary's device-side field checksums
+        (``resilience/integrity.device_field_checksum``) to the step
+        being written; they land in the integrity sidecar next to the
+        block CRCs."""
+        self._integrity.record_device(checksums)
 
     def end_step(self) -> None:
         """Complete the step: payload is flushed, then the metadata index is

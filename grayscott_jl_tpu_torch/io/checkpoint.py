@@ -10,13 +10,20 @@ Checkpoints are exact unless ``snapshot_bits_ckpt`` opts them into the
 lossy codec (``codec``), and a restart from a coded one is value-close.
 A checkpoint restores on any block layout unless ``reshard = "off"``
 (``GS_RESHARD=off``): then a layout other than the one the entry was
-written on raises :class:`ReshardError`, as in the reference. Replicas
-and the device-side checksum (``GS_CKPT_REPLICAS``,
-``GS_CKPT_VERIFY=full``) are not ported yet.
+written on raises :class:`ReshardError`, as in the reference.
+
+Integrity (``resilience/integrity.py``): ``GS_CKPT_REPLICAS=N`` mirrors
+every checkpoint write to ``<path>.r1`` .. ``<path>.r<N-1>``;
+``GS_CKPT_VERIFY=full`` reads every saved step back against the CRCs
+recorded at ``put`` before the boundary counts as written; and
+:func:`load_checkpoint` tries the primary and the mirrors on disk in
+health order, failing over on a corrupt or unreadable one (a sole
+corrupt store raises its :class:`~.bplite.CorruptionError`).
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -34,6 +41,9 @@ class ReshardError(RuntimeError):
 
 
 class CheckpointWriter:
+    """The checkpoint store of a run and its replicas (``paths``, the
+    primary first), written in lockstep."""
+
     def __init__(
         self,
         settings: Settings,
@@ -44,45 +54,108 @@ class CheckpointWriter:
         resume_step: Optional[int] = None,
         codec: Optional[Dict[str, int]] = None,
     ):
+        from ..resilience import integrity
+
         L = settings.L
         model = resolve_model(settings)
         self.codec = dict(codec or {})
         self.field_names = model.field_names
-        self.path = settings.checkpoint_output
-        # On restart, append (checkpoint_output may be the store the run
-        # resumed from), dropping entries past the resume point.
-        keep = None
-        if settings.restart and resume_step is not None:
-            keep = count_steps_upto(self.path, resume_step)
-        self.writer = open_writer(
-            self.path, writer_id=writer_id, nwriters=nwriters,
-            append=settings.restart, keep_steps=keep,
-        )
-        w = self.writer
-        if writer_id == 0:
-            w.define_attribute("L", settings.L)
-            w.define_attribute("precision", settings.precision)
-            w.define_attribute("model", model.name)
-            w.define_attribute("fields", list(self.field_names))
-            if self.codec:
-                w.define_attribute(
-                    CODEC_ATTR,
-                    codec_attr_value(self.codec, self.field_names, dtype))
-        w.define_variable("step", np.int32)
-        define_fields(w, self.field_names, dtype, L, self.codec)
+        self._verify = integrity.resolve_verify(settings) == "full"
+        #: Replica store paths, primary first.
+        self.paths = integrity.replica_paths(
+            settings.checkpoint_output, integrity.resolve_replicas(settings))
+        self.path = self.paths[0]
+        self.writers = []
+        for path in self.paths:
+            # On restart, append (checkpoint_output may be the store the
+            # run resumed from), dropping entries past the resume point;
+            # each replica counts its own (a stale mirror keeps fewer).
+            keep = None
+            if settings.restart and resume_step is not None:
+                keep = count_steps_upto(path, resume_step)
+            w = open_writer(path, writer_id=writer_id, nwriters=nwriters,
+                            append=settings.restart, keep_steps=keep)
+            if writer_id == 0:
+                w.define_attribute("L", settings.L)
+                w.define_attribute("precision", settings.precision)
+                w.define_attribute("model", model.name)
+                w.define_attribute("fields", list(self.field_names))
+                if self.codec:
+                    w.define_attribute(
+                        CODEC_ATTR,
+                        codec_attr_value(self.codec, self.field_names,
+                                         dtype))
+            w.define_variable("step", np.int32)
+            define_fields(w, self.field_names, dtype, L, self.codec)
+            self.writers.append(w)
 
-    def save(self, step: int, blocks) -> None:
+    @property
+    def writer(self):
+        """The primary store's writer."""
+        return self.writers[0]
+
+    def save(self, step: int, blocks, checksums=None) -> None:
         """``blocks``: a snapshot (``[(offsets, sizes, *field_blocks)]``
         in model declaration order, with the codec form on ``encoded``
-        for a coded checkpoint)."""
-        w = self.writer
-        w.begin_step()
-        w.put("step", np.int32(step))
-        put_fields(w, self.field_names, blocks, bool(self.codec))
-        w.end_step()
+        for a coded checkpoint). ``checksums`` (``{field: int}``, the
+        boundary's device checksums) go into each store's integrity
+        sidecar. Under ``GS_CKPT_VERIFY=full`` every replica's new step
+        is read back before this returns."""
+        for w in self.writers:
+            w.begin_step()
+            w.put("step", np.int32(step))
+            if checksums is not None:
+                w.record_device_checksums(step, checksums)
+            put_fields(w, self.field_names, blocks, bool(self.codec))
+            w.end_step()
+        if self._verify:
+            from ..resilience.integrity import verify_last_step
+
+            for w, path in zip(self.writers, self.paths):
+                if hasattr(w, "drain"):
+                    w.drain()  # the native engine publishes on its thread
+                verify_last_step(path)
 
     def close(self) -> None:
-        self.writer.close()
+        """Close every replica's writer (all of them, even when one
+        raises; the first error is raised after)."""
+        first = None
+        for w in self.writers:
+            try:
+                w.close()
+            except Exception as e:  # noqa: BLE001 — raised below
+                first = first or e
+        if first is not None:
+            raise first
+
+
+def latest_durable_step(path: str,
+                        max_step: Optional[int] = None) -> Optional[int]:
+    """Simulation step of the latest complete checkpoint entry of
+    ``path`` (at most ``max_step`` when given), or None for a missing,
+    empty or unreadable store (with a warning for the last)."""
+    try:
+        r = BpReader(path)
+    except FileNotFoundError:
+        return None
+    except Exception as e:  # noqa: BLE001 — a corrupt store, reported
+        print(f"gray-scott-torch: warning: checkpoint store {path} is "
+              f"unreadable ({type(e).__name__}: {e}); treating as no "
+              "durable checkpoint", file=sys.stderr)
+        return None
+    try:
+        for k in range(r.num_steps() - 1, -1, -1):
+            s = int(r.get("step", step=k))
+            if max_step is None or s <= max_step:
+                return s
+        return None
+    except Exception as e:  # noqa: BLE001 — a torn step entry, reported
+        print(f"gray-scott-torch: warning: checkpoint store {path} has no "
+              f"readable step entries ({type(e).__name__}: {e}); treating "
+              "as no durable checkpoint", file=sys.stderr)
+        return None
+    finally:
+        r.close()
 
 
 def open_checkpoint(
@@ -149,13 +222,26 @@ def _describe(boxes) -> str:
 
 def load_checkpoint(
     path: str, settings: Settings, restart_step: int = -1, *,
-    layout=None,
+    layout=None, journal=None, log=None,
 ) -> Tuple:
     """``(*fields, step)`` of one checkpoint entry, fields in the
     model's declaration order (bfloat16 ones, and coded ones decoded, as
-    float32 arrays). ``layout`` — the restoring run's block boxes,
-    ``[(start, count)]``, given under ``reshard = "off"`` — must be the
-    layout the entry was written on, else :class:`ReshardError`."""
+    float32 arrays). The primary and its mirrors on disk are tried in
+    health order, a corrupt or unreadable one failing over to the next
+    (``resilience/integrity.restore_with_failover``; each failover is
+    recorded in ``journal`` and logged). ``layout`` — the restoring
+    run's block boxes, ``[(start, count)]``, given under ``reshard =
+    "off"`` — must be the layout the entry was written on, else
+    :class:`ReshardError`."""
+    from ..resilience.integrity import restore_with_failover
+
+    def attempt(candidate):
+        return _load_one(candidate, settings, restart_step, layout)
+
+    return restore_with_failover(path, attempt, journal=journal, log=log)
+
+
+def _load_one(path, settings, restart_step, layout) -> Tuple:
     r, idx, step = open_checkpoint(path, settings, restart_step)
     with r:
         names = resolve_model(settings).field_names
@@ -171,4 +257,3 @@ def load_checkpoint(
                     "GS_RESHARD=auto) to allow elastic resume")
         fields = tuple(r.get(name, step=idx) for name in names)
     return fields + (step,)
-

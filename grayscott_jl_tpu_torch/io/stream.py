@@ -156,13 +156,19 @@ class SimStream:
                 max_step=resume_step, names=self.var_names,
             )
 
-    def write_step(self, step: int, blocks) -> None:
+    def write_step(self, step: int, blocks, checksums=None) -> None:
         """Write one output step; ``blocks`` is a snapshot
         (``[(offsets, sizes, *field_blocks)]`` in model declaration
-        order, with the codec form on ``encoded`` for a coded store)."""
+        order, with the codec form on ``encoded`` for a coded store).
+        ``checksums`` (``{field: int}``, the boundary's device checksums)
+        go into the store's integrity sidecar. With the output pipeline
+        this runs on its writer thread, the ``.vti`` file's assembly
+        and transposition included."""
         w = self.writer
         w.begin_step()
         w.put("step", np.int32(step))
+        if checksums is not None:
+            w.record_device_checksums(step, checksums)
         put_fields(w, self.var_names, blocks, bool(self.codec))
         w.end_step()
         if self._vtk is not None:
@@ -189,7 +195,15 @@ class SimStream:
                 full[box] = fb
         return arrays
 
+    @property
+    def engine(self) -> str:
+        """The BP-lite engine writing the store (``native`` or
+        ``python``)."""
+        return self.writer.engine
+
     def close(self) -> None:
-        self.writer.close()
-        if self._vtk is not None:
-            self._vtk.close()
+        try:
+            self.writer.close()
+        finally:
+            if self._vtk is not None:
+                self._vtk.close()

@@ -24,6 +24,10 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
 * :meth:`Simulation.get_fields` / :meth:`Simulation.snapshot` copy the
   fields to the host (bfloat16 fields as float32 arrays holding the bf16
   values; the snapshot quantizes coded fields on the device first);
+  :meth:`Simulation.snapshot_async` starts those copies on a copy stream
+  (into a :class:`HostRing` of pinned buffers) and returns a
+  :class:`FieldSnapshot` that a writer thread resolves, with the health
+  probe and the integrity checksum reduced on the device beside them;
   :meth:`Simulation.restore_fields` loads them back.
 * Precision: ``precision`` gives the storage dtype; under
   ``compute_precision = "bf16_f32acc"`` a Float32 run stores bfloat16
@@ -50,6 +54,7 @@ import torch
 from .config import settings as config
 from .config.env import env_str
 from .config.settings import Settings
+from .io.bplite import bf16_widen
 from .io.codec import (BoundaryBlocks, EncodedField, device_quantize,
                        resolve_snapshot_codec)
 from .models import SettingsError
@@ -136,6 +141,160 @@ def select_kernel(model, language: str, lang: str):
     return "plain", selection
 
 
+class HostRing:
+    """Host buffers for boundary snapshots, reused across boundaries:
+    ``slots`` sets, each with one buffer per (block, field) — pinned
+    for a card's tensors, so that its copies run asynchronously —
+    allocated at first use. Each snapshot takes the next set round
+    robin. The output pipeline keeps at most ``slots`` snapshots
+    unwritten (``AsyncStepWriter.reserve``), so a set has been written
+    before it is reused."""
+
+    def __init__(self, slots: int):
+        if slots < 1:
+            raise ValueError(f"a HostRing needs at least one slot, got {slots}")
+        self.slots = int(slots)
+        self._next = 0
+        self._bufs = {}
+
+    def take(self) -> int:
+        """The set the next snapshot uses."""
+        slot = self._next
+        self._next = (slot + 1) % self.slots
+        return slot
+
+    def buffer(self, slot: int, key, like: torch.Tensor) -> torch.Tensor:
+        """Set ``slot``'s buffer ``key``, shaped and typed as ``like``."""
+        buf = self._bufs.get((slot, key))
+        if buf is None or buf.shape != like.shape or buf.dtype != like.dtype:
+            buf = self._bufs[slot, key] = torch.empty(
+                like.shape, dtype=like.dtype, pin_memory=like.is_cuda)
+        return buf
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes the ring holds."""
+        return sum(b.numel() * b.element_size() for b in self._bufs.values())
+
+
+class FieldSnapshot:
+    """One boundary's capture, its device-to-host copies in flight
+    (:meth:`Simulation.snapshot_async`).
+
+    :meth:`health_report` and :meth:`checksum_report` wait only for the
+    probes' scalars; :meth:`blocks` waits on the copies' own events
+    (never a device-wide synchronise, so that it may run on a writer
+    thread while the next chunk computes), checks the landed bytes
+    against the device checksum when one was taken, and returns the
+    host blocks. The snapshot holds its sources until its copies are
+    done (``record_stream``), so later steps may drop them."""
+
+    def __init__(self, step: int, parts, field_names, *, events=(),
+                 probe_events=(), small=(), health: bool = False,
+                 checksum: bool = False, enc_parts=None, enc_meta=None):
+        #: Simulation step the snapshot was taken at.
+        self.step = step
+        self.field_names = tuple(field_names)
+        self._parts = parts  # [(offsets, true_sizes, *host buffers)]
+        self._enc_parts = enc_parts
+        self._enc_meta = enc_meta or {}
+        self._events = list(events)
+        self._probe_events = list(probe_events)
+        self._small = list(small)
+        self._small_host = None
+        self._health = health
+        self._checksum = checksum
+        self._blocks = None
+
+    def _scalars(self):
+        if self._small_host is None:
+            for ev in self._probe_events:
+                ev.synchronize()
+            self._small_host = [t.numpy() for t in self._small]
+        return self._small_host
+
+    def health_report(self):
+        """The boundary's :class:`~.resilience.health.HealthReport`, or
+        None when no probe was taken."""
+        if not self._health:
+            return None
+        n = 1 + 2 * len(self.field_names)
+        return report_of([s[:n] for s in self._scalars()], self.field_names)
+
+    def has_checksums(self) -> bool:
+        return self._checksum
+
+    def checksum_report(self):
+        """The device checksums ``{field: int}`` (the blocks' sums added
+        mod 2^32), or None when none was taken."""
+        if not self._checksum:
+            return None
+        off = 1 + 2 * len(self.field_names) if self._health else 0
+        totals = [0] * len(self.field_names)
+        for s in self._scalars():
+            for i in range(len(totals)):
+                totals[i] = (totals[i] + int(s[off + i])) % (1 << 32)
+        return dict(zip(self.field_names, totals))
+
+    def _verify(self, hosts) -> None:
+        """The landed bytes against the device checksums: a mismatch is
+        data that changed between the card and here, and raises
+        :class:`~.io.bplite.CorruptionError` before any store sees it."""
+        from .resilience.integrity import CorruptionError, host_field_checksum
+
+        want = self.checksum_report()
+        for i, name in enumerate(self.field_names):
+            got = 0
+            for part in hosts:
+                got = (got + host_field_checksum(part[2 + i])) % (1 << 32)
+            if got != want[name]:
+                raise CorruptionError(
+                    f"device-side field checksum mismatch: device "
+                    f"{want[name]:#010x}, host {got:#010x} — snapshot bytes "
+                    "were silently corrupted in flight",
+                    step=self.step, var=name)
+
+    def blocks(self) -> BoundaryBlocks:
+        """Host blocks ``[(offsets, sizes, *fields)]``, each clipped to
+        the true domain, bfloat16 fields as float32 arrays holding their
+        values; the codec form on ``encoded``. Resolved once."""
+        if self._blocks is not None:
+            return self._blocks
+        for ev in self._events:
+            ev.synchronize()
+        out = BoundaryBlocks()
+        if self._parts is not None:
+            # The words as they landed, before any widening: what the
+            # device checksum summed.
+            hosts = [(offs, true) + tuple(_landed(b) for b in bufs)
+                     for offs, true, *bufs in self._parts]
+            if self._checksum:
+                self._verify(hosts)
+            for (offs, true, *arrs), (_, _, *bufs) in zip(hosts, self._parts):
+                sl = tuple(slice(0, t) for t in true)
+                out.append((offs, true) + tuple(
+                    _widened(a, b)[sl] for a, b in zip(arrs, bufs)))
+        if self._enc_parts is not None:
+            enc = []
+            for offs, true, *bufs in self._enc_parts:
+                sl = tuple(slice(0, t) for t in true)
+                entries = []
+                for i, b in enumerate(bufs):
+                    meta = self._enc_meta.get(i)
+                    if meta is None:
+                        entries.append(_widened(_landed(b), b)[sl])
+                        continue
+                    bits, lo, hi, dtype = meta
+                    q = b.numpy()
+                    if bits > 8:
+                        q = q.view(np.uint16)
+                    entries.append(EncodedField(q[sl], lo, hi, bits, dtype))
+                enc.append((offs, true) + tuple(entries))
+            out.encoded = enc
+        self._blocks = out
+        return out
+
+
 class Simulation:
     """One registered model (Gray-Scott by default) on a mesh of
     blocks. ``devices`` is the explicit, possibly repeating, device list
@@ -191,6 +350,8 @@ class Simulation:
         }
         self.params = self._params[self.device]
         self.use_noise = settings.noise != 0.0
+        #: Per card, the stream the snapshots' copies run on.
+        self._copy_streams = {}
         self.base_key = base_key(seed)
         self.step = 0
         L = settings.L
@@ -462,68 +623,149 @@ class Simulation:
                     _host(f))
         return tuple(o[:L, :L, :L] for o in out)
 
-    def snapshot(self, encode=None, exact: bool = True,
-                 health: bool = False) -> BoundaryBlocks:
-        """Host blocks ``[(offsets, sizes, *fields)]`` for the output and
-        checkpoint stores: one per block, each clipped to the true
-        domain (a non-divisible L stores pad cells past L); bfloat16
-        fields as float32 arrays holding their values.
+    def snapshot_async(self, *, health: bool = False,
+                       checksum: bool = False, bitflip=None, encode=None,
+                       exact: bool = True, ring=None) -> "FieldSnapshot":
+        """Capture the fields for an output boundary without waiting for
+        the copies: the returned :class:`FieldSnapshot` has every
+        block's device-to-host copy in flight, and the caller may hand
+        it to a writer thread (``io/async_writer.py``) and go on
+        enqueueing steps.
 
-        ``health`` reduces the health probe on the device first
-        (``resilience/health.device_probe``: every field finite, each
-        field's min and max over each block's storage), copied back
-        with the fields under the boundary's one synchronisation, and
-        puts the :class:`~.resilience.health.HealthReport` on the
-        result's ``health``.
+        One pass of device work, in the reference's order: the copies
+        (a field the ``bitflip`` hook targets is first copied on the
+        device); ``health``, the probe (``resilience/health.device_probe``:
+        every field finite, each field's min and max); ``encode``
+        (``{field index: bits}``, the lossy codec's quantization with
+        the global range, :func:`~.io.codec.device_quantize`);
+        ``checksum``, each field's wrapped uint32 word sum
+        (``resilience/integrity.device_field_checksum``), over the
+        pristine fields; then ``bitflip`` (a field name, or True for the
+        first field) flips one bit of the first block's *copy* of that
+        field, so the checksum must catch it and the live fields stay
+        as they are. ``exact=False`` skips the exact copies (a boundary
+        whose targets all take the codec form).
 
-        ``encode`` (``{field index: bits}``, the lossy snapshot codec)
-        quantizes those fields on the device, with the global range over
-        every block's storage (:func:`~.io.codec.device_quantize`), and
-        puts the codec form on the result's ``encoded`` (coded fields as
-        :class:`~.io.codec.EncodedField`); ``exact=False`` skips the
-        exact copies (a boundary whose targets all take the codec
-        form)."""
+        On the card the copies run on a copy stream of each device
+        (``copy_stream.wait_stream`` of the compute stream, each source
+        held by ``record_stream`` until its copy is done) into pinned
+        host buffers: those of ``ring`` (a :class:`HostRing`, reused
+        across boundaries) or fresh ones. The probes' few scalars come
+        back on the compute stream. Nothing here waits: the snapshot
+        waits on its own events."""
         if not exact and not encode:
             raise ValueError("snapshot(exact=False) needs an encode spec")
-        probes = None
-        if health:
-            # Enqueued before the copies below, whose first wait covers
-            # it: the probe adds no synchronisation of its own.
-            probes = [device_probe(*fields).to("cpu", non_blocking=True)
-                      for fields in self.blocks]
-        clips = [(offs, true, tuple(slice(0, t) for t in true))
-                 for offs, true in self.block_boxes()]
-        out = BoundaryBlocks(
-            [(offs, true) + tuple(_host(f)[sl] for f in fields)
-             for (offs, true, sl), fields in zip(clips, self.blocks)]
-            if exact else [])
-        if encode:
-            coded = {}
-            for i, bits in encode.items():
-                qs, lo, hi = device_quantize([b[i] for b in self.blocks],
-                                             bits)
-                coded[i] = (bits, qs, lo, hi)
-            enc = []
-            for r, ((offs, true, sl), fields) in enumerate(
-                    zip(clips, self.blocks)):
+        if bitflip is not None and not exact:
+            raise ValueError("the bitflip hook flips an exact copy: "
+                             "snapshot with exact=True")
+        from .resilience.integrity import apply_bitflip, device_field_checksum
+
+        names = self.model.field_names
+        sources = [list(fields) for fields in self.blocks]
+        flip = None
+        if bitflip is not None:
+            flip = 0 if bitflip is True else names.index(str(bitflip))
+            # The copy of the field the hook corrupts, on the device.
+            sources[0][flip] = sources[0][flip].clone()
+        probes = ([device_probe(*fields) for fields in self.blocks]
+                  if health else None)
+        coded = {}
+        for i, bits in (encode or {}).items():
+            coded[i] = (bits,) + device_quantize(
+                [b[i] for b in self.blocks], bits)
+        sums = ([device_field_checksum(*fields) for fields in self.blocks]
+                if checksum and exact else None)
+        if flip is not None:
+            sources[0][flip] = apply_bitflip(sources[0][flip],
+                                             (0,) * sources[0][flip].dim())
+        # The probes' scalars (a checksum below 2**32 is exact in
+        # float64), back on the compute stream: the caller resolves them
+        # before the copies land.
+        small = []
+        if probes or sums:
+            for r in range(len(self.blocks)):
+                vec = ([probes[r]] if probes else []) + (
+                    [torch.stack(sums[r]).to(torch.float64)] if sums else [])
+                small.append(torch.cat(vec).to("cpu", non_blocking=True))
+        cuda_devices = [d for d in dict.fromkeys(self.mesh.devices)
+                        if d.type == "cuda"]
+        probe_events = []
+        for d in cuda_devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            probe_events.append(ev)
+        streams = {}
+        for d in cuda_devices:
+            st = self._copy_streams.get(d)
+            if st is None:
+                st = self._copy_streams[d] = torch.cuda.Stream(device=d)
+            st.wait_stream(torch.cuda.current_stream(d))
+            streams[d] = st
+        slot = ring.take() if ring is not None else None
+
+        def to_host(src, key):
+            if ring is not None:
+                buf = ring.buffer(slot, key, src)
+            else:
+                buf = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=src.is_cuda)
+            if src.is_cuda:
+                st = streams[src.device]
+                with torch.cuda.stream(st):
+                    buf.copy_(src, non_blocking=True)
+                src.record_stream(st)
+            else:
+                buf.copy_(src)
+            return buf
+
+        boxes = self.block_boxes()
+        parts = ([(offs, true) + tuple(to_host(f, (r, i))
+                                       for i, f in enumerate(srcs))
+                  for r, ((offs, true), srcs) in enumerate(zip(boxes,
+                                                               sources))]
+                 if exact else None)
+        enc_parts = None
+        if coded:
+            enc_parts = []
+            for r, ((offs, true), srcs) in enumerate(zip(boxes, sources)):
                 entries = []
-                for i, f in enumerate(fields):
-                    if i not in coded:
-                        entries.append(_host(f)[sl])
-                        continue
-                    bits, qs, lo, hi = coded[i]
-                    q = qs[r].cpu().numpy()
-                    if bits > 8:
-                        q = q.view(np.uint16)
-                    entries.append(EncodedField(q[sl], lo, hi, bits,
-                                                self.dtype))
-                enc.append((offs, true) + tuple(entries))
-            out.encoded = enc
-        if probes is not None:
-            for d in dict.fromkeys(self.mesh.devices):
-                if d.type == "cuda":
-                    torch.cuda.current_stream(d).synchronize()
-            out.health = report_of(probes, self.model.field_names)
+                for i, src in enumerate(srcs):
+                    if i in coded:
+                        entries.append(to_host(coded[i][1][r], ("q", r, i)))
+                    elif parts is not None:
+                        entries.append(parts[r][2 + i])
+                    else:
+                        entries.append(to_host(src, ("e", r, i)))
+                enc_parts.append((offs, true) + tuple(entries))
+        events = []
+        for d in cuda_devices:
+            ev = torch.cuda.Event()
+            ev.record(streams[d])
+            events.append(ev)
+        return FieldSnapshot(
+            self.step, parts, names, events=events,
+            probe_events=probe_events, small=small, health=health,
+            checksum=sums is not None, enc_parts=enc_parts,
+            enc_meta={i: (bits, lo, hi, self.dtype)
+                      for i, (bits, _, lo, hi) in coded.items()})
+
+    def snapshot(self, encode=None, exact: bool = True,
+                 health: bool = False,
+                 checksum: bool = False) -> BoundaryBlocks:
+        """The synchronous form of :meth:`snapshot_async`: host blocks
+        ``[(offsets, sizes, *fields)]`` for the output and checkpoint
+        stores, one per block, each clipped to the true domain (a
+        non-divisible L stores pad cells past L); bfloat16 fields as
+        float32 arrays holding their values. The codec form is on the
+        result's ``encoded`` (coded fields as
+        :class:`~.io.codec.EncodedField`), the
+        :class:`~.resilience.health.HealthReport` on its ``health`` when
+        ``health``; ``checksum`` verifies the landed bytes against the
+        device checksum. The buffers are the result's own."""
+        snap = self.snapshot_async(health=health, checksum=checksum,
+                                   encode=encode, exact=exact)
+        out = snap.blocks()
+        out.health = snap.health_report()
         return out
 
     def block_boxes(self) -> List[Tuple[tuple, tuple]]:
@@ -597,6 +839,18 @@ def _host(t: torch.Tensor) -> np.ndarray:
     host)."""
     t = t.cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _landed(buf: torch.Tensor) -> np.ndarray:
+    """A host buffer as numpy, bfloat16 as its uint16 bit patterns."""
+    if buf.dtype == torch.bfloat16:
+        return buf.view(torch.int16).numpy().view(np.uint16)
+    return buf.numpy()
+
+
+def _widened(arr: np.ndarray, buf: torch.Tensor) -> np.ndarray:
+    """:func:`_landed`'s array with bfloat16 widened exactly to float32."""
+    return bf16_widen(arr) if buf.dtype == torch.bfloat16 else arr
 
 
 def initialization(args, *, n_devices: Optional[int] = None, seed: int = 0):

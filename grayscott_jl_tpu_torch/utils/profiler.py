@@ -2,16 +2,23 @@
 ``grayscott_jl_tpu/utils/profiler.py``).
 
 Per-phase host wall clock (compute, device_to_host, output,
-checkpoint), step counters, and a JSON summary with cell-updates/s,
-written where ``GS_TPU_STATS`` points. The driver closes the compute
-phase with a device synchronise, so "compute" is device time plus
-launch overhead, not enqueue time.
+checkpoint, io_drain), step counters, and a JSON summary with
+cell-updates/s, written where ``GS_TPU_STATS`` points. The driver closes
+the compute phase with a device synchronise, so "compute" is device time
+plus launch overhead, not enqueue time. Phases and counters may be added
+to from any thread (the asynchronous writer's included). With the output
+pipeline (``io/async_writer.py``), ``output`` and ``checkpoint`` are the
+driver's own time on them (all of it at ``GS_ASYNC_IO_DEPTH=0``, the
+time blocked on the pipeline otherwise), and the summary's ``io`` holds
+the pipeline's ``overlap_stats``: each phase's writer time split into
+``hidden_s`` (behind compute) and ``exposed_s``, and their totals.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from typing import Dict, Optional
 
@@ -26,7 +33,15 @@ class RunStats:
         self.config = dict(config or {})
         self.phases: Dict[str, float] = {}
         self.counters: Dict[str, int] = {}
+        #: The output pipeline's overlap accounting (:meth:`record_io`).
+        self.io: Optional[dict] = None
+        self._lock = threading.Lock()
         self._t0 = time.perf_counter()
+
+    def add(self, name: str, seconds: float) -> None:
+        """Add ``seconds`` to phase ``name``."""
+        with self._lock:
+            self.phases[name] = self.phases.get(name, 0.0) + seconds
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -34,28 +49,43 @@ class RunStats:
         try:
             yield
         finally:
-            self.phases[name] = self.phases.get(name, 0.0) + (
-                time.perf_counter() - t
-            )
+            self.add(name, time.perf_counter() - t)
 
     def count(self, name: str, n: int = 1) -> None:
-        self.counters[name] = self.counters.get(name, 0) + n
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def record_io(self, overlap: Optional[dict]) -> None:
+        """Attach the pipeline's ``overlap_stats()``, with the hidden and
+        exposed totals over its phases."""
+        if not overlap:
+            self.io = None
+            return
+        self.io = dict(overlap)
+        self.io["hidden_total_s"] = round(
+            sum(overlap["hidden_s"].values()), 6)
+        self.io["exposed_total_s"] = round(
+            sum(overlap["exposed_s"].values()), 6)
 
     def summary(self) -> dict:
         total = time.perf_counter() - self._t0
-        steps = self.counters.get("steps", 0)
-        compute = self.phases.get("compute", total)
+        with self._lock:
+            phases = dict(self.phases)
+            counters = dict(self.counters)
+        steps = counters.get("steps", 0)
+        compute = phases.get("compute", total)
         return {
             "L": self.L,
             "config": dict(self.config),
             "steps": steps,
             "wall_s": round(total, 6),
-            "phases_s": {k: round(v, 6) for k, v in self.phases.items()},
-            "counters": dict(self.counters),
+            "phases_s": {k: round(v, 6) for k, v in phases.items()},
+            "counters": counters,
             "cell_updates_per_s": (
                 round(self.L**3 * steps / compute, 3)
                 if compute > 0 else None
             ),
+            "io": self.io,
         }
 
     def maybe_write(self) -> Optional[str]:

@@ -715,3 +715,41 @@ def test_f1_config_aborts_on_card_before_any_write(tmp_path):
     assert cuda_stencil.LAUNCHES == 10
     with BpReader(str(tmp_path / "gs.bp")) as r:
         assert r.num_steps() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_snapshot_async_on_card(dtype):
+    """The snapshot's copies run on a copy stream into the ring's pinned
+    buffers: the host blocks equal the fields, the device checksum
+    equals the host's over the landed bytes, the bitflip hook is caught,
+    and the ring's buffers are pinned and reused."""
+    _card()
+    from grayscott_jl_tpu_torch.resilience.integrity import (
+        CorruptionError, device_field_checksum)
+    from grayscott_jl_tpu_torch.simulation import HostRing, Simulation
+
+    precision = {torch.float32: "Float32", torch.float64: "Float64",
+                 torch.bfloat16: "BFloat16"}[dtype]
+    sim = Simulation(Settings(L=64, noise=0.1, precision=precision,
+                              backend="CUDA", **KW))
+    sim.iterate(3)
+    ring = HostRing(2)
+    want = [(f.float() if dtype == torch.bfloat16 else f).cpu().numpy()
+            for f in sim.blocks[0]]
+    sums = [int(c) for c in device_field_checksum(*sim.blocks[0])]
+    snaps = [sim.snapshot_async(health=True, checksum=True, ring=ring)
+             for _ in range(2)]
+    sim.iterate(1)  # the next chunk drops the snapshots' sources
+    for snap in snaps:
+        assert snap.health_report().finite
+        assert list(snap.checksum_report().values()) == sums
+        (offs, sizes, *host), = snap.blocks()
+        for h, w in zip(host, want):
+            assert (h == w).all()
+    assert all(b.is_pinned() for b in ring._bufs.values())
+    assert len(ring._bufs) == 4
+    bad = sim.snapshot_async(checksum=True, bitflip=True, ring=ring)
+    with pytest.raises(CorruptionError):
+        bad.blocks()

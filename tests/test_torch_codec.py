@@ -235,13 +235,15 @@ def test_boundary_captures_exact_copies_only_when_needed(tmp_path,
     bitwise; with ``snapshot_bits_ckpt`` the checkpoint is coded too and
     a restart from it starts within the bound."""
     calls = []
-    real = Simulation.snapshot
+    real = Simulation.snapshot_async
 
     def spy(self, encode=None, exact=True, **kw):
         calls.append((bool(encode), exact))
         return real(self, encode=encode, exact=exact, **kw)
 
-    monkeypatch.setattr(Simulation, "snapshot", spy)
+    # The driver's boundaries go through snapshot_async (the output
+    # pipeline's capture).
+    monkeypatch.setattr(Simulation, "snapshot_async", spy)
     kw = dict(precision="BFloat16", snapshot_bits="8", checkpoint=True,
               checkpoint_freq=8, checkpoint_output=str(tmp_path / "ck.bp"))
     driver.main([_config(tmp_path / "a", **kw)])

@@ -184,3 +184,36 @@ def test_guard_check_policies():
     assert not health.HealthGuard("off").enabled
     with pytest.raises(ValueError):
         health.HealthGuard("rollback")
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_f1_holds_at_every_pipeline_depth(tmp_path, monkeypatch, depth):
+    """The guard acts on the driver thread before a step is submitted
+    to the output pipeline: at depth 0 and 2 alike, abort raises at step
+    10 with no step written, and warn writes both NaN steps."""
+    monkeypatch.setenv("GS_ASYNC_IO_DEPTH", str(depth))
+    (tmp_path / "abort").mkdir()
+    (tmp_path / "warn").mkdir()
+    with pytest.raises(HealthError) as e:
+        driver.main([_config(tmp_path / "abort" / "cfg.toml",
+                             output=str(tmp_path / "abort" / "gs.bp"))])
+    assert e.value.step == 10
+    assert _steps(str(tmp_path / "abort" / "gs.bp")) == 0
+    driver.main([_config(tmp_path / "warn" / "cfg.toml", health_policy="warn",
+                         output=str(tmp_path / "warn" / "gs.bp"))])
+    assert _steps(str(tmp_path / "warn" / "gs.bp")) == 2
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_a_later_blow_up_keeps_the_healthy_steps(tmp_path, monkeypatch,
+                                                 depth):
+    """Steps accepted before the poisoned boundary are drained into the
+    store before the HealthError leaves (dt = 10 turns the fields
+    non-finite at step 9): the store holds steps 2..8, not step 10."""
+    monkeypatch.setenv("GS_ASYNC_IO_DEPTH", str(depth))
+    with pytest.raises(HealthError) as e:
+        driver.main([_config(tmp_path / "cfg.toml", dt=10.0, plotgap=2)])
+    assert e.value.step == 10
+    with BpReader(str(tmp_path / "gs.bp")) as r:
+        assert [int(r.get("step", step=i))
+                for i in range(r.num_steps())] == [2, 4, 6, 8]

@@ -133,3 +133,46 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_pipeline_and_integrity_stand_alone():
+    """The output pipeline, the native engine's binding and the
+    integrity layer are in the no-JAX check, and a run through them
+    (depth 2, the native engine, ``GS_CKPT_VERIFY=full``, two replicas,
+    the scrubber) works with JAX blocked."""
+    checked = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"grayscott_jl_tpu_torch/io/async_writer.py",
+            "grayscott_jl_tpu_torch/io/native.py",
+            "grayscott_jl_tpu_torch/resilience/integrity.py"} <= checked
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import os, tempfile
+os.environ.update(GS_ASYNC_IO_DEPTH="2", GS_CKPT_VERIFY="full",
+                  GS_CKPT_REPLICAS="2", GS_SCRUB="1")
+import grayscott_jl_tpu_torch as gs
+from grayscott_jl_tpu_torch import driver
+from grayscott_jl_tpu_torch.io.bplite import BpReader
+d = tempfile.mkdtemp()
+s = gs.Settings(L=8, steps=4, plotgap=2, noise=0.1, backend="CPU",
+                precision="Float32", checkpoint=True, checkpoint_freq=2,
+                output=os.path.join(d, "gs.bp"),
+                checkpoint_output=os.path.join(d, "ck.bp"))
+driver.run_once(s)
+for p in ("gs.bp", "ck.bp", "ck.bp.r1"):
+    with BpReader(os.path.join(d, p)) as r:
+        assert r.num_steps() == 2, p
+from grayscott_jl_tpu_torch.io import native
+assert native.available(), native.BUILD_ERROR
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"

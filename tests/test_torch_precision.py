@@ -38,9 +38,11 @@ from grayscott_jl_tpu_torch import Settings, Simulation, driver
 from grayscott_jl_tpu_torch.carry import params_from_reference
 from grayscott_jl_tpu_torch.config import settings as config
 from grayscott_jl_tpu_torch.io.bplite import BpReader, bf16_round
+from grayscott_jl_tpu_torch.io.checkpoint import CheckpointWriter
 from grayscott_jl_tpu_torch.models import SettingsError, get_model
 from grayscott_jl_tpu_torch.ops import cuda_stencil, kernelgen, stencil
 from grayscott_jl_tpu_torch.ops.noise import uniform_pm1_block
+from grayscott_jl_tpu_torch.resilience import integrity
 
 GS = dict(F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0)
 PHYSICS = {
@@ -410,9 +412,28 @@ def test_bf16_restart_is_bitwise(posture, tmp_path):
     ("GS_XSTATS", "on", "off", "Queue 1 item 21"),
 ])
 def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
-                                                 monkeypatch):
+                                                 monkeypatch, tmp_path):
     """A variable that turns on a subsystem the port lacks raises at
-    construction, naming its ROADMAP item; its "off" values run."""
+    construction, naming its ROADMAP item; its "off" values run. The
+    integrity variables' item has ported them: they act now."""
+    if var in ("GS_CKPT_REPLICAS", "GS_SCRUB"):
+        assert var not in config.NOT_PORTED_ENV
+        monkeypatch.setenv(var, value)
+        Simulation(Settings(L=8, backend="CPU")).iterate(1)
+        if var == "GS_CKPT_REPLICAS":
+            assert integrity.resolve_replicas() == int(value)
+            w = CheckpointWriter(Settings(
+                L=4, checkpoint_output=str(tmp_path / "c.bp")), np.float32)
+            w.close()
+            assert w.paths == [str(tmp_path / "c.bp"),
+                               str(tmp_path / "c.bp.r1")]
+        else:
+            assert integrity.resolve_scrub() == (True, 1)
+        monkeypatch.setenv(var, off)
+        Simulation(Settings(L=8, backend="CPU")).iterate(1)
+        cfg = integrity.resolve_config()
+        assert (cfg["replicas"], cfg["scrub"]) == (1, False)
+        return
     monkeypatch.setenv(var, value)
     with pytest.raises(SettingsError, match=f"{var}.*{item}"):
         Simulation(Settings(L=8, backend="CPU"))
@@ -431,9 +452,8 @@ def test_reference_environment_no_longer_ignored(monkeypatch):
     with pytest.raises(SettingsError, match="GS_NUMERICS"):
         Simulation(s)
     monkeypatch.delenv("GS_NUMERICS")
-    with pytest.raises(SettingsError, match="GS_CKPT_REPLICAS"):
-        Simulation(s)
-    monkeypatch.delenv("GS_CKPT_REPLICAS")
+    # Checkpoint replicas are ported (ROADMAP Queue 1 item 7): they act.
+    assert integrity.resolve_replicas() == 2
     sim = Simulation(s)
     assert sim.dtype == torch.bfloat16
     assert sim.compute_dtype == torch.float32

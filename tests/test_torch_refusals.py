@@ -1,9 +1,11 @@
 """The settings the reference acts on that the port accepted and
-ignored (ROADMAP Queue 3, F3): each environment variable now raises at
-construction naming the ROADMAP item that ports it, with its "off"
-values still running; ``GS_CKPT_VERIFY=full`` raises in the reader too;
-and ``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore onto
-another block layout, as the reference does."""
+ignored (ROADMAP Queue 3, F3): each environment variable whose subsystem
+is still to come raises at construction naming the ROADMAP item that
+ports it, with its "off" values still running; one that its item has
+since ported (``GS_CKPT_VERIFY=full``, Queue 1 item 7 with 16b's device
+checksum) now acts, in the settings and in the reader; and ``reshard =
+"off"`` / ``GS_RESHARD=off`` refuses a restore onto another block
+layout, as the reference does."""
 
 from pathlib import Path
 
@@ -11,12 +13,14 @@ import numpy as np
 import pytest
 
 from grayscott_jl_tpu.config.settings import resolve_reshard as ref_resolve
+from grayscott_jl_tpu.resilience import integrity as ref_integrity
 from grayscott_jl_tpu_torch import Settings, Simulation, driver
 from grayscott_jl_tpu_torch.config.settings import (NOT_PORTED_ENV,
                                                     resolve_reshard)
 from grayscott_jl_tpu_torch.io import bplite
 from grayscott_jl_tpu_torch.io.checkpoint import ReshardError
 from grayscott_jl_tpu_torch.models import SettingsError
+from grayscott_jl_tpu_torch.resilience import integrity
 
 
 @pytest.mark.parametrize("var,value,off,item", [
@@ -30,6 +34,20 @@ from grayscott_jl_tpu_torch.models import SettingsError
 ])
 def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
                                                     monkeypatch):
+    if var == "GS_CKPT_VERIFY":
+        # Ported by ``item``: the value acts. A snapshot carries the
+        # device checksum and verifies its landed bytes against it.
+        assert var not in NOT_PORTED_ENV
+        monkeypatch.setenv(var, value)
+        sim = Simulation(Settings(L=8, backend="CPU", noise=0.1))
+        sim.iterate(1)
+        assert integrity.resolve_config()["verify"] == value
+        snap = sim.snapshot_async(checksum=True)
+        assert set(snap.checksum_report()) == {"u", "v"}
+        assert len(snap.blocks()) == 1
+        monkeypatch.setenv(var, off)
+        assert integrity.resolve_verify() == off
+        return
     assert var in NOT_PORTED_ENV
     monkeypatch.setenv(var, value)
     with pytest.raises(SettingsError, match=f"{var}.*{item}"):
@@ -39,14 +57,30 @@ def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
 
 
 @pytest.mark.parametrize("mode", ["off", "read", "full"])
-def test_ckpt_verify_full_raises_in_the_reader(mode, monkeypatch):
+def test_ckpt_verify_full_raises_in_the_reader(mode, monkeypatch, tmp_path):
+    """Every mode of the reference is accepted now (``full`` no longer
+    raises): ``read`` and ``full`` check each block's CRC on read,
+    ``off`` does not; a value outside the modes still raises."""
     monkeypatch.setenv("GS_CKPT_VERIFY", mode)
-    if mode == "full":
-        with pytest.raises(ValueError, match="Queue 1 item 16b"):
-            bplite.resolve_verify()
-    else:
-        assert bplite.resolve_verify() == mode
-    assert "full" not in bplite.VERIFY_MODES
+    assert bplite.resolve_verify() == mode
+    assert bplite.VERIFY_MODES == ref_integrity.VERIFY_MODES
+    store = str(tmp_path / "s.bp")
+    w = bplite.BpWriter(store)
+    w.define_variable("x", np.float32, (4,))
+    w.begin_step()
+    w.put("x", np.arange(4, dtype=np.float32))
+    w.end_step()
+    w.close()
+    integrity.corrupt_store_byte(store)
+    with bplite.BpReader(store) as r:
+        if mode == "off":
+            assert r.get("x", step=0).shape == (4,)
+        else:
+            with pytest.raises(bplite.CorruptionError, match="CRC"):
+                r.get("x", step=0)
+    monkeypatch.setenv("GS_CKPT_VERIFY", "sometimes")
+    with pytest.raises(ValueError, match="GS_CKPT_VERIFY"):
+        bplite.resolve_verify()
 
 
 @pytest.mark.parametrize("key,env,want", [

@@ -165,3 +165,48 @@ def test_request_before_a_boundary_checkpoints_there(tmp_path, monkeypatch):
                 for i in range(r.num_steps())] == [25]
     with BpReader(str(tmp_path / "gs.bp")) as r:
         assert r.num_steps() == 2
+
+
+class _SignalAt(driver.Simulation):
+    """A simulation that sends itself SIGTERM when it steps on from
+    ``AT`` (a request mid-run, seen at the next boundary)."""
+
+    AT = 20
+
+    def iterate(self, nsteps=1):
+        if self.step == self.AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+        super().iterate(nsteps)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_shutdown_drains_the_pipeline_and_restarts_bitwise(tmp_path,
+                                                           monkeypatch,
+                                                           depth):
+    """At depth 0 and 2 alike, a SIGTERM leads to a checkpoint at the
+    next boundary, after every accepted step is written, and the restart
+    from it is bitwise equal to the uninterrupted run."""
+    monkeypatch.setenv("GS_ASYNC_IO_DEPTH", str(depth))
+    ckpt = str(tmp_path / "ckpt.bp")
+    cfg = parse_settings_toml(Path(_config(
+        tmp_path / "run.toml", steps=200, plotgap=10, checkpoint=True,
+        checkpoint_freq=1000, checkpoint_output=ckpt,
+        verbose=False)).read_text())
+    with pytest.raises(faults.GracefulShutdown) as e:
+        driver.run_once(cfg, sim_factory=lambda s, **kw: _SignalAt(s, **kw))
+    assert e.value.step == e.value.checkpoint_step == 30
+    with BpReader(ckpt) as r:
+        assert [int(r.get("step", step=i))
+                for i in range(r.num_steps())] == [30]
+    with BpReader(str(tmp_path / "gs.bp")) as r:
+        assert [int(r.get("step", step=i))
+                for i in range(r.num_steps())] == [10, 20, 30]
+    resumed = driver.main([_config(
+        tmp_path / "resume.toml", steps=50, plotgap=10, restart=True,
+        restart_input=ckpt, output=str(tmp_path / "resumed.bp"),
+        verbose=False)])
+    whole = driver.main([_config(
+        tmp_path / "whole.toml", steps=50, plotgap=10,
+        output=str(tmp_path / "whole.bp"), verbose=False)])
+    for a, b in zip(resumed.get_fields(), whole.get_fields()):
+        np.testing.assert_array_equal(a, b)
