@@ -30,6 +30,9 @@ Phases, each of which stops the run on failure:
    window load the operand takes (``cuda_stencil.override``): TMA and
    cp.async; the L = 41 chain and the (20,24,41) 6n-face and (10,24,41)
    x-chain operands (rows of 41 cells, which TMA refuses) on cp.async;
+   and Gray-Scott's x-chain on the split rounds' band bodies (k planes
+   or 3k rows, thinner than a tile, at depth 2 and 4) against
+   ``plain_xchain``;
 4. the main paths, with the kernel launch counts set to 0 just before
    each and read just after. Gray-Scott: ``driver.main`` on an L=256
    float32 config with noise, plotgap 50, a checkpoint every 100 steps,
@@ -45,7 +48,8 @@ Phases, each of which stops the run on failure:
    with z bands) and (2,2,1) (xy-chain slab form), each bitwise equal to
    the stored step 50, and L=250 on (3,1,1) (pad-and-mask) bitwise equal
    to a single-block run, its windows loaded by cp.async (1,000 B
-   rows); the Gray-Scott single-block and mesh paths all by TMA
+   rows) — these ``GS_FUSE=2`` runs with ``comm_overlap = "off"``, the
+   fused round; the Gray-Scott single-block and mesh paths all by TMA
    (``LOAD_PATH_LAUNCHES``). The other models, each with the physics of
    its ``examples/settings-<model>.toml`` (dt 0.05) at L=256, noise 0.1,
    ``kernel_language = "Auto"``: brusselator 100 steps (plotgap and
@@ -87,7 +91,17 @@ Phases, each of which stops the run on failure:
    raises ``CorruptionError`` with only step 50 written, and the
    checksum's device time at L=256 (CUDA events) and the read-back's
    seconds; and F2 at depth 2 (a SIGTERM mid-run: a checkpoint at the
-   next boundary, then a bitwise restart);
+   next boundary, then a bitwise restart); (iii) the sharded round's
+   exchange schedule (``phase_overlap``): the split-phase round at
+   ``GS_FUSE=2`` on (8,1,1), (2,2,1) and (2,2,2) — per block and round
+   the interior launch and two (x-chain) or four (xy-chain) band
+   launches of the x-chain kernel, counted in ``BAND_LAUNCHES`` — and
+   the same meshes fused (``comm_overlap = "off"``), L=250 split on
+   (3,1,1), ``GS_HALO_DEPTH=2`` at depth 1 (half the exchange rounds)
+   and at ``GS_FUSE=2`` (depth 4), ``GS_HALO_DEPTH=3`` stepping down
+   to 2 with its warning, and ``driver.run_once`` of (b) at
+   ``GS_FUSE=2 GS_HALO_DEPTH=2`` under "auto": every store bitwise equal
+   to the single block's, every launch count exact;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -96,7 +110,10 @@ Phases, each of which stops the run on failure:
    and written once over the memory rate, or the generated program's
    floating-point operations over the float32 rate); and the sharded
    path's ms per step on one card against the single block's, with the
-   halo exchange timed on its own; then row 1f: the bf16 kernel at
+   halo exchange timed on its own, the split round against the fused one
+   and halo depth 1, 2 and 4 (with the profiler's busy share and the
+   time the exchange's stream ran beside the kernel), and each band
+   body's launch; then row 1f: the bf16 kernel at
    L=256 depth 1 and each bf16 face mode (bound: 2 B a cell a field),
    and the float32 chain with bf16 mids at depth 2..5 beside the exact
    float32 chain, interleaved; the window load's two paths in turns
@@ -166,7 +183,8 @@ REPLACES = {
 #: others take L^3 fields).
 MAIN_SHAPES = {"stencil_faces6": (128, 128, 128),
                "stencil_xchain": (32, 256, 256),
-               "stencil_xychain": (128, 132, 128)}
+               "stencil_xychain": (128, 132, 128),
+               "stencil_xchain_band": (128, 6, 128)}
 
 #: The envelope probe's runs in phase 6: (L, depth, with the variants).
 PROBE_RUNS = ((MAIN_L, 1, True), (MAIN_L, 2, True), (MAIN_L, 3, False),
@@ -839,7 +857,9 @@ def phase_model_path(torch, gs, cuda_stencil, name, workdir, report):
     os.environ["GS_FUSE"] = "2"
     try:
         for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain")):
-            sim = mesh_sim(gs, gs.Settings(**common), dims)
+            # The fused round (the split one is phase 4 (iii)'s).
+            sim = mesh_sim(gs, gs.Settings(**common, comm_overlap="off"),
+                           dims)
             cuda_stencil.reset_launches()
             sim.iterate(gap)
             sim.block_until_ready()
@@ -1475,7 +1495,9 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
         for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain"),
                            ((2, 2, 1), "xychain")):
             n = dims[0] * dims[1] * dims[2]
-            sim = mesh_sim(gs, gs.Settings(**main_settings()), dims)
+            # The fused round (the split one is phase 4 (iii)'s).
+            sim = mesh_sim(gs, gs.Settings(**main_settings(
+                comm_overlap="off")), dims)
             cuda_stencil.reset_launches()
             t0 = time.perf_counter()
             sim.iterate(50)
@@ -1496,7 +1518,7 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
             log(f"  GS_FUSE=2 on {dims}: {counts[mode]} {mode} launches, "
                 "step 50 bitwise equal to the single-block store")
         L = 250
-        settings = gs.Settings(**main_settings(L=L))
+        settings = gs.Settings(**main_settings(L=L, comm_overlap="off"))
         single = gs.Simulation(settings)
         check(not single.sharded, "the L=250 reference run is sharded")
         sim = mesh_sim(gs, settings, (3, 1, 1))
@@ -1521,6 +1543,311 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
         del os.environ["GS_FUSE"]
     report["fuse2_runs"] = runs
     return runs
+
+
+#: The split-phase meshes of phase 4 (iii) at depth 2: mesh -> the
+#: launches per block per round by mode, and how many of them are band
+#: recomputes (x-chain: the interior on frozen faces and two k-plane
+#: bands; xy-chain: the interior and four bands, two of 3k rows and two
+#: of k planes, in x-chain mode).
+SPLIT_MESHES = {(8, 1, 1): ({"xchain": 3}, 2),
+                (2, 2, 1): ({"xychain": 1, "xchain": 4}, 4),
+                (2, 2, 2): ({"xychain": 1, "xchain": 4}, 4)}
+
+
+def band_shapes(k):
+    """The band bodies the split rounds launch at L=256 and depth k:
+    (8,1,1)'s k planes of its (32,256,256) blocks, and the 3k rows and
+    k planes of the y-extended operands of (2,2,1) ((128,128,256)
+    blocks) and (2,2,2) ((128,128,128)), with a global origin for each
+    (a low y band starts k rows outside the domain)."""
+    return {
+        "x_8x1x1": ((k, 256, 256), (32, 0, 0)),
+        "y_2x2x1": ((128, 3 * k, 256), (128, -k, 0)),
+        "x_2x2x1": ((k, 128 + 2 * k, 256), (128, 128 - k, 0)),
+        "y_2x2x2": ((128, 3 * k, 128), (0, 256 - 3 * k, 128)),
+        "x_2x2x2": ((k, 128 + 2 * k, 128), (128 - k, -k, 128)),
+    }
+
+
+def phase_band_parity(torch, gs, cuda_stencil, spec, report):
+    """The x-chain kernel on the split rounds' band bodies — fewer x
+    planes or y rows than its 8x8x32 tile — against ``plain_xchain``,
+    bitwise over the whole output, float32, noise 0 and 0.1, depth 2
+    and 4 (``GS_HALO_DEPTH=2`` over ``GS_FUSE=2``), on each load path the
+    operand takes; and the L=250 (3,1,1) band (1,000 B rows) on
+    cp.async. Every launch counts in ``BAND_LAUNCHES``. Returns the
+    worst |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(913)
+    worst, rows = 0.0, []
+    n = spec.n_fields
+    cases = [(k, name, shape, offs) for k in (2, 4)
+             for name, (shape, offs) in band_shapes(k).items()]
+    cases.append((2, "x_3x1x1_L250", (2, 250, 250), (82, 0, 0)))
+    for noise in (0.0, 0.1):
+        params = spec.model.make_params(
+            gs.Settings(noise=noise, **GS_PHYSICS), torch.float32, "cuda")
+        for k, name, shape, offs in cases:
+            row = 250 if name.endswith("L250") else MAIN_L
+            f = tuple(torch.rand(shape, generator=gen, device="cuda")
+                      for _ in range(n))
+            faces = tuple(torch.rand((k,) + shape[1:], generator=gen,
+                                     device="cuda") for _ in range(2 * n))
+            want = cuda_stencil.plain_xchain(
+                f, params, (0, 5, 60), faces, spec=spec, fuse=k,
+                use_noise=noise != 0, offsets=offs, row=row)
+            for load in loads(torch, cuda_stencil, shape, torch.float32):
+                bands = cuda_stencil.BAND_LAUNCHES
+                with cuda_stencil.override(load):
+                    got = cuda_stencil.fused_step(
+                        f, params, (0, 5, 60), faces, spec=spec,
+                        use_noise=noise != 0, fuse=k, offsets=offs, row=row,
+                        band=True)
+                torch.cuda.synchronize()
+                check(cuda_stencil.BAND_LAUNCHES == bands + 1,
+                      f"band {name} k={k}: not counted as a band launch")
+                err = max((a.double() - b.double()).abs().max().item()
+                          for a, b in zip(got, want))
+                worst = max(worst, err)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"band {name} {shape} k={k} noise={noise} load {load}:"
+                      f" kernel != plain_xchain, max |diff| {err}")
+                rows.append([name, list(shape), k, noise, load, err])
+    log(f"  {len(rows)} band launches ({len(cases)} bodies, depth 2 and 4, "
+        "noise 0 and 0.1, each load path the body takes) bitwise equal to "
+        "plain_xchain")
+    report["band_parity"] = rows
+    return worst
+
+
+def phase_overlap(torch, gs, cuda_stencil, workdir, stored, report):
+    """Phase 4 (iii), the sharded round's exchange schedule at config
+    (a)'s settings, 50 steps, every store bitwise equal to the stored
+    step 50 and every launch count exact: the split-phase round at
+    ``GS_FUSE=2`` on (8,1,1), (2,2,1) and (2,2,2) (bands through the
+    x-chain kernel) and the same meshes with ``comm_overlap = "off"``;
+    L=250 split on (3,1,1) (cp.async); ``GS_HALO_DEPTH=2`` at depth 1 on
+    (8,1,1) and (2,2,2) (half the exchange rounds), at ``GS_FUSE=2`` on
+    (2,2,2) (depth 4), and ``GS_HALO_DEPTH=3`` at ``GS_FUSE=2`` (depth 6
+    steps down to k=2, with the warning); then ``driver.run_once`` of
+    (b) at ``GS_FUSE=2``, ``GS_HALO_DEPTH=2`` under "auto", its store
+    equal to phase 4 (b)'s at every step. Returns the band launches of
+    the (2,2,2) split run (the kernels line's band entry)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+
+    step50, u50, v50 = stored[0]
+    check(step50 == 50, f"first stored step is {step50}")
+    runs = {}
+
+    def run(label, dims, steps=50, want=None, **kw):
+        """``steps`` steps on a ``dims`` mesh on cuda:0 with the counts set
+        to 0 just before and read just after; the fields against the
+        stored step (or ``want``)."""
+        sim = mesh_sim(gs, gs.Settings(**main_settings(**kw)), dims)
+        cuda_stencil.reset_launches()
+        t0 = time.perf_counter()
+        sim.iterate(steps)
+        sim.block_until_ready()
+        wall = time.perf_counter() - t0
+        counts = {"modes": {m: c for m, c in
+                            cuda_stencil.MODE_LAUNCHES.items() if c},
+                  "bands": cuda_stencil.BAND_LAUNCHES,
+                  "loads": dict(cuda_stencil.LOAD_PATH_LAUNCHES)}
+        got = sim.get_fields()
+        for a, b in zip(got, want if want is not None else (u50, v50)):
+            check(np.array_equal(a, b),
+                  f"{label} on {dims} != the single-block step {steps}")
+        runs[label] = {"mesh": list(dims), "wall_s": wall,
+                       "overlap_applied": sim.overlap_applied,
+                       "halo_depth": sim.halo_depth,
+                       "exchange_rounds": sim.exchange_rounds, **counts}
+        return sim, counts
+
+    def expect(label, counts, n, rounds, per_round, bands):
+        want = {m: n * rounds * c for m, c in per_round.items()}
+        check(counts["modes"] == want
+              and counts["bands"] == n * rounds * bands,
+              f"{label}: launched {counts}, expected {want} with "
+              f"{n * rounds * bands} bands")
+
+    band_launches = None
+    saved = {v: os.environ.pop(v, None) for v in ("GS_FUSE", "GS_HALO_DEPTH")}
+    try:
+        os.environ["GS_FUSE"] = "2"
+        for dims, (per_round, bands) in SPLIT_MESHES.items():
+            n = dims[0] * dims[1] * dims[2]
+            label = "split_" + "x".join(map(str, dims))
+            sim, counts = run(label, dims, comm_overlap="on")
+            check(sim.overlap_applied and sim.exchange_rounds == 25,
+                  f"{label}: overlap_applied {sim.overlap_applied}, "
+                  f"{sim.exchange_rounds} exchange rounds")
+            expect(label, counts, n, 25, per_round, bands)
+            check(counts["loads"]["cp_async"] == 0,
+                  f"{label} loaded its windows {counts['loads']}")
+            if dims == (2, 2, 2):
+                band_launches = counts["bands"]
+                report.setdefault("load_path", {})["stencil_xchain_band"] = {
+                    "path": "tma", "launches": band_launches}
+            mode = "xchain" if dims[1:] == (1, 1) else "xychain"
+            off, counts = run("fused_" + "x".join(map(str, dims)), dims,
+                              comm_overlap="off")
+            check(not off.overlap_applied, f"{dims} off: split engaged")
+            expect(f"{dims} off", counts, n, 25, {mode: 1}, 0)
+            log(f"  GS_FUSE=2 on {dims}: split {runs[label]['modes']} "
+                f"({runs[label]['bands']} bands), fused {counts['modes']}; "
+                "both bitwise equal to the stored step 50")
+        L = 250
+        single = gs.Simulation(gs.Settings(**main_settings(L=L)))
+        single.iterate(50)
+        sim, counts = run("split_3x1x1_L250", (3, 1, 1), L=L,
+                          want=single.get_fields())
+        expect("L=250 split", counts, 3, 25, {"xchain": 3}, 2)
+        check(counts["loads"]["tma"] == 0,
+              f"L=250 split loaded its windows {counts['loads']}")
+        log("  L=250 on (3,1,1) split (pad-and-mask, cp.async): bitwise "
+            "equal to the single block")
+
+        os.environ.update(GS_FUSE="1", GS_HALO_DEPTH="2")
+        for dims, (per_round, bands) in (((8, 1, 1), SPLIT_MESHES[8, 1, 1]),
+                                         ((2, 2, 2), SPLIT_MESHES[2, 2, 2])):
+            n = dims[0] * dims[1] * dims[2]
+            label = "halo2_fuse1_" + "x".join(map(str, dims))
+            sim, counts = run(label, dims)
+            check(sim.halo_depth == 2 and sim.exchange_rounds == 25,
+                  f"{label}: halo_depth {sim.halo_depth}, "
+                  f"{sim.exchange_rounds} exchange rounds (depth 1: 50)")
+            expect(label, counts, n, 25, per_round, bands)
+        os.environ["GS_FUSE"] = "2"
+        sim, counts = run("halo2_fuse2_2x2x2", (2, 2, 2), comm_overlap="on")
+        # Depth 4: 12 rounds and a remainder round of depth 2.
+        check(sim.exchange_rounds == 13, f"depth 4 made "
+              f"{sim.exchange_rounds} exchange rounds, not 13")
+        expect("halo_depth=2 GS_FUSE=2", counts, 8, 13, SPLIT_MESHES[2, 2, 2][0],
+               4)
+        os.environ["GS_HALO_DEPTH"] = "3"
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            sim = mesh_sim(gs, gs.Settings(**main_settings()), MESH)
+        gate = sim.halo_depth_gate
+        check(sim.halo_depth == 2 and gate is not None
+              and (gate["requested"], gate["applied"]) == (3, 2)
+              and gate["geometry"]["requested_depth"] == 6
+              and gate["geometry"]["smem_bytes_requested"]
+              > cuda_stencil.SMEM_LIMIT
+              and "halo_depth=3" in err.getvalue(),
+              f"GS_HALO_DEPTH=3 at GS_FUSE=2: gate {gate}, stderr "
+              f"{err.getvalue()!r}")
+        runs["halo3_gate"] = gate
+        log(f"  GS_HALO_DEPTH=3 GS_FUSE=2: {err.getvalue().strip()}")
+        sim, counts = run("halo3_fuse2_2x2x2", MESH)
+        check(sim.exchange_rounds == 13, "GS_HALO_DEPTH=3 did not run at "
+              "depth 4")
+        log(f"  GS_HALO_DEPTH=2: depth 2 on (8,1,1) and (2,2,2) in 25 "
+            "exchange rounds (depth 1: 50), depth 4 at GS_FUSE=2 in 13; "
+            "GS_HALO_DEPTH=3 stepped down to 2; every run bitwise equal to "
+            "the stored step 50, the launches exact")
+
+        os.environ["GS_HALO_DEPTH"] = "2"
+        out = os.path.join(workdir, "overlap.bp")
+        cfg = os.path.join(workdir, "overlap.toml")
+        write_config(cfg, **main_settings(), output=out)
+        stats_path = os.path.join(workdir, "overlap_stats.json")
+        os.environ["GS_TPU_STATS"] = stats_path
+        try:
+            dsim = driver.run_once(
+                get_settings([cfg]),
+                sim_factory=lambda settings, *, n_devices, seed: mesh_sim(
+                    gs, settings, MESH, seed))
+        finally:
+            del os.environ["GS_TPU_STATS"]
+        with open(stats_path, encoding="utf-8") as f:
+            dstats = json.load(f)["config"]
+        check(dstats["comm_overlap"] is True and dstats["halo_depth"] == 2
+              and dsim.overlap_applied and dsim.fuse == 2,
+              f"driver run: config comm_overlap {dstats['comm_overlap']}, "
+              f"halo_depth {dstats['halo_depth']}")
+        got = read_store(out)
+        check(len(got) == len(stored) and all(
+            a[0] == b[0] and all(np.array_equal(x, y)
+                                 for x, y in zip(a[1:], b[1:]))
+            for a, b in zip(got, stored)),
+            "the GS_HALO_DEPTH=2 split store != phase 4 (b)'s")
+        runs["driver"] = {"exchange_rounds": dsim.exchange_rounds,
+                          "config": {k: dstats[k] for k in (
+                              "comm_overlap", "halo_depth", "fuse",
+                              "mesh_dims")}}
+        log(f"  driver.run_once on {MESH} at GS_FUSE=2 GS_HALO_DEPTH=2 "
+            f"(auto: split): {dsim.exchange_rounds} exchange rounds, "
+            "RunStats config comm_overlap true, halo_depth 2; store "
+            "bitwise equal to phase 4 (b)'s at every step")
+    finally:
+        for v, x in saved.items():
+            os.environ.pop(v, None)
+            if x is not None:
+                os.environ[v] = x
+    report["overlap_runs"] = runs
+    return band_launches
+
+
+def phase_band_times(torch, gs, cuda_stencil, spec, report):
+    """Per-launch times of the band recomputes at the split rounds'
+    depth-2 shapes (noise on): the kernel (CUDA events, and its device
+    time under the profiler), ``plain_xchain``, and the bound of the
+    work (each input read once, each output written once; the x-chain's
+    widening stages). The kernels line's band entry is the mean of the
+    (2,2,2) run's two shapes, launched equally often."""
+    params = spec.model.make_params(gs.Settings(**main_settings()),
+                                    torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    k = 2
+    rows = {}
+    for name, (shape, offs) in band_shapes(k).items():
+        f = tuple(torch.rand(shape, generator=gen, device="cuda")
+                  for _ in range(2))
+        faces = tuple(torch.rand((k,) + shape[1:], generator=gen,
+                                 device="cuda") for _ in range(4))
+
+        def kernel():
+            return cuda_stencil.fused_step(
+                f, params, (0, 3, 0), faces, spec=spec, fuse=k,
+                offsets=offs, row=MAIN_L, band=True)
+
+        def plain():
+            return cuda_stencil.plain_xchain(
+                f, params, (0, 3, 0), faces, spec=spec, fuse=k,
+                use_noise=True, offsets=offs, row=MAIN_L)
+
+        p1 = time_calls(torch, plain, 50.0)
+        k1 = time_calls(torch, kernel)
+        k2 = time_calls(torch, kernel)
+        p2 = time_calls(torch, plain, 50.0)
+        moved, flops = face_mode_work("xchain", shape, k,
+                                      spec.flops_per_cell_step())
+        b_ms, b_by = bound_of(moved, flops)
+        prof = device_profile(torch, kernel)
+        rows[name] = {"shape": list(shape), "fuse": k, "ms": (k1 + k2) / 2,
+                      "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2,
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+                      "flops": flops, "profile": prof}
+        dev = ("not measured" if prof is None
+               else f"{prof['kernel_ms']:.4f} ms")
+        log(f"  band {name} {shape} k={k}: kernel {(k1 + k2) / 2:.4f} ms/call "
+            f"(device {dev}), plain {(p1 + p2) / 2:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    pair = [rows["y_2x2x2"], rows["x_2x2x2"]]
+    b_ms, b_by = bound_of(sum(r["bytes"] for r in pair) / 2,
+                          sum(r["flops"] for r in pair) / 2)
+    entry = {"ms": sum(r["ms"] for r in pair) / 2,
+             "plain_ms": sum(r["plain_ms"] for r in pair) / 2,
+             "bound_ms": b_ms, "bound_by": b_by}
+    report["band_times"] = {"rows": rows, "entry": entry}
+    return entry
 
 
 def oracle_run(torch, cuda_stencil, sim, steps, fuse=1, mid_bf16=False):
@@ -1614,7 +1941,8 @@ def phase_bf16_main_path(torch, gs, cuda_stencil, workdir, report):
     os.environ["GS_FUSE"] = "2"
     try:
         for dims, mode in (((8, 1, 1), "xchain"), ((2, 2, 2), "xychain")):
-            msim = mesh_sim(gs, gs.Settings(**common), dims)
+            msim = mesh_sim(gs, gs.Settings(**common, comm_overlap="off"),
+                            dims)
             cuda_stencil.reset_launches()
             msim.iterate(50)
             msim.block_until_ready()
@@ -2145,7 +2473,13 @@ def phase_sharded_times(torch, gs, report):
     """ms per step of the sharded path on one card (8 blocks of the
     (2,2,2) mesh on cuda:0, and the GS_FUSE=2 chain forms) against the
     single block, host clock around 20 steps that end in a synchronise
-    (after 20 of warm-up); and the 6n-face halo exchange alone."""
+    (after 20 of warm-up); and the 6n-face halo exchange alone. Then
+    the exchange schedule: at GS_FUSE=2 on (8,1,1), (2,2,2) and (2,2,1)
+    the split round against the fused one (in turns: on, off, off, on),
+    each under the profiler (:func:`exchange_profile`: the device's busy
+    share and how long the exchange's stream ran beside the stencil
+    kernel, per round); and at fuse 1 on (2,2,2) halo depth 1, 2 and 4,
+    split ("auto") and fused, with the exchange rounds per step."""
     from grayscott_jl_tpu_torch.parallel import halo
 
     steps = 20
@@ -2193,19 +2527,133 @@ def phase_sharded_times(torch, gs, report):
             f"({100 * prof['busy_share']:.1f} %), stencil kernel "
             f"{prof['kernel_ms']:.4f} ms in {prof['kernel_launches']:.0f} "
             "launches")
-    os.environ["GS_FUSE"] = "2"
+    off = gs.Settings(**main_settings(comm_overlap="off"))
+    saved = {v: os.environ.pop(v, None) for v in ("GS_FUSE", "GS_HALO_DEPTH")}
     try:
-        fuse2 = {}
+        os.environ["GS_FUSE"] = "2"
+        fuse2, split = {}, {}
         for dims in ((8, 1, 1), (2, 2, 2), (2, 2, 1)):
-            fuse2["x".join(map(str, dims))] = per_step(
-                mesh_sim(gs, settings, dims))
+            key = "x".join(map(str, dims))
+            # The fused round (comm_overlap off) and the split one (on),
+            # in turns: on, off, off, on.
+            s_on, f_on = mesh_sim(gs, settings, dims), mesh_sim(gs, off, dims)
+            r = [per_step(s_on), per_step(f_on), per_step(f_on),
+                 per_step(s_on)]
+            check(s_on.overlap_applied and not f_on.overlap_applied,
+                  f"{dims}: the split and fused rounds did not run as set")
+            fuse2[key] = (r[1] + r[2]) / 2
+            split[key] = {"split_ms_per_step": (r[0] + r[3]) / 2,
+                          "fused_ms_per_step": (r[1] + r[2]) / 2,
+                          "runs_on_off_off_on": r}
+            for name, sim in (("split", s_on), ("fused", f_on)):
+                split[key][f"{name}_profile"] = exchange_profile(
+                    torch, lambda: sim.iterate(2), reps=10)
         fuse2["single"] = per_step(gs.Simulation(settings))
+        row["fuse2_ms_per_step"] = fuse2
+        row["split_vs_fused"] = split
+        log(f"  GS_FUSE=2 ms/step (fused round): {fuse2}")
+        for key, r in split.items():
+            prof = r["split_profile"]
+            seen = ("not measured" if prof is None else
+                    f"device busy {100 * prof['busy_share']:.1f} %, "
+                    f"exchange-stream work beside the stencil kernel "
+                    f"{prof['overlap_us']:.1f} us per round, band/interior "
+                    f"kernels {prof['kernel_launches']:.0f} per round")
+            log(f"  {key}: split {r['split_ms_per_step']:.4f} ms/step, fused "
+                f"{r['fused_ms_per_step']:.4f} ({seen})")
+        os.environ["GS_FUSE"] = "1"
+        depths = {}
+        for overlap in ("auto", "off"):
+            for k in (1, 2, 4):
+                os.environ["GS_HALO_DEPTH"] = str(k)
+                sim = mesh_sim(gs, gs.Settings(**main_settings(
+                    comm_overlap=overlap)), MESH)
+                ms = per_step(sim)
+                rounds = sim.exchange_rounds / (2 * steps)
+                depths[f"{overlap}_k{k}"] = {
+                    "ms_per_step": ms, "exchange_rounds_per_step": rounds,
+                    "overlap_applied": sim.overlap_applied,
+                    "profile": exchange_profile(
+                        torch, lambda: sim.iterate(4), reps=5)}
+                log(f"  {MESH} fuse 1 halo_depth {k} ({overlap}): "
+                    f"{ms:.4f} ms/step, {rounds:.3f} exchange rounds/step")
+        row["halo_depth"] = depths
     finally:
-        del os.environ["GS_FUSE"]
-    row["fuse2_ms_per_step"] = fuse2
-    log(f"  GS_FUSE=2 ms/step: {fuse2}")
+        for v, x in saved.items():
+            os.environ.pop(v, None)
+            if x is not None:
+                os.environ[v] = x
     report["sharded_times"] = row
     return row
+
+
+def _union(intervals):
+    """Sorted, merged ``(start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _intersection_ns(xs, ys):
+    """Total length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def exchange_profile(torch, fn, reps=10):
+    """``fn`` (one or more exchange rounds) ``reps`` times under
+    ``torch.profiler`` after a warm-up: per call, the host wall, the
+    device's busy time (the union of every device event), the stencil
+    kernel's launches and time on its stream, the busy time of the other
+    streams (the exchange's side stream), and how long both ran at once
+    (the union of the kernel's events intersected with the side
+    streams'). ``None`` when the profiler recorded no device event or
+    the events carry no stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    try:
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+        spans = [(e.name(), e.device_resource_id(), e.start_ns(),
+                  e.start_ns() + e.duration_ns()) for e in events]
+    except AttributeError:
+        return None
+    kernels = [sp for sp in spans if "stencil_chain_kernel" in sp[0]]
+    if not kernels:
+        return None
+    streams = {sp[1] for sp in kernels}
+    k_iv = _union([(a, b) for _, _, a, b in kernels])
+    side = _union([(a, b) for _, st, a, b in spans if st not in streams])
+    busy = sum(b - a for a, b in _union([(a, b) for *_, a, b in spans]))
+    return {
+        "wall_ms": wall / reps, "device_busy_ms": busy / 1e6 / reps,
+        "busy_share": busy / 1e6 / wall,
+        "kernel_ms": sum(b - a for *_, a, b in kernels) / 1e6 / reps,
+        "kernel_launches": len(kernels) / reps,
+        "side_stream_busy_ms": sum(b - a for a, b in side) / 1e6 / reps,
+        "overlap_us": _intersection_ns(k_iv, side) / 1e3 / reps,
+    }
 
 
 def phase_envelope_parity(torch, cuda_stencil, spec, report):
@@ -2450,6 +2898,8 @@ def main():
                        "mid_bf16": mid}
         for (mode, grp), err in faces.items():
             worst[name][mode if grp == "f" else f"{mode}_bf16"] = err
+    band_worst = timed(report, "band parity", phase_band_parity, torch, gs,
+                       cuda_stencil, spec, report)
 
     log("phase 4: main paths, single block and sharded")
     workdir = tempfile.mkdtemp(prefix="gs_chip_smoke_")
@@ -2461,6 +2911,9 @@ def main():
                                 cuda_stencil, workdir, stored, report)
         fuse2 = timed(report, "fuse2", phase_fuse2, torch, gs, cuda_stencil,
                       stored, report)
+        log("phase 4 (iii): the split-phase round and the s-step depth")
+        band_launches = timed(report, "overlap", phase_overlap, torch, gs,
+                              cuda_stencil, workdir, stored, report)
         log("phase 4 (i): the output pipeline at depth 0 and 2")
         timed(report, "async main path", phase_async_main_path, torch, gs,
               cuda_stencil, workdir, stored, report)
@@ -2497,6 +2950,7 @@ def main():
                                           specs[name], report)
                   for name in MODEL_PATHS}
     timed(report, "sharded times", phase_sharded_times, torch, gs, report)
+    band_entry = timed(report, "band times", phase_band_times, *args)
     bf16_row, mid_rows = timed(report, "bf16 times", phase_bf16_times,
                                *args)
     bf16_faces = timed(report, "bf16 face times", phase_face_times, *args,
@@ -2530,6 +2984,8 @@ def main():
          worst["grayscott"]["xchain"], face_rows["xchain"]),
         ("stencil_xychain", "xychain", fuse2["2x2x2"]["launches"],
          worst["grayscott"]["xychain"], face_rows["xychain"]),
+        ("stencil_xchain_band", "xchain", band_launches, band_worst,
+         band_entry),
     ] + [
         (f"stencil_chain_{name}", "generated", model_launches[name],
          max(worst[name].values()), model_rows[name])

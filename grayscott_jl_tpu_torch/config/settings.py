@@ -26,7 +26,10 @@ that would turn such a subsystem on (:data:`NOT_PORTED_ENV`). Keys at
 their defaults that the reference acts on — ``health_policy``,
 ``graceful_shutdown``, ``mesh_type``, ``reshard`` — are acted on
 (``resilience/``, ``io/vtk.py``, :func:`resolve_reshard`), and so are
-the output and integrity variables: ``GS_ASYNC_IO_DEPTH`` (the output
+``comm_overlap`` / ``GS_COMM_OVERLAP`` (:func:`resolve_comm_overlap`)
+and ``halo_depth`` / ``GS_HALO_DEPTH`` (:func:`resolve_halo_depth`),
+the sharded round's exchange schedule, and the output and integrity
+variables: ``GS_ASYNC_IO_DEPTH`` (the output
 pipeline's depth, ``io/async_writer.resolve_depth``), ``GS_TPU_NATIVE_IO``
 (``0`` forces the Python store engine, ``io/__init__.py``),
 ``GS_CKPT_REPLICAS``, ``GS_CKPT_VERIFY`` (``off``/``read``/``full``),
@@ -106,8 +109,6 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 #: the values that mean "feature off" and the ROADMAP item that ports
 #: it. Any other value raises at construction (:func:`check_ported`).
 NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
-    "halo_depth": ((0, 1), "Queue 1 item 13b"),
-    "comm_overlap": (("auto", "off"), "Queue 1 item 13a"),
     "autotune": (("", "off", "cached"), "Queue 1 item 20"),
     "supervise": ((False,), "Queue 1 item 17"),
     "faults": (("",), "Queue 1 item 17"),
@@ -305,10 +306,6 @@ _OFF = ("", "0", "off", "false", "no")
 #: than being ignored. Several override :data:`NOT_PORTED` keys; the
 #: two launch variables start several processes.
 NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_COMM_OVERLAP": ("split-phase overlap", _OFF + ("auto",),
-                        "Queue 1 item 13a"),
-    "GS_HALO_DEPTH": ("halo_depth > 1", ("", "auto", "0", "1"),
-                      "Queue 1 item 13b"),
     "GS_TPU_COORDINATOR": ("multi-process launch", ("",),
                            "Queue 1 item 14"),
     "GS_TPU_DISTRIBUTED": ("multi-process launch", _OFF, "Queue 1 item 14"),
@@ -357,6 +354,59 @@ def check_ported(settings: Settings) -> None:
                 f"grayscott_jl_tpu_torch does not support yet (ROADMAP "
                 f"{item}); unset it"
             )
+
+
+def resolve_comm_overlap(settings: Settings) -> str:
+    """The split-phase exchange mode: ``"on"``, ``"off"`` or ``"auto"``
+    (on for every sharded run). ``GS_COMM_OVERLAP`` wins over the
+    ``comm_overlap`` key; any other value raises, with the reference's
+    message."""
+    raw = os.environ.get("GS_COMM_OVERLAP")
+    if raw is None:
+        raw = settings.comm_overlap or "auto"
+    v = raw.strip().lower()
+    v = {"1": "on", "true": "on", "yes": "on",
+         "0": "off", "false": "off", "no": "off", "": "auto"}.get(v, v)
+    if v not in ("on", "off", "auto"):
+        raise ValueError(
+            f"comm_overlap / GS_COMM_OVERLAP must be on/off/auto, "
+            f"got {raw!r}"
+        )
+    return v
+
+
+def resolve_halo_depth(settings: Settings) -> Tuple[bool, int]:
+    """The s-step exchange depth ``(pinned, k)``, ``k >= 1``: one
+    exchange round feeds ``k`` times the chain's depth.
+    ``GS_HALO_DEPTH`` wins over the ``halo_depth`` key. ``0``,
+    ``"auto"`` and unset resolve to ``(False, 1)`` (the reference's
+    autotuner may deepen that; this package has none yet, ROADMAP Queue
+    1 item 20); an integer k >= 1 to ``(True, k)``. Bad values raise,
+    with the reference's messages; whether the mesh's blocks can serve
+    k is judged at construction (``Simulation``)."""
+    raw = os.environ.get("GS_HALO_DEPTH")
+    if raw is None:
+        v = settings.halo_depth or 0
+    else:
+        r = raw.strip().lower()
+        if r in ("", "auto"):
+            v = 0
+        else:
+            try:
+                v = int(r)
+            except ValueError as e:
+                raise ValueError(
+                    f"GS_HALO_DEPTH must be an integer or 'auto', "
+                    f"got {raw!r}"
+                ) from e
+    if v < 0:
+        raise ValueError(
+            f"halo_depth / GS_HALO_DEPTH must be >= 0 (0 = auto), "
+            f"got {v}"
+        )
+    if v == 0:
+        return False, 1
+    return True, int(v)
 
 
 #: Restore-time reshard modes: ``auto`` restores a checkpoint on any

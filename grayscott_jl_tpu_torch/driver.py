@@ -216,6 +216,8 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
             "snapshot_codec": codec.describe(),
             "n_devices": sim.domain.n_blocks,
             "mesh_dims": list(sim.domain.dims),
+            "comm_overlap": sim.comm_overlap,
+            "halo_depth": sim.halo_depth,
             "io_engine": stream.engine,
             "async_io_depth": depth,
             "integrity": dict(icfg),

@@ -62,7 +62,9 @@ pass), which the CPU tests hold to the window's definition in every
 mode. ``LOAD_PATH_LAUNCHES`` counts the launches of each path.
 
 ``LAUNCHES`` counts kernel launches (not plain-path calls),
-``MODE_LAUNCHES`` splits them by mode, ``MODEL_LAUNCHES`` by model and
+``MODE_LAUNCHES`` splits them by mode, ``BAND_LAUNCHES`` counts the
+x-chain launches that recompute a split-phase round's boundary bands
+(``fused_step(..., band=True)``), ``MODEL_LAUNCHES`` by model and
 ``DTYPE_LAUNCHES`` by entry point (``f32``, ``f64``, ``bf16``,
 ``f32_mid_bf16``): a run reads them to show that its steps went through
 the kernel generated for its model at its precision. The envelope
@@ -104,6 +106,10 @@ PROBE_VARIANTS = ("chain", "nonoise", "noselect", "noyz", "fma", "minimal",
 
 #: Launches per mode (the probes' too), counted beside :data:`LAUNCHES`.
 MODE_LAUNCHES: Dict[str, int] = dict.fromkeys((*MODES, *PROBE_MODES), 0)
+
+#: Launches that recompute the boundary bands of a split-phase round
+#: (x-chain mode, counted in :data:`MODE_LAUNCHES` too).
+BAND_LAUNCHES = 0
 
 #: Compute-walk launches per variant.
 VARIANT_LAUNCHES: Dict[str, int] = dict.fromkeys(PROBE_VARIANTS, 0)
@@ -159,11 +165,12 @@ MAP_BYTES = 128
 
 
 def reset_launches() -> None:
-    """Set :data:`LAUNCHES` and every :data:`MODE_LAUNCHES`,
-    :data:`VARIANT_LAUNCHES`, :data:`MODEL_LAUNCHES`,
-    :data:`DTYPE_LAUNCHES` and :data:`LOAD_PATH_LAUNCHES` count to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
+    """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES` and every
+    :data:`MODE_LAUNCHES`, :data:`VARIANT_LAUNCHES`,
+    :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES` and
+    :data:`LOAD_PATH_LAUNCHES` count to 0."""
+    global LAUNCHES, BAND_LAUNCHES
+    LAUNCHES = BAND_LAUNCHES = 0
     for counts in (MODE_LAUNCHES, VARIANT_LAUNCHES, DTYPE_LAUNCHES,
                    LOAD_PATH_LAUNCHES):
         for key in counts:
@@ -285,6 +292,29 @@ def chain_cap(dtype: torch.dtype, n_fields: int = 2) -> int:
     itemsize = torch.empty((), dtype=dtype).element_size()
     mid = 2 if mid_bf16_requested(dtype) else None
     return max_feasible_fuse(itemsize, n_fields, mid_itemsize=mid)
+
+
+def max_feasible_chain_depth(local, dims, itemsize: int, depth: int,
+                             n_fields: int = 2,
+                             mid_itemsize: Optional[int] = None) -> int:
+    """Deepest chain depth <= ``depth`` the sharded chain of mesh
+    ``dims`` can run on blocks of shape ``local`` (the reference's
+    ``pallas_stencil.max_feasible_chain_depth``): the geometry caps of
+    the chain's form (x-chain on (n, 1, 1) meshes: depth <= nx;
+    xy-chain: depth <= nx and ny, and <= nz // 2 when z is sharded, for
+    the z bands) composed with the shared-memory ledger
+    (:func:`max_feasible_fuse`, which does not depend on the block). 0
+    when not even depth 1 fits."""
+    nx, ny, nz = local
+    cap = min(depth, nx)
+    if not (dims[1] == 1 and dims[2] == 1):
+        cap = min(cap, ny)
+        if dims[2] > 1:
+            cap = min(cap, nz // 2)
+    if cap < 1:
+        return 0
+    return min(cap, max_feasible_fuse(itemsize, n_fields,
+                                      mid_itemsize=mid_itemsize))
 
 
 def pad_from_faces(x, xlo, xhi, ylo, yhi, zlo, zhi):
@@ -584,7 +614,7 @@ def _check_faces(faces, shape, n_f, fuse, name) -> str:
 
 
 def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
-               fuse=1, offsets=None, row=None, y_halo=0):
+               fuse=1, offsets=None, row=None, y_halo=0, band=False):
     """``fuse`` fused steps of ``spec``'s model on interior-shaped
     fields (an n-tuple of (nx, ny, nz) tensors in declaration order).
 
@@ -598,12 +628,16 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     (fuse, ny, nz)). ``y_halo`` is the depth of the exchanged y halo
     the operand carries — the xy-chain's y-extended operand, whose rows
     cover global ``[offsets[1], offsets[1] + ny)``; it must equal
-    ``fuse``, and the launch counts as an ``xychain`` one.
+    ``fuse``, and the launch counts as an ``xychain`` one. ``band``
+    marks an x-chain call that recomputes a split-phase round's
+    boundary band (a body of k planes or 3k rows): its launch also
+    counts in :data:`BAND_LAUNCHES`.
 
     CUDA tensors go through the kernel (or raise) at the fields' dtype
     (float32, float64 or bfloat16; ``GS_MID_BF16=1`` selects bf16 mids
     for float32); CPU tensors through the plain versions (the Plain
     language). Returns the new field tuple."""
+    global BAND_LAUNCHES
     fields = tuple(fields)
     n_f = spec.n_fields
     if len(fields) != n_f:
@@ -614,6 +648,9 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     if fuse < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
     mode = _check_faces(faces, fields[0].shape, n_f, fuse, spec.name)
+    if band and (mode != "xchain" or y_halo):
+        raise ValueError("a band recompute runs in x-chain mode (2n "
+                         f"faces, no y_halo); got mode {mode!r}")
     if y_halo:
         if mode != "xchain" or y_halo != fuse:
             raise ValueError(
@@ -645,9 +682,12 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
                 f"cap {cap} for {fields[0].dtype}: the exchange width "
                 "must be capped with max_feasible_fuse"
             )
-        return _launch(fields, params, seeds, spec=spec, use_noise=use_noise,
-                       fuse=fuse, offsets=offsets, row=row, faces=faces,
-                       mode=mode, mid_bf16=mid_bf16)
+        out = _launch(fields, params, seeds, spec=spec, use_noise=use_noise,
+                      fuse=fuse, offsets=offsets, row=row, faces=faces,
+                      mode=mode, mid_bf16=mid_bf16)
+        if band:
+            BAND_LAUNCHES += 1
+        return out
     step = int(seeds[2])
     done = 0
     while done < fuse:

@@ -17,14 +17,20 @@ Edge and corner ghosts of the 1-deep forms are never read by the
 7-point stencil and hold the boundary value (or zeros in the kernel's
 faces operand, as in the reference).
 
-The split-phase helpers (``frozen_slabs``, ``frozen_frame``,
-``start_exchange``, ``PendingExchange``) come with the overlap slice
-(ROADMAP Queue 1 item 13a).
+The split-phase round (``comm_overlap``) computes each block's
+interior on frozen stand-ins (:func:`frozen_slabs`, :func:`frozen_frame`:
+what a global-edge block resolves to) while the exchange is in flight
+(:func:`start_exchange`), then recomputes the boundary bands from what
+arrived (:class:`PendingExchange`). On the card the exchange runs on a
+side stream of each device, ordered after the compute stream's pending
+work by an event, so its copies can run beside the interior kernel; the
+host never waits.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import contextlib
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -169,3 +175,103 @@ def exchange_faces(blocks: Blocks, boundary_values: Sequence[float],
             for lo_hi in pairs:
                 out.extend(lo_hi)
     return [tuple(f) for f in flat]
+
+
+def frozen_slabs(arrays: Sequence[torch.Tensor],
+                 boundary_values: Sequence[float], dim: int,
+                 width: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Constant (lo, hi) ``width``-thick slabs along ``dim`` at each
+    array's frozen boundary value: the stand-in the split-phase interior
+    consumes instead of exchanged slabs (what a global-edge block, or
+    an axis with a single block, resolves to)."""
+    out = []
+    for a, bv in zip(arrays, boundary_values):
+        f = _full_slab(a, dim, width, bv)
+        out.append((f, f))
+    return out
+
+
+def frozen_frame(arrays: Sequence[torch.Tensor],
+                 boundary_values: Sequence[float],
+                 width: int) -> Tuple[torch.Tensor, ...]:
+    """Each array ghost-padded ``width`` deep with its frozen boundary
+    value on every side: the :func:`halo_pad_wide` stand-in of the
+    split-phase interior (as if every block were on the global edge of
+    every axis)."""
+    return tuple(F.pad(a, (width,) * 6, value=bv)
+                 for a, bv in zip(arrays, boundary_values))
+
+
+def _tensors(tree):
+    """The tensors of a nest of lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _tensors(t)
+
+
+class PendingExchange:
+    """An exchange in flight (:func:`start_exchange`). On the card its
+    work is queued on each device's side stream behind ``done`` events;
+    :meth:`finish` is its first consumption point."""
+
+    def __init__(self, result, events=None):
+        self._result = result
+        self._events = events or {}
+
+    def finish(self):
+        """The exchange's per-block result. On the card each device's
+        current stream waits on the side stream's event (no host wait),
+        and each result tensor is marked as used by that stream
+        (``record_stream``), so that the allocator keeps its memory —
+        allocated on the side stream — until the consumer is done."""
+        if self._events:
+            for d, ev in self._events.items():
+                torch.cuda.current_stream(d).wait_event(ev)
+            for t in _tensors(self._result):
+                t.record_stream(torch.cuda.current_stream(t.device))
+            self._events = {}
+        return self._result
+
+
+def start_exchange(blocks: Blocks, boundary_values: Sequence[float],
+                   mesh: DeviceMesh, width: int,
+                   exchange: Callable = halo_pad_wide) -> PendingExchange:
+    """Issue ``exchange(blocks, boundary_values, mesh, width)`` — by
+    default the corner-propagated frame of :func:`halo_pad_wide`; the
+    x-chain passes :func:`exchange_x_slabs`, the xy-chain's slab form
+    its y-then-x slab exchange — without tying it into the caller's
+    compute: the same copies in the same order, consumed only through
+    :meth:`PendingExchange.finish`.
+
+    On the card, every device of the mesh has a side stream
+    (:meth:`~.mesh.DeviceMesh.side_stream`) that waits on an event
+    recorded on its current (compute) stream; the exchange runs with
+    those side streams current (a copy between two cards runs on the
+    source's and is ordered before the destination's), and a ``done``
+    event is recorded on each. The blocks' tensors are marked
+    as used by the side streams (``record_stream``), so a caller may
+    drop them while the exchange still reads them. On the CPU the
+    exchange runs at once."""
+    devices = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
+    if not devices:
+        return PendingExchange(exchange(blocks, boundary_values, mesh,
+                                        width))
+    streams = {}
+    for d in devices:
+        st = streams[d] = mesh.side_stream(d)
+        st.wait_stream(torch.cuda.current_stream(d))
+    for fields, d in zip(blocks, mesh.devices):
+        for f in fields:
+            f.record_stream(streams[d])
+    with contextlib.ExitStack() as stack:
+        for st in streams.values():
+            stack.enter_context(torch.cuda.stream(st))
+        result = exchange(blocks, boundary_values, mesh, width)
+        events = {}
+        for d, st in streams.items():
+            ev = torch.cuda.Event()
+            ev.record(st)
+            events[d] = ev
+    return PendingExchange(result, events)

@@ -77,6 +77,15 @@ class DeviceMesh:
                 f"a {self.dims} mesh has {n} blocks; got "
                 f"{len(self.devices)} devices"
             )
+        self._side_streams = {}
+
+    def side_stream(self, device: torch.device) -> "torch.cuda.Stream":
+        """The card ``device``'s stream for the split-phase exchanges
+        (``halo.start_exchange``), made at first use."""
+        st = self._side_streams.get(device)
+        if st is None:
+            st = self._side_streams[device] = torch.cuda.Stream(device=device)
+        return st
 
     @property
     def n_blocks(self) -> int:

@@ -1,6 +1,5 @@
 """Cross-block temporal blocking for the sharded kernel path
-(counterpart of ``grayscott_jl_tpu/parallel/temporal.py``, its fused,
-non-overlap forms).
+(counterpart of ``grayscott_jl_tpu/parallel/temporal.py``).
 
 The kernel chains ``k`` steps per launch on shrinking windows. Crossing
 a block boundary with that chain needs k-deep halo data:
@@ -25,15 +24,22 @@ per-cell operations in the same order, position-keyed noise): the
 plain window chain, the kernel's chain and the band recompute agree
 cell for cell, which the tests assert.
 
-The split-phase forms (``xy_overlap_feasible``, ``overlap=True``) come
-with the overlap slice (ROADMAP Queue 1 item 13a).
+The split-phase form (``xy_chain(..., overlap=True)``, gated by
+:func:`xy_overlap_feasible`) issues the same exchange first
+(``halo.start_exchange``), runs the kernel on frozen boundary values,
+and recomputes the k-thick x and y boundary bands from what arrived
+with ``band_kernel`` — the x-chain program on a thin body, the same
+computation per cell as the fused round's — before the z bands. The
+s-step schedule (``halo_depth = k``) runs either form unchanged at
+depth ``fuse * k``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import stencil
 from . import halo
@@ -129,10 +135,73 @@ def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
     return tuple(fields_i)
 
 
+def xy_overlap_feasible(local, dims, depth) -> bool:
+    """Whether the split-phase form of :func:`xy_chain` applies: always
+    in the frame form (z sharded); in the slab form only when every
+    sharded slab axis is at least ``2 * depth`` deep (the band windows
+    are cut from owned slices, and a shallower block has no interior to
+    hide the exchange behind)."""
+    if dims[2] > 1:
+        return True
+    k = depth
+    return not ((dims[0] > 1 and local[0] < 2 * k) or local[1] < 2 * k)
+
+
+def _slab_exchange(blocks, bvs, mesh: DeviceMesh, k: int):
+    """The slab form's exchange: k-wide y slabs first, then the x slabs
+    of the y-padded fields, so that the x slabs carry the y corners.
+    Per block ``(y-padded fields, x pairs)``."""
+    y_pairs = halo.exchange_slabs(blocks, bvs, 1, mesh, k)
+    padded = [
+        tuple(torch.cat([lo, f, hi], dim=1)
+              for f, (lo, hi) in zip(fields, pairs))
+        for fields, pairs in zip(blocks, y_pairs)
+    ]
+    x_pairs = halo.exchange_slabs(padded, bvs, 0, mesh, k)
+    return list(zip(padded, x_pairs))
+
+
+def _interleave(los, his):
+    """Field-major (lo, hi) faces tuple from per-field slabs."""
+    return tuple(x for pair in zip(los, his) for x in pair)
+
+
+def _band_jobs(cut, shape, offs, dims, k):
+    """The split-phase x and y band recomputes of one block: ``[(body,
+    faces, origin, kept rows, x/y position)]``. ``cut(xs, ys)`` is each
+    field's exchanged cells at x range ``xs`` (owned coordinates, in
+    ``[-k, nx + k)``: the x ghosts included) and y-extended row range
+    ``ys`` (in ``[0, ny + 2k)``). y bands: 3k rows (the arrived slab and
+    2k owned rows) over the owned planes, the x ghosts of those rows as
+    faces; x bands: k planes over every y-extended row, the arrived x
+    slab outside and the adjacent owned planes inside. The bodies are
+    made contiguous here, once (the kernel reads dense fields)."""
+    nx, ny, _ = shape
+    m_y = ny + 2 * k
+    jobs = []
+    if dims[1] > 1:
+        for y0, o_y, d_y in ((0, -k, 0), (m_y - 3 * k, ny - 2 * k, ny - k)):
+            ys = (y0, y0 + 3 * k)
+            jobs.append((
+                tuple(b.contiguous() for b in cut((0, nx), ys)),
+                _interleave(cut((-k, 0), ys), cut((nx, nx + k), ys)),
+                (offs[0], offs[1] + o_y, offs[2]), (k, 2 * k), (0, d_y)))
+    if dims[0] > 1:
+        ally = (0, m_y)
+        for x0, lo, hi in ((0, (-k, 0), (k, 2 * k)),
+                           (nx - k, (nx - 2 * k, nx - k), (nx, nx + k))):
+            jobs.append((
+                tuple(b.contiguous() for b in cut((x0, x0 + k), ally)),
+                _interleave(cut(lo, ally), cut(hi, ally)),
+                (offs[0] + x0, offs[1] - k, offs[2]), (k, k + ny), (x0, 0)))
+    return jobs
+
+
 def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
              chain_kernel: Callable, use_noise, unit_noise, row,
              mesh: DeviceMesh, boundaries: Sequence[float],
-             compute_dtype=None) -> List[tuple]:
+             compute_dtype=None, overlap: bool = False,
+             band_kernel: Optional[Callable] = None) -> List[tuple]:
     """``depth`` fused steps on every block of an (n, m, p) mesh: the
     kernel's chain crosses x and y block boundaries, and sharded z sides
     get the band recompute. ``blocks`` is every block's field tuple
@@ -152,61 +221,101 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
     With z sharded, one corner-propagated k-deep frame (6 ppermutes)
     serves the operand, its x faces and the z bands; otherwise k-wide y
     slabs are exchanged first and then the x slabs of the y-padded
-    fields, so the x faces carry the corners (4 ppermutes)."""
+    fields, so the x faces carry the corners (4 ppermutes).
+
+    ``overlap=True`` is the split-phase form: the same exchange is
+    started first (``halo.start_exchange``), the kernel runs on the
+    fields y-padded with the boundary value and frozen x faces, and the
+    k-thick x and y bands of every sharded axis are then recomputed
+    from what arrived by ``band_kernel(rank, body, faces, step,
+    origin)`` — the x-chain at ``fuse=depth`` on a body of 3k rows or k
+    planes (:func:`_band_jobs`) — and written over the interior's,
+    before the z bands. A geometry :func:`xy_overlap_feasible` refuses
+    takes the fused round (bitwise the same)."""
     bvs = tuple(boundaries)
     dims = mesh.dims
     k = depth
     z_sharded = dims[2] > 1
+    shape = tuple(blocks[0][0].shape)
+    nx, ny, nz = shape
+    if overlap and not xy_overlap_feasible(shape, dims, k):
+        overlap = False  # no interior to hide the exchange behind
+    if overlap and band_kernel is None:
+        raise ValueError("xy_chain overlap=True requires band_kernel")
 
-    def interleave(los, his):
-        """Field-major (lo, hi) faces tuple from per-field slabs."""
-        return tuple(x for pair in zip(los, his) for x in pair)
-
-    operands = []
-    if z_sharded:
+    if overlap:
+        pending = halo.start_exchange(
+            blocks, bvs, mesh, k,
+            exchange=halo.halo_pad_wide if z_sharded else _slab_exchange)
+        operands = []
+        for fields in blocks:
+            fields_p = tuple(F.pad(f, (0, 0, k, k), value=bv)
+                             for f, bv in zip(fields, bvs))
+            operands.append((fields_p, tuple(
+                x for pr in halo.frozen_slabs(fields_p, bvs, 0, k)
+                for x in pr)))
+    elif z_sharded:
         frames = halo.halo_pad_wide(blocks, bvs, mesh, k)
-        for fields, fw in zip(blocks, frames):
-            nx, _, nz = fields[0].shape
-            operands.append((
-                tuple(w[k:k + nx, :, k:k + nz].contiguous() for w in fw),
-                interleave(tuple(w[0:k, :, k:k + nz] for w in fw),
-                           tuple(w[k + nx:, :, k:k + nz] for w in fw)),
-            ))
-    else:
-        y_pairs = halo.exchange_slabs(blocks, bvs, 1, mesh, k)
-        padded = [
-            tuple(torch.cat([lo, f, hi], dim=1)
-                  for f, (lo, hi) in zip(fields, pairs))
-            for fields, pairs in zip(blocks, y_pairs)
+        operands = [
+            (tuple(w[k:k + nx, :, k:k + nz].contiguous() for w in fw),
+             _interleave(tuple(w[0:k, :, k:k + nz] for w in fw),
+                         tuple(w[k + nx:, :, k:k + nz] for w in fw)))
+            for fw in frames
         ]
-        x_pairs = halo.exchange_slabs(padded, bvs, 0, mesh, k)
-        for fields_pr, pairs in zip(padded, x_pairs):
-            operands.append((
-                fields_pr,
-                interleave(tuple(lo for lo, _ in pairs),
-                           tuple(hi for _, hi in pairs)),
-            ))
+    else:
+        operands = [
+            (fields_pr, _interleave(tuple(lo for lo, _ in pairs),
+                                    tuple(hi for _, hi in pairs)))
+            for fields_pr, pairs in _slab_exchange(blocks, bvs, mesh, k)
+        ]
 
     out = []
     for rank, ((fields_p, faces), offs) in enumerate(zip(operands,
                                                          offsets)):
-        ny = blocks[rank][0].shape[1]
         offs_p = (offs[0], offs[1] - k, offs[2])
         res = chain_kernel(rank, fields_p, faces, step, offs_p)
-        res = tuple(f[:, k:k + ny, :].contiguous() for f in res)
+        out.append(tuple(f[:, k:k + ny, :].contiguous() for f in res))
+
+    if overlap:
+        exchanged = pending.finish()
         if z_sharded:
-            # The kernel ran with frozen z edges: its outermost k
-            # z-cells are stale wherever a z neighbour exists (and
-            # exactly right on global z edges). Recompute both k-wide
-            # bands from the frame; the values are bitwise the same, so
-            # overwriting unconditionally is right on edge blocks too.
-            res = stitch_bands_from_frame(
+            frames = exchanged
+        for rank, res in enumerate(out):
+            if z_sharded:
+                def cut(xs, ys, fw=frames[rank]):
+                    return tuple(w[xs[0] + k:xs[1] + k, ys[0]:ys[1],
+                                   k:k + nz] for w in fw)
+            else:
+                def cut(xs, ys, ex=exchanged[rank]):
+                    fields_pr, pairs = ex
+                    if xs[0] < 0:
+                        src, xs = [lo for lo, _ in pairs], (0, k)
+                    elif xs[0] >= nx:
+                        src, xs = [hi for _, hi in pairs], (0, k)
+                    else:
+                        src = fields_pr
+                    return tuple(f[xs[0]:xs[1], ys[0]:ys[1]] for f in src)
+            for body, faces_b, origin, (r0, r1), (dx, dy) in _band_jobs(
+                    cut, shape, offsets[rank], dims, k):
+                band = band_kernel(rank, body, faces_b, step, origin)
+                for o, b in zip(res, band):
+                    o[dx:dx + b.shape[0], dy:dy + r1 - r0].copy_(
+                        b[:, r0:r1])
+
+    if z_sharded:
+        # The kernel ran with frozen z edges: its outermost k z-cells
+        # are stale wherever a z neighbour exists (and exactly right on
+        # global z edges). Recompute both k-wide bands from the frame;
+        # the values are bitwise the same, so overwriting
+        # unconditionally is right on edge blocks too.
+        out = [
+            stitch_bands_from_frame(
                 res, frames[rank], params_of(rank), model, depth=k,
-                step=step, offs=offs, row=row, axis_sizes=dims,
+                step=step, offs=offsets[rank], row=row, axis_sizes=dims,
                 use_noise=use_noise, unit_noise=unit_noise,
                 boundaries=bvs, dims_to_stitch=(2,),
                 compute_dtype=compute_dtype,
             )
-        out.append(res)
+            for rank, res in enumerate(out)
+        ]
     return out
-

@@ -20,7 +20,14 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
   reference's branches (``_local_run``) over all blocks: the 6n-face
   kernel at depth 1, the x-chain on ``(n, 1, 1)`` meshes and the
   xy-chain on the others at depth k >= 2, or the plain halo-padded step
-  and window chain. It never waits for the device.
+  and window chain. Under ``comm_overlap`` (on for every sharded run by
+  default, as in the reference) a round of depth k >= 2 runs
+  split-phase: the exchange starts on a side stream, the interior runs
+  on frozen boundary values, and the k-thick boundary bands are
+  recomputed from what arrived — by the x-chain kernel on the kernel
+  path — bitwise equal to the fused round. ``halo_depth`` (the s-step
+  schedule) multiplies the depth a round exchanges for. It never waits
+  for the device.
 * :meth:`Simulation.get_fields` / :meth:`Simulation.snapshot` copy the
   fields to the host (bfloat16 fields as float32 arrays holding the bf16
   values; the snapshot quantizes coded fields on the device first);
@@ -344,6 +351,28 @@ class Simulation:
                      if self.kernel_language == "cuda" else self.model)
         self.fuse = default_fuse(self.dtype, self.device,
                                  self.model.n_fields)
+        #: The split-phase exchange (``comm_overlap`` /
+        #: ``GS_COMM_OVERLAP``): ``"auto"`` is on for every sharded run,
+        #: as in the reference. The values are bitwise the same either
+        #: way; the round only stops the interior's kernels from waiting
+        #: on the exchange.
+        self.comm_overlap = (self.sharded and
+                             config.resolve_comm_overlap(settings) != "off")
+        #: True once a round ran split-phase (a geometry without an
+        #: interior to hide the exchange behind takes the fused round
+        #: even with overlap on).
+        self.overlap_applied = False
+        #: The s-step exchange depth (``halo_depth`` / ``GS_HALO_DEPTH``):
+        #: one exchange round feeds ``fuse * halo_depth`` steps, the same
+        #: program as a chain of that depth. 1 is the one-exchange-per-
+        #: chain schedule.
+        _, self.halo_depth = config.resolve_halo_depth(settings)
+        #: Set when a requested ``halo_depth`` stepped down because the
+        #: chain at ``fuse * halo_depth`` does not fit the block or the
+        #: shared-memory ledger (the ledger's numbers ride along).
+        self.halo_depth_gate = None
+        if self.sharded and self.halo_depth > 1:
+            self._gate_halo_depth()
         self._params = {
             d: self.model.make_params(settings, self.compute_dtype, d)
             for d in dict.fromkeys(devices)
@@ -354,6 +383,9 @@ class Simulation:
         self._copy_streams = {}
         self.base_key = base_key(seed)
         self.step = 0
+        #: Exchange rounds the sharded run has made (one per chain
+        #: round: ``halo_depth = k`` divides them by k).
+        self.exchange_rounds = 0
         L = settings.L
         if self.sharded:
             block = self.domain.local_shape
@@ -372,6 +404,76 @@ class Simulation:
             self.blocks = [
                 tuple(self.model.init(L, self.dtype, device=self.device))
             ]
+
+    def _gate_halo_depth(self) -> None:
+        """Judge ``halo_depth`` against the mesh's blocks at
+        construction, as the reference does. The kernel path's chain at
+        depth ``fuse * k`` must fit the chain's geometry and the
+        shared-memory ledger (``cuda_stencil.max_feasible_chain_depth``):
+        an infeasible k steps down to the deepest feasible one, with a
+        warning on stderr and the numbers in :attr:`halo_depth_gate`.
+        The plain path exchanges one ``fuse * k``-deep frame of owned
+        cells, so a k the blocks cannot serve raises."""
+        local = tuple(int(x) for x in self.domain.local_shape)
+        dims = self.domain.dims
+        k = self.halo_depth
+        if self.kernel_language != "cuda":
+            d = max(1, min(self.fuse, min(local)))
+            if d * k > min(local):
+                raise SettingsError(
+                    f"halo_depth={k} needs a {d * k}-deep ghost exchange "
+                    f"(chain depth {d} x halo_depth), but the local block "
+                    f"{self.domain.local_shape} supports at most "
+                    f"{min(local)}; lower halo_depth/GS_FUSE or use fewer "
+                    "devices per axis"
+                )
+            return
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        mid = 2 if cuda_stencil.mid_bf16_requested(self.dtype) else None
+        nf = self.model.n_fields
+        path = "x-chain" if dims[1] == 1 and dims[2] == 1 else "xy-chain"
+
+        def cap(depth):
+            return cuda_stencil.max_feasible_chain_depth(
+                local, dims, itemsize, depth, nf, mid)
+
+        d = max(1, cap(self.fuse))
+        applied = next((j for j in range(k, 0, -1) if cap(d * j) == d * j),
+                       1)
+        if applied == k:
+            return
+        smem = cuda_stencil.smem_bytes(itemsize, d * k, nf,
+                                       mid_itemsize=mid)
+        limit = cuda_stencil.SMEM_LIMIT
+        self.halo_depth_gate = {
+            "requested": k,
+            "applied": applied,
+            "kind": "geometry-infeasible",
+            "reason": (
+                f"halo_depth={k} needs a {d * k}-deep chain (fuse base {d} "
+                f"x halo_depth) on the CUDA {path}, but local block "
+                f"{local} ({itemsize}-byte fields x {nf}) serves at most "
+                f"depth {d * applied} under the chain geometry caps and "
+                f"the shared-memory ledger ({smem} bytes at depth "
+                f"{d * k}, limit {limit}); running halo_depth={applied}"
+            ),
+            "geometry": {
+                "path": path,
+                "local_shape": list(local),
+                "fuse_base": d,
+                "requested_depth": d * k,
+                "feasible_depth": d * applied,
+                "smem_bytes_requested": smem,
+                "smem_limit_bytes": limit,
+                "itemsize": itemsize,
+                "n_fields": nf,
+            },
+        }
+        if isinstance(self.kernel_selection, dict):
+            self.kernel_selection["halo_depth_gate"] = self.halo_depth_gate
+        print("gray-scott-torch: warning: " + self.halo_depth_gate["reason"],
+              file=sys.stderr)
+        self.halo_depth = applied
 
     @property
     def fields(self) -> Tuple[torch.Tensor, ...]:
@@ -472,7 +574,17 @@ class Simulation:
                 blocks = chain(blocks, step0 + fuse * i, fuse)
             if rem:
                 blocks = chain(blocks, step0 + fuse * rounds, rem)
+            self.exchange_rounds += rounds + bool(rem)
             return blocks
+
+        def deepen(fuse, *caps):
+            """The s-step schedule: ``halo_depth`` times the chain depth
+            per exchange round, within the same caps (the same program
+            as a chain of that depth)."""
+            if self.halo_depth > 1:
+                fuse = max(1, min(fuse * self.halo_depth, max(nsteps, 1),
+                                  *caps))
+            return fuse
 
         if self.kernel_language == "cuda":
             cap = cuda_stencil.chain_cap(self.dtype, spec.n_fields)
@@ -510,11 +622,14 @@ class Simulation:
                 # faces, so the kernel's chain runs across them from one
                 # exchange of k-wide x slabs.
                 fuse = min(self.fuse, max(nsteps, 1), local[0])
+                fuse = deepen(fuse, local[0])
                 fuse = self._cap_depth("x-chain", fuse, cap, local)
 
                 def chain(blocks, step, depth):
                     if depth == 1:
                         return faces_round(blocks, step)
+                    if self.comm_overlap and local[0] >= 2 * depth:
+                        return xchain_split(blocks, step, depth)
                     pairs = halo.exchange_x_slabs(blocks, bvs, mesh, depth)
                     return pin_blocks([
                         cuda_stencil.fused_step(
@@ -526,6 +641,50 @@ class Simulation:
                         for r, fields in enumerate(blocks)
                     ])
 
+                def xchain_split(blocks, step, k):
+                    """The split-phase round: the k-wide x slabs start
+                    on their way, each block's chain runs on frozen
+                    faces, then its two k-plane bands are recomputed by
+                    the x-chain kernel from the arrived slab and the
+                    adjacent owned planes, and written over the
+                    interior's."""
+                    self.overlap_applied = True
+                    pending = halo.start_exchange(
+                        blocks, bvs, mesh, k, exchange=halo.exchange_x_slabs)
+                    interior = [
+                        cuda_stencil.fused_step(
+                            fields, self._params_of(r), self._seeds(step),
+                            tuple(f for pr in halo.frozen_slabs(
+                                fields, bvs, 0, k) for f in pr),
+                            spec=spec, use_noise=self.use_noise, fuse=k,
+                            offsets=self.offsets[r], row=L,
+                        )
+                        for r, fields in enumerate(blocks)
+                    ]
+                    pairs = pending.finish()
+                    nx = local[0]
+                    for r, (fields, res) in enumerate(zip(blocks, interior)):
+                        ox, oy, oz = self.offsets[r]
+                        jobs = (
+                            (0, tuple(x for f, (lo, _) in zip(fields, pairs[r])
+                                      for x in (lo, f[k:2 * k]))),
+                            (nx - k, tuple(x for f, (_, hi) in zip(fields,
+                                                                   pairs[r])
+                                           for x in (f[nx - 2 * k:nx - k],
+                                                     hi))),
+                        )
+                        for x0, faces_b in jobs:
+                            band = cuda_stencil.fused_step(
+                                tuple(f[x0:x0 + k] for f in fields),
+                                self._params_of(r), self._seeds(step),
+                                faces_b, spec=spec, use_noise=self.use_noise,
+                                fuse=k, offsets=(ox + x0, oy, oz), row=L,
+                                band=True,
+                            )
+                            for o, b in zip(res, band):
+                                o[x0:x0 + k].copy_(b)
+                    return pin_blocks(interior)
+
                 return run_chain_rounds(chain, fuse, blocks)
 
             # xy-chain (+ z bands when z is sharded): the kernel's chain
@@ -534,6 +693,7 @@ class Simulation:
             if dims[2] > 1:
                 caps.append(local[2] // 2)  # z-band windows need nz >= 2k
             fuse = max(1, min(self.fuse, max(nsteps, 1), *caps))
+            fuse = deepen(fuse, *caps)
             fuse = self._cap_depth("xy-chain", fuse, cap, local)
 
             def chain(blocks, step, depth):
@@ -547,19 +707,40 @@ class Simulation:
                         fuse=depth, offsets=offs_p, row=L, y_halo=depth,
                     )
 
+                def band_kernel(rank, body, faces, stp, origin):
+                    # The x-chain kernel on a thin body: the same
+                    # computation per cell as the chain's, so the band
+                    # equals the fused round's cells bitwise.
+                    return cuda_stencil.fused_step(
+                        body, self._params_of(rank), self._seeds(stp),
+                        faces, spec=spec, use_noise=self.use_noise,
+                        fuse=depth, offsets=origin, row=L, band=True,
+                    )
+
+                ov = self.comm_overlap and temporal.xy_overlap_feasible(
+                    local, dims, depth)
+                if ov:
+                    self.overlap_applied = True
                 return pin_blocks(temporal.xy_chain(
                     blocks, band_params_of, self.model, depth=depth,
                     step=step, offsets=self.offsets,
                     chain_kernel=chain_kernel, use_noise=self.use_noise,
                     unit_noise=band_unit_noise, row=L, mesh=mesh,
-                    boundaries=bvs, compute_dtype=band_dtype,
+                    boundaries=bvs, compute_dtype=band_dtype, overlap=ov,
+                    band_kernel=band_kernel,
                 ))
 
             return run_chain_rounds(chain, fuse, blocks)
 
         # ---- plain path ----
         cdt = self.compute_dtype
-        if nsteps < 2:
+        # The split phase of the window chain runs on (n, 1, 1) meshes
+        # only, as the reference gates it (its x-thin band windows are
+        # the ones XLA:CPU compiles stably); the other meshes take the
+        # fused round.
+        overlap_plain = self.comm_overlap and dims[1] == 1 and dims[2] == 1
+        if nsteps < 2 and not overlap_plain:
+            self.exchange_rounds += 1
             pads = halo.halo_pad(blocks, bvs, mesh)
             out = []
             for r, fp in enumerate(pads):
@@ -577,8 +758,38 @@ class Simulation:
         # window one cell narrower per side, neighbour-owned ring cells
         # reproducing the owner's values bitwise.
         fuse = min(self.fuse, nsteps, min(local))
+        fuse = deepen(fuse, min(local))
 
         def chain(blocks, step, depth):
+            if overlap_plain:
+                # Split phase: the frame exchange starts, the chain runs
+                # on frozen frames, then the k-thick bands of every
+                # sharded face are recomputed from the arrived frames.
+                self.overlap_applied = True
+                pending = halo.start_exchange(blocks, bvs, mesh, depth)
+                interior = [
+                    temporal.window_chain(
+                        halo.frozen_frame(fields, bvs, depth),
+                        self._params_of(r), self.model, depth=depth,
+                        step=step,
+                        origin=tuple(o - depth for o in self.offsets[r]),
+                        row=L, use_noise=self.use_noise,
+                        unit_noise=unit_noise, boundaries=bvs,
+                        final_pin=padded, compute_dtype=cdt,
+                    )
+                    for r, fields in enumerate(blocks)
+                ]
+                frames = pending.finish()
+                return [
+                    temporal.stitch_bands_from_frame(
+                        fi, fw, self._params_of(r), self.model, depth=depth,
+                        step=step, offs=self.offsets[r], row=L,
+                        axis_sizes=dims, use_noise=self.use_noise,
+                        unit_noise=unit_noise, boundaries=bvs,
+                        compute_dtype=cdt,
+                    )
+                    for r, (fi, fw) in enumerate(zip(interior, frames))
+                ]
             frames = halo.halo_pad_wide(blocks, bvs, mesh, depth)
             return [
                 temporal.window_chain(

@@ -252,13 +252,15 @@ def test_other_models_sharded_on_one_card(name, dims, fuse, mode,
                                           monkeypatch):
     """The sharded path with one field and with two non-Gray-Scott
     fields: every round through the model's generated kernel's face
-    mode, bitwise equal to the single block."""
+    mode, bitwise equal to the single block (the fused round:
+    ``comm_overlap = "off"``; the split one is
+    test_split_round_on_one_card_equals_fused)."""
     _card()
     monkeypatch.setenv("GS_FUSE", fuse)
     from grayscott_jl_tpu_torch import Simulation
 
     s = Settings(L=32, noise=0.1, precision="Float32", backend="CUDA",
-                 model=name, **PHYSICS[name])
+                 model=name, comm_overlap="off", **PHYSICS[name])
     single = Simulation(s, n_devices=1, seed=2)
     n = dims[0] * dims[1] * dims[2]
     mesh = Simulation(s, seed=2, mesh_dims=dims, devices=["cuda:0"] * n)
@@ -328,11 +330,12 @@ def test_face_modes_equal_plain_on_card(dtype, noise):
 def test_sharded_run_on_one_card_equals_single_block(dims, fuse, mode,
                                                      monkeypatch):
     """A mesh's blocks all on cuda:0: bitwise equal to the single-block
-    run, and every round went through the kernel's face mode."""
+    run, and every round went through the kernel's face mode (the fused
+    round: ``comm_overlap = "off"``)."""
     _card()
     monkeypatch.setenv("GS_FUSE", fuse)
     s = Settings(L=24, noise=0.1, precision="Float32", backend="CUDA",
-                 **KW)
+                 comm_overlap="off", **KW)
     from grayscott_jl_tpu_torch import Simulation
 
     single = Simulation(s, n_devices=1, seed=2)
@@ -347,6 +350,59 @@ def test_sharded_run_on_one_card_equals_single_block(dims, fuse, mode,
         assert (a == b).all()
 
 
+#: (mesh, GS_FUSE, GS_HALO_DEPTH, launches per block and round of the
+#: split round by mode, of which bands).
+SPLIT_CASES = [
+    ((4, 1, 1), "2", "1", {"xchain": 3}, 2),
+    ((2, 2, 1), "2", "1", {"xychain": 1, "xchain": 4}, 4),
+    ((2, 2, 2), "2", "1", {"xychain": 1, "xchain": 4}, 4),
+    ((2, 2, 2), "1", "2", {"xychain": 1, "xchain": 4}, 4),
+    ((1, 2, 2), "3", "1", {"xychain": 1, "xchain": 2}, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,fuse,halo_depth,per_round,bands", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", ["Float32", "BFloat16"])
+def test_split_round_on_one_card_equals_fused(dims, fuse, halo_depth,
+                                              per_round, bands, dtype,
+                                              monkeypatch):
+    """The split-phase round on the card — the exchange on a side stream,
+    the interior on frozen faces, the bands recomputed by the x-chain
+    kernel — bitwise equal to the fused round and to the single block
+    over several rounds, with exact launch counts (``halo_depth`` 2 over
+    depth 1 is a depth-2 round)."""
+    _card()
+    monkeypatch.setenv("GS_FUSE", fuse)
+    monkeypatch.setenv("GS_HALO_DEPTH", halo_depth)
+    from grayscott_jl_tpu_torch import Simulation
+
+    depth = int(fuse) * int(halo_depth)
+    steps = 4 * depth
+    n = dims[0] * dims[1] * dims[2]
+
+    def sim(overlap, mesh=True):
+        s = Settings(L=24, noise=0.1, precision=dtype, backend="CUDA",
+                     comm_overlap=overlap, **KW)
+        if not mesh:
+            return Simulation(s, n_devices=1, seed=2)
+        return Simulation(s, seed=2, mesh_dims=dims, devices=["cuda:0"] * n)
+
+    on, off, single = sim("on"), sim("off"), sim("off", mesh=False)
+    cuda_stencil.reset_launches()
+    on.iterate(steps)
+    assert on.overlap_applied
+    assert {m: c for m, c in cuda_stencil.MODE_LAUNCHES.items() if c} == {
+        m: n * 4 * c for m, c in per_round.items()}
+    assert cuda_stencil.BAND_LAUNCHES == n * 4 * bands
+    off.iterate(steps)
+    single.iterate(steps)
+    assert not off.overlap_applied
+    for a, b, c in zip(on.get_fields(), off.get_fields(),
+                       single.get_fields()):
+        assert (a == b).all() and (a == c).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims,fuse", [
     (None, "1"), ((4, 1, 1), "2"), ((2, 2, 1), "2"), ((2, 1, 2), "3"),
@@ -355,8 +411,11 @@ def test_sharded_run_across_cards_equals_single_block(dims, fuse,
                                                       monkeypatch):
     """Blocks on different cards: the exchange copies between devices
     (``Tensor.to``), each block's kernel runs on its own card with its
-    own params. ``dims=None`` is the default mesh over every card. Needs
-    two or more cards; bitwise equal to the single-block run."""
+    own params. ``dims=None`` is the default mesh over every card. At
+    depth 2 and 3 the rounds are split-phase (the default "auto"): the
+    exchange runs on each card's side stream, the copies between cards
+    ordered by events. Needs two or more cards; bitwise equal to the
+    single-block run."""
     _card()
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -377,6 +436,7 @@ def test_sharded_run_across_cards_equals_single_block(dims, fuse,
     assert mesh.sharded
     mesh.iterate(12)
     single.iterate(12)
+    assert mesh.overlap_applied == (fuse != "1")
     placed = [str(f.device) for fields in mesh.blocks for f in fields]
     assert placed == [d for d in devices for _ in range(2)]
     for a, b in zip(single.get_fields(), mesh.get_fields()):
@@ -502,14 +562,15 @@ def test_bf16_sharded_on_one_card_equals_single_block(posture, dims, fuse,
                                                       mode, monkeypatch):
     """A bf16 mesh's blocks all on cuda:0, every round on the bf16 entry
     point (the z bands in the kernel's posture), bitwise equal to the
-    single block."""
+    single block (the fused round: ``comm_overlap = "off"``)."""
     _card()
     monkeypatch.setenv("GS_FUSE", fuse)
     from grayscott_jl_tpu_torch import Simulation
 
     prec = (dict(precision="BFloat16") if posture == "BFloat16" else
             dict(precision="Float32", compute_precision="bf16_f32acc"))
-    s = Settings(L=24, noise=0.1, backend="CUDA", **prec, **KW)
+    s = Settings(L=24, noise=0.1, backend="CUDA", comm_overlap="off",
+                 **prec, **KW)
     single = Simulation(s, n_devices=1, seed=2)
     n = dims[0] * dims[1] * dims[2]
     mesh = Simulation(s, seed=2, mesh_dims=dims, devices=["cuda:0"] * n)

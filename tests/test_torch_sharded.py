@@ -272,13 +272,28 @@ def test_mesh_the_devices_or_L_cannot_hold_raises(monkeypatch):
     ("halo_depth", 2, "Queue 1 item 13b"),
 ])
 def test_unported_mesh_options_raise_naming_the_item(key, value, item):
+    """Both options were refused until their items were ported; now each
+    acts on a sharded run (tests/test_torch_overlap.py and
+    tests/test_torch_halo_depth.py hold them to the reference): the
+    split-phase round engages, or one exchange round feeds two steps,
+    bitwise equal to the run without the option."""
     s = dataclasses.replace(_settings(Settings, "Pallas", L=8),
                             **{key: value})
-    with pytest.raises(SettingsError, match=item):
-        Simulation(s, n_devices=2)
-    for off in ("auto", "off"):
-        Simulation(dataclasses.replace(s, comm_overlap=off, halo_depth=1),
-                   n_devices=2)
+    sim = Simulation(s, n_devices=2, seed=3)
+    plain = Simulation(dataclasses.replace(s, comm_overlap="off",
+                                           halo_depth=1),
+                       n_devices=2, seed=3)
+    assert not plain.comm_overlap and plain.halo_depth == 1
+    for x in (sim, plain):
+        x.iterate(4)
+    if key == "comm_overlap":
+        assert sim.comm_overlap and sim.overlap_applied
+        assert not plain.overlap_applied
+    else:
+        assert sim.halo_depth == 2
+        assert (sim.exchange_rounds, plain.exchange_rounds) == (1, 2)
+    for a, b in zip(sim.get_fields(), plain.get_fields()):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("var,value,item", [
@@ -287,9 +302,25 @@ def test_unported_mesh_options_raise_naming_the_item(key, value, item):
     ("GS_TPU_DISTRIBUTED", "auto", "14"),
 ])
 def test_unported_env_overrides_raise(var, value, item, monkeypatch):
+    """The launch variables (item 14) raise; ``GS_COMM_OVERLAP`` and
+    ``GS_HALO_DEPTH`` act since their items were ported, and win over
+    the settings' keys."""
     monkeypatch.setenv(var, value)
-    with pytest.raises(SettingsError, match=f"{var}.*Queue 1 item {item}"):
-        Simulation(_settings(Settings, "Pallas", L=8), n_devices=2)
+    s = _settings(Settings, "Pallas", L=8)
+    if item == "14":
+        with pytest.raises(SettingsError,
+                           match=f"{var}.*Queue 1 item {item}"):
+            Simulation(s, n_devices=2)
+        return
+    monkeypatch.setenv("GS_FUSE", "1")
+    sim = Simulation(dataclasses.replace(s, comm_overlap="off",
+                                         halo_depth=1), n_devices=2)
+    if var == "GS_COMM_OVERLAP":
+        assert sim.comm_overlap
+    else:
+        assert sim.halo_depth == 3 and sim.halo_depth_gate is None
+        sim.iterate(3)
+        assert sim.exchange_rounds == 1
 
 
 @pytest.mark.parametrize("model", ["heat", "brusselator", "fhn"])

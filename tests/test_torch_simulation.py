@@ -276,7 +276,18 @@ def test_precision_settings_run(key, value, dtype):
     ("watchdog", "on"), ("xstats", "on"),
 ])
 def test_unported_keys_raise_at_construction(key, value):
+    """Each key whose item is not ported raises. ``halo_depth`` acts
+    since item 13b was ported: on one block there is no exchange to
+    save, so the run is the default one, bitwise."""
     s = dataclasses.replace(Settings(L=8, backend="CPU"), **{key: value})
+    if key == "halo_depth":
+        sim, base = Simulation(s), Simulation(Settings(L=8, backend="CPU"))
+        assert sim.halo_depth == value and sim.halo_depth_gate is None
+        for x in (sim, base):
+            x.iterate(3)
+        for a, b in zip(sim.get_fields(), base.get_fields()):
+            np.testing.assert_array_equal(a, b)
+        return
     with pytest.raises(SettingsError, match=key):
         Simulation(s)
 
