@@ -101,7 +101,17 @@ Phases, each of which stops the run on failure:
    and at ``GS_FUSE=2`` (depth 4), ``GS_HALO_DEPTH=3`` stepping down
    to 2 with its warning, and ``driver.run_once`` of (b) at
    ``GS_FUSE=2 GS_HALO_DEPTH=2`` under "auto": every store bitwise equal
-   to the single block's, every launch count exact;
+   to the single block's, every launch count exact; (iv) the run of
+   several processes (``phase_multiprocess``): (b) as two processes of
+   four blocks sharing ``cuda:0`` over gloo, through ``launch.py`` — its
+   two-writer store bitwise equal to (b)'s, its ``.pvti`` pieces
+   reassembling to the store, its checkpoint merged and a two-process
+   restart from step 100 reproducing step 200, the processes' launches
+   adding up to (b)'s — then, in one pair of processes, ``GS_FUSE=2`` on
+   (8,1,1) and (4,2,1), split and fused, bitwise equal to their
+   one-process runs with the launches adding up, and (b) once more,
+   warm, for the 2-process ms/step and the cross-process exchange's
+   host ms/step;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -1795,6 +1805,296 @@ def phase_overlap(torch, gs, cuda_stencil, workdir, stored, report):
     return band_launches
 
 
+#: Phase 4 (iv)'s chain runs in one pair of processes: the worker each
+#: process runs (its share, 4 blocks, on cuda:0), one JSON line per case.
+MP_WORKER = """\
+import json, os, sys, time
+from grayscott_jl_tpu_torch import driver, launch
+from grayscott_jl_tpu_torch.config.settings import get_settings
+from grayscott_jl_tpu_torch.ops import cuda_stencil
+from grayscott_jl_tpu_torch.parallel import distributed
+
+launch.die_with_parent()
+distributed.ensure_started("cuda")
+for case in json.loads(sys.argv[1]):
+    os.environ.update(case["env"])
+    os.environ["GS_TPU_STATS"] = case["cfg"][:-len(".toml")] + "_stats.json"
+    distributed.reset_p2p_stats()
+    cuda_stencil.reset_launches()
+    t0 = time.perf_counter()
+    sim = driver.run_once(get_settings([case["cfg"]]), n_devices=4)
+    wall = time.perf_counter() - t0
+    print("CASE " + json.dumps({
+        "label": case["label"], "rank": distributed.process_index(),
+        "backend": distributed.backend(), "wall_s": wall,
+        "modes": {m: c for m, c in cuda_stencil.MODE_LAUNCHES.items() if c},
+        "bands": cuda_stencil.BAND_LAUNCHES,
+        "overlap_applied": sim.overlap_applied,
+        "devices": sorted({str(d) for d in sim.mesh.devices}),
+        "p2p": distributed.p2p_stats()}), flush=True)
+"""
+
+#: Phase 4 (iv)'s chain cases: label -> (mesh, comm_overlap).
+MP_CHAINS = {"split_8x1x1": ((8, 1, 1), "on"),
+             "fused_8x1x1": ((8, 1, 1), "off"),
+             "split_4x2x1": ((4, 2, 1), "on"),
+             "fused_4x2x1": ((4, 2, 1), "off")}
+
+#: The worker's last case: config (b) again, timed warm (the kernels
+#: loaded and the group connected by the cases before it).
+MP_WARM = "mesh_warm"
+
+
+def phase_multiprocess(torch, gs, cuda_stencil, workdir, stored, report):
+    """Phase 4 (iv), the run of two processes on ``cuda:0`` (gloo: the
+    processes share the card), through ``launch.py``: config (b) — L=256,
+    (2,2,2), 200 steps, plotgap 50, a checkpoint every 100, at
+    ``GS_ASYNC_IO_DEPTH=2`` — four blocks in each process; its
+    two-writer store bitwise equal to phase 4 (b)'s, its ``.pvti``
+    pieces reassembling to the store, its checkpoint merged and a
+    two-process restart from step 100 reproducing step 200, the
+    processes' launches adding up to phase 4 (b)'s. Then the chains
+    across the process boundary at ``GS_FUSE=2``, split and fused, in
+    one pair of processes: (8,1,1) bitwise equal to phase 4 (iii)'s
+    reference (the stored step 50), (4,2,1) to a one-process run of the
+    same mesh made here, the launches adding up; last, config (b) once
+    more in that pair, warm, its store bitwise again. Prints the warm
+    2-process and phase 4 (b)'s 1-process ms/step and the cross-process
+    exchange ms/step (host time in ``distributed.p2p``)."""
+    import glob
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import launch
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.io.vtk import read_vti
+
+    run = {}
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in ("GS_TPU_STATS", "GS_FUSE", "GS_HALO_DEPTH",
+                             "GS_TPU_MESH_DIMS", "GS_COMM_OVERLAP")}
+    base_env["GS_ASYNC_IO_DEPTH"] = "2"
+
+    def pair(name, cfg):
+        """The CLI on ``cfg`` as two processes of 4 blocks; the ranks'
+        RunStats summaries."""
+        stats = os.path.join(workdir, f"{name}_stats.json")
+        logf = os.path.join(workdir, f"{name}.log")
+        t0 = time.perf_counter()
+        with open(logf, "w", encoding="utf-8") as f:
+            codes = launch.launch(2, cfg, 4, env={**base_env,
+                                                  "GS_TPU_STATS": stats},
+                                  cwd=workdir, timeout=300, stdout=f,
+                                  stderr=subprocess.STDOUT)
+        wall = time.perf_counter() - t0
+        with open(logf, encoding="utf-8") as f:
+            out = f.read()
+        check(codes == [0, 0], f"the two-process {name} run exited {codes}:"
+              f"\n{out[-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(f"{stats}.rank{r}", encoding="utf-8") as f:
+                ranks.append(json.load(f))
+        return ranks, wall
+
+    mp = os.path.join(workdir, "mp")
+    os.makedirs(mp)
+    out = os.path.join(mp, "mesh.bp")
+    ckpt = os.path.join(mp, "mesh_ckpt.bp")
+    cfg = os.path.join(mp, "mesh.toml")
+    write_config(cfg, **main_settings(), output=out, checkpoint=True,
+                 checkpoint_freq=100, checkpoint_output=ckpt)
+    ranks, wall = pair("mesh", cfg)
+    for r, st in enumerate(ranks):
+        c = st["config"]
+        check(c["process_index"] == r and c["process_count"] == 2
+              and c["backend"] == "gloo" and c["cards"] == [0]
+              and c["mesh_dims"] == list(MESH) and c["fuse"] == 1
+              and c["async_io_depth"] == 2,
+              f"process {r} recorded {c}")
+    one = report["sharded_main_path"]
+    summed = {}
+    for st in ranks:
+        for m, n in st["config"]["launches"]["modes"].items():
+            summed[m] = summed.get(m, 0) + n
+    want_b = {m: n for m, n in one["launches"].items() if n}
+    check(summed == want_b and all(
+              st["config"]["launches"]["modes"]["faces6"] * 2
+              == want_b["faces6"] for st in ranks),
+          f"the processes launched {[st['config']['launches'] for st in ranks]}"
+          f", phase 4 (b) {want_b}")
+    got = read_store(out)
+    ref = read_store(os.path.join(workdir, "mesh.bp"))
+    check([s for s, *_ in got] == [s for s, *_ in ref]
+          and all(np.array_equal(x, y) for a, b in zip(got, ref)
+                  for x, y in zip(a[1:], b[1:])),
+          "the two-process store != phase 4 (b)'s")
+    with BpReader(ckpt) as r:
+        check(r.num_steps() == 2 and [len(r.boxes("u", i)) for i in (0, 1)]
+              == [8, 8], "the two-writer checkpoint did not merge")
+    step, u, v = got[-1]
+    vtk = os.path.join(mp, "mesh.vtk")
+    pieces = sorted(glob.glob(os.path.join(vtk, f"step_{step:07d}_b*.vti")))
+    check(len(pieces) == 8 and os.path.isfile(
+        os.path.join(vtk, f"step_{step:07d}.pvti")),
+        f"{len(pieces)} .vti pieces of step {step}")
+    whole = {"U": np.full_like(u, np.nan), "V": np.full_like(v, np.nan)}
+    for piece in pieces:
+        extent, fields = read_vti(piece)
+        for name in whole:
+            whole[name][tuple(slice(lo, hi) for lo, hi in extent)] = (
+                fields[name])
+    check(np.array_equal(whole["U"], u) and np.array_equal(whole["V"], v),
+          "the .pvti pieces do not reassemble to the store's step "
+          f"{step}")
+    steps = MAIN_STEPS
+    ms_cold = max(st["phases_s"]["compute"] for st in ranks) / steps * 1e3
+    log(f"  config (b) as 2 processes of 4 blocks on cuda:0 (gloo): "
+        f"launches {summed} add up to phase 4 (b)'s; store bitwise equal "
+        f"to phase 4 (b)'s, 8 .pvti pieces reassemble to its step {step}; "
+        f"wall {wall:.1f} s, {ms_cold:.3f} ms/step cold (the first steps "
+        "load the kernels and connect the group)")
+    run["mesh"] = {"wall_s": wall, "ms_per_step_cold": ms_cold,
+                   "launches": [st["config"]["launches"] for st in ranks],
+                   "p2p": [st["config"]["p2p"] for st in ranks],
+                   "phases_s": [st["phases_s"] for st in ranks]}
+
+    out2 = os.path.join(mp, "mesh_restart.bp")
+    cfg2 = os.path.join(mp, "mesh_restart.toml")
+    write_config(cfg2, **main_settings(), output=out2, restart=True,
+                 restart_input=ckpt, restart_step=100)
+    pair("mesh_restart", cfg2)
+    step2, u2, v2 = read_store(out2)[-1]
+    check(step2 == step == steps and np.array_equal(u2, u)
+          and np.array_equal(v2, v),
+          "the two-process restart from step 100 != step 200")
+    log("  a two-process restart from the two-writer checkpoint at step "
+        "100 reproduces step 200 bitwise")
+
+    # The chains: one-process (4,2,1) runs first, then the pair.
+    step50, u50, v50 = stored[0]
+    want = {}
+    saved = os.environ.get("GS_FUSE")
+    os.environ["GS_FUSE"] = "2"
+    try:
+        for label, (dims, ov) in MP_CHAINS.items():
+            if dims != (4, 2, 1):
+                rec = report["overlap_runs"][label]
+                want[label] = (rec["modes"], rec["bands"], (u50, v50))
+                continue
+            sim = mesh_sim(gs, gs.Settings(**main_settings(
+                comm_overlap=ov)), dims)
+            cuda_stencil.reset_launches()
+            sim.iterate(50)
+            sim.block_until_ready()
+            want[label] = ({m: c for m, c in
+                            cuda_stencil.MODE_LAUNCHES.items() if c},
+                           cuda_stencil.BAND_LAUNCHES, sim.get_fields())
+            check(sim.overlap_applied == (ov == "on"),
+                  f"one process {label}: overlap_applied "
+                  f"{sim.overlap_applied}")
+    finally:
+        if saved is None:
+            os.environ.pop("GS_FUSE", None)
+        else:
+            os.environ["GS_FUSE"] = saved
+    cases = []
+    for label, (dims, ov) in MP_CHAINS.items():
+        cfg = os.path.join(mp, f"{label}.toml")
+        write_config(cfg, **main_settings(steps=50, comm_overlap=ov),
+                     output=os.path.join(mp, f"{label}.bp"))
+        cases.append({"label": label, "cfg": cfg, "env": {
+            "GS_FUSE": "2", "GS_TPU_MESH_DIMS": ",".join(map(str, dims))}})
+    warm_cfg = os.path.join(mp, f"{MP_WARM}.toml")
+    write_config(warm_cfg, **main_settings(),
+                 output=os.path.join(mp, f"{MP_WARM}.bp"))
+    cases.append({"label": MP_WARM, "cfg": warm_cfg, "env": {
+        "GS_FUSE": "", "GS_TPU_MESH_DIMS": ",".join(map(str, MESH))}})
+    port = launch.free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_WORKER, json.dumps(cases)], cwd=mp,
+        env=launch.process_env(r, 2, port, base_env),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    chain_wall = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          "the two-process chain runs exited "
+          f"{[p.returncode for p in procs]}:\n"
+          + "\n".join(o[-3000:] for o in outs))
+    results = {}
+    for o in outs:
+        for line in o.splitlines():
+            if line.startswith("CASE "):
+                r = json.loads(line[5:])
+                results.setdefault(r["label"], []).append(r)
+    chains = {}
+    for label, (dims, ov) in MP_CHAINS.items():
+        recs = sorted(results.get(label, []), key=lambda r: r["rank"])
+        check(len(recs) == 2, f"{label}: results {recs}")
+        modes, bands, fields = want[label]
+        summed = {}
+        for r in recs:
+            for m, n in r["modes"].items():
+                summed[m] = summed.get(m, 0) + n
+        check(summed == modes and sum(r["bands"] for r in recs) == bands
+              and all(r["overlap_applied"] == (ov == "on")
+                      and r["backend"] == "gloo"
+                      and r["devices"] == ["cuda:0"] for r in recs),
+              f"{label}: the processes launched {recs}, one process "
+              f"{modes} with {bands} bands")
+        s50, *got = read_store(os.path.join(mp, f"{label}.bp"))[-1]
+        check(s50 == 50 and all(np.array_equal(a, b)
+                                for a, b in zip(got, fields)),
+              f"{label} across two processes != its one-process run")
+        chains[label] = {"mesh": list(dims), "modes": summed,
+                         "bands": sum(r["bands"] for r in recs),
+                         "p2p": [r["p2p"] for r in recs],
+                         "wall_s": [r["wall_s"] for r in recs]}
+    warm = sorted(results.get(MP_WARM, []), key=lambda r: r["rank"])
+    check(len(warm) == 2 and sum(r["modes"].get("faces6", 0) for r in warm)
+          == want_b["faces6"], f"{MP_WARM}: results {warm}")
+    warm_store = read_store(os.path.join(mp, f"{MP_WARM}.bp"))
+    check(len(warm_store) == len(ref) and all(
+              np.array_equal(x, y) for a, b in zip(warm_store, ref)
+              for x, y in zip(a, b)),
+          "the warm two-process run of (b) != phase 4 (b)'s store")
+    warm_stats = []
+    for r in range(2):
+        with open(os.path.join(mp, f"{MP_WARM}_stats.json.rank{r}"),
+                  encoding="utf-8") as f:
+            warm_stats.append(json.load(f))
+    ms_one = one["run_stats"]["phases_s"]["compute"] / steps * 1e3
+    ms_two = max(st["phases_s"]["compute"] for st in warm_stats) / steps * 1e3
+    ms_x = max(st["config"]["p2p"]["seconds"]
+               for st in warm_stats) / steps * 1e3
+    log(f"  config (b) warm, 2 processes on cuda:0 (gloo): {ms_two:.3f} "
+        f"ms/step (1 process, phase 4 (b): {ms_one:.3f}), cross-process "
+        f"exchange {ms_x:.3f} ms/step of host time "
+        f"({warm_stats[0]['config']['p2p']})")
+    run["mesh_warm"] = {"ms_per_step_2proc": ms_two,
+                        "ms_per_step_1proc": ms_one,
+                        "exchange_ms_per_step": ms_x,
+                        "p2p": [st["config"]["p2p"] for st in warm_stats],
+                        "phases_s": [st["phases_s"] for st in warm_stats]}
+    log(f"  GS_FUSE=2 across two processes on cuda:0, split and fused: "
+        f"(8,1,1) bitwise equal to phase 4 (iii)'s step 50, (4,2,1) to "
+        f"its one-process run; launches add up "
+        f"({ {k: (v['modes'], v['bands']) for k, v in chains.items()} }); "
+        f"wall {chain_wall:.1f} s")
+    run["chains"] = chains
+    report["multiprocess"] = run
+
+
 def phase_band_times(torch, gs, cuda_stencil, spec, report):
     """Per-launch times of the band recomputes at the split rounds'
     depth-2 shapes (noise on): the kernel (CUDA events, and its device
@@ -2922,6 +3222,9 @@ def main():
         timed(report, "integrity", phase_integrity, torch, gs, cuda_stencil,
               workdir, stored, report)
         timed(report, "shutdown", phase_shutdown, *args)
+        log("phase 4 (iv): two processes on cuda:0 (launch.py, gloo)")
+        timed(report, "multiprocess", phase_multiprocess, torch, gs,
+              cuda_stencil, workdir, stored, report)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,

@@ -24,25 +24,26 @@ from .simulation import Simulation, initialization  # noqa: F401
 __version__ = "0.1.0"
 
 
-def main(args):
+def main(args, *, n_devices=None):
     """CLI driver entry point."""
     from .driver import main as _main
 
-    return _main(args)
+    return _main(args, n_devices=n_devices)
 
 
-def julia_main(args=None) -> int:
+def julia_main(args=None, *, n_devices=None) -> int:
     """Exit-code wrapper: 0 on success; after a SIGTERM/SIGINT that the
     run turned into a boundary checkpoint (``GracefulShutdown``),
     ``EXIT_PREEMPTED`` (75) so that a relauncher resumes it; 1 on any
-    other failure (with the traceback on stderr)."""
+    other failure (with the traceback on stderr). ``n_devices`` is the
+    number of blocks (of this process, in a multi-process run)."""
     import sys
     import traceback
 
     from .resilience.faults import EXIT_PREEMPTED, GracefulShutdown
 
     try:
-        main(sys.argv[1:] if args is None else args)
+        main(sys.argv[1:] if args is None else args, n_devices=n_devices)
     except GracefulShutdown as e:
         print(f"gray-scott-torch: {e}; exiting {EXIT_PREEMPTED} (restart "
               "from the checkpoint to resume)", file=sys.stderr)

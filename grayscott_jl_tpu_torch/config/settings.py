@@ -33,8 +33,12 @@ variables: ``GS_ASYNC_IO_DEPTH`` (the output
 pipeline's depth, ``io/async_writer.resolve_depth``), ``GS_TPU_NATIVE_IO``
 (``0`` forces the Python store engine, ``io/__init__.py``),
 ``GS_CKPT_REPLICAS``, ``GS_CKPT_VERIFY`` (``off``/``read``/``full``),
-``GS_SCRUB`` and ``GS_SCRUB_EVERY`` (``resilience/integrity.py``); their
-bad values raise at start-up, as in the reference.
+``GS_SCRUB`` and ``GS_SCRUB_EVERY`` (``resilience/integrity.py``), and
+the launch variables of a run of several processes
+(``GS_TPU_COORDINATOR`` with ``GS_TPU_NUM_PROCESSES`` and
+``GS_TPU_PROCESS_ID``, or ``GS_TPU_DISTRIBUTED=auto`` with torchrun's
+environment: :func:`resolve_launch`); their bad values raise at
+start-up, as in the reference.
 """
 
 from __future__ import annotations
@@ -303,12 +307,8 @@ _OFF = ("", "0", "off", "false", "no")
 #: in this package yet: what they turn on, the values that mean "off",
 #: and the ROADMAP item that ports it. Each changes what a run computes
 #: or writes, so a value outside "off" raises at construction rather
-#: than being ignored. Several override :data:`NOT_PORTED` keys; the
-#: two launch variables start several processes.
+#: than being ignored. Several override :data:`NOT_PORTED` keys.
 NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_TPU_COORDINATOR": ("multi-process launch", ("",),
-                           "Queue 1 item 14"),
-    "GS_TPU_DISTRIBUTED": ("multi-process launch", _OFF, "Queue 1 item 14"),
     "GS_NUMERICS": ("numerics probes", ("", "off"), "Queue 1 item 16"),
     "GS_SUPERVISE": ("the supervisor", _OFF, "Queue 1 item 17"),
     "GS_FAULTS": ("fault injection", ("",), "Queue 1 item 17"),
@@ -354,6 +354,113 @@ def check_ported(settings: Settings) -> None:
                 f"grayscott_jl_tpu_torch does not support yet (ROADMAP "
                 f"{item}); unset it"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """A multi-process launch read from the environment
+    (:func:`resolve_launch`): this process's ``rank`` of ``world``, the
+    ``host:port`` the processes meet at, and, when the launcher says,
+    this process's rank among those of its host (``local_rank`` of
+    ``local_world``)."""
+
+    form: str  # "coordinator" (GS_TPU_*) or "torchrun"
+    rank: int
+    world: int
+    host: str
+    port: int
+    local_rank: Any = None
+    local_world: Any = None
+
+
+def _launch_int(var: str, *, form: str, low: int, high=None) -> int:
+    """A required integer launch variable in ``[low, high)``; missing or
+    bad values raise naming it, as the reference's ``env_int`` does."""
+    raw = os.environ.get(var)
+    if raw is None or not raw.strip():
+        raise SettingsError(f"{form} needs {var}, which is not set")
+    try:
+        v = int(raw)
+    except ValueError as e:
+        raise SettingsError(
+            f"{var} must be an integer, got {raw!r}") from e
+    if v < low or (high is not None and v >= high):
+        bound = f"[{low}, {high})" if high is not None else f">= {low}"
+        raise SettingsError(f"{var}={v} is outside {bound}")
+    return v
+
+
+def _host_port(var: str, value: str) -> Tuple[str, int]:
+    host, sep, port = value.strip().rpartition(":")
+    try:
+        port_no = int(port)
+    except ValueError:
+        port_no = -1
+    if not sep or not host or not 0 < port_no < 65536:
+        raise SettingsError(f"{var} must be host:port, got {value!r}")
+    return host, port_no
+
+
+def _local(form: str, rank: int, world: int):
+    """``(LOCAL_RANK, LOCAL_WORLD_SIZE)`` when both are set (torchrun and
+    ``launch.py`` set them), else ``(None, None)``."""
+    if (os.environ.get("LOCAL_RANK") is None
+            and os.environ.get("LOCAL_WORLD_SIZE") is None):
+        return None, None
+    local_world = _launch_int("LOCAL_WORLD_SIZE", form=form, low=1,
+                              high=world + 1)
+    local_rank = _launch_int("LOCAL_RANK", form=form, low=0,
+                             high=local_world)
+    return local_rank, local_world
+
+
+def resolve_launch():
+    """The multi-process launch the environment asks for, or None (one
+    process), in the reference's two forms (its
+    ``maybe_initialize_distributed``):
+
+    * ``GS_TPU_COORDINATOR=host:port`` with ``GS_TPU_NUM_PROCESSES`` and
+      ``GS_TPU_PROCESS_ID``: the explicit launch (``launch.py``, or one
+      command per host);
+    * ``GS_TPU_DISTRIBUTED=auto``: the launcher's environment, here
+      torchrun's (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+      ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), the
+      counterpart of the pod autodetection.
+
+    A missing or bad variable raises :class:`SettingsError` naming it."""
+    coord = os.environ.get("GS_TPU_COORDINATOR", "").strip()
+    if coord:
+        form = "GS_TPU_COORDINATOR"
+        host, port = _host_port(form, coord)
+        world = _launch_int("GS_TPU_NUM_PROCESSES", form=form, low=1)
+        rank = _launch_int("GS_TPU_PROCESS_ID", form=form, low=0,
+                           high=world)
+        return Launch("coordinator", rank, world, host, port,
+                      *_local(form, rank, world))
+    auto = os.environ.get("GS_TPU_DISTRIBUTED", "").strip().lower()
+    if auto in _OFF:
+        return None
+    if auto != "auto":
+        raise SettingsError(
+            f"GS_TPU_DISTRIBUTED must be 'auto' or off, got {auto!r}")
+    form = "GS_TPU_DISTRIBUTED=auto"
+    missing = [v for v in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                           "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+               if not os.environ.get(v, "").strip()]
+    if missing:
+        raise SettingsError(
+            f"{form} reads torchrun's environment, but "
+            f"{', '.join(missing)} {'is' if len(missing) == 1 else 'are'} "
+            "not set (start the run under torchrun, or set "
+            "GS_TPU_COORDINATOR, GS_TPU_NUM_PROCESSES and "
+            "GS_TPU_PROCESS_ID)")
+    host = os.environ["MASTER_ADDR"].strip()
+    _, port = _host_port("MASTER_ADDR:MASTER_PORT",
+                         f"{host}:{os.environ['MASTER_PORT']}")
+    world = _launch_int("WORLD_SIZE", form=form, low=1)
+    rank = _launch_int("RANK", form=form, low=0, high=world)
+    return Launch("torchrun", rank, world, host, port,
+                  *_local(form, rank, world))
 
 
 def resolve_comm_overlap(settings: Settings) -> str:

@@ -45,9 +45,21 @@ boundary (when checkpoints are on and the boundary wrote none), drains
 the pipeline, closes its stores and raises ``GracefulShutdown``, which
 the CLI turns into exit code 75.
 
+A run of several processes (``GS_TPU_COORDINATOR`` with
+``GS_TPU_NUM_PROCESSES`` and ``GS_TPU_PROCESS_ID``, or
+``GS_TPU_DISTRIBUTED=auto`` under torchrun; ``launch.py`` starts one on
+a host) is one simulation: the group starts before the simulation is
+built (``parallel/distributed.py``), each process steps its share of the
+mesh's blocks and writes them as writer ``process_index`` of
+``process_count`` to the same stores (the readers merge the writers'
+blocks; ``mesh_type = "image"`` writes ``.vti`` pieces and a ``.pvti``
+index per step), a restart reads each process's own boxes from the
+merged checkpoint, and the health report and the shutdown request are
+agreed across the processes, so that all stop at the same boundary.
+
 Not here yet, each a later slice of the port (ROADMAP Queue 1): the
 supervisor and fault injection, the hang watchdog, the observability
-sinks, ensembles and multi-process launch.
+sinks and ensembles.
 """
 
 from __future__ import annotations
@@ -56,11 +68,13 @@ import time
 from typing import List, Optional
 
 from .config.env import env_str
-from .config.settings import Settings, get_settings, resolve_reshard
+from .config.settings import (Settings, get_settings, load_backend_and_lang,
+                              resolve_reshard)
 from .io.async_writer import AsyncStepWriter, resolve_depth
 from .io.checkpoint import CheckpointWriter, load_checkpoint
 from .io.stream import SimStream
 from .ops import cuda_stencil
+from .parallel import distributed
 from .resilience import integrity
 from .resilience.faults import (GracefulShutdown, ShutdownListener,
                                 resolve_graceful_shutdown)
@@ -80,7 +94,9 @@ def _next_boundary(step: int, period: int, limit: int) -> int:
 def main(args: List[str], *, n_devices: Optional[int] = None,
          seed: int = 0):
     """Run a full simulation from CLI args. ``GS_SEED`` overrides the
-    noise seed (default 0)."""
+    noise seed (default 0). In a run of several processes ``n_devices``
+    is this process's number of blocks (``launch.py`` passes its
+    ``devices_per_proc``)."""
     settings = get_settings(list(args))
     env_seed = env_str("GS_SEED", "").strip()
     if env_seed:
@@ -122,6 +138,9 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     reshard = resolve_reshard(settings)
     depth = resolve_depth()
     icfg = integrity.resolve_config(settings)
+    # The group starts before the simulation is built (the reference's
+    # maybe_initialize_distributed before its Simulation).
+    distributed.ensure_started(load_backend_and_lang(settings)[0])
     # The listener brackets the whole run, construction included: a
     # signal during set-up still leaves through the first boundary.
     with ShutdownListener(
@@ -138,14 +157,24 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
         sim = Simulation(settings, n_devices=n_devices, seed=seed)
     log = Logger(verbose=settings.verbose)
     journal = integrity.IntegrityLog(log)
+    proc, nprocs = distributed.process_index(), distributed.process_count()
+    if nprocs > 1:
+        log.info(f"{nprocs} processes ({distributed.backend()}), "
+                 f"{sim.mesh.n_blocks} of the {sim.domain.n_blocks} blocks "
+                 "in each")
     restart_step = 0
     if settings.restart:
+        # Each process of a multi-process run reads its own boxes.
+        boxes = sim.local_boxes() if nprocs > 1 else None
         *fields, restart_step = load_checkpoint(
             settings.restart_input, settings, settings.restart_step,
             layout=sim.block_boxes() if reshard == "off" else None,
-            journal=journal, log=log,
+            journal=journal, log=log, boxes=boxes,
         )
-        sim.restore_fields(fields, restart_step)
+        if boxes is None:
+            sim.restore_fields(fields, restart_step)
+        else:
+            sim.restore_blocks(fields[0], restart_step)
         log.info(
             f"Restarted from {settings.restart_input} at step {restart_step}"
         )
@@ -161,6 +190,15 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
     snapshot_checksum = icfg["verify"] == "full"
     stream = ckpt = None
     launches0 = cuda_stencil.LAUNCHES
+    modes0 = dict(cuda_stencil.MODE_LAUNCHES)
+    bands0 = cuda_stencil.BAND_LAUNCHES
+
+    def shutdown_requested() -> bool:
+        """The shutdown request, agreed across the processes: a signal
+        to any of them stops all at the same boundary."""
+        if nprocs > 1:
+            return distributed.any_process(shutdown.requested)
+        return shutdown.requested
 
     def capture(targets, **kw):
         """A snapshot into the ring's next buffers, once the pipeline
@@ -200,9 +238,11 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
 
     try:
         stream = SimStream(settings, sim.domain, sim.dtype,
+                           writer_id=proc, nwriters=nprocs,
                            resume_step=resume, codec=codec.output)
         if settings.checkpoint:
-            ckpt = CheckpointWriter(settings, sim.dtype, resume_step=resume,
+            ckpt = CheckpointWriter(settings, sim.dtype, writer_id=proc,
+                                    nwriters=nprocs, resume_step=resume,
                                     codec=codec.ckpt)
         stats = RunStats(settings.L, config={
             "model": sim.model.name,
@@ -216,6 +256,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
             "snapshot_codec": codec.describe(),
             "n_devices": sim.domain.n_blocks,
             "mesh_dims": list(sim.domain.dims),
+            **distributed.describe(),
             "comm_overlap": sim.comm_overlap,
             "halo_depth": sim.halo_depth,
             "io_engine": stream.engine,
@@ -224,7 +265,8 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
         })
         scrubber = (
             integrity.Scrubber(settings, journal=journal,
-                               every=icfg["scrub_every"])
+                               every=icfg["scrub_every"],
+                               writer_id=proc if nprocs > 1 else None)
             if icfg["scrub"] and ckpt is not None else None
         )
         pipe = AsyncStepWriter(depth=depth, stats=stats)
@@ -252,7 +294,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                     and step % settings.checkpoint_freq == 0
                 )
                 if not (at_plot or at_ckpt):
-                    if shutdown.requested:
+                    if shutdown_requested():
                         graceful(step, ckpt_written=False)
                     continue
                 targets = []
@@ -289,7 +331,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                     stats.count("checkpoints")
                     if scrubber is not None:
                         scrubber.maybe_scrub(step)
-                if shutdown.requested:
+                if shutdown_requested():
                     # After this boundary's submission, so that a
                     # resumed run reproduces the uninterrupted stream.
                     graceful(step, ckpt_written=at_ckpt)
@@ -298,7 +340,17 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
             pipe.close()
         elapsed = time.perf_counter() - t0
         stats.count("kernel_launches", cuda_stencil.LAUNCHES - launches0)
+        # This process's launches by mode (each process of a multi-
+        # process run counts its own blocks').
+        stats.config["launches"] = {
+            "modes": {m: n - modes0.get(m, 0)
+                      for m, n in cuda_stencil.MODE_LAUNCHES.items()
+                      if n - modes0.get(m, 0)},
+            "bands": cuda_stencil.BAND_LAUNCHES - bands0}
         stats.record_io(pipe.overlap_stats())
+        stats.config["overlap_applied"] = sim.overlap_applied
+        if nprocs > 1:
+            stats.config["p2p"] = distributed.p2p_stats()
         if scrubber is not None:
             stats.config["integrity"].update(scrubber.describe())
         if journal.events:

@@ -61,6 +61,7 @@ class CheckpointWriter:
         self.codec = dict(codec or {})
         self.field_names = model.field_names
         self._verify = integrity.resolve_verify(settings) == "full"
+        self.writer_id, self.nwriters = writer_id, nwriters
         #: Replica store paths, primary first.
         self.paths = integrity.replica_paths(
             settings.checkpoint_output, integrity.resolve_replicas(settings))
@@ -114,7 +115,7 @@ class CheckpointWriter:
             for w, path in zip(self.writers, self.paths):
                 if hasattr(w, "drain"):
                     w.drain()  # the native engine publishes on its thread
-                verify_last_step(path)
+                verify_last_step(path, self.writer_id, self.nwriters)
 
     def close(self) -> None:
         """Close every replica's writer (all of them, even when one
@@ -222,7 +223,7 @@ def _describe(boxes) -> str:
 
 def load_checkpoint(
     path: str, settings: Settings, restart_step: int = -1, *,
-    layout=None, journal=None, log=None,
+    layout=None, journal=None, log=None, boxes=None,
 ) -> Tuple:
     """``(*fields, step)`` of one checkpoint entry, fields in the
     model's declaration order (bfloat16 ones, and coded ones decoded, as
@@ -232,16 +233,19 @@ def load_checkpoint(
     recorded in ``journal`` and logged). ``layout`` — the restoring
     run's block boxes, ``[(start, count)]``, given under ``reshard =
     "off"`` — must be the layout the entry was written on, else
-    :class:`ReshardError`."""
+    :class:`ReshardError`. With ``boxes`` (``[(start, count)]``, the
+    blocks a process of a multi-process run holds) only those boxes are
+    read: the result is ``(blocks, step)``, ``blocks`` one tuple of
+    field arrays per box."""
     from ..resilience.integrity import restore_with_failover
 
     def attempt(candidate):
-        return _load_one(candidate, settings, restart_step, layout)
+        return _load_one(candidate, settings, restart_step, layout, boxes)
 
     return restore_with_failover(path, attempt, journal=journal, log=log)
 
 
-def _load_one(path, settings, restart_step, layout) -> Tuple:
+def _load_one(path, settings, restart_step, layout, boxes=None) -> Tuple:
     r, idx, step = open_checkpoint(path, settings, restart_step)
     with r:
         names = resolve_model(settings).field_names
@@ -255,5 +259,8 @@ def _load_one(path, settings, restart_step, layout) -> Tuple:
                     f"{_describe(wanted)}, and reshard='off' refuses "
                     "restore-time layout changes; set reshard='auto' (or "
                     "GS_RESHARD=auto) to allow elastic resume")
+        if boxes is not None:
+            return ([tuple(r.get(name, step=idx, start=o, count=c)
+                           for name in names) for o, c in boxes], step)
         fields = tuple(r.get(name, step=idx) for name in names)
     return fields + (step,)

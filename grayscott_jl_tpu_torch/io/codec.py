@@ -219,7 +219,7 @@ def decode_attr(attrs: dict) -> Dict[str, dict]:
         return {}
 
 
-def device_quantize(blocks, bits: int):
+def device_quantize(blocks, bits: int, reduce_range=None):
     """The encoder over one field held as ``blocks`` (a list of tensors
     of one or more blocks, on any devices): ``(qs, lo, hi)`` with ``qs``
     the per-block payload tensors on their blocks' devices — ``uint8``,
@@ -227,12 +227,18 @@ def device_quantize(blocks, bits: int):
     general ``uint16``; view the host copy as ``uint16``) — and ``lo``,
     ``hi`` the global float32 min and max as Python floats. A constant
     field encodes to zeros and decodes to ``lo`` exactly. ``torch.round``
-    rounds half to even, as ``jnp.round`` does."""
+    rounds half to even, as ``jnp.round`` does. ``reduce_range(lo, hi)``
+    widens the blocks' range to the other processes' (a run of several
+    processes holds only its share of the blocks here)."""
     import torch
 
     blocks = list(blocks)
     lo_t = torch.stack([b.float().amin().cpu() for b in blocks]).amin()
     hi_t = torch.stack([b.float().amax().cpu() for b in blocks]).amax()
+    if reduce_range is not None:
+        lo, hi = reduce_range(float(lo_t), float(hi_t))
+        lo_t = torch.tensor(lo, dtype=torch.float32)
+        hi_t = torch.tensor(hi, dtype=torch.float32)
     levels = torch.tensor(float(2 ** bits - 1), dtype=torch.float32)
     span = hi_t - lo_t
     scale = levels / torch.where(span > 0, span,

@@ -12,7 +12,9 @@ uint payload dtype beside per-step ``<NAME>__qlo``/``__qhi`` range
 scalars, and the ``snapshot_codec`` attribute names them. With
 ``mesh_type = "image"`` (the default) each output step is also written
 as a ``.vti`` file of the assembled blocks, coded fields decoded first,
-in the series ``<output>.vtk/`` (``io/vtk.py``), as the reference does.
+in the series ``<output>.vtk/`` (``io/vtk.py``), as the reference does;
+a store with several writers (one per process) writes each writer's
+blocks as ``.vti`` pieces with a ``.pvti`` index per step instead.
 """
 
 from __future__ import annotations
@@ -148,13 +150,22 @@ class SimStream:
         self.writer.define_variable("step", np.int32)
         define_fields(self.writer, self.var_names, dtype, L, self.codec)
         self._vtk = None
+        self._pvti = None
         if settings.mesh_type.lower() == "image":
-            from .vtk import VtiSeriesWriter
+            from .vtk import PvtiSeriesWriter, VtiSeriesWriter
 
-            self._vtk = VtiSeriesWriter(
-                settings.output, L, append=settings.restart,
-                max_step=resume_step, names=self.var_names,
-            )
+            if nwriters == 1:
+                self._vtk = VtiSeriesWriter(
+                    settings.output, L, append=settings.restart,
+                    max_step=resume_step, names=self.var_names,
+                )
+            else:
+                # Each writer its own pieces: no gather across processes.
+                self._pvti = PvtiSeriesWriter(
+                    settings.output, L, domain.block_boxes(),
+                    writer_id=writer_id, append=settings.restart,
+                    max_step=resume_step, names=self.var_names,
+                )
 
     def write_step(self, step: int, blocks, checksums=None) -> None:
         """Write one output step; ``blocks`` is a snapshot
@@ -173,18 +184,24 @@ class SimStream:
         w.end_step()
         if self._vtk is not None:
             self._vtk.write(step, *self._assembled(blocks))
+        if self._pvti is not None:
+            self._pvti.write(step, self._decoded(blocks))
+
+    def _decoded(self, blocks):
+        """The step's blocks with coded fields decoded to the values the
+        store serves."""
+        if self.codec:
+            blocks = blocks.encoded
+        return [(offsets, sizes) + tuple(
+                    fb.decode() if isinstance(fb, EncodedField) else fb
+                    for fb in fblocks)
+                for offsets, sizes, *fblocks in blocks]
 
     def _assembled(self, blocks):
         """The step's global ``L^3`` arrays for the ``.vti`` file: the
-        blocks placed at their offsets, coded fields decoded to the
-        values the store serves."""
-        if self.codec:
-            blocks = blocks.encoded
+        blocks placed at their offsets, coded fields decoded."""
         L = self.settings.L
-        blocks = [(offsets, sizes) + tuple(
-                      fb.decode() if isinstance(fb, EncodedField) else fb
-                      for fb in fblocks)
-                  for offsets, sizes, *fblocks in blocks]
+        blocks = self._decoded(blocks)
         if len(blocks) == 1 and tuple(blocks[0][1]) == (L, L, L):
             return blocks[0][2:]
         arrays = tuple(np.empty((L, L, L), blocks[0][2].dtype)
@@ -205,5 +222,6 @@ class SimStream:
         try:
             self.writer.close()
         finally:
-            if self._vtk is not None:
-                self._vtk.close()
+            for series in (self._vtk, self._pvti):
+                if series is not None:
+                    series.close()

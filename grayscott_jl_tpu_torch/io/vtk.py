@@ -7,9 +7,10 @@ index in ``<output>.vtk/``, as the reference does, so ParaView opens the
 run with no ADIOS2 reader. The format is the reference's byte for byte.
 
 Axis convention: fields are C-order ``[x, y, z]``; VTK's flat order is
-x-fastest, so blocks are transposed before writing. The multi-writer
-form (``.pvti`` pieces) waits for multi-process launch (ROADMAP Queue 1
-item 14).
+x-fastest, so blocks are transposed before writing. A store with
+several writers (a run of several processes) writes the parallel form
+instead (:class:`PvtiSeriesWriter`): one ``.vti`` piece per block, a
+``.pvti`` index of all the blocks per step, and the ``series.pvd``.
 """
 
 from __future__ import annotations
@@ -182,6 +183,83 @@ class VtiSeriesWriter:
 
     def close(self) -> None:
         self._flush_pvd()
+
+
+class PvtiSeriesWriter:
+    """The parallel series: a ``.vti`` piece per block, a ``.pvti``
+    index per step and the ``.pvd`` collection (the reference's
+    ``PvtiSeriesWriter``, its file names and format). Every writer
+    writes the pieces of its own blocks; writer 0 also writes the
+    step's ``.pvti`` over every block of ``boxes`` (the global layout,
+    known without communication) and the ``.pvd``.
+
+    As in the reference, writer 0 may publish a step's index before a
+    peer's pieces are on disk: the BP store, whose reader shows a step
+    only once every writer committed it, is the record; the ``.pvti``
+    is for visualization."""
+
+    def __init__(self, output_name: str, L: int, boxes, *,
+                 writer_id: int = 0, append: bool = False, max_step=None,
+                 names=("U", "V")):
+        base = output_name[:-3] if output_name.endswith(".bp") else output_name
+        self.dir = base + ".vtk"
+        self.L = L
+        self.boxes = [(tuple(o), tuple(c)) for o, c in boxes]
+        self.names = tuple(names)
+        self.writer_id = writer_id
+        os.makedirs(self.dir, exist_ok=True)
+        self._entries = (_scan_series(self.dir, ".pvti", max_step)
+                         if append and writer_id == 0 else [])
+        self._pvd_path = os.path.join(self.dir, "series.pvd")
+
+    @staticmethod
+    def piece_name(step: int, offsets) -> str:
+        return f"step_{step:07d}_b{'_'.join(str(o) for o in offsets)}.vti"
+
+    def write(self, step: int, blocks) -> None:
+        """Write this writer's ``(offsets, sizes, *fields)`` blocks as
+        pieces; writer 0 then publishes the step's ``.pvti``."""
+        vtk_type = None
+        for offsets, sizes, *fblocks in blocks:
+            extent = tuple((o, o + s) for o, s in zip(offsets, sizes))
+            write_vti(os.path.join(self.dir, self.piece_name(step, offsets)),
+                      self.L, step, *fblocks, names=self.names,
+                      extent=extent)
+            vtk_type = _VTK_TYPES.get(fblocks[0].dtype.name, "Float32")
+        if self.writer_id == 0:
+            self._write_pvti(step, vtk_type or "Float32")
+
+    def _write_pvti(self, step: int, vtk_type: str) -> None:
+        whole = _extent_str(((0, self.L),) * 3)
+        lines = [
+            '<?xml version="1.0"?>',
+            '<VTKFile type="PImageData" version="0.1" '
+            'byte_order="LittleEndian">',
+            f'  <PImageData WholeExtent="{whole}" GhostLevel="0" '
+            'Origin="0 0 0" Spacing="1 1 1">',
+            f'    <PCellData Scalars="{self.names[0]}">',
+            *(f'      <PDataArray type="{vtk_type}" Name="{n}"/>'
+              for n in self.names),
+            "    </PCellData>",
+        ]
+        for offsets, sizes in self.boxes:
+            ext = _extent_str(tuple((o, o + s)
+                                    for o, s in zip(offsets, sizes)))
+            name = self.piece_name(step, offsets)
+            lines.append(f'    <Piece Extent="{ext}" '
+                         f'Source="{saxutils.escape(name)}"/>')
+        lines += ["  </PImageData>", "</VTKFile>", ""]
+        name = f"step_{step:07d}.pvti"
+        tmp = os.path.join(self.dir, name + ".tmp")
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines))
+        os.replace(tmp, os.path.join(self.dir, name))
+        self._entries.append((step, name))
+        _write_pvd(self._pvd_path, self._entries)
+
+    def close(self) -> None:
+        if self.writer_id == 0:
+            _write_pvd(self._pvd_path, self._entries)
 
 
 def _write_pvd(pvd_path: str, entries) -> None:

@@ -161,23 +161,29 @@ def build_all(specs: Optional[Iterable] = None,
             result[name] = {"path": path, "source": source,
                             "seconds": 0.0, "log": ""}
             continue
-        with open(source, "w", encoding="utf-8") as f:
+        # The source and the library are written under this process's
+        # own names and renamed into place: processes that build at
+        # once never read or truncate each other's files.
+        mine = f"{path[:-len('.so')]}.{os.getpid()}.cu"
+        with open(mine, "w", encoding="utf-8") as f:
             f.write(emitted_source(spec, probes))
         nvcc = nvcc or find_nvcc()
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, source],
+            [nvcc, *NVCC_FLAGS, "-o", tmp, mine],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        running.append((name, path, source, tmp, proc, time.perf_counter()))
+        running.append((name, path, source, mine, tmp, proc,
+                        time.perf_counter()))
     failures = []
-    for name, path, source, tmp, proc, t0 in running:
+    for name, path, source, mine, tmp, proc, t0 in running:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             failures.append(
-                f"{name}: nvcc exited {proc.returncode} on {source}\n{log}")
+                f"{name}: nvcc exited {proc.returncode} on {mine}\n{log}")
             continue
+        os.replace(mine, source)
         os.replace(tmp, path)
         result[name] = {"path": path, "source": source, "seconds": seconds,
                         "log": log}

@@ -176,6 +176,19 @@ class CartDomain:
             for d, c in zip(self.dims, coords)
         )
 
+    def block_boxes(self):
+        """Every block's ``(offsets, sizes)`` in the true ``L^3`` domain,
+        in rank order: the storage blocks of :attr:`local_shape` at their
+        mesh positions, a non-divisible L's pad cells cut off (the boxes
+        the stores record)."""
+        block = self.local_shape
+        out = []
+        for r in range(self.n_blocks):
+            offs = tuple(c * b for c, b in zip(self.coords(r), block))
+            out.append((offs, tuple(min(self.L - o, b)
+                                    for o, b in zip(offs, block))))
+        return out
+
     @property
     def local_shape(self) -> Tuple[int, int, int]:
         """Per-shard STORAGE block shape (equal blocks; sharded path

@@ -12,6 +12,14 @@ work of the source device's current stream and before later work on
 the destination's; on one device it is the tensor itself. The device
 list may repeat a device: the CPU tests and a one-card run hold a whole
 mesh on one device.
+
+A run of several processes (``parallel/distributed.py``) splits the
+mesh among them: process p holds the ranks ``[p * n, (p + 1) * n)`` of
+its ``n`` blocks, in row-major order (the process-major order of the
+reference's ``jax.devices()``), so the boundary between two processes
+falls on x first. A block's neighbour in another process is reached by
+a point-to-point transfer (``distributed.p2p``), one batch per
+ppermute.
 """
 
 from __future__ import annotations
@@ -65,18 +73,28 @@ def select_devices(kind: str, n_devices: Optional[int] = None,
 
 class DeviceMesh:
     """Blocks of a ``dims`` Cartesian mesh placed on ``devices``: block
-    rank r (row-major, as ``CartDomain.coords``) lives on
-    ``devices[r]``."""
+    rank ``first_rank + i`` (row-major, as ``CartDomain.coords``) lives
+    on ``devices[i]``. In a run of one process the devices cover the
+    whole mesh; with ``processes`` > 1 each process holds an equal,
+    contiguous share, and ``first_rank`` is this process's first."""
 
-    def __init__(self, dims: Tuple[int, int, int], devices: Sequence):
+    def __init__(self, dims: Tuple[int, int, int], devices: Sequence, *,
+                 first_rank: int = 0, processes: int = 1):
         self.dims = tuple(int(d) for d in dims)
         self.devices = [torch.device(d) for d in devices]
         n = self.dims[0] * self.dims[1] * self.dims[2]
-        if len(self.devices) != n:
+        if len(self.devices) * processes != n:
             raise ValueError(
                 f"a {self.dims} mesh has {n} blocks; got "
                 f"{len(self.devices)} devices"
+                + (f" in each of {processes} processes"
+                   if processes > 1 else "")
             )
+        if first_rank % len(self.devices) or not 0 <= first_rank < n:
+            raise ValueError(
+                f"first_rank {first_rank} is not the start of a share of "
+                f"{len(self.devices)} blocks of {n}")
+        self.first_rank = int(first_rank)
         self._side_streams = {}
 
     def side_stream(self, device: torch.device) -> "torch.cuda.Stream":
@@ -89,7 +107,13 @@ class DeviceMesh:
 
     @property
     def n_blocks(self) -> int:
+        """The blocks this process holds (the whole mesh in a run of one
+        process)."""
         return len(self.devices)
+
+    def owner(self, rank: int) -> int:
+        """The process that holds mesh rank ``rank``."""
+        return rank // len(self.devices)
 
     def coords(self, rank: int) -> Tuple[int, int, int]:
         """Row-major rank -> (cx, cy, cz)."""
@@ -110,12 +134,35 @@ class DeviceMesh:
         global edge where no neighbour sends."""
         if shift not in (1, -1):
             raise ValueError(f"shift must be +1 or -1, got {shift}")
+        first, n, me = self.first_rank, self.n_blocks, self.owner(
+            self.first_rank)
         out: List[Optional[torch.Tensor]] = []
-        for r in range(self.n_blocks):
-            c = list(self.coords(r))
-            c[axis] -= shift
+        remote = []  # (index in out, source rank) of faces from elsewhere
+        sends = []
+        for i in range(n):
+            c = list(self.coords(first + i))
+            c[axis] += shift  # where this block's tensor goes
+            if 0 <= c[axis] < self.dims[axis]:
+                dst = self.rank(c)
+                if self.owner(dst) != me:
+                    sends.append((self.owner(dst), dst, tensors[i]))
+            c[axis] -= 2 * shift  # where this block's face comes from
             if not 0 <= c[axis] < self.dims[axis]:
                 out.append(None)
                 continue
-            out.append(tensors[self.rank(c)].to(self.devices[r]))
+            src = self.rank(c)
+            if self.owner(src) == me:
+                out.append(tensors[src - first].to(self.devices[i]))
+            else:
+                out.append(None)
+                remote.append((i, src))
+        if sends or remote:
+            from . import distributed
+
+            # Every block's tensor of one call has the same shape.
+            got = distributed.p2p(
+                sends, [(self.owner(src), first + i, tensors[i],
+                         self.devices[i]) for i, src in remote])
+            for (i, _), t in zip(remote, got):
+                out[i] = t
         return out

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config.env import env_raw
@@ -119,19 +120,24 @@ def device_probe(*fields) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def report_of(probes, names) -> HealthReport:
+def report_of(probes, names, reduce=None) -> HealthReport:
     """The boundary's :class:`HealthReport` from the host copies of the
     blocks' :func:`device_probe` vectors: finite if every block is, the
-    ranges the blocks' min of mins and max of maxes (NaN wins)."""
-    finite = all(bool(p[0]) for p in probes)
-    ranges = []
-    for i in range(len(names)):
-        los = torch.tensor([float(p[1 + 2 * i]) for p in probes],
-                           dtype=torch.float64)
-        his = torch.tensor([float(p[2 + 2 * i]) for p in probes],
-                           dtype=torch.float64)
-        ranges.append((float(los.min()), float(his.max())))
-    return HealthReport(finite, names=names, ranges=ranges)
+    ranges the blocks' min of mins and max of maxes (NaN wins).
+    ``reduce`` combines this process's vector with the other processes'
+    (``parallel/distributed.reduce_probe``), so that every process reads
+    the same report."""
+    probes = np.asarray([np.asarray(p, dtype=np.float64)[:1 + 2 * len(names)]
+                         for p in probes])
+    # np.min/np.max propagate NaN: a NaN in any block wins its entry.
+    vec = np.concatenate([probes[:, :1].min(0),
+                          np.stack([probes[:, 1::2].min(0),
+                                    probes[:, 2::2].max(0)], 1).reshape(-1)])
+    if reduce is not None:
+        vec = reduce(vec)
+    ranges = [(float(vec[1 + 2 * i]), float(vec[2 + 2 * i]))
+              for i in range(len(names))]
+    return HealthReport(bool(vec[0]), names=names, ranges=ranges)
 
 
 def resolve_policy(settings=None) -> str:

@@ -343,12 +343,14 @@ def remove_quarantine(store: str) -> None:
 # ------------------------------------------------------------- scrubber
 
 
-def scrub_store(path: str, *, journal=None, quarantine: bool = True
-                ) -> Optional[dict]:
+def scrub_store(path: str, *, journal=None, quarantine: bool = True,
+                writers: Optional[Sequence[int]] = None) -> Optional[dict]:
     """Audit every durable, not yet quarantined step entry of a BP-lite
     store against its recorded block CRCs and quarantine the corrupt
     ones. Returns the audit (None for a store with no metadata yet).
-    Reads only the on-disk metadata, so a live writer is undisturbed."""
+    Reads only the on-disk metadata, so a live writer is undisturbed.
+    ``writers`` limits the audit to those writers' blocks (each process
+    of a multi-process run scrubs its own)."""
     from ..io import bplite
 
     md_path = os.path.join(path, "md.json")
@@ -364,7 +366,8 @@ def scrub_store(path: str, *, journal=None, quarantine: bool = True
     corrupt: Dict[int, str] = {}
     audited = 0
     checked = 0
-    for w in range(nwriters):
+    writers = range(nwriters) if writers is None else list(writers)
+    for w in writers:
         name = "md.json" if w == 0 else f"md.{w}.json"
         try:
             with open(os.path.join(path, name), encoding="utf-8") as f:
@@ -378,7 +381,7 @@ def scrub_store(path: str, *, journal=None, quarantine: bool = True
         for i, step_blocks in enumerate(md.get("steps", [])[:n]):
             if i in already or i in corrupt:
                 continue
-            if w == 0:
+            if w == writers[0]:
                 audited += 1
             bad, nblocks = _scrub_step(path, md, step_blocks, crcs)
             checked += nblocks
@@ -442,10 +445,13 @@ class Scrubber:
     ``every``-th call of :meth:`maybe_scrub` scrubs the primary and each
     mirror on disk."""
 
-    def __init__(self, settings, *, journal=None, every: int = 1):
+    def __init__(self, settings, *, journal=None, every: int = 1,
+                 writer_id: Optional[int] = None):
         self.settings = settings
         self.journal = journal
         self.every = max(1, int(every))
+        #: The writer whose blocks are audited (None: all).
+        self.writer_id = writer_id
         self._boundaries = 0
         self.reports: List[dict] = []
 
@@ -459,7 +465,9 @@ class Scrubber:
             return None
         reports = []
         for p in self._paths():
-            rep = scrub_store(p, journal=self.journal)
+            rep = scrub_store(p, journal=self.journal,
+                              writers=(None if self.writer_id is None
+                                       else [self.writer_id]))
             if rep is not None:
                 rep["step"] = step
                 reports.append(rep)
@@ -477,11 +485,18 @@ class Scrubber:
 # ------------------------------------------------------- write side etc
 
 
-def verify_last_step(path: str) -> None:
+def verify_last_step(path: str, writer_id: int = 0,
+                     nwriters: int = 1) -> None:
     """The write-side read-back (``GS_CKPT_VERIFY=full``): re-read every
     variable of the store's last durable step through the CRC-checked
     read, raising :class:`CorruptionError` if the bytes that landed are
-    not the bytes checksummed at ``put``."""
+    not the bytes checksummed at ``put``. A writer of a multi-writer
+    store (``nwriters`` > 1) reads back its own last step against its
+    own ``integrity.<w>.json``: the merged store shows a step only once
+    every writer committed it."""
+    if nwriters > 1:
+        _verify_writer_last_step(path, writer_id)
+        return
     from ..io.bplite import BpReader
 
     r = BpReader(path, verify="read")
@@ -496,6 +511,28 @@ def verify_last_step(path: str) -> None:
                 continue
     finally:
         r.close()
+
+
+def _verify_writer_last_step(path: str, writer_id: int) -> None:
+    from ..io import bplite
+
+    with open(os.path.join(path, "md.json"), encoding="utf-8") as f:
+        md0 = json.load(f)
+    md = md0
+    if writer_id:
+        with open(os.path.join(path, f"md.{writer_id}.json"),
+                  encoding="utf-8") as f:
+            md = json.load(f)
+        if not md.get("variables"):
+            md = dict(md, variables=md0.get("variables", {}))
+    n = bplite.durable_step_count(md, path)
+    if n == 0:
+        return
+    bad, _ = _scrub_step(path, md, md["steps"][n - 1],
+                         bplite.read_integrity_crcs(path, writer_id))
+    if bad is not None:
+        raise CorruptionError(f"store {path} writer {writer_id} step "
+                              f"entry {n - 1}: {bad}")
 
 
 def verify_store(path: str) -> dict:

@@ -67,7 +67,7 @@ from .io.codec import (BoundaryBlocks, EncodedField, device_quantize,
 from .models import SettingsError
 from .ops import cuda_stencil, kernelgen, stencil
 from .ops.noise import uniform_pm1_block
-from .parallel import halo, temporal
+from .parallel import distributed, halo, temporal
 from .parallel.domain import CartDomain
 from .parallel.mesh import DeviceMesh, select_devices
 from .resilience.health import device_probe, report_of
@@ -198,7 +198,8 @@ class FieldSnapshot:
 
     def __init__(self, step: int, parts, field_names, *, events=(),
                  probe_events=(), small=(), health: bool = False,
-                 checksum: bool = False, enc_parts=None, enc_meta=None):
+                 checksum: bool = False, enc_parts=None, enc_meta=None,
+                 reduce_probe=None):
         #: Simulation step the snapshot was taken at.
         self.step = step
         self.field_names = tuple(field_names)
@@ -211,6 +212,8 @@ class FieldSnapshot:
         self._small_host = None
         self._health = health
         self._checksum = checksum
+        self._reduce_probe = reduce_probe
+        self._report = None
         self._blocks = None
 
     def _scalars(self):
@@ -222,11 +225,15 @@ class FieldSnapshot:
 
     def health_report(self):
         """The boundary's :class:`~.resilience.health.HealthReport`, or
-        None when no probe was taken."""
+        None when no probe was taken. In a run of several processes it
+        is the report over every process's blocks (one collective, made
+        once), so that every process reads the same verdict."""
         if not self._health:
             return None
-        n = 1 + 2 * len(self.field_names)
-        return report_of([s[:n] for s in self._scalars()], self.field_names)
+        if self._report is None:
+            self._report = report_of(self._scalars(), self.field_names,
+                                     reduce=self._reduce_probe)
+        return self._report
 
     def has_checksums(self) -> bool:
         return self._checksum
@@ -306,7 +313,14 @@ class Simulation:
     """One registered model (Gray-Scott by default) on a mesh of
     blocks. ``devices`` is the explicit, possibly repeating, device list
     (one entry per block); ``n_devices`` and ``mesh_dims`` are as in the
-    reference."""
+    reference.
+
+    When the launch variables ask for several processes
+    (``parallel/distributed.py``), the group is started here if it is
+    not yet, and this process builds, steps and snapshots only its own
+    blocks: ``n_devices`` (or ``devices``) is then this process's share,
+    by default one block per owned card (one on the CPU), and the mesh
+    spans every process's share."""
 
     def __init__(self, settings: Settings, *,
                  n_devices: Optional[int] = None, seed: int = 0,
@@ -339,10 +353,16 @@ class Simulation:
                 self.compute_precision)
             self.kernel_selection["snapshot_codec"] = (
                 self.snapshot_codec.posture())
-        devices = select_devices(kind, n_devices, devices)
-        self.domain = CartDomain.create(len(devices), settings.L,
-                                        dims=mesh_dims)
-        self.mesh = DeviceMesh(self.domain.dims, devices)
+        if distributed.ensure_started(kind) is not None and devices is None:
+            devices = distributed.process_devices(kind, n_devices)
+        else:
+            devices = select_devices(kind, n_devices, devices)
+        #: Processes of the run (``parallel/distributed.py``).
+        self.processes = distributed.process_count()
+        n_global, first = distributed.block_layout(len(devices))
+        self.domain = CartDomain.create(n_global, settings.L, dims=mesh_dims)
+        self.mesh = DeviceMesh(self.domain.dims, devices, first_rank=first,
+                               processes=self.processes)
         self.sharded = self.domain.n_blocks > 1
         self.device = devices[0]
         #: The generated kernel's spec; the plain path runs the model's
@@ -389,10 +409,11 @@ class Simulation:
         L = settings.L
         if self.sharded:
             block = self.domain.local_shape
-            #: Global origin of each block's storage (rank order).
+            #: Global origin of each of this process's blocks' storage
+            #: (rank order).
             self.offsets = [
                 tuple(c * b for c, b in zip(self.domain.coords(r), block))
-                for r in range(self.domain.n_blocks)
+                for r in range(first, first + len(devices))
             ]
             self.blocks = [
                 tuple(self.model.init(L, self.dtype, offsets=offs,
@@ -821,7 +842,15 @@ class Simulation:
         """Host copies of the model's fields (declaration order), the
         blocks assembled and clipped to the true ``L^3`` domain; bfloat16
         fields come back as float32 arrays holding their values (numpy
-        has no bfloat16)."""
+        has no bfloat16). A run of several processes raises: no process
+        holds the whole grid (read the stores, or :meth:`snapshot`'s
+        blocks, instead)."""
+        if self.processes > 1:
+            raise ValueError(
+                f"get_fields() needs the whole grid, but this process "
+                f"holds {self.mesh.n_blocks} of the {self.domain.n_blocks} "
+                f"blocks of a {self.processes}-process run; read the "
+                "output store, or this process's blocks from snapshot()")
         if not self.sharded:
             return tuple(_host(f) for f in self.blocks[0])
         L = self.settings.L
@@ -880,10 +909,12 @@ class Simulation:
             sources[0][flip] = sources[0][flip].clone()
         probes = ([device_probe(*fields) for fields in self.blocks]
                   if health else None)
+        multi = self.processes > 1
         coded = {}
         for i, bits in (encode or {}).items():
             coded[i] = (bits,) + device_quantize(
-                [b[i] for b in self.blocks], bits)
+                [b[i] for b in self.blocks], bits,
+                reduce_range=distributed.global_range if multi else None)
         sums = ([device_field_checksum(*fields) for fields in self.blocks]
                 if checksum and exact else None)
         if flip is not None:
@@ -929,7 +960,7 @@ class Simulation:
                 buf.copy_(src)
             return buf
 
-        boxes = self.block_boxes()
+        boxes = self.local_boxes()
         parts = ([(offs, true) + tuple(to_host(f, (r, i))
                                        for i, f in enumerate(srcs))
                   for r, ((offs, true), srcs) in enumerate(zip(boxes,
@@ -958,7 +989,8 @@ class Simulation:
             probe_events=probe_events, small=small, health=health,
             checksum=sums is not None, enc_parts=enc_parts,
             enc_meta={i: (bits, lo, hi, self.dtype)
-                      for i, (bits, _, lo, hi) in coded.items()})
+                      for i, (bits, _, lo, hi) in coded.items()},
+            reduce_probe=distributed.reduce_probe if multi else None)
 
     def snapshot(self, encode=None, exact: bool = True,
                  health: bool = False,
@@ -980,13 +1012,16 @@ class Simulation:
         return out
 
     def block_boxes(self) -> List[Tuple[tuple, tuple]]:
-        """Each block's ``(offsets, sizes)`` in the true ``L^3`` domain
-        (a non-divisible L's pad cells cut off), in rank order: the boxes
-        the stores record."""
-        L = self.settings.L
-        return [(offs, tuple(min(L - o, s)
-                             for o, s in zip(offs, fields[0].shape)))
-                for offs, fields in zip(self.offsets, self.blocks)]
+        """Every block's ``(offsets, sizes)`` in the true ``L^3`` domain
+        (a non-divisible L's pad cells cut off), in rank order, over all
+        processes: the layout the stores record."""
+        return self.domain.block_boxes()
+
+    def local_boxes(self) -> List[Tuple[tuple, tuple]]:
+        """The boxes of this process's blocks (:meth:`block_boxes`'s
+        share of the ranks it holds)."""
+        first = self.mesh.first_rank
+        return self.block_boxes()[first:first + self.mesh.n_blocks]
 
     def restore_fields(self, fields, step: int) -> None:
         """Load host field arrays (declaration order, ``L^3`` each) at
@@ -1005,6 +1040,27 @@ class Simulation:
                     f"L={self.settings.L}"
                 )
         self.blocks = self.scatter(fields)
+        self.step = int(step)
+
+    def restore_blocks(self, boxes, step: int) -> None:
+        """Load this process's blocks at ``step`` from host arrays, one
+        tuple of field arrays (declaration order) per box of
+        :meth:`local_boxes`; the pad cells of a non-divisible L are
+        rebuilt at the boundary value."""
+        block = self.domain.local_shape if self.sharded else (
+            (self.settings.L,) * 3)
+        blocks = []
+        for arrays, dev in zip(boxes, self.mesh.devices):
+            if len(arrays) != self.model.n_fields:
+                raise ValueError(
+                    f"Checkpoint has {len(arrays)} fields; model "
+                    f"{self.model.name!r} declares {self.model.n_fields}")
+            blocks.append(tuple(
+                torch.tensor(np.pad(np.asarray(a), [
+                    (0, b - n) for b, n in zip(block, np.shape(a))],
+                    constant_values=bv), dtype=self.dtype, device=dev)
+                for a, bv in zip(arrays, self.model.boundaries)))
+        self.blocks = blocks
         self.step = int(step)
 
     def scatter(self, fields) -> List[tuple]:

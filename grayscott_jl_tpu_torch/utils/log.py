@@ -1,11 +1,12 @@
 """Minimal structured logging for the driver (counterpart of
 ``grayscott_jl_tpu/utils/log.py``).
 
-``info`` prints only when the run is ``verbose``; ``warn`` always
-prints. ``GS_LOG_FORMAT=json`` switches every line to one JSON object
-(``{"ts", "t_rel_s", "level", "proc", "msg"}``); the default ``text``
-keeps the ``[gray-scott +N.NNNs]`` prefix. This package runs one
-process, so ``proc`` is always 0.
+``info`` prints only when the run is ``verbose``, and in a run of
+several processes only on process 0, as the reference's rank-0 output
+does; ``warn`` always prints, on every process. ``GS_LOG_FORMAT=json``
+switches every line to one JSON object (``{"ts", "t_rel_s", "level",
+"proc", "msg"}``, ``proc`` the process index); the default ``text``
+keeps the ``[gray-scott +N.NNNs]`` prefix.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import time
 from typing import Optional
 
 from ..config.env import env_str
+from ..parallel import distributed
 
 LOG_FORMATS = ("text", "json")
 
@@ -44,7 +46,7 @@ class Logger:
                     "ts": round(time.time(), 3),
                     "t_rel_s": round(dt, 3),
                     "level": level,
-                    "proc": 0,
+                    "proc": distributed.process_index(),
                     "msg": msg,
                 }),
                 file=self.stream, flush=True,
@@ -55,7 +57,7 @@ class Logger:
                   file=self.stream, flush=True)
 
     def info(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and distributed.process_index() == 0:
             self._emit("info", msg)
 
     def warn(self, msg: str) -> None:

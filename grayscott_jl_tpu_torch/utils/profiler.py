@@ -89,10 +89,16 @@ class RunStats:
         }
 
     def maybe_write(self) -> Optional[str]:
-        """Write the summary where ``GS_TPU_STATS`` points (if set)."""
+        """Write the summary where ``GS_TPU_STATS`` points (if set); in a
+        run of several processes each writes its own, the path suffixed
+        ``.rank<N>``, as in the reference."""
         path = env_raw("GS_TPU_STATS")
         if not path:
             return None
+        from ..parallel import distributed
+
+        if distributed.process_count() > 1:
+            path = f"{path}.rank{distributed.process_index()}"
         with open(path, "w", encoding="utf-8") as f:
             json.dump(self.summary(), f)
             f.write("\n")

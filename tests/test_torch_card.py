@@ -814,3 +814,96 @@ def test_snapshot_async_on_card(dtype):
     bad = sim.snapshot_async(checksum=True, bitflip=True, ring=ring)
     with pytest.raises(CorruptionError):
         bad.blocks()
+
+
+# ------------------------------------------------------ across processes
+
+#: Runs of several processes on the card: (processes, cards they see,
+#: mesh, GS_FUSE, the backend the placement rule picks). Two processes
+#: on one card share it (gloo, faces staged through pinned host
+#: memory); with a card each they talk over NCCL.
+ACROSS_PROCESSES = [
+    (2, 1, (2, 2, 2), "1", "gloo"),
+    (2, 1, (4, 2, 1), "2", "gloo"),
+    (2, 2, (2, 2, 2), "1", "nccl"),
+    (2, 2, (4, 2, 1), "2", "nccl"),
+    (4, 4, (2, 2, 2), "1", "nccl"),
+    (4, 4, (4, 2, 1), "2", "nccl"),
+]
+
+
+def _card_config(path, **kw):
+    base = dict(L=64, steps=20, plotgap=10, noise=0.1, precision="Float32",
+                backend="CUDA", kernel_language="Pallas",
+                output=str(path.parent / "gs.bp"), **KW)
+    base.update(kw)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(
+        f'{k} = "{v}"' if isinstance(v, str) else f"{k} = {v}"
+        for k, v in base.items()) + "\n")
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("procs,cards,dims,fuse,backend", ACROSS_PROCESSES)
+def test_run_across_processes_equals_one_process(procs, cards, dims, fuse,
+                                                 backend, tmp_path,
+                                                 monkeypatch):
+    """``launch.py`` with ``procs`` processes seeing ``cards`` cards
+    (``CUDA_VISIBLE_DEVICES``), each holding its share of the mesh's
+    blocks: the multi-writer store is bitwise equal to the one-process
+    run of the same mesh (every block on ``cuda:0``), each process
+    records the backend the placement rule picked, and at depth 2 the
+    rounds are split with the exchange's transfers ordered behind each
+    card's side stream."""
+    import json
+    import os
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import Simulation, driver, launch
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+
+    _card()
+    have = torch.cuda.device_count()
+    if have < cards:
+        pytest.skip(f"needs {cards} CUDA cards; this machine has {have}")
+    n = dims[0] * dims[1] * dims[2]
+    env = {"GS_FUSE": fuse, "GS_TPU_MESH_DIMS": ",".join(map(str, dims))}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    one_cfg = _card_config(tmp_path / "one" / "cfg.toml")
+    one = driver.run_once(
+        get_settings([one_cfg]),
+        sim_factory=lambda s, *, n_devices, seed: Simulation(
+            s, seed=seed, mesh_dims=dims, devices=["cuda:0"] * n))
+    assert one.overlap_applied == (fuse != "1")
+    cfg = _card_config(tmp_path / "pair" / "cfg.toml")
+    stats = str(tmp_path / "pair" / "stats.json")
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("GS_TPU_COORDINATOR", "GS_TPU_DISTRIBUTED")}
+    child_env.update(env, GS_TPU_STATS=stats,
+                     CUDA_VISIBLE_DEVICES=",".join(map(str, range(cards))))
+    log = tmp_path / "pair" / "launch.log"
+    with open(log, "w") as f:
+        codes = launch.launch(procs, cfg, n // procs, env=child_env,
+                              cwd=str(tmp_path / "pair"), timeout=240,
+                              stdout=f, stderr=f)
+    assert codes == [0] * procs, log.read_text()[-4000:]
+    for rank in range(procs):
+        with open(f"{stats}.rank{rank}") as f:
+            c = json.load(f)["config"]
+        assert (c["process_index"], c["process_count"]) == (rank, procs)
+        assert c["backend"] == backend
+        assert c["cards"] == ([rank] if backend == "nccl" else
+                              [rank * cards // procs])
+        assert c["overlap_applied"] == (fuse != "1")
+        assert c["p2p"]["calls"] > 0
+    with BpReader(str(tmp_path / "one" / "gs.bp")) as a, BpReader(
+            str(tmp_path / "pair" / "gs.bp")) as b:
+        assert a.num_steps() == b.num_steps() == 2
+        for i in range(2):
+            for name in ("U", "V"):
+                np.testing.assert_array_equal(a.get(name, step=i),
+                                              b.get(name, step=i))

@@ -28,6 +28,7 @@ from grayscott_jl_tpu.config.settings import Settings as RefSettings
 from grayscott_jl_tpu.simulation import Simulation as RefSimulation
 from grayscott_jl_tpu_torch import Settings, Simulation
 from grayscott_jl_tpu_torch.carry import blocks_from_reference
+from grayscott_jl_tpu_torch.config.settings import NOT_PORTED_ENV
 from grayscott_jl_tpu_torch.models import SettingsError
 from grayscott_jl_tpu_torch.ops import cuda_stencil
 
@@ -302,14 +303,24 @@ def test_unported_mesh_options_raise_naming_the_item(key, value, item):
     ("GS_TPU_DISTRIBUTED", "auto", "14"),
 ])
 def test_unported_env_overrides_raise(var, value, item, monkeypatch):
-    """The launch variables (item 14) raise; ``GS_COMM_OVERLAP`` and
-    ``GS_HALO_DEPTH`` act since their items were ported, and win over
-    the settings' keys."""
+    """Every variable acts since its item was ported: ``GS_COMM_OVERLAP``
+    and ``GS_HALO_DEPTH`` win over the settings' keys, and the launch
+    variables (item 14) start a multi-process run — so an incomplete
+    launch raises, naming what is missing: ``GS_TPU_NUM_PROCESSES``
+    after ``GS_TPU_COORDINATOR``, torchrun's variables after
+    ``GS_TPU_DISTRIBUTED=auto`` (tests/test_torch_distributed.py and
+    tests/test_torch_multiprocess*.py run the complete ones)."""
+    for launch_var in ("GS_TPU_NUM_PROCESSES", "GS_TPU_PROCESS_ID",
+                       "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                       "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(launch_var, raising=False)
     monkeypatch.setenv(var, value)
     s = _settings(Settings, "Pallas", L=8)
     if item == "14":
-        with pytest.raises(SettingsError,
-                           match=f"{var}.*Queue 1 item {item}"):
+        assert var not in NOT_PORTED_ENV
+        missing = ("GS_TPU_NUM_PROCESSES" if var == "GS_TPU_COORDINATOR"
+                   else "MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE")
+        with pytest.raises(SettingsError, match=f"{var}.*{missing}"):
             Simulation(s, n_devices=2)
         return
     monkeypatch.setenv("GS_FUSE", "1")
