@@ -111,7 +111,19 @@ Phases, each of which stops the run on failure:
    (8,1,1) and (4,2,1), split and fused, bitwise equal to their
    one-process runs with the launches adding up, and (b) once more,
    warm, for the 2-process ms/step and the cross-process exchange's
-   host ms/step;
+   host ms/step; (v) the observability sinks (``phase_obs``): (a) and
+   (b) with obs off, on, on, off (``GS_EVENTS``, ``GS_METRICS`` at
+   0.05 s, ``GS_METRICS_PROM``, ``GS_TRACE``, ``GS_NUMERICS=boundary``),
+   every store byte-identical and equal to phase 4's, the trace valid,
+   the events holding run_start, an output and a numerics record per
+   stored step, a checkpoint per checkpoint step and run_complete, the
+   Prometheus dump ``step_latency_us``, each numerics report's min/max
+   equal to a float64 numpy recomputation from the stored step and
+   mean/l2 within 1e-5 of it; (a) at ``GS_NUMERICS=every_round`` under
+   ``GS_DRIFT_POLICY=abort`` with ``poison_drift`` after step 100,
+   raising ``DriftError`` with only step 50 stored; the probe's device
+   time on the L=256 fields beside its bound, and ``numerics_stats``'
+   host ms on (a) and (b);
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -2095,6 +2107,260 @@ def phase_multiprocess(torch, gs, cuda_stencil, workdir, stored, report):
     report["multiprocess"] = run
 
 
+#: Relative tolerance of a numerics report's ``mean`` and ``l2``
+#: against a float64 numpy recomputation from the stored step (the
+#: probe sums float32 cells in float64 on the card, in another order).
+OBS_RTOL = 1e-5
+
+
+def reset_sinks():
+    """Drop the process-wide sinks, so that the next run resolves them
+    from the environment."""
+    from grayscott_jl_tpu_torch.obs import events, metrics, trace
+
+    events.reset_events()
+    metrics.reset_metrics()
+    trace.reset_tracer()
+
+
+def sink_env(d):
+    """Every observability sink armed into directory ``d``."""
+    return {"GS_EVENTS": os.path.join(d, "events.jsonl"),
+            "GS_METRICS": os.path.join(d, "metrics.jsonl"),
+            "GS_METRICS_INTERVAL_S": "0.05",
+            "GS_METRICS_PROM": os.path.join(d, "prom.txt"),
+            "GS_TRACE": os.path.join(d, "trace.json"),
+            "GS_NUMERICS": "boundary"}
+
+
+def check_sinks(sinks, store, summary, label):
+    """Phase 4 (v)'s checks of one run's sinks: every file there, none
+    broken, the trace valid, the events holding run_start, one output
+    per stored step, one checkpoint per checkpoint step, one numerics
+    record per write boundary and run_complete, the Prometheus dump
+    holding ``step_latency_us``, and each numerics report's min/max
+    equal to, and mean/l2 within ``OBS_RTOL`` of, a float64 numpy
+    recomputation from the stored step. Returns the worst relative
+    error of mean/l2 and the counts."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.obs import events, trace
+
+    for name in ("events.jsonl", "metrics.jsonl", "prom.txt", "trace.json"):
+        check(os.path.isfile(os.path.join(sinks, name)),
+              f"{label}: sink {name} missing")
+    obs = summary["obs"]
+    check(obs["events"]["broken"] is None and obs["trace"]["dropped"] == 0,
+          f"{label}: a sink broke or dropped: {obs}")
+    with open(os.path.join(sinks, "trace.json"), encoding="utf-8") as f:
+        doc = json.load(f)
+    problems = trace.validate_trace(doc)
+    check(not problems, f"{label}: trace invalid: {problems[:3]}")
+    evs = events.parse_events(os.path.join(sinks, "events.jsonl"))
+    got = read_store(store)
+    steps = [s for s, *_ in got]
+    kinds = [e["kind"] for e in evs]
+    at = lambda kind: [e["step"] for e in evs if e["kind"] == kind]  # noqa: E731
+    check(kinds[0] == "run_start" and kinds[-1] == "run_complete",
+          f"{label}: events {kinds}")
+    check(at("output") == steps and at("numerics") == steps
+          and at("checkpoint") == [100, 200],
+          f"{label}: output {at('output')}, numerics {at('numerics')}, "
+          f"checkpoint {at('checkpoint')}; stored {steps}")
+    with open(os.path.join(sinks, "prom.txt"), encoding="utf-8") as f:
+        check("step_latency_us" in f.read(),
+              f"{label}: no step_latency_us in the Prometheus dump")
+    with open(os.path.join(sinks, "metrics.jsonl"), encoding="utf-8") as f:
+        records = len(f.read().splitlines())
+    worst = 0.0
+    by_step = {s: fields for s, *fields in got}
+    for e in (e for e in evs if e["kind"] == "numerics"):
+        for name, arr in zip(("u", "v"), by_step[e["step"]]):
+            rep = e["attrs"]["fields"][name]
+            a = np.asarray(arr, dtype=np.float64)
+            want = {"min": a.min(), "max": a.max(), "mean": a.mean(),
+                    "l2": math.sqrt(float(np.dot(a.ravel(), a.ravel())))}
+            check(rep["min"] == want["min"] and rep["max"] == want["max"]
+                  and rep["nonfinite"] == 0,
+                  f"{label}: step {e['step']} {name}: {rep} vs {want}")
+            for stat in ("mean", "l2"):
+                err = abs(rep[stat] - want[stat]) / abs(want[stat])
+                check(err <= OBS_RTOL, f"{label}: step {e['step']} {name} "
+                      f"{stat} {rep[stat]} vs {want[stat]} (rel {err:.2e})")
+                worst = max(worst, err)
+    return {"max_rel_err": worst, "events": len(evs),
+            "metrics_records": records, "trace_events": obs["trace"]["events"]}
+
+
+def poisoning(gs, at, factory=None):
+    """A ``sim_factory`` whose simulation scales the ``u`` corner
+    (``Simulation.poison_drift``) once its step reaches ``at``."""
+    def make(settings, *, n_devices, seed):
+        sim = (factory(settings, n_devices=n_devices, seed=seed)
+               if factory is not None
+               else gs.Simulation(settings, n_devices=n_devices, seed=seed))
+        iterate = sim.iterate
+
+        def stepped(n):
+            iterate(n)
+            if sim.step == at:
+                sim.poison_drift()
+
+        sim.iterate = stepped
+        return sim
+
+    return make
+
+
+def phase_obs(torch, gs, cuda_stencil, workdir, stored, report):
+    """Phase 4 (v), the observability sinks (``obs/``) on the main paths:
+    config (a) and the (2,2,2) mesh (b), each in the order obs off, on,
+    on, off (``GS_EVENTS``, ``GS_METRICS`` at 0.05 s, ``GS_METRICS_PROM``,
+    ``GS_TRACE`` and ``GS_NUMERICS=boundary`` armed): every store
+    byte-identical to the others and bitwise equal to phase 4's, the
+    sinks checked (``check_sinks``), the walls printed; then (a) at
+    ``GS_NUMERICS=every_round`` with ``GS_DRIFT_POLICY=abort`` and
+    ``poison_drift`` after step 100, which must raise ``DriftError`` at
+    step 100 with no step after 100 stored; then the probe's device time
+    on the L=256 fields beside its bound and the host ms of
+    ``numerics_stats`` on (a) and (b)."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.obs import events
+    from grayscott_jl_tpu_torch.obs import numerics as obs_numerics
+    from grayscott_jl_tpu_torch.resilience.health import DriftError
+
+    def factory(settings, *, n_devices, seed):
+        return mesh_sim(gs, settings, MESH, seed)
+
+    smi = nvidia_smi("name,power.limit")
+    rows = {}
+    for layout, fac in (("single", None), ("mesh", factory)):
+        digests = []
+        walls = {"off": [], "on": []}
+        checks = []
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            name = f"obs_{layout}_{mode}_{i}"
+            sinks = os.path.join(workdir, name + "_sinks")
+            os.makedirs(sinks)
+            env = sink_env(sinks) if mode == "on" else {}
+            reset_sinks()
+            try:
+                d, summary, wall, launches = run_store(
+                    torch, gs, cuda_stencil, workdir, name, 2, fac, env=env)
+            finally:
+                reset_sinks()
+            check(launches > 0, f"obs {layout} {mode}: no launch")
+            walls[mode].append(wall)
+            digests.append(tree_digest(d))
+            if mode == "on":
+                checks.append(check_sinks(sinks, os.path.join(d, "gs.bp"),
+                                          summary, f"obs {layout} {i}"))
+            else:
+                check(summary["obs"] is None and summary["numerics"] is None,
+                      f"obs {layout} off: sinks armed {summary['obs']}")
+            if i == 0:
+                got = read_store(os.path.join(d, "gs.bp"))
+                check([s for s, *_ in got] == [s for s, *_ in stored]
+                      and all(np.array_equal(a, b)
+                              for (_, *fa), (_, *fb) in zip(got, stored)
+                              for a, b in zip(fa, fb)),
+                      f"obs {layout}: store != phase 4's")
+            shutil.rmtree(d)
+            shutil.rmtree(sinks)
+        check(all(dg == digests[0] for dg in digests[1:]),
+              f"obs {layout}: files differ between obs on and off: "
+              f"{[k for k in digests[0] if digests[0][k] != digests[1].get(k)]}")
+        row = {"wall_off_s": walls["off"], "wall_on_s": walls["on"],
+               "files": len(digests[0]), "sinks": checks}
+        rows[layout] = row
+        log(f"  {layout}: stores byte-identical obs on/off ({row['files']} "
+            f"files); wall obs off {walls['off']} s, on {walls['on']} s; "
+            f"numerics mean/l2 worst rel err "
+            f"{max(c['max_rel_err'] for c in checks):.2e}; {smi}")
+
+    # The drift gate under abort, every round, the corner scaled 8x
+    # after step 100.
+    d = os.path.join(workdir, "obs_drift")
+    os.makedirs(d)
+    cfg = os.path.join(d, "cfg.toml")
+    write_config(cfg, **main_settings(), output=os.path.join(d, "gs.bp"),
+                 checkpoint=True, checkpoint_freq=100,
+                 checkpoint_output=os.path.join(d, "ckpt.bp"))
+    env = {"GS_EVENTS": os.path.join(d, "events.jsonl"),
+           "GS_NUMERICS": "every_round", "GS_DRIFT_POLICY": "abort"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    raised = None
+    reset_sinks()
+    try:
+        driver.run_once(get_settings([cfg]), sim_factory=poisoning(gs, 100))
+    except DriftError as e:
+        raised = e
+    finally:
+        reset_sinks()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(raised is not None and raised.step == 100,
+          f"poison_drift after step 100 under abort raised {raised!r}")
+    out_steps = [s for s, *_ in read_store(os.path.join(d, "gs.bp"))]
+    ckpt_steps = [s for s, *_ in read_store(os.path.join(d, "ckpt.bp"),
+                                            ("u", "v"))]
+    check(out_steps == [50] and ckpt_steps == [],
+          f"drift abort stored output {out_steps}, checkpoints {ckpt_steps}")
+    evs = events.parse_events(env["GS_EVENTS"])
+    drifts = [e for e in evs if e["kind"] == "drift"]
+    check(len(drifts) == 1 and drifts[0]["step"] == 100
+          and "u.max" in drifts[0]["attrs"]["tripped"]
+          and evs[-1]["kind"] == "run_error",
+          f"drift events {drifts}, last {evs[-1]['kind']}")
+    log(f"  drift abort: DriftError at step 100 ({raised}); stored output "
+        f"{out_steps}, checkpoints {ckpt_steps}")
+    shutil.rmtree(d)
+
+    # The probe's cost: device time on the L=256 fields, against the
+    # bytes it must read; host ms of a probe on (a) and (b).
+    settings = gs.Settings(**main_settings())
+    sim = gs.Simulation(settings)
+    sim.iterate(10)
+    mesh = mesh_sim(gs, settings, MESH)
+    mesh.iterate(10)
+    torch.cuda.synchronize()
+    fields = sim.blocks[0]
+    prof = device_profile(torch,
+                          lambda: obs_numerics.device_partials(*fields))
+    ops = device_ops(torch, lambda: obs_numerics.device_partials(*fields))
+    events_ms = time_calls(torch,
+                           lambda: obs_numerics.device_partials(*fields))
+    b_ms, b_by = bound_of(2 * MAIN_L**3 * 4, 0)
+    host = {}
+    for name, s in (("single", sim), ("mesh", mesh)):
+        s.numerics_stats()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            s.numerics_stats()
+        host[name] = (time.perf_counter() - t0) * 1e3 / 10
+    probe = {"device_ms": None if prof is None else prof["device_busy_ms"],
+             "events_ms": events_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "host_ms_single": host["single"], "host_ms_mesh": host["mesh"],
+             "ops_ms": ops, "card": smi}
+    log(f"  numerics probe (u, v at L={MAIN_L} float32): device "
+        f"{probe['device_ms']} ms (profiler), {events_ms:.4f} ms (CUDA "
+        f"events), bound {b_ms:.4f} ms ({b_by}); numerics_stats host "
+        f"{host['single']:.3f} ms single block, {host['mesh']:.3f} ms "
+        f"(2,2,2) mesh; {smi}")
+    for name, ms in list(ops.items())[:8]:
+        log(f"    {ms:.4f} ms/probe  {name[:90]}")
+    del sim, mesh, fields
+    report["obs"] = {"rows": rows, "probe": probe}
+    return rows
+
+
 def phase_band_times(torch, gs, cuda_stencil, spec, report):
     """Per-launch times of the band recomputes at the split rounds'
     depth-2 shapes (noise on): the kernel (CUDA events, and its device
@@ -2442,6 +2708,26 @@ def device_profile(torch, fn, reps=20):
     return {"wall_ms": wall / reps, "device_busy_ms": busy / reps,
             "busy_share": busy / wall, "kernel_ms": kernel / reps,
             "kernel_launches": launches / reps}
+
+
+def device_ops(torch, fn, reps=20):
+    """Device ms per call of ``fn`` by kernel name under
+    ``torch.profiler`` (after a warm-up), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = (out.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / reps)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def phase_times(torch, gs, cuda_stencil, spec, report):
@@ -3225,6 +3511,9 @@ def main():
         log("phase 4 (iv): two processes on cuda:0 (launch.py, gloo)")
         timed(report, "multiprocess", phase_multiprocess, torch, gs,
               cuda_stencil, workdir, stored, report)
+        log("phase 4 (v): the observability sinks and numerics probes")
+        timed(report, "obs", phase_obs, torch, gs, cuda_stencil, workdir,
+              stored, report)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,

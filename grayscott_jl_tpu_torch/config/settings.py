@@ -38,7 +38,15 @@ the launch variables of a run of several processes
 (``GS_TPU_COORDINATOR`` with ``GS_TPU_NUM_PROCESSES`` and
 ``GS_TPU_PROCESS_ID``, or ``GS_TPU_DISTRIBUTED=auto`` with torchrun's
 environment: :func:`resolve_launch`); their bad values raise at
-start-up, as in the reference.
+start-up, as in the reference. So are ``compile_cache`` /
+``GS_COMPILE_CACHE`` (:func:`resolve_compile_cache`: the directory the
+kernels and the native store engine are built into and loaded from),
+the observability sinks ``GS_EVENTS``, ``GS_METRICS`` (with
+``metrics_interval_s`` / ``GS_METRICS_INTERVAL_S`` and
+``GS_METRICS_PROM``) and ``GS_TRACE`` (with ``GS_TRACE_MAX_EVENTS``),
+and the numerics probes ``numerics`` / ``GS_NUMERICS`` with
+``GS_NUMERICS_WINDOW``, ``GS_DRIFT_POLICY`` and ``GS_DRIFT_LIMIT``
+(``obs/``, ``resilience/health.DriftGate``).
 """
 
 from __future__ import annotations
@@ -116,9 +124,8 @@ NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
     "autotune": (("", "off", "cached"), "Queue 1 item 20"),
     "supervise": ((False,), "Queue 1 item 17"),
     "faults": (("",), "Queue 1 item 17"),
-    "numerics": (("", "off"), "Queue 1 item 16"),
     "watchdog": (("", "auto", "off", "0", "false", "no"), "Queue 1 item 17"),
-    "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21"),
+    "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21b"),
     "ensemble": ((None,), "Queue 1 item 19"),
 }
 
@@ -309,7 +316,6 @@ _OFF = ("", "0", "off", "false", "no")
 #: or writes, so a value outside "off" raises at construction rather
 #: than being ignored. Several override :data:`NOT_PORTED` keys.
 NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_NUMERICS": ("numerics probes", ("", "off"), "Queue 1 item 16"),
     "GS_SUPERVISE": ("the supervisor", _OFF, "Queue 1 item 17"),
     "GS_FAULTS": ("fault injection", ("",), "Queue 1 item 17"),
     "GS_WATCHDOG": ("the hang watchdog", _OFF + ("auto",),
@@ -317,14 +323,11 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
     "GS_SDC_CHECK": ("SDC screening", ("", "off"), "Queue 1 item 17"),
     "GS_AUTOTUNE": ("the measured autotuner", ("", "off", "cached"),
                     "Queue 1 item 20"),
-    "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21"),
-    "GS_EVENTS": ("the run event stream", ("",), "Queue 1 item 21"),
-    "GS_METRICS": ("the metrics registry", ("",), "Queue 1 item 21"),
-    "GS_TRACE": ("span tracing", ("",), "Queue 1 item 21"),
+    "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21b"),
     "GS_PROFILE": ("a profiler capture of a step range", ("",),
-                   "Queue 1 item 21"),
+                   "Queue 1 item 21b"),
     "GS_TPU_PROFILE": ("a profiler trace of the run", ("",),
-                       "Queue 1 item 21"),
+                       "Queue 1 item 21b"),
     "GS_DEVICE_BLOCKLIST": ("device quarantine", ("",), "Queue 1 item 17"),
 }
 
@@ -535,6 +538,59 @@ def resolve_reshard(settings: Settings) -> str:
         raise SettingsError(
             f"reshard / GS_RESHARD must be auto/off, got {raw!r}")
     return v
+
+
+#: Measured-autotuner modes, as in the reference; this package acts on
+#: ``off`` and ``cached`` (the others are refused, :data:`NOT_PORTED`).
+AUTOTUNE_MODES = ("off", "cached", "quick", "full")
+
+
+def resolve_autotune(settings: Settings) -> str:
+    """The autotuner mode: ``GS_AUTOTUNE`` wins over the ``autotune``
+    key; unset is ``cached``. Any other value raises, with the
+    reference's message. This package has no tuner yet (ROADMAP Queue 1
+    item 20): the mode is recorded, and ``cached`` finds no record."""
+    raw = os.environ.get("GS_AUTOTUNE")
+    if raw is None:
+        raw = getattr(settings, "autotune", "") or ""
+    v = raw.strip().lower()
+    if v == "":
+        return "cached"
+    if v not in AUTOTUNE_MODES:
+        raise ValueError(
+            f"autotune / GS_AUTOTUNE must be one of "
+            f"{'|'.join(AUTOTUNE_MODES)}, got {raw!r}"
+        )
+    return v
+
+
+def resolve_compile_cache(settings: Settings):
+    """The build cache directory, or None: where the kernels
+    (``ops/_build.py``) and the native store engine (``io/native.py``)
+    are built at first use and loaded from (None: the package's own
+    git-ignored build directories). ``GS_COMPILE_CACHE`` (a path, or
+    ``off``/``0``/``false``/``no``) wins over the ``compile_cache`` key;
+    a path is ``expanduser``-ed. Unset, it is on under supervision (a
+    directory under ``~/.cache``), as in the reference, and off
+    otherwise; supervision itself is not in this package yet (ROADMAP
+    Queue 1 item 17)."""
+    raw = os.environ.get("GS_COMPILE_CACHE")
+    if raw is None:
+        raw = settings.compile_cache or ""
+    v = raw.strip()
+    if v.lower() in ("off", "0", "false", "no"):
+        return None
+    if v:
+        return os.path.expanduser(v)
+    sup = os.environ.get("GS_SUPERVISE")
+    if sup is not None:
+        armed = sup.strip().lower() in ("1", "true", "yes", "on")
+    else:
+        armed = bool(settings.supervise)
+    if armed:
+        return os.path.join(os.path.expanduser("~"), ".cache",
+                            "grayscott_jl_tpu_torch", "build")
+    return None
 
 
 def resolve_model(settings: Settings):

@@ -57,28 +57,51 @@ index per step), a restart reads each process's own boxes from the
 merged checkpoint, and the health report and the shutdown request are
 agreed across the processes, so that all stop at the same boundary.
 
+Observability (``obs/``), as in the reference and each a no-op unless
+its variable is set: the span tracer (``GS_TRACE``; the phase edges
+compile / step_round / io / checkpoint / drain, ``RunStats`` phases and
+the writer's phases as spans, flushed after every run), the event
+stream (``GS_EVENTS``: run_start, output, checkpoint, run_complete or
+run_error, shutdown_requested, health, graceful_shutdown, the integrity
+records, numerics and drift), the metrics registry (``GS_METRICS``:
+``step_latency_us``, ``step_rounds``, ``steps``, the writer's queue
+depth and steps written, ``io_hidden_s``/``io_exposed_s``, the field
+ranges, the numerics gauges and the cards' memory, flushed every
+``metrics_interval_s`` at a boundary and at the end;
+``GS_METRICS_PROM`` writes the Prometheus dump), and the numerics
+probes (``GS_NUMERICS``): ``boundary`` takes them in each boundary's
+snapshot, ``every_round`` after every round too. Under a raising drift
+policy (``GS_DRIFT_POLICY=abort``) a boundary's probe is judged before
+its step is submitted, so a drifted step reaches no store; otherwise
+after. The stores are bitwise the same with every sink on or off.
+
 Not here yet, each a later slice of the port (ROADMAP Queue 1): the
-supervisor and fault injection, the hang watchdog, the observability
-sinks and ensembles.
+supervisor and fault injection, the hang watchdog, compile statistics
+and profiler captures, and ensembles.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import List, Optional
 
 from .config.env import env_str
 from .config.settings import (Settings, get_settings, load_backend_and_lang,
-                              resolve_reshard)
+                              resolve_autotune, resolve_reshard)
 from .io.async_writer import AsyncStepWriter, resolve_depth
 from .io.checkpoint import CheckpointWriter, load_checkpoint
 from .io.stream import SimStream
 from .ops import cuda_stencil
+from .obs import events as obs_events
+from .obs import metrics as obs_metrics
+from .obs import numerics as obs_numerics
+from .obs.trace import get_tracer
 from .parallel import distributed
 from .resilience import integrity
 from .resilience.faults import (GracefulShutdown, ShutdownListener,
                                 resolve_graceful_shutdown)
-from .resilience.health import HealthGuard
+from .resilience.health import DriftGate, HealthError, HealthGuard
 from .simulation import HostRing, Simulation
 from .utils.log import Logger
 from .utils.profiler import RunStats
@@ -131,26 +154,47 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     constructor, called as ``sim_factory(settings, n_devices=...,
     seed=...)`` (e.g. to place a mesh's blocks on chosen devices).
     Raises ``HealthError`` at a poisoned boundary under the ``abort``
-    policy, ``GracefulShutdown`` after a shutdown request, and
+    policy, ``DriftError`` at a drifted probe under ``GS_DRIFT_POLICY=
+    abort``, ``GracefulShutdown`` after a shutdown request, and
     ``AsyncIOError`` (or, at depth 0, the error itself) when a write
     fails."""
     guard = HealthGuard.from_env(settings)
     reshard = resolve_reshard(settings)
     depth = resolve_depth()
     icfg = integrity.resolve_config(settings)
+    num_mode = obs_numerics.resolve_numerics(settings)
     # The group starts before the simulation is built (the reference's
-    # maybe_initialize_distributed before its Simulation).
+    # maybe_initialize_distributed before its Simulation), and the
+    # sinks after it, so that their paths carry this process's rank.
     distributed.ensure_started(load_backend_and_lang(settings)[0])
+    tracer = get_tracer()
+    evs = obs_events.get_events()
+    metrics = obs_metrics.get_metrics(settings)
     # The listener brackets the whole run, construction included: a
     # signal during set-up still leaves through the first boundary.
-    with ShutdownListener(
-            enabled=resolve_graceful_shutdown(settings)) as shutdown:
-        return _run(settings, guard, shutdown, reshard, depth, icfg,
-                    n_devices=n_devices, seed=seed, sim_factory=sim_factory)
+    try:
+        with ShutdownListener(
+                enabled=resolve_graceful_shutdown(settings),
+                on_request=lambda signum: evs.emit(
+                    "shutdown_requested", signum=signum)) as shutdown:
+            return _run(settings, guard, shutdown, reshard, depth, icfg,
+                        num_mode, n_devices=n_devices, seed=seed,
+                        sim_factory=sim_factory)
+    finally:
+        # The trace file is valid JSON after every run, failed or not.
+        try:
+            tracer.flush()
+        except OSError as e:
+            print(f"gray-scott-torch: warning: could not write trace ({e})",
+                  file=sys.stderr)
 
 
-def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
-         seed, sim_factory) -> Simulation:
+def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
+         n_devices, seed, sim_factory) -> Simulation:
+    tracer = get_tracer()
+    evs = obs_events.get_events()
+    metrics = obs_metrics.get_metrics(settings)
+    tracer.edge("compile")
     if sim_factory is not None:
         sim = sim_factory(settings, n_devices=n_devices, seed=seed)
     else:
@@ -189,6 +233,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
     ckpt_lossy = bool(codec.ckpt)
     snapshot_checksum = icfg["verify"] == "full"
     stream = ckpt = None
+    step = restart_step
     launches0 = cuda_stencil.LAUNCHES
     modes0 = dict(cuda_stencil.MODE_LAUNCHES)
     bands0 = cuda_stencil.BAND_LAUNCHES
@@ -205,7 +250,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
         has written the step that used them last (that wait is recorded
         under the ``targets``' phases)."""
         pipe.reserve([phase for phase, _ in targets])
-        with stats.phase("device_to_host"):
+        with stats.phase("device_to_host", step=step):
             return sim.snapshot_async(ring=ring, **kw)
 
     def with_checksums(snap, targets):
@@ -221,6 +266,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
         ckpt_step = None
         if ckpt is not None:
             if not ckpt_written:
+                tracer.edge("checkpoint", at_step)
                 targets = [("checkpoint", ckpt.save)]
                 snap = capture(
                     targets, encode=enc_spec if ckpt_lossy else None,
@@ -230,6 +276,10 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                 stats.count("checkpoints")
                 log.info(f"Graceful-shutdown checkpoint at step {at_step}")
             ckpt_step = at_step
+        obs_events.emit_record({"event": "graceful_shutdown",
+                                "signal": shutdown.signum, "step": at_step,
+                                "checkpoint_step": ckpt_step})
+        tracer.edge("drain", at_step)
         pipe.close()
         stream.close()
         if ckpt is not None:
@@ -244,21 +294,37 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
             ckpt = CheckpointWriter(settings, sim.dtype, writer_id=proc,
                                     nwriters=nprocs, resume_step=resume,
                                     codec=codec.ckpt)
-        stats = RunStats(settings.L, config={
+        # The reference's keys (its driver's RunStats config), then this
+        # package's own.
+        stats = RunStats(settings.L, tracer=tracer, config={
+            "attempt": 0,
             "model": sim.model.name,
-            "device": str(sim.device),
+            "fields": list(sim.model.field_names),
+            "mesh_dims": list(sim.domain.dims),
+            "padded_storage": (list(sim.domain.storage_shape)
+                               if sim.sharded and sim.domain.padded
+                               else None),
             "kernel_language": sim.kernel_language,
             "kernel_selection": sim.kernel_selection,
-            "fuse": sim.fuse,
             "precision": settings.precision,
             "compute_precision": sim.compute_precision,
-            "dtype": str(sim.dtype).replace("torch.", ""),
             "snapshot_codec": codec.describe(),
             "n_devices": sim.domain.n_blocks,
-            "mesh_dims": list(sim.domain.dims),
-            **distributed.describe(),
+            "n_processes": nprocs,
             "comm_overlap": sim.comm_overlap,
             "halo_depth": sim.halo_depth,
+            # Filled by the reshard planner (ROADMAP Queue 1 item 18).
+            "reshard": None,
+            "compile_cache": sim.compile_cache_dir,
+            "autotune_mode": resolve_autotune(settings),
+            # Ensembles and SDC screening: Queue 1 items 19 and 17.
+            "ensemble": None,
+            "sdc": None,
+            "numerics": num_mode,
+            "device": str(sim.device),
+            "fuse": sim.fuse,
+            "dtype": str(sim.dtype).replace("torch.", ""),
+            **distributed.describe(),
             "io_engine": stream.engine,
             "async_io_depth": depth,
             "integrity": dict(icfg),
@@ -269,12 +335,41 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                                writer_id=proc if nprocs > 1 else None)
             if icfg["scrub"] and ckpt is not None else None
         )
-        pipe = AsyncStepWriter(depth=depth, stats=stats)
+        # Metrics instruments, labeled by the run's model, mesh and
+        # kernel path; off, each is the shared no-op.
+        mlabels = sim.metrics_labels()
+        m_step_us = metrics.histogram("step_latency_us", **mlabels)
+        m_rounds = metrics.counter("step_rounds", **mlabels)
+        m_steps = metrics.counter("steps", **mlabels)
+        num_recorder = (
+            obs_numerics.NumericsRecorder(
+                sim.model.field_names, metrics=metrics, events=evs,
+                gate=DriftGate.from_env(settings), log=log,
+                labels=mlabels)
+            if num_mode != "off" else None
+        )
+
+        def refresh_device_gauges():
+            """Per-card allocator gauges, refreshed only when a metrics
+            record is about to land."""
+            for ms in sim.device_memory_stats():
+                metrics.gauge("device_bytes_in_use", device=ms["device"],
+                              **mlabels).set(ms["bytes_in_use"])
+                metrics.gauge("device_peak_bytes_in_use",
+                              device=ms["device"],
+                              **mlabels).set(ms["peak_bytes_in_use"])
+
+        evs.emit("run_start", step=restart_step, attempt=0,
+                 model=sim.model.name, L=settings.L, steps=settings.steps,
+                 kernel=sim.kernel_language, mesh=list(sim.domain.dims),
+                 restart=bool(settings.restart))
+        pipe = AsyncStepWriter(depth=depth, stats=stats, metrics=metrics)
         ring = HostRing(pipe.depth + 1)
-        step = restart_step
+        first_round = True
         t0 = time.perf_counter()
         with pipe:
             while step < settings.steps:
+                tracer.edge("compile" if first_round else "step_round", step)
                 boundary = min(
                     _next_boundary(step, settings.plotgap, settings.steps),
                     _next_boundary(
@@ -283,11 +378,22 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                         settings.steps,
                     ),
                 )
-                with stats.phase("compute"):
+                t_round = time.perf_counter()
+                with stats.phase("compute", step=step):
                     sim.iterate(boundary - step)
                     sim.block_until_ready()
+                # One sample per round: the round's mean per step.
+                m_step_us.observe((time.perf_counter() - t_round)
+                                  / (boundary - step) * 1e6)
+                m_rounds.inc()
+                m_steps.inc(boundary - step)
                 stats.count("steps", boundary - step)
                 step = boundary
+                first_round = False
+                if num_recorder is not None and num_mode == "every_round":
+                    # A probe of the live fields after every round,
+                    # boundaries included.
+                    num_recorder.observe(step, sim.numerics_stats())
                 at_plot = settings.plotgap > 0 and step % settings.plotgap == 0
                 at_ckpt = (
                     ckpt is not None and settings.checkpoint_freq > 0
@@ -297,6 +403,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                     if shutdown_requested():
                         graceful(step, ckpt_written=False)
                     continue
+                tracer.edge("io", step)
                 targets = []
                 if at_plot:
                     log.info(
@@ -312,31 +419,62 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                               or (at_plot and not enc_spec))
                 snap = capture(
                     targets, health=guard.enabled,
+                    numerics=num_mode == "boundary",
                     checksum=snapshot_checksum and want_exact,
                     encode=enc_spec if want_enc else None,
                     exact=want_exact)
                 if pipe.synchronous:
                     # Depth 0: the copies land (and are checked) here,
                     # and submit writes inline.
-                    with stats.phase("device_to_host"):
+                    with stats.phase("device_to_host", step=step):
                         snap.blocks()
                 targets = with_checksums(snap, targets)
                 # Before the step is submitted: under abort a poisoned
-                # step raises here and reaches no store.
-                guard.check(step, snap.health_report(), log=log)
+                # step raises here and reaches no store. A failing
+                # report is on the event stream before it unwinds.
+                report = snap.health_report()
+                try:
+                    event = guard.check(step, report, log=log,
+                                        metrics=metrics)
+                except HealthError:
+                    obs_events.emit_record({
+                        "event": "health", "kind": "health", "step": step,
+                        "policy": guard.policy, "action": guard.policy,
+                        **report.describe()})
+                    raise
+                if event is not None:
+                    obs_events.emit_record(event)
+                gate_first = (num_mode == "boundary"
+                              and num_recorder.gate.raising)
+                if gate_first:
+                    # A raising drift policy, like the health guard:
+                    # the DriftError unwinds before the drifted step is
+                    # submitted, so it reaches no store.
+                    num_recorder.observe(step, snap.numerics_report(),
+                                         boundary=True)
                 pipe.submit(step, snap, targets)
+                if num_mode == "boundary" and not gate_first:
+                    # After the submission: the resolution waits only
+                    # for the probe's scalars.
+                    num_recorder.observe(step, snap.numerics_report(),
+                                         boundary=True)
                 if at_plot:
                     stats.count("output_steps")
+                    evs.emit("output", phase="io", step=step,
+                             output_step=step // settings.plotgap)
                 if at_ckpt:
                     stats.count("checkpoints")
+                    evs.emit("checkpoint", phase="io", step=step)
                     if scrubber is not None:
                         scrubber.maybe_scrub(step)
+                metrics.maybe_flush(on_flush=refresh_device_gauges)
                 if shutdown_requested():
                     # After this boundary's submission, so that a
                     # resumed run reproduces the uninterrupted stream.
                     graceful(step, ckpt_written=at_ckpt)
             # Inside the timed region: the run is complete once every
             # accepted step is written.
+            tracer.edge("drain", step)
             pipe.close()
         elapsed = time.perf_counter() - t0
         stats.count("kernel_launches", cuda_stencil.LAUNCHES - launches0)
@@ -347,7 +485,12 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
                       for m, n in cuda_stencil.MODE_LAUNCHES.items()
                       if n - modes0.get(m, 0)},
             "bands": cuda_stencil.BAND_LAUNCHES - bands0}
-        stats.record_io(pipe.overlap_stats())
+        io_stats = pipe.overlap_stats()
+        stats.record_io(io_stats)
+        metrics.gauge("io_hidden_s", **mlabels).set(
+            round(sum(io_stats["hidden_s"].values()), 6))
+        metrics.gauge("io_exposed_s", **mlabels).set(
+            round(sum(io_stats["exposed_s"].values()), 6))
         stats.config["overlap_applied"] = sim.overlap_applied
         if nprocs > 1:
             stats.config["p2p"] = distributed.p2p_stats()
@@ -362,6 +505,23 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
             f"{elapsed:.3f}s ({cells / max(elapsed, 1e-9):.3e} "
             "cell-updates/s)"
         )
+        evs.emit("run_complete", step=step, attempt=0,
+                 wall_s=round(elapsed, 3),
+                 steps=settings.steps - restart_step)
+        refresh_device_gauges()
+        metrics.maybe_flush(force=True)
+        prom = env_str("GS_METRICS_PROM", "")
+        if prom:
+            metrics.write_prometheus(prom)
+        if metrics.enabled:
+            stats.record_metrics(metrics.snapshot())
+        if tracer.enabled or evs.enabled or metrics.enabled:
+            stats.record_obs({"trace": tracer.describe(),
+                              "events": evs.describe(),
+                              "metrics": metrics.describe()})
+        if num_recorder is not None:
+            stats.record_numerics({"mode": num_mode,
+                                   **num_recorder.describe()})
         stats.maybe_write()
         if settings.verbose:
             log.info(f"run stats: {stats.summary()}")
@@ -370,7 +530,9 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, *, n_devices,
             ckpt.close()
     except GracefulShutdown:
         raise
-    except BaseException:
+    except BaseException as exc:
+        evs.emit("run_error", step=step, attempt=0,
+                 error=f"{type(exc).__name__}: {exc}")
         # The pipeline has drained (``with pipe``) before this closes
         # the stores.
         _close_quietly(stream)

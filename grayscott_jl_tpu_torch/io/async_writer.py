@@ -32,6 +32,11 @@ final drain); :meth:`AsyncStepWriter.overlap_stats` splits each phase's
 busy time into ``hidden_s`` (behind compute) and ``exposed_s`` (the
 driver waited), pro rata. The worker never synchronises the device: it
 waits on each snapshot's own copy event.
+
+Observability (``obs/``): with a metrics registry the pipeline keeps an
+``async_io_queue_depth`` gauge and an ``io_steps_written`` counter, and
+with ``stats`` carrying a span tracer the worker's phases (the copy
+wait and each target) are spans on the worker thread's own track.
 """
 
 from __future__ import annotations
@@ -105,10 +110,26 @@ class AsyncStepWriter:
     ``stats`` is an optional :class:`~..utils.profiler.RunStats`; when
     given, driver-side time is recorded under the target phase names
     (inline write time when synchronous, submit and backpressure time
-    when asynchronous) and the drain under ``io_drain``.
+    when asynchronous) and the drain under ``io_drain``, and its tracer
+    (if any) gets the worker's phases as spans.
+
+    ``metrics`` is an optional :class:`~..obs.metrics.MetricsRegistry`
+    (the ``async_io_queue_depth`` gauge and the ``io_steps_written``
+    counter; a disabled registry hands out the no-op instrument).
     """
 
-    def __init__(self, *, depth: Optional[int] = None, stats=None):
+    def __init__(self, *, depth: Optional[int] = None, stats=None,
+                 metrics=None):
+        if metrics is None:
+            from ..obs.metrics import NULL_METRIC
+
+            self._m_depth = self._m_written = NULL_METRIC
+        else:
+            self._m_depth = metrics.gauge("async_io_queue_depth")
+            self._m_written = metrics.counter("io_steps_written")
+        tracer = getattr(stats, "tracer", None)
+        self._tracer = (tracer if tracer is not None and tracer.enabled
+                        else None)
         self.depth = resolve_depth(depth)
         self._stats = stats
         self._busy: dict = {}
@@ -147,15 +168,25 @@ class AsyncStepWriter:
         with self._busy_lock:
             self._busy[phase] = self._busy.get(phase, 0.0) + seconds
 
+    def _span(self, phase: str, step: int):
+        """A span of the worker's ``phase`` on its own trace track."""
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(phase, phase=phase, step=step)
+
     def _write_one(self, step, snapshot, targets) -> None:
         t = time.perf_counter()
-        blocks = snapshot.blocks()
+        with self._span(_D2H, step):
+            blocks = snapshot.blocks()
         self._add_busy(_D2H, time.perf_counter() - t)
         for phase, fn in targets:
             t = time.perf_counter()
-            fn(step, blocks)
+            with self._span(phase, step):
+                fn(step, blocks)
             self._add_busy(phase, time.perf_counter() - t)
         self._written += 1
+        self._m_written.inc()
+        self._m_depth.set(self._q.qsize() if self._q is not None else 0)
 
     def _run(self) -> None:
         while True:
@@ -212,6 +243,7 @@ class AsyncStepWriter:
                     fn(step, blocks)
                 self._add_busy(phase, time.perf_counter() - t)
             self._written += 1
+            self._m_written.inc()
             self._accepted += 1
             return
         with contextlib.ExitStack() as st:
@@ -225,6 +257,7 @@ class AsyncStepWriter:
             self._submit_wait += time.perf_counter() - t
         self._accepted += 1
         self._queue_hwm = max(self._queue_hwm, self._q.qsize())
+        self._m_depth.set(self._q.qsize())
 
     def reserve(self, phases: Sequence[str] = ()) -> None:
         """Block while ``depth + 1`` accepted steps are unwritten (or

@@ -746,8 +746,11 @@ class BpReader:
             "variable registry; validating its payloads against "
             "writer 0's registry"
         )
+        from ..obs import events as obs_events
         from ..utils.log import Logger
 
+        obs_events.get_events().emit(
+            "corruption", path=self.path, file=fname, detail=detail)
         Logger().warn(f"BP-lite store {self.path}: {detail}")
 
     def _load_one(self, path: str, *, required: bool):

@@ -16,7 +16,9 @@ compiles it with ``g++`` at first use into ``io/csrc/build/`` (listed in
 later call in any process reuses it. When there is no ``g++`` or the
 build fails, :func:`available` is False, :data:`BUILD_ERROR` says why,
 and ``open_writer`` takes the Python engine, as the reference does when
-its library is not built.
+its library is not built. A run's compile cache (``compile_cache`` /
+``GS_COMPILE_CACHE``) takes the place of the build directory
+(:func:`use_cache_dir`, set by ``Simulation``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ BUILD_DIR = os.path.join(CSRC, "build")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared",
              "-pthread")
 
+#: The compile cache directory the library is built into instead of
+#: :data:`BUILD_DIR`, or None.
+CACHE_DIR: Optional[str] = None
+
 #: The C ABI version the binding expects (``bpw_abi_version``).
 ABI_VERSION = 2
 
@@ -50,12 +56,20 @@ _lib = None
 BUILD_ERROR: Optional[str] = None
 
 
+def use_cache_dir(path: Optional[str]) -> None:
+    """Build into and load from ``path`` (None: :data:`BUILD_DIR`) from
+    now on, in this process. A library already loaded stays loaded."""
+    global CACHE_DIR
+    CACHE_DIR = path
+
+
 def library_path() -> str:
     """Where the library is (or will be) built."""
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read())
     digest.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libbplite.{digest.hexdigest()[:16]}.so")
+    return os.path.join(CACHE_DIR or BUILD_DIR,
+                        f"libbplite.{digest.hexdigest()[:16]}.so")
 
 
 def build() -> str:
@@ -68,7 +82,7 @@ def build() -> str:
     if not cxx:
         raise RuntimeError("g++ not found: the native BP-lite engine is "
                            "compiled at first use")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
                           capture_output=True, text=True)

@@ -1,0 +1,330 @@
+"""Host-side span tracer with Chrome trace-event export (counterpart of
+``grayscott_jl_tpu/obs/trace.py``).
+
+``GS_TRACE=path`` arms the process-wide tracer. The driver's phase
+boundaries become spans (:meth:`SpanTracer.edge`, one per boundary, on
+the "driver phases" track), and every ``RunStats.phase`` context
+(``utils/profiler.py``) and the output writer's phases on its own
+thread (``io/async_writer.py``) become nested spans on their thread's
+track. The export is the Chrome trace-event JSON format (the
+``traceEvents`` array of ``"X"`` complete events), loadable in
+Perfetto or ``chrome://tracing``; :func:`validate_trace` checks a
+document against the contract the tests hold it to.
+
+* **stdlib only**, like the reference: the process index and count come
+  from ``parallel/distributed.py`` (0 and 1 before and without a
+  multi-process group), which replaces the reference's JAX probes.
+* **crash-consistent**: :meth:`SpanTracer.flush` rewrites the whole file
+  atomically (tmp + rename), so the file on disk is valid JSON after
+  every run, including one that failed.
+* **bounded**: at most ``GS_TRACE_MAX_EVENTS`` (default 200000) events
+  are kept; later spans are counted as dropped.
+* **balanced**: spans nest LIFO per thread and an edge span is closed
+  before the next opens, so the exported intervals nest.
+
+The device-side captures of ``GS_PROFILE``/``GS_TPU_PROFILE`` are not
+here yet (ROADMAP Queue 1 item 21b; both variables are refused).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+from typing import List, Optional
+
+__all__ = [
+    "NULL_TRACER",
+    "SpanTracer",
+    "get_tracer",
+    "rank_path",
+    "reset_tracer",
+    "validate_trace",
+]
+
+#: tid of the driver-phase edge track; real threads are numbered from 1
+#: in the order they first record a span.
+EDGE_TID = 0
+
+
+def _proc_index() -> int:
+    """This process's index in a multi-process run, 0 otherwise."""
+    from ..parallel import distributed
+
+    return distributed.process_index()
+
+
+def rank_path(path: str) -> str:
+    """``path.rank<N>`` in a run of several processes (as ``GS_TPU_STATS``
+    is), so that the processes do not write one file; ``path`` itself
+    otherwise."""
+    from ..parallel import distributed
+
+    if distributed.process_count() > 1:
+        return f"{path}.rank{distributed.process_index()}"
+    return path
+
+
+class _NullTracer:
+    """Shared no-op tracer: ``GS_TRACE`` unset costs one attribute check
+    and a no-op call per boundary."""
+
+    enabled = False
+    _cm = contextlib.nullcontext()
+
+    def span(self, name, phase=None, step=None, **attrs):
+        return self._cm
+
+    def edge(self, phase, step=None) -> None:
+        pass
+
+    def instant(self, name, step=None, **attrs) -> None:
+        pass
+
+    def flush(self) -> Optional[str]:
+        return None
+
+    def describe(self) -> dict:
+        return {"enabled": False}
+
+
+NULL_TRACER = _NullTracer()
+
+
+class SpanTracer:
+    """Nestable host-side spans -> Chrome trace-event JSON.
+
+    Timestamps are microseconds of ``time.perf_counter`` since the
+    tracer's creation (``otherData.epoch_unix_s`` in the file anchors
+    them to the wall clock, for correlation with the event stream).
+    Thread-safe: spans come from the driver thread and the output
+    writer's thread.
+    """
+
+    enabled = True
+
+    def __init__(self, path: str, proc: Optional[int] = None,
+                 max_events: Optional[int] = None):
+        self.path = path
+        self.proc = _proc_index() if proc is None else proc
+        if max_events is None:
+            max_events = int(os.environ.get("GS_TRACE_MAX_EVENTS",
+                                            "200000"))
+        if max_events <= 0:
+            raise ValueError(
+                f"GS_TRACE_MAX_EVENTS must be > 0, got {max_events}"
+            )
+        self.max_events = max_events
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._events: List[dict] = []
+        self._t0 = time.perf_counter()
+        self._epoch = time.time()
+        #: The open edge span: (phase, step, t_us).
+        self._edge = None
+        self._tids = {}  # thread ident -> small tid
+        self._meta = [{
+            "ph": "M", "name": "process_name", "pid": self.proc,
+            "tid": EDGE_TID,
+            "args": {"name": f"gray-scott proc {self.proc}"},
+        }, {
+            "ph": "M", "name": "thread_name", "pid": self.proc,
+            "tid": EDGE_TID, "args": {"name": "driver phases"},
+        }]
+
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    def _tid(self) -> int:
+        ident = threading.get_ident()
+        with self._lock:
+            tid = self._tids.get(ident)
+            if tid is None:
+                tid = self._tids[ident] = len(self._tids) + 1
+                self._meta.append({
+                    "ph": "M", "name": "thread_name", "pid": self.proc,
+                    "tid": tid,
+                    "args": {"name": threading.current_thread().name},
+                })
+        return tid
+
+    def _add(self, event: dict) -> None:
+        with self._lock:
+            if len(self._events) >= self.max_events:
+                self.dropped += 1
+                return
+            self._events.append(event)
+
+    def _complete(self, name, t0_us, dur_us, *, tid, phase=None,
+                  step=None, attrs=None) -> None:
+        args = {}
+        if step is not None:
+            args["step"] = step
+        if attrs:
+            args.update(attrs)
+        self._add({
+            "name": str(name),
+            "cat": str(phase) if phase else "span",
+            "ph": "X",
+            "ts": round(t0_us, 3),
+            "dur": round(max(dur_us, 0.0), 3),
+            "pid": self.proc,
+            "tid": tid,
+            "args": args,
+        })
+
+    @contextlib.contextmanager
+    def span(self, name, phase=None, step=None, **attrs):
+        """A timing span around a host-side block, on this thread's
+        track (LIFO per thread, so the intervals nest)."""
+        t0 = self._now_us()
+        try:
+            yield
+        finally:
+            self._complete(name, t0, self._now_us() - t0,
+                           tid=self._tid(), phase=phase, step=step,
+                           attrs=attrs)
+
+    def edge(self, phase, step=None) -> None:
+        """One driver phase boundary: close the open phase span and open
+        the next."""
+        now = self._now_us()
+        with self._lock:
+            prev, self._edge = self._edge, (str(phase), step, now)
+        if prev is not None:
+            self._complete(prev[0], prev[2], now - prev[2],
+                           tid=EDGE_TID, phase=prev[0], step=prev[1])
+
+    def instant(self, name, step=None, **attrs) -> None:
+        """A zero-duration marker."""
+        args = dict(attrs)
+        if step is not None:
+            args["step"] = step
+        self._add({
+            "name": str(name), "cat": "event", "ph": "i", "s": "p",
+            "ts": round(self._now_us(), 3), "pid": self.proc,
+            "tid": self._tid(), "args": args,
+        })
+
+    def describe(self) -> dict:
+        with self._lock:
+            n = len(self._events)
+        return {"enabled": True, "path": self.path, "events": n,
+                "dropped": self.dropped}
+
+    def flush(self) -> Optional[str]:
+        """Rewrite the whole trace file atomically. The open edge span
+        is exported as running until now without being closed, so a
+        flush mid-run keeps the file's nesting balanced and the edge
+        open."""
+        now = self._now_us()
+        with self._lock:
+            events = list(self._meta) + list(self._events)
+            edge = self._edge
+        if edge is not None:
+            args = {} if edge[1] is None else {"step": edge[1]}
+            events.append({
+                "name": edge[0], "cat": edge[0], "ph": "X",
+                "ts": round(edge[2], 3),
+                "dur": round(max(now - edge[2], 0.0), 3),
+                "pid": self.proc, "tid": EDGE_TID, "args": args,
+            })
+        doc = {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "epoch_unix_s": round(self._epoch, 6),
+                "proc": self.proc,
+                "dropped_events": self.dropped,
+            },
+        }
+        tmp = f"{self.path}.tmp{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+            f.write("\n")
+        os.replace(tmp, self.path)
+        return self.path
+
+
+_tracer = None
+
+
+def get_tracer():
+    """The process-wide tracer: a :class:`SpanTracer` when ``GS_TRACE``
+    names a path (``.rank<N>``-suffixed in a run of several processes),
+    else the shared no-op. Resolved once, at the first call: the driver
+    makes it after the process group has started."""
+    global _tracer
+    if _tracer is None:
+        path = os.environ.get("GS_TRACE", "").strip()
+        _tracer = SpanTracer(rank_path(path)) if path else NULL_TRACER
+    return _tracer
+
+
+def reset_tracer() -> None:
+    """Drop the singleton (tests; re-resolved from the environment at
+    the next use)."""
+    global _tracer
+    _tracer = None
+
+
+def validate_trace(doc) -> List[str]:
+    """Problems with a Chrome trace-event document (empty list = valid):
+    a ``traceEvents`` array whose ``"X"`` events each carry numeric
+    ``pid``/``tid``/``ts``/``dur`` and a name, and whose spans nest
+    without partial overlap on each ``(pid, tid)`` track."""
+    problems: List[str] = []
+    if isinstance(doc, dict):
+        events = doc.get("traceEvents")
+        if not isinstance(events, list):
+            return ["no traceEvents array"]
+    elif isinstance(doc, list):
+        events = doc
+    else:
+        return ["document is neither an object nor an array"]
+
+    spans = {}
+    for i, e in enumerate(events):
+        if not isinstance(e, dict) or "ph" not in e:
+            problems.append(f"event {i}: not an object with a ph field")
+            continue
+        if e["ph"] != "X":
+            continue
+        bad = [k for k in ("pid", "tid", "ts", "dur")
+               if not isinstance(e.get(k), (int, float))
+               or isinstance(e.get(k), bool)]
+        if not isinstance(e.get("name"), str) or not e.get("name"):
+            bad.append("name")
+        if bad:
+            problems.append(
+                f"event {i} ({e.get('name')!r}): missing/invalid "
+                f"{', '.join(sorted(bad))}"
+            )
+            continue
+        if e["dur"] < 0:
+            problems.append(f"event {i} ({e['name']!r}): negative dur")
+            continue
+        spans.setdefault((e["pid"], e["tid"]), []).append(e)
+
+    eps = 1e-3  # exported timestamps are rounded to 1e-3 us
+    for track, evs in spans.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: List[dict] = []
+        for e in evs:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] \
+                    <= e["ts"] + eps:
+                stack.pop()
+            if stack:
+                parent_end = stack[-1]["ts"] + stack[-1]["dur"]
+                if e["ts"] + e["dur"] > parent_end + eps:
+                    problems.append(
+                        f"track {track}: span {e['name']!r} "
+                        f"[{e['ts']}, {e['ts'] + e['dur']}] partially "
+                        f"overlaps {stack[-1]['name']!r} ending at "
+                        f"{parent_end} (nesting unbalanced)"
+                    )
+                    continue
+            stack.append(e)
+    return problems

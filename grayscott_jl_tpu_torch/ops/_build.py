@@ -8,8 +8,12 @@ library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. The emitted ``.cu`` and its
 library go into ``ops/csrc/build/`` (listed in ``.gitignore``), side by
 side, named by the model and a hash of the template, the emitted text
-and the flags, at first use; a later call in any process reuses them.
-:func:`build_all` starts one ``nvcc`` per spec at once.
+and the flags, at first use; a later call in any process reuses them. A
+run's compile cache (``compile_cache`` / ``GS_COMPILE_CACHE``,
+``config/settings.resolve_compile_cache``) takes the place of that
+directory: ``Simulation`` points :data:`CACHE_DIR` at it
+(:func:`use_cache_dir`). :func:`build_all` starts one ``nvcc`` per spec
+at once.
 
 Gray-Scott has a second library, built from the same emitted source
 with ``GS_ENVELOPE_PROBES`` defined (:data:`PROBE_DEFINE`): it holds the
@@ -34,6 +38,10 @@ from typing import Dict, Iterable, Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
+
+#: The compile cache directory builds go into instead of
+#: :data:`BUILD_DIR`, or None.
+CACHE_DIR: Optional[str] = None
 
 #: The kernel template and the line the generated part replaces.
 TEMPLATE = "stencil_chain.cu"
@@ -60,6 +68,18 @@ PROBE_MODEL = "grayscott"
 #: Loaded libraries by (spec, envelope) (specs are memoized per model
 #: object).
 _LIBS: Dict[object, ctypes.CDLL] = {}
+
+
+def use_cache_dir(path: Optional[str]) -> None:
+    """Build into and load from ``path`` (None: :data:`BUILD_DIR`) from
+    now on, in this process. A library already loaded stays loaded."""
+    global CACHE_DIR
+    CACHE_DIR = path
+
+
+def build_dir() -> str:
+    """Where libraries are built and looked for."""
+    return CACHE_DIR or BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -117,7 +137,8 @@ def library_path(spec, envelope: bool = False) -> str:
     digest = hashlib.sha256(emitted_source(spec, envelope).encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(
-        BUILD_DIR, f"{target_name(spec, envelope)}.{digest.hexdigest()[:16]}.so")
+        build_dir(),
+        f"{target_name(spec, envelope)}.{digest.hexdigest()[:16]}.so")
 
 
 def all_specs():
@@ -149,7 +170,7 @@ def build_all(specs: Optional[Iterable] = None,
         from . import kernelgen
 
         targets.append((kernelgen.get_spec(get_model(PROBE_MODEL)), True))
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     result: Dict[str, dict] = {}
     running = []
     nvcc = None

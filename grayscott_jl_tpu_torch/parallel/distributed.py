@@ -6,7 +6,8 @@ A run of N processes is one simulation: the mesh's blocks are split
 among the processes in rank order (``parallel/mesh.py``), the halo
 faces between blocks of two processes move point to point
 (:func:`p2p`), the health probe is reduced over all of them
-(:func:`reduce_probe`), and each process writes its own blocks to the
+(:func:`reduce_probe`), the numerics probe's partials are gathered
+(:func:`all_gather_f64`), and each process writes its own blocks to the
 shared stores. :func:`start` brings the process group up from the launch
 variables (:func:`~..config.settings.resolve_launch`); until then — and
 in a run of one process — :func:`process_index` is 0 and
@@ -232,6 +233,20 @@ def all_gather_int(value: int) -> List[int]:
     out = [torch.empty_like(t) for _ in range(g.world)]
     dist.all_gather(out, t)
     return [int(x.item()) for x in out]
+
+
+def all_gather_f64(vec) -> List[np.ndarray]:
+    """Every process's float64 vector (all of one length), in process
+    order: the numerics probe's partials, merged on each process in the
+    same order, so that every process reads the same report."""
+    import torch.distributed as dist
+
+    g = _require()
+    t = torch.as_tensor(np.ascontiguousarray(vec, dtype=np.float64)).to(
+        g.comm_device)
+    out = [torch.empty_like(t) for _ in range(g.world)]
+    dist.all_gather(out, t)
+    return [x.cpu().numpy() for x in out]
 
 
 def _all_min(vec: np.ndarray) -> np.ndarray:

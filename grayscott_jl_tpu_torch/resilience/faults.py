@@ -80,11 +80,17 @@ class ShutdownListener:
     The first signal only records itself (:attr:`signum`); a second
     raises ``KeyboardInterrupt``. ``install``/``uninstall`` save and
     restore the previous handlers; installing is skipped when disabled
-    and off the main thread (Python allows handlers there only)."""
+    and off the main thread (Python allows handlers there only).
 
-    def __init__(self, *, enabled: bool = True):
+    ``on_request(signum)``, when given, is called once, when the first
+    signal lands (the driver emits ``shutdown_requested`` on the event
+    stream there); its exceptions are swallowed, so a monitoring hook
+    never turns the request into a crash."""
+
+    def __init__(self, *, enabled: bool = True, on_request=None):
         self.enabled = enabled
         self.signum: Optional[int] = None
+        self._on_request = on_request
         self._prev: dict = {}
 
     @property
@@ -94,6 +100,11 @@ class ShutdownListener:
     def _handle(self, signum, frame) -> None:
         if self.signum is None:
             self.signum = signum
+            if self._on_request is not None:
+                try:
+                    self._on_request(signum)
+                except Exception:  # noqa: BLE001 — monitoring hook
+                    pass
         else:
             raise KeyboardInterrupt(
                 f"second signal {signum} during graceful shutdown")

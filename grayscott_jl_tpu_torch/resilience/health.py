@@ -20,6 +20,13 @@ Policy (``GS_HEALTH_POLICY`` wins over the ``health_policy`` key):
 ``rollback``
     Needs the supervisor, which is not ported yet (ROADMAP Queue 1 item
     17): :func:`resolve_policy` raises at start-up.
+
+:class:`DriftGate` is the same gate over the numerics probes' drift
+signal (``obs/numerics.py``): ``GS_DRIFT_POLICY`` ``warn`` (default)
+records each trip as a ``drift`` event, ``abort`` raises
+:class:`DriftError` at the probe, ``off`` gates nothing;
+``GS_DRIFT_LIMIT`` (default 0.5) is the trip threshold. Its
+``rollback`` needs the supervisor too and raises at start-up.
 """
 
 from __future__ import annotations
@@ -32,7 +39,10 @@ import torch
 from ..config.env import env_raw
 
 __all__ = [
+    "DRIFT_POLICIES",
     "POLICIES",
+    "DriftError",
+    "DriftGate",
     "HealthError",
     "HealthGuard",
     "HealthReport",
@@ -44,6 +54,11 @@ POLICIES = ("abort", "rollback", "warn", "off")
 
 #: Policies this package acts on; the others raise at start-up.
 PORTED_POLICIES = ("abort", "warn", "off")
+
+DRIFT_POLICIES = ("warn", "abort", "rollback", "off")
+
+#: Drift policies this package acts on; ``rollback`` raises at start-up.
+PORTED_DRIFT_POLICIES = ("warn", "abort", "off")
 
 
 class HealthReport:
@@ -105,6 +120,77 @@ class HealthError(RuntimeError):
         self.step = step
         self.report = report
         self.policy = policy
+
+
+class DriftError(HealthError):
+    """The numerics drift gate tripped under the ``abort`` policy."""
+
+    def __init__(self, step: int, event: dict, policy: str):
+        tripped = event.get("tripped", {})
+        RuntimeError.__init__(
+            self,
+            f"numerics drift gate tripped at step {step}: "
+            + ", ".join(f"{k}={v:+.3f}" for k, v in tripped.items())
+            + f" (|drift| > {event.get('limit')}); policy={policy}")
+        self.step = step
+        self.report = None
+        self.event = dict(event)
+        self.policy = policy
+
+
+class DriftGate:
+    """Policy gate over the numerics drift signal (``GS_DRIFT_POLICY``,
+    ``GS_DRIFT_LIMIT``): :meth:`check` judges one probe's drifts and
+    returns the trip's event, :meth:`enforce` raises
+    :class:`DriftError` for it under ``abort``."""
+
+    def __init__(self, policy: str = "warn", limit: float = 0.5):
+        if policy not in DRIFT_POLICIES:
+            raise ValueError(
+                f"Unsupported drift policy: {policy!r}. "
+                f"Supported: {', '.join(DRIFT_POLICIES)}")
+        if policy not in PORTED_DRIFT_POLICIES:
+            raise ValueError(
+                f"drift policy {policy!r} needs the supervisor, which "
+                "grayscott_jl_tpu_torch does not support yet (ROADMAP Queue "
+                f"1 item 17); use one of {', '.join(PORTED_DRIFT_POLICIES)}")
+        if limit <= 0:
+            raise ValueError(f"drift limit must be > 0, got {limit}")
+        self.policy = policy
+        self.limit = float(limit)
+
+    @classmethod
+    def from_env(cls, settings=None) -> "DriftGate":
+        policy = (env_raw("GS_DRIFT_POLICY") or "warn").lower()
+        raw = (env_raw("GS_DRIFT_LIMIT") or "").strip()
+        try:
+            limit = float(raw) if raw else 0.5
+        except ValueError as e:
+            raise ValueError(
+                f"GS_DRIFT_LIMIT must be a number, got {raw!r}") from e
+        return cls(policy, limit)
+
+    @property
+    def raising(self) -> bool:
+        """Does a trip unwind the run rather than only record it?"""
+        return self.policy in ("abort", "rollback")
+
+    def check(self, step: int, drifts: dict) -> Optional[dict]:
+        """The trip's event (``policy``, ``limit``, ``tripped``) when any
+        of one probe's drifts (``"field.stat" -> relative change``)
+        exceeds the limit under an active policy, else None."""
+        if self.policy == "off":
+            return None
+        tripped = {k: v for k, v in drifts.items() if abs(v) > self.limit}
+        if not tripped:
+            return None
+        return {"policy": self.policy, "limit": self.limit,
+                "tripped": tripped}
+
+    def enforce(self, step: int, event: dict) -> None:
+        """Raise :class:`DriftError` for a trip under ``abort``."""
+        if event is not None and self.raising:
+            raise DriftError(step, event, self.policy)
 
 
 def device_probe(*fields) -> torch.Tensor:
@@ -176,11 +262,28 @@ class HealthGuard:
     def enabled(self) -> bool:
         return self.policy != "off"
 
-    def check(self, step: int, report, *, log=None) -> Optional[dict]:
-        """Enforce the policy on one boundary's report. Healthy (or
-        disabled) returns None; unhealthy under ``warn`` logs and
-        returns the event; under ``abort`` raises :class:`HealthError`."""
-        if not self.enabled or report is None or report.finite:
+    @staticmethod
+    def record_metrics(report, metrics) -> None:
+        """Mirror one boundary's probe into the metrics registry
+        (``obs/metrics.py``): the ``field_finite`` gauge and each
+        field's ``field_min``/``field_max``."""
+        if metrics is None or report is None:
+            return
+        metrics.gauge("field_finite").set(int(report.finite))
+        for name, (lo, hi) in zip(report.names, report.ranges):
+            metrics.gauge("field_min", field=name).set(lo)
+            metrics.gauge("field_max", field=name).set(hi)
+
+    def check(self, step: int, report, *, log=None,
+              metrics=None) -> Optional[dict]:
+        """Enforce the policy on one boundary's report, after mirroring
+        it into ``metrics`` (healthy ones too). Healthy (or disabled)
+        returns None; unhealthy under ``warn`` logs and returns the
+        event; under ``abort`` raises :class:`HealthError`."""
+        if not self.enabled or report is None:
+            return None
+        self.record_metrics(report, metrics)
+        if report.finite:
             return None
         if self.policy == "warn":
             event = {"event": "health", "kind": "health", "step": step,

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config.env import env_flag, env_int
+from ..obs import events as obs_events
 from ..io.bplite import (VERIFY_MODES, CorruptionError, read_quarantine,
                          resolve_verify as _resolve_verify_env)
 
@@ -78,8 +79,10 @@ _QUARANTINE = "quarantine.json"
 
 class IntegrityLog:
     """Where failovers, corruptions and scrubs are recorded: each
-    ``record(event=..., ...)`` keeps the event and logs it (a warning
-    for ``replica_failover`` and ``corruption``)."""
+    ``record(event=..., ...)`` keeps the event, mirrors it to the run
+    event stream (``obs/events.py``, ``GS_EVENTS``) as the reference's
+    fault journal mirrors its events, and logs it (a warning for
+    ``replica_failover`` and ``corruption``)."""
 
     def __init__(self, log=None):
         self.log = log
@@ -87,6 +90,7 @@ class IntegrityLog:
 
     def record(self, **event) -> None:
         self.events.append(event)
+        obs_events.emit_record(event)
         if self.log is None:
             return
         kind = event.get("event")
@@ -308,6 +312,9 @@ def _announce_failover(path: str, next_path: str, exc: BaseException,
     if journal is not None:
         journal.record(event="replica_failover", path=path, next=next_path,
                        detail=detail)
+    else:
+        obs_events.get_events().emit(
+            "replica_failover", path=path, next=next_path, detail=detail)
     if journal is None or getattr(journal, "log", None) is None:
         from ..utils.log import Logger
 

@@ -61,11 +61,13 @@ import torch
 from .config import settings as config
 from .config.env import env_str
 from .config.settings import Settings
+from .io import native
 from .io.bplite import bf16_widen
 from .io.codec import (BoundaryBlocks, EncodedField, device_quantize,
                        resolve_snapshot_codec)
 from .models import SettingsError
-from .ops import cuda_stencil, kernelgen, stencil
+from .obs import numerics as obs_numerics
+from .ops import _build, cuda_stencil, kernelgen, stencil
 from .ops.noise import uniform_pm1_block
 from .parallel import distributed, halo, temporal
 from .parallel.domain import CartDomain
@@ -198,8 +200,9 @@ class FieldSnapshot:
 
     def __init__(self, step: int, parts, field_names, *, events=(),
                  probe_events=(), small=(), health: bool = False,
-                 checksum: bool = False, enc_parts=None, enc_meta=None,
-                 reduce_probe=None):
+                 checksum: bool = False, numerics: bool = False,
+                 enc_parts=None, enc_meta=None, reduce_probe=None,
+                 gather=None):
         #: Simulation step the snapshot was taken at.
         self.step = step
         self.field_names = tuple(field_names)
@@ -212,8 +215,11 @@ class FieldSnapshot:
         self._small_host = None
         self._health = health
         self._checksum = checksum
+        self._numerics = numerics
         self._reduce_probe = reduce_probe
+        self._gather = gather
         self._report = None
+        self._numerics_report = None
         self._blocks = None
 
     def _scalars(self):
@@ -234,6 +240,24 @@ class FieldSnapshot:
             self._report = report_of(self._scalars(), self.field_names,
                                      reduce=self._reduce_probe)
         return self._report
+
+    def numerics_report(self):
+        """The boundary's :class:`~.obs.numerics.NumericsReport`, or None
+        when no numerics probe was taken; waits only for the probes'
+        scalars. In a run of several processes it is the report over
+        every process's blocks (one collective, made once), the global
+        report the reference's reduction gives."""
+        if not self._numerics:
+            return None
+        if self._numerics_report is None:
+            n = len(self.field_names)
+            off = (1 + 2 * n if self._health else 0) + (
+                n if self._checksum else 0)
+            width = len(obs_numerics.PARTIALS) * n
+            self._numerics_report = _numerics_of(
+                [s[off:off + width] for s in self._scalars()],
+                self.field_names, self._gather)
+        return self._numerics_report
 
     def has_checksums(self) -> bool:
         return self._checksum
@@ -331,6 +355,23 @@ class Simulation:
         self.model = config.resolve_model(settings)
         _, lang = config.load_backend_and_lang(settings)
         kind = config.resolve_device(settings).type
+        #: The compile cache (``compile_cache`` / ``GS_COMPILE_CACHE``):
+        #: the directory the kernels and the native store engine are
+        #: built into and loaded from, or None for the package's own. On
+        #: the CPU no kernel is built, so a cache that was asked for is
+        #: dropped with a warning, as the reference drops its CPU cache,
+        #: unless ``GS_COMPILE_CACHE_FORCE=1``.
+        self.compile_cache_dir = config.resolve_compile_cache(settings)
+        if (self.compile_cache_dir and kind == "cpu"
+                and env_str("GS_COMPILE_CACHE_FORCE", "") != "1"):
+            if env_str("GS_COMPILE_CACHE", "") or settings.compile_cache:
+                print("gray-scott-torch: warning: compile cache not used on "
+                      "the CPU backend (no kernel is built for it; set "
+                      "GS_COMPILE_CACHE_FORCE=1 to override)",
+                      file=sys.stderr)
+            self.compile_cache_dir = None
+        _build.use_cache_dir(self.compile_cache_dir)
+        native.use_cache_dir(self.compile_cache_dir)
         self.dtype = config.resolve_precision(settings)
         #: The mixed-precision posture ("f32", "bf16_f32acc" or
         #: "equality"); under bf16_f32acc the fields are stored bf16 and
@@ -864,8 +905,9 @@ class Simulation:
         return tuple(o[:L, :L, :L] for o in out)
 
     def snapshot_async(self, *, health: bool = False,
-                       checksum: bool = False, bitflip=None, encode=None,
-                       exact: bool = True, ring=None) -> "FieldSnapshot":
+                       numerics: bool = False, checksum: bool = False,
+                       bitflip=None, encode=None, exact: bool = True,
+                       ring=None) -> "FieldSnapshot":
         """Capture the fields for an output boundary without waiting for
         the copies: the returned :class:`FieldSnapshot` has every
         block's device-to-host copy in flight, and the caller may hand
@@ -875,7 +917,10 @@ class Simulation:
         One pass of device work, in the reference's order: the copies
         (a field the ``bitflip`` hook targets is first copied on the
         device); ``health``, the probe (``resilience/health.device_probe``:
-        every field finite, each field's min and max); ``encode``
+        every field finite, each field's min and max); ``numerics``, the
+        numerics probe (``obs/numerics.device_partials``: each field's
+        min, max, sum, sum of squares, cell and non-finite counts);
+        ``encode``
         (``{field index: bits}``, the lossy codec's quantization with
         the global range, :func:`~.io.codec.device_quantize`);
         ``checksum``, each field's wrapped uint32 word sum
@@ -909,6 +954,8 @@ class Simulation:
             sources[0][flip] = sources[0][flip].clone()
         probes = ([device_probe(*fields) for fields in self.blocks]
                   if health else None)
+        partials = ([obs_numerics.device_partials(*fields)
+                     for fields in self.blocks] if numerics else None)
         multi = self.processes > 1
         coded = {}
         for i, bits in (encode or {}).items():
@@ -924,10 +971,11 @@ class Simulation:
         # float64), back on the compute stream: the caller resolves them
         # before the copies land.
         small = []
-        if probes or sums:
+        if probes or sums or partials:
             for r in range(len(self.blocks)):
                 vec = ([probes[r]] if probes else []) + (
-                    [torch.stack(sums[r]).to(torch.float64)] if sums else [])
+                    [torch.stack(sums[r]).to(torch.float64)] if sums
+                    else []) + ([partials[r]] if partials else [])
                 small.append(torch.cat(vec).to("cpu", non_blocking=True))
         cuda_devices = [d for d in dict.fromkeys(self.mesh.devices)
                         if d.type == "cuda"]
@@ -987,10 +1035,12 @@ class Simulation:
         return FieldSnapshot(
             self.step, parts, names, events=events,
             probe_events=probe_events, small=small, health=health,
-            checksum=sums is not None, enc_parts=enc_parts,
+            checksum=sums is not None, numerics=numerics,
+            enc_parts=enc_parts,
             enc_meta={i: (bits, lo, hi, self.dtype)
                       for i, (bits, _, lo, hi) in coded.items()},
-            reduce_probe=distributed.reduce_probe if multi else None)
+            reduce_probe=distributed.reduce_probe if multi else None,
+            gather=distributed.all_gather_f64 if multi else None)
 
     def snapshot(self, encode=None, exact: bool = True,
                  health: bool = False,
@@ -1010,6 +1060,73 @@ class Simulation:
         out = snap.blocks()
         out.health = snap.health_report()
         return out
+
+    def numerics_stats(self):
+        """One numerics probe over the live fields, resolved to a
+        :class:`~.obs.numerics.NumericsReport` (``GS_NUMERICS=every_round``
+        runs it after every round). Only reads the fields; waits for the
+        probe's scalars. A collective in a run of several processes."""
+        vecs = [obs_numerics.device_partials(*fields).cpu()
+                for fields in self.blocks]
+        return _numerics_of(
+            [v.numpy() for v in vecs], self.model.field_names,
+            distributed.all_gather_f64 if self.processes > 1 else None)
+
+    def _field_index(self, field) -> int:
+        """A model field name, the ``"u"``/``"v"`` aliases, or an
+        index, as the field's index."""
+        if isinstance(field, int):
+            return field
+        names = self.model.field_names
+        if field in names:
+            return names.index(field)
+        alias = {"u": 0, "v": 1}.get(field)
+        if alias is not None and alias < self.model.n_fields:
+            return alias
+        raise ValueError(
+            f"unknown field {field!r} for model {self.model.name!r} "
+            f"(fields: {', '.join(names)})")
+
+    def poison_drift(self, field="u", factor: float = 8.0) -> None:
+        """Test hook: scale the global corner box ``[0:2]^3`` of
+        ``field`` by ``factor`` — a large but finite excursion, as the
+        reference's ``poison_drift``. The corner lies outside the
+        reaction seed, so the health guard stays green while the field's
+        statistics jump and the numerics drift gate must trip. The block
+        holding the corner gets a new tensor (the live one may still be
+        the source of a snapshot's copy in flight)."""
+        i = self._field_index(field)
+        for r, offs in enumerate(self.offsets):
+            if any(offs):
+                continue
+            fields = list(self.blocks[r])
+            scaled = fields[i].clone()
+            box = tuple(slice(0, 2) for _ in range(scaled.dim()))
+            scaled[box] *= factor
+            fields[i] = scaled
+            self.blocks[r] = tuple(fields)
+
+    def metrics_labels(self) -> dict:
+        """The labels every metric of this run carries
+        (``obs/metrics.py``): model, mesh and kernel path."""
+        return {
+            "model": self.model.name,
+            "mesh": "x".join(str(d) for d in self.domain.dims),
+            "kernel": self.kernel_language,
+        }
+
+    def device_memory_stats(self) -> list:
+        """Per local card, the allocator's bytes in use and their peak
+        (``torch.cuda.memory_allocated`` / ``max_memory_allocated``), for
+        the metrics registry; empty on the CPU."""
+        cards = dict.fromkeys(
+            torch.cuda.current_device() if d.index is None else d.index
+            for d in self.mesh.devices if d.type == "cuda")
+        return [{
+            "device": f"cuda:{i}",
+            "bytes_in_use": int(torch.cuda.memory_allocated(i)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(i)),
+        } for i in cards]
 
     def block_boxes(self) -> List[Tuple[tuple, tuple]]:
         """Every block's ``(offsets, sizes)`` in the true ``L^3`` domain
@@ -1092,6 +1209,19 @@ class Simulation:
         for d in dict.fromkeys(self.mesh.devices):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
+
+
+def _numerics_of(rows, names, gather=None):
+    """The report of this process's blocks' numerics partials, with
+    ``gather`` (``distributed.all_gather_f64``) those of every process's
+    blocks, merged in one :func:`~.obs.numerics.combine`: the same bits
+    on every process and for every split of the blocks among them."""
+    rows = [np.asarray(r, dtype=np.float64) for r in rows]
+    if gather is not None:
+        width = rows[0].size
+        rows = [v[i:i + width] for v in gather(np.concatenate(rows))
+                for i in range(0, v.size, width)]
+    return obs_numerics.report_of(obs_numerics.combine(rows), names)
 
 
 def _host_dtype(dtype):

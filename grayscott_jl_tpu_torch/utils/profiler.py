@@ -12,6 +12,13 @@ driver's own time on them (all of it at ``GS_ASYNC_IO_DEPTH=0``, the
 time blocked on the pipeline otherwise), and the summary's ``io`` holds
 the pipeline's ``overlap_stats``: each phase's writer time split into
 ``hidden_s`` (behind compute) and ``exposed_s``, and their totals.
+
+With a span tracer (``obs/trace.py``, ``GS_TRACE``), every
+:meth:`RunStats.phase` is also a span on the calling thread's track.
+:meth:`RunStats.record_metrics`, :meth:`~RunStats.record_obs` and
+:meth:`~RunStats.record_numerics` attach the run-end metrics snapshot,
+the sinks' provenance and the numerics section under the reference's
+summary keys (``metrics``, ``obs``, ``numerics``).
 """
 
 from __future__ import annotations
@@ -28,13 +35,23 @@ from ..config.env import env_raw
 class RunStats:
     """Accumulates per-phase timings and counters for one run."""
 
-    def __init__(self, L: int, config: Optional[dict] = None):
+    def __init__(self, L: int, config: Optional[dict] = None,
+                 tracer=None):
         self.L = L
+        #: Span tracer (``obs/trace.py``); None or the null tracer for
+        #: none.
+        self.tracer = tracer
         self.config = dict(config or {})
         self.phases: Dict[str, float] = {}
         self.counters: Dict[str, int] = {}
         #: The output pipeline's overlap accounting (:meth:`record_io`).
         self.io: Optional[dict] = None
+        #: The run-end metrics snapshot (:meth:`record_metrics`).
+        self.metrics: Optional[dict] = None
+        #: The armed sinks' ``describe()`` (:meth:`record_obs`).
+        self.obs: Optional[dict] = None
+        #: The numerics recorder's section (:meth:`record_numerics`).
+        self.numerics: Optional[dict] = None
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
@@ -44,12 +61,19 @@ class RunStats:
             self.phases[name] = self.phases.get(name, 0.0) + seconds
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t)
+    def phase(self, name: str, step: Optional[int] = None):
+        """Time a block under phase ``name``; with a tracer, also a span
+        (``step`` in its args)."""
+        tr = self.tracer
+        span = (tr.span(name, phase=name, step=step)
+                if tr is not None and tr.enabled
+                else contextlib.nullcontext())
+        with span:
+            t = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.add(name, time.perf_counter() - t)
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -66,6 +90,20 @@ class RunStats:
             sum(overlap["hidden_s"].values()), 6)
         self.io["exposed_total_s"] = round(
             sum(overlap["exposed_s"].values()), 6)
+
+    def record_metrics(self, snapshot: Optional[dict]) -> None:
+        """Attach the run-end ``MetricsRegistry.snapshot()``."""
+        self.metrics = dict(snapshot) if snapshot else None
+
+    def record_obs(self, info: Optional[dict]) -> None:
+        """Attach the sinks' provenance (trace / events / metrics
+        ``describe()``)."""
+        self.obs = dict(info) if info else None
+
+    def record_numerics(self, info: Optional[dict]) -> None:
+        """Attach the numerics section (``NumericsRecorder.describe()``
+        and the mode)."""
+        self.numerics = dict(info) if info else None
 
     def summary(self) -> dict:
         total = time.perf_counter() - self._t0
@@ -86,6 +124,9 @@ class RunStats:
                 if compute > 0 else None
             ),
             "io": self.io,
+            "metrics": self.metrics,
+            "obs": self.obs,
+            "numerics": self.numerics,
         }
 
     def maybe_write(self) -> Optional[str]:

@@ -40,6 +40,7 @@ from grayscott_jl_tpu_torch.config import settings as config
 from grayscott_jl_tpu_torch.io.bplite import BpReader, bf16_round
 from grayscott_jl_tpu_torch.io.checkpoint import CheckpointWriter
 from grayscott_jl_tpu_torch.models import SettingsError, get_model
+from grayscott_jl_tpu_torch.obs.numerics import resolve_numerics
 from grayscott_jl_tpu_torch.ops import cuda_stencil, kernelgen, stencil
 from grayscott_jl_tpu_torch.ops.noise import uniform_pm1_block
 from grayscott_jl_tpu_torch.resilience import integrity
@@ -415,7 +416,19 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
                                                  monkeypatch, tmp_path):
     """A variable that turns on a subsystem the port lacks raises at
     construction, naming its ROADMAP item; its "off" values run. The
-    integrity variables' item has ported them: they act now."""
+    integrity variables' item has ported them, and ``GS_NUMERICS``'s
+    (item 16b): they act now."""
+    if var == "GS_NUMERICS":
+        assert var not in config.NOT_PORTED_ENV
+        monkeypatch.setenv(var, value)
+        sim = Simulation(Settings(L=8, backend="CPU"))
+        sim.iterate(1)
+        assert resolve_numerics(sim.settings) == value
+        rep = sim.snapshot_async(numerics=True).numerics_report()
+        assert set(rep.fields) == {"u", "v"} and rep.finite
+        monkeypatch.setenv(var, off)
+        assert resolve_numerics(Settings()) == off
+        return
     if var in ("GS_CKPT_REPLICAS", "GS_SCRUB"):
         assert var not in config.NOT_PORTED_ENV
         monkeypatch.setenv(var, value)
@@ -443,15 +456,21 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
 
 def test_reference_environment_no_longer_ignored(monkeypatch):
     """The environment the reference acts on: the subsystems the port
-    lacks raise; the postures it has act (bf16 fields, a coded store)."""
+    lacks raise; the postures it has act (bf16 fields, a coded store,
+    the numerics probe over the bf16 fields)."""
     for var, value in (("GS_COMPUTE_PRECISION", "bf16_f32acc"),
                        ("GS_SNAPSHOT_BITS", "8"), ("GS_NUMERICS", "boundary"),
                        ("GS_CKPT_REPLICAS", "2")):
         monkeypatch.setenv(var, value)
     s = Settings(L=16, backend="CPU", precision="Float32")
-    with pytest.raises(SettingsError, match="GS_NUMERICS"):
+    monkeypatch.setenv("GS_SUPERVISE", "1")
+    with pytest.raises(SettingsError, match="GS_SUPERVISE"):
         Simulation(s)
-    monkeypatch.delenv("GS_NUMERICS")
+    monkeypatch.delenv("GS_SUPERVISE")
+    # The numerics probes are ported (Queue 1 item 16b): they act.
+    assert resolve_numerics(s) == "boundary"
+    rep = Simulation(s).snapshot_async(numerics=True).numerics_report()
+    assert rep.fields["u"]["max"] == 1.0
     # Checkpoint replicas are ported (ROADMAP Queue 1 item 7): they act.
     assert integrity.resolve_replicas() == 2
     sim = Simulation(s)

@@ -2,10 +2,11 @@
 ignored (ROADMAP Queue 3, F3): each environment variable whose subsystem
 is still to come raises at construction naming the ROADMAP item that
 ports it, with its "off" values still running; one that its item has
-since ported (``GS_CKPT_VERIFY=full``, Queue 1 item 7 with 16b's device
-checksum) now acts, in the settings and in the reader; and ``reshard =
-"off"`` / ``GS_RESHARD=off`` refuses a restore onto another block
-layout, as the reference does."""
+since ported now acts (``GS_CKPT_VERIFY=full``, Queue 1 item 7 with
+16b's device checksum, in the settings and in the reader; ``GS_EVENTS``,
+``GS_METRICS`` and ``GS_TRACE``, item 21a: a run writes the sink); and
+``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore onto another
+block layout, as the reference does."""
 
 from pathlib import Path
 
@@ -20,20 +21,47 @@ from grayscott_jl_tpu_torch.config.settings import (NOT_PORTED_ENV,
 from grayscott_jl_tpu_torch.io import bplite
 from grayscott_jl_tpu_torch.io.checkpoint import ReshardError
 from grayscott_jl_tpu_torch.models import SettingsError
+from grayscott_jl_tpu_torch.obs import events, metrics, trace
 from grayscott_jl_tpu_torch.resilience import integrity
+
+#: The sinks Queue 1 item 21a ported: variable -> (the process-wide
+#: sink, its reset).
+SINKS = {"GS_EVENTS": (events.get_events, events.reset_events),
+         "GS_METRICS": (metrics.get_metrics, metrics.reset_metrics),
+         "GS_TRACE": (trace.get_tracer, trace.reset_tracer)}
 
 
 @pytest.mark.parametrize("var,value,off,item", [
-    ("GS_EVENTS", "/tmp/events.jsonl", "", "Queue 1 item 21"),
-    ("GS_METRICS", "/tmp/metrics.jsonl", "", "Queue 1 item 21"),
-    ("GS_TRACE", "/tmp/trace.json", "", "Queue 1 item 21"),
-    ("GS_PROFILE", "10:20", "", "Queue 1 item 21"),
-    ("GS_TPU_PROFILE", "/tmp/profile", "", "Queue 1 item 21"),
+    ("GS_EVENTS", "/tmp/events.jsonl", "", "Queue 1 item 21a"),
+    ("GS_METRICS", "/tmp/metrics.jsonl", "", "Queue 1 item 21a"),
+    ("GS_TRACE", "/tmp/trace.json", "", "Queue 1 item 21a"),
+    ("GS_PROFILE", "10:20", "", "Queue 1 item 21b"),
+    ("GS_TPU_PROFILE", "/tmp/profile", "", "Queue 1 item 21b"),
     ("GS_DEVICE_BLOCKLIST", "cuda:1", "", "Queue 1 item 17"),
     ("GS_CKPT_VERIFY", "full", "read", "Queue 1 item 16b"),
 ])
 def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
-                                                    monkeypatch):
+                                                    monkeypatch, tmp_path):
+    if var in SINKS:
+        # Ported by ``item``: a run writes the sink (in the test's own
+        # directory, under the value's file name), and the "off" value
+        # leaves it unarmed.
+        assert var not in NOT_PORTED_ENV
+        path = tmp_path / value.rsplit("/", 1)[1]
+        monkeypatch.setenv(var, str(path))
+        SINKS[var][1]()
+        try:
+            driver.main([_config(tmp_path / "c.toml")])
+            assert SINKS[var][0]().enabled
+        finally:
+            SINKS[var][1]()
+        assert path.is_file() and path.stat().st_size > 0
+        monkeypatch.setenv(var, off)
+        try:
+            assert not SINKS[var][0]().enabled
+        finally:
+            SINKS[var][1]()
+        return
     if var == "GS_CKPT_VERIFY":
         # Ported by ``item``: the value acts. A snapshot carries the
         # device checksum and verifies its landed bytes against it.

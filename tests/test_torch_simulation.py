@@ -278,8 +278,17 @@ def test_precision_settings_run(key, value, dtype):
 def test_unported_keys_raise_at_construction(key, value):
     """Each key whose item is not ported raises. ``halo_depth`` acts
     since item 13b was ported: on one block there is no exchange to
-    save, so the run is the default one, bitwise."""
+    save, so the run is the default one, bitwise. ``numerics`` acts
+    since item 16b was ported: the mode resolves and the probe runs."""
     s = dataclasses.replace(Settings(L=8, backend="CPU"), **{key: value})
+    if key == "numerics":
+        from grayscott_jl_tpu_torch.obs.numerics import resolve_numerics
+
+        assert resolve_numerics(s) == value
+        sim = Simulation(s)
+        sim.iterate(3)
+        assert sim.numerics_stats().finite
+        return
     if key == "halo_depth":
         sim, base = Simulation(s), Simulation(Settings(L=8, backend="CPU"))
         assert sim.halo_depth == value and sim.halo_depth_gate is None
