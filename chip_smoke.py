@@ -123,7 +123,29 @@ Phases, each of which stops the run on failure:
    ``GS_DRIFT_POLICY=abort`` with ``poison_drift`` after step 100,
    raising ``DriftError`` with only step 50 stored; the probe's device
    time on the L=256 fields beside its bound, and ``numerics_stats``'
-   host ms on (a) and (b);
+   host ms on (a) and (b); (vi) the resilience layer
+   (``phase_resilience``): (a) supervised (``GS_RESTART_BACKOFF_S=0``)
+   under each fault plan — preempt at 120 with every sink armed,
+   io_error at 50, nan at 120 under ``health_policy = "rollback"``,
+   drift at 120 under ``GS_DRIFT_POLICY=rollback``, kernel at 160
+   (fatal: ``gave_up`` and the error re-raised, then the user's relaunch
+   from the step-100 checkpoint), ckpt_corrupt with two replicas,
+   bitflip under ``GS_CKPT_VERIFY=full`` — each journal in the
+   reference's order (the kernel plan's ends in ``gave_up``), each
+   store equal file for file to phase 4's, launches counted and no
+   degradation; (b) preempted at 120;
+   (a) hung at 150 under a 5 s step-round deadline (``HangError``, the
+   stacks journaled); (a) through the CLI in a subprocess sent SIGTERM
+   after its step-100 checkpoint (exit 75) and relaunched (resumed from
+   the marker); the SDC screen: (a) at ``spot`` and (b) at ``shadow``
+   against ``off`` (stores equal, ``shadow_degraded`` on one card, the
+   replays' launches equal to the run's and counted apart), one
+   ``sdc`` flip caught and attributed to ``cuda:0`` block 0 and resumed
+   from the verified step, two flips quarantining ``cuda:0`` until the
+   supervisor gives up; with the time from each failure to the next
+   attempt's first step, the card's allocated bytes and the pinned ring
+   bytes at each attempt (flat), and the device ms of one replay and
+   checksum of a 50-step chunk on (a) and (b) beside the chunk;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -2361,6 +2383,478 @@ def phase_obs(torch, gs, cuda_stencil, workdir, stored, report):
     return rows
 
 
+#: Phase 4 (vi)'s supervised runs of (a): name -> (fault plan, extra
+#: environment, the journal's events and kinds in the reference's
+#: order). The order is the reference's for the same plan, as
+#: tests/test_torch_supervisor_journal.py holds it on the CPU, but for
+#: the kernel failure: fatal in the port, it ends in ``gave_up`` where
+#: the reference recovers on XLA.
+RESILIENCE_RUNS = {
+    "preempt": ("step=120:kind=preempt", "sinks",
+                [("injected", "preempt"), ("attempt_phases", "preemption"),
+                 ("recovery", "preemption")]),
+    "io_error": ("step=50:kind=io_error", {},
+                 [("injected", "io_error"),
+                  ("attempt_phases", "transient-io"),
+                  ("recovery", "transient-io")]),
+    "nan": ("step=120:kind=nan", {"GS_HEALTH_POLICY": "rollback"},
+            [("injected", "nan"), ("health", "health"),
+             ("attempt_phases", "health"), ("recovery", "health")]),
+    "drift": ("step=120:kind=drift",
+              {"GS_DRIFT_POLICY": "rollback", "GS_NUMERICS": "boundary",
+               "GS_DRIFT_LIMIT": "0.7"},
+              [("injected", "drift"), ("drift", None),
+               ("attempt_phases", "health"), ("recovery", "health")]),
+    "kernel": ("step=160:kind=kernel", {},
+               [("injected", "kernel"), ("attempt_phases", "kernel"),
+                ("gave_up", "kernel")]),
+    "ckpt_corrupt": ("step=120:kind=ckpt_corrupt;step=160:kind=preempt",
+                     {"GS_CKPT_REPLICAS": "2", "GS_ASYNC_IO_DEPTH": "0"},
+                     [("injected", "ckpt_corrupt"), ("injected", "preempt"),
+                      ("attempt_phases", "preemption"),
+                      ("recovery", "preemption"),
+                      ("replica_failover", None)]),
+    "bitflip": ("step=120:kind=bitflip", {"GS_CKPT_VERIFY": "full"},
+                [("injected", "bitflip"), ("attempt_phases", "corruption"),
+                 ("corruption", None), ("recovery", "corruption")]),
+}
+
+#: What every supervised run of phase 4 (vi) sets.
+SUPERVISED = {"GS_SUPERVISE": "1", "GS_MAX_RESTARTS": "3",
+              "GS_RESTART_BACKOFF_S": "0"}
+
+
+def memory_now(torch):
+    """After a garbage collection: the card's allocated bytes
+    (``torch.cuda.memory_allocated``) and the pinned host bytes held by
+    live ``HostRing``s (the snapshots' buffers) — what a leaked attempt
+    would keep."""
+    import gc
+    import warnings
+
+    from grayscott_jl_tpu_torch.simulation import HostRing
+
+    gc.collect()
+    with warnings.catch_warnings():
+        # isinstance() on every live object touches torch's deprecated
+        # module attributes.
+        warnings.simplefilter("ignore", FutureWarning)
+        ring = sum(o.nbytes for o in gc.get_objects()
+                   if isinstance(o, HostRing))
+    return {"allocated_b": torch.cuda.memory_allocated(), "host_ring_b": ring}
+
+
+def phase_resilience(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (vi), the supervisor, fault plans, watchdog and SDC screen
+    on the card's main paths (``resilience/``), every supervised run
+    with ``GS_RESTART_BACKOFF_S=0`` and its stores compared file by file
+    (sha256, ``tree_digest``) with those phase 4 wrote for (a)
+    (``gs.bp``, ``gs.vtk``, ``ckpt.bp``) and (b) (``mesh.bp``...):
+
+    1. (a) supervised once per plan of :data:`RESILIENCE_RUNS` (preempt
+       with every obs sink armed, io_error, nan under rollback, drift
+       under rollback, kernel, ckpt_corrupt with two replicas — the
+       replica compared —, bitflip under ``GS_CKPT_VERIFY=full`` — its
+       integrity sidecars aside): the journal's records in the
+       reference's order, the stores equal, launches counted in the
+       attempt that completes and no degradation; a kernel failure is
+       fatal (``InjectedKernelError`` re-raised after ``gave_up``), and
+       the user's relaunch resumes from the step-100 checkpoint on the
+       kernels;
+    2. (b) supervised with preempt at step 120;
+    3. (a) with hang at step 150 under ``GS_WATCHDOG_STEP_ROUND_S=5``:
+       the ``hang`` record with the stack dump, a hang recovery;
+    4. (a) through the CLI in a subprocess, stalled at step 150 (after
+       the step-100 checkpoint) and sent SIGTERM: exit 75, then a
+       supervised relaunch resumes from the marker; output stores equal;
+    5. SDC: (a) at ``spot`` (and ``off``, for the wall); (a) with one
+       ``sdc`` fault (``SDCError`` naming ``cuda:0`` and block 0, a
+       restart from the verified step 100); (a) with two (quarantine,
+       then ``gave_up`` "every device quarantined"); (b) at ``shadow``
+       (and ``off``): ``shadow_degraded`` on one card;
+    6. the time from each failure to the next attempt's first step,
+       ``torch.cuda.memory_allocated`` and the pinned ring bytes at each
+       attempt's start and after the run, and the device ms of one SDC
+       replay and checksum of a 50-step chunk on (a) and (b) beside the
+       chunk, each printed with the card's name and power limit."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.resilience import sdc as sdc_mod
+    from grayscott_jl_tpu_torch.resilience.faults import InjectedKernelError
+    from grayscott_jl_tpu_torch.resilience import supervisor
+
+    smi = nvidia_smi("name,power.limit")
+    stores = {"a": {s: tree_digest(os.path.join(workdir, s))
+                    for s in ("gs.bp", "gs.vtk", "ckpt.bp")},
+              "b": {s: tree_digest(os.path.join(workdir, m))
+                    for s, m in (("gs.bp", "mesh.bp"), ("gs.vtk", "mesh.vtk"),
+                                 ("ckpt.bp", "mesh_ckpt.bp"))}}
+
+    def mesh_factory(settings, *, n_devices, seed):
+        return mesh_sim(gs, settings, MESH, seed)
+
+    out = {"card": smi, "runs": {}}
+
+    def supervised(name, env, factory=None, layout="a", expect=None,
+                   relaunch=None):
+        """``supervise`` on config ``layout`` under ``env``, the attempts
+        timed and their memory read through the simulation factory;
+        ``relaunch``: the directory of a stopped run, resumed from its
+        durable checkpoint. Returns (run dir, summary, journal,
+        attempts, error)."""
+        d = relaunch or os.path.join(workdir, f"res_{name}")
+        os.makedirs(d, exist_ok=relaunch is not None)
+        cfg = os.path.join(d, "cfg.toml")
+        keys = dict(output=os.path.join(d, "gs.bp"), checkpoint=True,
+                    checkpoint_freq=100,
+                    checkpoint_output=os.path.join(d, "ckpt.bp"))
+        if relaunch is not None:
+            keys.update(restart=True, restart_input=keys["checkpoint_output"],
+                        restart_step=supervisor.latest_durable_checkpoint(
+                            get_settings([cfg])))
+        write_config(cfg, **main_settings(), **keys)
+        attempts = []
+
+        def timing(settings, *, n_devices, seed):
+            attempts.append({"start_t": time.time(), **memory_now(torch)})
+            sim = (factory(settings, n_devices=n_devices, seed=seed)
+                   if factory is not None
+                   else gs.Simulation(settings, n_devices=n_devices,
+                                      seed=seed))
+            iterate, rec = sim.iterate, attempts[-1]
+
+            def first(n):
+                rec.setdefault("first_step_t", time.time())
+                iterate(n)
+
+            sim.iterate = first
+            return sim
+
+        stats = os.path.join(d, "stats.json")
+        env = {**SUPERVISED, "GS_TPU_STATS": stats, **env}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        reset_sinks()
+        error = None
+        try:
+            cuda_stencil.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                supervisor.supervise(get_settings([cfg]), sim_factory=timing)
+            except Exception as e:  # noqa: BLE001 — judged below
+                # Its frames would hold the failed attempt's simulation.
+                e.__traceback__ = None
+                error = e
+            wall = time.perf_counter() - t0
+            launches = cuda_stencil.LAUNCHES
+        finally:
+            reset_sinks()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        after = memory_now(torch)
+        summary = None
+        if os.path.exists(stats):
+            with open(stats, encoding="utf-8") as f:
+                summary = json.load(f)
+        path = os.path.join(d, "gs.bp.faults.jsonl")
+        events = []
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                events = [json.loads(x) for x in f if x.strip()]
+        fails = [e["t"] for e in events if e["event"] == "attempt_phases"]
+        for rec, t_fail in zip(attempts[1:], fails):
+            rec["failure_to_first_step_s"] = rec["first_step_t"] - t_fail
+        if expect is not None:
+            got = [(e["event"], e.get("kind")) for e in events
+                   if e["event"] != "sdc_check"]
+            check(got == expect, f"{name}: journal {got}, expected {expect}")
+        row = {"wall_s": wall, "launches": launches, "attempts": attempts,
+               "after": after, "events": len(events),
+               "error": None if error is None else repr(error)}
+        if summary is not None:
+            row["kernel_launches_last_attempt"] = summary["counters"].get(
+                "kernel_launches", 0)
+            row["kernel_selection"] = summary["config"]["kernel_selection"]
+            row["sdc"] = summary["config"]["sdc"]
+        out["runs"][name] = row
+        return d, summary, events, attempts, error
+
+    def same_stores(d, layout, name, skip=(), replica=False):
+        for s, want in stores[layout].items():
+            if s in skip:
+                continue
+            got = tree_digest(os.path.join(
+                d, "ckpt.bp.r1" if replica and s == "ckpt.bp" else s))
+            if name == "bitflip":
+                got.pop("integrity.json", None)
+                want = {k: v for k, v in want.items()
+                        if k != "integrity.json"}
+            check(got == want, f"{name}: {s} differs from phase 4's "
+                  f"({layout}): {sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))[:5]}")
+
+    def memory_flat(name, attempts, after):
+        allocs = [a["allocated_b"] for a in attempts[1:]] + [
+            after["allocated_b"]]
+        rings = [a["host_ring_b"] for a in attempts[1:]] + [
+            after["host_ring_b"]]
+        check(max(allocs) <= attempts[0]["allocated_b"] + (1 << 20)
+              and max(rings) == 0,
+              f"{name}: memory grew with the attempts: allocated "
+              f"{[a['allocated_b'] for a in attempts]} then "
+              f"{after['allocated_b']}, host rings {rings}")
+
+    # 1. (a), one supervised run per plan.
+    for name, (plan, env, expect) in RESILIENCE_RUNS.items():
+        sinks = None
+        if env == "sinks":
+            sinks = os.path.join(workdir, "res_sinks")
+            os.makedirs(sinks)
+            env = sink_env(sinks)
+        d, summary, events, attempts, error = supervised(
+            name, {**env, "GS_FAULTS": plan}, expect=expect)
+        if name == "kernel":
+            # Fatal: the run stops on the kernel path, and the user's
+            # relaunch resumes from the step-100 checkpoint.
+            check(isinstance(error, InjectedKernelError)
+                  and out["runs"][name]["launches"] > 0
+                  and "kernel failure" in events[-1].get("reason", ""),
+                  f"kernel: raised {error!r} after "
+                  f"{out['runs'][name]['launches']} launches, journal "
+                  f"{events[-1:]}")
+            memory_flat(name, attempts, out["runs"][name]["after"])
+            name = "kernel_relaunch"
+            n_before = len(events)
+            d, summary, events, attempts, error = supervised(
+                name, {}, relaunch=d)
+            check(len(events) == n_before
+                  and summary["config"]["attempt"] == 0
+                  and summary["counters"].get("steps") == MAIN_STEPS - 100,
+                  f"kernel relaunch: journal {events[n_before:]}, config "
+                  f"attempt {summary['config'].get('attempt')}, "
+                  f"{summary['counters'].get('steps')} steps")
+        check(error is None, f"{name}: the supervised run raised {error!r}")
+        same_stores(d, "a", name, replica=name == "ckpt_corrupt")
+        row = out["runs"][name]
+        check(row["launches"] > 0, f"{name}: no kernel launch")
+        sel = summary["config"]["kernel_selection"] or {}
+        check(row["kernel_launches_last_attempt"] > 0
+              and "degraded_from" not in sel
+              and summary["config"]["kernel_language"] == "cuda",
+              f"{name}: later attempt launches "
+              f"{row['kernel_launches_last_attempt']}, selection {sel}")
+        memory_flat(name, attempts, row["after"])
+        if sinks is not None:
+            from grayscott_jl_tpu_torch.obs import events as obs_events
+
+            kinds = [(e["kind"], e.get("attrs", {}).get("fault"))
+                     for e in obs_events.parse_events(
+                         os.path.join(sinks, "events.jsonl"))]
+            check(("injected", "preempt") in kinds
+                  and ("recovery", "preemption") in kinds
+                  and os.path.isfile(os.path.join(sinks, "trace.json")),
+                  f"preempt: the event stream holds {kinds[:12]}")
+        log(f"  (a) supervised, {name} ({plan}): "
+            f"{len(attempts)} attempts, {row['launches']} launches "
+            f"({row['kernel_launches_last_attempt']} in the last), failure "
+            f"to next first step "
+            f"{[round(a.get('failure_to_first_step_s', 0), 4) for a in attempts[1:]]} s, "
+            f"allocated {[a['allocated_b'] for a in attempts]} -> "
+            f"{row['after']['allocated_b']} B, pinned rings "
+            f"{[a['host_ring_b'] for a in attempts]} -> "
+            f"{row['after']['host_ring_b']} B, wall {row['wall_s']:.3f} s; "
+            f"stores equal to phase 4's [{smi}]")
+
+    # 2. (b), preempt.
+    d, summary, events, attempts, error = supervised(
+        "mesh_preempt", {"GS_FAULTS": "step=120:kind=preempt"},
+        factory=mesh_factory, layout="b",
+        expect=RESILIENCE_RUNS["preempt"][2])
+    check(error is None, f"(b) preempt raised {error!r}")
+    same_stores(d, "b", "mesh_preempt")
+    check(out["runs"]["mesh_preempt"]["kernel_launches_last_attempt"]
+          == 8 * 100, f"(b) preempt: {out['runs']['mesh_preempt']}")
+    memory_flat("mesh_preempt", attempts, out["runs"]["mesh_preempt"]["after"])
+    log(f"  (b) supervised, preempt at 120: stores equal to phase 4's (b), "
+        f"{out['runs']['mesh_preempt']['kernel_launches_last_attempt']} "
+        f"6n-face launches in the resumed attempt [{smi}]")
+
+    # 3. hang under the watchdog.
+    d, summary, events, attempts, error = supervised(
+        "hang", {"GS_FAULTS": "step=150:kind=hang",
+                 "GS_WATCHDOG_STEP_ROUND_S": "5"},
+        expect=[("injected", "hang"), ("hang", "hang"),
+                ("attempt_phases", "hang"), ("recovery", "hang")])
+    check(error is None, f"hang: {error!r}")
+    hang = next(e for e in events if e["event"] == "hang")
+    check(hang["phase"] == "step_round" and any(
+        t["thread"] == "MainThread" and t["stack"] for t in hang["threads"]),
+        f"hang: the record holds {hang.get('phase')}, "
+        f"{[t['thread'] for t in hang.get('threads', [])]}")
+    rec = next(e for e in events if e["event"] == "recovery")
+    check("HangError" in rec["error"], f"hang: recovery {rec}")
+    same_stores(d, "a", "hang")
+    log(f"  (a) hang at 150 under a 5 s step_round deadline: HangError, "
+        f"the stacks of {len(hang['threads'])} threads journaled, stores "
+        f"equal [{smi}]")
+
+    # 4. A real SIGTERM to the CLI, then a supervised relaunch.
+    d = os.path.join(workdir, "res_sigterm")
+    os.makedirs(d)
+    cfg = os.path.join(d, "cfg.toml")
+    write_config(cfg, **main_settings(), output=os.path.join(d, "gs.bp"),
+                 checkpoint=True, checkpoint_freq=100,
+                 checkpoint_output=os.path.join(d, "ckpt.bp"))
+    env = dict(os.environ, **SUPERVISED, PYTHONPATH=REPO)
+    env.update({"GS_FAULTS": "step=150:kind=hang", "GS_WATCHDOG": "off",
+                "GS_HANG_BOUND_S": "300"})
+    journal = os.path.join(d, "gs.bp.faults.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "grayscott_jl_tpu_torch",
+                             cfg], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 300:
+            if os.path.exists(journal):
+                with open(journal, encoding="utf-8") as f:
+                    if '"injected"' in f.read():
+                        break
+            time.sleep(0.05)
+        proc.send_signal(__import__("signal").SIGTERM)
+        text, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 75,
+          f"SIGTERM: the CLI exited {proc.returncode}: {text[-2000:]}")
+    env.pop("GS_FAULTS")
+    res = subprocess.run([sys.executable, "-m", "grayscott_jl_tpu_torch",
+                          cfg], env=env, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"SIGTERM relaunch: {res.stderr[-2000:]}")
+    with open(journal, encoding="utf-8") as f:
+        events = [json.loads(x) for x in f if x.strip()]
+    kinds = [e["event"] for e in events]
+    check(kinds == ["injected", "graceful_shutdown", "recovery"]
+          and events[-1]["after"] == "graceful_shutdown"
+          and events[-1]["action"] == "resumed_from_checkpoint_step_150",
+          f"SIGTERM: journal {events}")
+    same_stores(d, "a", "sigterm", skip=("ckpt.bp",))
+    out["sigterm_s"] = time.perf_counter() - t0
+    log(f"  (a) through the CLI: SIGTERM at step 150 -> exit 75, the "
+        f"supervised relaunch resumed from the marker at step 150; output "
+        f"stores equal ({out['sigterm_s']:.1f} s for both processes) "
+        f"[{smi}]")
+
+    # 5. SDC.
+    walls = {}
+    for layout, fac, modes in (("a", None, ("off", "spot")),
+                               ("b", mesh_factory, ("off", "shadow"))):
+        for mode in modes:
+            d, summary, events, attempts, error = supervised(
+                f"sdc_{layout}_{mode}", {"GS_SDC_CHECK": mode},
+                factory=fac, layout=layout)
+            check(error is None, f"SDC {layout} {mode}: {error!r}")
+            same_stores(d, layout, f"sdc_{layout}_{mode}")
+            walls[f"{layout}_{mode}"] = out["runs"][f"sdc_{layout}_{mode}"][
+                "wall_s"]
+            if mode != "off":
+                # The replays cover the run's four chunks with the same
+                # launches, counted apart from the run's.
+                s = summary["config"]["sdc"]
+                live = summary["counters"].get("kernel_launches", 0)
+                check(s["checks"] == 4 and s["mismatches"] == 0
+                      and s["verified_step"] == MAIN_STEPS
+                      and s["shadow_degraded"] == (mode == "shadow")
+                      and s["replay_launches"] == live > 0,
+                      f"SDC {layout} {mode}: {s}, {live} live launches")
+    log(f"  SDC screen: replay launches (a) "
+        f"{out['runs']['sdc_a_spot']['sdc']['replay_launches']}, (b) "
+        f"{out['runs']['sdc_b_shadow']['sdc']['replay_launches']}, each "
+        f"equal to the run's own [{smi}]")
+    log(f"  SDC screen: (a) spot {walls['a_spot']:.3f} s against off "
+        f"{walls['a_off']:.3f} s; (b) shadow {walls['b_shadow']:.3f} s "
+        f"against off {walls['b_off']:.3f} s (shadow_degraded on one "
+        f"card); stores equal [{smi}]")
+    d, summary, events, attempts, error = supervised(
+        "sdc_one", {"GS_SDC_CHECK": "spot",
+                    "GS_FAULTS": "step=120:kind=sdc"})
+    check(error is None, f"SDC one fault: {error!r}")
+    mism = [e for e in events if e["event"] == "sdc_mismatch"]
+    rec = [e for e in events if e["event"] == "recovery"]
+    check(len(mism) == 1 and mism[0]["device"] == "cuda:0"
+          and mism[0]["block"] == 0 and mism[0]["step"] == 150
+          and mism[0]["verified_step"] == 100 and len(rec) == 1
+          and rec[0]["action"] == "resumed_from_checkpoint_step_100",
+          f"SDC one fault: {mism} {rec}")
+    same_stores(d, "a", "sdc_one")
+    blocklist = os.environ.get("GS_DEVICE_BLOCKLIST")
+    try:
+        d, summary, events, attempts, error = supervised(
+            "sdc_two", {"GS_SDC_CHECK": "spot",
+                        "GS_FAULTS": "step=120:kind=sdc;step=160:kind=sdc"})
+        quarantined = os.environ.get("GS_DEVICE_BLOCKLIST")
+    finally:
+        if blocklist is None:
+            os.environ.pop("GS_DEVICE_BLOCKLIST", None)
+        else:
+            os.environ["GS_DEVICE_BLOCKLIST"] = blocklist
+    q = [e for e in events if e["event"] == "device_quarantined"]
+    gave = [e for e in events if e["event"] == "gave_up"]
+    memory_flat("sdc_two", attempts, out["runs"]["sdc_two"]["after"])
+    check(isinstance(error, sdc_mod.SDCError) and quarantined == "cuda:0"
+          and [e["device"] for e in q] == ["cuda:0"] and gave
+          and "every device quarantined" in gave[-1]["reason"],
+          f"SDC two faults: {error!r}, blocklist {quarantined}, {q}, {gave}")
+    log(f"  SDC: one flip at step 120 caught at 150 on cuda:0 block 0, "
+        f"resumed from the verified step 100, stores equal; a second flip "
+        f"quarantined cuda:0 and the supervisor gave up (every device "
+        f"quarantined) [{smi}]")
+
+    # 6. The replay's and the checksum's device time on (a) and (b).
+    def cuda_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    replay = {}
+    for layout in ("a", "b"):
+        s = gs.Settings(**main_settings())
+        sim = (gs.Simulation(s) if layout == "a"
+               else mesh_sim(gs, s, MESH))
+        anchor = sim.retain_fields()
+        chunk = cuda_ms(lambda: sim.replay_fields(anchor, 0, 50))
+        ck = cuda_ms(lambda: sim.block_checksums(sim.blocks))
+
+        def live():
+            sim.iterate(50)
+
+        live_ms = cuda_ms(live)
+        replay[layout] = {"replay_ms": chunk, "checksum_ms": ck,
+                          "chunk_ms": live_ms}
+        del sim, anchor
+    out["replay"] = replay
+    log(f"  SDC replay of a 50-step chunk (device ms, CUDA events): (a) "
+        f"{replay['a']['replay_ms']:.3f} ms + checksum "
+        f"{replay['a']['checksum_ms']:.3f} ms against the chunk "
+        f"{replay['a']['chunk_ms']:.3f} ms; (b) "
+        f"{replay['b']['replay_ms']:.3f} + {replay['b']['checksum_ms']:.3f} "
+        f"against {replay['b']['chunk_ms']:.3f} ms [{smi}]")
+    report["resilience"] = out
+
+
 def phase_band_times(torch, gs, cuda_stencil, spec, report):
     """Per-launch times of the band recomputes at the split rounds'
     depth-2 shapes (noise on): the kernel (CUDA events, and its device
@@ -3514,6 +4008,10 @@ def main():
         log("phase 4 (v): the observability sinks and numerics probes")
         timed(report, "obs", phase_obs, torch, gs, cuda_stencil, workdir,
               stored, report)
+        log("phase 4 (vi): the supervisor, fault plans, watchdog and SDC "
+            "screen")
+        timed(report, "resilience", phase_resilience, torch, gs,
+              cuda_stencil, workdir, report)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,

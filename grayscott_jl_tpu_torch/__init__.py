@@ -35,8 +35,12 @@ def julia_main(args=None, *, n_devices=None) -> int:
     """Exit-code wrapper: 0 on success; after a SIGTERM/SIGINT that the
     run turned into a boundary checkpoint (``GracefulShutdown``),
     ``EXIT_PREEMPTED`` (75) so that a relauncher resumes it; 1 on any
-    other failure (with the traceback on stderr). ``n_devices`` is the
-    number of blocks (of this process, in a multi-process run)."""
+    other failure (with the traceback on stderr). The hang watchdog's
+    hard exit leaves the process with ``EXIT_HANG`` (76) from its own
+    thread. After 75 or 76 a supervised relaunch (``GS_SUPERVISE=1``)
+    resumes by itself from the journal's marker (``GS_FAULT_JOURNAL``,
+    default ``<output>.faults.jsonl``). ``n_devices`` is the number of
+    blocks (of this process, in a multi-process run)."""
     import sys
     import traceback
 
@@ -45,8 +49,8 @@ def julia_main(args=None, *, n_devices=None) -> int:
     try:
         main(sys.argv[1:] if args is None else args, n_devices=n_devices)
     except GracefulShutdown as e:
-        print(f"gray-scott-torch: {e}; exiting {EXIT_PREEMPTED} (restart "
-              "from the checkpoint to resume)", file=sys.stderr)
+        print(f"gray-scott-torch: {e}; exiting {EXIT_PREEMPTED} (rerun "
+              "under GS_SUPERVISE=1 to auto-resume)", file=sys.stderr)
         return EXIT_PREEMPTED
     except Exception:  # noqa: BLE001 — the exit code is the product
         traceback.print_exc()

@@ -1,0 +1,392 @@
+"""Chaos scenarios of the resilience layer (counterpart of
+``scripts/chaos_smoke.sh``, for the scenarios whose modules the port
+has)::
+
+    python -m grayscott_jl_tpu_torch.chaos [--backend CUDA|CPU] [--L 32]
+        [--steps 60] [--seed N] [--scenarios 1,2,3,7,8,11] [--workdir DIR]
+
+Each scenario runs a supervised run that a fault interrupts and holds
+its stores, byte for byte, against an uninterrupted run of the same
+settings (faults change when a run computes, never what it writes):
+
+1. a preemption at a pseudo-random step (``--seed``), with every
+   observability sink armed (``GS_EVENTS``, ``GS_METRICS``,
+   ``GS_TRACE``); the event stream must carry the injected fault;
+2. a driver hang at a pseudo-random step: the watchdog expires
+   (``GS_WATCHDOG_STEP_ROUND_S=1``), the stack dump lands in the
+   journal, the supervisor restarts;
+3. a real SIGTERM to the CLI in a subprocess after its first
+   checkpoint: exit 75, then a supervised relaunch resumes from the
+   journal's ``graceful_shutdown`` marker (the output stores are
+   compared; the checkpoint store holds the extra grace entry);
+7. a corrupted byte in the primary checkpoint store, then a preemption:
+   the restore fails over to the ``.r1`` replica; the output stores and
+   the replica equal the uninterrupted run's;
+8. lossy output (``GS_SNAPSHOT_BITS=8``) preempted and resumed from its
+   exact checkpoint;
+11. a flipped mantissa bit in a live cell under ``GS_SDC_CHECK=spot``:
+    the screen catches it, attributes it to the device and block, the
+    run restarts from the last verified checkpoint; a second flip on the
+    same device quarantines it, and with no device left the supervisor
+    gives up ("every device quarantined").
+
+Scenarios 4 (ensembles, Queue 1 item 19), 5 and 10 (resharding, item
+18), 6 and 9 (serving, item 22) wait for their items. Exit code 0 when
+every scenario held, 1 otherwise; one JSON line per scenario on stdout.
+The runs are in-process except scenario 3's. They run on the card
+(``--backend CUDA``, the default) unless ``--backend CPU`` asks for the
+host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import filecmp
+import json
+import os
+import random
+import shutil
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Dict, List, Optional
+
+SCENARIOS = (1, 2, 3, 7, 8, 11)
+
+#: Supervision settings shared by every supervised run.
+SUPERVISED = {"GS_SUPERVISE": "1", "GS_MAX_RESTARTS": "5",
+              "GS_RESTART_BACKOFF_S": "0"}
+
+#: Variables a scenario sets; cleared around each run.
+_VARS = ("GS_SUPERVISE", "GS_MAX_RESTARTS", "GS_RESTART_BACKOFF_S",
+         "GS_FAULTS", "GS_FAULT_JOURNAL", "GS_EVENTS", "GS_METRICS",
+         "GS_TRACE", "GS_WATCHDOG", "GS_WATCHDOG_STEP_ROUND_S",
+         "GS_CKPT_REPLICAS", "GS_CKPT_VERIFY", "GS_ASYNC_IO_DEPTH",
+         "GS_SNAPSHOT_BITS", "GS_SDC_CHECK", "GS_SDC_EVERY",
+         "GS_DEVICE_BLOCKLIST", "GS_FAULT_DEVICE", "GS_TPU_STATS")
+
+
+def write_config(d: str, *, backend: str, L: int, steps: int,
+                 **extra) -> str:
+    """``d/config.toml``: plotgap 10, a checkpoint every 20 steps."""
+    os.makedirs(d, exist_ok=True)
+    kw = dict(L=L, Du=0.2, Dv=0.1, F=0.02, k=0.048, dt=1.0, noise=0.1,
+              steps=steps, plotgap=10, checkpoint=True, checkpoint_freq=20,
+              output=os.path.join(d, "gs.bp"),
+              checkpoint_output=os.path.join(d, "ckpt.bp"),
+              precision="Float32", backend=backend)
+    kw.update(extra)
+    lines = []
+    for key, value in kw.items():
+        if isinstance(value, bool):
+            lines.append(f"{key} = {'true' if value else 'false'}")
+        elif isinstance(value, str):
+            lines.append(f'{key} = "{value}"')
+        else:
+            lines.append(f"{key} = {value}")
+    path = os.path.join(d, "config.toml")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+@contextlib.contextmanager
+def environment(env: Dict[str, str]):
+    """``env`` set (and every other scenario variable unset) for the
+    block, the process-wide sinks re-read from it; restored after."""
+    from .obs import events, metrics, trace
+
+    saved = {k: os.environ.get(k) for k in set(_VARS) | set(env)}
+    for k in _VARS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    for reset in (events.reset_events, metrics.reset_metrics,
+                  trace.reset_tracer):
+        reset()
+    try:
+        yield
+    finally:
+        for reset in (events.reset_events, metrics.reset_metrics,
+                      trace.reset_tracer):
+            reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run(cfg: str, env: Dict[str, str]):
+    """``driver.main([cfg])`` under ``env``; the exception it raised,
+    or None."""
+    from . import driver
+
+    with environment(env):
+        try:
+            driver.main([cfg])
+        except Exception as e:  # noqa: BLE001 — the scenario judges it
+            return e
+    return None
+
+
+def journal(d: str) -> List[dict]:
+    path = os.path.join(d, "gs.bp.faults.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def trees_equal(a: str, b: str) -> List[str]:
+    """The files that differ (or exist on one side only) between two
+    store trees."""
+    bad: List[str] = []
+
+    def walk(cmp: filecmp.dircmp, rel: str) -> None:
+        bad.extend(os.path.join(rel, n) for n in
+                   cmp.left_only + cmp.right_only + cmp.funny_files)
+        for name in cmp.common_files:
+            if not filecmp.cmp(os.path.join(cmp.left, name),
+                               os.path.join(cmp.right, name), shallow=False):
+                bad.append(os.path.join(rel, name))
+        for name, sub in cmp.subdirs.items():
+            walk(sub, os.path.join(rel, name))
+
+    if not (os.path.isdir(a) and os.path.isdir(b)):
+        return [f"{a} or {b} is missing"]
+    walk(filecmp.dircmp(a, b), "")
+    return bad
+
+
+class Chaos:
+    def __init__(self, backend: str, L: int, steps: int, seed: int,
+                 workdir: str):
+        self.backend = backend
+        self.L = L
+        self.steps = steps
+        self.rng = random.Random(seed)
+        self.workdir = workdir
+        self.bases: Dict[tuple, str] = {}
+
+    def config(self, name: str, **extra) -> str:
+        return write_config(os.path.join(self.workdir, name),
+                            backend=self.backend, L=self.L, steps=self.steps,
+                            **extra)
+
+    def base(self, env: Optional[Dict[str, str]] = None, **extra) -> str:
+        """The uninterrupted run under ``env`` and ``extra`` settings
+        (run once)."""
+        key = (tuple(sorted((env or {}).items())),
+               tuple(sorted(extra.items())))
+        if key not in self.bases:
+            name = f"base{len(self.bases)}"
+            err = run(self.config(name, **extra), dict(env or {}))
+            if err is not None:
+                raise RuntimeError(f"uninterrupted run failed: {err!r}")
+            self.bases[key] = os.path.join(self.workdir, name)
+        return self.bases[key]
+
+    def random_step(self) -> int:
+        """A step strictly inside the run, off the boundaries."""
+        return self.rng.randrange(21, self.steps - 5)
+
+    def check_stores(self, base: str, d: str,
+                     stores=("gs.bp", "gs.vtk", "ckpt.bp")) -> List[str]:
+        return [f"{s}/{f}" for s in stores
+                for f in trees_equal(os.path.join(base, s),
+                                     os.path.join(d, s))]
+
+    # ---------------------------------------------------------- scenarios
+
+    def scenario_1(self) -> dict:
+        step = self.random_step()
+        base = self.base()
+        d = os.path.join(self.workdir, "s1")
+        cfg = self.config("s1")
+        err = run(cfg, {**SUPERVISED, "GS_FAULTS": f"step={step}:kind=preempt",
+                        "GS_EVENTS": os.path.join(d, "events.jsonl"),
+                        "GS_METRICS": os.path.join(d, "metrics.jsonl"),
+                        "GS_TRACE": os.path.join(d, "trace.json")})
+        from .obs.events import parse_events
+
+        kinds = [(e["kind"], e.get("attrs", {}).get("fault"))
+                 for e in parse_events(os.path.join(d, "events.jsonl"))]
+        problems = self.check_stores(base, d)
+        if ("injected", "preempt") not in kinds:
+            problems.append("the event stream has no injected preempt")
+        if ("recovery", "preemption") not in kinds:
+            problems.append("the event stream has no preemption recovery")
+        return self.verdict(1, err, problems, d, step=step)
+
+    def scenario_2(self) -> dict:
+        step = self.random_step()
+        base = self.base()
+        d = os.path.join(self.workdir, "s2")
+        err = run(self.config("s2"), {
+            **SUPERVISED, "GS_FAULTS": f"step={step}:kind=hang",
+            "GS_WATCHDOG_STEP_ROUND_S": "1"})
+        problems = self.check_stores(base, d)
+        hangs = [e for e in journal(d) if e["event"] == "hang"]
+        if not hangs or not hangs[0].get("threads"):
+            problems.append("no hang record with a stack dump")
+        if not any(e["event"] == "recovery" and e["kind"] == "hang"
+                   for e in journal(d)):
+            problems.append("no hang recovery")
+        return self.verdict(2, err, problems, d, step=step)
+
+    def scenario_3(self) -> dict:
+        base = self.base()
+        d = os.path.join(self.workdir, "s3")
+        cfg = self.config("s3")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {k: v for k, v in os.environ.items() if k not in _VARS}
+        env.update(SUPERVISED)
+        env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+        cmd = [sys.executable, "-m", "grayscott_jl_tpu_torch", cfg]
+        # The signal lands mid-run: the plan's hang stalls the step-20
+        # boundary (no watchdog armed: the stall ends on the signal, and
+        # the trajectory is unchanged).
+        env.update({"GS_FAULTS": "step=20:kind=hang", "GS_WATCHDOG": "off",
+                    "GS_HANG_BOUND_S": "30"})
+        problems = []
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        # The stall's journal record: the step-20 checkpoint's boundary
+        # is reached, and its writes follow the signal.
+        t0 = time.monotonic()
+        while (time.monotonic() - t0 < 600 and proc.poll() is None
+               and not any(e["event"] == "injected" for e in journal(d))):
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        if proc.returncode != 75:
+            problems.append(f"the signalled run exited {proc.returncode}, "
+                            f"not 75: {out[-2000:]}")
+        marker = [e for e in journal(d) if e["event"] == "graceful_shutdown"]
+        if not marker:
+            problems.append("no graceful_shutdown marker in the journal")
+        err = run(cfg, dict(SUPERVISED))
+        if not any(e["event"] == "recovery"
+                   and e.get("after") == "graceful_shutdown"
+                   for e in journal(d)):
+            problems.append("the relaunch did not resume from the marker")
+        problems += self.check_stores(base, d, ("gs.bp", "gs.vtk"))
+        return self.verdict(3, err, problems, d,
+                            stopped_at=marker[0]["step"] if marker else None)
+
+    def scenario_7(self) -> dict:
+        env = {"GS_CKPT_REPLICAS": "2", "GS_CKPT_VERIFY": "full",
+               "GS_ASYNC_IO_DEPTH": "0"}
+        base = self.base(env)
+        d = os.path.join(self.workdir, "s7")
+        err = run(self.config("s7"), {
+            **SUPERVISED, **env,
+            "GS_FAULTS": "step=21:kind=ckpt_corrupt;step=31:kind=preempt"})
+        problems = self.check_stores(base, d, ("gs.bp", "gs.vtk"))
+        problems += [f"ckpt.bp.r1/{f}" for f in trees_equal(
+            os.path.join(base, "ckpt.bp"), os.path.join(d, "ckpt.bp.r1"))]
+        if not any(e["event"] == "replica_failover" for e in journal(d)):
+            problems.append("no replica_failover record")
+        return self.verdict(7, err, problems, d)
+
+    def scenario_8(self) -> dict:
+        env = {"GS_SNAPSHOT_BITS": "8"}
+        base = self.base(env)
+        d = os.path.join(self.workdir, "s8")
+        err = run(self.config("s8"), {
+            **SUPERVISED, **env,
+            "GS_FAULTS": f"step={self.random_step()}:kind=preempt"})
+        return self.verdict(8, err, self.check_stores(base, d), d)
+
+    def scenario_11(self) -> dict:
+        env = {"GS_SDC_CHECK": "spot"}
+        base = self.base(env)
+        d = os.path.join(self.workdir, "s11")
+        err = run(self.config("s11"), {
+            **SUPERVISED, **env, "GS_FAULTS": "step=25:kind=sdc"})
+        problems = self.check_stores(base, d)
+        mism = [e for e in journal(d) if e["event"] == "sdc_mismatch"]
+        if len(mism) != 1 or mism[0].get("device") is None:
+            problems.append(f"sdc_mismatch records {mism}")
+        d2 = os.path.join(self.workdir, "s11q")
+        err2 = run(self.config("s11q"), {
+            **SUPERVISED, **env,
+            "GS_FAULTS": "step=25:kind=sdc;step=45:kind=sdc"})
+        events = journal(d2)
+        quarantined = [e["device"] for e in events
+                       if e["event"] == "device_quarantined"]
+        gave_up = [e for e in events if e["event"] == "gave_up"]
+        if len(quarantined) != 1:
+            problems.append(f"quarantined {quarantined}")
+        if not (gave_up and "every device quarantined"
+                in gave_up[-1].get("reason", "")):
+            problems.append(f"gave_up records {gave_up}")
+        if err2 is None:
+            problems.append("the run with a quarantined device completed")
+        return self.verdict(11, err, problems, d,
+                            device=mism[0]["device"] if mism else None,
+                            block=mism[0].get("block") if mism else None,
+                            quarantined=quarantined)
+
+    def verdict(self, n: int, err, problems: List[str], d: str,
+                **extra) -> dict:
+        if err is not None:
+            problems = [f"the supervised run raised {err!r}"] + problems
+        events = journal(d)
+        return {"scenario": n, "ok": not problems, "problems": problems,
+                "recoveries": [e.get("kind") for e in events
+                               if e["event"] == "recovery"],
+                **extra}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--backend", default="CUDA", choices=("CPU", "CUDA"),
+                   help="CUDA (the default) runs on the card; CPU runs "
+                        "the plain path on the host")
+    p.add_argument("--L", type=int, default=32)
+    p.add_argument("--steps", type=int, default=60)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--scenarios", default=",".join(map(str, SCENARIOS)))
+    p.add_argument("--workdir", default=None,
+                   help="where the runs write (default: a temporary "
+                        "directory, removed at the end)")
+    args = p.parse_args(argv)
+    wanted = [int(x) for x in args.scenarios.split(",") if x.strip()]
+    unknown = sorted(set(wanted) - set(SCENARIOS))
+    if unknown:
+        print(f"chaos: no scenario {unknown} in the port (it has "
+              f"{list(SCENARIOS)}; 4, 5, 6, 9 and 10 wait for Queue 1 items "
+              "18, 19 and 22)", file=sys.stderr)
+        return 2
+    if args.steps < 40:
+        print("chaos: --steps must be at least 40", file=sys.stderr)
+        return 2
+    seed = args.seed if args.seed is not None else random.randrange(1 << 16)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="gs_chaos_")
+    chaos = Chaos(args.backend, args.L, args.steps, seed, workdir)
+    ok = True
+    try:
+        for n in wanted:
+            t0 = time.perf_counter()
+            result = getattr(chaos, f"scenario_{n}")()
+            result.update(seed=seed, seconds=round(time.perf_counter() - t0,
+                                                   3))
+            ok &= result["ok"]
+            print(json.dumps(result), flush=True)
+    finally:
+        if args.workdir is None:
+            shutil.rmtree(workdir, ignore_errors=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -122,9 +122,6 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 #: it. Any other value raises at construction (:func:`check_ported`).
 NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
     "autotune": (("", "off", "cached"), "Queue 1 item 20"),
-    "supervise": ((False,), "Queue 1 item 17"),
-    "faults": (("",), "Queue 1 item 17"),
-    "watchdog": (("", "auto", "off", "0", "false", "no"), "Queue 1 item 17"),
     "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21b"),
     "ensemble": ((None,), "Queue 1 item 19"),
 }
@@ -316,11 +313,6 @@ _OFF = ("", "0", "off", "false", "no")
 #: or writes, so a value outside "off" raises at construction rather
 #: than being ignored. Several override :data:`NOT_PORTED` keys.
 NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_SUPERVISE": ("the supervisor", _OFF, "Queue 1 item 17"),
-    "GS_FAULTS": ("fault injection", ("",), "Queue 1 item 17"),
-    "GS_WATCHDOG": ("the hang watchdog", _OFF + ("auto",),
-                    "Queue 1 item 17"),
-    "GS_SDC_CHECK": ("SDC screening", ("", "off"), "Queue 1 item 17"),
     "GS_AUTOTUNE": ("the measured autotuner", ("", "off", "cached"),
                     "Queue 1 item 20"),
     "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21b"),
@@ -328,7 +320,6 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
                    "Queue 1 item 21b"),
     "GS_TPU_PROFILE": ("a profiler trace of the run", ("",),
                        "Queue 1 item 21b"),
-    "GS_DEVICE_BLOCKLIST": ("device quarantine", ("",), "Queue 1 item 17"),
 }
 
 
@@ -571,9 +562,8 @@ def resolve_compile_cache(settings: Settings):
     git-ignored build directories). ``GS_COMPILE_CACHE`` (a path, or
     ``off``/``0``/``false``/``no``) wins over the ``compile_cache`` key;
     a path is ``expanduser``-ed. Unset, it is on under supervision (a
-    directory under ``~/.cache``), as in the reference, and off
-    otherwise; supervision itself is not in this package yet (ROADMAP
-    Queue 1 item 17)."""
+    directory under ``~/.cache``), so that a restarted process reuses
+    its builds, as in the reference, and off otherwise."""
     raw = os.environ.get("GS_COMPILE_CACHE")
     if raw is None:
         raw = settings.compile_cache or ""

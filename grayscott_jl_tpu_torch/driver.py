@@ -1,5 +1,12 @@
 """Simulation driver: the reference's ``GrayScott.main`` step loop
-(counterpart of the core of ``grayscott_jl_tpu/driver.py::run_once``).
+(counterpart of ``grayscott_jl_tpu/driver.py``).
+
+:func:`main` dispatches: with supervision armed (``GS_SUPERVISE`` /
+``supervise``) it runs ``resilience/supervisor.supervise``, the restart
+loop, else one :func:`run_once`. :func:`run_once` is one attempt: the
+hang watchdog (``resilience/watchdog.py``) and the shutdown listener
+bracket it, a watchdog interrupt leaves it as ``HangError``, and the
+trace is flushed after it, failed or not.
 
 Flow: settings -> simulation (restored from ``restart_input`` when
 ``restart = true``, through replica failover) -> output stream and
@@ -75,9 +82,21 @@ policy (``GS_DRIFT_POLICY=abort``) a boundary's probe is judged before
 its step is submitted, so a drifted step reaches no store; otherwise
 after. The stores are bitwise the same with every sink on or off.
 
-Not here yet, each a later slice of the port (ROADMAP Queue 1): the
-supervisor and fault injection, the hang watchdog, compile statistics
-and profiler captures, and ensembles.
+Resilience (``resilience/``), as in the reference: every phase edge is
+a watchdog heartbeat (and the tracer's edge); the fault plan
+(``GS_FAULTS``) is taken at each boundary in the reference's order —
+``kernel`` and ``sdc`` before the round, then after it the SDC screen
+(``GS_SDC_CHECK``: replay the round and compare checksums, before any
+poison and any write), the ``nan``, ``drift``, ``preempt`` and ``hang``
+faults, the screen's new anchor, and on the write path ``io_error``,
+``bitflip`` and ``ckpt_corrupt``. Each fault is journaled as
+``injected`` in the fault journal, which also takes the health trips,
+the drift trips under a raising policy, the integrity records and the
+``graceful_shutdown`` marker, and mirrors each onto the event stream.
+
+Not here yet, each a later slice of the port (ROADMAP Queue 1): compile
+statistics and profiler captures, ensembles, and the live reshape away
+from a quarantined card.
 """
 
 from __future__ import annotations
@@ -89,7 +108,7 @@ from typing import List, Optional
 from .config.env import env_str
 from .config.settings import (Settings, get_settings, load_backend_and_lang,
                               resolve_autotune, resolve_reshard)
-from .io.async_writer import AsyncStepWriter, resolve_depth
+from .io.async_writer import AsyncStepWriter, resolve_depth, with_io_fault
 from .io.checkpoint import CheckpointWriter, load_checkpoint
 from .io.stream import SimStream
 from .ops import cuda_stencil
@@ -99,9 +118,14 @@ from .obs import numerics as obs_numerics
 from .obs.trace import get_tracer
 from .parallel import distributed
 from .resilience import integrity
-from .resilience.faults import (GracefulShutdown, ShutdownListener,
+from .resilience import sdc as sdc_mod
+from .resilience.faults import (FaultPlan, GracefulShutdown,
+                                InjectedKernelError, PreemptionError,
+                                ShutdownListener, injected_hang_wait,
                                 resolve_graceful_shutdown)
 from .resilience.health import DriftGate, HealthError, HealthGuard
+from .resilience.supervisor import FaultJournal, supervise, supervision_enabled
+from .resilience.watchdog import Watchdog, resolve_watchdog
 from .simulation import HostRing, Simulation
 from .utils.log import Logger
 from .utils.profiler import RunStats
@@ -116,14 +140,19 @@ def _next_boundary(step: int, period: int, limit: int) -> int:
 
 def main(args: List[str], *, n_devices: Optional[int] = None,
          seed: int = 0):
-    """Run a full simulation from CLI args. ``GS_SEED`` overrides the
-    noise seed (default 0). In a run of several processes ``n_devices``
-    is this process's number of blocks (``launch.py`` passes its
-    ``devices_per_proc``)."""
+    """Run a full simulation from CLI args, through the supervisor when
+    supervision is armed. ``GS_SEED`` overrides the noise seed (default
+    0). In a run of several processes ``n_devices`` is this process's
+    number of blocks (``launch.py`` passes its ``devices_per_proc``)."""
     settings = get_settings(list(args))
     env_seed = env_str("GS_SEED", "").strip()
     if env_seed:
         seed = int(env_seed)
+    # The group starts before the supervisor, whose restart rendezvous
+    # uses its store.
+    distributed.ensure_started(load_backend_and_lang(settings)[0])
+    if supervision_enabled(settings):
+        return supervise(settings, n_devices=n_devices, seed=seed)
     return run_once(settings, n_devices=n_devices, seed=seed)
 
 
@@ -148,40 +177,70 @@ def _close_quietly(store) -> None:
 
 
 def run_once(settings: Settings, *, n_devices: Optional[int] = None,
-             seed: int = 0, sim_factory=None) -> Simulation:
-    """One simulation run; returns the finished :class:`Simulation`.
+             seed: int = 0, context=None, sim_factory=None) -> Simulation:
+    """One simulation attempt; returns the finished :class:`Simulation`.
+
+    ``context`` is the supervisor's
+    :class:`~.resilience.supervisor.SupervisorContext` (the fault plan
+    and journal shared by the attempts); a run without one reads its
+    plan and journal from the environment.
     ``sim_factory``, when given, builds the simulation instead of the
     constructor, called as ``sim_factory(settings, n_devices=...,
     seed=...)`` (e.g. to place a mesh's blocks on chosen devices).
     Raises ``HealthError`` at a poisoned boundary under the ``abort``
-    policy, ``DriftError`` at a drifted probe under ``GS_DRIFT_POLICY=
-    abort``, ``GracefulShutdown`` after a shutdown request, and
-    ``AsyncIOError`` (or, at depth 0, the error itself) when a write
-    fails."""
+    (and ``rollback``) policy, ``DriftError`` at a drifted probe under
+    a raising drift policy, ``GracefulShutdown`` after a shutdown
+    request, ``HangError`` when the watchdog expires, ``SDCError`` when
+    the screen disagrees, and ``AsyncIOError`` (or, at depth 0, the
+    error itself) when a write fails."""
+    if context is not None:
+        plan, journal = context.plan, context.journal
+    else:
+        plan = FaultPlan.from_env(settings)
+        journal = FaultJournal.from_env(settings)
     guard = HealthGuard.from_env(settings)
     reshard = resolve_reshard(settings)
     depth = resolve_depth()
     icfg = integrity.resolve_config(settings)
     num_mode = obs_numerics.resolve_numerics(settings)
+    scfg = sdc_mod.resolve_sdc(settings)
+    deadlines = resolve_watchdog(settings)
     # The group starts before the simulation is built (the reference's
     # maybe_initialize_distributed before its Simulation), and the
     # sinks after it, so that their paths carry this process's rank.
     distributed.ensure_started(load_backend_and_lang(settings)[0])
     tracer = get_tracer()
     evs = obs_events.get_events()
-    metrics = obs_metrics.get_metrics(settings)
-    # The listener brackets the whole run, construction included: a
-    # signal during set-up still leaves through the first boundary.
+    obs_metrics.get_metrics(settings)
+    # The watchdog and the listener bracket the whole attempt,
+    # construction included: the compile deadline is armed while the
+    # kernels build, and a signal during set-up still leaves through
+    # the first boundary.
+    wd = (Watchdog(deadlines, journal=journal).start()
+          if deadlines else None)
+    shutdown = ShutdownListener(
+        enabled=resolve_graceful_shutdown(settings), watchdog=wd,
+        on_request=lambda signum: evs.emit("shutdown_requested",
+                                           signum=signum)).install()
     try:
-        with ShutdownListener(
-                enabled=resolve_graceful_shutdown(settings),
-                on_request=lambda signum: evs.emit(
-                    "shutdown_requested", signum=signum)) as shutdown:
-            return _run(settings, guard, shutdown, reshard, depth, icfg,
-                        num_mode, n_devices=n_devices, seed=seed,
-                        sim_factory=sim_factory)
+        return _run(settings, guard, shutdown, reshard, depth, icfg,
+                    num_mode, scfg, plan=plan, journal=journal, wd=wd,
+                    context=context, n_devices=n_devices, seed=seed,
+                    sim_factory=sim_factory)
+    except BaseException as exc:
+        # The watchdog's interrupt unwinds as KeyboardInterrupt (through
+        # the listener's handler): it is the classified hang it stands
+        # for.
+        if (wd is not None and wd.expired is not None
+                and isinstance(exc, KeyboardInterrupt)):
+            wd.check()
+        raise
     finally:
-        # The trace file is valid JSON after every run, failed or not.
+        shutdown.uninstall()
+        if wd is not None:
+            wd.stop()
+        # The trace file is valid JSON after every attempt, failed or
+        # not.
         try:
             tracer.flush()
         except OSError as e:
@@ -189,18 +248,29 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
                   file=sys.stderr)
 
 
-def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
-         n_devices, seed, sim_factory) -> Simulation:
+def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, scfg, *,
+         plan, journal, wd, context, n_devices, seed,
+         sim_factory) -> Simulation:
     tracer = get_tracer()
     evs = obs_events.get_events()
     metrics = obs_metrics.get_metrics(settings)
-    tracer.edge("compile")
+    attempt = context.attempt if context is not None else 0
+
+    def mark(phase, at=None):
+        """One phase edge: the watchdog's heartbeat (which is the
+        tracer's edge too), else the edge alone."""
+        if wd is not None:
+            wd.heartbeat(phase, at)
+        else:
+            tracer.edge(phase, at)
+
+    mark("compile")
     if sim_factory is not None:
         sim = sim_factory(settings, n_devices=n_devices, seed=seed)
     else:
         sim = Simulation(settings, n_devices=n_devices, seed=seed)
     log = Logger(verbose=settings.verbose)
-    journal = integrity.IntegrityLog(log)
+    ilog = integrity.IntegrityLog(log, journal=journal)
     proc, nprocs = distributed.process_index(), distributed.process_count()
     if nprocs > 1:
         log.info(f"{nprocs} processes ({distributed.backend()}), "
@@ -213,7 +283,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
         *fields, restart_step = load_checkpoint(
             settings.restart_input, settings, settings.restart_step,
             layout=sim.block_boxes() if reshard == "off" else None,
-            journal=journal, log=log, boxes=boxes,
+            journal=ilog, log=log, boxes=boxes,
         )
         if boxes is None:
             sim.restore_fields(fields, restart_step)
@@ -237,6 +307,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
     launches0 = cuda_stencil.LAUNCHES
     modes0 = dict(cuda_stencil.MODE_LAUNCHES)
     bands0 = cuda_stencil.BAND_LAUNCHES
+    selection = sim.kernel_selection
 
     def shutdown_requested() -> bool:
         """The shutdown request, agreed across the processes: a signal
@@ -266,7 +337,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
         ckpt_step = None
         if ckpt is not None:
             if not ckpt_written:
-                tracer.edge("checkpoint", at_step)
+                mark("checkpoint", at_step)
                 targets = [("checkpoint", ckpt.save)]
                 snap = capture(
                     targets, encode=enc_spec if ckpt_lossy else None,
@@ -276,15 +347,24 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                 stats.count("checkpoints")
                 log.info(f"Graceful-shutdown checkpoint at step {at_step}")
             ckpt_step = at_step
-        obs_events.emit_record({"event": "graceful_shutdown",
-                                "signal": shutdown.signum, "step": at_step,
-                                "checkpoint_step": ckpt_step})
-        tracer.edge("drain", at_step)
+        # The marker the next supervised launch resumes from.
+        journal.record(event="graceful_shutdown", signal=shutdown.signum,
+                       step=at_step, checkpoint_step=ckpt_step)
+        mark("drain", at_step)
         pipe.close()
         stream.close()
         if ckpt is not None:
             ckpt.close()
         raise GracefulShutdown(shutdown.signum, at_step, ckpt_step)
+
+    def take(kind, at, **extra):
+        """The plan's fault of ``kind`` due at ``at``, journaled as
+        ``injected`` at ``step``; None when none is due."""
+        fault = plan.take(kind, at)
+        if fault is not None:
+            journal.record(event="injected", kind=kind, step=step,
+                           planned_step=fault.step, **extra)
+        return fault
 
     try:
         stream = SimStream(settings, sim.domain, sim.dtype,
@@ -297,7 +377,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
         # The reference's keys (its driver's RunStats config), then this
         # package's own.
         stats = RunStats(settings.L, tracer=tracer, config={
-            "attempt": 0,
+            "attempt": attempt,
             "model": sim.model.name,
             "fields": list(sim.model.field_names),
             "mesh_dims": list(sim.domain.dims),
@@ -305,7 +385,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                                if sim.sharded and sim.domain.padded
                                else None),
             "kernel_language": sim.kernel_language,
-            "kernel_selection": sim.kernel_selection,
+            "kernel_selection": selection,
             "precision": settings.precision,
             "compute_precision": sim.compute_precision,
             "snapshot_codec": codec.describe(),
@@ -317,9 +397,9 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
             "reshard": None,
             "compile_cache": sim.compile_cache_dir,
             "autotune_mode": resolve_autotune(settings),
-            # Ensembles and SDC screening: Queue 1 items 19 and 17.
+            # Ensembles: Queue 1 item 19.
             "ensemble": None,
-            "sdc": None,
+            "sdc": dict(scfg),
             "numerics": num_mode,
             "device": str(sim.device),
             "fuse": sim.fuse,
@@ -329,23 +409,38 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
             "async_io_depth": depth,
             "integrity": dict(icfg),
         })
+        if context is not None:
+            # A failed attempt's phases outlive it in the journal.
+            context.stats = stats
+        stats.record_watchdog({**wd.describe(), "attempt": attempt}
+                              if wd is not None else {"enabled": False})
         scrubber = (
-            integrity.Scrubber(settings, journal=journal,
+            integrity.Scrubber(settings, journal=ilog,
                                every=icfg["scrub_every"],
                                writer_id=proc if nprocs > 1 else None)
             if icfg["scrub"] and ckpt is not None else None
         )
+        # Screening compares this process's blocks: a run of one
+        # process only, as in the reference.
+        screener = (
+            sdc_mod.Screener(sim, mode=scfg["mode"], every=scfg["every"],
+                             journal=journal, log=log.info)
+            if scfg["mode"] != "off" and nprocs == 1 else None
+        )
+        if screener is not None:
+            screener.rearm(restart_step)
         # Metrics instruments, labeled by the run's model, mesh and
         # kernel path; off, each is the shared no-op.
         mlabels = sim.metrics_labels()
         m_step_us = metrics.histogram("step_latency_us", **mlabels)
         m_rounds = metrics.counter("step_rounds", **mlabels)
         m_steps = metrics.counter("steps", **mlabels)
+        m_sdc_checks = metrics.counter("sdc_checks", **mlabels)
         num_recorder = (
             obs_numerics.NumericsRecorder(
                 sim.model.field_names, metrics=metrics, events=evs,
                 gate=DriftGate.from_env(settings), log=log,
-                labels=mlabels)
+                labels=mlabels, journal=journal)
             if num_mode != "off" else None
         )
 
@@ -359,17 +454,22 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                               device=ms["device"],
                               **mlabels).set(ms["peak_bytes_in_use"])
 
-        evs.emit("run_start", step=restart_step, attempt=0,
+        evs.emit("run_start", step=restart_step, attempt=attempt,
                  model=sim.model.name, L=settings.L, steps=settings.steps,
                  kernel=sim.kernel_language, mesh=list(sim.domain.dims),
                  restart=bool(settings.restart))
-        pipe = AsyncStepWriter(depth=depth, stats=stats, metrics=metrics)
+        # The writer's progress re-arms the drain deadline while close()
+        # drains (touch re-arms only the armed phase).
+        pipe = AsyncStepWriter(
+            depth=depth, stats=stats, metrics=metrics,
+            progress=(lambda s: wd.touch("drain", s)) if wd is not None
+            else None)
         ring = HostRing(pipe.depth + 1)
         first_round = True
         t0 = time.perf_counter()
         with pipe:
             while step < settings.steps:
-                tracer.edge("compile" if first_round else "step_round", step)
+                mark("compile" if first_round else "step_round", step)
                 boundary = min(
                     _next_boundary(step, settings.plotgap, settings.steps),
                     _next_boundary(
@@ -378,6 +478,23 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                         settings.steps,
                     ),
                 )
+                if sim.kernel_language == "cuda":
+                    # Armed only on the kernel path; the supervisor
+                    # stops on it as on a real kernel failure.
+                    fault = plan.take("kernel", boundary)
+                    if fault is not None:
+                        journal.record(event="injected", kind="kernel",
+                                       step=boundary,
+                                       planned_step=fault.step)
+                        raise InjectedKernelError(fault.step)
+                fault = plan.take("sdc", boundary)
+                if fault is not None:
+                    # A live cell flipped before the round: an input of
+                    # the step, unlike ``bitflip``'s snapshot copy.
+                    name = sim.poison_sdc(
+                        device=sdc_mod.resolve_fault_device(settings))
+                    journal.record(event="injected", kind="sdc", step=step,
+                                   planned_step=fault.step, device=name)
                 t_round = time.perf_counter()
                 with stats.phase("compute", step=step):
                     sim.iterate(boundary - step)
@@ -394,6 +511,29 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                     # A probe of the live fields after every round,
                     # boundaries included.
                     num_recorder.observe(step, sim.numerics_stats())
+                if screener is not None:
+                    # Before this boundary's poisons and writes: a
+                    # mismatch unwinds before a byte is stored.
+                    if screener.check(step):
+                        m_sdc_checks.inc()
+                if take("nan", step) is not None:
+                    sim.poison_nan()
+                if take("drift", step) is not None:
+                    # Finite but wrong: the drift gate's to catch.
+                    sim.poison_drift()
+                fault = take("preempt", step)
+                if fault is not None:
+                    # Before this boundary's writes; accepted steps
+                    # still drain on the way out.
+                    raise PreemptionError(
+                        f"injected preemption at step {step} "
+                        f"(planned step {fault.step})")
+                if take("hang", step) is not None:
+                    injected_hang_wait(shutdown=shutdown)
+                if screener is not None:
+                    # After the poisons, so that the next replay starts
+                    # from them.
+                    screener.rearm(step)
                 at_plot = settings.plotgap > 0 and step % settings.plotgap == 0
                 at_ckpt = (
                     ckpt is not None and settings.checkpoint_freq > 0
@@ -403,7 +543,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                     if shutdown_requested():
                         graceful(step, ckpt_written=False)
                     continue
-                tracer.edge("io", step)
+                mark("io", step)
                 targets = []
                 if at_plot:
                     log.info(
@@ -413,6 +553,12 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                     targets.append(("output", stream.write_step))
                 if at_ckpt:
                     targets.append(("checkpoint", ckpt.save))
+                if plan.pending("io_error"):
+                    targets = [(phase, with_io_fault(plan, journal, fn))
+                               for phase, fn in targets]
+                # Write-path corruption of this boundary's snapshot copy:
+                # the device checksum must catch it.
+                bitflip = True if take("bitflip", step) is not None else None
                 want_enc = bool(enc_spec) and (at_plot or (at_ckpt
                                                            and ckpt_lossy))
                 want_exact = ((at_ckpt and not ckpt_lossy)
@@ -421,6 +567,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                     targets, health=guard.enabled,
                     numerics=num_mode == "boundary",
                     checksum=snapshot_checksum and want_exact,
+                    bitflip=bitflip if want_exact else None,
                     encode=enc_spec if want_enc else None,
                     exact=want_exact)
                 if pipe.synchronous:
@@ -429,21 +576,20 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                     with stats.phase("device_to_host", step=step):
                         snap.blocks()
                 targets = with_checksums(snap, targets)
-                # Before the step is submitted: under abort a poisoned
-                # step raises here and reaches no store. A failing
-                # report is on the event stream before it unwinds.
+                # Before the step is submitted: under abort or rollback
+                # a poisoned step raises here and reaches no store. A
+                # failing report is journaled before it unwinds.
                 report = snap.health_report()
                 try:
                     event = guard.check(step, report, log=log,
                                         metrics=metrics)
                 except HealthError:
-                    obs_events.emit_record({
-                        "event": "health", "kind": "health", "step": step,
-                        "policy": guard.policy, "action": guard.policy,
-                        **report.describe()})
+                    journal.record(event="health", kind="health", step=step,
+                                   policy=guard.policy, action=guard.policy,
+                                   **report.describe())
                     raise
                 if event is not None:
-                    obs_events.emit_record(event)
+                    journal.record(**event)
                 gate_first = (num_mode == "boundary"
                               and num_recorder.gate.raising)
                 if gate_first:
@@ -465,8 +611,17 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                 if at_ckpt:
                     stats.count("checkpoints")
                     evs.emit("checkpoint", phase="io", step=step)
-                    if scrubber is not None:
-                        scrubber.maybe_scrub(step)
+                # One payload byte of the latest durable checkpoint entry
+                # of the primary store, its CRCs untouched.
+                fault = plan.take("ckpt_corrupt", step)
+                if fault is not None and ckpt is not None:
+                    info = integrity.corrupt_store_byte(
+                        integrity.primary_checkpoint_path(settings))
+                    journal.record(event="injected", kind="ckpt_corrupt",
+                                   step=step, planned_step=fault.step,
+                                   **(info or {"corrupted": False}))
+                if scrubber is not None and at_ckpt:
+                    scrubber.maybe_scrub(step)
                 metrics.maybe_flush(on_flush=refresh_device_gauges)
                 if shutdown_requested():
                     # After this boundary's submission, so that a
@@ -474,7 +629,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
                     graceful(step, ckpt_written=at_ckpt)
             # Inside the timed region: the run is complete once every
             # accepted step is written.
-            tracer.edge("drain", step)
+            mark("drain", step)
             pipe.close()
         elapsed = time.perf_counter() - t0
         stats.count("kernel_launches", cuda_stencil.LAUNCHES - launches0)
@@ -494,10 +649,17 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
         stats.config["overlap_applied"] = sim.overlap_applied
         if nprocs > 1:
             stats.config["p2p"] = distributed.p2p_stats()
+        if screener is not None:
+            stats.config["sdc"].update(screener.describe())
         if scrubber is not None:
             stats.config["integrity"].update(scrubber.describe())
+        if ilog.events:
+            stats.config["integrity"]["events"] = list(ilog.events)
+        if wd is not None:
+            # With the final heartbeat count.
+            stats.record_watchdog({**wd.describe(), "attempt": attempt})
         if journal.events:
-            stats.config["integrity"]["events"] = list(journal.events)
+            stats.record_faults(journal.events)
         stats.config["host_ring_bytes"] = ring.nbytes
         cells = settings.L**3 * (settings.steps - restart_step)
         log.info(
@@ -505,7 +667,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
             f"{elapsed:.3f}s ({cells / max(elapsed, 1e-9):.3e} "
             "cell-updates/s)"
         )
-        evs.emit("run_complete", step=step, attempt=0,
+        evs.emit("run_complete", step=step, attempt=attempt,
                  wall_s=round(elapsed, 3),
                  steps=settings.steps - restart_step)
         refresh_device_gauges()
@@ -531,7 +693,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, *,
     except GracefulShutdown:
         raise
     except BaseException as exc:
-        evs.emit("run_error", step=step, attempt=0,
+        evs.emit("run_error", step=step, attempt=attempt,
                  error=f"{type(exc).__name__}: {exc}")
         # The pipeline has drained (``with pipe``) before this closes
         # the stores.

@@ -48,7 +48,7 @@ import threading
 import time
 from typing import Optional, Sequence, Tuple
 
-__all__ = ["AsyncIOError", "AsyncStepWriter", "resolve_depth"]
+__all__ = ["AsyncIOError", "AsyncStepWriter", "resolve_depth", "with_io_fault"]
 
 
 class AsyncIOError(RuntimeError):
@@ -71,6 +71,28 @@ class AsyncIOError(RuntimeError):
         error from a write target, a :class:`~..io.bplite.CorruptionError`
         included, is not."""
         return isinstance(self.original, OSError)
+
+
+def with_io_fault(plan, journal, fn):
+    """Write target ``fn`` with the fault plan's ``io_error`` armed: when
+    one is due at the step being written, it is journaled as
+    ``injected`` and :class:`~..resilience.faults.InjectedIOError` (an
+    ``OSError``) raises inside the target, so that it reaches the driver
+    as a transient :class:`AsyncIOError`, the path of a real disk error.
+    Runs on the writer thread."""
+    from ..resilience.faults import InjectedIOError
+
+    def wrapped(step, blocks):
+        fault = plan.take("io_error", step)
+        if fault is not None:
+            journal.record(event="injected", kind="io_error", step=step,
+                           planned_step=fault.step)
+            raise InjectedIOError(
+                f"injected transient I/O error at step {step} "
+                f"(planned step {fault.step})")
+        return fn(step, blocks)
+
+    return wrapped
 
 
 def resolve_depth(depth: Optional[int] = None) -> int:
@@ -116,10 +138,16 @@ class AsyncStepWriter:
     ``metrics`` is an optional :class:`~..obs.metrics.MetricsRegistry`
     (the ``async_io_queue_depth`` gauge and the ``io_steps_written``
     counter; a disabled registry hands out the no-op instrument).
+
+    ``progress`` is an optional ``progress(step)`` callback the worker
+    calls after each step it has written: the hang watchdog's ``drain``
+    heartbeat (``resilience/watchdog.Watchdog.touch``), so that only a
+    stuck write trips the drain deadline. Its exceptions are swallowed.
     """
 
     def __init__(self, *, depth: Optional[int] = None, stats=None,
-                 metrics=None):
+                 metrics=None, progress=None):
+        self._progress = progress
         if metrics is None:
             from ..obs.metrics import NULL_METRIC
 
@@ -187,6 +215,11 @@ class AsyncStepWriter:
         self._written += 1
         self._m_written.inc()
         self._m_depth.set(self._q.qsize() if self._q is not None else 0)
+        if self._progress is not None:
+            try:
+                self._progress(step)
+            except Exception:  # noqa: BLE001 — monitoring must not kill writes
+                pass
 
     def _run(self) -> None:
         while True:

@@ -14,8 +14,10 @@ cards, a card repeating where it has fewer; without it a process holds
 one block per card it owns (one on the CPU).
 
 The launcher waits for the processes. When one fails, it kills the rest
-and exits with the failed process's code; a process that stopped on a
-shutdown request (exit 75) lets the others reach the same boundary.
+and exits with the failed process's code (76 after a hang watchdog's
+hard exit); a process that stopped on a shutdown request (exit 75) lets
+the others reach the same boundary. Under ``GS_SUPERVISE=1`` a
+relaunch after 75 or 76 resumes from each process's journal marker.
 SIGTERM and SIGINT are passed on to every process. The processes die
 with the launcher.
 """

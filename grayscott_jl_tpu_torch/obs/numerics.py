@@ -208,13 +208,18 @@ class NumericsRecorder:
     updates the trailing window and sets each statistic's drift as a
     ``numerics_drift{field,stat}`` gauge. A trip (any |drift| above the
     gate's limit) is logged, emitted as a ``drift`` record and then
-    enforced by the gate (``DriftError`` under ``abort``)."""
+    enforced by the gate (``DriftError`` under ``abort`` and
+    ``rollback``). With a fault journal (``resilience/supervisor.py``) a
+    raising trip is journaled, and the journal mirrors it onto the
+    stream."""
 
     enabled = True
 
     def __init__(self, names, *, metrics=None, events=None, gate=None,
-                 log=None, labels=None, window: Optional[int] = None):
+                 log=None, labels=None, window: Optional[int] = None,
+                 journal=None):
         self.names = tuple(names)
+        self.journal = journal
         self.metrics = metrics
         self.events = events
         self.gate = gate
@@ -289,7 +294,11 @@ class NumericsRecorder:
                         + f" (|drift| > {event.get('limit')}, "
                         f"policy={event.get('policy')})"
                     )
-                if self.events is not None:
+                if self.gate.raising and self.journal is not None:
+                    # The journal mirrors onto the stream: one drift
+                    # record either way.
+                    self.journal.record(event="drift", step=step, **event)
+                elif self.events is not None:
                     self.events.emit("drift", step=step, **event)
                 # The trip is on the stream before an abort unwinds.
                 self.gate.enforce(step, event)

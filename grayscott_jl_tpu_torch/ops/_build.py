@@ -70,6 +70,11 @@ PROBE_MODEL = "grayscott"
 _LIBS: Dict[object, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """``nvcc`` could not build a kernel library (or is not there). The
+    supervisor takes it as a ``kernel`` failure, which stops the run."""
+
+
 def use_cache_dir(path: Optional[str]) -> None:
     """Build into and load from ``path`` (None: :data:`BUILD_DIR`) from
     now on, in this process. A library already loaded stays loaded."""
@@ -97,7 +102,7 @@ def find_nvcc() -> str:
     for path in candidates:
         if os.path.isfile(path) and os.access(path, os.X_OK):
             return path
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
         "/usr/local/cuda/bin); the CUDA kernels are compiled at first use"
     )
@@ -209,7 +214,8 @@ def build_all(specs: Optional[Iterable] = None,
         result[name] = {"path": path, "source": source, "seconds": seconds,
                         "log": log}
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise KernelBuildError(
+            "CUDA kernel build failed:\n" + "\n".join(failures))
     return result
 
 

@@ -72,6 +72,8 @@ probes (``ops/envelope.py``) are modes of the same template: their
 launches count in ``LAUNCHES`` and ``MODE_LAUNCHES`` (``copy_walk``,
 ``compute_walk``), the compute walk's also per variant in
 ``VARIANT_LAUNCHES``, and in neither per-model nor per-entry count.
+The SDC screen's replays (inside ``replaying()``) count in
+``REPLAY_LAUNCHES`` only.
 """
 
 from __future__ import annotations
@@ -165,17 +167,57 @@ MAP_BYTES = 128
 
 
 def reset_launches() -> None:
-    """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES` and every
+    """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES`,
+    :data:`REPLAY_LAUNCHES` and every
     :data:`MODE_LAUNCHES`, :data:`VARIANT_LAUNCHES`,
     :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES` and
     :data:`LOAD_PATH_LAUNCHES` count to 0."""
-    global LAUNCHES, BAND_LAUNCHES
-    LAUNCHES = BAND_LAUNCHES = 0
+    global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
+    LAUNCHES = BAND_LAUNCHES = REPLAY_LAUNCHES = 0
     for counts in (MODE_LAUNCHES, VARIANT_LAUNCHES, DTYPE_LAUNCHES,
                    LOAD_PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
     MODEL_LAUNCHES.clear()
+
+
+#: Launches inside :func:`replaying` (the SDC screen's replays), counted
+#: here and in no count above: a run's counts stay those of its
+#: trajectory. The screen reports its share as ``replay_launches``.
+REPLAY_LAUNCHES = 0
+_REPLAYING = False
+
+
+@contextlib.contextmanager
+def replaying():
+    """Count the launches inside in :data:`REPLAY_LAUNCHES` only."""
+    global _REPLAYING
+    prev, _REPLAYING = _REPLAYING, True
+    try:
+        yield
+    finally:
+        _REPLAYING = prev
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch (or its tensor map's encoding) failed on the
+    card. ``code`` is the CUDA error, or None; ``sticky`` says whether
+    the error leaves the process's CUDA context unusable."""
+
+    def __init__(self, msg: str, code: Optional[int] = None):
+        super().__init__(msg)
+        self.code = code
+
+    @property
+    def sticky(self) -> bool:
+        return self.code in STICKY_CUDA_ERRORS
+
+
+#: CUDA runtime errors after which every later call of the process fails
+#: (misaligned address, illegal address, launch failure, illegal
+#: instruction, hardware stack error, the assert and ECC errors).
+STICKY_CUDA_ERRORS = frozenset({214, 700, 710, 714, 715, 716, 717, 718,
+                                719})
 
 
 def load_path(shape: Sequence[int], itemsize: int,
@@ -637,7 +679,6 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     (float32, float64 or bfloat16; ``GS_MID_BF16=1`` selects bf16 mids
     for float32); CPU tensors through the plain versions (the Plain
     language). Returns the new field tuple."""
-    global BAND_LAUNCHES
     fields = tuple(fields)
     n_f = spec.n_fields
     if len(fields) != n_f:
@@ -682,12 +723,10 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
                 f"cap {cap} for {fields[0].dtype}: the exchange width "
                 "must be capped with max_feasible_fuse"
             )
-        out = _launch(fields, params, seeds, spec=spec, use_noise=use_noise,
-                      fuse=fuse, offsets=offsets, row=row, faces=faces,
-                      mode=mode, mid_bf16=mid_bf16)
-        if band:
-            BAND_LAUNCHES += 1
-        return out
+        return _launch(fields, params, seeds, spec=spec,
+                       use_noise=use_noise, fuse=fuse, offsets=offsets,
+                       row=row, faces=faces, mode=mode, mid_bf16=mid_bf16,
+                       band=band)
     step = int(seeds[2])
     done = 0
     while done < fuse:
@@ -712,7 +751,7 @@ def _lib(spec):
         lib.gs_layout(ctypes.cast(layout, ctypes.c_void_p))
         want = TILE + (spec.n_fields, len(spec.param_fields))
         if tuple(layout) != want:
-            raise RuntimeError(
+            raise KernelLaunchError(
                 f"the {spec.name!r} kernel's (tile, fields, params) "
                 f"{tuple(layout)} != the ledger's {want}"
             )
@@ -765,7 +804,7 @@ def window_maps(lib, fields, fuse):
             rc = lib.gs_window_map(ctypes.addressof(maps) + MAP_BYTES * i, p,
                                    itemsize, nx, ny, nz, fuse)
             if rc != 0:
-                raise RuntimeError(
+                raise KernelLaunchError(
                     f"cuTensorMapEncodeTiled failed for a {tuple(first.shape)}"
                     f" {first.dtype} input at depth {fuse}: "
                     + ("the driver has no such entry point" if rc < 0
@@ -781,16 +820,26 @@ def maps_address(maps):
     return ctypes.addressof(maps) if maps is not None else None
 
 
-def count_launch(mode, path):
-    """Count one kernel launch of ``mode`` on load ``path``."""
-    global LAUNCHES
+def count_launch(mode, path, *, entry=None, model=None, band=False):
+    """Count one kernel launch of ``mode`` on load ``path`` (of entry
+    point ``entry`` and ``model``; ``band``: a band recompute), or,
+    inside :func:`replaying`, in :data:`REPLAY_LAUNCHES` only."""
+    global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
+    if _REPLAYING:
+        REPLAY_LAUNCHES += 1
+        return
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
     LOAD_PATH_LAUNCHES[path] += 1
+    if entry is not None:
+        DTYPE_LAUNCHES[entry] += 1
+    if model is not None:
+        MODEL_LAUNCHES[model] = MODEL_LAUNCHES.get(model, 0) + 1
+    BAND_LAUNCHES += bool(band)
 
 
 def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
-            faces=None, mode="chain", mid_bf16=False):
+            faces=None, mode="chain", mid_bf16=False, band=False):
     """One launch of ``spec``'s generated kernel advancing ``fuse``
     steps (``fuse`` <= the ledger's cap) in ``mode``; returns the new
     field tuple."""
@@ -857,12 +906,9 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
         )
     if rc != 0:
         msg = lib.gs_error_string(rc).decode()
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"stencil_chain launch failed (model={spec.name}, mode={mode}, "
             f"fuse={fuse}, shape={tuple(first.shape)}, {entry}, load "
-            f"{path}): CUDA error {rc}: {msg}"
-        )
-    count_launch(mode, path)
-    DTYPE_LAUNCHES[entry] += 1
-    MODEL_LAUNCHES[spec.name] = MODEL_LAUNCHES.get(spec.name, 0) + 1
+            f"{path}): CUDA error {rc}: {msg}", code=rc)
+    count_launch(mode, path, entry=entry, model=spec.name, band=band)
     return outs

@@ -38,9 +38,11 @@ def select_devices(kind: str, n_devices: Optional[int] = None,
     An explicit ``devices`` list wins (it may repeat a device). On the
     card the default is every visible card, ``n_devices`` the first n of
     them; on the CPU the default is one block, and ``n_devices`` repeats
-    the CPU device that many times. Asking for more cards than the
-    machine has, or for devices of another kind than the settings'
-    backend, raises."""
+    the CPU device that many times. A device quarantined in
+    ``GS_DEVICE_BLOCKLIST`` (``resilience/sdc.py``) is left out of the
+    default lists (an explicit list is the caller's choice). Asking for
+    more cards than are usable, or for devices of another kind than the
+    settings' backend, raises."""
     if devices is not None:
         out = [torch.device(d) for d in devices]
         if not out:
@@ -59,15 +61,25 @@ def select_devices(kind: str, n_devices: Optional[int] = None,
         return out
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    from ..resilience.sdc import resolve_blocklist
+
+    blocked = resolve_blocklist()
     if kind == "cuda":
-        available = torch.cuda.device_count()
-        n = available if n_devices is None else n_devices
-        if n > available:
+        cards = [i for i in range(torch.cuda.device_count())
+                 if f"cuda:{i}" not in blocked]
+        n = len(cards) if n_devices is None else n_devices
+        if n > len(cards) or not cards:
             raise ValueError(
-                f"requested {n} devices, only {available} cuda devices "
+                f"requested {n} devices, only {len(cards)} cuda devices "
                 "available"
+                + (f" (quarantined: GS_DEVICE_BLOCKLIST="
+                   f"{','.join(sorted(blocked))})" if blocked else "")
             )
-        return [torch.device("cuda", i) for i in range(n)]
+        return [torch.device("cuda", i) for i in cards[:n]]
+    if kind in blocked:
+        raise SettingsError(
+            f"every {kind} device is quarantined (GS_DEVICE_BLOCKLIST="
+            f"{','.join(sorted(blocked))}); no device is left to run on")
     return [torch.device(kind)] * (1 if n_devices is None else n_devices)
 
 

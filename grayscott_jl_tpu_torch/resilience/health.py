@@ -18,15 +18,20 @@ Policy (``GS_HEALTH_POLICY`` wins over the ``health_policy`` key):
 ``off``
     No probe at all.
 ``rollback``
-    Needs the supervisor, which is not ported yet (ROADMAP Queue 1 item
-    17): :func:`resolve_policy` raises at start-up.
+    Raise :class:`HealthError` with ``policy == "rollback"``, which the
+    supervisor (``resilience/supervisor.py``) classifies as ``health``
+    and restarts from the latest durable checkpoint. It needs
+    supervision (``GS_SUPERVISE=1`` or ``supervise = true``): without,
+    :func:`resolve_policy` raises at start-up, since nothing would roll
+    back.
 
 :class:`DriftGate` is the same gate over the numerics probes' drift
 signal (``obs/numerics.py``): ``GS_DRIFT_POLICY`` ``warn`` (default)
 records each trip as a ``drift`` event, ``abort`` raises
-:class:`DriftError` at the probe, ``off`` gates nothing;
-``GS_DRIFT_LIMIT`` (default 0.5) is the trip threshold. Its
-``rollback`` needs the supervisor too and raises at start-up.
+:class:`DriftError` at the probe, ``rollback`` raises it for the
+supervisor to restart (and, like the health guard's, raises at start-up
+without supervision), ``off`` gates nothing; ``GS_DRIFT_LIMIT`` (default
+0.5) is the trip threshold.
 """
 
 from __future__ import annotations
@@ -52,13 +57,19 @@ __all__ = [
 
 POLICIES = ("abort", "rollback", "warn", "off")
 
-#: Policies this package acts on; the others raise at start-up.
-PORTED_POLICIES = ("abort", "warn", "off")
-
 DRIFT_POLICIES = ("warn", "abort", "rollback", "off")
 
-#: Drift policies this package acts on; ``rollback`` raises at start-up.
-PORTED_DRIFT_POLICIES = ("warn", "abort", "off")
+
+def _check_rollback(what: str, settings=None) -> None:
+    """``rollback`` restarts through the supervisor: without supervision
+    it raises at start-up."""
+    from .supervisor import supervision_enabled
+
+    if not supervision_enabled(settings):
+        raise ValueError(
+            f"{what} 'rollback' restarts the run from its latest durable "
+            "checkpoint through the supervisor; arm supervision "
+            "(GS_SUPERVISE=1 or supervise = true) or use another policy")
 
 
 class HealthReport:
@@ -123,7 +134,9 @@ class HealthError(RuntimeError):
 
 
 class DriftError(HealthError):
-    """The numerics drift gate tripped under the ``abort`` policy."""
+    """The numerics drift gate tripped under the ``abort`` or
+    ``rollback`` policy (a :class:`HealthError`, so that the supervisor
+    classifies ``rollback`` as ``health``)."""
 
     def __init__(self, step: int, event: dict, policy: str):
         tripped = event.get("tripped", {})
@@ -142,18 +155,13 @@ class DriftGate:
     """Policy gate over the numerics drift signal (``GS_DRIFT_POLICY``,
     ``GS_DRIFT_LIMIT``): :meth:`check` judges one probe's drifts and
     returns the trip's event, :meth:`enforce` raises
-    :class:`DriftError` for it under ``abort``."""
+    :class:`DriftError` for it under ``abort`` and ``rollback``."""
 
     def __init__(self, policy: str = "warn", limit: float = 0.5):
         if policy not in DRIFT_POLICIES:
             raise ValueError(
                 f"Unsupported drift policy: {policy!r}. "
                 f"Supported: {', '.join(DRIFT_POLICIES)}")
-        if policy not in PORTED_DRIFT_POLICIES:
-            raise ValueError(
-                f"drift policy {policy!r} needs the supervisor, which "
-                "grayscott_jl_tpu_torch does not support yet (ROADMAP Queue "
-                f"1 item 17); use one of {', '.join(PORTED_DRIFT_POLICIES)}")
         if limit <= 0:
             raise ValueError(f"drift limit must be > 0, got {limit}")
         self.policy = policy
@@ -168,6 +176,8 @@ class DriftGate:
         except ValueError as e:
             raise ValueError(
                 f"GS_DRIFT_LIMIT must be a number, got {raw!r}") from e
+        if policy == "rollback":
+            _check_rollback("drift policy", settings)
         return cls(policy, limit)
 
     @property
@@ -188,7 +198,8 @@ class DriftGate:
                 "tripped": tripped}
 
     def enforce(self, step: int, event: dict) -> None:
-        """Raise :class:`DriftError` for a trip under ``abort``."""
+        """Raise :class:`DriftError` for a trip under ``abort`` or
+        ``rollback``."""
         if event is not None and self.raising:
             raise DriftError(step, event, self.policy)
 
@@ -229,7 +240,7 @@ def report_of(probes, names, reduce=None) -> HealthReport:
 def resolve_policy(settings=None) -> str:
     """``GS_HEALTH_POLICY``, else the ``health_policy`` key, else
     ``abort``. An unknown value raises at start-up, and so does
-    ``rollback``, which needs the supervisor (ROADMAP Queue 1 item 17)."""
+    ``rollback`` without supervision."""
     policy = env_raw("GS_HEALTH_POLICY")
     if policy is None and settings is not None:
         policy = getattr(settings, "health_policy", "")
@@ -238,11 +249,8 @@ def resolve_policy(settings=None) -> str:
         raise ValueError(
             f"Unsupported health policy: {policy!r}. "
             f"Supported: {', '.join(POLICIES)}")
-    if policy not in PORTED_POLICIES:
-        raise ValueError(
-            f"health policy {policy!r} needs the supervisor, which "
-            "grayscott_jl_tpu_torch does not support yet (ROADMAP Queue 1 "
-            f"item 17); use one of {', '.join(PORTED_POLICIES)}")
+    if policy == "rollback":
+        _check_rollback("health policy", settings)
     return policy
 
 
@@ -250,7 +258,7 @@ class HealthGuard:
     """Boundary-time enforcement of the policy over resolved reports."""
 
     def __init__(self, policy: str = "abort"):
-        if policy not in PORTED_POLICIES:
+        if policy not in POLICIES:
             raise ValueError(f"Unsupported health policy: {policy!r}")
         self.policy = policy
 
@@ -279,7 +287,8 @@ class HealthGuard:
         """Enforce the policy on one boundary's report, after mirroring
         it into ``metrics`` (healthy ones too). Healthy (or disabled)
         returns None; unhealthy under ``warn`` logs and returns the
-        event; under ``abort`` raises :class:`HealthError`."""
+        event; under ``abort`` and ``rollback`` raises :class:`HealthError`
+        (the supervisor acts on the policy)."""
         if not self.enabled or report is None:
             return None
         self.record_metrics(report, metrics)

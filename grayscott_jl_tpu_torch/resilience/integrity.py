@@ -79,18 +79,23 @@ _QUARANTINE = "quarantine.json"
 
 class IntegrityLog:
     """Where failovers, corruptions and scrubs are recorded: each
-    ``record(event=..., ...)`` keeps the event, mirrors it to the run
-    event stream (``obs/events.py``, ``GS_EVENTS``) as the reference's
-    fault journal mirrors its events, and logs it (a warning for
+    ``record(event=..., ...)`` keeps the event, hands it to the run's
+    fault journal (``resilience/supervisor.FaultJournal``, which mirrors
+    it to the run event stream), or with none mirrors it there itself
+    (``obs/events.py``, ``GS_EVENTS``), and logs it (a warning for
     ``replica_failover`` and ``corruption``)."""
 
-    def __init__(self, log=None):
+    def __init__(self, log=None, journal=None):
         self.log = log
+        self.journal = journal
         self.events: List[dict] = []
 
     def record(self, **event) -> None:
         self.events.append(event)
-        obs_events.emit_record(event)
+        if self.journal is not None:
+            self.journal.record(**dict(event))
+        else:
+            obs_events.emit_record(event)
         if self.log is None:
             return
         kind = event.get("event")

@@ -27,8 +27,9 @@ Two transports, selected by :func:`from_env`:
 
 A process that never arrives trips the gather's timeout
 (``GS_RENDEZVOUS_TIMEOUT_S``, default 120 s) with
-:class:`RendezvousTimeout`. The supervisor that calls :meth:`agree` on a
-failure is a later slice of the port (ROADMAP Queue 1 item 17).
+:class:`RendezvousTimeout`. The supervisor (``resilience/supervisor.py``)
+calls :meth:`agree` on every classified failure; the reference's mesh
+agreement (``agree_mesh``) is Queue 1 item 18.
 """
 
 from __future__ import annotations

@@ -1106,6 +1106,108 @@ class Simulation:
             fields[i] = scaled
             self.blocks[r] = tuple(fields)
 
+    def poison_nan(self, field="u") -> None:
+        """Test hook (the ``nan`` fault): set the global cell ``(0, 0,
+        0)`` of ``field`` to NaN, as the reference's ``poison_nan``, for
+        the health guard to catch at the next boundary. The block
+        holding it gets a new tensor."""
+        i = self._field_index(field)
+        for r, offs in enumerate(self.offsets):
+            if any(offs):
+                continue
+            fields = list(self.blocks[r])
+            poisoned = fields[i].clone()
+            poisoned[(0,) * poisoned.dim()] = float("nan")
+            fields[i] = poisoned
+            self.blocks[r] = tuple(fields)
+
+    def _sdc_site(self, device=None) -> Tuple[str, int]:
+        """``(device name, block rank)`` the ``sdc`` poison hits: the
+        highest-ranked block on ``device`` (default: the highest-indexed
+        device holding a block)."""
+        from .resilience.sdc import device_name
+
+        names = [device_name(d) for d in self.mesh.devices]
+        if device is None:
+            device = max(names, key=lambda n: (
+                n.split(":")[0], int(n.split(":")[1]) if ":" in n else 0))
+        elif device not in names:
+            raise ValueError(
+                f"sdc fault device {device!r} owns no block (have: "
+                f"{', '.join(sorted(set(names)))})")
+        return device, max(r for r, n in enumerate(names) if n == device)
+
+    def poison_sdc(self, device=None, field="u") -> str:
+        """Test hook (the ``sdc`` fault): flip the mantissa's top bit
+        (bit 22 of a 4-byte word, 6 of a 2-byte one) of the centre cell
+        of the highest-ranked block on ``device`` before the round runs,
+        as the reference's ``poison_sdc``: a finite wrong input to the
+        step, which only the SDC screen can catch (the write path's
+        ``bitflip`` must stay invisible to it). Returns the device's
+        name. The block gets a new tensor."""
+        from .resilience.integrity import apply_bitflip
+
+        i = self._field_index(field)
+        name, r = self._sdc_site(device)
+        fields = list(self.blocks[r])
+        arr = fields[i]
+        bit = 6 if arr.element_size() == 2 else 22
+        fields[i] = apply_bitflip(arr, tuple(n // 2 for n in arr.shape),
+                                  bit=bit)
+        self.blocks[r] = tuple(fields)
+        return name
+
+    def retain_fields(self) -> List[tuple]:
+        """Copies of every block's live fields, on their devices and
+        stream: the SDC screen's anchor. A copy, so that nothing that
+        later writes a block (a poison hook, an in-place kernel) can
+        change the anchor."""
+        return [tuple(f.clone() for f in fields) for fields in self.blocks]
+
+    def replay_fields(self, fields, step0: int, nsteps: int,
+                      devices=None) -> List[tuple]:
+        """``nsteps`` steps from ``fields`` (every block's field tuple at
+        absolute step ``step0``, as :meth:`retain_fields` gives them),
+        returned as new block tuples; the live blocks, step, exchange
+        counters and launch counters are left as they were. The replay
+        runs the same launches as :meth:`iterate` (the same kernel,
+        mode, depth, split round and halo depth), so on the card replay
+        and live run are bit-equal by construction. ``devices`` (one per
+        block, a permutation of the mesh's) places the replay's blocks
+        elsewhere: the SDC screen's shadow mode."""
+        if nsteps <= 0:
+            return [tuple(f) for f in fields]
+        saved = (self.step, self.exchange_rounds, self.overlap_applied,
+                 self.mesh, self.blocks)
+        try:
+            self.step = int(step0)
+            blocks = [tuple(f) for f in fields]
+            if devices is not None:
+                devices = [torch.device(d) for d in devices]
+                self.mesh = DeviceMesh(self.domain.dims, devices,
+                                       first_rank=self.mesh.first_rank,
+                                       processes=self.processes)
+                blocks = [tuple(f.to(d) for f in b)
+                          for b, d in zip(blocks, devices)]
+            with cuda_stencil.replaying():
+                if self.sharded:
+                    return self._sharded_run(blocks, nsteps)
+                return [self._block_run(blocks[0], nsteps)]
+        finally:
+            (self.step, self.exchange_rounds, self.overlap_applied,
+             self.mesh, self.blocks) = saved
+
+    def block_checksums(self, blocks=None) -> List[tuple]:
+        """Per block, each field's wrapped uint32 word sum
+        (``integrity.device_field_checksum``), reduced on the blocks'
+        devices; one copy of the sums to the host."""
+        from .resilience.integrity import device_field_checksum
+
+        blocks = self.blocks if blocks is None else blocks
+        sums = [torch.stack(device_field_checksum(*fields)).cpu()
+                for fields in blocks]
+        return [tuple(int(x) for x in s) for s in sums]
+
     def metrics_labels(self) -> dict:
         """The labels every metric of this run carries
         (``obs/metrics.py``): model, mesh and kernel path."""

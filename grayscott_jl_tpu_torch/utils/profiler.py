@@ -17,8 +17,11 @@ With a span tracer (``obs/trace.py``, ``GS_TRACE``), every
 :meth:`RunStats.phase` is also a span on the calling thread's track.
 :meth:`RunStats.record_metrics`, :meth:`~RunStats.record_obs` and
 :meth:`~RunStats.record_numerics` attach the run-end metrics snapshot,
-the sinks' provenance and the numerics section under the reference's
-summary keys (``metrics``, ``obs``, ``numerics``).
+the sinks' provenance and the numerics section, and
+:meth:`~RunStats.record_watchdog` and :meth:`~RunStats.record_faults`
+the hang watchdog's provenance and the fault journal, under the
+reference's summary keys (``metrics``, ``obs``, ``numerics``,
+``watchdog``, ``faults``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ class RunStats:
         self.obs: Optional[dict] = None
         #: The numerics recorder's section (:meth:`record_numerics`).
         self.numerics: Optional[dict] = None
+        #: The hang watchdog's provenance (:meth:`record_watchdog`).
+        self.watchdog: Optional[dict] = None
+        #: The run's fault journal (:meth:`record_faults`).
+        self.faults: Optional[list] = None
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
@@ -91,6 +98,16 @@ class RunStats:
         self.io["exposed_total_s"] = round(
             sum(overlap["exposed_s"].values()), 6)
 
+    def record_faults(self, events: Optional[list]) -> None:
+        """Attach the fault journal's records (injected faults, health
+        trips, recoveries)."""
+        self.faults = [dict(e) for e in events] if events else None
+
+    def record_watchdog(self, info: Optional[dict]) -> None:
+        """Attach the hang watchdog's provenance
+        (``Watchdog.describe()``, or ``{"enabled": False}``)."""
+        self.watchdog = dict(info) if info else None
+
     def record_metrics(self, snapshot: Optional[dict]) -> None:
         """Attach the run-end ``MetricsRegistry.snapshot()``."""
         self.metrics = dict(snapshot) if snapshot else None
@@ -124,6 +141,8 @@ class RunStats:
                 if compute > 0 else None
             ),
             "io": self.io,
+            "watchdog": self.watchdog,
+            "faults": self.faults,
             "metrics": self.metrics,
             "obs": self.obs,
             "numerics": self.numerics,

@@ -443,6 +443,45 @@ def test_sharded_run_across_cards_equals_single_block(dims, fuse,
         assert (a == b).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spot", "shadow"])
+def test_sdc_screen_on_cards_attributes_device_and_block(mode):
+    """The SDC screen on a (2,2,2) mesh over every card (a card holds
+    several blocks when there are fewer than eight): the replay — in
+    place, or for ``shadow`` on the block-to-device list rotated by one
+    card, which degrades to in place on one card — equals the live run's
+    checksums, makes the live round's launches again and counts them in
+    ``replay_launches`` only, and a flipped cell on the
+    last card is attributed to that card and its highest-ranked block."""
+    _card()
+    from grayscott_jl_tpu_torch import Simulation
+    from grayscott_jl_tpu_torch.resilience.sdc import SDCError, Screener
+
+    cards = torch.cuda.device_count()
+    devices = [f"cuda:{r * cards // 8}" for r in range(8)]
+    s = Settings(L=64, noise=0.1, precision="Float32", backend="CUDA", **KW)
+    sim = Simulation(s, seed=2, mesh_dims=(2, 2, 2), devices=devices)
+    sc = Screener(sim, mode=mode)
+    assert sc.shadow_degraded == (mode == "shadow" and cards == 1)
+    sc.rearm(0)
+    for step in (4, 8):
+        n0 = cuda_stencil.LAUNCHES
+        sim.iterate(4)
+        live = cuda_stencil.LAUNCHES - n0
+        r0 = sc.replay_launches
+        assert sc.check(step) and cuda_stencil.LAUNCHES == n0 + live
+        # The replay ran the live round's launches again, counted apart.
+        assert sc.replay_launches - r0 == live > 0
+        sc.rearm(step)
+    target = devices[-1]
+    assert sim.poison_sdc(device=target) == target
+    sim.iterate(4)
+    with pytest.raises(SDCError) as e:
+        sc.check(12)
+    assert (e.value.device, e.value.block, e.value.verified_step) == (
+        target, 7, 8)
+
+
 # ------------------------------------------------------------- bfloat16
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 against the reference's on the CPU: a run that blows up raises
 HealthError at the same boundary as a live reference run and writes no
 step under the default policy; ``warn`` and ``off`` write the NaN steps;
-an unknown policy, and ``rollback`` (which needs the supervisor), raise
-at start-up. The probe is reduced in the snapshot."""
+an unknown policy, and ``rollback`` without supervision, raise at
+start-up (under supervision ``rollback`` restarts the run:
+tests/test_torch_supervisor.py). The probe is reduced in the snapshot."""
 
 import math
 
@@ -126,8 +127,13 @@ def test_env_wins_over_the_key(monkeypatch):
     assert health.resolve_policy(Settings(health_policy="off")) == "off"
     assert health.resolve_policy(Settings()) == "abort"
     monkeypatch.setenv("GS_HEALTH_POLICY", "rollback")
-    with pytest.raises(ValueError, match="Queue 1 item 17"):
+    # rollback acts under supervision and raises without it.
+    monkeypatch.delenv("GS_SUPERVISE", raising=False)
+    with pytest.raises(ValueError, match="arm supervision"):
         health.resolve_policy(Settings())
+    assert health.resolve_policy(Settings(supervise=True)) == "rollback"
+    monkeypatch.setenv("GS_SUPERVISE", "1")
+    assert health.resolve_policy(Settings()) == "rollback"
 
 
 def test_snapshot_fuses_the_probe():
@@ -182,8 +188,12 @@ def test_guard_check_policies():
     assert event["action"] == "continued" and event["finite"] is False
     assert health.HealthGuard("off").check(3, bad) is None
     assert not health.HealthGuard("off").enabled
+    # rollback raises for the supervisor, which reads the policy.
+    with pytest.raises(HealthError, match="policy=rollback") as e:
+        health.HealthGuard("rollback").check(3, bad)
+    assert e.value.policy == "rollback"
     with pytest.raises(ValueError):
-        health.HealthGuard("rollback")
+        health.HealthGuard("restart")
 
 
 @pytest.mark.parametrize("depth", [0, 2])

@@ -176,3 +176,41 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_supervisor_watchdog_sdc_and_chaos_stand_alone():
+    """The supervisor, watchdog, SDC screen and chaos scenarios are in
+    the no-JAX check, and a supervised run with an injected fault and
+    the SDC screen works with JAX blocked."""
+    checked = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"grayscott_jl_tpu_torch/resilience/supervisor.py",
+            "grayscott_jl_tpu_torch/resilience/watchdog.py",
+            "grayscott_jl_tpu_torch/resilience/sdc.py",
+            "grayscott_jl_tpu_torch/chaos.py"} <= checked
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import json, os, tempfile
+os.environ.update(GS_SUPERVISE="1", GS_RESTART_BACKOFF_S="0",
+                  GS_SDC_CHECK="spot",
+                  GS_FAULTS="step=3:kind=preempt;step=5:kind=sdc")
+import grayscott_jl_tpu_torch as gs
+from grayscott_jl_tpu_torch import chaos, driver
+d = tempfile.mkdtemp()
+cfg = chaos.write_config(d, backend="CPU", L=8, steps=8, plotgap=2,
+                         checkpoint_freq=2)
+driver.main([cfg])
+events = [json.loads(x)["event"] for x in open(os.path.join(d, "gs.bp.faults.jsonl"))]
+assert events.count("recovery") == 2, events
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

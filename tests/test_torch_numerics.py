@@ -338,10 +338,25 @@ def test_drift_gate_from_env_matches_the_reference(monkeypatch, policy,
 
 
 def test_drift_rollback_raises_naming_the_supervisor_item(monkeypatch):
+    """``rollback`` acts under supervision as the reference's (a raising
+    policy whose DriftError the supervisor restarts), and raises at
+    start-up naming supervision without it."""
     monkeypatch.setenv("GS_DRIFT_POLICY", "rollback")
-    assert ref_health.DriftGate.from_env().policy == "rollback"
-    with pytest.raises(ValueError, match="Queue 1 item 17"):
+    ref = ref_health.DriftGate.from_env()
+    assert ref.policy == "rollback"
+    monkeypatch.delenv("GS_SUPERVISE", raising=False)
+    with pytest.raises(ValueError, match="supervisor"):
         health.DriftGate.from_env()
+    monkeypatch.setenv("GS_SUPERVISE", "1")
+    port = health.DriftGate.from_env()
+    assert (port.policy, port.limit, port.raising) == (
+        ref.policy, ref.limit, ref.raising)
+    drifts = {"u.max": 0.9}
+    event = port.check(5, drifts)
+    assert event == ref.check(5, drifts)
+    with pytest.raises(health.DriftError, match="policy=rollback") as e:
+        port.enforce(5, event)
+    assert isinstance(e.value, health.HealthError)
     assert health.DRIFT_POLICIES == ref_health.DRIFT_POLICIES
 
 

@@ -416,8 +416,32 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
                                                  monkeypatch, tmp_path):
     """A variable that turns on a subsystem the port lacks raises at
     construction, naming its ROADMAP item; its "off" values run. The
-    integrity variables' item has ported them, and ``GS_NUMERICS``'s
-    (item 16b): they act now."""
+    integrity variables' item has ported them, ``GS_NUMERICS``'s (item
+    16b) and the supervisor's, fault plans', watchdog's and SDC screen's
+    (item 17): they act now."""
+    if var in ("GS_SUPERVISE", "GS_FAULTS", "GS_WATCHDOG", "GS_SDC_CHECK"):
+        from grayscott_jl_tpu_torch.resilience import (faults, sdc,
+                                                       supervisor, watchdog)
+
+        assert var not in config.NOT_PORTED_ENV
+        resolved = {
+            "GS_SUPERVISE": lambda: supervisor.supervision_enabled(),
+            "GS_FAULTS": lambda: faults.FaultPlan.from_env().describe(),
+            "GS_WATCHDOG": lambda: watchdog.resolve_watchdog() is not None,
+            "GS_SDC_CHECK": lambda: sdc.resolve_sdc()["mode"],
+        }[var]
+        monkeypatch.setenv(var, value)
+        Simulation(Settings(L=8, backend="CPU")).iterate(1)
+        on = resolved()
+        monkeypatch.setenv(var, off)
+        Simulation(Settings(L=8, backend="CPU")).iterate(1)
+        assert (on, resolved()) == {
+            "GS_SUPERVISE": (True, False),
+            "GS_FAULTS": ([{"step": 3, "kind": "nan", "fired": False}], []),
+            "GS_WATCHDOG": (True, False),
+            "GS_SDC_CHECK": ("spot", "off"),
+        }[var]
+        return
     if var == "GS_NUMERICS":
         assert var not in config.NOT_PORTED_ENV
         monkeypatch.setenv(var, value)
@@ -457,15 +481,24 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
 def test_reference_environment_no_longer_ignored(monkeypatch):
     """The environment the reference acts on: the subsystems the port
     lacks raise; the postures it has act (bf16 fields, a coded store,
-    the numerics probe over the bf16 fields)."""
+    the numerics probe over the bf16 fields), and so does supervision
+    (Queue 1 item 17)."""
     for var, value in (("GS_COMPUTE_PRECISION", "bf16_f32acc"),
                        ("GS_SNAPSHOT_BITS", "8"), ("GS_NUMERICS", "boundary"),
                        ("GS_CKPT_REPLICAS", "2")):
         monkeypatch.setenv(var, value)
     s = Settings(L=16, backend="CPU", precision="Float32")
-    monkeypatch.setenv("GS_SUPERVISE", "1")
-    with pytest.raises(SettingsError, match="GS_SUPERVISE"):
+    monkeypatch.setenv("GS_XSTATS", "1")
+    with pytest.raises(SettingsError, match="GS_XSTATS"):
         Simulation(s)
+    monkeypatch.delenv("GS_XSTATS")
+    # Supervision is ported (Queue 1 item 17): it acts.
+    monkeypatch.setenv("GS_SUPERVISE", "1")
+    from grayscott_jl_tpu_torch.resilience.supervisor import (
+        supervision_enabled)
+
+    assert supervision_enabled(s)
+    Simulation(s)
     monkeypatch.delenv("GS_SUPERVISE")
     # The numerics probes are ported (Queue 1 item 16b): they act.
     assert resolve_numerics(s) == "boundary"

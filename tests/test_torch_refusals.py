@@ -4,7 +4,8 @@ is still to come raises at construction naming the ROADMAP item that
 ports it, with its "off" values still running; one that its item has
 since ported now acts (``GS_CKPT_VERIFY=full``, Queue 1 item 7 with
 16b's device checksum, in the settings and in the reader; ``GS_EVENTS``,
-``GS_METRICS`` and ``GS_TRACE``, item 21a: a run writes the sink); and
+``GS_METRICS`` and ``GS_TRACE``, item 21a: a run writes the sink;
+``GS_DEVICE_BLOCKLIST``, item 17: a quarantined device is left out); and
 ``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore onto another
 block layout, as the reference does."""
 
@@ -12,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from grayscott_jl_tpu.config.settings import resolve_reshard as ref_resolve
 from grayscott_jl_tpu.resilience import integrity as ref_integrity
@@ -22,7 +24,8 @@ from grayscott_jl_tpu_torch.io import bplite
 from grayscott_jl_tpu_torch.io.checkpoint import ReshardError
 from grayscott_jl_tpu_torch.models import SettingsError
 from grayscott_jl_tpu_torch.obs import events, metrics, trace
-from grayscott_jl_tpu_torch.resilience import integrity
+from grayscott_jl_tpu_torch.parallel.mesh import select_devices
+from grayscott_jl_tpu_torch.resilience import integrity, sdc
 
 #: The sinks Queue 1 item 21a ported: variable -> (the process-wide
 #: sink, its reset).
@@ -75,6 +78,27 @@ def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
         assert len(snap.blocks()) == 1
         monkeypatch.setenv(var, off)
         assert integrity.resolve_verify() == off
+        return
+    if var == "GS_DEVICE_BLOCKLIST":
+        # Ported by ``item``: the value acts. A quarantined card is left
+        # out of the mesh's devices (two cards, ``cuda:1`` quarantined:
+        # one left), and quarantining the only device of a run refuses
+        # to start it; the "off" value quarantines nothing.
+        assert var not in NOT_PORTED_ENV
+        monkeypatch.setenv(var, value)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        assert select_devices("cuda") == [torch.device("cuda", 0)]
+        assert sdc.usable_devices("cuda") == [torch.device("cuda", 0)]
+        with pytest.raises(ValueError, match="GS_DEVICE_BLOCKLIST=cuda:1"):
+            select_devices("cuda", 2)
+        Simulation(Settings(L=8, backend="CPU")).iterate(1)
+        monkeypatch.setenv(var, "cpu")
+        with pytest.raises(SettingsError, match="quarantined"):
+            Simulation(Settings(L=8, backend="CPU"))
+        monkeypatch.setenv(var, off)
+        assert select_devices("cuda") == [torch.device("cuda", i)
+                                          for i in range(2)]
+        Simulation(Settings(L=8, backend="CPU")).iterate(1)
         return
     assert var in NOT_PORTED_ENV
     monkeypatch.setenv(var, value)

@@ -84,8 +84,8 @@ def test_resolve_compile_cache_matches_the_reference(monkeypatch, env, key,
 @pytest.mark.parametrize("sup_env", [None, "1"])
 def test_compile_cache_defaults_on_under_supervision(monkeypatch, sup_env):
     """As in the reference, unset resolves to a directory under
-    ``~/.cache`` when supervision is armed (which this package still
-    refuses at construction, ROADMAP Queue 1 item 17)."""
+    ``~/.cache`` when supervision is armed, so that a supervised run's
+    restarted processes reuse their builds."""
     if sup_env is not None:
         monkeypatch.setenv("GS_SUPERVISE", sup_env)
     s = Settings(supervise=sup_env is None)

@@ -279,8 +279,26 @@ def test_unported_keys_raise_at_construction(key, value):
     """Each key whose item is not ported raises. ``halo_depth`` acts
     since item 13b was ported: on one block there is no exchange to
     save, so the run is the default one, bitwise. ``numerics`` acts
-    since item 16b was ported: the mode resolves and the probe runs."""
+    since item 16b was ported: the mode resolves and the probe runs.
+    ``supervise``, ``faults`` and ``watchdog`` act since item 17 was
+    ported: a simulation builds, and the key resolves as the
+    reference's."""
     s = dataclasses.replace(Settings(L=8, backend="CPU"), **{key: value})
+    if key in ("supervise", "faults", "watchdog"):
+        from grayscott_jl_tpu.resilience import faults as ref_faults
+        from grayscott_jl_tpu.resilience import supervisor as ref_sup
+        from grayscott_jl_tpu.resilience import watchdog as ref_wd
+        from grayscott_jl_tpu_torch.resilience import (faults, supervisor,
+                                                       watchdog)
+
+        Simulation(s).iterate(1)
+        assert (supervisor.supervision_enabled(s)
+                == ref_sup.supervision_enabled(s))
+        assert (faults.FaultPlan.from_env(s).describe()
+                == ref_faults.FaultPlan.from_env(s).describe())
+        assert (watchdog.resolve_watchdog(s)
+                == ref_wd.resolve_watchdog(s))
+        return
     if key == "numerics":
         from grayscott_jl_tpu_torch.obs.numerics import resolve_numerics
 
