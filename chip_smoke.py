@@ -145,7 +145,16 @@ Phases, each of which stops the run on failure:
    supervisor gives up; with the time from each failure to the next
    attempt's first step, the card's allocated bytes and the pinned ring
    bytes at each attempt (flat), and the device ms of one replay and
-   checksum of a 50-step chunk on (a) and (b) beside the chunk;
+   checksum of a 50-step chunk on (a) and (b) beside the chunk; (vii)
+   elastic resharding (``phase_reshard``): (b) checkpointed at step 100
+   on (2,2,2) and restarted in the same stores on (1,2,2) (4 x 100
+   ``kFaces6`` launches after the restart), (b) moved live (2,2,2) ->
+   (1,2,2) -> (2,2,2) at steps 50 and 150 through ``reshape_poll`` (8,
+   then 4, then 8 launches a step), and (a) moved from its single block
+   onto (2,2,2) at step 100, every store's assembled arrays bitwise and
+   ``.vtk`` series byte-identical to phase 4's; each move's path, bytes
+   and wall, the driver's whole move between rounds, and the relayout's
+   device time at L=256 (CUDA events, profiler) beside its byte bound;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -2855,6 +2864,264 @@ def phase_resilience(torch, gs, cuda_stencil, workdir, report):
     report["resilience"] = out
 
 
+def phase_reshard(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (vii), elastic resharding (``reshard/``) on config (b),
+    L=256 float32 noise 0.1, every mesh on ``cuda:0``, each run with the
+    launch counts set to 0 just before and read just after, and its
+    stores held against phase 4's: the assembled arrays of ``gs.bp`` and
+    ``ckpt.bp`` (and their attributes) bitwise at every step
+    (``chaos.values_equal``: a store that changed mesh frames its blocks
+    by whoever wrote each step) and the ``.vtk`` series byte for byte:
+
+    1. the restore on another mesh: (b) run to its step-100 checkpoint
+       on (2,2,2), then restarted in the same stores on (1,2,2) —
+       exactly 4 x 100 ``kFaces6`` launches after the restart, a
+       ``ckpt`` reshard of the store's recorded layout;
+    2. the live move: (b) moved (2,2,2) -> (1,2,2) at step 50 and back
+       at step 150 through ``run_once(reshape_poll=...)`` — 8 x 50 +
+       4 x 100 + 8 x 50 ``kFaces6`` launches, two ``collective`` moves;
+    3. (a) moved from its single block onto (2,2,2) at step 100 — 100
+       ``kBlock`` and 8 x 100 ``kFaces6`` launches — against phase 4's
+       (a) stores;
+    4. each move's ``path``, ``bytes`` and ``wall_s`` (the move), the
+       host wall of the driver's whole move between rounds (the trace's
+       ``reshape`` span: drain, target, move, stores reopened), and the
+       relayout's device time at L=256 (CUDA events around
+       ``device_all_to_all_restore``, and the profiler's busy time)
+       beside its byte bound, printed with the card's name and power
+       limit. Every simulation runs ``kernel_language == "cuda"``, and
+       after the live run the card's allocated bytes and the pinned ring
+       bytes are back to what they were before it."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.chaos import trees_equal, values_equal
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.reshard import plan as plan_mod
+    from grayscott_jl_tpu_torch.reshard import restore
+
+    smi = nvidia_smi("name,power.limit")
+    mem0 = memory_now(torch)
+    phase4 = {"a": ("gs.bp", "gs.vtk", "ckpt.bp"),
+              "b": ("mesh.bp", "mesh.vtk", "mesh_ckpt.bp")}
+    out = {"card": smi, "moves": {}}
+
+    def on(dims):
+        def make(settings, *, n_devices, seed):
+            return mesh_sim(gs, settings, dims, seed)
+
+        return None if dims == (1, 1, 1) else make
+
+    def config(d, name="cfg", **kw):
+        os.makedirs(d, exist_ok=True)
+        cfg = os.path.join(d, f"{name}.toml")
+        ckpt = os.path.join(d, "ckpt.bp")
+        write_config(cfg, **{**main_settings(), **kw},
+                     output=os.path.join(d, "gs.bp"), checkpoint=True,
+                     checkpoint_freq=100, checkpoint_output=ckpt,
+                     restart_input=ckpt)
+        return cfg
+
+    def same_as_phase4(d, layout, name):
+        for got, want in zip(("gs.bp", "gs.vtk", "ckpt.bp"), phase4[layout]):
+            g, w = os.path.join(d, got), os.path.join(workdir, want)
+            bad = (trees_equal(w, g) if got.endswith(".vtk")
+                   else values_equal(w, g))
+            check(not bad, f"{name}: {got} differs from phase 4's ({layout})"
+                  f": {bad[:5]}")
+
+    def poll_at(requests):
+        """A poll asking for ``requests[n]`` on its n-th call (the first
+        comes before round one; a round is 50 steps)."""
+        calls = [0]
+
+        def poll():
+            calls[0] += 1
+            dims = requests.get(calls[0])
+            return {"mesh_dims": list(dims)} if dims else None
+
+        return poll
+
+    def driven(cfg, dims, poll=None):
+        """``run_once`` of ``cfg`` on ``dims``: (sim, launches by mode,
+        wall s, the journal's reshard records, per move between rounds
+        the trace's ``reshape`` span in s with its parts: the pipeline's
+        drain (the ``io_drain`` spans inside it), ``reshape_live`` (the
+        target built and the move) and the rest (the stores
+        reopened))."""
+        d = os.path.dirname(cfg)
+        env = {"GS_FAULT_JOURNAL": os.path.join(d, "journal.jsonl"),
+               "GS_TRACE": os.path.join(d, "trace.json")}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        reset_sinks()
+        live_s = []
+        real_live = driver.reshape_live
+
+        def timed_live(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real_live(*a, **k)
+            finally:
+                live_s.append(time.perf_counter() - t)
+
+        driver.reshape_live = timed_live
+        try:
+            cuda_stencil.reset_launches()
+            t0 = time.perf_counter()
+            sim = driver.run_once(get_settings([cfg]), sim_factory=on(dims),
+                                  reshape_poll=poll)
+            wall = time.perf_counter() - t0
+            modes = {m: n for m, n in cuda_stencil.MODE_LAUNCHES.items() if n}
+        finally:
+            driver.reshape_live = real_live
+            reset_sinks()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        moves = []
+        if os.path.exists(env["GS_FAULT_JOURNAL"]):
+            with open(env["GS_FAULT_JOURNAL"], encoding="utf-8") as f:
+                moves = [e for e in map(json.loads, f)
+                         if e["event"] == "reshard"]
+        with open(env["GS_TRACE"], encoding="utf-8") as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        spans = []
+        for e, live in zip((e for e in events if e["name"] == "reshape"),
+                           live_s):
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            drain = sum(x["dur"] for x in events if x["name"] == "io_drain"
+                        and lo <= x["ts"] and x["ts"] + x["dur"] <= hi) / 1e6
+            span = e["dur"] / 1e6
+            spans.append({"span_s": span, "drain_s": drain,
+                          "target_and_move_s": live,
+                          "rest_s": span - drain - live})
+        check(sim.kernel_language == "cuda",
+              f"{cfg}: kernel_language {sim.kernel_language}")
+        return sim, modes, wall, moves, spans
+
+    def record(name, moves, spans, wall, modes):
+        rows = [{"path": m["path"], "bytes": m["bytes"], "wall_s": m["wall_s"],
+                 "old": m["old"]["mesh_dims"] if m["old"] else None,
+                 "new": m["new"]["mesh_dims"], "step": m["step"]}
+                for m in moves]
+        for row, span in zip(rows, spans):
+            row["between_rounds"] = span
+        out["moves"][name] = {"moves": rows, "run_wall_s": wall,
+                              "launches": modes}
+        for row in rows:
+            span = row.get("between_rounds")
+            log(f"  {name}: {row['old']} -> {row['new']} at step "
+                f"{row['step']} via {row['path']}, {row['bytes']} B, move "
+                f"{row['wall_s']:.6f} s"
+                + (f"; between rounds {span['span_s']:.3f} s = drain "
+                   f"{span['drain_s']:.3f} + target and move "
+                   f"{span['target_and_move_s']:.3f} + stores reopened "
+                   f"{span['rest_s']:.3f}" if span else "") + f" [{smi}]")
+
+    # 1. The restore on another mesh.
+    d = os.path.join(workdir, "rs_ckpt")
+    _, modes, _, _, _ = driven(config(d, steps=100), MESH)
+    check(modes == {"faces6": 8 * 100},
+          f"restore: the (2,2,2) run to step 100 launched {modes}")
+    sim, modes, wall, moves, spans = driven(
+        config(d, "resume", restart=True), (1, 2, 2))
+    check(sim.domain.dims == (1, 2, 2) and modes == {"faces6": 4 * 100},
+          f"restore on (1,2,2): {sim.domain.dims}, launched {modes}")
+    check(sim.reshard is not None and sim.reshard["path"] == "ckpt"
+          and [m["path"] for m in moves] == ["ckpt"],
+          f"restore on (1,2,2): reshard {sim.reshard}, journal {moves}")
+    same_as_phase4(d, "b", "restore on (1,2,2)")
+    record("restore (b) 2x2x2 -> 1x2x2", moves, [], wall, modes)
+    del sim
+
+    # 2. The live move there and back.
+    d = os.path.join(workdir, "rs_live")
+    sim, modes, wall, moves, spans = driven(
+        config(d), MESH, poll_at({2: (1, 2, 2), 4: MESH}))
+    want = 8 * 50 + 4 * 100 + 8 * 50
+    check(sim.domain.dims == MESH and modes == {"faces6": want},
+          f"live (b): ended on {sim.domain.dims}, launched {modes}, "
+          f"expected {want} 6n-face launches")
+    check([(m["step"], m["path"]) for m in moves]
+          == [(50, "collective"), (150, "collective")] and len(spans) == 2,
+          f"live (b): moves {moves}, reshape spans {spans}")
+    same_as_phase4(d, "b", "live (b)")
+    record("live (b) 2x2x2 -> 1x2x2 -> 2x2x2", moves, spans, wall, modes)
+    del sim
+    # Nothing of the meshes moved from outlives the run.
+    mem = memory_now(torch)
+    check(mem["allocated_b"] <= mem0["allocated_b"] + (1 << 20)
+          and mem["host_ring_b"] == mem0["host_ring_b"],
+          f"live (b): {mem} held after the run, {mem0} before")
+    out["memory_after_live"] = {"before": mem0, "after": mem}
+
+    # 3. The single block onto a mesh.
+    d = os.path.join(workdir, "rs_single")
+    sim, modes, wall, moves, spans = driven(config(d), (1, 1, 1),
+                                            poll_at({3: MESH}))
+    check(sim.domain.dims == MESH
+          and modes == {"chain": 100, "faces6": 8 * 100},
+          f"single block -> (2,2,2): ended on {sim.domain.dims}, launched "
+          f"{modes}")
+    check([(m["step"], m["path"]) for m in moves] == [(100, "collective")],
+          f"single block -> (2,2,2): moves {moves}")
+    same_as_phase4(d, "a", "single block -> (2,2,2)")
+    record("live (a) 1x1x1 -> 2x2x2", moves, spans, wall, modes)
+    del sim
+
+    # 4. The relayout's device time at L=256.
+    def cuda_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    settings = gs.Settings(**main_settings())
+    relayout = {}
+    for src_dims, dst_dims in ((MESH, (1, 2, 2)), ((1, 2, 2), MESH),
+                               ((1, 1, 1), MESH)):
+        src = (gs.Simulation(settings) if src_dims == (1, 1, 1)
+               else mesh_sim(gs, settings, src_dims))
+        src.iterate(2)
+        dst = mesh_sim(gs, settings, dst_dims)
+        plan = plan_mod.plan_restore(restore.layout_of(src),
+                                     restore.layout_of(dst), L=MAIN_L)
+        prov = restore.device_all_to_all_restore(src, plan, dst,
+                                                 mode="collective")
+        for a, b in zip(src.get_fields(), dst.get_fields()):
+            check(np.array_equal(a, b), f"relayout {src_dims} -> {dst_dims} "
+                  "changed the fields")
+        ev = cuda_ms(lambda: restore.device_all_to_all_restore(
+            src, plan, dst, mode="collective"))
+        prof = device_profile(torch, lambda: restore._collective_tier(
+            src, dst), reps=10)
+        b_ms, b_by = bound_of(2 * prov["bytes"], 0)
+        label = ("x".join(map(str, src_dims)) + " -> "
+                 + "x".join(map(str, dst_dims)))
+        relayout[label] = {"bytes": prov["bytes"], "events_ms": ev,
+                           "profile": prof, "bound_ms": b_ms,
+                           "bound_by": b_by, "move_wall_s": prov["wall_s"]}
+        log(f"  relayout {label} at L={MAIN_L}: {prov['bytes']} B, CUDA "
+            f"events {ev:.4f} ms, profiler device busy "
+            f"{prof['device_busy_ms'] if prof else float('nan'):.4f} ms "
+            f"(wall {prof['wall_ms'] if prof else float('nan'):.4f} ms), "
+            f"bound {b_ms:.4f} ms ({b_by}) [{smi}]")
+        del src, dst
+    out["relayout"] = relayout
+    report["reshard"] = out
+
+
 def phase_band_times(torch, gs, cuda_stencil, spec, report):
     """Per-launch times of the band recomputes at the split rounds'
     depth-2 shapes (noise on): the kernel (CUDA events, and its device
@@ -4012,6 +4279,10 @@ def main():
             "screen")
         timed(report, "resilience", phase_resilience, torch, gs,
               cuda_stencil, workdir, report)
+        log("phase 4 (vii): elastic resharding — a restore on another "
+            "mesh and live moves between rounds")
+        timed(report, "reshard", phase_reshard, torch, gs, cuda_stencil,
+              workdir, report)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,

@@ -3,7 +3,7 @@
 has)::
 
     python -m grayscott_jl_tpu_torch.chaos [--backend CUDA|CPU] [--L 32]
-        [--steps 60] [--seed N] [--scenarios 1,2,3,7,8,11] [--workdir DIR]
+        [--steps 60] [--seed N] [--scenarios 1,2,3,5,7,8,11] [--workdir DIR]
 
 Each scenario runs a supervised run that a fault interrupts and holds
 its stores, byte for byte, against an uninterrupted run of the same
@@ -19,6 +19,16 @@ settings (faults change when a run computes, never what it writes):
    checkpoint: exit 75, then a supervised relaunch resumes from the
    journal's ``graceful_shutdown`` marker (the output stores are
    compared; the checkpoint store holds the extra grace entry);
+5. elastic resharding, the solo half: a supervised (2,2,2) run in a
+   subprocess stalled at its step-20 boundary gets SIGTERM (exit 75),
+   and the supervised relaunch on a (1,2,2) mesh resumes from the
+   journal's marker across the shape change, with a ``reshard`` event
+   on ``GS_EVENTS``; every store serves the uninterrupted (2,2,2) run's
+   values (the assembled arrays of the ``.bp`` stores bitwise, whose
+   blocks follow the mesh that wrote each step, and the ``.vtk`` series
+   byte for byte). Both meshes are placed over the usable devices, a
+   device holding several blocks where there are fewer (one card holds
+   the whole mesh);
 7. a corrupted byte in the primary checkpoint store, then a preemption:
    the restore fails over to the ``.r1`` replica; the output stores and
    the replica equal the uninterrupted run's;
@@ -30,8 +40,10 @@ settings (faults change when a run computes, never what it writes):
     same device quarantines it, and with no device left the supervisor
     gives up ("every device quarantined").
 
-Scenarios 4 (ensembles, Queue 1 item 19), 5 and 10 (resharding, item
-18), 6 and 9 (serving, item 22) wait for their items. Exit code 0 when
+Scenario 4 and the ensemble half of 5 (an ensemble resumed grown by a
+member) wait for ensembles (Queue 1 item 19); 6, 9 and 10 (the serving
+fleet, whose scenario 10 is its live grow and shrink under load) wait
+for serving (item 22). Exit code 0 when
 every scenario held, 1 otherwise; one JSON line per scenario on stdout.
 The runs are in-process except scenario 3's. They run on the card
 (``--backend CUDA``, the default) unless ``--backend CPU`` asks for the
@@ -54,7 +66,7 @@ import tempfile
 import time
 from typing import Dict, List, Optional
 
-SCENARIOS = (1, 2, 3, 7, 8, 11)
+SCENARIOS = (1, 2, 3, 5, 7, 8, 11)
 
 #: Supervision settings shared by every supervised run.
 SUPERVISED = {"GS_SUPERVISE": "1", "GS_MAX_RESTARTS": "5",
@@ -119,17 +131,67 @@ def environment(env: Dict[str, str]):
                 os.environ[k] = v
 
 
-def run(cfg: str, env: Dict[str, str]):
-    """``driver.main([cfg])`` under ``env``; the exception it raised,
-    or None."""
+def run(cfg: str, env: Dict[str, str], dims=None):
+    """``driver.main([cfg])`` under ``env`` (on a ``dims`` mesh when
+    given: :func:`mesh_main`); the exception it raised, or None."""
     from . import driver
 
     with environment(env):
         try:
-            driver.main([cfg])
+            if dims is None:
+                driver.main([cfg])
+            else:
+                mesh_main(cfg, dims)
         except Exception as e:  # noqa: BLE001 — the scenario judges it
             return e
     return None
+
+
+def mesh_main(cfg: str, dims):
+    """``driver.main([cfg])`` on a ``dims`` mesh placed over the usable
+    devices of the settings' backend, several blocks to a device where
+    there are fewer (one card holds a whole mesh)."""
+    from . import driver
+    from .config.settings import get_settings, resolve_device
+    from .reshard.restore import placement
+    from .resilience import sdc
+    from .resilience.supervisor import supervise, supervision_enabled
+    from .simulation import Simulation
+
+    settings = get_settings([cfg])
+    devices = placement(sdc.usable_devices(resolve_device(settings).type),
+                        dims[0] * dims[1] * dims[2])
+
+    def factory(s, *, n_devices, seed):
+        return Simulation(s, seed=seed, mesh_dims=dims, devices=devices)
+
+    if supervision_enabled(settings):
+        return supervise(settings, sim_factory=factory)
+    return driver.run_once(settings, sim_factory=factory)
+
+
+#: Scenario 5's signalled process: :func:`mesh_main` on ``argv[2]``'s
+#: mesh, exiting as the CLI does (75 after a shutdown request).
+MESH_CHILD = (
+    "import sys; from grayscott_jl_tpu_torch import chaos; "
+    "sys.exit(chaos.mesh_cli(sys.argv[1], sys.argv[2]))"
+)
+
+
+def mesh_cli(cfg: str, dims: str) -> int:
+    import traceback
+
+    from .resilience.faults import EXIT_PREEMPTED, GracefulShutdown
+
+    try:
+        mesh_main(cfg, tuple(int(x) for x in dims.split(",")))
+    except GracefulShutdown as e:
+        print(f"chaos: {e}; exiting {EXIT_PREEMPTED}", file=sys.stderr)
+        return EXIT_PREEMPTED
+    except Exception:  # noqa: BLE001 — the exit code is the product
+        traceback.print_exc()
+        return 1
+    return 0
 
 
 def journal(d: str) -> List[dict]:
@@ -138,6 +200,34 @@ def journal(d: str) -> List[dict]:
         return []
     with open(path, encoding="utf-8") as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def values_equal(a: str, b: str) -> List[str]:
+    """The steps and variables whose assembled arrays differ between two
+    stores (or that one store lacks), and differing attributes: a store
+    that changed mesh mid-life frames its blocks differently but must
+    serve the same values."""
+    import numpy as np
+
+    from .io.bplite import BpReader
+
+    try:
+        ra, rb = BpReader(a), BpReader(b)
+    except (FileNotFoundError, OSError) as e:
+        return [f"{a} or {b} is unreadable ({e})"]
+    with ra, rb:
+        bad = [] if ra.attributes() == rb.attributes() else ["attributes"]
+        if ra.num_steps() != rb.num_steps():
+            return bad + [f"{ra.num_steps()} != {rb.num_steps()} steps"]
+        names = sorted(ra.available_variables())
+        if names != sorted(rb.available_variables()):
+            return bad + ["variables"]
+        for i in range(ra.num_steps()):
+            for name in names:
+                x, y = (np.asarray(r.get(name, step=i)) for r in (ra, rb))
+                if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                    bad.append(f"{name} at step index {i}")
+    return bad
 
 
 def trees_equal(a: str, b: str) -> List[str]:
@@ -176,14 +266,15 @@ class Chaos:
                             backend=self.backend, L=self.L, steps=self.steps,
                             **extra)
 
-    def base(self, env: Optional[Dict[str, str]] = None, **extra) -> str:
-        """The uninterrupted run under ``env`` and ``extra`` settings
-        (run once)."""
+    def base(self, env: Optional[Dict[str, str]] = None, dims=None,
+             **extra) -> str:
+        """The uninterrupted run under ``env`` and ``extra`` settings, on
+        a ``dims`` mesh when given (run once)."""
         key = (tuple(sorted((env or {}).items())),
-               tuple(sorted(extra.items())))
+               tuple(sorted(extra.items())), dims)
         if key not in self.bases:
             name = f"base{len(self.bases)}"
-            err = run(self.config(name, **extra), dict(env or {}))
+            err = run(self.config(name, **extra), dict(env or {}), dims)
             if err is not None:
                 raise RuntimeError(f"uninterrupted run failed: {err!r}")
             self.bases[key] = os.path.join(self.workdir, name)
@@ -282,6 +373,56 @@ class Chaos:
         return self.verdict(3, err, problems, d,
                             stopped_at=marker[0]["step"] if marker else None)
 
+    def scenario_5(self) -> dict:
+        base = self.base(dims=(2, 2, 2))
+        d = os.path.join(self.workdir, "s5")
+        cfg = self.config("s5")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {k: v for k, v in os.environ.items() if k not in _VARS}
+        env.update(SUPERVISED, GS_FAULTS="step=20:kind=hang",
+                   GS_WATCHDOG="off", GS_HANG_BOUND_S="30")
+        env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+        problems = []
+        proc = subprocess.Popen(
+            [sys.executable, "-c", MESH_CHILD, cfg, "2,2,2"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        t0 = time.monotonic()
+        while (time.monotonic() - t0 < 600 and proc.poll() is None
+               and not any(e["event"] == "injected" for e in journal(d))):
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        if proc.returncode != 75:
+            problems.append(f"the signalled (2,2,2) run exited "
+                            f"{proc.returncode}, not 75: {out[-2000:]}")
+        events_path = os.path.join(d, "events.jsonl")
+        err = run(cfg, {**SUPERVISED, "GS_EVENTS": events_path},
+                  dims=(1, 2, 2))
+        if not any(e["event"] == "recovery"
+                   and e.get("after") == "graceful_shutdown"
+                   for e in journal(d)):
+            problems.append("the relaunch did not resume from the marker")
+        from .obs.events import parse_events
+
+        moves = [e["attrs"] for e in (parse_events(events_path)
+                                      if os.path.exists(events_path) else [])
+                 if e["kind"] == "reshard" and "new_mesh" in e["attrs"]]
+        if [(m["old_mesh"], m["new_mesh"]) for m in moves] != [
+                ([2, 2, 2], [1, 2, 2])]:
+            problems.append(f"reshard events {moves}")
+        for store in ("gs.bp", "ckpt.bp"):
+            problems += [f"{store}: {p}" for p in values_equal(
+                os.path.join(base, store), os.path.join(d, store))]
+        problems += [f"gs.vtk/{f}" for f in trees_equal(
+            os.path.join(base, "gs.vtk"), os.path.join(d, "gs.vtk"))]
+        return self.verdict(5, err, problems, d,
+                            path=moves[0].get("path") if moves else None)
+
     def scenario_7(self) -> dict:
         env = {"GS_CKPT_REPLICAS": "2", "GS_CKPT_VERIFY": "full",
                "GS_ASYNC_IO_DEPTH": "0"}
@@ -364,8 +505,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     unknown = sorted(set(wanted) - set(SCENARIOS))
     if unknown:
         print(f"chaos: no scenario {unknown} in the port (it has "
-              f"{list(SCENARIOS)}; 4, 5, 6, 9 and 10 wait for Queue 1 items "
-              "18, 19 and 22)", file=sys.stderr)
+              f"{list(SCENARIOS)}; 4 and the ensemble half of 5 wait for "
+              "Queue 1 item 19, 6, 9 and 10 for item 22)", file=sys.stderr)
         return 2
     if args.steps < 40:
         print("chaos: --steps must be at least 40", file=sys.stderr)

@@ -26,6 +26,8 @@ that would turn such a subsystem on (:data:`NOT_PORTED_ENV`). Keys at
 their defaults that the reference acts on — ``health_policy``,
 ``graceful_shutdown``, ``mesh_type``, ``reshard`` — are acted on
 (``resilience/``, ``io/vtk.py``, :func:`resolve_reshard`), and so are
+``GS_RESHARD_DEVICE`` (the live move's tier,
+:func:`resolve_reshard_device`),
 ``comm_overlap`` / ``GS_COMM_OVERLAP`` (:func:`resolve_comm_overlap`)
 and ``halo_depth`` / ``GS_HALO_DEPTH`` (:func:`resolve_halo_depth`),
 the sharded round's exchange schedule, and the output and integrity
@@ -528,6 +530,29 @@ def resolve_reshard(settings: Settings) -> str:
     if v not in RESHARD_MODES:
         raise SettingsError(
             f"reshard / GS_RESHARD must be auto/off, got {raw!r}")
+    return v
+
+
+#: Live reshard tiers (``reshard/restore.device_all_to_all_restore``):
+#: ``auto`` picks ``collective`` when both meshes span the same device
+#: set and ``put`` across device sets; the named tiers pin one (a pinned
+#: tier that cannot run raises); ``off`` refuses live moves (the
+#: checkpoint restore stays available).
+RESHARD_DEVICE_MODES = ("auto", "collective", "put", "host", "off")
+
+
+def resolve_reshard_device(settings: "Settings | None" = None) -> str:
+    """The live reshard tier: ``GS_RESHARD_DEVICE``, else a
+    ``reshard_device`` attribute of the settings, else ``"auto"``; any
+    other value raises, as in the reference."""
+    raw = os.environ.get("GS_RESHARD_DEVICE")
+    if raw is None:
+        raw = getattr(settings, "reshard_device", "") or ""
+    v = raw.strip().lower() or "auto"
+    if v not in RESHARD_DEVICE_MODES:
+        raise SettingsError(
+            f"GS_RESHARD_DEVICE must be one of "
+            f"{'/'.join(RESHARD_DEVICE_MODES)}, got {raw!r}")
     return v
 
 

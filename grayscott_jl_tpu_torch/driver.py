@@ -33,9 +33,28 @@ stay exact unless ``snapshot_bits_ckpt`` codes them too.
 
 A sharded run writes one block per mesh position into each store step,
 each with its global ``(start, count)`` box; the store serves the same
-assembled arrays as a single-block run's, and a checkpoint restarts a
-run on any mesh (unless ``reshard = "off"``, which refuses a layout
-other than the checkpoint's).
+assembled arrays as a single-block run's. A fresh checkpoint store
+records the run's layout (``Simulation.layout()``), and a restart goes
+through ``reshard/restore.restore_run``: the recorded layout is planned
+against the run's (mesh dims and process count; ``reshard = "off"``
+refuses a change, a store without a record restores anywhere), then each
+process reads its new blocks' boxes, with a ``reshard`` record when the
+layout changed.
+
+Elastic resharding between rounds (``reshard/``, as in the reference):
+``run_once(reshape_poll=...)`` polls at every round; a request
+(``{"mesh_dims": [x, y, z]}``, or ``{"scale": "grow"|"shrink"}``, which
+doubles or halves the block count over the usable devices) moves the
+live fields onto the new mesh (``reshard/restore.reshape_live``; tier
+``GS_RESHARD_DEVICE``) under the watchdog's ``reshape`` phase, after the
+pipeline has drained; the stores reopen in append mode at the current
+step on the new layout, so the steps written before the move stay, and
+the run goes on. A request that cannot be met is a warning, not a
+failure. A run of several processes agrees on the request (one
+collective per round while a poll is given), so every process moves at
+the same round. When a device the run computes on is quarantined
+(``GS_DEVICE_BLOCKLIST``), the run moves to the largest feasible mesh
+on the usable devices, or warns and stays where it is.
 
 At every boundary the snapshot carries the health probe (unless
 ``health_policy = "off"``), resolved on this thread before the step is
@@ -95,21 +114,25 @@ the drift trips under a raising policy, the integrity records and the
 ``graceful_shutdown`` marker, and mirrors each onto the event stream.
 
 Not here yet, each a later slice of the port (ROADMAP Queue 1): compile
-statistics and profiler captures, ensembles, and the live reshape away
-from a quarantined card.
+statistics and profiler captures, ensembles, and the fabric model's
+``comm`` section (which a live move would refresh).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import sys
 import time
 from typing import List, Optional
 
+import numpy as np
+
 from .config.env import env_str
 from .config.settings import (Settings, get_settings, load_backend_and_lang,
                               resolve_autotune, resolve_reshard)
+from .io.checkpoint import CheckpointWriter
 from .io.async_writer import AsyncStepWriter, resolve_depth, with_io_fault
-from .io.checkpoint import CheckpointWriter, load_checkpoint
 from .io.stream import SimStream
 from .ops import cuda_stencil
 from .obs import events as obs_events
@@ -117,6 +140,8 @@ from .obs import metrics as obs_metrics
 from .obs import numerics as obs_numerics
 from .obs.trace import get_tracer
 from .parallel import distributed
+from .reshard.plan import ReshardError
+from .reshard.restore import reshape_live, restore_run
 from .resilience import integrity
 from .resilience import sdc as sdc_mod
 from .resilience.faults import (FaultPlan, GracefulShutdown,
@@ -136,6 +161,52 @@ def _next_boundary(step: int, period: int, limit: int) -> int:
     if period <= 0:
         return limit
     return min(limit, (step // period + 1) * period)
+
+
+def _resolve_reshape_dims(req, sim):
+    """A live-reshape request -> the target mesh dims, or None for an
+    infeasible or no-op one. ``{"mesh_dims": [x, y, z]}`` pins the
+    target, placed over the run's own devices (blocks share a device
+    where there are fewer, as a mesh on one card does);
+    ``{"scale": "grow"|"shrink"}`` doubles or halves the block count,
+    factored as ``dims_create`` does, and is refused, as in the
+    reference, when the usable devices cannot hold one block each."""
+    from .parallel.domain import CartDomain, dims_create
+
+    if not isinstance(req, dict):
+        return None
+    if req.get("mesh_dims"):
+        dims = tuple(int(d) for d in req["mesh_dims"])
+    else:
+        scale = req.get("scale")
+        if scale == "grow":
+            n = sim.domain.n_blocks * 2
+        elif scale == "shrink":
+            n = sim.domain.n_blocks // 2
+        else:
+            return None
+        if n < 1 or n > len(sdc_mod.usable_devices(sim.device.type)):
+            return None
+        dims = dims_create(n, 3)
+    try:
+        CartDomain.create(math.prod(dims), sim.settings.L, dims=dims)
+    except ValueError:
+        return None
+    if dims == tuple(sim.domain.dims):
+        return None
+    return dims
+
+
+def _agreed_dims(dims):
+    """The move every process makes this round: the target some process
+    asked for, or None when none did or two asked for different ones
+    (one collective in a run of several processes)."""
+    if distributed.process_count() == 1:
+        return dims
+    asked = {tuple(int(x) for x in v) for v in distributed.all_gather_f64(
+        np.array(dims or (0, 0, 0), dtype=np.float64))}
+    asked.discard((0, 0, 0))
+    return asked.pop() if len(asked) == 1 else None
 
 
 def main(args: List[str], *, n_devices: Optional[int] = None,
@@ -177,7 +248,8 @@ def _close_quietly(store) -> None:
 
 
 def run_once(settings: Settings, *, n_devices: Optional[int] = None,
-             seed: int = 0, context=None, sim_factory=None) -> Simulation:
+             seed: int = 0, context=None, sim_factory=None,
+             reshape_poll=None) -> Simulation:
     """One simulation attempt; returns the finished :class:`Simulation`.
 
     ``context`` is the supervisor's
@@ -187,6 +259,9 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
     ``sim_factory``, when given, builds the simulation instead of the
     constructor, called as ``sim_factory(settings, n_devices=...,
     seed=...)`` (e.g. to place a mesh's blocks on chosen devices).
+    ``reshape_poll``, when given, is called at every round; a truthy
+    request moves the live run onto another mesh (module docstring). In
+    a run of several processes every process must be given one.
     Raises ``HealthError`` at a poisoned boundary under the ``abort``
     (and ``rollback``) policy, ``DriftError`` at a drifted probe under
     a raising drift policy, ``GracefulShutdown`` after a shutdown
@@ -199,7 +274,8 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
         plan = FaultPlan.from_env(settings)
         journal = FaultJournal.from_env(settings)
     guard = HealthGuard.from_env(settings)
-    reshard = resolve_reshard(settings)
+    # Bad values raise at start-up; the restore and the moves read it.
+    resolve_reshard(settings)
     depth = resolve_depth()
     icfg = integrity.resolve_config(settings)
     num_mode = obs_numerics.resolve_numerics(settings)
@@ -223,10 +299,10 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
         on_request=lambda signum: evs.emit("shutdown_requested",
                                            signum=signum)).install()
     try:
-        return _run(settings, guard, shutdown, reshard, depth, icfg,
-                    num_mode, scfg, plan=plan, journal=journal, wd=wd,
-                    context=context, n_devices=n_devices, seed=seed,
-                    sim_factory=sim_factory)
+        return _run(settings, guard, shutdown, depth, icfg, num_mode, scfg,
+                    plan=plan, journal=journal, wd=wd, context=context,
+                    n_devices=n_devices, seed=seed, sim_factory=sim_factory,
+                    reshape_poll=reshape_poll)
     except BaseException as exc:
         # The watchdog's interrupt unwinds as KeyboardInterrupt (through
         # the listener's handler): it is the classified hang it stands
@@ -248,9 +324,9 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
                   file=sys.stderr)
 
 
-def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, scfg, *,
-         plan, journal, wd, context, n_devices, seed,
-         sim_factory) -> Simulation:
+def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
+         plan, journal, wd, context, n_devices, seed, sim_factory,
+         reshape_poll) -> Simulation:
     tracer = get_tracer()
     evs = obs_events.get_events()
     metrics = obs_metrics.get_metrics(settings)
@@ -278,17 +354,10 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, scfg, *,
                  "in each")
     restart_step = 0
     if settings.restart:
-        # Each process of a multi-process run reads its own boxes.
-        boxes = sim.local_boxes() if nprocs > 1 else None
-        *fields, restart_step = load_checkpoint(
-            settings.restart_input, settings, settings.restart_step,
-            layout=sim.block_boxes() if reshard == "off" else None,
-            journal=ilog, log=log, boxes=boxes,
-        )
-        if boxes is None:
-            sim.restore_fields(fields, restart_step)
-        else:
-            sim.restore_blocks(fields[0], restart_step)
+        # The store's layout planned against this run's, then each
+        # process reads its own boxes.
+        restart_step, _ = restore_run(sim, settings, log=log,
+                                      journal=journal, failover_journal=ilog)
         log.info(
             f"Restarted from {settings.restart_input} at step {restart_step}"
         )
@@ -373,7 +442,7 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, scfg, *,
         if settings.checkpoint:
             ckpt = CheckpointWriter(settings, sim.dtype, writer_id=proc,
                                     nwriters=nprocs, resume_step=resume,
-                                    codec=codec.ckpt)
+                                    layout=sim.layout(), codec=codec.ckpt)
         # The reference's keys (its driver's RunStats config), then this
         # package's own.
         stats = RunStats(settings.L, tracer=tracer, config={
@@ -393,8 +462,8 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, scfg, *,
             "n_processes": nprocs,
             "comm_overlap": sim.comm_overlap,
             "halo_depth": sim.halo_depth,
-            # Filled by the reshard planner (ROADMAP Queue 1 item 18).
-            "reshard": None,
+            # The restore's plan when it changed the layout.
+            "reshard": sim.reshard,
             "compile_cache": sim.compile_cache_dir,
             "autotune_mode": resolve_autotune(settings),
             # Ensembles: Queue 1 item 19.
@@ -466,9 +535,90 @@ def _run(settings, guard, shutdown, reshard, depth, icfg, num_mode, scfg, *,
             else None)
         ring = HostRing(pipe.depth + 1)
         first_round = True
+        m_reshards = metrics.counter("reshards", **mlabels)
+        m_reshard_wall = metrics.gauge("reshard_wall_s", **mlabels)
+        # Only a changed blocklist pays the quarantine check, so that a
+        # move that cannot be made warns once, not every round.
+        quarantine_handled = frozenset()
+
+        def apply_reshape(dims, devices=None) -> bool:
+            """Move the live run onto ``dims`` between rounds (the
+            reference's ``_apply_reshape``): the pipeline drained, the
+            target built and the fields moved (``reshape_live``), then
+            the stores reopened in append mode at this step on the new
+            layout. A refused move warns and the run stays."""
+            nonlocal sim, stream, ckpt, ring, first_round
+            # Its own deadline: a target simulation plus the move.
+            mark("reshape", step)
+            # The steps in flight are written to the old stores first.
+            pipe.drain()
+            try:
+                new_sim, rplan = reshape_live(sim, mesh_dims=dims, seed=seed,
+                                              devices=devices, log=log,
+                                              journal=journal)
+            except ReshardError as e:
+                log.warn(f"live reshape refused: {e}")
+                return False
+            if not rplan.changed:
+                return False
+            stream.close()
+            if ckpt is not None:
+                ckpt.close()
+            # The old simulation and its pinned buffers go with it.
+            sim = new_sim
+            ring = HostRing(pipe.depth + 1)
+            if screener is not None:
+                # The next replay starts from the adopted layout.
+                screener.rebind(sim)
+                screener.rearm(step)
+            # Append at this step, a fresh run included: the steps
+            # written before the move stay (each step's blocks say which
+            # layout wrote it).
+            resumed = dataclasses.replace(settings, restart=True)
+            stream = SimStream(resumed, sim.domain, sim.dtype,
+                               writer_id=proc, nwriters=nprocs,
+                               resume_step=step, codec=codec.output)
+            if ckpt is not None:
+                ckpt = CheckpointWriter(resumed, sim.dtype, writer_id=proc,
+                                        nwriters=nprocs, resume_step=step,
+                                        layout=sim.layout(), codec=codec.ckpt)
+            stats.config["reshard"] = sim.reshard
+            stats.config["mesh_dims"] = list(sim.domain.dims)
+            stats.config["n_devices"] = sim.domain.n_blocks
+            # The reference also refreshes its comm section here: the
+            # fabric model, Queue 1 item 15.
+            m_reshards.inc()
+            m_reshard_wall.set(sim.reshard.get("wall_s"))
+            first_round = True
+            return True
+
         t0 = time.perf_counter()
         with pipe:
             while step < settings.steps:
+                if reshape_poll is not None:
+                    req = reshape_poll()
+                    dims = _agreed_dims(
+                        _resolve_reshape_dims(req, sim) if req else None)
+                    if dims is not None:
+                        apply_reshape(dims)
+                blocked = sdc_mod.resolve_blocklist()
+                if nprocs == 1 and blocked and blocked != quarantine_handled:
+                    # A device this run computes on was quarantined: move
+                    # onto the largest mesh the usable devices hold.
+                    in_use = {sdc_mod.device_name(d)
+                              for d in sim.mesh.devices}
+                    if blocked & in_use:
+                        usable = sdc_mod.usable_devices(sim.device.type)
+                        dims = sdc_mod.feasible_dims(len(usable), settings.L)
+                        moved = dims is not None and apply_reshape(
+                            dims, usable[:math.prod(dims)])
+                        if not moved:
+                            log.warn(
+                                "quarantined device(s) "
+                                f"{sorted(blocked & in_use)} in use but no "
+                                "feasible reshape target — continuing on "
+                                "the current mesh")
+                    quarantine_handled = blocked
                 mark("compile" if first_round else "step_round", step)
                 boundary = min(
                     _next_boundary(step, settings.plotgap, settings.steps),

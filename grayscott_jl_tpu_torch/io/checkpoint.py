@@ -8,9 +8,14 @@ and attributes are the reference's, so a checkpoint written by either
 package restarts the other; a bfloat16 checkpoint restarts bitwise.
 Checkpoints are exact unless ``snapshot_bits_ckpt`` opts them into the
 lossy codec (``codec``), and a restart from a coded one is value-close.
-A checkpoint restores on any block layout unless ``reshard = "off"``
-(``GS_RESHARD=off``): then a layout other than the one the entry was
-written on raises :class:`ReshardError`, as in the reference.
+A fresh store also records the writing run's layout (``layout=``, the
+reference's :data:`~..reshard.plan.LAYOUT_ATTRS`: mesh dims, axis
+names, process count, halo depth, chain fuse, ensemble size, schema);
+an append keeps the creation layout. :func:`read_layout` reads it back
+as the "old" side of a restore plan (``reshard/plan.plan_restore``),
+which a restore on another mesh or process count passes unless
+``reshard = "off"`` (``GS_RESHARD=off``) refuses it, as in the
+reference (``reshard/restore.restore_run``).
 
 Integrity (``resilience/integrity.py``): ``GS_CKPT_REPLICAS=N`` mirrors
 every checkpoint write to ``<path>.r1`` .. ``<path>.r<N-1>``;
@@ -23,6 +28,7 @@ corrupt store raises its :class:`~.bplite.CorruptionError`).
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, Optional, Tuple
 
@@ -30,19 +36,21 @@ import numpy as np
 
 from ..config.settings import Settings, resolve_model
 from . import count_steps_upto, open_writer
-from .bplite import BpReader
+from ..reshard.plan import ReshardError, layout_attrs  # noqa: F401
+from ..reshard.plan import read_layout as _read_layout
+from .bplite import BpReader, _md_path
 from .codec import CODEC_ATTR, codec_attr_value
 from .stream import define_fields, put_fields
 
 
-class ReshardError(RuntimeError):
-    """A restore onto another block layout than the checkpoint's, refused
-    under ``reshard = "off"``."""
-
-
 class CheckpointWriter:
     """The checkpoint store of a run and its replicas (``paths``, the
-    primary first), written in lockstep."""
+    primary first), written in lockstep. ``layout`` (a
+    :class:`~..reshard.plan.LayoutMeta`, or None) is written as the
+    store's layout attributes on a fresh store only: an append (resume)
+    keeps the creation layout, so that a resumed store's attributes
+    equal an uninterrupted run's even when the resuming run adopted
+    another mesh (each step's blocks say what wrote it)."""
 
     def __init__(
         self,
@@ -52,6 +60,7 @@ class CheckpointWriter:
         writer_id: int = 0,
         nwriters: int = 1,
         resume_step: Optional[int] = None,
+        layout=None,
         codec: Optional[Dict[str, int]] = None,
     ):
         from ..resilience import integrity
@@ -74,6 +83,7 @@ class CheckpointWriter:
             keep = None
             if settings.restart and resume_step is not None:
                 keep = count_steps_upto(path, resume_step)
+            fresh = not (settings.restart and os.path.isfile(_md_path(path)))
             w = open_writer(path, writer_id=writer_id, nwriters=nwriters,
                             append=settings.restart, keep_steps=keep)
             if writer_id == 0:
@@ -86,6 +96,15 @@ class CheckpointWriter:
                         CODEC_ATTR,
                         codec_attr_value(self.codec, self.field_names,
                                          dtype))
+                if layout is not None and fresh:
+                    for name, value in layout_attrs(
+                            mesh_dims=layout.mesh_dims,
+                            axis_names=layout.axis_names,
+                            process_count=layout.process_count,
+                            halo_depth=layout.halo_depth,
+                            chain_fuse=layout.chain_fuse,
+                            ensemble_size=layout.ensemble_size).items():
+                        w.define_attribute(name, value)
             w.define_variable("step", np.int32)
             define_fields(w, self.field_names, dtype, L, self.codec)
             self.writers.append(w)
@@ -159,6 +178,17 @@ def latest_durable_step(path: str,
         r.close()
 
 
+def read_layout(reader: BpReader):
+    """The store's recorded layout (:class:`~..reshard.plan.LayoutMeta`),
+    or None for a store that has none (a pre-elastic store): the "old"
+    side of a restore plan."""
+    try:
+        attrs = reader.attributes()
+    except Exception:  # noqa: BLE001 — the layout is advisory provenance
+        return None
+    return _read_layout(attrs)
+
+
 def open_checkpoint(
     path: str, settings: Settings, restart_step: int = -1
 ) -> Tuple[BpReader, int, int]:
@@ -215,52 +245,38 @@ def open_checkpoint(
     return r, idx, sim_step
 
 
-def _describe(boxes) -> str:
-    """A block layout for a message: the mesh its boxes form."""
-    dims = [len({start[a] for start, _ in boxes}) for a in range(3)]
-    return f"{'x'.join(map(str, dims))} ({len(boxes)} block(s))"
-
-
 def load_checkpoint(
     path: str, settings: Settings, restart_step: int = -1, *,
-    layout=None, journal=None, log=None, boxes=None,
+    journal=None, log=None, boxes=None,
 ) -> Tuple:
     """``(*fields, step)`` of one checkpoint entry, fields in the
     model's declaration order (bfloat16 ones, and coded ones decoded, as
     float32 arrays). The primary and its mirrors on disk are tried in
     health order, a corrupt or unreadable one failing over to the next
     (``resilience/integrity.restore_with_failover``; each failover is
-    recorded in ``journal`` and logged). ``layout`` — the restoring
-    run's block boxes, ``[(start, count)]``, given under ``reshard =
-    "off"`` — must be the layout the entry was written on, else
-    :class:`ReshardError`. With ``boxes`` (``[(start, count)]``, the
-    blocks a process of a multi-process run holds) only those boxes are
-    read: the result is ``(blocks, step)``, ``blocks`` one tuple of
-    field arrays per box."""
+    recorded in ``journal`` and logged). With ``boxes`` (``[(start,
+    count)]``, the blocks a process of a multi-process run holds) only
+    those boxes are read: the result is ``(blocks, step)``, ``blocks``
+    one tuple of field arrays per box. A run's restart goes through
+    ``reshard/restore.restore_run``, which plans the layout change
+    first."""
     from ..resilience.integrity import restore_with_failover
 
     def attempt(candidate):
-        return _load_one(candidate, settings, restart_step, layout, boxes)
+        r, idx, step = open_checkpoint(candidate, settings, restart_step)
+        with r:
+            return read_entry(r, idx, settings, boxes) + (step,)
 
     return restore_with_failover(path, attempt, journal=journal, log=log)
 
 
-def _load_one(path, settings, restart_step, layout, boxes=None) -> Tuple:
-    r, idx, step = open_checkpoint(path, settings, restart_step)
-    with r:
-        names = resolve_model(settings).field_names
-        if layout is not None:
-            written = sorted(r.boxes(names[0], idx))
-            wanted = sorted((tuple(o), tuple(c)) for o, c in layout)
-            if written != wanted:
-                raise ReshardError(
-                    f"checkpoint {path} step {step} was written on a "
-                    f"{_describe(written)} layout but this run uses "
-                    f"{_describe(wanted)}, and reshard='off' refuses "
-                    "restore-time layout changes; set reshard='auto' (or "
-                    "GS_RESHARD=auto) to allow elastic resume")
-        if boxes is not None:
-            return ([tuple(r.get(name, step=idx, start=o, count=c)
-                           for name in names) for o, c in boxes], step)
-        fields = tuple(r.get(name, step=idx) for name in names)
-    return fields + (step,)
+def read_entry(reader: BpReader, idx: int, settings: Settings,
+               boxes=None) -> Tuple:
+    """The fields of entry ``idx`` of an open checkpoint store: a tuple
+    of whole ``L^3`` arrays, or with ``boxes`` a one-tuple holding, per
+    box, the tuple of its field arrays."""
+    names = resolve_model(settings).field_names
+    if boxes is not None:
+        return ([tuple(reader.get(name, step=idx, start=o, count=c)
+                       for name in names) for o, c in boxes],)
+    return tuple(reader.get(name, step=idx) for name in names)

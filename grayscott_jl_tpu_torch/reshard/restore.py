@@ -1,0 +1,384 @@
+"""Elastic resharding: executing the restore plan (counterpart of
+``grayscott_jl_tpu/reshard/restore.py``).
+
+Two paths, one plan (``reshard/plan.py``):
+
+* **The checkpoint path** (:func:`restore_run`): the restoring run reads
+  exactly its new blocks' ``(start, count)`` boxes out of the
+  global-indexed checkpoint store (each process its own), so the mesh
+  is a restore-time decision. The plan judges the recorded layout
+  against the run's (mesh dims and process count) and refuses a change
+  under ``reshard = "off"``.
+* **The live path** (:func:`device_all_to_all_restore`, driven by
+  :func:`reshape_live`): the live fields of mesh A move onto mesh B
+  between two rounds, with no checkpoint. ``GS_RESHARD_DEVICE`` picks
+  the tier:
+
+  - ``collective`` (both meshes on the same device set): each new block
+    is assembled on its own device from the overlaps of the old blocks
+    the plan names (``plan.overlapping_old_shards``), mesh A's storage
+    pad dropped and mesh B's rebuilt at the model's frozen boundary
+    values. Between processes the overlaps that change process travel
+    in one ``batch_isend_irecv`` round (``parallel/distributed.p2p``:
+    NCCL between cards, gloo where processes share a card or run on
+    the CPU); nothing goes through the host otherwise.
+  - ``put`` (across device sets): the same relayout assembled on mesh
+    A's devices, then each block ``Tensor.to`` its new device.
+  - ``host``: ``get_fields()`` then ``restore_fields`` (one process).
+  - ``auto``: ``collective`` on the same device set, else ``put``,
+    degrading to ``host`` where the reference does: when ``put`` raises
+    in a run of one process.
+
+  A pinned tier that cannot run raises :class:`ReshardError`, and
+  ``off`` refuses the live path. The move is slicing and copying in
+  torch ops (the reference's is ``jnp`` outside any Pallas kernel), and
+  the continuation is bitwise the run that never moved.
+
+Every move that changes the layout is recorded once, on the event
+stream, in the fault journal and on ``sim.reshard`` (which
+``RunStats.config["reshard"]`` echoes), with its ``path``, ``bytes`` and
+``wall_s``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..config.settings import (RESHARD_DEVICE_MODES, Settings,
+                               resolve_reshard, resolve_reshard_device)
+from ..parallel import distributed
+from . import plan as plan_mod
+from .plan import LayoutMeta, ReshardError, ReshardPlan
+
+__all__ = [
+    "device_all_to_all_restore",
+    "layout_of",
+    "placement",
+    "reshape_live",
+    "restore_run",
+]
+
+
+def layout_of(sim, *, process_count: Optional[int] = None) -> LayoutMeta:
+    """The :class:`LayoutMeta` of a live simulation: the record its
+    checkpoints carry, and the "new" side of a restore plan. The halo
+    depth is the one the run resolved (after its gate), the chain fuse
+    the run's fuse base."""
+    return LayoutMeta(
+        mesh_dims=tuple(int(d) for d in sim.domain.dims),
+        process_count=int(distributed.process_count()
+                          if process_count is None else process_count),
+        halo_depth=int(sim.halo_depth),
+        chain_fuse=int(sim.fuse),
+        ensemble_size=1,
+    )
+
+
+def _move_bytes(plan: ReshardPlan, sim) -> int:
+    """Bytes the plan re-slices: every new block's true-domain box over
+    all fields — what the live move writes, and what a checkpoint
+    restore reads."""
+    cells = 0
+    for _coords, _start, count in plan.boxes:
+        cells += int(count[0]) * int(count[1]) * int(count[2])
+    itemsize = torch.empty((), dtype=sim.dtype).element_size()
+    return cells * sim.model.n_fields * itemsize
+
+
+def _announce(sim, plan: ReshardPlan, *, log=None, journal=None,
+              prov=None) -> None:
+    """One ``reshard`` record on every observer: the event stream, the
+    fault journal (and through it the final ``RunStats`` faults
+    section) and the log, each with the tier's ``path`` / ``bytes`` /
+    ``wall_s``."""
+    from ..obs import events as obs_events
+
+    prov = prov or {}
+    old = plan.old.describe() if plan.old is not None else None
+    obs_events.get_events().emit(
+        "reshard", step=sim.step,
+        old_mesh=(old or {}).get("mesh_dims"),
+        new_mesh=list(plan.new.mesh_dims),
+        old_procs=(old or {}).get("process_count"),
+        new_procs=plan.new.process_count,
+        members=plan.members,
+        path=prov.get("path"),
+        bytes=prov.get("bytes"),
+        wall_s=prov.get("wall_s"),
+    )
+    if journal is not None:
+        journal.record(
+            event="reshard", step=sim.step,
+            old=old, new=plan.new.describe(), members=plan.members,
+            path=prov.get("path"), bytes=prov.get("bytes"),
+            wall_s=prov.get("wall_s"),
+        )
+    if log is not None:
+        old_mesh = ("x".join(str(d) for d in plan.old.mesh_dims)
+                    if plan.old is not None else "?")
+        new_mesh = "x".join(str(d) for d in plan.new.mesh_dims)
+        log.info(
+            f"Resharded restore: layout {old_mesh} "
+            f"({plan.old.process_count if plan.old else '?'} proc) -> "
+            f"adopted {new_mesh} ({plan.new.process_count} proc) "
+            f"at step {sim.step} via {prov.get('path', '?')} "
+            f"({prov.get('bytes', '?')} B in {prov.get('wall_s', '?')}s)")
+
+
+def restore_run(sim, settings: Settings, *, log=None, journal=None,
+                failover_journal=None) -> Tuple[int, ReshardPlan]:
+    """Restore ``sim`` from ``restart_input`` onto its (already built)
+    mesh, resharding when the store was written on another layout.
+
+    Returns ``(restart_step, plan)``. The plan is made from the store's
+    recorded layout (``io/checkpoint.read_layout``) against the run's
+    (:func:`layout_of`) and refuses a change under ``reshard = "off"``;
+    then each process reads its own blocks' boxes. Both happen inside
+    the replica failover (``resilience/integrity``), so a corrupt
+    candidate fails over to the next. ``journal`` takes the ``reshard``
+    record, ``failover_journal`` (default ``journal``) the failovers.
+    ``sim.reshard`` is the plan with its provenance, or None when the
+    layout did not change."""
+    from ..io.checkpoint import open_checkpoint, read_entry, read_layout
+    from ..resilience import integrity
+
+    allow = resolve_reshard(settings)
+    t0 = time.perf_counter()
+    new = layout_of(sim)
+    boxes = sim.local_boxes() if sim.processes > 1 else None
+
+    def restore_from(candidate):
+        reader, idx, step = open_checkpoint(candidate, settings,
+                                            settings.restart_step)
+        with reader:
+            plan = plan_mod.plan_restore(read_layout(reader), new,
+                                         L=settings.L, allow=allow)
+            # The reshard is these reads: the new blocks' boxes.
+            fields = read_entry(reader, idx, settings, boxes)
+        return step, plan, fields
+
+    step, plan, fields = integrity.restore_with_failover(
+        settings.restart_input, restore_from,
+        journal=journal if failover_journal is None else failover_journal,
+        log=log)
+    if boxes is None:
+        sim.restore_fields(fields, step)
+    else:
+        sim.restore_blocks(fields[0], step)
+    if plan.changed:
+        prov = {"path": "ckpt", "bytes": _move_bytes(plan, sim),
+                "wall_s": round(time.perf_counter() - t0, 6)}
+        sim.reshard = {**plan.describe(), **prov}
+        _announce(sim, plan, log=log, journal=journal, prov=prov)
+    else:
+        sim.reshard = None
+    return step, plan
+
+
+# --------------------------------------------------------------- live path
+
+
+def placement(devices: Sequence, n: int) -> List[torch.device]:
+    """The devices of ``n`` blocks taken from ``devices`` (a source
+    mesh's, or the usable cards): their distinct devices in order, the
+    first ``n`` when there are as many, else the ``n`` blocks spread
+    over them, consecutive blocks together (a device holding several,
+    as a one-card mesh does)."""
+    uniq = list(dict.fromkeys(torch.device(d) for d in devices))
+    if not uniq:
+        raise ReshardError("no device to place the new mesh on")
+    if n <= len(uniq):
+        return uniq[:n]
+    return [uniq[i * len(uniq) // n] for i in range(n)]
+
+
+def _device_set(sim) -> frozenset:
+    """The devices this process's blocks of ``sim`` live on."""
+    from ..resilience.sdc import device_name
+
+    return frozenset(device_name(d) for d in sim.mesh.devices)
+
+
+def _relayout(sim, target, stage) -> List[tuple]:
+    """This process's new blocks of ``target``, each assembled on
+    ``stage(i)`` (the i-th local new block's device) from the overlaps
+    of ``sim``'s old blocks: true-domain cells only (mesh A's pad is
+    never read), mesh B's pad at the boundary values. Overlaps held by
+    another process arrive in one ``distributed.p2p`` round; both sides
+    walk the (new rank, old rank) pairs in the same order, so the
+    transfers between two processes match."""
+    L = sim.settings.L
+    old_dims = sim.domain.dims
+    old_boxes = plan_mod.shard_boxes(L, old_dims)
+    new_boxes = plan_mod.shard_boxes(L, target.domain.dims)
+    rank_of = {coords: r for r, (coords, _, _) in enumerate(old_boxes)}
+    a_first, a_n = sim.mesh.first_rank, sim.mesh.n_blocks
+    b_first, b_n = target.mesh.first_rank, target.mesh.n_blocks
+    me = distributed.process_index()
+    block = tuple(target.domain.local_shape)
+    padded = target.domain.padded
+    nf = target.model.n_fields
+    out = []
+    for i in range(b_n):
+        dev = stage(i)
+        out.append(tuple(
+            torch.full(block, float(bv), dtype=target.dtype, device=dev)
+            if padded else torch.empty(block, dtype=target.dtype, device=dev)
+            for bv in target.model.boundaries))
+    sends, recvs, landing = [], [], []
+    for rb, (_, nstart, ncount) in enumerate(new_boxes):
+        mine_b = rb // b_n == me
+        for coords in plan_mod.overlapping_old_shards((nstart, ncount), L,
+                                                      old_dims):
+            ra = rank_of[coords]
+            mine_a = ra // a_n == me
+            if not (mine_a or mine_b):
+                continue
+            _, ostart, ocount = old_boxes[ra]
+            lo = [max(a, b) for a, b in zip(nstart, ostart)]
+            hi = [min(a + c, b + d)
+                  for a, c, b, d in zip(nstart, ncount, ostart, ocount)]
+            src = tuple(slice(x - o, y - o) for x, y, o in zip(lo, hi, ostart))
+            dst = tuple(slice(x - s, y - s) for x, y, s in zip(lo, hi, nstart))
+            tag = rb * len(old_boxes) + ra
+            if mine_a and mine_b:
+                for new, old in zip(out[rb - b_first], sim.blocks[ra - a_first]):
+                    new[dst].copy_(old[src])
+            elif mine_a:
+                piece = torch.stack([f[src] for f in sim.blocks[ra - a_first]])
+                sends.append((rb // b_n, tag, piece))
+            else:
+                shape = (nf,) + tuple(y - x for x, y in zip(lo, hi))
+                like = torch.empty(shape, dtype=target.dtype, device="meta")
+                recvs.append((ra // a_n, tag, like, out[rb - b_first][0].device))
+                landing.append((rb - b_first, dst))
+    if sends or recvs:
+        for (i, dst), piece in zip(landing, distributed.p2p(sends, recvs)):
+            for new, part in zip(out[i], piece):
+                new[dst].copy_(part)
+    return out
+
+
+def _collective_tier(sim, target) -> None:
+    """Same device set: every new block assembled on its own device."""
+    devices = target.mesh.devices
+    target.blocks = _relayout(sim, target, lambda i: devices[i])
+
+
+def _put_tier(sim, target) -> None:
+    """Across device sets: the relayout assembled on mesh A's devices,
+    then each block copied to its new device."""
+    src = sim.mesh.devices
+    staged = _relayout(sim, target, lambda i: src[min(i, len(src) - 1)])
+    target.blocks = [tuple(f.to(d) for f in fields)
+                     for fields, d in zip(staged, target.mesh.devices)]
+
+
+def _host_tier(sim, target) -> None:
+    """Through the host: the assembled true-domain fields, re-placed by
+    the restore entry point. One process only: no process of a run of
+    several holds the whole grid."""
+    if sim.processes > 1:
+        raise ReshardError(
+            "GS_RESHARD_DEVICE=host gathers the whole grid on the host, "
+            f"which no process of a {sim.processes}-process run holds; "
+            "use auto/collective/put")
+    target.restore_fields(sim.get_fields(), int(sim.step))
+
+
+def device_all_to_all_restore(sim, plan: ReshardPlan, target, *,
+                              mode: Optional[str] = None) -> dict:
+    """Move ``sim``'s live fields onto ``target``'s layout per ``plan``,
+    with no checkpoint; the continuation on ``target`` is bitwise the
+    one a checkpoint restore of the same plan gives. ``mode`` (default
+    ``resolve_reshard_device``) picks the tier (module docstring).
+    Returns ``{"path", "bytes", "wall_s"}`` once the target's devices
+    have synchronized."""
+    from ..resilience.supervisor import context_lost
+
+    if mode is None:
+        mode = resolve_reshard_device(sim.settings)
+    if mode == "off":
+        raise ReshardError(
+            "live device resharding is disabled (GS_RESHARD_DEVICE=off); "
+            "use the checkpoint restore path (reshard.restore.restore_run)")
+    if mode not in RESHARD_DEVICE_MODES:
+        raise ReshardError(
+            f"live reshard tier {mode!r} is not one of "
+            f"{'/'.join(RESHARD_DEVICE_MODES)}")
+    same_set = _device_set(sim) == _device_set(target)
+    if sim.processes > 1:
+        # Every process takes the same tier.
+        same_set = not distributed.any_process(not same_set)
+    t0 = time.perf_counter()
+    if mode == "collective" or (mode == "auto" and same_set):
+        if not same_set:
+            raise ReshardError(
+                "GS_RESHARD_DEVICE=collective needs mesh A and mesh B on "
+                f"the same device set; old spans {len(_device_set(sim))} "
+                f"device(s), new {len(_device_set(target))} — use "
+                "auto/put/host")
+        _collective_tier(sim, target)
+        path = "collective"
+    elif mode in ("put", "auto"):
+        try:
+            _put_tier(sim, target)
+            path = "put"
+        except Exception as e:  # noqa: BLE001 — auto degrades, as in the reference
+            if mode == "put" or sim.processes > 1 or context_lost(e):
+                raise
+            _host_tier(sim, target)
+            path = "host"
+    else:
+        _host_tier(sim, target)
+        path = "host"
+    target.step = int(sim.step)
+    target.block_until_ready()
+    return {"path": path, "bytes": _move_bytes(plan, target),
+            "wall_s": round(time.perf_counter() - t0, 6)}
+
+
+def reshape_live(sim, *, mesh_dims: Optional[Tuple[int, int, int]] = None,
+                 settings: Optional[Settings] = None,
+                 seed: Optional[int] = None, mode: Optional[str] = None,
+                 devices: Optional[Sequence] = None, log=None, journal=None):
+    """The live move between rounds: build the target simulation on
+    ``mesh_dims`` and move ``sim``'s state onto it.
+
+    Returns ``(target, plan)``; the caller swaps ``target`` in for
+    ``sim``. The target is built with the source's resolved kernel
+    language pinned and the autotuner off, with the source's noise seed
+    unless ``seed`` is given, on ``devices`` (this process's share; by
+    default :func:`placement` over the source's devices, so a mesh on
+    one card stays on it). An infeasible target, or a change under
+    ``reshard = "off"``, raises :class:`ReshardError` before the target
+    is built. ``target.reshard`` carries the plan and its provenance,
+    and the ``reshard`` record is emitted."""
+    settings = sim.settings if settings is None else settings
+    dims = tuple(int(d) for d in (mesh_dims or sim.domain.dims))
+    allow = resolve_reshard(settings)
+    old = layout_of(sim)
+    plan_mod.plan_restore(old, dataclasses.replace(old, mesh_dims=dims),
+                          L=settings.L, allow=allow)
+    n = dims[0] * dims[1] * dims[2]
+    if n % sim.processes:
+        raise ReshardError(
+            f"a {dims} mesh has {n} blocks, which {sim.processes} "
+            "processes cannot hold in equal shares")
+    if devices is None:
+        devices = placement(sim.mesh.devices, n // sim.processes)
+    pinned = dataclasses.replace(settings, kernel_language=sim.kernel_language,
+                                 autotune="off")
+    target = type(sim)(pinned, seed=sim.base_key[1] if seed is None else seed,
+                       mesh_dims=dims, devices=list(devices))
+    plan = plan_mod.plan_restore(old, layout_of(target), L=settings.L,
+                                 allow=allow)
+    prov = device_all_to_all_restore(sim, plan, target, mode=mode)
+    if plan.changed:
+        target.reshard = {**plan.describe(), **prov}
+        _announce(target, plan, log=log, journal=journal, prov=prov)
+    return target, plan

@@ -28,8 +28,10 @@ Two transports, selected by :func:`from_env`:
 A process that never arrives trips the gather's timeout
 (``GS_RENDEZVOUS_TIMEOUT_S``, default 120 s) with
 :class:`RendezvousTimeout`. The supervisor (``resilience/supervisor.py``)
-calls :meth:`agree` on every classified failure; the reference's mesh
-agreement (``agree_mesh``) is Queue 1 item 18.
+calls :meth:`agree` on every classified failure, then
+:meth:`agree_mesh`: the processes adopt one mesh before the restoring
+attempt builds its simulation, so that a relaunch on another shape
+restores every process onto the same layout.
 """
 
 from __future__ import annotations
@@ -110,6 +112,47 @@ class _Rendezvous:
             {"attempt": int(attempt),
              "ckpt": -1 if ckpt_step is None else int(ckpt_step)}))
         return _decide([json.loads(v) for v in self._gather(self.round)])
+
+    def agree_mesh(self, local_blocks: int,
+                   proposed_dims: Optional[Tuple] = None) -> dict:
+        """The mesh-agreement round: each process publishes its local
+        block count (one per card it owns by default; the reference's
+        local device count) and its mesh proposal (``GS_TPU_MESH_DIMS``,
+        or None to derive one), and every process adopts the same.
+        Returns ``{"devices": total, "dims": adopted or None, "procs":
+        n}``, the same on every process. Proposals that disagree, or one
+        that does not factor the total, raise
+        :class:`~..reshard.plan.ReshardError`: a run that cannot agree
+        on its shape must not restore into it."""
+        from ..reshard.plan import ReshardError
+
+        self.round += 1
+        self._publish(self.round, json.dumps({
+            "devices": int(local_blocks),
+            "dims": (None if proposed_dims is None
+                     else [int(d) for d in proposed_dims]),
+        }))
+        votes = [json.loads(v) for v in self._gather(self.round)]
+        total = sum(int(v["devices"]) for v in votes)
+        proposals = {None if v["dims"] is None else tuple(v["dims"])
+                     for v in votes}
+        if len(proposals) > 1:
+            raise ReshardError(
+                f"mesh-agreement round {self.round}: processes disagree on "
+                f"the target mesh ({sorted(p or () for p in proposals)}) "
+                "— set the same GS_TPU_MESH_DIMS on every process, or none")
+        adopted = proposals.pop()
+        if adopted is not None:
+            n = 1
+            for d in adopted:
+                n *= int(d)
+            if n != total:
+                raise ReshardError(
+                    f"mesh-agreement round {self.round}: proposed mesh "
+                    f"{adopted} does not factor the run's {total} blocks")
+        return {"devices": total,
+                "dims": None if adopted is None else list(adopted),
+                "procs": self.nprocs}
 
     def _publish(self, round_no: int, payload: str) -> None:
         raise NotImplementedError

@@ -260,9 +260,16 @@ class Screener:
         #: Set when shadow mode replays in place: the mesh has one
         #: device, so there is nothing to rotate.
         self.shadow_degraded = False
+        self._boundaries = 0
+        self.rebind(sim)
+
+    def rebind(self, sim) -> None:
+        """Screen ``sim`` from now on (the driver swapped it in after a
+        live move): the anchor and the shadow rotation belong to the
+        old mesh, so the anchor is dropped until the next
+        :meth:`rearm`."""
         self.sim = sim
         self._anchor: Optional[Tuple[int, list]] = None
-        self._boundaries = 0
         self._shadow: Optional[list] = None
         if self.mode == "shadow":
             # The smallest rotation of the block-to-device list that

@@ -35,8 +35,11 @@
 A run of several processes restarts together: each failure is agreed
 through ``resilience/rendezvous.agree`` (the attempt is the maximum,
 the restart step the minimum durable step) and journaled as
-``rendezvous``. The reference's mesh agreement in the same round
-(``agree_mesh``) is Queue 1 item 18. A :class:`~.faults.GracefulShutdown`
+``rendezvous``; in the same round the processes agree on the mesh
+(``agree_mesh``: the block total and one ``GS_TPU_MESH_DIMS`` proposal,
+pinned in ``GS_TPU_MESH_DIMS`` for the restoring attempt, which then
+reshards onto it), journaled as ``mesh_agreement``. A
+:class:`~.faults.GracefulShutdown`
 is never restarted in the process: the CLI exits 75 and the journal's
 ``graceful_shutdown`` marker makes the next supervised launch resume
 (:func:`resume_marker`); the watchdog's hard exit leaves ``hang_exit``.
@@ -304,15 +307,20 @@ def _apply_resume(settings, resume: Optional[int], actions: list) -> None:
 
 
 def supervise(settings, *, n_devices: Optional[int] = None, seed: int = 0,
-              sim_factory=None):
+              sim_factory=None, reshape_poll=None):
     """``driver.run_once`` under the restart loop; returns the completed
     attempt's simulation. ``settings`` is changed across attempts (the
-    restart target), so that it describes how the run finished. ``sim_factory`` is passed to every attempt (it
-    places a mesh's blocks on chosen devices); the reference's serving
-    use of it, a warm engine rebound per attempt, is Queue 1 item 22."""
+    restart target), so that it describes how the run finished.
+    ``sim_factory`` is passed to every attempt (it places a mesh's
+    blocks on chosen devices); the reference's serving use of it, a warm
+    engine rebound per attempt, is Queue 1 item 22. ``reshape_poll``
+    (the live move's between-rounds hook, ``driver.run_once``) is passed
+    to every attempt too."""
+    from ..config.env import env_str
     from ..config.settings import resolve_device
     from ..driver import run_once
     from ..obs import metrics as obs_metrics
+    from ..parallel import distributed
     from ..utils.log import Logger
     from . import rendezvous as rdv_mod
 
@@ -338,6 +346,21 @@ def supervise(settings, *, n_devices: Optional[int] = None, seed: int = 0,
             event="rendezvous", round=rdv.round, attempt=attempt,
             local_step=-1 if resume_local is None else resume_local,
             quorum_step=-1 if resume is None else resume, procs=rdv.nprocs)
+        # The mesh, agreed before the restoring attempt builds its
+        # simulation (pinned where an operator pins it); the restore
+        # then reshards onto it.
+        forced = env_str("GS_TPU_MESH_DIMS", "")
+        proposal = (tuple(int(x) for x in forced.split(","))
+                    if forced else None)
+        local = (n_devices if n_devices is not None else len(
+            distributed.process_devices(kind_of_device, None)))
+        mesh = rdv.agree_mesh(local, proposal)
+        if mesh["dims"] is not None:
+            os.environ["GS_TPU_MESH_DIMS"] = ",".join(
+                str(d) for d in mesh["dims"])
+        journal.record(
+            event="mesh_agreement", round=rdv.round, attempt=attempt,
+            devices=mesh["devices"], dims=mesh["dims"], procs=mesh["procs"])
         return resume
 
     marker = resume_marker(journal.path)
@@ -358,7 +381,8 @@ def supervise(settings, *, n_devices: Optional[int] = None, seed: int = 0,
         ctx = SupervisorContext(plan=plan, journal=journal, attempt=attempt)
         try:
             return run_once(settings, n_devices=n_devices, seed=seed,
-                            context=ctx, sim_factory=sim_factory)
+                            context=ctx, sim_factory=sim_factory,
+                            reshape_poll=reshape_poll)
         except BaseException as exc:  # noqa: BLE001 — classify, then re-raise
             if isinstance(exc, GracefulShutdown):
                 raise

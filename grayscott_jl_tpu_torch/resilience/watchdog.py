@@ -55,9 +55,10 @@ __all__ = [
 ]
 
 #: Per-phase deadlines (seconds), the reference's: generous, to tell
-#: "wedged" from "slow". ``probe_loop`` and ``reshape`` are the
-#: reference's bench probe loop and live reshape (Queue 1 item 18),
-#: kept so that the same ``GS_WATCHDOG_<PHASE>_S`` variables resolve.
+#: "wedged" from "slow". ``reshape`` arms the driver's live move
+#: between rounds (a target simulation plus the move); ``probe_loop`` is
+#: the reference's bench probe loop, kept so that the same
+#: ``GS_WATCHDOG_<PHASE>_S`` variables resolve.
 DEFAULT_DEADLINES: Dict[str, float] = {
     "compile": 1800.0,
     "step_round": 600.0,

@@ -444,6 +444,11 @@ class Simulation:
         self._copy_streams = {}
         self.base_key = base_key(seed)
         self.step = 0
+        #: The layout change this run adopted (a restore onto another
+        #: mesh, or a live move): the plan's record with its ``path``,
+        #: ``bytes`` and ``wall_s`` (``reshard/restore.py``); None when
+        #: the run did not move.
+        self.reshard = None
         #: Exchange rounds the sharded run has made (one per chain
         #: round: ``halo_depth = k`` divides them by k).
         self.exchange_rounds = 0
@@ -1229,6 +1234,13 @@ class Simulation:
             "bytes_in_use": int(torch.cuda.memory_allocated(i)),
             "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(i)),
         } for i in cards]
+
+    def layout(self):
+        """This run's :class:`~.reshard.plan.LayoutMeta`: what its
+        checkpoints record, and the "new" side of a restore plan."""
+        from .reshard.restore import layout_of
+
+        return layout_of(self)
 
     def block_boxes(self) -> List[Tuple[tuple, tuple]]:
         """Every block's ``(offsets, sizes)`` in the true ``L^3`` domain

@@ -946,3 +946,154 @@ def test_run_across_processes_equals_one_process(procs, cards, dims, fuse,
             for name in ("U", "V"):
                 np.testing.assert_array_equal(a.get(name, step=i),
                                               b.get(name, step=i))
+
+
+# ------------------------------------------------------ live resharding
+
+@pytest.mark.cuda
+def test_live_moves_across_cards(tmp_path, monkeypatch):
+    """Four cards. ``reshape_live`` of a (2,2,2) mesh on cards 0-1 onto
+    (1,2,2) over cards 0-3 takes the ``put`` tier (another device set),
+    and continues bitwise equal to the single block. Then the driver's
+    quarantine poll: card 3 of a (2,2,2) run over four cards is
+    quarantined after round one, and the run moves between rounds onto
+    the largest mesh the three usable cards hold, (3,1,1) at L=64
+    (padded storage), its store bitwise equal to the single block's."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import Simulation, driver
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.reshard import restore
+
+    for var in ("GS_DEVICE_BLOCKLIST", "GS_TPU_MESH_DIMS", "GS_RESHARD",
+                "GS_RESHARD_DEVICE"):
+        monkeypatch.delenv(var, raising=False)
+    s = Settings(L=64, noise=0.1, precision="Float32", backend="CUDA", **KW)
+    single = Simulation(s, n_devices=1, seed=2)
+    single.iterate(8)
+    sim = Simulation(s, seed=2, mesh_dims=(2, 2, 2),
+                     devices=[f"cuda:{r // 4}" for r in range(8)])
+    sim.iterate(4)
+    target, plan = restore.reshape_live(
+        sim, mesh_dims=(1, 2, 2), devices=[f"cuda:{i}" for i in range(4)])
+    assert plan.changed and target.reshard["path"] == "put"
+    assert [str(f.device) for f in target.blocks[3]] == ["cuda:3"] * 2
+    target.iterate(4)
+    for a, b in zip(single.get_fields(), target.get_fields()):
+        assert (a == b).all()
+
+    def cfg(d):
+        d.mkdir(parents=True)
+        return Settings(L=64, steps=8, plotgap=4, noise=0.1,
+                        precision="Float32", backend="CUDA",
+                        output=str(d / "gs.bp"), **KW)
+
+    calls = [0]
+
+    def poll():
+        calls[0] += 1
+        if calls[0] == 2:
+            monkeypatch.setenv("GS_DEVICE_BLOCKLIST", "cuda:3")
+        return None
+
+    moved = driver.run_once(
+        cfg(tmp_path / "q"), reshape_poll=poll,
+        sim_factory=lambda st, *, n_devices, seed: Simulation(
+            st, seed=seed, mesh_dims=(2, 2, 2),
+            devices=[f"cuda:{r // 2}" for r in range(8)]))
+    assert tuple(moved.domain.dims) == (3, 1, 1)
+    assert moved.reshard["path"] == "put"
+    assert sorted({str(d) for d in moved.mesh.devices}) == [
+        "cuda:0", "cuda:1", "cuda:2"]
+    monkeypatch.delenv("GS_DEVICE_BLOCKLIST")
+    driver.run_once(cfg(tmp_path / "one"), n_devices=1)
+    with BpReader(str(tmp_path / "one" / "gs.bp")) as a, BpReader(
+            str(tmp_path / "q" / "gs.bp")) as b:
+        assert a.num_steps() == b.num_steps() == 2
+        for i in range(2):
+            for name in ("U", "V"):
+                np.testing.assert_array_equal(a.get(name, step=i),
+                                              b.get(name, step=i))
+
+
+LIVE_MOVE = r"""
+import json, sys
+from grayscott_jl_tpu_torch import driver
+from grayscott_jl_tpu_torch.config.settings import get_settings
+calls = [0]
+def poll():
+    calls[0] += 1
+    return {"mesh_dims": [1, 2, 2]} if calls[0] == 2 else None
+sim = driver.run_once(get_settings([sys.argv[1]]), n_devices=int(sys.argv[2]),
+                      reshape_poll=poll)
+print(json.dumps({"dims": list(sim.domain.dims), "reshard": sim.reshard,
+                  "devices": sorted({str(d) for d in sim.mesh.devices})}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("procs,cards,backend", [(2, 1, "gloo"),
+                                                 (4, 4, "nccl")])
+def test_live_move_across_processes(procs, cards, backend, tmp_path,
+                                    monkeypatch):
+    """``procs`` processes seeing ``cards`` cards (gloo on one shared
+    card, NCCL with a card each) move a (2,2,2) run to (1,2,2) after
+    round one through ``reshape_poll``: every process takes the
+    collective tier (its blocks stay on its card), the overlaps that
+    change process cross in one ``batch_isend_irecv`` round, and the
+    multi-writer store is bitwise equal to one process's unmoved run."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import Simulation, driver, launch
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+
+    _card()
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA cards")
+    monkeypatch.delenv("GS_TPU_MESH_DIMS", raising=False)
+    one_cfg = _card_config(tmp_path / "one" / "cfg.toml")
+    driver.run_once(get_settings([one_cfg]),
+                    sim_factory=lambda s, *, n_devices, seed: Simulation(
+                        s, seed=seed, mesh_dims=(2, 2, 2),
+                        devices=["cuda:0"] * 8))
+    cfg = _card_config(tmp_path / "many" / "cfg.toml")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GS_TPU_COORDINATOR", "GS_TPU_DISTRIBUTED",
+                        "GS_TPU_MESH_DIMS")}
+    env["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, range(cards)))
+    port = launch.free_port()
+    children = [subprocess.Popen(
+        [sys.executable, "-c", LIVE_MOVE, cfg, str(8 // procs)],
+        cwd=str(tmp_path / "many"), env=launch.process_env(r, procs, port,
+                                                          env),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(procs)]
+    try:
+        outs = [c.communicate(timeout=300) for c in children]
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+    for rank, (c, (out, err)) in enumerate(zip(children, outs)):
+        assert c.returncode == 0, err[-4000:]
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got["dims"] == [1, 2, 2]
+        assert got["reshard"]["path"] == "collective"
+        assert got["reshard"]["new"]["process_count"] == procs
+        assert got["devices"] == [f"cuda:{rank * cards // procs}"]
+    with BpReader(str(tmp_path / "one" / "gs.bp")) as a, BpReader(
+            str(tmp_path / "many" / "gs.bp")) as b:
+        assert a.num_steps() == b.num_steps() == 2
+        for i in range(2):
+            for name in ("U", "V"):
+                np.testing.assert_array_equal(a.get(name, step=i),
+                                              b.get(name, step=i))

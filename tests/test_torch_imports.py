@@ -214,3 +214,48 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_reshard_stands_alone():
+    """The layout plan, the restore and the live move are in the no-JAX
+    check (the port keeps its own copy of the reference's JAX-free
+    ``reshard/plan.py``), and a restore onto another mesh and a live
+    move work with JAX blocked."""
+    checked = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"grayscott_jl_tpu_torch/reshard/__init__.py",
+            "grayscott_jl_tpu_torch/reshard/plan.py",
+            "grayscott_jl_tpu_torch/reshard/restore.py"} <= checked
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import dataclasses, os, tempfile
+import grayscott_jl_tpu_torch as gs
+from grayscott_jl_tpu_torch import driver
+from grayscott_jl_tpu_torch.reshard import plan, restore
+d = tempfile.mkdtemp()
+s = gs.Settings(L=8, steps=4, plotgap=2, noise=0.1, backend="CPU",
+                precision="Float32", checkpoint=True, checkpoint_freq=2,
+                output=os.path.join(d, "gs.bp"),
+                checkpoint_output=os.path.join(d, "ck.bp"),
+                restart_input=os.path.join(d, "ck.bp"))
+driver.run_once(s, n_devices=8)
+r = dataclasses.replace(s, restart=True, restart_step=2,
+                        output=os.path.join(d, "r.bp"))
+moved = driver.run_once(r)
+assert moved.reshard["old"]["mesh_dims"] == [2, 2, 2], moved.reshard
+sim = gs.Simulation(s, n_devices=8)
+sim.iterate(2)
+target, p = restore.reshape_live(sim, mesh_dims=(1, 2, 2))
+assert p.changed and target.reshard["path"] == "collective"
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

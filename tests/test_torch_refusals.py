@@ -6,8 +6,8 @@ since ported now acts (``GS_CKPT_VERIFY=full``, Queue 1 item 7 with
 16b's device checksum, in the settings and in the reader; ``GS_EVENTS``,
 ``GS_METRICS`` and ``GS_TRACE``, item 21a: a run writes the sink;
 ``GS_DEVICE_BLOCKLIST``, item 17: a quarantined device is left out); and
-``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore onto another
-block layout, as the reference does."""
+``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore from a store
+recorded on another mesh, as the reference does."""
 
 from pathlib import Path
 
@@ -184,8 +184,10 @@ def _restart(tmp_path, ckpt, name, **kw):
 
 
 def test_reshard_off_refuses_another_layout(tmp_path, mesh_checkpoint):
-    with pytest.raises(ReshardError, match=r"2x2x2 \(8 block\(s\)\).*"
-                       r"1x1x1 \(1 block\(s\)\).*reshard='off'"):
+    """The reference's refusal: the recorded layout (mesh dims and
+    process count) against the run's."""
+    with pytest.raises(ReshardError, match=r"mesh 2x2x2 \(1 process\(es\)\)"
+                       r".*adopts 1x1x1 \(1 process\(es\)\).*reshard='off'"):
         driver.main([_restart(tmp_path, mesh_checkpoint, "one",
                               reshard="off")])
 

@@ -381,8 +381,8 @@ def test_sigterm_exits_75_and_a_supervised_relaunch_resumes(monkeypatch,
 def test_two_processes_restart_together(monkeypatch, tmp_path):
     """Two processes on gloo, four blocks each, supervised with a
     ``preempt`` plan: both raise at the same boundary, agree through the
-    rendezvous, resume from the same checkpoint and write the store of
-    one process."""
+    rendezvous (the restart step, then the mesh), resume from the same
+    checkpoint and write the store of one process."""
     from test_torch_multiprocess import (assert_stores_bitwise, run_pair,
                                          run_single)
 
@@ -399,11 +399,15 @@ def test_two_processes_restart_together(monkeypatch, tmp_path):
         ev = [json.loads(x) for x in (
             pair / f"gs.bp.faults.jsonl.rank{rank}").read_text().splitlines()]
         assert [e["event"] for e in ev] == [
-            "injected", "attempt_phases", "rendezvous", "recovery"]
+            "injected", "attempt_phases", "rendezvous", "mesh_agreement",
+            "recovery"]
         assert all(e["proc"] == rank for e in ev)
         rdv = ev[2]
         assert (rdv["procs"], rdv["quorum_step"], rdv["attempt"]) == (2, 20, 0)
-        assert ev[3]["action"] == "resumed_from_checkpoint_step_20"
+        # The mesh agreed in the same round: eight blocks, no proposal.
+        mesh = ev[3]
+        assert (mesh["devices"], mesh["dims"], mesh["procs"]) == (8, None, 2)
+        assert ev[4]["action"] == "resumed_from_checkpoint_step_20"
 
 
 HARD_HANG = r"""
