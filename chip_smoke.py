@@ -155,6 +155,22 @@ Phases, each of which stops the run on failure:
    ``.vtk`` series byte-identical to phase 4's; each move's path, bytes
    and wall, the driver's whole move between rounds, and the relayout's
    device time at L=256 (CUDA events, profiler) beside its byte bound;
+   (viii) Auto's decision (``phase_auto``; ``GS_AUTOTUNE_CACHE`` in the
+   workdir, as for the whole run): (a) under ``kernel_language =
+   "Auto"`` through ``driver.main`` with ``GS_AUTOTUNE=quick`` (budget
+   60 s) — at least 2 candidates timed, each one's projected against
+   measured µs/step printed, the run's launches exactly the adopted
+   depth's and the tuning's exactly its candidates' rounds — then
+   ``cached`` (a hit, 0 timed, the same depth); eight blocks on
+   ``cuda:0`` with the mesh not pinned, the split round armed and off
+   (the fabric model's mesh and
+   depth adopted, the launches per mode equal to that schedule pinned,
+   ``RunStats.comm`` its mesh's, projected against measured ms/step of
+   it and of (2,2,2) at depth 1) and pinned at (2,2,2) (the analytic
+   pick is depth 1, ``kFaces6``); (a) moved onto (2,2,2) at step 100
+   (``RunStats.comm`` the new mesh's); every store equal to phase 4
+   (a)'s (arrays bitwise, ``.vtk`` byte-identical, the checkpoint's
+   layout record aside);
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -289,14 +305,25 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def timed(report, key, fn, *args):
+def timed(report, key, fn, *args, clean=None):
     """``fn(*args)``, its wall seconds recorded under ``report["phase_s"]``
-    and logged."""
+    and logged. ``clean``: a work directory whose entries the phase adds
+    are removed once it has returned (its checks done), so that the next
+    phases write over freed blocks: a phase 4 run writes ~1.25 GiB, and
+    the smoke's stores add up to ~66 GiB, more than a disk may take."""
+    before = set(os.listdir(clean)) if clean else set()
     t0 = time.perf_counter()
     out = fn(*args)
     seconds = time.perf_counter() - t0
     report.setdefault("phase_s", {})[key] = seconds
     log(f"  [{key}: {seconds:.1f} s]")
+    if clean:
+        for name in set(os.listdir(clean)) - before:
+            path = os.path.join(clean, name)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
     return out
 
 
@@ -3122,6 +3149,293 @@ def phase_reshard(torch, gs, cuda_stencil, workdir, report):
     report["reshard"] = out
 
 
+def phase_auto(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (viii), Auto's decision on the card (``parallel/icimodel``,
+    ``tune/``) on config (a), L=256 float32 noise 0.1, with
+    ``GS_AUTOTUNE_CACHE`` in the workdir; each run with the launch counts
+    set to 0 just before and read just after, and its stores held
+    against phase 4 (a)'s (assembled arrays bitwise, ``.vtk``
+    byte-identical):
+
+    1. (a) under ``kernel_language = "Auto"`` through ``driver.main``:
+       the analytic decision printed; under ``GS_AUTOTUNE=quick``
+       (``GS_AUTOTUNE_BUDGET_S=60``) at least 2 candidates timed, the
+       winner and each candidate's projected against measured µs/step
+       printed, the run's launches exactly the adopted depth's and the
+       tuning's exactly its candidates' rounds; then under ``cached``: a
+       hit, 0 candidates timed, the same depth, every launch the run's;
+    2. eight blocks on ``cuda:0`` with the mesh not pinned through
+       ``driver.run_once``, under the default ``comm_overlap = "auto"``
+       (the pick decides the split round): the adopted mesh, depth and
+       round printed, its launches per mode equal to the same schedule
+       pinned, its ``RunStats.comm`` the adopted mesh's; the projected
+       against measured ms/step of the adopted schedule and of (2,2,2) at
+       depth 1, the schedule an unpinned run took before Auto adopted
+       meshes (timed in turn, twice each): the adopted one must be no
+       slower; then the same blocks pinned at (2,2,2): the analytic pick
+       is depth 1 (``kFaces6``);
+    3. (a) moved onto (2,2,2) at step 100: ``RunStats.comm`` describes
+       the new mesh.
+
+    Every simulation runs ``kernel_language == "cuda"``."""
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.chaos import trees_equal, values_equal
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.parallel import icimodel
+    from grayscott_jl_tpu_torch.reshard.plan import LAYOUT_ATTRS
+    from grayscott_jl_tpu_torch.utils.benchmark import time_sim_rounds
+
+    smi = nvidia_smi("name,power.limit")
+    out = {"card": smi}
+    phase4 = ("gs.bp", "gs.vtk", "ckpt.bp")
+    saved = {k: os.environ.get(k) for k in (
+        "GS_AUTOTUNE", "GS_AUTOTUNE_CACHE", "GS_AUTOTUNE_BUDGET_S",
+        "GS_TPU_STATS")}
+    os.environ["GS_AUTOTUNE_CACHE"] = os.path.join(workdir, "tune_cache")
+    os.environ["GS_AUTOTUNE_BUDGET_S"] = "60"
+
+    def config(d, **kw):
+        os.makedirs(d, exist_ok=True)
+        cfg = os.path.join(d, "cfg.toml")
+        ckpt = os.path.join(d, "ckpt.bp")
+        write_config(cfg, **main_settings(kernel_language="Auto", **kw),
+                     output=os.path.join(d, "gs.bp"), checkpoint=True,
+                     checkpoint_freq=100, checkpoint_output=ckpt)
+        return cfg
+
+    def layout_only(a, b):
+        """Whether the stores' attributes differ only in the layout
+        record (``LAYOUT_ATTRS``: the mesh and depth that wrote them)."""
+        with BpReader(a) as ra, BpReader(b) as rb:
+            x, y = ra.attributes(), rb.attributes()
+        diff = {k for k in set(x) | set(y) if str(x.get(k)) != str(y.get(k))}
+        return diff <= set(LAYOUT_ATTRS)
+
+    def same_as_phase4(d, name):
+        for f in phase4:
+            g, w = os.path.join(d, f), os.path.join(workdir, f)
+            bad = (trees_equal(w, g) if f.endswith(".vtk")
+                   else values_equal(w, g))
+            if bad[:1] == ["attributes"] and layout_only(w, g):
+                # A checkpoint records the schedule that wrote it.
+                bad = bad[1:]
+            check(not bad, f"{name}: {f} differs from phase 4 (a)'s: "
+                  f"{bad[:5]}")
+
+    def run(d, fn):
+        """``fn()`` with the counts set to 0 and ``GS_TPU_STATS`` in
+        ``d``: (sim, total launches, launches by mode, stats)."""
+        os.environ["GS_TPU_STATS"] = os.path.join(d, "stats.json")
+        cuda_stencil.reset_launches()
+        t0 = time.perf_counter()
+        sim = fn()
+        wall = time.perf_counter() - t0
+        total = cuda_stencil.LAUNCHES
+        modes = {m: n for m, n in cuda_stencil.MODE_LAUNCHES.items() if n}
+        os.environ.pop("GS_TPU_STATS")
+        with open(os.path.join(d, "stats.json"), encoding="utf-8") as f:
+            stats = json.load(f)
+        check(sim.kernel_language == "cuda",
+              f"{d}: kernel_language {sim.kernel_language}")
+        return sim, total, modes, stats, wall
+
+    def chunk_launches(fuse, steps, chunks):
+        cap = cuda_stencil.max_feasible_fuse(4)
+        n = 0
+        for _ in range(chunks):
+            f = min(fuse, steps)
+            rounds, rem = divmod(steps, f)
+            n += rounds * math.ceil(f / cap) + (
+                math.ceil(rem / cap) if rem else 0)
+        return n
+
+    try:
+        # 1. (a) under Auto: quick, then cached.
+        os.environ["GS_AUTOTUNE"] = "quick"
+        d = os.path.join(workdir, "auto_quick")
+        sim, total, modes, stats, wall = run(
+            d, lambda: driver.main([config(d)]))
+        sel = sim.kernel_selection
+        prov = sel["autotune"]
+        log(f"  Auto on (a): {sel['reason']}; autotune {prov['mode']} "
+            f"{prov['source']}, {prov['candidates_timed']} candidates timed "
+            f"in {prov['tuning_s']:.3f} s, winner {prov.get('winner')}")
+        check(prov["source"] == "measured" and prov["candidates_timed"] >= 2,
+              f"quick on (a): {prov}")
+        with open(prov["cache_path"], encoding="utf-8") as f:
+            rec = json.load(f)
+        cands = []
+        for m in rec["measurements"]:
+            c = m["candidate"]
+            cands.append({"fuse": c["fuse"], "analytic": c["analytic"],
+                          "projected_us": c["projected_step_us"],
+                          "measured_us": m.get("median_us_per_step"),
+                          "rounds": len(m.get("rounds_us_per_step") or [])})
+            log(f"    candidate depth {c['fuse']}"
+                f"{' (the analytic pick)' if c['analytic'] else ''}: "
+                f"projected {c['projected_step_us']} us/step, measured "
+                f"{m.get('median_us_per_step')} us/step [{smi}]")
+        fuse = sim.fuse
+        check(fuse == prov["winner"]["fuse"],
+              f"quick adopted depth {fuse}, winner {prov['winner']}")
+        run_launches = stats["counters"]["kernel_launches"]
+        want = chunk_launches(fuse, 50, MAIN_STEPS // 50)
+        steps = int(os.environ.get("GS_AUTOTUNE_STEPS", "20"))
+        tuning = sum((1 + c["rounds"]) * chunk_launches(c["fuse"], steps, 1)
+                     for c in cands if c["measured_us"] is not None)
+        check(run_launches == want and total == want + tuning
+              and set(modes) == {"chain"},
+              f"quick on (a): {total} launches ({modes}), the run's "
+              f"{run_launches} (expected {want}) and the tuning's "
+              f"{total - run_launches} (expected {tuning})")
+        same_as_phase4(d, "Auto quick (a)")
+        out["quick"] = {"wall_s": wall, "provenance": prov,
+                        "candidates": cands, "launches": total,
+                        "run_launches": run_launches}
+
+        os.environ["GS_AUTOTUNE"] = "cached"
+        d = os.path.join(workdir, "auto_cached")
+        sim, total, modes, stats, wall = run(
+            d, lambda: driver.main([config(d)]))
+        hit = sim.kernel_selection["autotune"]
+        check(hit["cache"] == "hit" and hit["candidates_timed"] == 0
+              and sim.fuse == fuse and total == want,
+              f"cached on (a): {hit}, depth {sim.fuse}, {total} launches "
+              f"(expected {want})")
+        same_as_phase4(d, "Auto cached (a)")
+        log(f"  cached: hit, 0 candidates timed, depth {sim.fuse}, {total} "
+            f"launches, (a) in {wall:.3f} s; stores equal to phase 4 (a)'s")
+        out["cached"] = {"wall_s": wall, "provenance": hit,
+                         "launches": total}
+
+        # 2. Eight blocks on cuda:0, the mesh not pinned, the split round
+        # left to the pick ("auto", the default).
+        os.environ["GS_AUTOTUNE"] = "off"
+
+        def eight(settings, *, n_devices, seed):
+            return gs.Simulation(settings, seed=seed,
+                                 devices=["cuda:0"] * 8)
+
+        timing, eights = {}, {}
+        overlap = "auto"
+        d = os.path.join(workdir, f"auto_eight_{overlap}")
+        sim, total, modes, stats, wall = run(
+            d, lambda: driver.run_once(
+                get_settings([config(d, comm_overlap=overlap)]),
+                sim_factory=eight))
+        sel = sim.kernel_selection
+        row = sel["rows"][sel["pick"]]
+        dims, fuse = sim.domain.dims, sim.fuse
+        log(f"  eight blocks on cuda:0, mesh not pinned, comm_overlap "
+            f"{overlap}: adopted {dims} at depth {fuse}, "
+            f"{'split' if sim.comm_overlap else 'fused'} round "
+            f"({row['schedule']}; {sel['reason']}); rows "
+            + "; ".join(f"{r['schedule']} {r['mesh']} depth {r['fuse']}"
+                        f": {r['projected_step_us']} us/step"
+                        for r in sel["rows"]))
+        check(dims == tuple(int(x) for x in row["mesh"].split(","))
+              and fuse == row["fuse"]
+              and sim.comm_overlap == row.get("comm_overlap",
+                                              sim.comm_overlap),
+              f"eight blocks: ran {dims} at depth {fuse} "
+              f"(comm_overlap {sim.comm_overlap}), picked {row}")
+        same_as_phase4(d, f"eight blocks, Auto, comm_overlap {overlap}")
+        check(stats["comm"] == icimodel.comm_report(sim)
+              and stats["comm"]["mesh_dims"] == list(dims),
+              f"eight blocks: RunStats.comm {stats['comm']}")
+        os.environ["GS_FUSE"] = str(fuse)
+        try:
+            pinned = gs.Simulation(gs.Settings(**main_settings(
+                kernel_language="CUDA",
+                comm_overlap="on" if sim.comm_overlap else "off")),
+                mesh_dims=dims, devices=["cuda:0"] * 8)
+        finally:
+            del os.environ["GS_FUSE"]
+        cuda_stencil.reset_launches()
+        for _ in range(MAIN_STEPS // 50):
+            pinned.iterate(50)
+        pinned.block_until_ready()
+        want = {m: n for m, n in cuda_stencil.MODE_LAUNCHES.items() if n}
+        check(modes == want and pinned.comm_overlap == sim.comm_overlap,
+              f"eight blocks: launched {modes}, the schedule pinned "
+              f"{want}")
+        eights[overlap] = {"mesh": list(dims), "fuse": fuse,
+                           "comm_overlap": sim.comm_overlap,
+                           "wall_s": wall, "launches": modes,
+                           "selection": sel, "comm": stats["comm"]}
+        timing[f"adopted, comm_overlap {overlap}"] = sim
+        del pinned
+
+        mesh222 = gs.Simulation(gs.Settings(**main_settings(
+            kernel_language="Auto")), mesh_dims=MESH,
+            devices=["cuda:0"] * 8)
+        sel222 = mesh222.kernel_selection
+        row222 = sel222["rows"][sel222["pick"]]
+        check(mesh222.fuse == 1 and row222["schedule"] == "faces6",
+              f"(2,2,2) pinned: the analytic pick is {row222}, not depth 1")
+        timing["2x2x2 depth 1"] = mesh222
+        # Each schedule timed in turn, twice: the mean of its medians.
+        medians = {name: [] for name in timing}
+        for _ in range(2):
+            for name, s in timing.items():
+                medians[name].append(time_sim_rounds(s, 20, 3)["median"])
+        for name, s in list(timing.items()):
+            measured = sum(medians[name]) / len(medians[name])
+            proj = icimodel.projected_step_us_for(s)
+            timing[name] = {"mesh": list(s.domain.dims), "fuse": s.fuse,
+                            "comm_overlap": s.comm_overlap,
+                            "measured_ms": measured * 1e3,
+                            "medians_ms": [m * 1e3 for m in medians[name]],
+                            "projected_ms": proj / 1e3,
+                            "residual_share": (measured * 1e6 - proj)
+                            / (measured * 1e6)}
+            log(f"    {name} {s.domain.dims} depth {s.fuse}"
+                f"{' split' if s.comm_overlap and s.fuse > 1 else ''}: "
+                f"projected {proj / 1e3:.4f} ms/step, measured "
+                f"{measured * 1e3:.4f} ms/step (medians "
+                + ", ".join(f"{m * 1e3:.4f}" for m in medians[name])
+                + f") [{smi}]")
+        adopted = timing["adopted, comm_overlap auto"]["measured_ms"]
+        faces = timing["2x2x2 depth 1"]["measured_ms"]
+        check(adopted <= faces,
+              f"eight blocks: the default's adopted schedule measured "
+              f"{adopted:.4f} ms/step, slower than (2,2,2) at depth 1 "
+              f"({faces:.4f})")
+        log("  (2,2,2) pinned: the analytic pick is depth 1 (kFaces6); "
+            "the eight-block runs' stores equal phase 4 (a)'s")
+        out["eight"] = {"runs": eights, "timing": timing,
+                        "pinned_222": row222}
+        del sim, mesh222
+
+        # 3. (a) moved onto (2,2,2): the comm section follows.
+        calls = [0]
+
+        def poll():
+            calls[0] += 1
+            return {"mesh_dims": list(MESH)} if calls[0] == 3 else None
+
+        d = os.path.join(workdir, "auto_move")
+        sim, total, modes, stats, wall = run(
+            d, lambda: driver.run_once(get_settings([config(d)]),
+                                       reshape_poll=poll))
+        check(sim.domain.dims == MESH
+              and stats["comm"]["mesh_dims"] == list(MESH)
+              and stats["comm"] == icimodel.comm_report(sim),
+              f"(a) moved onto (2,2,2): RunStats.comm {stats['comm']}")
+        same_as_phase4(d, "(a) moved onto (2,2,2)")
+        log(f"  (a) moved onto (2,2,2) at step 100: RunStats.comm "
+            f"{stats['comm']}")
+        out["moved_comm"] = stats["comm"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    report["auto"] = out
+
+
 def phase_band_times(torch, gs, cuda_stencil, spec, report):
     """Per-launch times of the band recomputes at the split rounds'
     depth-2 shapes (noise on): the kernel (CUDA events, and its device
@@ -3910,7 +4224,7 @@ def phase_sharded_times(torch, gs, report):
                 f"{r['fused_ms_per_step']:.4f} ({seen})")
         os.environ["GS_FUSE"] = "1"
         depths = {}
-        for overlap in ("auto", "off"):
+        for overlap in ("auto",):
             for k in (1, 2, 4):
                 os.environ["GS_HALO_DEPTH"] = str(k)
                 sim = mesh_sim(gs, gs.Settings(**main_settings(
@@ -4181,11 +4495,22 @@ def main():
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    report = {}
+    # No phase reads or leaves a tuning cache outside the run's own
+    # directory (Auto's ``cached`` default reads one).
+    tune_dir = tempfile.mkdtemp(prefix="gs_chip_smoke_tune_")
+    os.environ["GS_AUTOTUNE_CACHE"] = tune_dir
+    try:
+        return _main(torch, report)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _main(torch, report):
     import grayscott_jl_tpu_torch as gs
     from grayscott_jl_tpu_torch.models import get_model
     from grayscott_jl_tpu_torch.ops import _build, cuda_stencil, kernelgen
 
-    report = {}
     smi = nvidia_smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1: card {smi!r}; torch {torch.__version__} CUDA "
@@ -4263,38 +4588,44 @@ def main():
                               cuda_stencil, workdir, stored, report)
         log("phase 4 (i): the output pipeline at depth 0 and 2")
         timed(report, "async main path", phase_async_main_path, torch, gs,
-              cuda_stencil, workdir, stored, report)
+              cuda_stencil, workdir, stored, report, clean=workdir)
         log("phase 4 (ii): integrity (GS_CKPT_VERIFY=full, replicas, "
             "scrub, bitflip) and F2 at depth 2")
         timed(report, "integrity", phase_integrity, torch, gs, cuda_stencil,
-              workdir, stored, report)
-        timed(report, "shutdown", phase_shutdown, *args)
+              workdir, stored, report, clean=workdir)
+        timed(report, "shutdown", phase_shutdown, *args, clean=workdir)
         log("phase 4 (iv): two processes on cuda:0 (launch.py, gloo)")
         timed(report, "multiprocess", phase_multiprocess, torch, gs,
-              cuda_stencil, workdir, stored, report)
+              cuda_stencil, workdir, stored, report, clean=workdir)
         log("phase 4 (v): the observability sinks and numerics probes")
         timed(report, "obs", phase_obs, torch, gs, cuda_stencil, workdir,
-              stored, report)
+              stored, report, clean=workdir)
         log("phase 4 (vi): the supervisor, fault plans, watchdog and SDC "
             "screen")
         timed(report, "resilience", phase_resilience, torch, gs,
-              cuda_stencil, workdir, report)
+              cuda_stencil, workdir, report, clean=workdir)
         log("phase 4 (vii): elastic resharding — a restore on another "
             "mesh and live moves between rounds")
         timed(report, "reshard", phase_reshard, torch, gs, cuda_stencil,
-              workdir, report)
+              workdir, report, clean=workdir)
+        log("phase 4 (viii): Auto's decision — the fabric model, mesh and "
+            "depth adoption, and the measured autotuner")
+        timed(report, "auto", phase_auto, torch, gs, cuda_stencil, workdir,
+              report, clean=workdir)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,
-                        cuda_stencil, name, workdir, report)
+                        cuda_stencil, name, workdir, report, clean=workdir)
             for name in MODEL_PATHS
         }
         bf16_launches, bf16_fuse2 = timed(report, "bf16 path",
-                                          phase_bf16_main_path, *args)
+                                          phase_bf16_main_path, *args,
+                                          clean=workdir)
         acc_launches, acc_faces6 = timed(report, "bf16_f32acc codec path",
-                                         phase_bf16acc_codec, *args)
+                                         phase_bf16acc_codec, *args,
+                                         clean=workdir)
         mid_launches = timed(report, "mid_bf16 path", phase_mid_bf16_path,
-                             *args)
+                             *args, clean=workdir)
         timed(report, "health", phase_health, *args)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

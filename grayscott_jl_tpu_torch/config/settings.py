@@ -46,9 +46,15 @@ kernels and the native store engine are built into and loaded from),
 the observability sinks ``GS_EVENTS``, ``GS_METRICS`` (with
 ``metrics_interval_s`` / ``GS_METRICS_INTERVAL_S`` and
 ``GS_METRICS_PROM``) and ``GS_TRACE`` (with ``GS_TRACE_MAX_EVENTS``),
-and the numerics probes ``numerics`` / ``GS_NUMERICS`` with
+the numerics probes ``numerics`` / ``GS_NUMERICS`` with
 ``GS_NUMERICS_WINDOW``, ``GS_DRIFT_POLICY`` and ``GS_DRIFT_LIMIT``
-(``obs/``, ``resilience/health.DriftGate``).
+(``obs/``, ``resilience/health.DriftGate``), and Auto's decision: the
+fabric model's ``GS_AUTO_LINKS``, ``GS_AUTO_LINK_GBPS`` and
+``GS_AUTO_OBJECTIVE`` (``parallel/icimodel.py``), and the measured
+autotuner's ``autotune`` / ``GS_AUTOTUNE`` (:func:`resolve_autotune`)
+with ``GS_AUTOTUNE_CACHE``, ``GS_AUTOTUNE_BUDGET_S``,
+``GS_AUTOTUNE_STEPS``, ``GS_AUTOTUNE_ROUNDS`` and ``GS_AUTOTUNE_TOPN``
+(``tune/``).
 """
 
 from __future__ import annotations
@@ -123,7 +129,6 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 #: the values that mean "feature off" and the ROADMAP item that ports
 #: it. Any other value raises at construction (:func:`check_ported`).
 NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
-    "autotune": (("", "off", "cached"), "Queue 1 item 20"),
     "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21b"),
     "ensemble": ((None,), "Queue 1 item 19"),
 }
@@ -315,8 +320,6 @@ _OFF = ("", "0", "off", "false", "no")
 #: or writes, so a value outside "off" raises at construction rather
 #: than being ignored. Several override :data:`NOT_PORTED` keys.
 NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_AUTOTUNE": ("the measured autotuner", ("", "off", "cached"),
-                    "Queue 1 item 20"),
     "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21b"),
     "GS_PROFILE": ("a profiler capture of a step range", ("",),
                    "Queue 1 item 21b"),
@@ -482,9 +485,9 @@ def resolve_halo_depth(settings: Settings) -> Tuple[bool, int]:
     """The s-step exchange depth ``(pinned, k)``, ``k >= 1``: one
     exchange round feeds ``k`` times the chain's depth.
     ``GS_HALO_DEPTH`` wins over the ``halo_depth`` key. ``0``,
-    ``"auto"`` and unset resolve to ``(False, 1)`` (the reference's
-    autotuner may deepen that; this package has none yet, ROADMAP Queue
-    1 item 20); an integer k >= 1 to ``(True, k)``. Bad values raise,
+    ``"auto"`` and unset resolve to ``(False, 1)``: not pinned, so the
+    measured autotuner (``tune/``) searches k and may adopt a deeper one;
+    an integer k >= 1 to ``(True, k)``. Bad values raise,
     with the reference's messages; whether the mesh's blocks can serve
     k is judged at construction (``Simulation``)."""
     raw = os.environ.get("GS_HALO_DEPTH")
@@ -556,16 +559,15 @@ def resolve_reshard_device(settings: "Settings | None" = None) -> str:
     return v
 
 
-#: Measured-autotuner modes, as in the reference; this package acts on
-#: ``off`` and ``cached`` (the others are refused, :data:`NOT_PORTED`).
+#: Measured-autotuner modes, as in the reference (``tune/autotuner.py``).
 AUTOTUNE_MODES = ("off", "cached", "quick", "full")
 
 
 def resolve_autotune(settings: Settings) -> str:
     """The autotuner mode: ``GS_AUTOTUNE`` wins over the ``autotune``
     key; unset is ``cached``. Any other value raises, with the
-    reference's message. This package has no tuner yet (ROADMAP Queue 1
-    item 20): the mode is recorded, and ``cached`` finds no record."""
+    reference's message. Under ``kernel_language = "Auto"`` the tuner
+    acts on it (``tune/autotuner.py``); a pinned language ignores it."""
     raw = os.environ.get("GS_AUTOTUNE")
     if raw is None:
         raw = getattr(settings, "autotune", "") or ""

@@ -113,9 +113,16 @@ faults, the screen's new anchor, and on the write path ``io_error``,
 the drift trips under a raising policy, the integrity records and the
 ``graceful_shutdown`` marker, and mirrors each onto the event stream.
 
+The fabric model (``parallel/icimodel.py``) projects the run's exchange:
+``RunStats.comm`` holds its budget from start-up, refreshed after a live
+move, and the gauges ``comm_hidden_us_per_step``,
+``comm_exposed_us_per_step``, ``comm_exchanges_per_step`` and
+``comm_halo_bytes_per_step`` carry it; ``model_projected_step_us`` and
+``model_vs_measured_residual_us`` (the observed ``step_latency_us`` p50
+less the projection) are set whenever the metrics flush.
+
 Not here yet, each a later slice of the port (ROADMAP Queue 1): compile
-statistics and profiler captures, ensembles, and the fabric model's
-``comm`` section (which a live move would refresh).
+statistics and profiler captures, and ensembles.
 """
 
 from __future__ import annotations
@@ -139,7 +146,7 @@ from .obs import events as obs_events
 from .obs import metrics as obs_metrics
 from .obs import numerics as obs_numerics
 from .obs.trace import get_tracer
-from .parallel import distributed
+from .parallel import distributed, icimodel
 from .reshard.plan import ReshardError
 from .reshard.restore import reshape_live, restore_run
 from .resilience import integrity
@@ -481,6 +488,7 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
         if context is not None:
             # A failed attempt's phases outlive it in the journal.
             context.stats = stats
+        stats.record_comm(icimodel.comm_report(sim))
         stats.record_watchdog({**wd.describe(), "attempt": attempt}
                               if wd is not None else {"enabled": False})
         scrubber = (
@@ -513,15 +521,44 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             if num_mode != "off" else None
         )
 
+        def comm_gauges():
+            """The fabric model's exchange budget and projection of the
+            run's current layout."""
+            nonlocal proj_us
+            comm = stats.comm
+            metrics.gauge("comm_hidden_us_per_step", **mlabels).set(
+                comm.get("hidden_us"))
+            metrics.gauge("comm_exposed_us_per_step", **mlabels).set(
+                comm.get("exposed_us"))
+            metrics.gauge("comm_exchanges_per_step", **mlabels).set(
+                comm.get("exchanges_per_step"))
+            metrics.gauge("comm_halo_bytes_per_step", **mlabels).set(
+                comm.get("halo_bytes_per_step"))
+            # Computed once per layout: the observed p50 moves, the
+            # projection does not.
+            proj_us = icimodel.projected_step_us_for(sim)
+
+        proj_us = None
+        comm_gauges()
+
         def refresh_device_gauges():
-            """Per-card allocator gauges, refreshed only when a metrics
-            record is about to land."""
+            """Per-card allocator gauges, and the model-vs-measured
+            residual (the observed step-latency p50 less the fabric
+            model's projection), refreshed only when a metrics record is
+            about to land."""
             for ms in sim.device_memory_stats():
                 metrics.gauge("device_bytes_in_use", device=ms["device"],
                               **mlabels).set(ms["bytes_in_use"])
                 metrics.gauge("device_peak_bytes_in_use",
                               device=ms["device"],
                               **mlabels).set(ms["peak_bytes_in_use"])
+            if proj_us is not None and hasattr(m_step_us, "percentile"):
+                p50 = m_step_us.percentile(50)
+                if p50 is not None:
+                    metrics.gauge("model_projected_step_us",
+                                  **mlabels).set(round(proj_us, 1))
+                    metrics.gauge("model_vs_measured_residual_us",
+                                  **mlabels).set(round(p50 - proj_us, 1))
 
         evs.emit("run_start", step=restart_step, attempt=attempt,
                  model=sim.model.name, L=settings.L, steps=settings.steps,
@@ -585,8 +622,9 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             stats.config["reshard"] = sim.reshard
             stats.config["mesh_dims"] = list(sim.domain.dims)
             stats.config["n_devices"] = sim.domain.n_blocks
-            # The reference also refreshes its comm section here: the
-            # fabric model, Queue 1 item 15.
+            # The comm section and its gauges describe the adopted mesh.
+            stats.record_comm(icimodel.comm_report(sim))
+            comm_gauges()
             m_reshards.inc()
             m_reshard_wall.set(sim.reshard.get("wall_s"))
             first_round = True

@@ -7,6 +7,13 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
   construction: every model it accepts runs its generated CUDA kernel;
   one it refuses raises under ``CUDA``/``Pallas`` and runs the plain
   path under ``Auto``, the decision recorded in ``kernel_selection``.
+  ``Auto`` then decides as the reference's does
+  (:meth:`Simulation._resolve_auto`): the fabric model
+  (``parallel/icimodel.py``) picks the schedule, and the mesh, depth
+  and (under ``comm_overlap = "auto"``) split or fused round where they
+  are not pinned; the measured autotuner (``tune/``) may
+  replace the pick with a cached or measured winner. Off the card Auto
+  runs the plain path.
 * The grid is decomposed over a :class:`~.parallel.mesh.DeviceMesh`:
   one block per mesh position, each on its device (a device may hold
   several blocks). On the card the default mesh spans every visible
@@ -21,7 +28,7 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
   kernel at depth 1, the x-chain on ``(n, 1, 1)`` meshes and the
   xy-chain on the others at depth k >= 2, or the plain halo-padded step
   and window chain. Under ``comm_overlap`` (on for every sharded run by
-  default, as in the reference) a round of depth k >= 2 runs
+  default, as in the reference, unless Auto's pick turns it off) a round of depth k >= 2 runs
   split-phase: the exchange starts on a side stream, the interior runs
   on frozen boundary values, and the k-thick boundary bands are
   recomputed from what arrived — by the x-chain kernel on the kernel
@@ -119,7 +126,8 @@ def select_kernel(model, language: str, lang: str):
     validation and Auto branch): a model it refuses raises under an
     explicit ``CUDA``/``Pallas``, and under ``Auto`` takes the plain
     path — on the run's device, the card included — with the reason
-    recorded and printed once to stderr. ``Auto`` on a model it accepts
+    recorded (and printed by the Auto decision,
+    ``Simulation._resolve_auto``). ``Auto`` on a model it accepts
     records the generated kernel. Build and launch errors are not
     decided here: they raise where they happen."""
     if lang != "cuda":
@@ -140,14 +148,12 @@ def select_kernel(model, language: str, lang: str):
             f"kernel_language = {language!r} cannot be generated for "
             f"model {model.name!r}: {reason} (use 'Plain' or 'Auto')"
         )
-    selection = {
+    return "plain", {
         "reason": (f"no CUDA kernel can be generated for model "
                    f"'{model.name}' ({reason}); plain torch path"),
         "kernel_gate": {"model": model.name, "generated": False,
                         "reason": reason},
     }
-    print(f"gray-scott-torch: {selection['reason']}", file=sys.stderr)
-    return "plain", selection
 
 
 class HostRing:
@@ -389,11 +395,6 @@ class Simulation:
         #: user pinned), as the reference records it.
         self.kernel_language, self.kernel_selection = select_kernel(
             self.model, settings.kernel_language, lang)
-        if isinstance(self.kernel_selection, dict):
-            self.kernel_selection["compute_precision"] = (
-                self.compute_precision)
-            self.kernel_selection["snapshot_codec"] = (
-                self.snapshot_codec.posture())
         if distributed.ensure_started(kind) is not None and devices is None:
             devices = distributed.process_devices(kind, n_devices)
         else:
@@ -406,10 +407,6 @@ class Simulation:
                                processes=self.processes)
         self.sharded = self.domain.n_blocks > 1
         self.device = devices[0]
-        #: The generated kernel's spec; the plain path runs the model's
-        #: declaration itself.
-        self.spec = (kernelgen.get_spec(self.model)
-                     if self.kernel_language == "cuda" else self.model)
         self.fuse = default_fuse(self.dtype, self.device,
                                  self.model.n_fields)
         #: The split-phase exchange (``comm_overlap`` /
@@ -426,8 +423,26 @@ class Simulation:
         #: The s-step exchange depth (``halo_depth`` / ``GS_HALO_DEPTH``):
         #: one exchange round feeds ``fuse * halo_depth`` steps, the same
         #: program as a chain of that depth. 1 is the one-exchange-per-
-        #: chain schedule.
-        _, self.halo_depth = config.resolve_halo_depth(settings)
+        #: chain schedule; unpinned, the autotuner may adopt a deeper one.
+        halo_pinned, self.halo_depth = config.resolve_halo_depth(settings)
+        if settings.kernel_language.strip().lower() == "auto":
+            self._resolve_auto(settings, kind, seed, halo_pinned,
+                               mesh_forced=(mesh_dims is not None or bool(
+                                   env_str("GS_TPU_MESH_DIMS", ""))),
+                               n_global=n_global, first=first)
+        if isinstance(self.kernel_selection, dict):
+            self.kernel_selection["compute_precision"] = (
+                self.compute_precision)
+            self.kernel_selection["snapshot_codec"] = (
+                self.snapshot_codec.posture())
+            if self.kernel_language == "cuda":
+                self.kernel_selection["generated"] = True
+                self.kernel_selection["generator_version"] = (
+                    kernelgen.GENERATOR_VERSION)
+        #: The generated kernel's spec; the plain path runs the model's
+        #: declaration itself.
+        self.spec = (kernelgen.get_spec(self.model)
+                     if self.kernel_language == "cuda" else self.model)
         #: Set when a requested ``halo_depth`` stepped down because the
         #: chain at ``fuse * halo_depth`` does not fit the block or the
         #: shared-memory ledger (the ledger's numbers ride along).
@@ -471,6 +486,112 @@ class Simulation:
             self.blocks = [
                 tuple(self.model.init(L, self.dtype, device=self.device))
             ]
+
+    def _resolve_auto(self, settings, platform: str, seed: int,
+                      halo_pinned: bool, *, mesh_forced: bool,
+                      n_global: int, first: int) -> None:
+        """``kernel_language = "Auto"``, as the reference decides it.
+
+        After the generator's gate (:func:`select_kernel`), the fabric
+        model (``parallel/icimodel.select_kernel``) projects the schedules
+        for this run's mesh, L, dtype, card and placement. Sharded, the
+        picked row's mesh is adopted when neither ``mesh_dims`` nor
+        ``GS_TPU_MESH_DIMS`` pins it (``kernel_selection["adopted_mesh"]``),
+        its depth unless ``GS_FUSE`` is set, and under ``comm_overlap =
+        "auto"`` its split or fused round. Then the measured
+        autotuner (``tune/``) is consulted on the adopted mesh, and a
+        cached or measured winner's kernel, depth (unless ``GS_FUSE``),
+        ``comm_overlap`` (only under ``"auto"``), ``halo_depth`` (only
+        unpinned) and precision (only under ``bf16_f32acc``) are applied.
+        The decision is printed once, on process 0."""
+        from . import tune
+        from .parallel import icimodel
+
+        model = self.model
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "")
+        placement = icimodel.placement_of(self.mesh.devices, self.processes,
+                                          distributed.backend())
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        fuse_pinned = bool(env_str("GS_FUSE", ""))
+        overlap_mode = config.resolve_comm_overlap(settings)
+        refused = self.kernel_language == "plain"
+        if not refused:
+            gate = (self.kernel_selection or {}).get("kernel_gate")
+            self.kernel_language, self.kernel_selection = (
+                icimodel.select_kernel(
+                    self.domain.dims, settings.L, platform=platform,
+                    device_kind=kind, placement=placement,
+                    blocks=self.mesh.n_blocks, itemsize=itemsize,
+                    fuse=(self.fuse if fuse_pinned else
+                          cuda_stencil.chain_cap(self.dtype, model.n_fields)),
+                    n_fields=model.n_fields,
+                    sweep_mesh=self.sharded and not mesh_forced,
+                    # The pick must price the exchange this run exposes;
+                    # under "auto" it also decides the split round.
+                    overlap="auto" if self.comm_overlap else 0.0,
+                    overlap_auto=self.sharded and overlap_mode == "auto",
+                ))
+            if gate is not None:
+                self.kernel_selection["kernel_gate"] = gate
+        sel = self.kernel_selection
+        if self.sharded and "pick" in sel:
+            row = sel["rows"][sel["pick"]]
+            picked = tuple(int(x) for x in row["mesh"].split(","))
+            if not mesh_forced and picked != self.domain.dims:
+                self.domain = CartDomain.create(n_global, settings.L,
+                                                dims=picked)
+                self.mesh = DeviceMesh(picked, self.mesh.devices,
+                                       first_rank=first,
+                                       processes=self.processes)
+                sel["adopted_mesh"] = list(picked)
+            if not fuse_pinned:
+                self.fuse = int(row["fuse"])
+            if "comm_overlap" in row:
+                self.comm_overlap = bool(row["comm_overlap"])
+        fab = icimodel.fabric_for(kind, placement)
+        decision = tune.autotune(
+            settings, dims=self.domain.dims, L=settings.L, platform=platform,
+            device_kind=kind, dtype=str(self.dtype).replace("torch.", ""),
+            noise=float(settings.noise), itemsize=itemsize,
+            devices=self.mesh.devices, seed=seed,
+            analytic_kernel=self.kernel_language,
+            analytic_fuse=max(1, int(self.fuse)),
+            comm_overlap=self.comm_overlap,
+            overlap_toggle=self.sharded and overlap_mode == "auto",
+            link_gbps=fab.link_gbps, links=fab.links, hop_us=fab.hop_us,
+            placement=placement, model=model.name, n_fields=model.n_fields,
+            kernel_allowed=not refused,
+            halo_depth=self.halo_depth if halo_pinned else 0,
+            procs=self.processes, compute_precision=self.compute_precision,
+            snapshot_codec=self.snapshot_codec.posture(),
+            kernel_generator=0 if refused else kernelgen.GENERATOR_VERSION,
+        )
+        sel["autotune"] = decision.provenance
+        if decision.provenance.get("source") in ("cache", "measured"):
+            self.kernel_language = decision.kernel
+            if decision.fuse is not None and not fuse_pinned:
+                self.fuse = decision.fuse
+            if (decision.comm_overlap is not None and self.sharded
+                    and overlap_mode == "auto"):
+                self.comm_overlap = decision.comm_overlap
+            if decision.halo_depth is not None and not halo_pinned:
+                self.halo_depth = max(1, int(decision.halo_depth))
+            if (decision.compute_precision in config.COMPUTE_PRECISIONS
+                    and self.compute_precision == "bf16_f32acc"):
+                # The posture may keep bf16 or fall back to float32 for
+                # this config; the fields are built after this.
+                self.compute_precision = decision.compute_precision
+                self.dtype = (torch.bfloat16
+                              if self.compute_precision == "bf16_f32acc"
+                              else self.compute_dtype)
+        if distributed.process_index() == 0:
+            prov = decision.provenance
+            print(f"gray-scott-torch: kernel_language=Auto resolved to "
+                  f"{self.kernel_language!r} ({sel.get('reason', '')}; "
+                  f"autotune {prov['mode']}, "
+                  f"{prov.get('source', 'analytic')} pick)",
+                  file=sys.stderr)
 
     def _gate_halo_depth(self) -> None:
         """Judge ``halo_depth`` against the mesh's blocks at

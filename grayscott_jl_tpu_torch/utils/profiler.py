@@ -19,9 +19,11 @@ With a span tracer (``obs/trace.py``, ``GS_TRACE``), every
 :meth:`~RunStats.record_numerics` attach the run-end metrics snapshot,
 the sinks' provenance and the numerics section, and
 :meth:`~RunStats.record_watchdog` and :meth:`~RunStats.record_faults`
-the hang watchdog's provenance and the fault journal, under the
-reference's summary keys (``metrics``, ``obs``, ``numerics``,
-``watchdog``, ``faults``).
+the hang watchdog's provenance and the fault journal, and
+:meth:`~RunStats.record_comm` the fabric model's exchange budget
+(``parallel/icimodel.comm_report``), under the reference's summary keys
+(``metrics``, ``obs``, ``numerics``, ``watchdog``, ``faults``,
+``comm``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ class RunStats:
         self.watchdog: Optional[dict] = None
         #: The run's fault journal (:meth:`record_faults`).
         self.faults: Optional[list] = None
+        #: The exchange budget the fabric model projects for the run's
+        #: config (:meth:`record_comm`): µs/step hidden and exposed by the
+        #: split round, exchanges and halo bytes per step.
+        self.comm: Optional[dict] = None
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
@@ -108,6 +114,11 @@ class RunStats:
         (``Watchdog.describe()``, or ``{"enabled": False}``)."""
         self.watchdog = dict(info) if info else None
 
+    def record_comm(self, report: Optional[dict]) -> None:
+        """Attach the fabric model's exchange budget
+        (``parallel/icimodel.comm_report``)."""
+        self.comm = dict(report) if report else None
+
     def record_metrics(self, snapshot: Optional[dict]) -> None:
         """Attach the run-end ``MetricsRegistry.snapshot()``."""
         self.metrics = dict(snapshot) if snapshot else None
@@ -141,6 +152,7 @@ class RunStats:
                 if compute > 0 else None
             ),
             "io": self.io,
+            "comm": self.comm,
             "watchdog": self.watchdog,
             "faults": self.faults,
             "metrics": self.metrics,

@@ -1097,3 +1097,71 @@ def test_live_move_across_processes(procs, cards, backend, tmp_path,
             for name in ("U", "V"):
                 np.testing.assert_array_equal(a.get(name, step=i),
                                               b.get(name, step=i))
+
+
+# ------------------------------------------------------ Auto's decision
+
+@pytest.mark.cuda
+def test_auto_sweep_and_quick_across_cards(tmp_path, monkeypatch):
+    """Four cards in one process (the ``peer`` placement): Auto's
+    unpinned sweep adopts the fabric model's mesh and depth, measured no
+    slower than the default mesh at depth 1, and
+    ``GS_AUTOTUNE=quick`` times the kernel's candidates there (never the
+    plain path); both runs' fields equal the single block's."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    import dataclasses
+
+    from grayscott_jl_tpu_torch import Simulation
+
+    for var in ("GS_TPU_MESH_DIMS", "GS_FUSE", "GS_HALO_DEPTH",
+                "GS_COMM_OVERLAP", "GS_AUTOTUNE_TOPN"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("GS_AUTOTUNE_CACHE", str(tmp_path / "tune"))
+    s = Settings(L=128, noise=0.1, precision="Float32", backend="CUDA",
+                 kernel_language="Auto", **KW)
+    single = Simulation(dataclasses.replace(s, kernel_language="CUDA"),
+                        n_devices=1, seed=2)
+    single.iterate(12)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    monkeypatch.setenv("GS_AUTOTUNE", "off")
+    swept = Simulation(s, seed=2)
+    sel = swept.kernel_selection
+    row = sel["rows"][sel["pick"]]
+    assert sel["placement"] == "peer" and sel["blocks"] == 4
+    assert swept.domain.dims == tuple(int(x) for x in row["mesh"].split(","))
+    assert swept.fuse == row["fuse"] and swept.kernel_language == "cuda"
+    assert sorted(set(swept.mesh.devices), key=str) == cards
+    swept.iterate(12)
+    for a, b in zip(single.get_fields(), swept.get_fields()):
+        assert (a == b).all()
+    # The adopted schedule against what an unpinned run took before Auto
+    # adopted meshes (the default mesh at depth 1), each timed in turn.
+    from grayscott_jl_tpu_torch.utils.benchmark import time_sim_rounds
+
+    default = Simulation(dataclasses.replace(s, kernel_language="CUDA"),
+                         seed=2)
+    assert default.fuse == 1
+    ms = {"adopted": [], "default": []}
+    for _ in range(2):
+        for name, sim in (("adopted", swept), ("default", default)):
+            ms[name].append(time_sim_rounds(sim, 20, 3)["median"] * 1e3)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"four cards, L=128: adopted {swept.domain.dims} depth "
+          f"{swept.fuse} {mean['adopted']:.4f} ms/step {ms['adopted']}; "
+          f"default {default.domain.dims} depth 1 {mean['default']:.4f} "
+          f"ms/step {ms['default']}")
+    assert mean["adopted"] <= mean["default"], ms
+    del default
+    monkeypatch.setenv("GS_AUTOTUNE", "quick")
+    launches = cuda_stencil.LAUNCHES
+    tuned = Simulation(s, seed=2)
+    prov = tuned.kernel_selection["autotune"]
+    assert prov["source"] == "measured" and prov["candidates_timed"] >= 2
+    assert cuda_stencil.LAUNCHES > launches  # the candidates ran kernels
+    assert tuned.kernel_language == prov["winner"]["kernel"] == "cuda"
+    assert tuned.fuse == prov["winner"]["fuse"]
+    tuned.iterate(12)
+    for a, b in zip(single.get_fields(), tuned.get_fields()):
+        assert (a == b).all()

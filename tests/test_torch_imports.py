@@ -259,3 +259,15 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+AUTO_MODULES = ("parallel/icimodel.py", "probes/fabric.py",
+                "utils/benchmark.py", "tune/__init__.py", "tune/cache.py",
+                "tune/candidates.py", "tune/measure.py", "tune/autotuner.py")
+
+
+@pytest.mark.parametrize("rel", AUTO_MODULES)
+def test_the_auto_modules_are_checked(rel):
+    """Auto's decision (the fabric model, its probe, the timing
+    discipline and the tuner) is among the sources held to the rule."""
+    assert PACKAGE / rel in SOURCES

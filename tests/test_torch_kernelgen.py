@@ -494,8 +494,19 @@ def test_auto_records_the_gate_and_runs_plain(refused, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("lang,selection", [("Auto", True), ("CUDA", False)])
-def test_builtin_models_select_the_generated_kernel(lang, selection):
-    sim = Simulation(Settings(L=8, backend="CPU", model="heat",
+def test_builtin_models_select_the_generated_kernel(lang, selection,
+                                                    monkeypatch):
+    if lang == "Auto":
+        # Auto picks the kernel on the card (off it, the plain path, as
+        # the reference picks XLA off the TPU): a monkeypatched card,
+        # the blocks on the host's device.
+        from grayscott_jl_tpu_torch import simulation
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(simulation, "select_devices",
+                            lambda kind, n, devices: [torch.device("cpu")])
+    sim = Simulation(Settings(L=8, backend="CUDA" if lang == "Auto"
+                              else "CPU", model="heat",
                               kernel_language=lang))
     assert sim.kernel_language == "cuda"
     if selection:

@@ -137,7 +137,11 @@ def test_stores_byte_identical_with_every_sink_armed(tmp_path, monkeypatch,
                for e in doc["traceEvents"])
     evs = events.parse_events(str(on / "events.jsonl"))
     kinds = [e["kind"] for e in evs]
-    assert kinds[0] == "run_start" and kinds[-1] == "run_complete"
+    # Auto's decision comes first, in the compile phase, as the
+    # reference's stream has it.
+    assert kinds[:2] == ["autotune", "run_start"]
+    assert kinds[-1] == "run_complete"
+    assert evs[0]["attrs"]["mode"] == "cached"
     assert [e["step"] for e in evs if e["kind"] == "output"] == [10, 20]
     assert [e["step"] for e in evs if e["kind"] == "checkpoint"] == [10, 20]
     assert [e["step"] for e in evs if e["kind"] == "numerics"] == [10, 20]
@@ -234,9 +238,10 @@ def test_health_abort_is_on_the_stream(tmp_path, monkeypatch):
         run(monkeypatch, d, 1, {"GS_EVENTS": str(d / "events.jsonl")},
             dt=400.0, checkpoint=False)
     evs = events.parse_events(str(d / "events.jsonl"))
-    assert [e["kind"] for e in evs] == ["run_start", "health", "run_error"]
-    assert evs[1]["step"] == 10 and evs[1]["attrs"]["finite"] is False
-    assert evs[1]["attrs"]["fault"] == "health"
+    assert [e["kind"] for e in evs] == ["autotune", "run_start", "health",
+                                        "run_error"]
+    assert evs[2]["step"] == 10 and evs[2]["attrs"]["finite"] is False
+    assert evs[2]["attrs"]["fault"] == "health"
     assert stored(str(d / "out.bp"), ("U",)) == {}
 
 

@@ -417,8 +417,8 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
     """A variable that turns on a subsystem the port lacks raises at
     construction, naming its ROADMAP item; its "off" values run. The
     integrity variables' item has ported them, ``GS_NUMERICS``'s (item
-    16b) and the supervisor's, fault plans', watchdog's and SDC screen's
-    (item 17): they act now."""
+    16b), the supervisor's, fault plans', watchdog's and SDC screen's
+    (item 17) and ``GS_AUTOTUNE``'s (item 20): they act now."""
     if var in ("GS_SUPERVISE", "GS_FAULTS", "GS_WATCHDOG", "GS_SDC_CHECK"):
         from grayscott_jl_tpu_torch.resilience import (faults, sdc,
                                                        supervisor, watchdog)
@@ -470,6 +470,22 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
         Simulation(Settings(L=8, backend="CPU")).iterate(1)
         cfg = integrity.resolve_config()
         assert (cfg["replicas"], cfg["scrub"]) == (1, False)
+        return
+    if var == "GS_AUTOTUNE":
+        # Ported by ``item``: the tuner measures the shortlist, stores
+        # the winner in GS_AUTOTUNE_CACHE, and the "off" value reads it
+        # back under ``cached``.
+        assert var not in config.NOT_PORTED_ENV
+        monkeypatch.setenv("GS_AUTOTUNE_CACHE", str(tmp_path / "tune"))
+        monkeypatch.setenv(var, value)
+        prov = Simulation(Settings(L=8, backend="CPU")).kernel_selection[
+            "autotune"]
+        assert (prov["mode"], prov["source"]) == (value, "measured")
+        assert prov["candidates_timed"] >= 1
+        monkeypatch.setenv(var, off)
+        sim = Simulation(Settings(L=8, backend="CPU"))
+        assert sim.kernel_selection["autotune"]["cache"] == "hit"
+        sim.iterate(1)
         return
     monkeypatch.setenv(var, value)
     with pytest.raises(SettingsError, match=f"{var}.*{item}"):

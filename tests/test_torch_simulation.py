@@ -275,10 +275,12 @@ def test_precision_settings_run(key, value, dtype):
     ("faults", "step=3:kind=nan"), ("numerics", "boundary"),
     ("watchdog", "on"), ("xstats", "on"),
 ])
-def test_unported_keys_raise_at_construction(key, value):
+def test_unported_keys_raise_at_construction(key, value, monkeypatch,
+                                            tmp_path):
     """Each key whose item is not ported raises. ``halo_depth`` acts
     since item 13b was ported: on one block there is no exchange to
-    save, so the run is the default one, bitwise. ``numerics`` acts
+    save, so the run is the default one, bitwise; so does ``autotune``
+    since item 20 was ported. ``numerics`` acts
     since item 16b was ported: the mode resolves and the probe runs.
     ``supervise``, ``faults`` and ``watchdog`` act since item 17 was
     ported: a simulation builds, and the key resolves as the
@@ -306,6 +308,20 @@ def test_unported_keys_raise_at_construction(key, value):
         sim = Simulation(s)
         sim.iterate(3)
         assert sim.numerics_stats().finite
+        return
+    if key == "autotune":
+        # Item 20 is ported: the key acts. Under Auto the tuner times the
+        # shortlist (one plain candidate for a block on the CPU), and the
+        # run is the default one, bitwise.
+        monkeypatch.setenv("GS_AUTOTUNE_CACHE", str(tmp_path))
+        sim, base = Simulation(s), Simulation(Settings(L=8, backend="CPU"))
+        prov = sim.kernel_selection["autotune"]
+        assert (prov["mode"], prov["source"]) == ("quick", "measured")
+        assert prov["winner"]["kernel"] == sim.kernel_language == "plain"
+        for x in (sim, base):
+            x.iterate(3)
+        for a, b in zip(sim.get_fields(), base.get_fields()):
+            np.testing.assert_array_equal(a, b)
         return
     if key == "halo_depth":
         sim, base = Simulation(s), Simulation(Settings(L=8, backend="CPU"))
