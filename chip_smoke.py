@@ -32,7 +32,13 @@ Phases, each of which stops the run on failure:
    x-chain operands (rows of 41 cells, which TMA refuses) on cp.async;
    and Gray-Scott's x-chain on the split rounds' band bodies (k planes
    or 3k rows, thinner than a tile, at depth 2 and 4) against
-   ``plain_xchain``;
+   ``plain_xchain``; and the batched launch (``phase_batch_parity``: 3
+   members on the grid's y axis, each its own params row and key pair)
+   of the chain at depth 1 and 2, the 6n-face step, the x-chain, the
+   xy-chain operand and a band body, float32, float64, bf16 and bf16
+   mids, on each load path, one launch each, bitwise equal to the plain
+   version with the same leading axis (bf16: its oracle) and to three
+   solo launches;
 4. the main paths, with the kernel launch counts set to 0 just before
    each and read just after. Gray-Scott: ``driver.main`` on an L=256
    float32 config with noise, plotgap 50, a checkpoint every 100 steps,
@@ -170,7 +176,23 @@ Phases, each of which stops the run on failure:
    pick is depth 1, ``kFaces6``); (a) moved onto (2,2,2) at step 100
    (``RunStats.comm`` the new mesh's); every store equal to phase 4
    (a)'s (arrays bitwise, ``.vtk`` byte-identical, the checkpoint's
-   layout record aside);
+   layout record aside); (ix) ensembles (``phase_ensemble``): the five
+   presets of ``examples/settings-ensemble-phases.toml`` at config (a)'s
+   size through ``driver.run_once`` — 200 ``kBlock`` launches of 5
+   members, solo (a)'s count — every member's stores byte-equal to a
+   solo run of it; three members on (2,2,2) on ``cuda:0`` (1,600
+   ``kFaces6`` launches of 3 members), on (8,1,1) at ``GS_FUSE=2`` fused
+   and on (2,2,1) at ``GS_FUSE=2`` split (the xy-chain operand and its
+   bands), 50 steps, each run's counts and stores the solo runs';
+   ``member_shards = 2`` with four blocks of (2,2,1) per group on
+   ``cuda:0``; chaos scenario 4 and the ensemble half of 5 at L=64, a
+   ``nan`` at ``GS_FAULT_MEMBER=3`` named as member 3 under
+   ``rollback`` (stores equal to the unfaulted run's), a live shrink 5
+   -> 4 bitwise; and one batched ``kBlock`` launch at N = 1, 2, 5 at
+   L=256 (CUDA events, profiler device time per member, host ms a
+   call), with (a)'s compute ms/step against its five solo runs' and its
+   steady ms/step without output, batched against the five solo runs in
+   turn;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -204,8 +226,10 @@ Phases, each of which stops the run on failure:
    kernels' device times under the profiler and their plain versions'
    times at L=256 depth 1.
 
-Prints the kernels' JSON line (each kernel with the load path its main
-path took), then the ``nvidia-smi`` line, then the
+Prints the ensemble phase's numbers as a JSON line, the kernels' JSON
+line (each kernel with the load path its main path took, and for the
+production modes the member count and launches of the ensemble phase's
+batched runs), then the ``nvidia-smi`` line, then the
 result line ``{"ok": true, "device": {...}}`` last; writes the full
 report to ``chiprun_out/chip_smoke_report.json``. Exits non-zero with
 no result line when there is no card or any phase fails. Imports
@@ -4487,6 +4511,504 @@ def phase_envelope(torch, cuda_stencil, spec, workdir, report):
     return first, times
 
 
+#: The ensemble phase (phase 4 (ix)): the five presets of
+#: examples/settings-ensemble-phases.toml at config (a)'s size; three of
+#: them on the meshes; four (two per group) for the member split.
+ENS_PRESETS = ("spots", "stripes", "waves", "mitosis", "chaos")
+ENS_MESH_PRESETS = ("spots", "stripes", "chaos")
+ENS_SPLIT_PRESETS = ("spots", "stripes", "waves", "chaos")
+#: The kernel checks of the batched launch: members per launch.
+BATCH_N = 3
+
+
+def ens_settings(presets, member_shards=1, **kw):
+    """Config (a)'s settings as a TOML body with an ``[ensemble]`` of
+    ``presets`` (the kernel language pinned, so that the launch counts
+    are the schedule's)."""
+    base = main_settings(kernel_language="CUDA")
+    base.update(kw)
+    return base, ("\n[ensemble]\npresets = ["
+                  + ", ".join(f'"{p}"' for p in presets) + "]\n"
+                  f"member_shards = {member_shards}\n")
+
+
+def write_ens_config(path, presets, member_shards=1, **kw):
+    """``write_config`` of :func:`ens_settings`."""
+    body, table = ens_settings(presets, member_shards, **kw)
+    write_config(path, **body)
+    with open(path, "a", encoding="utf-8") as f:
+        f.write(table)
+
+
+def phase_batch_parity(torch, gs, cuda_stencil, spec, report):
+    """The batched launch (members on the grid's y axis) of every
+    production mode against its plain version with the same leading
+    axis and against ``BATCH_N`` solo launches, bitwise, one launch
+    each: the chain at depth 1 and 2 (L = 64 and 100, ragged tiles),
+    the 6n-face step at (100,64,96), the x-chain at (34,100,100), the
+    xy-chain operand (64,68,64) with ``offsets[1] = -2`` and a band body
+    (2,64,64); float32, float64, bf16 (its oracle) and float32 with bf16
+    mids at depth 2, noise 0.1, on each load path the operand takes.
+    Every member has its own params row and key pair (one key with the
+    top bit set). Returns the worst |diff| per mode."""
+    rows = [dict(Du=0.2, Dv=0.1, F=f, k=k, dt=1.0, noise=0.1)
+            for f, k in ((0.030, 0.062), (0.055, 0.062), (0.026, 0.051))]
+    keys = [(0, 11), (0, 12), (0, 2**31 + 13)]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst = {}
+    cases = [("chain", (64,) * 3, 1, {}), ("chain", (100,) * 3, 2, {}),
+             ("faces6", (100, 64, 96), 1, {}),
+             ("xchain", (34, 100, 100), 2, {"offsets": (34, 0, 0)}),
+             ("xychain", (64, 68, 64), 2,
+              {"offsets": (64, -2, 0), "y_halo": 2}),
+             ("band", (2, 64, 64), 2, {"offsets": (62, 0, 64),
+                                      "band": True})]
+    n_checks = 0
+    for dname in ("float32", "float64", "bfloat16", "mid_bf16"):
+        dtype = torch.bfloat16 if dname == "bfloat16" else getattr(
+            torch, dname.replace("mid_bf16", "float32"))
+        oracle = dname in ("bfloat16", "mid_bf16")
+        for mode, shape, fuse, kw in cases:
+            if dname == "mid_bf16" and fuse < 2:
+                continue
+            nx, ny, nz = shape
+            n = BATCH_N
+            f = tuple((torch.rand((n,) + shape, generator=gen, device="cuda")
+                       * 0.5 + 0.25).to(dtype) for _ in range(2))
+            if mode == "faces6":
+                fshapes = ([(1, ny, nz)] * 4 + [(nx, 1, nz)] * 4
+                           + [(nx, ny, 1)] * 4)
+            elif mode == "chain":
+                fshapes = []
+            else:
+                fshapes = [(fuse, ny, nz)] * 4
+            faces = tuple(torch.rand((n,) + s, generator=gen,
+                                     device="cuda").to(dtype)
+                          for s in fshapes) or None
+            params = cuda_stencil.member_params(
+                rows, spec.model.params_cls,
+                cuda_stencil.compute_dtype_of(dtype), "cuda")
+            seeds = cuda_stencil.member_seeds(keys, 40)
+            args = dict(spec=spec, use_noise=True, fuse=fuse,
+                        offsets=kw.get("offsets", (0, 0, 0)), row=128,
+                        y_halo=kw.get("y_halo", 0),
+                        band=kw.get("band", False))
+            if dname == "mid_bf16":
+                os.environ["GS_MID_BF16"] = "1"
+            try:
+                for load in loads(torch, cuda_stencil, shape, dtype):
+                    with cuda_stencil.override(load=load):
+                        n0 = cuda_stencil.LAUNCHES
+                        got = cuda_stencil.fused_step(f, params, seeds,
+                                                      faces, **args)
+                        check(cuda_stencil.LAUNCHES - n0 == 1,
+                              f"batched {mode} launched "
+                              f"{cuda_stencil.LAUNCHES - n0} times")
+                        solo = [cuda_stencil.fused_step(
+                            tuple(x[m].contiguous() for x in f),
+                            cuda_stencil.params_row(params, m),
+                            (keys[m][0], keys[m][1], 40),
+                            None if faces is None
+                            else tuple(x[m].contiguous() for x in faces),
+                            **args) for m in range(n)]
+                    pkw = dict(spec=spec, use_noise=True,
+                               offsets=args["offsets"], row=128,
+                               oracle=oracle)
+                    mid = dname == "mid_bf16"
+                    if mode == "chain":
+                        want = cuda_stencil.plain_chain(
+                            f, params, seeds, fuse=fuse, mid_bf16=mid, **pkw)
+                    elif mode == "faces6":
+                        want = cuda_stencil.plain_step(f, params, seeds,
+                                                       faces, **pkw)
+                    else:
+                        want = cuda_stencil.plain_xchain(
+                            f, params, seeds, faces, fuse=fuse,
+                            mid_bf16=mid, **pkw)
+                    err = max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(got, want))
+                    worst[mode] = max(worst.get(mode, 0.0), err)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"batched {mode} {dname} {shape} fuse={fuse} "
+                          f"{load} != its plain version: max |diff| {err}")
+                    check(all(torch.equal(g[m], s[i])
+                              for m, s in enumerate(solo)
+                              for i, g in enumerate(got)),
+                          f"batched {mode} {dname} {shape} fuse={fuse} "
+                          f"{load} != {n} solo launches")
+                    n_checks += 1
+            finally:
+                os.environ.pop("GS_MID_BF16", None)
+    log(f"  the batched launch ({BATCH_N} members, one launch) bitwise "
+        f"equal to its plain version and to {BATCH_N} solo launches in "
+        f"{n_checks} checks: chain (depth 1, 2), 6n faces, x-chain, "
+        "xy-chain operand, band; f32, f64, bf16, bf16 mids; each load path")
+    report["batch_parity"] = {"checks": n_checks, "worst": worst}
+    return worst
+
+
+def phase_ensemble(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (ix), the ensemble main path (``[ensemble]``; config (a)
+    with members), the launch counts set to 0 just before each run and
+    read just after, every member's stores compared file for file with
+    a solo run of that member (its preset, seed ``k``):
+
+    (a) the five presets on one block through ``driver.main``: 200
+        ``kBlock`` launches of 5 members (solo (a)'s count, not 1,000);
+    (b) three members on (2,2,2) on ``cuda:0`` at depth 1 (1,600
+        ``kFaces6`` launches of 3 members), on (8,1,1) at ``GS_FUSE=2``
+        fused (x-chain) and on (2,2,1) at ``GS_FUSE=2`` split (the
+        xy-chain operand and the bands), 50 steps;
+    (c) ``member_shards = 2``: four members, two groups of four blocks
+        (2,2,1) on ``cuda:0``, 50 steps;
+    (d) chaos scenario 4 and the ensemble half of 5 (L=64), a ``nan`` at
+        ``GS_FAULT_MEMBER=3`` named as member 3 under ``rollback``, and a
+        live shrink 5 -> 4 between rounds (``reshape_live(settings=)``)
+        bitwise equal to the unmoved members;
+    (e) times: one batched ``kBlock`` launch at N = 1, 2, 5 (L=256): device
+        ms per member (CUDA events and profiler) and host ms per call;
+        (a)'s compute ms/step against five solo runs', and its steady
+        ms/step without output (a warm chunk of 50 steps, twice in turns).
+
+    Returns ``{mode: (batched launches, members)}`` for the kernels
+    line. The phase's tuning cache is a directory of its workdir."""
+    saved = os.environ.get("GS_AUTOTUNE_CACHE")
+    os.environ["GS_AUTOTUNE_CACHE"] = os.path.join(workdir, "ens_tune")
+    try:
+        return _phase_ensemble(torch, gs, cuda_stencil, workdir, report)
+    finally:
+        if saved is None:
+            os.environ.pop("GS_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["GS_AUTOTUNE_CACHE"] = saved
+
+
+def _phase_ensemble(torch, gs, cuda_stencil, workdir, report):
+    import dataclasses
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import chaos, driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.ensemble.engine import EnsembleSimulation
+    from grayscott_jl_tpu_torch.ensemble.io import member_path, member_settings
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+    from grayscott_jl_tpu_torch.reshard.restore import reshape_live
+
+    out = {}
+    rec = {}
+
+    def counts():
+        return ({m: c for m, c in cuda_stencil.MODE_LAUNCHES.items() if c},
+                {m: c for m, c in cuda_stencil.MODE_MEMBERS.items() if c},
+                cuda_stencil.BAND_LAUNCHES)
+
+    def compute_ms(stats_path, steps):
+        with open(stats_path, encoding="utf-8") as f:
+            stats = json.load(f)
+        return stats["phases_s"]["compute"] * 1e3 / steps, stats
+
+    def stores_of(settings, k):
+        """Member ``k``'s store paths (output, .vtk series, checkpoint)."""
+        ms = member_settings(settings, k)
+        outs = [ms.output, os.path.splitext(ms.output)[0] + ".vtk"]
+        if settings.checkpoint:
+            outs.append(ms.checkpoint_output)
+        return outs
+
+    def solo_run(settings, k, d, factory=None, env=None):
+        """Member ``k`` as a solo run into ``d``: its settings with the
+        paths moved, seed ``k``; returns (paths, launch counts, stats)."""
+        ms = member_settings(settings, k)
+        ms = dataclasses.replace(
+            ms, output=os.path.join(d, os.path.basename(ms.output)),
+            checkpoint_output=os.path.join(
+                d, os.path.basename(ms.checkpoint_output)))
+        os.makedirs(d, exist_ok=True)
+        stats_path = os.path.join(d, "stats.json")
+        os.environ["GS_TPU_STATS"] = stats_path
+        cuda_stencil.reset_launches()
+        try:
+            driver.run_once(ms, seed=k, sim_factory=factory)
+        finally:
+            os.environ.pop("GS_TPU_STATS", None)
+        return ms, counts(), stats_path
+
+    def same_as_solo(settings, k, ms, label):
+        """Member ``k``'s stores against the solo run's, file for file."""
+        for a, b in zip(stores_of(settings, k),
+                        [ms.output, os.path.splitext(ms.output)[0] + ".vtk",
+                         ms.checkpoint_output]):
+            bad = chaos.trees_equal(a, b)
+            check(not bad, f"{label}: member {k}'s {os.path.basename(a)} "
+                  f"differs from the solo run's: {bad[:5]}")
+
+    def ens_run(name, presets, factory=None, member_shards=1, **kw):
+        cfg = os.path.join(workdir, f"{name}.toml")
+        d = os.path.join(workdir, name)
+        os.makedirs(d, exist_ok=True)
+        write_ens_config(cfg, presets, member_shards,
+                         output=os.path.join(d, "gs.bp"),
+                         checkpoint_output=os.path.join(d, "ckpt.bp"), **kw)
+        settings = get_settings([cfg])
+        stats_path = os.path.join(d, "stats.json")
+        os.environ["GS_TPU_STATS"] = stats_path
+        cuda_stencil.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            sim = driver.run_once(settings, sim_factory=factory)
+        finally:
+            os.environ.pop("GS_TPU_STATS", None)
+        wall = time.perf_counter() - t0
+        return settings, sim, counts(), stats_path, wall
+
+    # (a) One block, five members.
+    settings, sim, (modes, members, _), stats_path, wall = ens_run(
+        "ens_a", ENS_PRESETS, checkpoint=True, checkpoint_freq=100)
+    settings_a = settings
+    check(modes == {"chain": MAIN_STEPS} and members == {"chain": 5},
+          f"(a) ensemble launched {modes} with members {members}, expected "
+          f"{MAIN_STEPS} chain launches of 5 members")
+    took(report, cuda_stencil, "ensemble_chain")
+    ens_ms, ens_stats = compute_ms(stats_path, MAIN_STEPS)
+    out["chain"] = (modes["chain"], 5)
+    solo_ms = []
+    for k in range(len(ENS_PRESETS)):
+        ms, (s_modes, _, _), s_stats = solo_run(
+            settings, k, os.path.join(workdir, f"ens_a_solo{k}"))
+        check(s_modes == modes, f"(a) solo member {k} launched {s_modes}")
+        same_as_solo(settings, k, ms, "(a)")
+        solo_ms.append(compute_ms(s_stats, MAIN_STEPS)[0])
+        with BpReader(member_path(settings.output, k, 5)) as r:
+            u = r.get("U", step=r.num_steps() - 1)
+            check(r.num_steps() == MAIN_STEPS // 50
+                  and bool(np.isfinite(u).all()),
+                  f"(a) member {k}'s store: {r.num_steps()} steps")
+        for p in stores_of(settings, k):
+            shutil.rmtree(p, ignore_errors=True)
+        shutil.rmtree(os.path.join(workdir, f"ens_a_solo{k}"),
+                      ignore_errors=True)
+    rec["a"] = {"wall_s": wall, "launches": modes, "members": members,
+                "compute_ms_per_step": ens_ms,
+                "solo_compute_ms_per_step": solo_ms,
+                "health": ens_stats.get("ensemble", {}).get("health"),
+                "cell_updates_per_s": ens_stats["cell_updates_per_s"]}
+    log(f"  (a) {len(ENS_PRESETS)} members on one block: {MAIN_STEPS} "
+        f"kBlock launches in {wall:.2f} s, compute {ens_ms:.4f} ms/step "
+        f"against {sum(solo_ms):.4f} for five solo runs; every member's "
+        "stores byte-equal to its solo run's")
+
+    # (b) The mesh: three members.
+    def on_cuda0(dims):
+        n = dims[0] * dims[1] * dims[2]
+
+        def factory(s, *, n_devices, seed):
+            cls = EnsembleSimulation if s.ensemble is not None else (
+                gs.Simulation)
+            return cls(s, seed=seed, mesh_dims=dims,
+                       devices=["cuda:0"] * n)
+        return factory
+
+    meshes = [("b_2x2x2", (2, 2, 2), None, MAIN_STEPS, "off",
+               {"faces6": 8 * MAIN_STEPS}),
+              ("b_8x1x1", (8, 1, 1), "2", 50, "off", {"xchain": 8 * 25}),
+              ("b_2x2x1", (2, 2, 1), "2", 50, "on",
+               {"xychain": 4 * 25, "xchain": 4 * 4 * 25})]
+    for name, dims, fuse, steps, overlap, want in meshes:
+        if fuse:
+            os.environ["GS_FUSE"] = fuse
+        try:
+            settings, sim, (modes, members, bands), _, wall = ens_run(
+                name, ENS_MESH_PRESETS, factory=on_cuda0(dims),
+                steps=steps, comm_overlap=overlap,
+                checkpoint=steps == MAIN_STEPS, checkpoint_freq=100)
+            check(modes == want and set(members.values()) == {3},
+                  f"(b) {dims} launched {modes} with {members}, expected "
+                  f"{want} of 3 members")
+            if name == "b_2x2x2":
+                took(report, cuda_stencil, "ensemble_faces6")
+            for k in range(len(ENS_MESH_PRESETS)):
+                ms, solo_counts, _ = solo_run(
+                    settings, k, os.path.join(workdir, f"{name}_solo{k}"),
+                    factory=on_cuda0(dims))
+                check(solo_counts[0] == modes and solo_counts[2] == bands,
+                      f"(b) {dims} solo member {k} launched {solo_counts}")
+                same_as_solo(settings, k, ms, f"(b) {dims}")
+                shutil.rmtree(os.path.join(workdir, f"{name}_solo{k}"))
+        finally:
+            os.environ.pop("GS_FUSE", None)
+        shutil.rmtree(os.path.join(workdir, name))
+        for mode, n in modes.items():
+            key = "xchain_band" if (mode == "xchain" and bands) else mode
+            out[key] = (n if key != "xchain_band" else bands, 3)
+        rec[name] = {"wall_s": wall, "launches": modes, "bands": bands,
+                     "members": members}
+        log(f"  (b) 3 members on {dims} (GS_FUSE={fuse or 1}, "
+            f"comm_overlap={overlap}): {modes} (bands {bands}) in "
+            f"{wall:.2f} s, the solo runs' counts; stores byte-equal")
+
+
+    # (c) The member split: two groups of four blocks on cuda:0.
+    def split_factory(s, *, n_devices, seed):
+        if s.ensemble is None:
+            return gs.Simulation(s, seed=seed, devices=["cuda:0"] * 4)
+        return EnsembleSimulation(s, seed=seed, devices=["cuda:0"] * 8)
+
+    settings, sim, (modes, members, _), _, wall = ens_run(
+        "c_split", ENS_SPLIT_PRESETS, factory=split_factory,
+        member_shards=2, steps=50)
+    check(sim.member_shards == 2 and sim.domain.dims == (2, 2, 1)
+          and modes == {"faces6": 2 * 4 * 50} and members == {"faces6": 2},
+          f"(c) member_shards=2 ran {sim.domain.dims} x "
+          f"{sim.member_shards}: {modes} with {members}")
+    for k in range(len(ENS_SPLIT_PRESETS)):
+        ms, solo_counts, _ = solo_run(
+            settings, k, os.path.join(workdir, f"c_solo{k}"),
+            factory=split_factory)
+        check(solo_counts[0] == {"faces6": 4 * 50},
+              f"(c) solo member {k} launched {solo_counts}")
+        same_as_solo(settings, k, ms, "(c)")
+        shutil.rmtree(os.path.join(workdir, f"c_solo{k}"))
+    shutil.rmtree(os.path.join(workdir, "c_split"))
+    rec["c"] = {"wall_s": wall, "launches": modes, "members": members}
+    log(f"  (c) member_shards = 2: two groups of (2,2,1) on cuda:0, "
+        f"{modes} of 2 members in {wall:.2f} s; stores byte-equal")
+
+    # (d) Resilience.
+    d_dir = os.path.join(workdir, "chaos")
+    ch = chaos.Chaos("CUDA", 64, 60, 7, d_dir)
+    t0 = time.perf_counter()
+    s4 = ch.scenario_4()
+    grow = ch._ensemble_grow()
+    check(s4["ok"] and not grow,
+          f"(d) chaos scenario 4 {s4}; the grown resume: {grow}")
+    nan_dir = os.path.join(workdir, "nan3")
+    cfg = chaos.write_config(nan_dir, backend="CUDA", L=64, steps=60,
+                             presets=ENS_PRESETS, health_policy="rollback")
+    base_dir = os.path.join(workdir, "nan3_base")
+    base_cfg = chaos.write_config(base_dir, backend="CUDA", L=64, steps=60,
+                                  presets=ENS_PRESETS)
+    check(chaos.run(base_cfg, {}) is None, "(d) the nan base run failed")
+    err = chaos.run(cfg, {**chaos.SUPERVISED, "GS_FAULT_MEMBER": "3",
+                          "GS_FAULTS": "step=30:kind=nan"})
+    health = [e for e in chaos.journal(nan_dir) if e["event"] == "health"]
+    check(err is None and health and health[0].get("bad_members") == [3],
+          f"(d) nan at member 3: {err!r}, health records {health}")
+    for store in ch.member_stores(len(ENS_PRESETS)):
+        bad = chaos.trees_equal(os.path.join(base_dir, store),
+                                os.path.join(nan_dir, store))
+        check(not bad, f"(d) after the rollback {store} differs: {bad[:5]}")
+    s5 = gs.Settings(L=64, noise=0.1, dt=1.0, precision="Float32",
+                     backend="CUDA", kernel_language="CUDA")
+    from grayscott_jl_tpu_torch.ensemble import spec as ens_spec
+
+    s5.ensemble = ens_spec.from_toml({"presets": list(ENS_PRESETS)}, s5)
+    s4m = dataclasses.replace(s5, ensemble=ens_spec.from_toml(
+        {"presets": list(ENS_PRESETS[:4])}, s5))
+    live = EnsembleSimulation(s5, seed=0)
+    ref = EnsembleSimulation(s5, seed=0)
+    live.iterate(20)
+    live, plan = reshape_live(live, settings=s4m)
+    live.iterate(20)
+    ref.iterate(40)
+    check(live.n_members == 4 and plan.changed
+          and all(np.array_equal(a, b[:4]) for a, b in
+                  zip(live.get_fields(), ref.get_fields())),
+          f"(d) live shrink 5 -> 4: {plan.describe()}")
+    rec["d"] = {"scenario_4": s4, "nan_member": health[0],
+                "shrink": {"path": live.reshard.get("path"),
+                           "wall_s": live.reshard.get("wall_s")},
+                "seconds": time.perf_counter() - t0}
+    log(f"  (d) chaos 4 (byte-identical member stores after a preemption) "
+        f"and a resume grown 2 -> 3; nan at GS_FAULT_MEMBER=3 named as "
+        f"members {health[0]['bad_members']} under rollback, stores equal; "
+        f"live shrink 5 -> 4 ({live.reshard.get('path')}) bitwise")
+    shutil.rmtree(d_dir, ignore_errors=True)
+
+    # (e) Times of one batched kBlock launch.
+    from grayscott_jl_tpu_torch.models import get_model
+    from grayscott_jl_tpu_torch.ops import kernelgen
+
+    spec = kernelgen.get_spec(get_model("grayscott"))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    times = []
+    for n in (1, 2, 5):
+        rows = [dict(Du=0.2, Dv=0.1, F=0.02 + 0.005 * i, k=0.048, dt=1.0,
+                     noise=0.1) for i in range(n)]
+        f = tuple(torch.rand((n,) + (MAIN_L,) * 3, generator=gen,
+                             device="cuda") for _ in range(2))
+        params = cuda_stencil.member_params(rows, spec.model.params_cls,
+                                            torch.float32, "cuda")
+        seeds = cuda_stencil.member_seeds([(0, i) for i in range(n)], 0)
+
+        def launch():
+            return cuda_stencil.fused_step(f, params, seeds, spec=spec,
+                                           row=MAIN_L)
+
+        ev_ms = time_calls(torch, launch)
+        prof = device_profile(torch, launch)
+        launch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            launch()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+        b_ms, b_by = bound_of(2 * 2 * 4 * n * MAIN_L**3,
+                              n * spec.flops_per_cell_step() * MAIN_L**3)
+        # Per launch the profiler recorded (it may drop events late in a
+        # long run; the launches it kept are timed whole).
+        row = {"members": n, "ms": ev_ms, "ms_per_member": ev_ms / n,
+               "profiler_ms": (None if not prof or not prof["kernel_launches"]
+                               else prof["kernel_ms"]
+                               / prof["kernel_launches"]),
+               "profiler_launches": None if not prof
+               else prof["kernel_launches"],
+               "host_ms_per_call": host_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        times.append(row)
+        log(f"  (e) N={n}: {ev_ms:.4f} ms a launch ({ev_ms / n:.4f} a "
+            f"member; profiler "
+            + ("not measured" if row["profiler_ms"] is None
+               else f"{row['profiler_ms']:.4f}")
+            + f"), host {host_ms:.4f} ms a call, bound {b_ms:.4f} ms")
+        del f
+    # (a)'s steady ms/step without output: the five members batched
+    # against the five solo runs in turn, warm, a synchronised chunk of 50
+    # steps each (host clock), twice in turns.
+    def steady(sim):
+        sim.iterate(10)
+        sim.block_until_ready()
+        t0 = time.perf_counter()
+        sim.iterate(50)
+        sim.block_until_ready()
+        return (time.perf_counter() - t0) * 1e3 / 50
+
+    rounds = []
+    for _ in range(2):
+        batched_ms = steady(EnsembleSimulation(settings_a, seed=0))
+        solo_ms = [steady(gs.Simulation(member_settings(settings_a, k),
+                                        seed=k))
+                   for k in range(len(ENS_PRESETS))]
+        rounds.append({"batched_ms_per_step": batched_ms,
+                       "solo_ms_per_step": solo_ms,
+                       "ratio": batched_ms / sum(solo_ms)})
+        log(f"  (e) (a) steady: {batched_ms:.4f} ms/step batched against "
+            f"{sum(solo_ms):.4f} for five solo runs "
+            f"({batched_ms / sum(solo_ms):.4f})")
+    # The fabric model's MEMBER_COST_RATIO: the profiler's device time
+    # (the events of a host-bound N=1 launch include its gaps).
+    prof = [t["profiler_ms"] for t in times]
+    ratio = (prof[-1] / 5 / prof[0] if None not in prof
+             else times[-1]["ms_per_member"] / times[0]["ms"])
+    rec["e"] = {"launch": times, "member_cost_ratio": ratio,
+                "steady": rounds}
+    log(f"  (e) device time per member at N=5 over N=1 "
+        f"(MEMBER_COST_RATIO): {ratio:.4f}")
+    report["ensemble"] = rec
+    return out
+
+
 def main():
     import torch
 
@@ -4572,6 +5094,8 @@ def _main(torch, report):
             worst[name][mode if grp == "f" else f"{mode}_bf16"] = err
     band_worst = timed(report, "band parity", phase_band_parity, torch, gs,
                        cuda_stencil, spec, report)
+    batch_worst = timed(report, "batch parity", phase_batch_parity, torch,
+                        gs, cuda_stencil, spec, report)
 
     log("phase 4: main paths, single block and sharded")
     workdir = tempfile.mkdtemp(prefix="gs_chip_smoke_")
@@ -4612,6 +5136,10 @@ def _main(torch, report):
             "depth adoption, and the measured autotuner")
         timed(report, "auto", phase_auto, torch, gs, cuda_stencil, workdir,
               report, clean=workdir)
+        log("phase 4 (ix): ensembles — one launch per block and round "
+            "advances every member")
+        batched = timed(report, "ensemble", phase_ensemble, torch, gs,
+                        cuda_stencil, workdir, report, clean=workdir)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,
@@ -4733,6 +5261,20 @@ def _main(torch, report):
               f"{name} loaded by {rec['path']}, the rule says {rule}")
         return rec["path"]
 
+    #: The production modes' batched launches (phase 4 (ix)) and their
+    #: member count, and the batched parity's mode (phase 3).
+    batch_of = {"stencil_chain": ("chain", "chain"),
+                "stencil_faces6": ("faces6", "faces6"),
+                "stencil_xchain": ("xchain", "xchain"),
+                "stencil_xychain": ("xychain", "xychain"),
+                "stencil_xchain_band": ("xchain_band", "band")}
+
+    def batch(name, err):
+        ens_key, parity_key = batch_of.get(name, (None, None))
+        n, members = batched.get(ens_key, (0, 1))
+        return {"members": members, "batched_launches": n,
+                "max_abs_err": max(err, batch_worst.get(parity_key, 0.0))}
+
     kernels = {"kernels": [
         {
             "name": name,
@@ -4747,6 +5289,7 @@ def _main(torch, report):
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
             "load_path": load_of(name, n),
+            **batch(name, err),
         }
         for name, mode, n, err, row in entries
     ]}
@@ -4755,6 +5298,16 @@ def _main(torch, report):
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"),
               "w", encoding="utf-8") as f:
         json.dump(report, f, indent=1)
+    # The ensemble phase's numbers on a line of their own (the report
+    # file stays beside the checkout that ran).
+    ens = report["ensemble"]
+    print(json.dumps({"ensemble": {
+        "a": {k: ens["a"][k] for k in ("wall_s", "compute_ms_per_step",
+                                       "solo_compute_ms_per_step")},
+        "walls_s": {k: v["wall_s"] for k, v in ens.items() if "wall_s" in v},
+        "launch": ens["e"]["launch"], "steady": ens["e"]["steady"],
+        "member_cost_ratio": ens["e"]["member_cost_ratio"],
+        "phase_s": report["phase_s"]["ensemble"]}}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

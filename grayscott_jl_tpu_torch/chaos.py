@@ -3,7 +3,7 @@
 has)::
 
     python -m grayscott_jl_tpu_torch.chaos [--backend CUDA|CPU] [--L 32]
-        [--steps 60] [--seed N] [--scenarios 1,2,3,5,7,8,11] [--workdir DIR]
+        [--steps 60] [--seed N] [--scenarios 1,2,3,4,5,7,8,11] [--workdir DIR]
 
 Each scenario runs a supervised run that a fault interrupts and holds
 its stores, byte for byte, against an uninterrupted run of the same
@@ -19,6 +19,11 @@ settings (faults change when a run computes, never what it writes):
    checkpoint: exit 75, then a supervised relaunch resumes from the
    journal's ``graceful_shutdown`` marker (the output stores are
    compared; the checkpoint store holds the extra grace entry);
+4. an ensemble (``[ensemble] presets = ["spots", "chaos"]``) preempted
+   mid-sweep: the supervised restart resumes every member from the
+   member stores' quorum step, and every member-indexed store
+   (``gs.m00.bp``, ``gs.m00.vtk``, ``ckpt.m00.bp``, ...) equals the
+   uninterrupted ensemble's byte for byte;
 5. elastic resharding, the solo half: a supervised (2,2,2) run in a
    subprocess stalled at its step-20 boundary gets SIGTERM (exit 75),
    and the supervised relaunch on a (1,2,2) mesh resumes from the
@@ -28,7 +33,10 @@ settings (faults change when a run computes, never what it writes):
    blocks follow the mesh that wrote each step, and the ``.vtk`` series
    byte for byte). Both meshes are placed over the usable devices, a
    device holding several blocks where there are fewer (one card holds
-   the whole mesh);
+   the whole mesh). The ensemble half: scenario 4's ensemble preempted
+   unsupervised, then resumed GROWN to three members
+   (``restart = true``): the two old members' stores equal the
+   uninterrupted ensemble's, and the grown member writes its own;
 7. a corrupted byte in the primary checkpoint store, then a preemption:
    the restore fails over to the ``.r1`` replica; the output stores and
    the replica equal the uninterrupted run's;
@@ -40,10 +48,9 @@ settings (faults change when a run computes, never what it writes):
     same device quarantines it, and with no device left the supervisor
     gives up ("every device quarantined").
 
-Scenario 4 and the ensemble half of 5 (an ensemble resumed grown by a
-member) wait for ensembles (Queue 1 item 19); 6, 9 and 10 (the serving
-fleet, whose scenario 10 is its live grow and shrink under load) wait
-for serving (item 22). Exit code 0 when
+Scenarios 6, 9 and 10 (the serving fleet, whose scenario 10 is its
+live grow and shrink under load) wait for serving (Queue 1 item 22).
+Exit code 0 when
 every scenario held, 1 otherwise; one JSON line per scenario on stdout.
 The runs are in-process except scenario 3's. They run on the card
 (``--backend CUDA``, the default) unless ``--backend CPU`` asks for the
@@ -66,7 +73,11 @@ import tempfile
 import time
 from typing import Dict, List, Optional
 
-SCENARIOS = (1, 2, 3, 5, 7, 8, 11)
+SCENARIOS = (1, 2, 3, 4, 5, 7, 8, 11)
+
+#: The ensemble of scenarios 4 and 5 (grown by ``GROWN`` in 5).
+PRESETS = ("spots", "chaos")
+GROWN = ("spots", "chaos", "waves")
 
 #: Supervision settings shared by every supervised run.
 SUPERVISED = {"GS_SUPERVISE": "1", "GS_MAX_RESTARTS": "5",
@@ -82,8 +93,9 @@ _VARS = ("GS_SUPERVISE", "GS_MAX_RESTARTS", "GS_RESTART_BACKOFF_S",
 
 
 def write_config(d: str, *, backend: str, L: int, steps: int,
-                 **extra) -> str:
-    """``d/config.toml``: plotgap 10, a checkpoint every 20 steps."""
+                 presets=None, **extra) -> str:
+    """``d/config.toml``: plotgap 10, a checkpoint every 20 steps; with
+    ``presets``, an ``[ensemble]`` of them."""
     os.makedirs(d, exist_ok=True)
     kw = dict(L=L, Du=0.2, Dv=0.1, F=0.02, k=0.048, dt=1.0, noise=0.1,
               steps=steps, plotgap=10, checkpoint=True, checkpoint_freq=20,
@@ -99,6 +111,9 @@ def write_config(d: str, *, backend: str, L: int, steps: int,
             lines.append(f'{key} = "{value}"')
         else:
             lines.append(f"{key} = {value}")
+    if presets:
+        lines += ["", "[ensemble]",
+                  "presets = [" + ", ".join(f'"{p}"' for p in presets) + "]"]
     path = os.path.join(d, "config.toml")
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
@@ -280,6 +295,14 @@ class Chaos:
             self.bases[key] = os.path.join(self.workdir, name)
         return self.bases[key]
 
+    def member_stores(self, n: int) -> tuple:
+        """The member-indexed stores of an ``n``-member ensemble."""
+        from .ensemble.io import member_tag
+
+        return tuple(f"{name}.{member_tag(i, n)}.{ext}" for i in range(n)
+                     for name, ext in (("gs", "bp"), ("gs", "vtk"),
+                                       ("ckpt", "bp")))
+
     def random_step(self) -> int:
         """A step strictly inside the run, off the boundaries."""
         return self.rng.randrange(21, self.steps - 5)
@@ -373,6 +396,40 @@ class Chaos:
         return self.verdict(3, err, problems, d,
                             stopped_at=marker[0]["step"] if marker else None)
 
+    def scenario_4(self) -> dict:
+        step = self.random_step()
+        base = self.base(presets=PRESETS)
+        d = os.path.join(self.workdir, "s4")
+        err = run(self.config("s4", presets=PRESETS),
+                  {**SUPERVISED, "GS_FAULTS": f"step={step}:kind=preempt"})
+        problems = self.check_stores(base, d,
+                                     self.member_stores(len(PRESETS)))
+        if not any(e["event"] == "recovery" for e in journal(d)):
+            problems.append("the supervisor recorded no recovery")
+        return self.verdict(4, err, problems, d, step=step)
+
+    def _ensemble_grow(self) -> List[str]:
+        """Scenario 5's ensemble half: the problems found."""
+        step = self.random_step()
+        base = self.base(presets=PRESETS)
+        d = os.path.join(self.workdir, "s5e")
+        err = run(self.config("s5e", presets=PRESETS),
+                  {"GS_FAULTS": f"step={step}:kind=preempt"})
+        problems = [] if err is not None else [
+            "the preempted ensemble run did not stop"]
+        err = run(self.config("s5e", presets=GROWN, restart=True,
+                              restart_input=os.path.join(d, "ckpt.bp")), {})
+        if err is not None:
+            problems.append(f"the grown resume failed: {err!r}")
+        problems += self.check_stores(base, d,
+                                      self.member_stores(len(PRESETS)))
+        from .ensemble.io import member_tag
+
+        grown = f"gs.{member_tag(len(PRESETS), len(GROWN))}.bp"
+        if not os.path.isdir(os.path.join(d, grown)):
+            problems.append(f"the grown member wrote no {grown}")
+        return problems
+
     def scenario_5(self) -> dict:
         base = self.base(dims=(2, 2, 2))
         d = os.path.join(self.workdir, "s5")
@@ -420,6 +477,7 @@ class Chaos:
                 os.path.join(base, store), os.path.join(d, store))]
         problems += [f"gs.vtk/{f}" for f in trees_equal(
             os.path.join(base, "gs.vtk"), os.path.join(d, "gs.vtk"))]
+        problems += [f"ensemble: {p}" for p in self._ensemble_grow()]
         return self.verdict(5, err, problems, d,
                             path=moves[0].get("path") if moves else None)
 
@@ -505,8 +563,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     unknown = sorted(set(wanted) - set(SCENARIOS))
     if unknown:
         print(f"chaos: no scenario {unknown} in the port (it has "
-              f"{list(SCENARIOS)}; 4 and the ensemble half of 5 wait for "
-              "Queue 1 item 19, 6, 9 and 10 for item 22)", file=sys.stderr)
+              f"{list(SCENARIOS)}; 6, 9 and 10 wait for Queue 1 item 22)",
+              file=sys.stderr)
         return 2
     if args.steps < 40:
         print("chaos: --steps must be at least 40", file=sys.stderr)

@@ -48,7 +48,12 @@ the observability sinks ``GS_EVENTS``, ``GS_METRICS`` (with
 ``GS_METRICS_PROM``) and ``GS_TRACE`` (with ``GS_TRACE_MAX_EVENTS``),
 the numerics probes ``numerics`` / ``GS_NUMERICS`` with
 ``GS_NUMERICS_WINDOW``, ``GS_DRIFT_POLICY`` and ``GS_DRIFT_LIMIT``
-(``obs/``, ``resilience/health.DriftGate``), and Auto's decision: the
+(``obs/``, ``resilience/health.DriftGate``), the ``[ensemble]`` table
+(``ensemble/spec.py``: presets, member tables, sweeps, ``seeds`` and
+``member_shards``; the run is ``ensemble/engine.EnsembleSimulation``
+with member-indexed stores, ``ensemble/io.py``) with
+``GS_FAULT_MEMBER`` (the member the ``nan``, ``bitflip`` and ``sdc``
+faults hit), and Auto's decision: the
 fabric model's ``GS_AUTO_LINKS``, ``GS_AUTO_LINK_GBPS`` and
 ``GS_AUTO_OBJECTIVE`` (``parallel/icimodel.py``), and the measured
 autotuner's ``autotune`` / ``GS_AUTOTUNE`` (:func:`resolve_autotune`)
@@ -128,9 +133,9 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 #: Keys whose subsystem this package does not have yet: each maps to
 #: the values that mean "feature off" and the ROADMAP item that ports
 #: it. Any other value raises at construction (:func:`check_ported`).
+#: (The ``[ensemble]`` table is parsed and run: ``ensemble/``.)
 NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
     "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21b"),
-    "ensemble": ((None,), "Queue 1 item 19"),
 }
 
 PRECISIONS: Dict[str, str] = {
@@ -176,10 +181,8 @@ def parse_settings_toml(toml_contents: str) -> Settings:
     config_dict = _toml.loads(toml_contents)
     settings = Settings()
     for key, value in config_dict.items():
-        if key in SETTINGS_KEYS and key not in ("model", "model_params"):
-            if key == "ensemble":
-                settings.ensemble = value
-                continue
+        if key in SETTINGS_KEYS and key not in ("ensemble", "model",
+                                                "model_params"):
             field_type = Settings.__dataclass_fields__[key].type
             setattr(settings, key, _coerce(key, value, field_type))
     mdl = config_dict.get("model")
@@ -198,6 +201,14 @@ def parse_settings_toml(toml_contents: str) -> Settings:
                 f"got {mdl!r}"
             )
         get_model(settings.model).validate_table(settings.model_params)
+    # The [ensemble] table parses after the scalar and model keys, as in
+    # the reference: member parameters default to the base values set
+    # above and resolve against the selected model's declaration.
+    ens = config_dict.get("ensemble")
+    if ens is not None:
+        from ..ensemble import spec as ensemble_spec
+
+        settings.ensemble = ensemble_spec.from_toml(ens, settings)
     return settings
 
 

@@ -121,8 +121,20 @@ move, and the gauges ``comm_hidden_us_per_step``,
 ``model_vs_measured_residual_us`` (the observed ``step_latency_us`` p50
 less the projection) are set whenever the metrics flush.
 
-Not here yet, each a later slice of the port (ROADMAP Queue 1): compile
-statistics and profiler captures, and ensembles.
+Ensembles (``ensemble/``), as in the reference: with an ``[ensemble]``
+table the run is an :class:`~.ensemble.engine.EnsembleSimulation` (every
+member of a block advanced by one kernel launch per round), the stores
+are member-indexed (``ensemble/io.py``: ``gs.m00.bp`` ... each
+byte-identical to a solo run of that member), a restart resumes from the
+member stores' quorum step and may grow or shrink the member set
+(``restore_ensemble``), the health report names a diverging member, the
+``RunStats`` ``ensemble`` section carries the members, seeds and latest
+per-member health, and ``cell_updates_per_s`` is the aggregate over the
+active members. ``snapshot_bits`` is ignored with a warning (member
+stores stay exact), as in the reference.
+
+Not here yet, a later slice of the port (ROADMAP Queue 1): compile
+statistics and profiler captures.
 """
 
 from __future__ import annotations
@@ -348,8 +360,15 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             tracer.edge(phase, at)
 
     mark("compile")
+    ens = getattr(settings, "ensemble", None)
     if sim_factory is not None:
         sim = sim_factory(settings, n_devices=n_devices, seed=seed)
+    elif ens is not None:
+        # One launch per block and round advances every member; the
+        # stores are member-indexed.
+        from .ensemble.engine import EnsembleSimulation
+
+        sim = EnsembleSimulation(settings, n_devices=n_devices, seed=seed)
     else:
         sim = Simulation(settings, n_devices=n_devices, seed=seed)
     log = Logger(verbose=settings.verbose)
@@ -365,11 +384,24 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
         # process reads its own boxes.
         restart_step, _ = restore_run(sim, settings, log=log,
                                       journal=journal, failover_journal=ilog)
-        log.info(
-            f"Restarted from {settings.restart_input} at step {restart_step}"
-        )
+        if ens is not None:
+            log.info(f"Restarted {ens.n} ensemble members from "
+                     f"{settings.restart_input} member stores at step "
+                     f"{restart_step}")
+        else:
+            log.info(f"Restarted from {settings.restart_input} at step "
+                     f"{restart_step}")
     resume = restart_step if settings.restart else None
     codec = sim.snapshot_codec
+    if ens is not None and codec.enabled:
+        # Per-member quantization ranges are a member-axis reduction the
+        # codec does not take: member stores stay exact, as in the
+        # reference.
+        log.warn("snapshot_bits ignored for ensemble runs (member stores "
+                 "stay exact); lossy output is a solo-run codec")
+        from .io.codec import CodecConfig
+
+        codec = CodecConfig({}, {})
     #: field index -> bits for the snapshot's device-side encoder.
     enc_spec = {
         i: codec.output[n.lower()]
@@ -442,14 +474,31 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
                            planned_step=fault.step, **extra)
         return fault
 
+    def open_stores(run_settings, resume_step):
+        """The output stream and the checkpoint writer (None without
+        checkpoints): member-indexed ones for an ensemble."""
+        if ens is not None:
+            from .ensemble.io import EnsembleCheckpointWriter, EnsembleStream
+
+            out = EnsembleStream(run_settings, sim.domain, sim.dtype,
+                                 writer_id=proc, nwriters=nprocs,
+                                 resume_step=resume_step)
+            ck = (EnsembleCheckpointWriter(
+                run_settings, sim.dtype, writer_id=proc, nwriters=nprocs,
+                resume_step=resume_step, layout=sim.layout())
+                if settings.checkpoint else None)
+            return out, ck
+        out = SimStream(run_settings, sim.domain, sim.dtype,
+                        writer_id=proc, nwriters=nprocs,
+                        resume_step=resume_step, codec=codec.output)
+        ck = (CheckpointWriter(run_settings, sim.dtype, writer_id=proc,
+                               nwriters=nprocs, resume_step=resume_step,
+                               layout=sim.layout(), codec=codec.ckpt)
+              if settings.checkpoint else None)
+        return out, ck
+
     try:
-        stream = SimStream(settings, sim.domain, sim.dtype,
-                           writer_id=proc, nwriters=nprocs,
-                           resume_step=resume, codec=codec.output)
-        if settings.checkpoint:
-            ckpt = CheckpointWriter(settings, sim.dtype, writer_id=proc,
-                                    nwriters=nprocs, resume_step=resume,
-                                    layout=sim.layout(), codec=codec.ckpt)
+        stream, ckpt = open_stores(settings, resume)
         # The reference's keys (its driver's RunStats config), then this
         # package's own.
         stats = RunStats(settings.L, tracer=tracer, config={
@@ -473,8 +522,9 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             "reshard": sim.reshard,
             "compile_cache": sim.compile_cache_dir,
             "autotune_mode": resolve_autotune(settings),
-            # Ensembles: Queue 1 item 19.
-            "ensemble": None,
+            "ensemble": ({"members": ens.n,
+                          "member_shards": sim.member_shards}
+                         if ens is not None else None),
             "sdc": dict(scfg),
             "numerics": num_mode,
             "device": str(sim.device),
@@ -485,6 +535,12 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             "async_io_depth": depth,
             "integrity": dict(icfg),
         })
+        if ens is not None:
+            # The members' params and seeds up front; the latest
+            # per-member health lands here at each probed boundary.
+            stats.record_ensemble({**ens.describe(),
+                                   "member_shards": sim.member_shards,
+                                   "seeds": list(sim.member_seeds)})
         if context is not None:
             # A failed attempt's phases outlive it in the journal.
             context.stats = stats
@@ -612,13 +668,7 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             # written before the move stay (each step's blocks say which
             # layout wrote it).
             resumed = dataclasses.replace(settings, restart=True)
-            stream = SimStream(resumed, sim.domain, sim.dtype,
-                               writer_id=proc, nwriters=nprocs,
-                               resume_step=step, codec=codec.output)
-            if ckpt is not None:
-                ckpt = CheckpointWriter(resumed, sim.dtype, writer_id=proc,
-                                        nwriters=nprocs, resume_step=step,
-                                        layout=sim.layout(), codec=codec.ckpt)
+            stream, ckpt = open_stores(resumed, step)
             stats.config["reshard"] = sim.reshard
             stats.config["mesh_dims"] = list(sim.domain.dims)
             stats.config["n_devices"] = sim.domain.n_blocks
@@ -768,6 +818,8 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
                 # a poisoned step raises here and reaches no store. A
                 # failing report is journaled before it unwinds.
                 report = snap.health_report()
+                if ens is not None and report is not None:
+                    stats.record_member_health(step, report)
                 try:
                     event = guard.check(step, report, log=log,
                                         metrics=metrics)
@@ -849,12 +901,21 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
         if journal.events:
             stats.record_faults(journal.events)
         stats.config["host_ring_bytes"] = ring.nbytes
-        cells = settings.L**3 * (settings.steps - restart_step)
-        log.info(
-            f"Completed {settings.steps - restart_step} steps in "
-            f"{elapsed:.3f}s ({cells / max(elapsed, 1e-9):.3e} "
-            "cell-updates/s)"
-        )
+        # Only the ACTIVE members scale the aggregate.
+        members = ens.active_n if ens is not None else 1
+        cells = settings.L**3 * (settings.steps - restart_step) * members
+        if ens is not None:
+            log.info(
+                f"Completed {settings.steps - restart_step} steps for "
+                f"{members} ensemble members in {elapsed:.3f}s "
+                f"({cells / max(elapsed, 1e-9):.3e} aggregate "
+                "cell-updates/s)")
+        else:
+            log.info(
+                f"Completed {settings.steps - restart_step} steps in "
+                f"{elapsed:.3f}s ({cells / max(elapsed, 1e-9):.3e} "
+                "cell-updates/s)"
+            )
         evs.emit("run_complete", step=step, attempt=attempt,
                  wall_s=round(elapsed, 3),
                  steps=settings.steps - restart_step)

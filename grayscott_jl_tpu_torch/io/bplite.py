@@ -107,16 +107,20 @@ def bf16_round(a) -> np.ndarray:
 
 
 class CorruptionError(RuntimeError):
-    """A block's recorded and recomputed CRCs disagree."""
+    """A block's recorded and recomputed CRCs disagree (``member``: the
+    ensemble member whose bytes did)."""
 
     def __init__(self, detail: str, *, path: Optional[str] = None,
                  file: Optional[str] = None, offset: Optional[int] = None,
-                 step: Optional[int] = None, var: Optional[str] = None):
+                 step: Optional[int] = None, var: Optional[str] = None,
+                 member: Optional[int] = None):
         where = []
         if var is not None:
             where.append(f"var {var!r}")
         if step is not None:
             where.append(f"step {step}")
+        if member is not None:
+            where.append(f"member {member}")
         if file is not None:
             where.append(f"file {file!r}"
                          + (f" offset {offset}" if offset is not None
@@ -131,6 +135,7 @@ class CorruptionError(RuntimeError):
         self.offset = offset
         self.step = step
         self.var = var
+        self.member = member
 
 
 def resolve_verify() -> str:

@@ -53,6 +53,7 @@ __all__ = [
     "STATS",
     "combine",
     "device_partials",
+    "member_partials",
     "report_of",
     "resolve_numerics",
     "resolve_report",
@@ -125,6 +126,26 @@ def device_partials(*fields):
     return torch.cat(parts)
 
 
+def member_partials(*fields):
+    """:func:`device_partials` of each member of member-stacked fields
+    ``(N, nx, ny, nz)``: an ``(N, 6n)`` float64 matrix, one row per
+    member, each a reduction over the spatial axes only."""
+    import torch
+
+    parts = []
+    for f in fields:
+        g = f.float().reshape(f.shape[0], -1)
+        lo, hi = torch.aminmax(g, dim=1)
+        parts.append(torch.stack([
+            lo.double(), hi.double(),
+            torch.sum(g, 1, dtype=torch.float64),
+            torch.sum(g * g, 1, dtype=torch.float64),
+            torch.full_like(lo, float(g.shape[1]), dtype=torch.float64),
+            (~torch.isfinite(g)).sum(1).double(),
+        ], 1))
+    return torch.cat(parts, 1)
+
+
 def _nan_min(xs) -> float:
     return math.nan if any(math.isnan(x) for x in xs) else min(xs)
 
@@ -187,17 +208,47 @@ def resolve_report(raw, names) -> "NumericsReport":
 
 class NumericsReport:
     """One probe's per-field statistics: ``fields`` maps each model field
-    name to its :data:`STATS` dict."""
+    name to its :data:`STATS` dict. ``members``, for an ensemble, holds
+    one such mapping per member, and ``fields`` is then their aggregate
+    over the active members (:meth:`aggregate_members`), so that the
+    gauges and the drift window read an ensemble's report as a solo
+    one's."""
 
-    def __init__(self, fields: Dict[str, dict]):
+    def __init__(self, fields: Dict[str, dict],
+                 members: Optional[List[Dict[str, dict]]] = None):
         self.fields = fields
+        self.members = members
+
+    @classmethod
+    def aggregate_members(cls, members: List[Dict[str, dict]],
+                          active=None) -> "NumericsReport":
+        """The reference's cross-member aggregate: min of mins, max of
+        maxes, mean of means, root of the summed squares and the summed
+        non-finite counts over the members ``active`` marks (None: all);
+        ``members`` keeps every slot's rows for attribution."""
+        live = (members if active is None or all(active)
+                else [m for i, m in enumerate(members) if active[i]])
+        agg = {}
+        for name in members[0]:
+            rows = [m[name] for m in live]
+            agg[name] = {
+                "min": min(r["min"] for r in rows),
+                "max": max(r["max"] for r in rows),
+                "mean": sum(r["mean"] for r in rows) / len(rows),
+                "l2": sum(r["l2"] ** 2 for r in rows) ** 0.5,
+                "nonfinite": sum(r["nonfinite"] for r in rows),
+            }
+        return cls(agg, members=members)
 
     @property
     def finite(self) -> bool:
         return all(r["nonfinite"] == 0 for r in self.fields.values())
 
     def describe(self) -> dict:
-        return {"fields": self.fields}
+        out = {"fields": self.fields}
+        if self.members is not None:
+            out["members"] = self.members
+        return out
 
 
 class NumericsRecorder:

@@ -21,6 +21,16 @@
 //               boundary from k-deep x slabs, pinned on GLOBAL
 //               coordinates (row 1d); the same mode on the y-extended
 //               operand of parallel/temporal.py xy_chain is row 1e.
+// The three production modes take a member axis (the reference's
+// ensemble vmap of _fused_call, grayscott_jl_tpu/ensemble/engine.py):
+// blockIdx.y is the member, so one launch advances N stacked members
+// (N, nx, ny, nz), each with its own params row and key pair; the tiles
+// stay on blockIdx.x. A CTA holds one member's window, so the shared-
+// memory ledger does not change; a batched TMA load reads a 4-D tensor
+// map (z, y, x, member) with a box one member deep, so that a window
+// past an x edge of member k is zero-filled and taken by the ghost pass,
+// never read from member k - 1's planes. A solo launch (N = 1) keeps the
+// 3-D map and its host key words.
 // Three types parametrize the kernel (row 1f), as the reference separates
 // them: T, the storage type of the fields and faces (float, double or
 // __nv_bfloat16); C = Compute<T>, the type every operation runs in
@@ -278,7 +288,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // One TMA box of a 3D tensor map at (z, y, x) (innermost first) into
-// `dst`, its bytes counted on `bar`.
+// `dst`, its bytes counted on `bar`; tma_load_4d adds the member
+// coordinate of a batched launch's 4-D map.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             int z, int y, int x,
                                             uint64_t* bar) {
@@ -286,6 +297,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(z), "r"(y), "r"(x),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int z, int y, int x, int m,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(z), "r"(y), "r"(x), "r"(m),
       "r"(smem_addr(bar))
       : "memory");
 }
@@ -337,7 +359,8 @@ struct Faces {
 
 // One TMA tensor map per field input: dims (nz, ny, nx), box (WZP, WY,
 // WX), encoded on the host (gs_window_map) and passed by value as a
-// __grid_constant__ parameter.
+// __grid_constant__ parameter; for a batched launch dims (nz, ny, nx, N)
+// and box (WZP, WY, WX, 1) (gs_window_map4).
 struct WindowMaps {
   CUtensorMap m[kNF];
 };
@@ -429,9 +452,22 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
                      const typename Compute<T>::type* __restrict__ params,
                      const Faces<T> faces, const __grid_constant__ WindowMaps maps,
                      int tma, uint32_t k0, uint32_t k1,
+                     const uint32_t* __restrict__ keys,
                      uint32_t step0, int ox, int oy, int oz, uint32_t row,
                      int nx, int ny, int nz, int fuse, int use_noise) {
   using C = typename Compute<T>::type;
+  // The member of a batched launch: its fields and faces lie one member
+  // volume further, its params row and key pair are its own. tma is 0
+  // (cp.async), 1 (3-D map) or 2 (4-D map of a batched launch).
+  const int m = blockIdx.y;
+  const size_t mvol = (size_t)m * nx * ny * nz;
+  const size_t fox = (size_t)m * (MODE == kXChain ? fuse : 1) * ny * nz;
+  const size_t foy = (size_t)m * nx * nz, foz = (size_t)m * nx * ny;
+  if (keys != nullptr) {
+    k0 = keys[2 * m];
+    k1 = keys[2 * m + 1];
+  }
+  params += (size_t)m * kNP;
   // An input window of T apart from the mid windows of M, or (M == T)
   // two ping-pong windows, the input in the first.
   constexpr bool kSplit = !std::is_same<T, M>::value;
@@ -507,8 +543,13 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
       mbar_expect_tx(bar, (uint32_t)(kNF * WX * WY * WZP * sizeof(T)));
 #pragma unroll
       for (int f = 0; f < kNF; ++f) {
-        tma_load_3d(in + f * wvol + lead, &maps.m[f], lz0 + lead, ly0, lx0,
-                    bar);
+        if (tma == 2) {
+          tma_load_4d(in + f * wvol + lead, &maps.m[f], lz0 + lead, ly0, lx0,
+                      m, bar);
+        } else {
+          tma_load_3d(in + f * wvol + lead, &maps.m[f], lz0 + lead, ly0, lx0,
+                      bar);
+        }
       }
     }
     mbar_wait(bar, 0u);
@@ -528,7 +569,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
       const int c = (wx * WY + wy) * WZP + wz;
 #pragma unroll
       for (int f = 0; f < kNF; ++f) {
-        copy_or_zero(&in[f * wvol + c], fs.in[f] + off, inside);
+        copy_or_zero(&in[f * wvol + c], fs.in[f] + mvol + off, inside);
       }
     }
     cp_async_wait_all();
@@ -575,18 +616,18 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
         if (in_x && in_y && in_z) {
           const size_t i = ((size_t)gx * ny + gy) * nz + gz;
 #pragma unroll
-          for (int f = 0; f < kNF; ++f) a[f] = __ldg(fs.in[f] + i);
+          for (int f = 0; f < kNF; ++f) a[f] = __ldg(fs.in[f] + mvol + i);
         } else if (MODE == kFaces6) {
           // A ghost across exactly one axis reads that axis's face.
           if (in_y && in_z && (gx == -1 || gx == nx)) {
-            const size_t i = (size_t)gy * nz + gz;
+            const size_t i = fox + (size_t)gy * nz + gz;
             const int hi = gx < 0 ? 0 : 1;
 #pragma unroll
             for (int f = 0; f < kNF; ++f) {
               a[f] = (hi ? faces.p[2 * f + 1] : faces.p[2 * f])[i];
             }
           } else if (in_x && in_z && (gy == -1 || gy == ny)) {
-            const size_t i = (size_t)gx * nz + gz;
+            const size_t i = foy + (size_t)gx * nz + gz;
             const int hi = gy < 0 ? 0 : 1;
 #pragma unroll
             for (int f = 0; f < kNF; ++f) {
@@ -594,7 +635,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
                          : faces.p[2 * kNF + 2 * f])[i];
             }
           } else if (in_x && in_y && (gz == -1 || gz == nz)) {
-            const size_t i = (size_t)gx * ny + gy;
+            const size_t i = foz + (size_t)gx * ny + gy;
             const int hi = gz < 0 ? 0 : 1;
 #pragma unroll
             for (int f = 0; f < kNF; ++f) {
@@ -607,7 +648,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
           if (in_y && in_z && gx >= -fuse && gx < nx + fuse) {
             const bool lo = gx < 0;
             const size_t i =
-                ((size_t)(lo ? gx + fuse : gx - nx) * ny + gy) * nz + gz;
+                fox + ((size_t)(lo ? gx + fuse : gx - nx) * ny + gy) * nz + gz;
 #pragma unroll
             for (int f = 0; f < kNF; ++f) {
               a[f] = (lo ? faces.p[2 * f] : faces.p[2 * f + 1])[i];
@@ -629,7 +670,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
       const int wx = h + r / TY, wy = h + r % TY;
       const int gx = x0 + wx, gy = y0 + wy;
       if (gx >= nx || gy >= ny) continue;
-      const size_t gbase = ((size_t)gx * ny + gy) * nz;
+      const size_t gbase = mvol + ((size_t)gx * ny + gy) * nz;
       for (int wz = h + lane; wz < h + TZ; wz += 32) {
         const int gz = z0 + wz;
         if (gz >= nz) continue;
@@ -670,7 +711,7 @@ stencil_chain_kernel(const Fields<T, typename Compute<T>::type> fs,
               ? plane_seed(k0, k1, step, (uint32_t)(ox + gx))
               : 0u;
       const uint32_t iy = (uint32_t)(oy + gy);
-      const size_t gbase = last ? ((size_t)gx * ny + gy) * nz : 0;
+      const size_t gbase = last ? mvol + ((size_t)gx * ny + gy) * nz : 0;
       for (int wz = lo + lane; wz < lo + ez; wz += 32) {
         const int gz = z0 + wz;
         const bool in_z = gz >= 0 && gz < nz;
@@ -810,19 +851,22 @@ template <typename T, typename M, int MODE, int VARIANT = kChain>
 int run(const Fields<T, typename Compute<T>::type>& fs,
         const typename Compute<T>::type* params, const Faces<T>& faces,
         const WindowMaps& maps, int tma, uint32_t k0, uint32_t k1,
+        const uint32_t* keys, int members,
         uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx, int ny,
         int nz, int fuse, int use_noise, cudaStream_t stream) {
   auto kernel = stencil_chain_kernel<T, M, MODE, VARIANT>;
   const long long n_tiles = (long long)((nz + TZ - 1) / TZ) *
                             ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
-  if (n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0x7FFFFFFFLL || members < 1 || members > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = smem_bytes<T, M>(fuse, windows_needed(MODE, fuse));
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(int)n_tiles, NTHREADS, smem, stream>>>(
-      fs, params, faces, maps, tma, k0, k1, step0, ox, oy, oz, row, nx, ny,
-      nz, fuse, use_noise);
+  kernel<<<dim3((unsigned)n_tiles, (unsigned)members), NTHREADS, smem,
+           stream>>>(fs, params, faces, maps, tma, k0, k1, keys, step0, ox, oy,
+                     oz, row, nx, ny, nz, fuse, use_noise);
   return (int)cudaGetLastError();
 }
 
@@ -835,10 +879,14 @@ inline WindowMaps maps_of(const void* maps) {
   return wm;
 }
 
+// A launch of `members` stacked members (1: a solo launch, with the key
+// words k0, k1; more: `keys` holds a device array of their key pairs,
+// `maps` their 4-D tensor maps).
 template <typename T, typename M>
 int launch(const void* const* in, void* const* out, const void* params,
            const void* const* face_ptrs, const void* maps,
            const double* bounds, int mode, uint32_t k0, uint32_t k1,
+           const uint32_t* keys, int members,
            uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx,
            int ny, int nz, int fuse, int use_noise, void* stream) {
   using C = typename Compute<T>::type;
@@ -846,7 +894,8 @@ int launch(const void* const* in, void* const* out, const void* params,
   if (fuse < 1 || nx < 1 || ny < 1 || nz < 1 || mode < kBlock ||
       mode > kXChain || (mode == kFaces6 && fuse != 1) || in == nullptr ||
       out == nullptr || bounds == nullptr ||
-      (n_faces > 0 && face_ptrs == nullptr)) {
+      (n_faces > 0 && face_ptrs == nullptr) ||
+      (members > 1 && keys == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Fields<T, C> fs = {};
@@ -860,19 +909,22 @@ int launch(const void* const* in, void* const* out, const void* params,
     faces.p[i] = static_cast<const T*>(face_ptrs[i]);
   }
   const WindowMaps wm = maps_of(maps);
-  const int tma = maps != nullptr;
+  const int tma = maps == nullptr ? 0 : members > 1 ? 2 : 1;
   const C* pv = static_cast<const C*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kFaces6:
-      return run<T, M, kFaces6>(fs, pv, faces, wm, tma, k0, k1, step0, ox, oy,
-                                oz, row, nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kFaces6>(fs, pv, faces, wm, tma, k0, k1, keys, members,
+                                step0, ox, oy, oz, row, nx, ny, nz, fuse,
+                                use_noise, st);
     case kXChain:
-      return run<T, M, kXChain>(fs, pv, faces, wm, tma, k0, k1, step0, ox, oy,
-                                oz, row, nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kXChain>(fs, pv, faces, wm, tma, k0, k1, keys, members,
+                                step0, ox, oy, oz, row, nx, ny, nz, fuse,
+                                use_noise, st);
     default:
-      return run<T, M, kBlock>(fs, pv, faces, wm, tma, k0, k1, step0, ox, oy,
-                               oz, row, nx, ny, nz, fuse, use_noise, st);
+      return run<T, M, kBlock>(fs, pv, faces, wm, tma, k0, k1, keys, members,
+                               step0, ox, oy, oz, row, nx, ny, nz, fuse,
+                               use_noise, st);
   }
 }
 
@@ -913,8 +965,8 @@ int compute_walk(const Fields<float, float>& fs, const float* params,
                  uint32_t step0, uint32_t row, int nx, int ny, int nz,
                  int fuse, int use_noise, cudaStream_t st) {
   return run<float, float, kComputeWalk, VARIANT>(
-      fs, params, Faces<float>{}, wm, tma, k0, k1, step0, 0, 0, 0, row, nx,
-      ny, nz, fuse, use_noise, st);
+      fs, params, Faces<float>{}, wm, tma, k0, k1, nullptr, 1, step0, 0, 0,
+      0, row, nx, ny, nz, fuse, use_noise, st);
 }
 
 int probe(int mode, int variant, const void* const* in, void* const* out,
@@ -939,8 +991,8 @@ int probe(int mode, int variant, const void* const* in, void* const* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kCopyWalk) {
     return run<float, float, kCopyWalk>(fs, pv, Faces<float>{}, wm, tma, 0,
-                                        0, 0, 0, 0, 0, row, nx, ny, nz, fuse,
-                                        0, st);
+                                        0, nullptr, 1, 0, 0, 0, 0, row, nx,
+                                        ny, nz, fuse, 0, st);
   }
 #define GS_WALK(V)                                                         \
   compute_walk<V>(fs, pv, wm, tma, k0, k1, step0, row, nx, ny, nz, fuse, \
@@ -1010,6 +1062,34 @@ int gs_window_map(void* out, const void* base, int itemsize, int nx, int ny,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The 4-D tensor map of one field's windows in a batched launch: the
+// (members, nx, ny, nz) tensor at `base`, dims (nz, ny, nx, members),
+// box (WZP, WY, WX, 1) — one member deep, so a box past a member's x
+// edge is out of bounds (zero-filled), never the previous member's.
+int gs_window_map4(void* out, const void* base, int itemsize, int nx, int ny,
+                   int nz, int members, int fuse) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return -1;
+  const CUtensorMapDataType type =
+      itemsize == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+      : itemsize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const Window w = window_of(itemsize, fuse);
+  const cuuint64_t dims[4] = {(cuuint64_t)nz, (cuuint64_t)ny, (cuuint64_t)nx,
+                              (cuuint64_t)members};
+  const cuuint64_t strides[3] = {(cuuint64_t)nz * itemsize,
+                                 (cuuint64_t)ny * nz * itemsize,
+                                 (cuuint64_t)nx * ny * nz * itemsize};
+  const cuuint32_t box[4] = {(cuuint32_t)w.WZP, (cuuint32_t)w.WY,
+                             (cuuint32_t)w.WX, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return (int)encode(static_cast<CUtensorMap*>(out), type, 4,
+                     const_cast<void*>(base), dims, strides, box, unit,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // in, out: host arrays of kNF device pointers; params: a device vector
 // of kNP values of the compute type (float for bf16 fields); face_ptrs: a
 // host array of device pointers (6 kNF for mode 1, 2 kNF for mode 2) or
@@ -1025,8 +1105,25 @@ int gs_window_map(void* out, const void* base, int itemsize, int nx, int ny,
            uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx,      \
            int ny, int nz, int fuse, int use_noise, void* stream) {           \
     return launch<T, M>(in, out, params, face_ptrs, maps, bounds, mode, k0,   \
-                        k1, step0, ox, oy, oz, row, nx, ny, nz, fuse,         \
-                        use_noise, stream);                                   \
+                        k1, nullptr, 1, step0, ox, oy, oz, row, nx, ny, nz,   \
+                        fuse, use_noise, stream);                             \
+  }
+
+// The batched form: in and out point at (members, nx, ny, nz) tensors,
+// params at a (members, kNP) matrix, face_ptrs at faces with the same
+// leading axis, keys at a device array of `members` key pairs (uint32
+// k0, k1); maps are gs_window_map4's. The step and the offsets are
+// shared.
+#define GS_BATCH_ENTRY(NAME, T, M)                                            \
+  int NAME(const void* const* in, void* const* out, const void* params,       \
+           const void* const* face_ptrs, const void* maps,                    \
+           const double* bounds, int mode, const void* keys, int members,     \
+           uint32_t step0, int ox, int oy, int oz, uint32_t row, int nx,      \
+           int ny, int nz, int fuse, int use_noise, void* stream) {           \
+    return launch<T, M>(in, out, params, face_ptrs, maps, bounds, mode, 0u,   \
+                        0u, static_cast<const uint32_t*>(keys), members,      \
+                        step0, ox, oy, oz, row, nx, ny, nz, fuse, use_noise,  \
+                        stream);                                              \
   }
 
 #ifndef GS_ENVELOPE_PROBES
@@ -1034,6 +1131,10 @@ GS_ENTRY(gs_stencil_chain_f32, float, float)
 GS_ENTRY(gs_stencil_chain_f64, double, double)
 GS_ENTRY(gs_stencil_chain_bf16, __nv_bfloat16, __nv_bfloat16)
 GS_ENTRY(gs_stencil_chain_f32_mid_bf16, float, __nv_bfloat16)
+GS_BATCH_ENTRY(gs_stencil_batch_f32, float, float)
+GS_BATCH_ENTRY(gs_stencil_batch_f64, double, double)
+GS_BATCH_ENTRY(gs_stencil_batch_bf16, __nv_bfloat16, __nv_bfloat16)
+GS_BATCH_ENTRY(gs_stencil_batch_f32_mid_bf16, float, __nv_bfloat16)
 #else
 // The envelope probes' library (Gray-Scott, float32 fields) holds these
 // two entry points instead. in, out: host arrays of kNF device

@@ -61,6 +61,17 @@ is the load in torch ops (padded stride, zero fill, then the ghost
 pass), which the CPU tests hold to the window's definition in every
 mode. ``LOAD_PATH_LAUNCHES`` counts the launches of each path.
 
+The member axis (the reference's ensemble ``vmap`` of ``_fused_call``):
+fields stacked as ``(N, nx, ny, nz)``, faces with the same leading axis,
+params as :func:`member_params` (each leaf ``(N, 1, 1, 1)``) and the
+seeds' key words as N-tuples (:func:`member_seeds`) advance all N
+members in ONE launch of the kernel (its grid's ``blockIdx.y``), each
+member bitwise equal to its own solo launch. The batched launch loads
+through a 4-D tensor map (:func:`window_maps`), so a window past an x
+edge of member k never reads member k - 1's planes; a stack of one
+member takes the solo launch. The plain versions take the same leading
+axis by broadcasting.
+
 ``LAUNCHES`` counts kernel launches (not plain-path calls),
 ``MODE_LAUNCHES`` splits them by mode, ``BAND_LAUNCHES`` counts the
 x-chain launches that recompute a split-phase round's boundary bands
@@ -108,6 +119,10 @@ PROBE_VARIANTS = ("chain", "nonoise", "noselect", "noyz", "fma", "minimal",
 
 #: Launches per mode (the probes' too), counted beside :data:`LAUNCHES`.
 MODE_LAUNCHES: Dict[str, int] = dict.fromkeys((*MODES, *PROBE_MODES), 0)
+
+#: The most members one launch of each mode advanced (a batched launch
+#: counts once in every count above, whatever its member count).
+MODE_MEMBERS: Dict[str, int] = dict.fromkeys((*MODES, *PROBE_MODES), 0)
 
 #: Launches that recompute the boundary bands of a split-phase round
 #: (x-chain mode, counted in :data:`MODE_LAUNCHES` too).
@@ -158,24 +173,29 @@ LOAD_PATH_LAUNCHES: Dict[str, int] = dict.fromkeys(LOAD_PATHS, 0)
 _FORCED_LOAD: Optional[str] = None
 
 #: Encoded tensor maps of kernel inputs, by (data pointers, shape,
-#: itemsize, fuse); a few buffers cycle through the steps of a run.
+#: itemsize, fuse); a batched launch's shape carries its member count.
+#: A few buffers cycle through the steps of a run.
 _MAPS: Dict[tuple, ctypes.Array] = {}
 _MAPS_LIMIT = 256
 
 #: Bytes of one encoded ``CUtensorMap``.
 MAP_BYTES = 128
 
+#: Device arrays of a batched launch's key pairs, by (device, keys).
+_KEYS: Dict[tuple, torch.Tensor] = {}
+_KEYS_LIMIT = 64
+
 
 def reset_launches() -> None:
     """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES`,
     :data:`REPLAY_LAUNCHES` and every
-    :data:`MODE_LAUNCHES`, :data:`VARIANT_LAUNCHES`,
+    :data:`MODE_LAUNCHES`, :data:`MODE_MEMBERS`, :data:`VARIANT_LAUNCHES`,
     :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES` and
     :data:`LOAD_PATH_LAUNCHES` count to 0."""
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     LAUNCHES = BAND_LAUNCHES = REPLAY_LAUNCHES = 0
-    for counts in (MODE_LAUNCHES, VARIANT_LAUNCHES, DTYPE_LAUNCHES,
-                   LOAD_PATH_LAUNCHES):
+    for counts in (MODE_LAUNCHES, MODE_MEMBERS, VARIANT_LAUNCHES,
+                   DTYPE_LAUNCHES, LOAD_PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
     MODEL_LAUNCHES.clear()
@@ -362,16 +382,17 @@ def max_feasible_chain_depth(local, dims, itemsize: int, depth: int,
 def pad_from_faces(x, xlo, xhi, ylo, yhi, zlo, zhi):
     """Ghost-pad an interior block with resolved halo faces (the
     reference's ``_pad_from_faces``; edge and corner ghosts get zeros —
-    the 7-point stencil never reads them)."""
-    x = torch.cat([xlo, x, xhi], dim=0)
+    the 7-point stencil never reads them). A leading member axis rides
+    along."""
+    x = torch.cat([xlo, x, xhi], dim=-3)
     x = torch.cat([F.pad(ylo, (0, 0, 0, 0, 1, 1)), x,
-                   F.pad(yhi, (0, 0, 0, 0, 1, 1))], dim=1)
+                   F.pad(yhi, (0, 0, 0, 0, 1, 1))], dim=-2)
     return torch.cat([F.pad(zlo, (0, 0, 1, 1, 1, 1)), x,
-                      F.pad(zhi, (0, 0, 1, 1, 1, 1))], dim=2)
+                      F.pad(zhi, (0, 0, 1, 1, 1, 1))], dim=-1)
 
 
 def emulate_window(fields, faces=None, *, mode="chain", fuse=1, origin,
-                   boundaries, load="tma"):
+                   boundaries, load="tma", member=None):
     """The kernel's window load for one tile, in torch ops: each field's
     ``(WX, WY, WZP)`` window (:func:`window_geometry`) whose origin in
     the operand's (x, y, z) coordinates is ``origin`` (negative at a low
@@ -384,7 +405,16 @@ def emulate_window(fields, faces=None, *, mode="chain", fuse=1, origin,
     the boundary value (``chain``), the face of the one axis a ghost lies
     across (``faces6``; the 6n faces as :func:`fused_step` takes them),
     the x slabs (``xchain``/``xychain``; the 2n-tuple). Returns the
-    window tensors, in the fields' dtype."""
+    window tensors, in the fields' dtype.
+
+    ``member`` (fields and faces stacked ``(N, ...)``) is the CTA's
+    member of a batched launch: its 4-D tensor map's box is one member
+    deep, so the copy, its zero fill and the ghost pass see member
+    ``member``'s operand alone — a window past an x edge takes that
+    member's ghosts, never the previous member's last planes."""
+    if member is not None:
+        fields = [f[member] for f in fields]
+        faces = None if faces is None else [f[member] for f in faces]
     nx, ny, nz = fields[0].shape
     wx, wy, wz, wzp, lead, _ = window_geometry(fields[0].element_size(),
                                                fuse)
@@ -492,6 +522,36 @@ def widen_params(params, dtype):
     return type(params)(*(p.to(dtype) for p in params))
 
 
+def member_params(rows, params_cls, dtype, device=None):
+    """Member-stacked params of ``params_cls``: every leaf the members'
+    values as an ``(N, 1, 1, 1)`` tensor, which broadcasts against
+    ``(N, nx, ny, nz)`` fields in the plain versions. ``rows`` is one
+    mapping (field -> value) per member."""
+    return params_cls(*(
+        torch.tensor([float(r[f]) for r in rows], dtype=dtype,
+                     device=device).reshape(-1, 1, 1, 1)
+        for f in params_cls._fields))
+
+
+def params_row(params, member: int):
+    """Member ``member``'s params as a solo run holds them (0-d
+    leaves)."""
+    return type(params)(*(p.reshape(-1)[member] for p in params))
+
+
+def member_seeds(keys, step: int):
+    """The seeds of a batched call: ``(k0s, k1s, step)``, the key words
+    of the N members as N-tuples, for ``keys`` = one ``(k0, k1)`` pair
+    per member."""
+    return (tuple(int(k[0]) for k in keys), tuple(int(k[1]) for k in keys),
+            int(step))
+
+
+def _members(seeds) -> Optional[int]:
+    """The member count of a batched call's seeds, None for a solo one."""
+    return len(seeds[0]) if isinstance(seeds[0], (tuple, list)) else None
+
+
 def _stage(pads, params, spec, unit_at, *, use_noise, oracle, out_dtype):
     """One stage on ghost-padded fields ``pads`` (in the stage input's
     dtype): the Plain language's step, or with ``oracle`` the kernel's
@@ -537,7 +597,7 @@ def plain_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
             )
             for i in range(n_f)
         )
-    shape = fields[0].shape
+    shape = fields[0].shape[-3:]
 
     def unit_at(dtype):
         return uniform_pm1_block(
@@ -579,12 +639,12 @@ def plain_xchain(fields, params, seeds, faces, *, spec, fuse, use_noise,
     final stage is unpinned: the out-of-domain rows of a y-extended
     operand hold computed values, as in the kernel."""
     n_f = spec.n_fields
-    nx, ny, nz = fields[0].shape
+    nx, ny, nz = fields[0].shape[-3:]
     dtype, device = fields[0].dtype, fields[0].device
     mid = mid_dtype_of(dtype, mid_bf16)
     k = fuse
     wins = [
-        torch.cat([faces[2 * i], fields[i], faces[2 * i + 1]], dim=0)
+        torch.cat([faces[2 * i], fields[i], faces[2 * i + 1]], dim=-3)
         for i in range(n_f)
     ]
 
@@ -639,12 +699,14 @@ def _check_faces(faces, shape, n_f, fuse, name) -> str:
         )
     if x_chain and fuse < 2:
         raise ValueError("the x-chain faces mode requires fuse >= 2")
-    nx, ny, nz = shape
+    lead = tuple(shape[:-3])  # the member axis of a batched call
+    nx, ny, nz = shape[-3:]
     if x_chain:
         want = [(fuse, ny, nz)] * len(faces)
     else:
         want = ([(1, ny, nz)] * 2 * n_f + [(nx, 1, nz)] * 2 * n_f
                 + [(nx, ny, 1)] * 2 * n_f)
+    want = [lead + w for w in want]
     for f, w in zip(faces, want):
         if tuple(f.shape) != w:
             kind = "x-chain" if x_chain else "6n"
@@ -678,7 +740,12 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     CUDA tensors go through the kernel (or raise) at the fields' dtype
     (float32, float64 or bfloat16; ``GS_MID_BF16=1`` selects bf16 mids
     for float32); CPU tensors through the plain versions (the Plain
-    language). Returns the new field tuple."""
+    language). Returns the new field tuple.
+
+    Batched: fields ``(N, nx, ny, nz)``, faces with the same leading
+    axis, params from :func:`member_params` and seeds from
+    :func:`member_seeds` — one launch advances every member (one count
+    in :data:`LAUNCHES`; :data:`MODE_MEMBERS` keeps N)."""
     fields = tuple(fields)
     n_f = spec.n_fields
     if len(fields) != n_f:
@@ -701,8 +768,25 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
             )
         mode = "xychain"
     offsets = tuple(int(o) for o in (offsets or (0, 0, 0)))
-    nz = fields[0].shape[2]
+    nz = fields[0].shape[-1]
     row = nz if row is None else int(row)
+    members = _members(seeds)
+    if (fields[0].dim() == 4) != (members is not None) or (
+            members is not None and members != fields[0].shape[0]):
+        raise ValueError(
+            "a batched call takes (N, nx, ny, nz) fields with N-tuples of "
+            f"key words; got fields {tuple(fields[0].shape)} and seeds "
+            f"{seeds!r}")
+    if members == 1 and fields[0].is_cuda:
+        # A stack of one member is a solo launch: its host key words and
+        # 3-D tensor maps.
+        out = fused_step(
+            tuple(f[0] for f in fields), params_row(params, 0),
+            (seeds[0][0], seeds[1][0], seeds[2]),
+            None if faces is None else tuple(f[0] for f in faces),
+            spec=spec, use_noise=use_noise, fuse=fuse, offsets=offsets,
+            row=row, y_halo=y_halo, band=band)
+        return tuple(o.unsqueeze(0) for o in out)
     if not fields[0].is_cuda:
         if mode == "chain":
             return plain_chain(fields, params, seeds, spec=spec,
@@ -768,6 +852,17 @@ def _lib(spec):
                 + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
+            fn = getattr(lib, f"gs_stencil_batch_{suffix}")
+            fn.argtypes = (
+                [ctypes.c_void_p] * 6
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                + [ctypes.c_uint32]
+                + [ctypes.c_int] * 3
+                + [ctypes.c_uint32]
+                + [ctypes.c_int] * 5
+                + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
         lib._gs_ready = True
     return lib
 
@@ -778,6 +873,8 @@ def _type_common(lib):
     lib.gs_error_string.restype = ctypes.c_char_p
     lib.gs_window_map.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     lib.gs_window_map.restype = ctypes.c_int
+    lib.gs_window_map4.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    lib.gs_window_map4.restype = ctypes.c_int
 
 
 def _pointers(tensors):
@@ -788,21 +885,26 @@ def _pointers(tensors):
 def window_maps(lib, fields, fuse):
     """The load of a launch on ``fields`` at depth ``fuse``: ``(path,
     maps)`` — ``"tma"`` with a host buffer of one encoded tensor map per
-    field (cached), or ``"cp_async"`` with None (:func:`load_path`)."""
+    field (cached; 4-D, one member deep, for ``(N, nx, ny, nz)`` fields),
+    or ``"cp_async"`` with None (:func:`load_path`)."""
     first = fields[0]
     itemsize = first.element_size()
     ptrs = tuple(f.data_ptr() for f in fields)
-    path = load_path(first.shape, itemsize, ptrs)
+    path = load_path(first.shape[-3:], itemsize, ptrs)
     if path != "tma":
         return path, None
     key = (ptrs, tuple(first.shape), itemsize, fuse)
     maps = _MAPS.get(key)
     if maps is None:
         maps = (ctypes.c_ubyte * (MAP_BYTES * len(fields)))()
-        nx, ny, nz = first.shape
+        nx, ny, nz = first.shape[-3:]
         for i, p in enumerate(ptrs):
-            rc = lib.gs_window_map(ctypes.addressof(maps) + MAP_BYTES * i, p,
-                                   itemsize, nx, ny, nz, fuse)
+            out = ctypes.addressof(maps) + MAP_BYTES * i
+            if first.dim() == 4:
+                rc = lib.gs_window_map4(out, p, itemsize, nx, ny, nz,
+                                        first.shape[0], fuse)
+            else:
+                rc = lib.gs_window_map(out, p, itemsize, nx, ny, nz, fuse)
             if rc != 0:
                 raise KernelLaunchError(
                     f"cuTensorMapEncodeTiled failed for a {tuple(first.shape)}"
@@ -820,16 +922,19 @@ def maps_address(maps):
     return ctypes.addressof(maps) if maps is not None else None
 
 
-def count_launch(mode, path, *, entry=None, model=None, band=False):
+def count_launch(mode, path, *, entry=None, model=None, band=False,
+                 members=1):
     """Count one kernel launch of ``mode`` on load ``path`` (of entry
-    point ``entry`` and ``model``; ``band``: a band recompute), or,
-    inside :func:`replaying`, in :data:`REPLAY_LAUNCHES` only."""
+    point ``entry`` and ``model``; ``band``: a band recompute; advancing
+    ``members`` members), or, inside :func:`replaying`, in
+    :data:`REPLAY_LAUNCHES` only. A batched launch counts once."""
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     if _REPLAYING:
         REPLAY_LAUNCHES += 1
         return
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
+    MODE_MEMBERS[mode] = max(MODE_MEMBERS[mode], int(members))
     LOAD_PATH_LAUNCHES[path] += 1
     if entry is not None:
         DTYPE_LAUNCHES[entry] += 1
@@ -838,11 +943,30 @@ def count_launch(mode, path, *, entry=None, model=None, band=False):
     BAND_LAUNCHES += bool(band)
 
 
+def _key_array(seeds, device) -> torch.Tensor:
+    """The device array of a batched launch's key pairs, as uint32 words
+    (int32 storage), cached per device and keys: one copy to the card
+    per member set, not per launch."""
+    key = (device, seeds[0], seeds[1])
+    arr = _KEYS.get(key)
+    if arr is None:
+        words = [[k & 0xFFFFFFFF for k in pair]
+                 for pair in zip(seeds[0], seeds[1])]
+        words = [[w - (1 << 32) if w >= 1 << 31 else w for w in pair]
+                 for pair in words]
+        arr = torch.tensor(words, dtype=torch.int32, device=device)
+        if len(_KEYS) >= _KEYS_LIMIT:
+            _KEYS.clear()
+        _KEYS[key] = arr
+    return arr
+
+
 def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
             faces=None, mode="chain", mid_bf16=False, band=False):
     """One launch of ``spec``'s generated kernel advancing ``fuse``
     steps (``fuse`` <= the ledger's cap) in ``mode``; returns the new
-    field tuple."""
+    field tuple. ``(N, nx, ny, nz)`` fields with member seeds launch the
+    batched entry point: one launch, N members on the grid's y axis."""
     first = fields[0]
     dtype = first.dtype
     entry = ENTRIES.get((dtype, bool(mid_bf16)))
@@ -859,9 +983,12 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
                 "fields must share device, dtype and shape; got "
                 f"{[(t.device, t.dtype, tuple(t.shape)) for t in fields]}"
             )
-        if f.dim() != 3 or not f.is_contiguous():
-            raise ValueError("fields must be contiguous 3D tensors")
-    nx, ny, nz = first.shape
+    members = _members(seeds)
+    for f in fields:
+        if f.dim() != (3 if members is None else 4) or not f.is_contiguous():
+            raise ValueError("fields must be contiguous 3D tensors (4D with "
+                             "a leading member axis for a batched launch)")
+    nx, ny, nz = first.shape[-3:]
     if first.numel() >= 2**31:
         raise ValueError(f"field shape {tuple(first.shape)} is too large")
     face_ptrs = None
@@ -880,18 +1007,23 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
     # SMEM scalars: bf16 fields take float32 params (bf16-valued ones
     # widen exactly) and compute in float32. One stack and at most one
     # cast: the wrapper's launches are host time on every call.
-    params_vec = torch.stack(
-        [getattr(params, f) for f in spec.param_fields]
-    ).to(device=first.device, dtype=compute_dtype_of(dtype))
+    if members is None:
+        params_vec = torch.stack(
+            [getattr(params, f) for f in spec.param_fields]
+        ).to(device=first.device, dtype=compute_dtype_of(dtype))
+    else:
+        # One row of params per member, (N, kNP).
+        params_vec = torch.stack(
+            [getattr(params, f).reshape(-1) for f in spec.param_fields], 1
+        ).to(device=first.device, dtype=compute_dtype_of(dtype)).contiguous()
     outs = tuple(torch.empty_like(f) for f in fields)
     bounds = (ctypes.c_double * spec.n_fields)(*spec.boundaries)
     lib = _lib(spec)
-    fn = getattr(lib, f"gs_stencil_chain_{entry}")
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
     with torch.cuda.device(first.device):
         path, maps = window_maps(lib, fields, fuse)
         stream = torch.cuda.current_stream(first.device).cuda_stream
-        rc = fn(
+        head = (
             ctypes.cast(in_ptrs, ctypes.c_void_p),
             ctypes.cast(out_ptrs, ctypes.c_void_p),
             params_vec.data_ptr(),
@@ -899,16 +1031,24 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
             maps_address(maps),
             ctypes.cast(bounds, ctypes.c_void_p),
             MODES[mode],
-            int(seeds[0]) & 0xFFFFFFFF, int(seeds[1]) & 0xFFFFFFFF,
-            int(seeds[2]) & 0xFFFFFFFF,
-            offsets[0], offsets[1], offsets[2], row & 0xFFFFFFFF,
-            nx, ny, nz, fuse, int(bool(use_noise)), stream,
         )
+        tail = (int(seeds[2]) & 0xFFFFFFFF,
+                offsets[0], offsets[1], offsets[2], row & 0xFFFFFFFF,
+                nx, ny, nz, fuse, int(bool(use_noise)), stream)
+        if members is None:
+            rc = getattr(lib, f"gs_stencil_chain_{entry}")(
+                *head, int(seeds[0]) & 0xFFFFFFFF,
+                int(seeds[1]) & 0xFFFFFFFF, *tail)
+        else:
+            keys = _key_array(seeds, first.device)
+            rc = getattr(lib, f"gs_stencil_batch_{entry}")(
+                *head, keys.data_ptr(), members, *tail)
     if rc != 0:
         msg = lib.gs_error_string(rc).decode()
         raise KernelLaunchError(
             f"stencil_chain launch failed (model={spec.name}, mode={mode}, "
             f"fuse={fuse}, shape={tuple(first.shape)}, {entry}, load "
             f"{path}): CUDA error {rc}: {msg}", code=rc)
-    count_launch(mode, path, entry=entry, model=spec.name, band=band)
+    count_launch(mode, path, entry=entry, model=spec.name, band=band,
+                 members=members or 1)
     return outs

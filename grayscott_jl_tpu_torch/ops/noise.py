@@ -77,7 +77,15 @@ def uniform_pm1_block(key, step, offsets, shape, row, dtype, device=None):
     """Uniform [-1, 1) noise for the 3D block of ``shape`` at global
     ``offsets``. ``key`` is the integer pair ``(k0, k1)`` (the int32
     words of the reference's PRNG key), ``step`` the absolute step,
-    ``row`` the global grid side L."""
+    ``row`` the global grid side L. Member keys (``key`` = ``(k0s,
+    k1s)``, N-tuples of key words) give the N members' blocks stacked
+    ``(N, *shape)``, each member's its own stream."""
+    if isinstance(key[0], (tuple, list)):
+        return torch.stack([
+            uniform_pm1_block((k0, k1), step, offsets, shape, row, dtype,
+                              device=device)
+            for k0, k1 in zip(*key)])
+
     def axis(n, off, dim):
         idx = torch.arange(n, dtype=torch.int64, device=device)
         view = [1, 1, 1]

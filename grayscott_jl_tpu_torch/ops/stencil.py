@@ -5,6 +5,10 @@ The 7-point Laplacian is ``sum(6 face neighbours) * (1/6) - centre``,
 the neighbours summed in the reference's order (x-1, x+1, y-1, y+1,
 z-1, z+1) with ``1/6`` rounded to the field dtype. Arrays here are
 ghost-padded ``(nx+2, ny+2, nz+2)`` blocks; results are interior-shaped.
+A leading member axis ``(N, ...)`` rides along: the stencil indexes the
+last three axes, and member-stacked params (``(N, 1, 1, 1)`` leaves)
+broadcast, so each member's cells see the same operations as a solo
+block's.
 
 Each line below is one torch operation, so on the card every product
 and sum is rounded on its own (no fused multiply-add): the generated
@@ -28,15 +32,15 @@ def pad_with_boundary(x: torch.Tensor, value: float) -> torch.Tensor:
 
 def laplacian(padded: torch.Tensor) -> torch.Tensor:
     """7-point Laplacian of a ghost-padded block."""
-    center = padded[1:-1, 1:-1, 1:-1]
+    center = padded[..., 1:-1, 1:-1, 1:-1]
     inv6 = torch.tensor(1.0 / 6.0, dtype=padded.dtype, device=padded.device)
     total = (
-        padded[:-2, 1:-1, 1:-1]
-        + padded[2:, 1:-1, 1:-1]
-        + padded[1:-1, :-2, 1:-1]
-        + padded[1:-1, 2:, 1:-1]
-        + padded[1:-1, 1:-1, :-2]
-        + padded[1:-1, 1:-1, 2:]
+        padded[..., :-2, 1:-1, 1:-1]
+        + padded[..., 2:, 1:-1, 1:-1]
+        + padded[..., 1:-1, :-2, 1:-1]
+        + padded[..., 1:-1, 2:, 1:-1]
+        + padded[..., 1:-1, 1:-1, :-2]
+        + padded[..., 1:-1, 1:-1, 2:]
     )
     return total * inv6 - center
 
@@ -74,7 +78,7 @@ def reaction_update(
             noise_term = noise_term.to(compute_dtype)
     else:
         compute_dtype = None
-    fields = tuple(f[1:-1, 1:-1, 1:-1] for f in fields_pad)
+    fields = tuple(f[..., 1:-1, 1:-1, 1:-1] for f in fields_pad)
     laps = tuple(laplacian(f) for f in fields_pad)
     derivs = model.reaction(fields, laps, noise_term, params)
     out = tuple(f + d * params.dt for f, d in zip(fields, derivs))

@@ -25,6 +25,12 @@ arrived (:class:`PendingExchange`). On the card the exchange runs on a
 side stream of each device, ordered after the compute stream's pending
 work by an event, so its copies can run beside the interior kernel; the
 host never waits.
+
+Every function takes the spatial axes as the LAST three of a field's
+tensor (axis ``d`` is the tensor's ``d - 3``), so an ensemble's blocks,
+stacked ``(N, nx, ny, nz)`` along a leading member axis, are exchanged
+as they are: the member axis rides along in every slab, and nothing
+here knows of members.
 """
 
 from __future__ import annotations
@@ -41,14 +47,15 @@ Blocks = Sequence[Sequence[torch.Tensor]]
 
 
 def _slab(x: torch.Tensor, dim: int, index: int, width: int):
-    """A ``width``-thick boundary slab along ``dim``; ``index`` 0 = first
-    slab, -1 = last."""
-    return x.narrow(dim, 0 if index == 0 else x.shape[dim] - width, width)
+    """A ``width``-thick boundary slab along spatial axis ``dim``;
+    ``index`` 0 = first slab, -1 = last."""
+    td = dim - 3
+    return x.narrow(td, 0 if index == 0 else x.shape[td] - width, width)
 
 
 def _full_slab(a: torch.Tensor, dim: int, width: int, bv: float):
     shape = list(a.shape)
-    shape[dim] = width
+    shape[dim - 3] = width
     return torch.full(shape, bv, dtype=a.dtype, device=a.device)
 
 
@@ -68,17 +75,18 @@ def _exchange_dim(blocks: Blocks, boundary_values: Sequence[float],
             for fields in blocks
         ]
     n_arr = len(blocks[0])
-    send_up = [torch.cat([_slab(a, dim, -1, width) for a in fields], dim)
+    td = dim - 3
+    send_up = [torch.cat([_slab(a, dim, -1, width) for a in fields], td)
                for fields in blocks]
-    send_dn = [torch.cat([_slab(a, dim, 0, width) for a in fields], dim)
+    send_dn = [torch.cat([_slab(a, dim, 0, width) for a in fields], td)
                for fields in blocks]
     from_lo = mesh.ppermute(send_up, dim, +1)  # lower neighbour's top
     from_hi = mesh.ppermute(send_dn, dim, -1)  # upper neighbour's bottom
     out = []
     for fields, lo_all, hi_all in zip(blocks, from_lo, from_hi):
-        lo_faces = (torch.split(lo_all, width, dim) if lo_all is not None
+        lo_faces = (torch.split(lo_all, width, td) if lo_all is not None
                     else (None,) * n_arr)
-        hi_faces = (torch.split(hi_all, width, dim) if hi_all is not None
+        hi_faces = (torch.split(hi_all, width, td) if hi_all is not None
                     else (None,) * n_arr)
         out.append([
             (lo if lo is not None else _full_slab(a, dim, width, bv),
@@ -106,11 +114,11 @@ def halo_pad(blocks: Blocks, boundary_values: Sequence[float],
         faces = _exchange_dim(blocks, boundary_values, dim, mesh)
         for pads, pairs in zip(padded, faces):
             for p, (lo, hi) in zip(pads, pairs):
-                inner = [slice(1, -1)] * 3
-                inner[dim] = 0
-                p[tuple(inner)] = lo.squeeze(dim)
-                inner[dim] = -1
-                p[tuple(inner)] = hi.squeeze(dim)
+                inner = [Ellipsis] + [slice(1, -1)] * 3
+                inner[1 + dim] = 0
+                p[tuple(inner)] = lo.squeeze(dim - 3)
+                inner[1 + dim] = -1
+                p[tuple(inner)] = hi.squeeze(dim - 3)
     return [tuple(p) for p in padded]
 
 
@@ -131,14 +139,15 @@ def halo_pad_wide(blocks: Blocks, boundary_values: Sequence[float],
     for dim, n in enumerate(mesh.dims):
         if n == 1:
             continue  # a single block on this axis: ghosts stay frozen
-        m = padded[0][0].shape[dim]
-        trimmed = [[p.narrow(dim, w, m - 2 * w) for p in pads]
+        td = dim - 3
+        m = padded[0][0].shape[td]
+        trimmed = [[p.narrow(td, w, m - 2 * w) for p in pads]
                    for pads in padded]
         pairs = _exchange_dim(trimmed, boundary_values, dim, mesh, w)
         for pads, prs in zip(padded, pairs):
             for p, (lo, hi) in zip(pads, prs):
-                p.narrow(dim, 0, w).copy_(lo)
-                p.narrow(dim, m - w, w).copy_(hi)
+                p.narrow(td, 0, w).copy_(lo)
+                p.narrow(td, m - w, w).copy_(hi)
     return [tuple(p) for p in padded]
 
 

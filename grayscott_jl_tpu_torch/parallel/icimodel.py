@@ -87,6 +87,17 @@ STAGE_RATIO = {"cuda": 1.7944, "plain": 1.0}
 #: 700 W): the least time a block's round can take on the host.
 LAUNCH_US = 125.76
 
+#: Device time per member of a batched launch (the stencil kernel with
+#: its members on the grid's y axis, ``ensemble/engine.py``) over the
+#: solo launch's, float32 Gray-Scott at L=256: a batched round is priced
+#: as N times the per-member device time, floored once at
+#: :data:`LAUNCH_US` (one launch's host time for all members), where N
+#: solo launches would pay the floor N times. ``chip_smoke.py`` phase 4
+#: (ix) (e), N = 5 against N = 1, the profiler's device time (0.8883 ms
+#: a launch of 5 members against 0.1857 ms of one; H100 80GB HBM3,
+#: 700.00 W, PERF.md "ens_only run 1").
+MEMBER_COST_RATIO = 0.9568
+
 #: Share of the ideally hideable exchange the split-phase round hides
 #: (``comm_overlap``), in [0, 1]: the realized overlap is
 #: ``OVERLAP_EFFICIENCY * compute / comm``, at most 1. Calibrated
@@ -772,17 +783,24 @@ def projected_step_us(
     n_fields: int = 2,
     launch_us: float = 0.0,
     blocks: int = 1,
+    members: int = 1,
 ) -> Optional[float]:
     """Model-projected µs/step for ONE concrete (path, mesh, depth)
     config — the scalar the autotuner ranks its shortlist by. ``"plain"``
     is the reference's XLA projection (:func:`project` at every depth);
     ``"cuda"`` the single block at :data:`FUSE_COST_RATIO`, the face
     schedule at depth 1, the x-chain or xy-chain deeper. ``blocks``
-    multiplies the per-block step (the blocks of one process). ``None``
-    when the model has nothing to say (no ratio at this depth)."""
+    multiplies the per-block step (the blocks of one process).
+    ``members`` is the member count of a batched launch: its device time
+    is ``members`` times a member's (:data:`MEMBER_COST_RATIO`), its
+    launch floor is paid once; the plain path does ``members`` times the
+    work. ``None`` when the model has nothing to say (no ratio at this
+    depth)."""
     n, m, p = dims
     ndev = n * m * p
     ratio = precision_compute_ratio(compute_precision)
+    if members > 1:
+        ratio *= members * (MEMBER_COST_RATIO if lang == "cuda" else 1.0)
     if local is None:
         local = tuple(-(-L // d) for d in dims)
     side = max(2, round((local[0] * local[1] * local[2]) ** (1 / 3)))
@@ -920,6 +938,8 @@ def projected_step_us_for(sim) -> Optional[float]:
             halo_depth=sim.halo_depth, n_fields=sim.model.n_fields,
             launch_us=LAUNCH_US if sim.kernel_language == "cuda" else 0.0,
             blocks=sim.mesh.n_blocks,
+            members=(getattr(sim, "n_members", 1)
+                     // getattr(sim, "member_shards", 1)),
         )
     except Exception:  # noqa: BLE001 — a gauge must never kill a run
         return None

@@ -24,6 +24,11 @@ per-cell operations in the same order, position-keyed noise): the
 plain window chain, the kernel's chain and the band recompute agree
 cell for cell, which the tests assert.
 
+As in ``halo.py``, the spatial axes are a field tensor's last three: an
+ensemble's member-stacked blocks ``(N, nx, ny, nz)`` pass through every
+function here unchanged, with the member-stacked params and noise the
+caller's ``params_of`` and ``unit_noise`` hand in.
+
 The split-phase form (``xy_chain(..., overlap=True)``, gated by
 :func:`xy_overlap_feasible`) issues the same exchange first
 (``halo.start_exchange``), runs the kernel on frozen boundary values,
@@ -54,10 +59,10 @@ def pin_out_of_domain(arr: torch.Tensor, bv: float, origin,
     of a non-divisible grid as well as ring cells outside the domain."""
     valid = None
     for dim in range(3):
-        g = int(origin[dim]) + torch.arange(arr.shape[dim],
-                                            device=arr.device)
+        n = arr.shape[dim - 3]
+        g = int(origin[dim]) + torch.arange(n, device=arr.device)
         view = [1, 1, 1]
-        view[dim] = arr.shape[dim]
+        view[dim] = n
         vd = ((g >= 0) & (g < row)).view(view)
         valid = vd if valid is None else valid & vd
     return torch.where(valid, arr, bv)
@@ -82,7 +87,7 @@ def window_chain(fields_w, params, model, *, depth, step, origin, row,
     sits next to kernel cells seamlessly."""
     fields_w = tuple(fields_w)
     for s in range(depth):
-        shape = tuple(d - 2 for d in fields_w[0].shape)
+        shape = tuple(d - 2 for d in fields_w[0].shape[-3:])
         o = tuple(int(c) + s + 1 for c in origin)
         if use_noise:
             noise_term = stencil.scaled_noise(params.noise, unit_noise(
@@ -119,19 +124,20 @@ def stitch_bands_from_frame(fields_i, fields_w, params, model, *, depth,
     for dim in range(3):
         if axis_sizes[dim] == 1 or dim not in dims_to_stitch:
             continue
-        n_d = fields_i[0].shape[dim]
-        m = fields_w[0].shape[dim]  # n_d + 2k
+        td = dim - 3
+        n_d = fields_i[0].shape[td]
+        m = fields_w[0].shape[td]  # n_d + 2k
         for d0, w0 in ((0, 0), (n_d - k, m - 3 * k)):
             origin = list(base)
             origin[dim] += w0
             bands = window_chain(
-                tuple(f.narrow(dim, w0, 3 * k) for f in fields_w), params,
+                tuple(f.narrow(td, w0, 3 * k) for f in fields_w), params,
                 model, depth=k, step=step, origin=origin, row=row,
                 use_noise=use_noise, unit_noise=unit_noise,
                 boundaries=boundaries, compute_dtype=compute_dtype,
             )
             for fi, b in zip(fields_i, bands):
-                fi.narrow(dim, d0, k).copy_(b)
+                fi.narrow(td, d0, k).copy_(b)
     return tuple(fields_i)
 
 
@@ -153,7 +159,7 @@ def _slab_exchange(blocks, bvs, mesh: DeviceMesh, k: int):
     Per block ``(y-padded fields, x pairs)``."""
     y_pairs = halo.exchange_slabs(blocks, bvs, 1, mesh, k)
     padded = [
-        tuple(torch.cat([lo, f, hi], dim=1)
+        tuple(torch.cat([lo, f, hi], dim=-2)
               for f, (lo, hi) in zip(fields, pairs))
         for fields, pairs in zip(blocks, y_pairs)
     ]
@@ -236,7 +242,7 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
     dims = mesh.dims
     k = depth
     z_sharded = dims[2] > 1
-    shape = tuple(blocks[0][0].shape)
+    shape = tuple(blocks[0][0].shape[-3:])
     nx, ny, nz = shape
     if overlap and not xy_overlap_feasible(shape, dims, k):
         overlap = False  # no interior to hide the exchange behind
@@ -257,9 +263,9 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
     elif z_sharded:
         frames = halo.halo_pad_wide(blocks, bvs, mesh, k)
         operands = [
-            (tuple(w[k:k + nx, :, k:k + nz].contiguous() for w in fw),
-             _interleave(tuple(w[0:k, :, k:k + nz] for w in fw),
-                         tuple(w[k + nx:, :, k:k + nz] for w in fw)))
+            (tuple(w[..., k:k + nx, :, k:k + nz].contiguous() for w in fw),
+             _interleave(tuple(w[..., 0:k, :, k:k + nz] for w in fw),
+                         tuple(w[..., k + nx:, :, k:k + nz] for w in fw)))
             for fw in frames
         ]
     else:
@@ -274,7 +280,7 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
                                                          offsets)):
         offs_p = (offs[0], offs[1] - k, offs[2])
         res = chain_kernel(rank, fields_p, faces, step, offs_p)
-        out.append(tuple(f[:, k:k + ny, :].contiguous() for f in res))
+        out.append(tuple(f[..., k:k + ny, :].contiguous() for f in res))
 
     if overlap:
         exchanged = pending.finish()
@@ -283,7 +289,7 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
         for rank, res in enumerate(out):
             if z_sharded:
                 def cut(xs, ys, fw=frames[rank]):
-                    return tuple(w[xs[0] + k:xs[1] + k, ys[0]:ys[1],
+                    return tuple(w[..., xs[0] + k:xs[1] + k, ys[0]:ys[1],
                                    k:k + nz] for w in fw)
             else:
                 def cut(xs, ys, ex=exchanged[rank]):
@@ -294,13 +300,14 @@ def xy_chain(blocks, params_of: Callable, model, *, depth, step, offsets,
                         src, xs = [hi for _, hi in pairs], (0, k)
                     else:
                         src = fields_pr
-                    return tuple(f[xs[0]:xs[1], ys[0]:ys[1]] for f in src)
+                    return tuple(f[..., xs[0]:xs[1], ys[0]:ys[1], :]
+                                 for f in src)
             for body, faces_b, origin, (r0, r1), (dx, dy) in _band_jobs(
                     cut, shape, offsets[rank], dims, k):
                 band = band_kernel(rank, body, faces_b, step, origin)
                 for o, b in zip(res, band):
-                    o[dx:dx + b.shape[0], dy:dy + r1 - r0].copy_(
-                        b[:, r0:r1])
+                    o[..., dx:dx + b.shape[-3], dy:dy + r1 - r0, :].copy_(
+                        b[..., r0:r1, :])
 
     if z_sharded:
         # The kernel ran with frozen z edges: its outermost k z-cells

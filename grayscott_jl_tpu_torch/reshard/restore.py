@@ -80,13 +80,14 @@ def layout_of(sim, *, process_count: Optional[int] = None) -> LayoutMeta:
 
 def _move_bytes(plan: ReshardPlan, sim) -> int:
     """Bytes the plan re-slices: every new block's true-domain box over
-    all fields — what the live move writes, and what a checkpoint
-    restore reads."""
+    all fields (and members) — what the live move writes, and what a
+    checkpoint restore reads."""
     cells = 0
     for _coords, _start, count in plan.boxes:
         cells += int(count[0]) * int(count[1]) * int(count[2])
     itemsize = torch.empty((), dtype=sim.dtype).element_size()
-    return cells * sim.model.n_fields * itemsize
+    members = int(getattr(sim, "n_members", 1))
+    return cells * sim.model.n_fields * members * itemsize
 
 
 def _announce(sim, plan: ReshardPlan, *, log=None, journal=None,
@@ -142,12 +143,28 @@ def restore_run(sim, settings: Settings, *, log=None, journal=None,
     candidate fails over to the next. ``journal`` takes the ``reshard``
     record, ``failover_journal`` (default ``journal``) the failovers.
     ``sim.reshard`` is the plan with its provenance, or None when the
-    layout did not change."""
+    layout did not change. An ensemble restores through
+    ``ensemble/io.restore_ensemble``: the member stores' quorum step,
+    grown or shrunk member sets, each member's spatial reshard."""
     from ..io.checkpoint import open_checkpoint, read_entry, read_layout
     from ..resilience import integrity
 
     allow = resolve_reshard(settings)
     t0 = time.perf_counter()
+    if getattr(settings, "ensemble", None) is not None:
+        from ..ensemble.io import restore_ensemble
+
+        step, plan = restore_ensemble(
+            sim, settings, allow=allow, log=log,
+            journal=journal if failover_journal is None else failover_journal)
+        if plan.changed:
+            prov = {"path": "ckpt", "bytes": _move_bytes(plan, sim),
+                    "wall_s": round(time.perf_counter() - t0, 6)}
+            sim.reshard = {**plan.describe(), **prov}
+            _announce(sim, plan, log=log, journal=journal, prov=prov)
+        else:
+            sim.reshard = None
+        return step, plan
     new = layout_of(sim)
     boxes = sim.local_boxes() if sim.processes > 1 else None
 
@@ -219,7 +236,10 @@ def _relayout(sim, target, stage) -> List[tuple]:
     a_first, a_n = sim.mesh.first_rank, sim.mesh.n_blocks
     b_first, b_n = target.mesh.first_rank, target.mesh.n_blocks
     me = distributed.process_index()
-    block = tuple(target.domain.local_shape)
+    # An ensemble's blocks carry the member axis in front: it rides
+    # along every slice (the member set is adjusted by _adjust_members).
+    lead = tuple(sim.blocks[0][0].shape[:-3])
+    block = lead + tuple(target.domain.local_shape)
     padded = target.domain.padded
     nf = target.model.n_fields
     out = []
@@ -242,8 +262,10 @@ def _relayout(sim, target, stage) -> List[tuple]:
             lo = [max(a, b) for a, b in zip(nstart, ostart)]
             hi = [min(a + c, b + d)
                   for a, c, b, d in zip(nstart, ncount, ostart, ocount)]
-            src = tuple(slice(x - o, y - o) for x, y, o in zip(lo, hi, ostart))
-            dst = tuple(slice(x - s, y - s) for x, y, s in zip(lo, hi, nstart))
+            src = (Ellipsis,) + tuple(slice(x - o, y - o)
+                                      for x, y, o in zip(lo, hi, ostart))
+            dst = (Ellipsis,) + tuple(slice(x - s, y - s)
+                                      for x, y, s in zip(lo, hi, nstart))
             tag = rb * len(old_boxes) + ra
             if mine_a and mine_b:
                 for new, old in zip(out[rb - b_first], sim.blocks[ra - a_first]):
@@ -252,7 +274,7 @@ def _relayout(sim, target, stage) -> List[tuple]:
                 piece = torch.stack([f[src] for f in sim.blocks[ra - a_first]])
                 sends.append((rb // b_n, tag, piece))
             else:
-                shape = (nf,) + tuple(y - x for x, y in zip(lo, hi))
+                shape = (nf,) + lead + tuple(y - x for x, y in zip(lo, hi))
                 like = torch.empty(shape, dtype=target.dtype, device="meta")
                 recvs.append((ra // a_n, tag, like, out[rb - b_first][0].device))
                 landing.append((rb - b_first, dst))
@@ -263,17 +285,38 @@ def _relayout(sim, target, stage) -> List[tuple]:
     return out
 
 
+def _adjust_members(sim, target, blocks) -> List[tuple]:
+    """An ensemble's relaid blocks with the member set of ``target``:
+    the first members kept, grown members taking ``target``'s own
+    (broadcast init) rows, the state ``restore_ensemble`` gives a grown
+    member. Solo blocks pass through."""
+    if not getattr(sim, "is_ensemble", False):
+        return blocks
+    old_n, new_n = int(sim.n_members), int(target.n_members)
+    if old_n == new_n:
+        return blocks
+    out = []
+    for fields, init in zip(blocks, target.blocks):
+        out.append(tuple(
+            torch.cat([f[:old_n], i[old_n:].to(f.device)])
+            if new_n > old_n else f[:new_n].contiguous()
+            for f, i in zip(fields, init)))
+    return out
+
+
 def _collective_tier(sim, target) -> None:
     """Same device set: every new block assembled on its own device."""
     devices = target.mesh.devices
-    target.blocks = _relayout(sim, target, lambda i: devices[i])
+    target.blocks = _adjust_members(
+        sim, target, _relayout(sim, target, lambda i: devices[i]))
 
 
 def _put_tier(sim, target) -> None:
     """Across device sets: the relayout assembled on mesh A's devices,
     then each block copied to its new device."""
     src = sim.mesh.devices
-    staged = _relayout(sim, target, lambda i: src[min(i, len(src) - 1)])
+    staged = _adjust_members(sim, target, _relayout(
+        sim, target, lambda i: src[min(i, len(src) - 1)]))
     target.blocks = [tuple(f.to(d) for f in fields)
                      for fields, d in zip(staged, target.mesh.devices)]
 
@@ -287,7 +330,15 @@ def _host_tier(sim, target) -> None:
             "GS_RESHARD_DEVICE=host gathers the whole grid on the host, "
             f"which no process of a {sim.processes}-process run holds; "
             "use auto/collective/put")
-    target.restore_fields(sim.get_fields(), int(sim.step))
+    if getattr(sim, "is_ensemble", False):
+        old = sim.get_fields()  # (N, L, L, L) per field
+        new_n = int(target.n_members)
+        target.restore_members(
+            [tuple(f[i] for f in old) if i < sim.n_members
+             else target.member_init_fields() for i in range(new_n)],
+            int(sim.step))
+    else:
+        target.restore_fields(sim.get_fields(), int(sim.step))
 
 
 def device_all_to_all_restore(sim, plan: ReshardPlan, target, *,
@@ -315,7 +366,18 @@ def device_all_to_all_restore(sim, plan: ReshardPlan, target, *,
         # Every process takes the same tier.
         same_set = not distributed.any_process(not same_set)
     t0 = time.perf_counter()
-    if mode == "collective" or (mode == "auto" and same_set):
+    grouped = any(int(getattr(s, "member_shards", 1)) > 1
+                  for s in (sim, target))
+    if grouped and mode in ("auto", "host"):
+        # Member groups on either side: the members are re-placed
+        # through the host (the device tiers relay one group's blocks).
+        _host_tier(sim, target)
+        path = "host"
+    elif grouped:
+        raise ReshardError(
+            f"GS_RESHARD_DEVICE={mode} moves one member group's blocks; a "
+            "member_shards > 1 run moves through auto or host")
+    elif mode == "collective" or (mode == "auto" and same_set):
         if not same_set:
             raise ReshardError(
                 "GS_RESHARD_DEVICE=collective needs mesh A and mesh B on "
@@ -357,14 +419,27 @@ def reshape_live(sim, *, mesh_dims: Optional[Tuple[int, int, int]] = None,
     one card stays on it). An infeasible target, or a change under
     ``reshard = "off"``, raises :class:`ReshardError` before the target
     is built. ``target.reshard`` carries the plan and its provenance,
-    and the ``reshard`` record is emitted."""
+    and the ``reshard`` record is emitted.
+
+    ``settings`` with another ``[ensemble]`` member set grows or shrinks
+    an ensemble's member axis between rounds: the first members keep
+    their state, grown members start from the model's init (as in
+    ``restore_ensemble``); ``reshard = "off"`` refuses the change."""
     settings = sim.settings if settings is None else settings
     dims = tuple(int(d) for d in (mesh_dims or sim.domain.dims))
     allow = resolve_reshard(settings)
     old = layout_of(sim)
     plan_mod.plan_restore(old, dataclasses.replace(old, mesh_dims=dims),
                           L=settings.L, allow=allow)
-    n = dims[0] * dims[1] * dims[2]
+    ens = getattr(settings, "ensemble", None)
+    old_n = int(getattr(sim, "n_members", 1))
+    new_n = ens.n if ens is not None else 1
+    if old_n != new_n and allow == "off":
+        raise ReshardError(
+            f"live member reshape {old_n} -> {new_n} refused: "
+            "reshard='off' (set reshard='auto' / GS_RESHARD=auto)")
+    n = dims[0] * dims[1] * dims[2] * (
+        int(ens.member_shards) if ens is not None else 1)
     if n % sim.processes:
         raise ReshardError(
             f"a {dims} mesh has {n} blocks, which {sim.processes} "
@@ -373,10 +448,16 @@ def reshape_live(sim, *, mesh_dims: Optional[Tuple[int, int, int]] = None,
         devices = placement(sim.mesh.devices, n // sim.processes)
     pinned = dataclasses.replace(settings, kernel_language=sim.kernel_language,
                                  autotune="off")
-    target = type(sim)(pinned, seed=sim.base_key[1] if seed is None else seed,
+    target = type(sim)(pinned, seed=sim.seed if seed is None else seed,
                        mesh_dims=dims, devices=list(devices))
     plan = plan_mod.plan_restore(old, layout_of(target), L=settings.L,
                                  allow=allow)
+    if old_n != new_n:
+        plan = dataclasses.replace(plan, changed=True, members={
+            "restored": min(old_n, new_n),
+            "grown": max(0, new_n - old_n),
+            "new_n": new_n,
+        })
     prov = device_all_to_all_restore(sim, plan, target, mode=mode)
     if plan.changed:
         target.reshard = {**plan.describe(), **prov}

@@ -21,6 +21,13 @@ latest durable checkpoint), ``drift`` (``Simulation.poison_drift``) and
 ``sdc`` (``Simulation.poison_sdc``: one mantissa bit of a live cell
 before the round, for the SDC screen to catch).
 
+In an ensemble run ``GS_FAULT_MEMBER`` (default 0) picks the member
+that ``nan``, ``bitflip``, ``sdc`` and ``ckpt_corrupt`` hit
+(``ensemble/engine.EnsembleSimulation.poison_nan``, its bitflip and sdc
+sites, and the member's checkpoint store), so that the health report,
+the checksum and the screen must name that member while the others stay
+clean; a solo run ignores it, as the reference's does.
+
 A scheduler that preempts a run sends SIGTERM (an operator, SIGINT).
 With ``graceful_shutdown`` on (the default; ``GS_GRACEFUL_SHUTDOWN``
 wins over the key), the :class:`ShutdownListener` turns the first such

@@ -48,10 +48,12 @@ __all__ = [
     "POLICIES",
     "DriftError",
     "DriftGate",
+    "EnsembleHealthReport",
     "HealthError",
     "HealthGuard",
     "HealthReport",
     "device_probe",
+    "member_probe",
     "resolve_policy",
 ]
 
@@ -120,13 +122,89 @@ class HealthReport:
         }
 
 
+class EnsembleHealthReport:
+    """Per-member probe results of an ensemble boundary (the reference's
+    ``EnsembleHealthReport``): each member's :class:`HealthReport`, from
+    one probe reduced over the spatial axes only, so that ONE diverging
+    member is named by its index (:attr:`bad_members`) in the report,
+    the :class:`HealthError` and the journal. ``active`` masks idle
+    slots (None: every slot is a real member): an idle slot is left out
+    of the verdict, the ranges and the attribution."""
+
+    def __init__(self, members, active=None):
+        self.members = tuple(members)
+        self.active = None if active is None else tuple(active)
+
+    def _active(self, i: int) -> bool:
+        return self.active is None or bool(self.active[i])
+
+    @property
+    def active_members(self) -> list:
+        return [m for i, m in enumerate(self.members) if self._active(i)]
+
+    @property
+    def finite(self) -> bool:
+        return all(m.finite for m in self.active_members)
+
+    @property
+    def bad_members(self) -> list:
+        return [i for i, m in enumerate(self.members)
+                if self._active(i) and not m.finite]
+
+    @property
+    def names(self) -> tuple:
+        return self.members[0].names
+
+    @property
+    def ranges(self) -> tuple:
+        live = self.active_members
+        return tuple((min(m.ranges[i][0] for m in live),
+                      max(m.ranges[i][1] for m in live))
+                     for i in range(len(self.members[0].ranges)))
+
+    @property
+    def u_min(self) -> float:
+        return self.ranges[0][0]
+
+    @property
+    def u_max(self) -> float:
+        return self.ranges[0][1]
+
+    @property
+    def v_min(self) -> float:
+        return self.ranges[1][0]
+
+    @property
+    def v_max(self) -> float:
+        return self.ranges[1][1]
+
+    def range_summary(self) -> str:
+        return ", ".join(f"{n} in [{lo}, {hi}]"
+                         for n, (lo, hi) in zip(self.names, self.ranges))
+
+    def describe(self) -> dict:
+        out = {
+            "finite": self.finite,
+            "members": len(self.members),
+            "bad_members": self.bad_members,
+            **{f"{n}_range": [lo, hi]
+               for n, (lo, hi) in zip(self.names, self.ranges)},
+        }
+        if self.active is not None and not all(self.active):
+            out["active_members"] = len(self.active_members)
+        return out
+
+
 class HealthError(RuntimeError):
-    """A field failed the health check at a boundary."""
+    """A field failed the health check at a boundary (an ensemble's
+    message names its non-finite members)."""
 
     def __init__(self, step: int, report, policy: str):
+        bad = getattr(report, "bad_members", None)
+        detail = f"; non-finite members={bad}" if bad is not None else ""
         super().__init__(
             f"field health check failed at step {step} "
-            f"(finite={report.finite}, {report.range_summary()}); "
+            f"(finite={report.finite}, {report.range_summary()}{detail}); "
             f"policy={policy}")
         self.step = step
         self.report = report
@@ -217,6 +295,19 @@ def device_probe(*fields) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def member_probe(*fields) -> torch.Tensor:
+    """:func:`device_probe` of each member of member-stacked fields
+    ``(N, nx, ny, nz)``: an ``(N, 1 + 2n)`` float64 matrix, one row per
+    member, reduced over the spatial axes only."""
+    flat = [f.reshape(f.shape[0], -1) for f in fields]
+    finite = torch.stack([torch.isfinite(f).all(1) for f in flat], 1).all(1)
+    parts = [finite.to(torch.float64).reshape(-1, 1)]
+    for f in flat:
+        lo, hi = torch.aminmax(f, dim=1)
+        parts.append(torch.stack([lo, hi], 1).to(torch.float64))
+    return torch.cat(parts, 1)
+
+
 def report_of(probes, names, reduce=None) -> HealthReport:
     """The boundary's :class:`HealthReport` from the host copies of the
     blocks' :func:`device_probe` vectors: finite if every block is, the
@@ -274,13 +365,22 @@ class HealthGuard:
     def record_metrics(report, metrics) -> None:
         """Mirror one boundary's probe into the metrics registry
         (``obs/metrics.py``): the ``field_finite`` gauge and each
-        field's ``field_min``/``field_max``."""
+        field's ``field_min``/``field_max``; for an ensemble also
+        ``ensemble_members_bad`` and each real member's
+        ``ensemble_member_finite``."""
         if metrics is None or report is None:
             return
         metrics.gauge("field_finite").set(int(report.finite))
         for name, (lo, hi) in zip(report.names, report.ranges):
             metrics.gauge("field_min", field=name).set(lo)
             metrics.gauge("field_max", field=name).set(hi)
+        members = getattr(report, "members", None)
+        if members is not None:
+            metrics.gauge("ensemble_members_bad").set(len(report.bad_members))
+            for i, m in enumerate(members):
+                if report._active(i):
+                    metrics.gauge("ensemble_member_finite",
+                                  member=str(i)).set(int(m.finite))
 
     def check(self, step: int, report, *, log=None,
               metrics=None) -> Optional[dict]:

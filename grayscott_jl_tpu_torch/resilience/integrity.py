@@ -198,6 +198,22 @@ def device_field_checksum(*fields):
     return out
 
 
+def member_field_checksum(*fields):
+    """:func:`device_field_checksum` of each member of member-stacked
+    fields ``(N, nx, ny, nz)``: an ``(N, n)`` int64 tensor, member ``k``'s
+    row equal to the checksum of member ``k``'s block alone."""
+    import torch
+
+    cols = []
+    for f in fields:
+        w = _words(f).reshape(f.shape[0], -1)
+        total = w.sum(1, dtype=torch.int64)
+        if w.dtype == torch.int16:
+            total = total + (w < 0).sum(1, dtype=torch.int64) * (1 << 16)
+        cols.append(total & 0xFFFFFFFF)
+    return torch.stack(cols, 1)
+
+
 def apply_bitflip(t, index: Sequence[int], bit: int = 0):
     """A copy of tensor ``t`` with one bit of one element's storage word
     flipped (the first word of the element at ``index``, zero-padded to
@@ -468,8 +484,17 @@ class Scrubber:
         self.reports: List[dict] = []
 
     def _paths(self) -> List[str]:
+        """Every checkpoint store the run writes: each replica, and of an
+        ensemble each active member's."""
         root = self.settings.checkpoint_output
-        return [root] + _existing_replicas(root)
+        ens = getattr(self.settings, "ensemble", None)
+        roots = [root]
+        if ens is not None:
+            from ..ensemble.io import member_path
+
+            roots = [member_path(root, i, ens.n)
+                     for i in range(ens.n) if ens.members[i].active]
+        return [p for r in roots for p in [r] + _existing_replicas(r)]
 
     def maybe_scrub(self, step: int) -> Optional[List[dict]]:
         self._boundaries += 1
@@ -591,9 +616,17 @@ def replicate_store(path: str, n: Optional[int] = None) -> List[str]:
 
 
 def primary_checkpoint_path(settings) -> str:
-    """The primary checkpoint store of a run (this package runs no
-    ensembles, so always ``checkpoint_output``)."""
-    return settings.checkpoint_output
+    """The primary checkpoint store a ``ckpt_corrupt`` fault targets: the
+    solo store, or an ensemble's faulted member's (``GS_FAULT_MEMBER``,
+    as for ``nan`` and ``bitflip``)."""
+    ens = getattr(settings, "ensemble", None)
+    if ens is None:
+        return settings.checkpoint_output
+    from ..config.env import env_int
+    from ..ensemble.io import member_path
+
+    return member_path(settings.checkpoint_output,
+                       env_int("GS_FAULT_MEMBER", 0) % ens.n, ens.n)
 
 
 def corrupt_store_byte(path: str) -> Optional[dict]:

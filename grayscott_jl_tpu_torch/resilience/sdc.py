@@ -70,7 +70,7 @@ class SDCError(RuntimeError):
     """A replay disagreed with the live trajectory: some device computed
     a wrong answer in silence. ``device`` and ``block`` are the
     attribution (None when it could not be localized), ``member`` the
-    ensemble member (ensembles are Queue 1 item 19), ``step`` the
+    diverging ensemble member (None for a solo run), ``step`` the
     boundary that failed and ``verified_step`` the last boundary the
     screen proved."""
 
@@ -329,6 +329,11 @@ class Screener:
             return True
         self.mismatches += 1
         device, block, diverged = self._attribute(replay)
+        # An ensemble's checksums are one row per member: the rows that
+        # differ name the diverging member, with no more device work.
+        diverging = getattr(self.sim, "diverging_members", None)
+        members = diverging(live_ck, rep_ck) if diverging else []
+        member = members[0] if members else None
         detail = (f"SDC screen ({self.mode}) mismatch: replay of {nsteps} "
                   f"step(s) from verified anchor at step {a_step} disagrees "
                   f"with the live trajectory ({diverged} diverging word(s) "
@@ -336,13 +341,15 @@ class Screener:
         if self.journal is not None:
             self.journal.record(event="sdc_mismatch", kind="sdc", step=step,
                                 mode=self.mode, device=device, block=block,
-                                member=None, replayed_steps=nsteps,
+                                member=member, replayed_steps=nsteps,
                                 verified_step=self.verified_step)
         if self.log is not None:
             self.log(f"SDC mismatch at step {step} attributed to "
-                     f"device={device} block={block}")
+                     f"device={device} block={block}"
+                     + (f" member={member}" if member is not None else ""))
         raise SDCError(detail, step=step, verified_step=self.verified_step,
-                       device=device, block=block, mode=self.mode)
+                       device=device, block=block, member=member,
+                       mode=self.mode)
 
     def _attribute(self, replay) -> Tuple[Optional[str], Optional[int], int]:
         """``(device, block rank, diverging words)``: bisect over the

@@ -284,11 +284,25 @@ def _corruption_signature(exc: BaseException):
 def latest_durable_checkpoint(settings, max_step: Optional[int] = None
                               ) -> Optional[int]:
     """The latest step a complete checkpoint entry holds in any replica
-    of ``checkpoint_output`` (at most ``max_step``), or None."""
+    of ``checkpoint_output`` (at most ``max_step``), or None. An ensemble
+    checkpoints into member-indexed stores (``ensemble/io.py``): its
+    resumable step is the QUORUM, the minimum over the active members'
+    stores, so that a crash between two members' saves rolls every
+    member back to the step all of them hold (None while any lacks
+    one)."""
     if not settings.checkpoint:
         return None
     from .integrity import latest_durable_step_replicated
 
+    ens = getattr(settings, "ensemble", None)
+    if ens is not None:
+        from ..ensemble.io import member_path
+
+        steps = [latest_durable_step_replicated(
+            member_path(settings.checkpoint_output, i, ens.n),
+            max_step=max_step)
+            for i in range(ens.n) if ens.members[i].active]
+        return None if any(s is None for s in steps) else min(steps)
     return latest_durable_step_replicated(settings.checkpoint_output,
                                           max_step=max_step)
 

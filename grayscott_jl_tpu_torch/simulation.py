@@ -50,6 +50,14 @@ loop (counterpart of ``grayscott_jl_tpu/simulation.py``).
   way; the plain path computes in the params' dtype, as the reference's
   XLA path does.
 
+The construction and runner seams (``_make_domain``, ``_build_mesh``,
+``_make_params``, ``_resolve_use_noise``, ``_make_base_key``,
+``_init_fields``, ``_tune_extras``, ``_apply_tune_extras``,
+``_run_blocks`` and the snapshot's probe hooks) are the reference's: the
+ensemble engine (``ensemble/engine.EnsembleSimulation``) overrides them
+to thread a leading member axis through the same step loop, whose
+kernel calls take the member-stacked blocks unchanged.
+
 The noise key is the integer pair ``(0, seed)``: the int32 words of the
 reference's ``jax.random.PRNGKey(seed)``, so a seed draws the same
 noise in both packages. The noise is keyed on global coordinates, so a
@@ -352,6 +360,13 @@ class Simulation:
     by default one block per owned card (one on the CPU), and the mesh
     spans every process's share."""
 
+    #: The snapshot container: the ensemble engine's resolves its probes
+    #: per member.
+    snapshot_cls = FieldSnapshot
+    #: True on :class:`~.ensemble.engine.EnsembleSimulation`, whose blocks
+    #: carry a leading member axis.
+    is_ensemble = False
+
     def __init__(self, settings: Settings, *,
                  n_devices: Optional[int] = None, seed: int = 0,
                  mesh_dims: Optional[Tuple[int, int, int]] = None,
@@ -402,9 +417,8 @@ class Simulation:
         #: Processes of the run (``parallel/distributed.py``).
         self.processes = distributed.process_count()
         n_global, first = distributed.block_layout(len(devices))
-        self.domain = CartDomain.create(n_global, settings.L, dims=mesh_dims)
-        self.mesh = DeviceMesh(self.domain.dims, devices, first_rank=first,
-                               processes=self.processes)
+        self.domain = self._make_domain(n_global, mesh_dims)
+        self.mesh = self._build_mesh(devices, first)
         self.sharded = self.domain.n_blocks > 1
         self.device = devices[0]
         self.fuse = default_fuse(self.dtype, self.device,
@@ -449,15 +463,16 @@ class Simulation:
         self.halo_depth_gate = None
         if self.sharded and self.halo_depth > 1:
             self._gate_halo_depth()
-        self._params = {
-            d: self.model.make_params(settings, self.compute_dtype, d)
-            for d in dict.fromkeys(devices)
-        }
+        self._params = {d: self._make_params(d)
+                        for d in dict.fromkeys(devices)}
         self.params = self._params[self.device]
-        self.use_noise = settings.noise != 0.0
+        self.use_noise = self._resolve_use_noise()
         #: Per card, the stream the snapshots' copies run on.
         self._copy_streams = {}
-        self.base_key = base_key(seed)
+        #: The run's noise seed (an ensemble's members draw from
+        #: ``seed + k`` unless pinned).
+        self.seed = int(seed)
+        self.base_key = self._make_base_key(seed)
         self.step = 0
         #: The layout change this run adopted (a restore onto another
         #: mesh, or a live move): the plan's record with its ``path``,
@@ -467,25 +482,63 @@ class Simulation:
         #: Exchange rounds the sharded run has made (one per chain
         #: round: ``halo_depth = k`` divides them by k).
         self.exchange_rounds = 0
-        L = settings.L
         if self.sharded:
             block = self.domain.local_shape
+            first = self.mesh.first_rank
             #: Global origin of each of this process's blocks' storage
             #: (rank order).
             self.offsets = [
                 tuple(c * b for c, b in zip(self.domain.coords(r), block))
-                for r in range(first, first + len(devices))
-            ]
-            self.blocks = [
-                tuple(self.model.init(L, self.dtype, offsets=offs,
-                                      sizes=block, device=dev))
-                for offs, dev in zip(self.offsets, devices)
+                for r in range(first, first + self.domain.n_blocks
+                               // self.processes)
             ]
         else:
             self.offsets = [(0, 0, 0)]
-            self.blocks = [
-                tuple(self.model.init(L, self.dtype, device=self.device))
-            ]
+        self.blocks = self._init_fields()
+
+    # ------------------------------------------------ construction hooks
+    # Overridden by ensemble/engine.EnsembleSimulation, which threads a
+    # leading member axis through each while the step loop, the halo
+    # exchange, the tuner and the output pipeline stay shared.
+
+    def _make_domain(self, n_global: int, dims=None) -> CartDomain:
+        """The spatial decomposition of ``n_global`` blocks."""
+        return CartDomain.create(n_global, self.settings.L, dims=dims)
+
+    def _build_mesh(self, devices, first: int = 0) -> DeviceMesh:
+        """The mesh of this process's blocks on ``devices``."""
+        return DeviceMesh(self.domain.dims, devices, first_rank=first,
+                          processes=self.processes)
+
+    def _make_params(self, device):
+        """The model's params on ``device``, at the compute dtype."""
+        return self.model.make_params(self.settings, self.compute_dtype,
+                                      device)
+
+    def _resolve_use_noise(self) -> bool:
+        return self.settings.noise != 0.0
+
+    def _make_base_key(self, seed: int):
+        return base_key(seed)
+
+    def _init_fields(self) -> List[tuple]:
+        """Every block's initial field tuple (rank order)."""
+        L = self.settings.L
+        if not self.sharded:
+            return [tuple(self.model.init(L, self.dtype, device=self.device))]
+        block = self.domain.local_shape
+        return [
+            tuple(self.model.init(L, self.dtype, offsets=offs, sizes=block,
+                                  device=dev))
+            for offs, dev in zip(self.offsets, self.mesh.devices)
+        ]
+
+    def _tune_extras(self) -> dict:
+        """Extra arguments of ``tune.autotune`` (the ensemble size)."""
+        return {}
+
+    def _apply_tune_extras(self, decision) -> None:
+        """Apply a decision's fields beyond kernel, depth and schedule."""
 
     def _resolve_auto(self, settings, platform: str, seed: int,
                       halo_pinned: bool, *, mesh_forced: bool,
@@ -539,11 +592,8 @@ class Simulation:
             row = sel["rows"][sel["pick"]]
             picked = tuple(int(x) for x in row["mesh"].split(","))
             if not mesh_forced and picked != self.domain.dims:
-                self.domain = CartDomain.create(n_global, settings.L,
-                                                dims=picked)
-                self.mesh = DeviceMesh(picked, self.mesh.devices,
-                                       first_rank=first,
-                                       processes=self.processes)
+                self.domain = self._make_domain(n_global, picked)
+                self.mesh = self._build_mesh(self.mesh.devices, first)
                 sel["adopted_mesh"] = list(picked)
             if not fuse_pinned:
                 self.fuse = int(row["fuse"])
@@ -566,6 +616,7 @@ class Simulation:
             procs=self.processes, compute_precision=self.compute_precision,
             snapshot_codec=self.snapshot_codec.posture(),
             kernel_generator=0 if refused else kernelgen.GENERATOR_VERSION,
+            **self._tune_extras(),
         )
         sel["autotune"] = decision.provenance
         if decision.provenance.get("source") in ("cache", "measured"):
@@ -585,6 +636,7 @@ class Simulation:
                 self.dtype = (torch.bfloat16
                               if self.compute_precision == "bf16_f32acc"
                               else self.compute_dtype)
+            self._apply_tune_extras(decision)
         if distributed.process_index() == 0:
             prov = decision.provenance
             print(f"gray-scott-torch: kernel_language=Auto resolved to "
@@ -693,11 +745,15 @@ class Simulation:
         """Advance ``nsteps`` steps; enqueues device work only."""
         if nsteps <= 0:
             return
-        if self.sharded:
-            self.blocks = self._sharded_run(self.blocks, nsteps)
-        else:
-            self.blocks = [self._block_run(self.blocks[0], nsteps)]
+        self.blocks = self._run_blocks(self.blocks, nsteps)
         self.step += nsteps
+
+    def _run_blocks(self, blocks, nsteps: int) -> List[tuple]:
+        """``nsteps`` steps of every block from ``blocks`` (the live run
+        and the SDC replay both go through here)."""
+        if self.sharded:
+            return self._sharded_run(blocks, nsteps)
+        return [self._block_run(blocks[0], nsteps)]
 
     def _block_run(self, fields, nsteps: int):
         """``nsteps`` steps of the whole grid as one block."""
@@ -851,26 +907,33 @@ class Simulation:
                     ]
                     pairs = pending.finish()
                     nx = local[0]
+
+                    def planes(f, a, b):
+                        # x planes [a, b) of a block (of every member of a
+                        # member-stacked one), dense, as the kernel reads.
+                        return f[..., a:b, :, :].contiguous()
+
                     for r, (fields, res) in enumerate(zip(blocks, interior)):
                         ox, oy, oz = self.offsets[r]
                         jobs = (
                             (0, tuple(x for f, (lo, _) in zip(fields, pairs[r])
-                                      for x in (lo, f[k:2 * k]))),
+                                      for x in (lo, planes(f, k, 2 * k)))),
                             (nx - k, tuple(x for f, (_, hi) in zip(fields,
                                                                    pairs[r])
-                                           for x in (f[nx - 2 * k:nx - k],
+                                           for x in (planes(f, nx - 2 * k,
+                                                            nx - k),
                                                      hi))),
                         )
                         for x0, faces_b in jobs:
                             band = cuda_stencil.fused_step(
-                                tuple(f[x0:x0 + k] for f in fields),
+                                tuple(planes(f, x0, x0 + k) for f in fields),
                                 self._params_of(r), self._seeds(step),
                                 faces_b, spec=spec, use_noise=self.use_noise,
                                 fuse=k, offsets=(ox + x0, oy, oz), row=L,
                                 band=True,
                             )
                             for o, b in zip(res, band):
-                                o[x0:x0 + k].copy_(b)
+                                o[..., x0:x0 + k, :, :].copy_(b)
                     return pin_blocks(interior)
 
                 return run_chain_rounds(chain, fuse, blocks)
@@ -1069,40 +1132,42 @@ class Simulation:
         if bitflip is not None and not exact:
             raise ValueError("the bitflip hook flips an exact copy: "
                              "snapshot with exact=True")
-        from .resilience.integrity import apply_bitflip, device_field_checksum
+        from .resilience.integrity import apply_bitflip
 
         names = self.model.field_names
         sources = [list(fields) for fields in self.blocks]
         flip = None
         if bitflip is not None:
             flip = 0 if bitflip is True else names.index(str(bitflip))
+            flip_block, flip_at = self._bitflip_site()
             # The copy of the field the hook corrupts, on the device.
-            sources[0][flip] = sources[0][flip].clone()
-        probes = ([device_probe(*fields) for fields in self.blocks]
+            sources[flip_block][flip] = sources[flip_block][flip].clone()
+        probes = ([self._probe_fn(fields) for fields in self.blocks]
                   if health else None)
-        partials = ([obs_numerics.device_partials(*fields)
-                     for fields in self.blocks] if numerics else None)
+        partials = ([self._partials_fn(fields) for fields in self.blocks]
+                    if numerics else None)
         multi = self.processes > 1
         coded = {}
         for i, bits in (encode or {}).items():
             coded[i] = (bits,) + device_quantize(
                 [b[i] for b in self.blocks], bits,
                 reduce_range=distributed.global_range if multi else None)
-        sums = ([device_field_checksum(*fields) for fields in self.blocks]
+        sums = ([self._checksum_fn(fields) for fields in self.blocks]
                 if checksum and exact else None)
         if flip is not None:
-            sources[0][flip] = apply_bitflip(sources[0][flip],
-                                             (0,) * sources[0][flip].dim())
+            sources[flip_block][flip] = apply_bitflip(
+                sources[flip_block][flip], flip_at)
         # The probes' scalars (a checksum below 2**32 is exact in
         # float64), back on the compute stream: the caller resolves them
-        # before the copies land.
+        # before the copies land. A member-stacked block's are one row
+        # per member.
         small = []
         if probes or sums or partials:
             for r in range(len(self.blocks)):
                 vec = ([probes[r]] if probes else []) + (
-                    [torch.stack(sums[r]).to(torch.float64)] if sums
-                    else []) + ([partials[r]] if partials else [])
-                small.append(torch.cat(vec).to("cpu", non_blocking=True))
+                    [sums[r]] if sums else []) + (
+                    [partials[r]] if partials else [])
+                small.append(torch.cat(vec, -1).to("cpu", non_blocking=True))
         cuda_devices = [d for d in dict.fromkeys(self.mesh.devices)
                         if d.type == "cuda"]
         probe_events = []
@@ -1134,7 +1199,7 @@ class Simulation:
                 buf.copy_(src)
             return buf
 
-        boxes = self.local_boxes()
+        boxes = self._snapshot_boxes()
         parts = ([(offs, true) + tuple(to_host(f, (r, i))
                                        for i, f in enumerate(srcs))
                   for r, ((offs, true), srcs) in enumerate(zip(boxes,
@@ -1158,7 +1223,7 @@ class Simulation:
             ev = torch.cuda.Event()
             ev.record(streams[d])
             events.append(ev)
-        return FieldSnapshot(
+        return self.snapshot_cls(
             self.step, parts, names, events=events,
             probe_events=probe_events, small=small, health=health,
             checksum=sums is not None, numerics=numerics,
@@ -1167,6 +1232,32 @@ class Simulation:
                       for i, (bits, _, lo, hi) in coded.items()},
             reduce_probe=distributed.reduce_probe if multi else None,
             gather=distributed.all_gather_f64 if multi else None)
+
+    # ----------------------------------------------- snapshot probe hooks
+
+    def _probe_fn(self, fields) -> torch.Tensor:
+        """The health probe of one block (``health.device_probe``)."""
+        return device_probe(*fields)
+
+    def _partials_fn(self, fields) -> torch.Tensor:
+        """The numerics partials of one block."""
+        return obs_numerics.device_partials(*fields)
+
+    def _checksum_fn(self, fields) -> torch.Tensor:
+        """Each field's device checksum of one block, as float64 (exact
+        below 2**32)."""
+        from .resilience.integrity import device_field_checksum
+
+        return torch.stack(device_field_checksum(*fields)).to(torch.float64)
+
+    def _bitflip_site(self):
+        """``(block, index)`` the snapshot's ``bitflip`` hook flips: the
+        first element of the first block."""
+        return 0, (0,) * self.blocks[0][0].dim()
+
+    def _snapshot_boxes(self) -> List[Tuple[tuple, tuple]]:
+        """The ``(offsets, true sizes)`` of each block's snapshot part."""
+        return self.local_boxes()
 
     def snapshot(self, encode=None, exact: bool = True,
                  health: bool = False,
@@ -1227,7 +1318,7 @@ class Simulation:
                 continue
             fields = list(self.blocks[r])
             scaled = fields[i].clone()
-            box = tuple(slice(0, 2) for _ in range(scaled.dim()))
+            box = (Ellipsis,) + (slice(0, 2),) * 3
             scaled[box] *= factor
             fields[i] = scaled
             self.blocks[r] = tuple(fields)
@@ -1278,10 +1369,14 @@ class Simulation:
         fields = list(self.blocks[r])
         arr = fields[i]
         bit = 6 if arr.element_size() == 2 else 22
-        fields[i] = apply_bitflip(arr, tuple(n // 2 for n in arr.shape),
-                                  bit=bit)
+        fields[i] = apply_bitflip(arr, self._sdc_index(r, arr), bit=bit)
         self.blocks[r] = tuple(fields)
         return name
+
+    def _sdc_index(self, r: int, arr) -> tuple:
+        """The cell of block ``r``'s ``arr`` the ``sdc`` poison flips:
+        its centre."""
+        return tuple(n // 2 for n in arr.shape)
 
     def retain_fields(self) -> List[tuple]:
         """Copies of every block's live fields, on their devices and
@@ -1310,15 +1405,11 @@ class Simulation:
             blocks = [tuple(f) for f in fields]
             if devices is not None:
                 devices = [torch.device(d) for d in devices]
-                self.mesh = DeviceMesh(self.domain.dims, devices,
-                                       first_rank=self.mesh.first_rank,
-                                       processes=self.processes)
+                self.mesh = self._build_mesh(devices, self.mesh.first_rank)
                 blocks = [tuple(f.to(d) for f in b)
                           for b, d in zip(blocks, devices)]
             with cuda_stencil.replaying():
-                if self.sharded:
-                    return self._sharded_run(blocks, nsteps)
-                return [self._block_run(blocks[0], nsteps)]
+                return self._run_blocks(blocks, nsteps)
         finally:
             (self.step, self.exchange_rounds, self.overlap_applied,
              self.mesh, self.blocks) = saved

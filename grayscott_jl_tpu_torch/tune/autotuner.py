@@ -166,9 +166,10 @@ def autotune(
     and its mesh adoption, so ``dims`` is the mesh the run uses and the
     key describes it. ``devices`` is this process's share of the run's
     devices (each candidate is built on them). ``timer`` is the test
-    seam (the ``time_sim_rounds`` contract). ``ensemble``,
-    ``member_shards`` and ``sim_cls`` stay at their solo values until
-    ensembles are ported (Queue 1 item 19)."""
+    seam (the ``time_sim_rounds`` contract). ``ensemble`` is the member
+    count of a batched run and ``member_shards`` its split (both in the
+    key, so ensemble sizes and splits never share an entry); ``sim_cls``
+    builds each candidate (``EnsembleSimulation`` for an ensemble)."""
     import torch
 
     mode = resolve_mode(settings)

@@ -26,8 +26,10 @@ from typing import Optional
 from ..config.env import env_str
 
 #: Bump when the record layout or the meaning of a measurement changes;
-#: older entries live under their own ``v<N>/`` and are never read.
-SCHEMA_VERSION = 1
+#: older entries live under their own ``v<N>/`` and are never read. v2:
+#: ensembles are measured (a batched launch per block and round), and a
+#: winner may carry an adopted ``member_shards`` split.
+SCHEMA_VERSION = 2
 
 
 def cache_dir() -> str:

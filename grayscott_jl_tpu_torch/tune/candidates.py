@@ -21,6 +21,7 @@ import dataclasses
 from typing import List, Optional
 
 from ..parallel import icimodel
+from ..parallel.domain import dims_create
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +36,8 @@ class Candidate:
     halo_depth: int = 1
     projected_step_us: Optional[float] = None  # model rank, None = unscored
     analytic: bool = False  # this is the model's own pick
-    #: Ensembles (Queue 1 item 19): the member-axis split and the mesh it
-    #: implies; None for a solo run.
+    #: Ensembles: the member split and the mesh it implies; None for a
+    #: solo run (and for the mesh, the run's).
     member_shards: Optional[int] = None
     mesh: Optional[tuple] = None
     #: The compute-precision posture: "f32" or "bf16_f32acc".
@@ -133,11 +134,15 @@ def generate(
     ``bf16_f32acc`` adds the float32 variant of every point.
     ``kernel_allowed`` is the generator's gate: a model it refuses has
     plain candidates only. ``hop_us`` and ``blocks`` feed the card's
-    projection (``icimodel.projected_step_us``). Ensembles
-    (``ensemble > 1``) are Queue 1 item 19."""
-    if ensemble > 1:
-        raise ValueError("ensemble candidates are Queue 1 item 19 of the "
-                         "port's ROADMAP")
+    projection (``icimodel.projected_step_us``).
+
+    An ensemble (``ensemble > 1`` members, ``member_shards`` their
+    configured split) is priced by the batch each launch carries
+    (``ensemble / member_shards`` members on every block, the launch
+    floor paid once), and the search adds every other split m' of the
+    same block slots (m' dividing the member and slot counts): each
+    trades members per launch against the spatial block, carries the
+    mesh it implies, and is measured like the rest."""
     n, m, p = dims
     sharded = n * m * p > 1
     local = tuple(-(-L // d) for d in dims)
@@ -162,14 +167,16 @@ def generate(
                                            n_fields=n_fields)}
         return {"plain": _plain_depths(local, dims, fuse_cap)}
 
-    def score(kernel, fuse, ov, sk=1, cp="f32"):
+    def score(kernel, fuse, ov, sk=1, cp="f32", mesh=dims, shards=None):
+        shards = member_shards if shards is None else shards
         return icimodel.projected_step_us(
-            kernel, dims, L, fuse, itemsize=_isz(cp), links=links,
-            link_gbps=link_gbps, hop_us=hop_us, local=local,
+            kernel, mesh, L, fuse, itemsize=_isz(cp), links=links,
+            link_gbps=link_gbps, hop_us=hop_us,
+            local=tuple(-(-L // d) for d in mesh),
             overlap="auto" if ov else 0.0, halo_depth=sk,
             compute_precision=cp, n_fields=n_fields,
             launch_us=icimodel.LAUNCH_US if kernel == "cuda" else 0.0,
-            blocks=blocks,
+            blocks=blocks, members=max(1, ensemble // max(shards, 1)),
         )
 
     analytic_sk = max(1, int(halo_depth)) if halo_depth else 1
@@ -185,6 +192,7 @@ def generate(
                 local, dims, _isz(cp), fuse * k, n_fields) == fuse * k] or [1]
         return [k for k in ks if fuse * k <= min(local)] or [1]
 
+    ens_tag = member_shards if ensemble > 1 else None
     out = []
     for cp in precisions:
         for kernel, depths in _langs(cp).items():
@@ -204,8 +212,37 @@ def generate(
                                       and ov == comm_overlap
                                       and sk == analytic_sk
                                       and cp == analytic_cp),
+                            member_shards=ens_tag,
                             compute_precision=cp,
                         ))
+    if ensemble > 1:
+        # The other member splits of the same slots: m' groups of
+        # total / m' blocks, ensemble / m' members per launch.
+        import math
+
+        total = n * m * p * member_shards
+        kernel = "cuda" if platform == "cuda" and kernel_allowed else "plain"
+        for m_alt in range(1, math.gcd(ensemble, total) + 1):
+            if m_alt == member_shards or ensemble % m_alt or total % m_alt:
+                continue
+            alt = dims_create(total // m_alt, 3)
+            alt_local = tuple(-(-L // d) for d in alt)
+            if any(x * (d - 1) >= L for x, d in zip(alt_local, alt)):
+                continue  # a block would own no true-domain cells
+            alt_sharded = total // m_alt > 1
+            depths = (_kernel_depths(alt_local, _isz(analytic_cp), alt,
+                                     fuse_cap, n_fields=n_fields)
+                      if kernel == "cuda"
+                      else _plain_depths(alt_local, alt, fuse_cap))
+            for fuse in depths:
+                ov = comm_overlap and alt_sharded
+                out.append(Candidate(
+                    kernel=kernel, fuse=fuse, comm_overlap=ov,
+                    projected_step_us=score(kernel, fuse, ov, 1,
+                                            analytic_cp, alt, m_alt),
+                    member_shards=m_alt, mesh=tuple(alt),
+                    compute_precision=analytic_cp,
+                ))
     if not any(c.analytic for c in out):
         # The analytic pick fell outside the enumerable space: measure it
         # all the same — the model-vs-measured delta needs it.
@@ -218,6 +255,7 @@ def generate(
                 comm_overlap if sharded else False,
                 analytic_sk if sharded else 1, analytic_cp),
             analytic=True,
+            member_shards=ens_tag,
             compute_precision=analytic_cp,
         ))
 

@@ -63,7 +63,12 @@ def pinned_settings(settings, candidate: Candidate):
     """A Settings copy with the candidate pinned the way an operator
     would pin it (an explicit language, so the measured simulation never
     re-enters Auto or the tuner), and supervision, restart and
-    checkpoint off."""
+    checkpoint off. An ensemble candidate's ``member_shards`` is pinned
+    into the ensemble table the same way."""
+    ens = getattr(settings, "ensemble", None)
+    if ens is not None and candidate.member_shards is not None:
+        settings = dataclasses.replace(settings, ensemble=dataclasses.replace(
+            ens, member_shards=int(candidate.member_shards)))
     return dataclasses.replace(
         settings,
         kernel_language="CUDA" if candidate.kernel == "cuda" else "Plain",

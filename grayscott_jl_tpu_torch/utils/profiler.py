@@ -65,6 +65,11 @@ class RunStats:
         #: config (:meth:`record_comm`): µs/step hidden and exposed by the
         #: split round, exchanges and halo bytes per step.
         self.comm: Optional[dict] = None
+        #: The ensemble section (:meth:`record_ensemble`): the members'
+        #: params and seeds, the member split and the latest per-member
+        #: health; it also scales ``cell_updates_per_s`` by the active
+        #: members.
+        self.ensemble: Optional[dict] = None
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
@@ -133,6 +138,23 @@ class RunStats:
         and the mode)."""
         self.numerics = dict(info) if info else None
 
+    def record_ensemble(self, info: Optional[dict]) -> None:
+        """Attach the ensemble section (``EnsembleSettings.describe()``
+        with the member split and the resolved seeds)."""
+        self.ensemble = dict(info) if info else None
+
+    def record_member_health(self, step: int, report) -> None:
+        """Record the latest per-member health probe (an
+        ``EnsembleHealthReport``) in the ensemble section: its ranges and
+        the members, if any, that went non-finite, with the step."""
+        if self.ensemble is None:
+            self.ensemble = {}
+        self.ensemble["health"] = {
+            "step": step,
+            **report.describe(),
+            "member_reports": [m.describe() for m in report.members],
+        }
+
     def summary(self) -> dict:
         total = time.perf_counter() - self._t0
         with self._lock:
@@ -140,6 +162,11 @@ class RunStats:
             counters = dict(self.counters)
         steps = counters.get("steps", 0)
         compute = phases.get("compute", total)
+        # The aggregate over the ACTIVE members of an ensemble (1 solo):
+        # idle slots advance in the launches but do no asked-for work.
+        members = (int(self.ensemble.get("active_members",
+                                         self.ensemble.get("members", 1)))
+                   if self.ensemble else 1)
         return {
             "L": self.L,
             "config": dict(self.config),
@@ -148,7 +175,7 @@ class RunStats:
             "phases_s": {k: round(v, 6) for k, v in phases.items()},
             "counters": counters,
             "cell_updates_per_s": (
-                round(self.L**3 * steps / compute, 3)
+                round(self.L**3 * steps * members / compute, 3)
                 if compute > 0 else None
             ),
             "io": self.io,
@@ -158,6 +185,7 @@ class RunStats:
             "metrics": self.metrics,
             "obs": self.obs,
             "numerics": self.numerics,
+            "ensemble": self.ensemble,
         }
 
     def maybe_write(self) -> Optional[str]:

@@ -304,8 +304,16 @@ def test_candidates_analytic_pick_always_present():
 
 
 def test_candidates_ensembles_are_item_19():
-    with pytest.raises(ValueError, match="item 19"):
-        _generate(ensemble=4)
+    # Ensembles (Queue 1 item 19) are ported: a 4-member ensemble on 8
+    # slots is priced per batch and searches the other member splits.
+    cands = _generate(ensemble=4, member_shards=1)
+    assert cands[0].analytic and cands[0].member_shards == 1
+    splits = {c.member_shards: c.mesh for c in cands if c.mesh is not None}
+    assert splits == {2: (2, 2, 1), 4: (2, 1, 1)}
+    solo = _generate()
+    one = [c for c in cands if c.analytic][0]
+    assert one.projected_step_us > [c for c in solo
+                                    if c.analytic][0].projected_step_us
 
 
 def test_candidate_dict_roundtrip():

@@ -1165,3 +1165,167 @@ def test_auto_sweep_and_quick_across_cards(tmp_path, monkeypatch):
     tuned.iterate(12)
     for a, b in zip(single.get_fields(), tuned.get_fields()):
         assert (a == b).all()
+
+
+# ---------------------------------------------------------------- ensembles
+
+#: The batched launch's cases: (mode, member shape, depth, keywords).
+ENSEMBLE_CASES = [
+    ("chain", (40, 40, 40), 1, {}),
+    ("chain", (40, 40, 40), 2, {}),
+    ("faces6", (24, 20, 40), 1, {}),
+    ("xchain", (12, 24, 40), 2, {"offsets": (12, 0, 0)}),
+    ("xychain", (16, 20, 40), 2, {"offsets": (16, -2, 0), "y_halo": 2}),
+    ("band", (2, 24, 40), 2, {"offsets": (14, 0, 8), "band": True}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape,fuse,kw,dtype", [
+    pytest.param(*case, dtype, id=f"{case[0]}_{case[2]}-{dtype}")
+    for case in ENSEMBLE_CASES
+    for dtype in ("float32", "float64", "bfloat16", "mid_bf16")
+    # bf16 mid windows exist from depth 2.
+    if dtype != "mid_bf16" or case[2] >= 2])
+def test_ensemble_batched_launch_equals_plain_and_solo(mode, shape, fuse,
+                                                        kw, dtype,
+                                                        monkeypatch):
+    """One launch with the members on the grid's y axis (N=3, every
+    member its own params and key pair) against the plain version with
+    the same leading axis (bf16: the oracle) and three solo launches,
+    bitwise, on each load path the operand takes."""
+    _card()
+    if dtype == "mid_bf16":
+        monkeypatch.setenv("GS_MID_BF16", "1")
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else (
+        torch.float64 if dtype == "float64" else torch.float32)
+    oracle = dtype in ("bfloat16", "mid_bf16")
+    n = 3
+    nx, ny, nz = shape
+    rows = [dict(Du=0.2, Dv=0.1, F=f, k=k, dt=1.0, noise=0.1)
+            for f, k in ((0.03, 0.062), (0.055, 0.062), (0.026, 0.051))]
+    keys = [(0, 3), (0, 4), (0, 2**31 + 5)]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f = tuple((torch.rand((n,) + shape, generator=gen, device="cuda") * 0.5
+               + 0.25).to(tdtype) for _ in range(2))
+    if mode == "faces6":
+        fshapes = [(1, ny, nz)] * 4 + [(nx, 1, nz)] * 4 + [(nx, ny, 1)] * 4
+    elif mode == "chain":
+        fshapes = []
+    else:
+        fshapes = [(fuse, ny, nz)] * 4
+    faces = tuple(torch.rand((n,) + s, generator=gen, device="cuda")
+                  .to(tdtype) for s in fshapes) or None
+    params = cuda_stencil.member_params(
+        rows, SPEC.model.params_cls, cuda_stencil.compute_dtype_of(tdtype),
+        "cuda")
+    seeds = cuda_stencil.member_seeds(keys, 9)
+    args = dict(spec=SPEC, use_noise=True, fuse=fuse,
+                offsets=kw.get("offsets", (0, 0, 0)), row=64,
+                y_halo=kw.get("y_halo", 0), band=kw.get("band", False))
+    pkw = dict(spec=SPEC, use_noise=True, offsets=args["offsets"], row=64,
+               oracle=oracle)
+    if mode == "chain":
+        want = cuda_stencil.plain_chain(f, params, seeds, fuse=fuse,
+                                        mid_bf16=dtype == "mid_bf16", **pkw)
+    elif mode == "faces6":
+        want = cuda_stencil.plain_step(f, params, seeds, faces, **pkw)
+    else:
+        want = cuda_stencil.plain_xchain(f, params, seeds, faces, fuse=fuse,
+                                         mid_bf16=dtype == "mid_bf16", **pkw)
+    itemsize = torch.empty((), dtype=tdtype).element_size()
+    paths = ["tma", "cp_async"] if cuda_stencil.load_path(
+        shape, itemsize, (0,)) == "tma" else ["cp_async"]
+    for load in paths:
+        with cuda_stencil.override(load=load):
+            launches = cuda_stencil.LAUNCHES
+            got = cuda_stencil.fused_step(f, params, seeds, faces, **args)
+            assert cuda_stencil.LAUNCHES - launches == 1
+            assert cuda_stencil.MODE_MEMBERS[
+                "xchain" if mode == "band" else mode] >= n
+            solo = [cuda_stencil.fused_step(
+                tuple(x[m].contiguous() for x in f),
+                cuda_stencil.params_row(params, m),
+                (keys[m][0], keys[m][1], 9),
+                None if faces is None
+                else tuple(x[m].contiguous() for x in faces), **args)
+                for m in range(n)]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (load, (a.double() - b.double())
+                                       .abs().max().item())
+        for m, s in enumerate(solo):
+            assert all(torch.equal(g[m], x) for g, x in zip(got, s)), (
+                load, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,fuse", [((1, 1, 1), "1"), ((1, 1, 1), "2"),
+                                       ((2, 2, 2), "1"), ((8, 1, 1), "2"),
+                                       ((2, 2, 1), "2")])
+def test_ensemble_members_equal_solo_runs_on_one_card(dims, fuse,
+                                                      monkeypatch):
+    """An ensemble on one card (a mesh's blocks all on ``cuda:0``): one
+    launch per block and round, every member bitwise equal to its solo
+    run on the same mesh and depth."""
+    _card()
+    from grayscott_jl_tpu_torch import Simulation
+    from grayscott_jl_tpu_torch.ensemble import spec as ens_spec
+    from grayscott_jl_tpu_torch.ensemble.engine import EnsembleSimulation
+    from grayscott_jl_tpu_torch.ensemble.io import member_settings
+
+    monkeypatch.setenv("GS_FUSE", fuse)
+    n = dims[0] * dims[1] * dims[2]
+    s = Settings(L=32, noise=0.1, precision="Float32", backend="CUDA",
+                 kernel_language="CUDA", **KW)
+    s.ensemble = ens_spec.from_toml(
+        {"presets": ["spots", "stripes", "chaos"]}, s)
+    ens = EnsembleSimulation(s, seed=2, mesh_dims=dims,
+                             devices=["cuda:0"] * n)
+    launches = cuda_stencil.LAUNCHES
+    ens.iterate(6)
+    batched = cuda_stencil.LAUNCHES - launches
+    fields = ens.get_fields()
+    for k in range(3):
+        solo = Simulation(member_settings(s, k), seed=2 + k, mesh_dims=dims,
+                          devices=["cuda:0"] * n)
+        launches = cuda_stencil.LAUNCHES
+        solo.iterate(6)
+        assert cuda_stencil.LAUNCHES - launches == batched
+        for a, b in zip(fields, solo.get_fields()):
+            assert (a[k] == b).all()
+
+
+@pytest.mark.cuda
+def test_ensemble_member_shards_across_cards(monkeypatch):
+    """``member_shards = 2`` over a (2,1,1) spatial mesh on four cards:
+    each group's blocks on its own cards, every member bitwise equal to
+    its solo run on (2,1,1)."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards, this machine has "
+                    f"{torch.cuda.device_count()}")
+    from grayscott_jl_tpu_torch import Simulation
+    from grayscott_jl_tpu_torch.ensemble import spec as ens_spec
+    from grayscott_jl_tpu_torch.ensemble.engine import EnsembleSimulation
+    from grayscott_jl_tpu_torch.ensemble.io import member_settings
+
+    monkeypatch.setenv("GS_FUSE", "2")
+    s = Settings(L=32, noise=0.1, precision="Float32", backend="CUDA",
+                 kernel_language="CUDA", **KW)
+    s.ensemble = ens_spec.from_toml(
+        {"presets": ["spots", "stripes", "waves", "chaos"],
+         "member_shards": 2}, s)
+    ens = EnsembleSimulation(s, seed=1, n_devices=4, mesh_dims=(2, 1, 1))
+    assert ens.domain.dims == (2, 1, 1) and ens.member_shards == 2
+    assert [str(d) for d in ens.mesh.devices] == [f"cuda:{i}"
+                                                  for i in range(4)]
+    ens.iterate(6)
+    fields = ens.get_fields()
+    for k in range(4):
+        g = k // 2
+        solo = Simulation(member_settings(s, k), seed=1 + k,
+                          mesh_dims=(2, 1, 1),
+                          devices=[f"cuda:{2 * g}", f"cuda:{2 * g + 1}"])
+        solo.iterate(6)
+        for a, b in zip(fields, solo.get_fields()):
+            assert (a[k] == b).all()

@@ -271,3 +271,64 @@ def test_the_auto_modules_are_checked(rel):
     """Auto's decision (the fabric model, its probe, the timing
     discipline and the tuner) is among the sources held to the rule."""
     assert PACKAGE / rel in SOURCES
+
+
+ENSEMBLE_MODULES = ("ensemble/__init__.py", "ensemble/spec.py",
+                    "ensemble/engine.py", "ensemble/io.py")
+
+
+@pytest.mark.parametrize("rel", ENSEMBLE_MODULES)
+def test_the_ensemble_modules_are_checked(rel):
+    """The ensemble package (the port's own copies of the reference's
+    JAX-free ``spec.py`` and ``io.py``, and the engine) is among the
+    sources held to the rule."""
+    assert PACKAGE / rel in SOURCES
+
+
+def test_ensemble_stands_alone():
+    """An ensemble run through the driver, its member stores and a grown
+    resume work with JAX blocked."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import dataclasses, os, tempfile
+import grayscott_jl_tpu_torch as gs
+from grayscott_jl_tpu_torch import driver
+from grayscott_jl_tpu_torch.config.settings import parse_settings_toml
+d = tempfile.mkdtemp()
+s = parse_settings_toml(f'''
+L = 8
+steps = 4
+plotgap = 2
+noise = 0.1
+backend = "CPU"
+precision = "Float32"
+checkpoint = true
+checkpoint_freq = 2
+output = "{d}/gs.bp"
+checkpoint_output = "{d}/ck.bp"
+restart_input = "{d}/ck.bp"
+[ensemble]
+presets = ["spots", "chaos"]
+''')
+sim = driver.run_once(s, n_devices=8)
+assert sim.n_members == 2 and sim.domain.dims == (2, 2, 2)
+assert all(os.path.isdir(f"{d}/{n}") for n in
+           ("gs.m00.bp", "gs.m01.bp", "ck.m00.bp", "ck.m01.bp"))
+r = dataclasses.replace(s, restart=True, restart_step=2)
+from grayscott_jl_tpu_torch.ensemble import spec
+r.ensemble = spec.from_toml({"presets": ["spots", "chaos", "waves"]}, r)
+grown = driver.run_once(r)
+assert grown.reshard["members"]["grown"] == 1, grown.reshard
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
