@@ -192,7 +192,29 @@ Phases, each of which stops the run on failure:
    L=256 (CUDA events, profiler device time per member, host ms a
    call), with (a)'s compute ms/step against its five solo runs' and its
    steady ms/step without output, batched against the five solo runs in
-   turn;
+   turn; (x) observability and member groups across processes, run
+   right after (a) so that its profiler window is the process's first
+   capture: (x-a) (``phase_observability``) (a) four times through
+   ``driver.main`` — with nothing armed, with ``GS_XSTATS=1``, ``GS_PROFILE=50:150`` and a
+   fresh ``GS_COMPILE_CACHE`` (the Gray-Scott kernel library and the
+   native store engine each a ``miss`` with its build seconds, one
+   launch record for the ``kBlock`` f32 entry with the card's registers,
+   shared bytes and blocks per SM and row 1a's bytes and flops, the
+   window's Chrome trace holding exactly the 100 launches of steps
+   50-150), again on the same cache (every library a ``hit``, 0 s), and
+   with ``GS_TPU_PROFILE`` alone (all 200 launches in its trace) — every
+   store bitwise equal to (a)'s and byte-identical across the runs, then
+   ``python -m grayscott_jl_tpu_torch.obs.report`` checking and
+   rendering run 1's stats and events (exit 0), the walls against (a)'s,
+   the build seconds and the launch record printed beside the card's
+   name and power limit; (x-b) (``phase_member_procs``) four presets at
+   L=256 with ``member_shards = 2``, 50 steps: one process (two groups
+   of one block on ``cuda:0``), two processes over gloo on ``cuda:0``
+   through ``launch.py`` (one group each, 50 batched ``kBlock`` launches
+   of 2 members each) with every member's stores bitwise equal to the
+   one-process run's, and the one-process run moved live onto (2,1,1)
+   per group under ``GS_RESHARD_DEVICE=auto`` (``collective``), its
+   stores equal to the unmoved run's;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -234,6 +256,10 @@ result line ``{"ok": true, "device": {...}}`` last; writes the full
 report to ``chiprun_out/chip_smoke_report.json``. Exits non-zero with
 no result line when there is no card or any phase fails. Imports
 neither JAX nor the JAX package.
+
+The bounds come from ``grayscott_jl_tpu_torch/obs/xstats.py``
+(``bound_ms``, ``bound_of``, ``face_mode_work``), the reckoning the
+launch records carry too.
 """
 
 import json
@@ -244,11 +270,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
-#: non-tensor-core float32 rate.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 
 MAIN_L = 256
 MAIN_STEPS = 200
@@ -359,41 +380,32 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
+def _xstats():
+    """``grayscott_jl_tpu_torch.obs.xstats``: the one reckoning of a
+    launch's bytes, operations and least time (the build and launch
+    analytics' records use it too)."""
+    from grayscott_jl_tpu_torch.obs import xstats
+
+    return xstats
+
+
 def bound_ms(L, fuse, flops, itemsize=4, n_fields=2):
-    """Least time of one launch advancing ``fuse`` steps on L^3: each
-    field read once and written once, against ``flops`` float
-    operations per cell and step (the generated program's count)."""
-    cells = L**3
-    t_bytes = 2 * n_fields * itemsize * cells / HBM_BYTES_PER_S
-    t_ops = fuse * flops * cells / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    """Least time of one launch advancing ``fuse`` steps on L^3
+    (``xstats.bound_ms``) and which bound it is."""
+    return _xstats().bound_ms(L, fuse, flops, itemsize, n_fields)
 
 
 def bound_of(bytes_moved, flops):
     """Least time (ms) for ``bytes_moved`` bytes and ``flops`` float32
-    operations on the card, and which of the two bounds it."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    operations on the card (``xstats.bound_of``)."""
+    return _xstats().bound_of(bytes_moved, flops)
 
 
 def face_mode_work(mode, shape, fuse, flops, itemsize=4, n_fields=2):
-    """Bytes one launch must move (each input read once, each output
-    written once) and the float operations it does, for a face mode on
-    a ``shape`` operand: the 6n faces are 1-thick planes; the x-chain's
-    stage s computes (nx + 2 (fuse-1-s)) x-planes of the operand."""
-    nx, ny, nz = shape
-    vol = nx * ny * nz
-    if mode == "faces6":
-        face_cells = 2 * (ny * nz + nx * nz + nx * ny)
-        moved = n_fields * (2 * vol + face_cells) * itemsize
-        cells = vol
-    else:
-        moved = n_fields * ((nx + 2 * fuse) + nx) * ny * nz * itemsize
-        cells = sum((nx + 2 * (fuse - 1 - s)) * ny * nz
-                    for s in range(fuse))
-    return moved, cells * flops
+    """Bytes and float operations of one face-mode launch
+    (``xstats.face_mode_work``)."""
+    return _xstats().face_mode_work(mode, shape, fuse, flops, itemsize,
+                                    n_fields)
 
 
 def group(label):
@@ -1509,7 +1521,7 @@ def phase_integrity(torch, gs, cuda_stencil, workdir, stored, report):
         host_field_checksum(hu), host_field_checksum(hv)
     host_ms = (time.perf_counter() - t0) * 1e3 / 5
     bytes_read = 2 * u.numel() * u.element_size()
-    check_bound = bytes_read / HBM_BYTES_PER_S * 1e3
+    check_bound = bytes_read / _xstats().HBM_BYTES_PER_S * 1e3
     log(f"  checksum of u and v at L={MAIN_L}: device {device_ms:.4f} ms "
         f"(CUDA events; bound {check_bound:.4f} ms for "
         f"{bytes_read / 1e6:.1f} MB), host {host_ms:.3f} ms")
@@ -4540,6 +4552,315 @@ def write_ens_config(path, presets, member_shards=1, **kw):
         f.write(table)
 
 
+def profiled_kernels(path):
+    """The template's kernel launches (device events named
+    ``stencil_chain_kernel``) in a ``torch.profiler`` Chrome trace, and
+    the host's ``cudaLaunchKernel`` calls in it."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    kernels = runtime = 0
+    for e in doc.get("traceEvents", []):
+        name = e.get("name", "")
+        if (str(e.get("cat", "")).lower() == "kernel"
+                and "stencil_chain_kernel" in name):
+            kernels += 1
+        elif name == "cudaLaunchKernel":
+            runtime += 1
+    return kernels, runtime
+
+
+def phase_observability(torch, gs, cuda_stencil, workdir, stored, report):
+    """Phase 4 (x-a), build and launch analytics and the profiler
+    captures on config (a) at L=256 through ``driver.main``, the launch
+    counts set to 0 just before each run and read just after (run 0 has
+    nothing armed):
+
+    run 1: ``GS_XSTATS=1``, ``GS_PROFILE=50:150`` and a fresh
+        ``GS_COMPILE_CACHE`` (with ``GS_EVENTS``): the Gray-Scott kernel
+        library (nvcc) and the native store engine (g++) each recorded a
+        ``miss`` with nonzero ``compile_s``; one launch record, the
+        ``kBlock`` f32 entry's, with the card's registers, shared bytes
+        and blocks per SM, and bytes and flops equal to row 1a's
+        reckoning (0.0801 ms at L=256); the window's Chrome trace holding
+        exactly the 100 launches of steps 50-150 (fuse 1) and no other;
+    run 2: the same cache directory: every library a ``hit`` with 0 s;
+    run 3: ``GS_TPU_PROFILE`` alone: its trace holds all 200 launches.
+
+    Run 0, with nothing armed, first: the wall the others are read
+    against in the same call. Every run's stores bitwise equal to phase
+    4's (a), their files byte-identical across the runs. Then the run report
+    (``python -m grayscott_jl_tpu_torch.obs.report``) checks run 1's
+    stats and events (exit 0) and renders them (exit 0). Prints the
+    walls against phase 4's (a), each library's build seconds and the
+    launch record, each beside the card's name and power limit."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.models import get_model
+    from grayscott_jl_tpu_torch.ops import kernelgen
+
+    smi = nvidia_smi("name,power.limit")
+    spec = kernelgen.get_spec(get_model("grayscott"))
+    flops = spec.flops_per_cell_step()
+    cache = os.path.join(workdir, "x_cache")
+    sinks = os.path.join(workdir, "x_sinks")
+    os.makedirs(sinks)
+    prof1 = os.path.join(sinks, "window")
+    prof3 = os.path.join(sinks, "whole")
+    runs = {}
+    digests = []
+
+    def one(name, env):
+        reset_sinks()
+        try:
+            d, summary, wall, launches = run_store(
+                torch, gs, cuda_stencil, workdir, name, 2, env=env)
+        finally:
+            reset_sinks()
+        check(launches == MAIN_STEPS,
+              f"(x-a) {name}: {launches} launches, expected {MAIN_STEPS}")
+        got = read_store(os.path.join(d, "gs.bp"))
+        check([st for st, *_ in got] == [st for st, *_ in stored]
+              and all(np.array_equal(a, b)
+                      for (_, *fa), (_, *fb) in zip(got, stored)
+                      for a, b in zip(fa, fb)),
+              f"(x-a) {name}: store != phase 4's (a)")
+        digests.append(tree_digest(d))
+        runs[name] = {"wall_s": wall, "summary": summary, "dir": d}
+        return summary
+
+    # Nothing armed: the wall the others are read against in this call.
+    s0 = one("x_run0", {})
+    check(s0["executables"] is None,
+          f"(x-a) run 0 armed the analytics: {s0['executables']}")
+    events_path = os.path.join(sinks, "events.jsonl")
+    s1 = one("x_run1", {"GS_XSTATS": "1", "GS_PROFILE": "50:150",
+                        "GS_PROFILE_DIR": prof1, "GS_COMPILE_CACHE": cache,
+                        "GS_EVENTS": events_path})
+    ex = s1["executables"]
+    libs = {r["name"]: r for r in ex["records"]
+            if r.get("record") == "library"}
+    check(set(libs) == {"grayscott", "libbplite"}
+          and all(r["cache"] == "miss" and r["compile_s"] > 0
+                  for r in libs.values()),
+          f"(x-a) run 1's library records: {libs}")
+    launch_recs = [r for r in ex["records"] if r.get("record") == "launch"]
+    check(len(launch_recs) == 1, f"(x-a) launch records {launch_recs}")
+    rec = launch_recs[0]
+    mem, occ, cost = (rec.get("memory") or {}, rec.get("occupancy") or {},
+                      rec["cost"])
+    check(rec["name"] == "kBlock[f32]" and rec["launches"] == MAIN_STEPS
+          and rec["shape"] == [MAIN_L] * 3 and "error" not in rec
+          and mem.get("registers", 0) > 0
+          and mem.get("dynamic_shared_bytes", 0) > 0
+          and occ.get("blocks_per_sm", 0) >= 1,
+          f"(x-a) the kBlock f32 launch record: {rec}")
+    b_ms, b_by = bound_ms(MAIN_L, 1, flops)
+    check(cost["bytes"] == 2 * 2 * 4 * MAIN_L**3
+          and cost["flops"] == flops * MAIN_L**3
+          and cost["bound_ms"] == b_ms and round(b_ms, 4) == 0.0801,
+          f"(x-a) launch cost {cost}, row 1a's bound {b_ms}")
+    window = os.path.join(prof1, "profile_50_150.json")
+    win_kernels, win_runtime = profiled_kernels(window)
+    check(win_kernels == 100,
+          f"(x-a) the 50:150 window holds {win_kernels} kernel launches "
+          f"({win_runtime} cudaLaunchKernel calls), expected 100")
+
+    s2 = one("x_run2", {"GS_XSTATS": "1", "GS_COMPILE_CACHE": cache})
+    libs2 = {r["name"]: (r["cache"], r["compile_s"])
+             for r in s2["executables"]["records"]
+             if r.get("record") == "library"}
+    check(libs2 == {"grayscott": ("hit", 0.0), "libbplite": ("hit", 0.0)},
+          f"(x-a) run 2's library records: {libs2}")
+
+    s3 = one("x_run3", {"GS_TPU_PROFILE": prof3})
+    check(s3["executables"] is None,
+          f"(x-a) run 3 armed the analytics: {s3['executables']}")
+    whole_kernels, whole_runtime = profiled_kernels(
+        os.path.join(prof3, "gs_tpu_profile.json"))
+    check(whole_kernels == MAIN_STEPS,
+          f"(x-a) GS_TPU_PROFILE holds {whole_kernels} kernel launches "
+          f"({whole_runtime} cudaLaunchKernel calls), expected "
+          f"{MAIN_STEPS}")
+    check(all(dg == digests[0] for dg in digests[1:]),
+          "(x-a) files differ between the runs: "
+          f"{[k for k in digests[0] if digests[0][k] != digests[1].get(k)]}")
+
+    # The run report on run 1's artifacts.
+    stats1 = os.path.join(runs["x_run1"]["dir"], "stats.json")
+    args = ["--stats", stats1, "--events", events_path]
+    codes = {}
+    for mode in (["--check"], []):
+        proc = subprocess.run(
+            [sys.executable, "-m", "grayscott_jl_tpu_torch.obs.report",
+             *mode, *args], cwd=REPO, capture_output=True, text=True,
+            timeout=120)
+        codes["check" if mode else "render"] = proc.returncode
+        check(proc.returncode == 0,
+              f"(x-a) obs.report {' '.join(mode)} exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        if not mode:
+            check("== executables (3 compiles" in proc.stdout,
+                  f"(x-a) the report's executables section: "
+                  f"{proc.stdout[-2000:]}")
+
+    base = report["main_path"]["wall_s"]
+    walls = {k: v["wall_s"] for k, v in runs.items()}
+    log(f"  (x-a) walls: run 0 (nothing armed) {walls['x_run0']:.4f} s, "
+        f"run 1 (xstats, window 50:150, fresh cache) "
+        f"{walls['x_run1']:.4f} s, run 2 (xstats, cached) "
+        f"{walls['x_run2']:.4f} s, run 3 (GS_TPU_PROFILE) "
+        f"{walls['x_run3']:.4f} s, against phase 4's (a) {base:.4f} s; "
+        f"{smi}")
+    log(f"  (x-a) builds: grayscott nvcc {libs['grayscott']['compile_s']} s, "
+        f"libbplite g++ {libs['libbplite']['compile_s']} s (both miss); "
+        f"run 2 both hit, 0 s; {smi}")
+    log(f"  (x-a) launch record: {json.dumps(rec)}; {smi}")
+    log(f"  (x-a) profiler: the window held {win_kernels} kernel launches "
+        f"({win_runtime} cudaLaunchKernel), the whole run {whole_kernels} "
+        f"({whole_runtime}); obs.report --check and render exited 0")
+    report["observability"] = {
+        "walls_s": walls, "main_path_wall_s": base, "nvidia_smi": smi,
+        "libraries": libs, "launch_record": rec,
+        "collectives": ex.get("collectives"),
+        "window_kernels": win_kernels, "window_runtime": win_runtime,
+        "whole_kernels": whole_kernels, "whole_runtime": whole_runtime,
+        "report_codes": codes}
+    for v in runs.values():
+        shutil.rmtree(v["dir"])
+    shutil.rmtree(sinks)
+    shutil.rmtree(cache, ignore_errors=True)
+
+
+def phase_member_procs(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (x-b), member groups across processes: four presets of
+    ``examples/settings-ensemble-phases.toml`` at L=256, ``member_shards
+    = 2``, 50 steps (plotgap 25, stores without the ``.vti`` series):
+    one process with two groups of one block on ``cuda:0`` (100 batched
+    ``kBlock`` launches of 2 members); the same as two processes over
+    gloo on ``cuda:0`` through ``launch.py``, one group each (each
+    process 50 launches of 2 members, by its counts and its launch
+    record), every member's stores bitwise equal to the one-process
+    run's; and the one-process run moved live between rounds onto
+    (2,1,1) per group under ``GS_RESHARD_DEVICE=auto``: the path
+    ``collective``, the stores equal to the unmoved run's."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver, launch
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.ensemble.engine import EnsembleSimulation
+    from grayscott_jl_tpu_torch.ensemble.io import member_path
+
+    smi = nvidia_smi("name,power.limit")
+    presets = ENS_SPLIT_PRESETS
+    n = len(presets)
+    steps = 50
+
+    def config(name):
+        d = os.path.join(workdir, name)
+        os.makedirs(d)
+        cfg = os.path.join(d, "cfg.toml")
+        write_ens_config(cfg, presets, 2, steps=steps, plotgap=25,
+                         mesh_type="none", output=os.path.join(d, "gs.bp"))
+        return d, cfg
+
+    def factory(s, *, n_devices, seed):
+        return EnsembleSimulation(s, seed=seed, devices=["cuda:0"] * 2)
+
+    def members(d):
+        return [read_store(member_path(os.path.join(d, "gs.bp"), k, n))
+                for k in range(n)]
+
+    def same(a, b):
+        return all([st for st, *_ in x] == [st for st, *_ in y]
+                   and all(np.array_equal(p, q)
+                           for (_, *fx), (_, *fy) in zip(x, y)
+                           for p, q in zip(fx, fy))
+                   for x, y in zip(a, b))
+
+    out = {}
+    saved = os.environ.get("GS_RESHARD_DEVICE")
+    os.environ["GS_RESHARD_DEVICE"] = "auto"
+    try:
+        d1, cfg1 = config("xb_one")
+        cuda_stencil.reset_launches()
+        t0 = time.perf_counter()
+        sim = driver.run_once(get_settings([cfg1]), sim_factory=factory)
+        out["one_wall_s"] = time.perf_counter() - t0
+        modes = {m: c for m, c in cuda_stencil.MODE_LAUNCHES.items() if c}
+        check(sim.member_shards == 2 and sim.mesh.held == [0, 1]
+              and modes == {"chain": 2 * steps}
+              and cuda_stencil.MODE_MEMBERS["chain"] == 2,
+              f"(x-b) one process: {modes} of "
+              f"{cuda_stencil.MODE_MEMBERS['chain']} members")
+        one = members(d1)
+
+        d2, cfg2 = config("xb_pair")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("GS_TPU_STATS", "GS_FUSE", "GS_HALO_DEPTH",
+                            "GS_TPU_MESH_DIMS", "GS_COMM_OVERLAP")}
+        stats = os.path.join(d2, "stats.json")
+        env.update(GS_TPU_STATS=stats, GS_XSTATS="1")
+        logf = os.path.join(d2, "launch.log")
+        t0 = time.perf_counter()
+        with open(logf, "w", encoding="utf-8") as f:
+            codes = launch.launch(2, cfg2, 1, env=env, cwd=d2, timeout=300,
+                                  stdout=f, stderr=subprocess.STDOUT)
+        out["pair_wall_s"] = time.perf_counter() - t0
+        with open(logf, encoding="utf-8") as f:
+            text = f.read()
+        check(codes == [0, 0],
+              f"(x-b) the two-process run exited {codes}:\n{text[-4000:]}")
+        per_rank = []
+        for r in range(2):
+            with open(f"{stats}.rank{r}", encoding="utf-8") as f:
+                summary = json.load(f)
+            recs = [x for x in summary["executables"]["records"]
+                    if x.get("record") == "launch"]
+            per_rank.append({"modes": summary["config"]["launches"]["modes"],
+                             "records": [(x["name"], x["launches"],
+                                          x["members"]) for x in recs],
+                             "compute_s": summary["phases_s"].get("compute")})
+            check(per_rank[-1]["modes"] == {"chain": steps}
+                  and per_rank[-1]["records"] == [("kBlock[f32]x2", steps,
+                                                   2)],
+                  f"(x-b) process {r}: {per_rank[-1]}")
+        check(same(one, members(d2)),
+              "(x-b) the two-process member stores != the one-process run's")
+
+        d3, cfg3 = config("xb_move")
+        calls = [0]
+
+        def poll():
+            calls[0] += 1
+            return {"mesh_dims": [2, 1, 1]} if calls[0] == 2 else None
+
+        t0 = time.perf_counter()
+        moved = driver.run_once(get_settings([cfg3]), sim_factory=factory,
+                                reshape_poll=poll)
+        out["move_wall_s"] = time.perf_counter() - t0
+        check(moved.reshard is not None
+              and moved.reshard["path"] == "collective"
+              and moved.domain.dims == (2, 1, 1)
+              and moved.member_shards == 2,
+              f"(x-b) the live move: {moved.reshard}, {moved.domain.dims}")
+        check(same(one, members(d3)),
+              "(x-b) the moved member stores != the unmoved run's")
+        out.update(per_rank=per_rank, move={
+            k: moved.reshard[k] for k in ("path", "bytes", "wall_s")})
+    finally:
+        if saved is None:
+            os.environ.pop("GS_RESHARD_DEVICE", None)
+        else:
+            os.environ["GS_RESHARD_DEVICE"] = saved
+    log(f"  (x-b) member_shards = 2 at L={MAIN_L}, {n} members, {steps} "
+        f"steps: one process {out['one_wall_s']:.3f} s (100 kBlock "
+        f"launches of 2), two processes over gloo on cuda:0 "
+        f"{out['pair_wall_s']:.3f} s ({per_rank[0]['records']} and "
+        f"{per_rank[1]['records']}), stores bitwise equal; live move "
+        f"(1,1,1) -> (2,1,1) per group {out['move']}; {smi}")
+    report["member_procs"] = {**out, "nvidia_smi": smi}
+
+
 def phase_batch_parity(torch, gs, cuda_stencil, spec, report):
     """The batched launch (members on the grid's y axis) of every
     production mode against its plain version with the same leading
@@ -5103,6 +5424,14 @@ def _main(torch, report):
         args = (torch, gs, cuda_stencil, workdir, report)
         launches, main_fuse, stored = timed(report, "main path",
                                             phase_main_path, *args)
+        # First after (a), so that its profiler window is the process's
+        # first capture.
+        log("phase 4 (x): build and launch analytics, profiler windows "
+            "and the run report on (a); member groups across processes")
+        timed(report, "observability", phase_observability, torch, gs,
+              cuda_stencil, workdir, stored, report, clean=workdir)
+        timed(report, "member procs", phase_member_procs, torch, gs,
+              cuda_stencil, workdir, report, clean=workdir)
         faces6_launches = timed(report, "sharded", phase_sharded, torch, gs,
                                 cuda_stencil, workdir, stored, report)
         fuse2 = timed(report, "fuse2", phase_fuse2, torch, gs, cuda_stencil,

@@ -59,7 +59,12 @@ fabric model's ``GS_AUTO_LINKS``, ``GS_AUTO_LINK_GBPS`` and
 autotuner's ``autotune`` / ``GS_AUTOTUNE`` (:func:`resolve_autotune`)
 with ``GS_AUTOTUNE_CACHE``, ``GS_AUTOTUNE_BUDGET_S``,
 ``GS_AUTOTUNE_STEPS``, ``GS_AUTOTUNE_ROUNDS`` and ``GS_AUTOTUNE_TOPN``
-(``tune/``).
+(``tune/``), and the rest of observability: ``xstats`` / ``GS_XSTATS``
+(:func:`resolve_xstats`, build and launch analytics, ``obs/xstats.py``),
+``GS_PROFILE`` with ``GS_PROFILE_DIR`` (a profiler window over a step
+range, ``obs/trace.ProfileWindow``) and ``GS_TPU_PROFILE`` (a profiler
+capture of the whole run, ``utils/profiler.trace``). Nothing is refused
+any more: :data:`NOT_PORTED` and :data:`NOT_PORTED_ENV` are empty.
 """
 
 from __future__ import annotations
@@ -133,10 +138,8 @@ SETTINGS_KEYS = frozenset(f.name for f in dataclasses.fields(Settings))
 #: Keys whose subsystem this package does not have yet: each maps to
 #: the values that mean "feature off" and the ROADMAP item that ports
 #: it. Any other value raises at construction (:func:`check_ported`).
-#: (The ``[ensemble]`` table is parsed and run: ``ensemble/``.)
-NOT_PORTED: Dict[str, Tuple[tuple, str]] = {
-    "xstats": (("", "off", "0", "false", "no"), "Queue 1 item 21b"),
-}
+#: Every key the reference acts on is ported: the table is empty.
+NOT_PORTED: Dict[str, Tuple[tuple, str]] = {}
 
 PRECISIONS: Dict[str, str] = {
     "Float32": "float32",
@@ -330,13 +333,24 @@ _OFF = ("", "0", "off", "false", "no")
 #: and the ROADMAP item that ports it. Each changes what a run computes
 #: or writes, so a value outside "off" raises at construction rather
 #: than being ignored. Several override :data:`NOT_PORTED` keys.
-NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {
-    "GS_XSTATS": ("compile statistics", _OFF, "Queue 1 item 21b"),
-    "GS_PROFILE": ("a profiler capture of a step range", ("",),
-                   "Queue 1 item 21b"),
-    "GS_TPU_PROFILE": ("a profiler trace of the run", ("",),
-                       "Queue 1 item 21b"),
-}
+NOT_PORTED_ENV: Dict[str, Tuple[str, tuple, str]] = {}
+
+_TRUTHY = ("1", "on", "true", "yes")
+
+
+def resolve_xstats(settings=None) -> bool:
+    """Build and launch analytics (``obs/xstats.py``): ``GS_XSTATS``
+    wins over the ``xstats`` key; default off. An unknown value raises
+    ``ValueError`` at start-up, as in the reference."""
+    raw = os.environ.get("GS_XSTATS")
+    if raw is None and settings is not None:
+        raw = getattr(settings, "xstats", "")
+    raw = (raw or "").strip().lower()
+    if raw in _TRUTHY:
+        return True
+    if raw in _OFF:
+        return False
+    raise ValueError(f"GS_XSTATS / xstats must be on or off, got {raw!r}")
 
 
 def check_ported(settings: Settings) -> None:

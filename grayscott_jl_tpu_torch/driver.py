@@ -133,12 +133,23 @@ per-member health, and ``cell_updates_per_s`` is the aggregate over the
 active members. ``snapshot_bits`` is ignored with a warning (member
 stores stay exact), as in the reference.
 
-Not here yet, a later slice of the port (ROADMAP Queue 1): compile
-statistics and profiler captures.
+Build and launch analytics (``obs/xstats.py``; ``GS_XSTATS`` /
+``xstats``, or any compile cache directory): each library the run builds
+or loads (recorded at construction) and, at the end, each kernel entry
+it launched, with the card's attributes and the launch's cost, land in
+``sim.executables``, one ``executable`` event each, the ``compiles`` and
+``compile_cache_*`` counters and the ``RunStats`` ``executables``
+section (with the exchange census and the model's residual). Profiler
+captures: ``GS_PROFILE=start:stop`` opens a ``torch.profiler`` window at
+the first boundary at or past ``start`` and closes it at the first at or
+past ``stop`` (``obs/trace.ProfileWindow``; the Chrome trace in
+``GS_PROFILE_DIR``), ``GS_TPU_PROFILE=<dir>`` captures the whole step
+loop (``utils/profiler.trace``). Neither changes a launch or a store.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import sys
@@ -157,7 +168,8 @@ from .ops import cuda_stencil
 from .obs import events as obs_events
 from .obs import metrics as obs_metrics
 from .obs import numerics as obs_numerics
-from .obs.trace import get_tracer
+from .obs import xstats
+from .obs.trace import ProfileWindow, get_tracer
 from .parallel import distributed, icimodel
 from .reshard.plan import ReshardError
 from .reshard.restore import reshape_live, restore_run
@@ -172,7 +184,7 @@ from .resilience.supervisor import FaultJournal, supervise, supervision_enabled
 from .resilience.watchdog import Watchdog, resolve_watchdog
 from .simulation import HostRing, Simulation
 from .utils.log import Logger
-from .utils.profiler import RunStats
+from .utils.profiler import RunStats, trace
 
 
 def _next_boundary(step: int, period: int, limit: int) -> int:
@@ -350,6 +362,8 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
     evs = obs_events.get_events()
     metrics = obs_metrics.get_metrics(settings)
     attempt = context.attempt if context is not None else 0
+    # Bad values raise before anything is built.
+    profile = ProfileWindow.from_env()
 
     def mark(phase, at=None):
         """One phase edge: the watchdog's heartbeat (which is the
@@ -374,6 +388,9 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
     log = Logger(verbose=settings.verbose)
     ilog = integrity.IntegrityLog(log, journal=journal)
     proc, nprocs = distributed.process_index(), distributed.process_count()
+    on_card = sim.device.type == "cuda"
+    if profile is not None:
+        profile.cuda = on_card
     if nprocs > 1:
         log.info(f"{nprocs} processes ({distributed.backend()}), "
                  f"{sim.mesh.n_blocks} of the {sim.domain.n_blocks} blocks "
@@ -414,6 +431,7 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
     step = restart_step
     launches0 = cuda_stencil.LAUNCHES
     modes0 = dict(cuda_stencil.MODE_LAUNCHES)
+    entries0 = dict(cuda_stencil.ENTRY_LAUNCHES)
     bands0 = cuda_stencil.BAND_LAUNCHES
     selection = sim.kernel_selection
 
@@ -657,7 +675,9 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             stream.close()
             if ckpt is not None:
                 ckpt.close()
-            # The old simulation and its pinned buffers go with it.
+            # The old simulation and its pinned buffers go with it; its
+            # analytics records stay the run's.
+            new_sim.executables[:0] = sim.executables
             sim = new_sim
             ring = HostRing(pipe.depth + 1)
             if screener is not None:
@@ -681,7 +701,9 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             return True
 
         t0 = time.perf_counter()
-        with pipe:
+        if profile is not None:
+            profile.on_boundary(step)
+        with trace(cuda=on_card), pipe:
             while step < settings.steps:
                 if reshape_poll is not None:
                     req = reshape_poll()
@@ -734,7 +756,9 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
                     journal.record(event="injected", kind="sdc", step=step,
                                    planned_step=fault.step, device=name)
                 t_round = time.perf_counter()
-                with stats.phase("compute", step=step):
+                with stats.phase("compute", step=step), (
+                        profile.round(step) if profile is not None
+                        else contextlib.nullcontext()):
                     sim.iterate(boundary - step)
                     sim.block_until_ready()
                 # One sample per round: the round's mean per step.
@@ -749,6 +773,8 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
                     # A probe of the live fields after every round,
                     # boundaries included.
                     num_recorder.observe(step, sim.numerics_stats())
+                if profile is not None:
+                    profile.on_boundary(step)
                 if screener is not None:
                     # Before this boundary's poisons and writes: a
                     # mismatch unwinds before a byte is stored.
@@ -916,6 +942,10 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
                 f"{elapsed:.3f}s ({cells / max(elapsed, 1e-9):.3e} "
                 "cell-updates/s)"
             )
+        if profile is not None:
+            profile.finish()
+        if sim.xstats_enabled:
+            xstats.capture_launches(sim, entries0)
         evs.emit("run_complete", step=step, attempt=attempt,
                  wall_s=round(elapsed, 3),
                  steps=settings.steps - restart_step)
@@ -933,6 +963,21 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
         if num_recorder is not None:
             stats.record_numerics({"mode": num_mode,
                                    **num_recorder.describe()})
+        if sim.xstats_enabled:
+            # The records, their summary and the exchange census, with
+            # the fabric model's residual, as the reference's section.
+            xinfo = xstats.summarize(sim.executables)
+            xinfo["records"] = list(sim.executables)
+            xinfo["collectives"] = xstats.collective_counts(sim)
+            xinfo["model_projected_step_us"] = (
+                round(proj_us, 1) if proj_us is not None else None)
+            p50 = (m_step_us.percentile(50)
+                   if hasattr(m_step_us, "percentile") else None)
+            xinfo["observed_p50_us"] = p50
+            xinfo["model_vs_measured_residual_us"] = (
+                round(p50 - proj_us, 1)
+                if p50 is not None and proj_us is not None else None)
+            stats.record_executables(xinfo)
         stats.maybe_write()
         if settings.verbose:
             log.info(f"run stats: {stats.summary()}")
@@ -940,8 +985,12 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
         if ckpt is not None:
             ckpt.close()
     except GracefulShutdown:
+        if profile is not None:
+            profile.finish()
         raise
     except BaseException as exc:
+        if profile is not None:
+            profile.finish()
         evs.emit("run_error", step=step, attempt=attempt,
                  error=f"{type(exc).__name__}: {exc}")
         # The pipeline has drained (``with pipe``) before this closes

@@ -44,6 +44,7 @@ from ..config.env import env_int
 from ..config.settings import Settings
 from ..obs import numerics as obs_numerics
 from ..ops import cuda_stencil
+from ..parallel import distributed
 from ..parallel.domain import CartDomain
 from ..parallel.mesh import DeviceMesh
 from ..resilience.health import EnsembleHealthReport, member_probe, report_of
@@ -66,16 +67,25 @@ class EnsembleFieldSnapshot(FieldSnapshot):
     #: :meth:`EnsembleSimulation.snapshot_async`.
     member_active = None
     member_ranges: List[Tuple[int, int]] = []
+    #: The run's member count (a process of a run of several may hold
+    #: some members' blocks only).
+    member_count = None
 
-    def _member_rows(self, off: int, width: int) -> List[list]:
+    def _member_rows(self, off: int, width: int,
+                     identity=None) -> List[list]:
         """Per member, the probe rows ``[off, off + width)`` of every
-        block holding it."""
-        n = max(m0 + nm for m0, nm in self.member_ranges)
+        block this process holds of it; a member it holds no block of
+        gets the one row ``identity``, when given (the merge's neutral
+        row, so that every process makes the same collectives)."""
+        n = self.member_count or max(m0 + nm for m0, nm in self.member_ranges)
         rows: List[list] = [[] for _ in range(n)]
         for (m0, nm), mat in zip(self.member_ranges, self._scalars()):
             mat = np.asarray(mat).reshape(nm, -1)
             for j in range(nm):
                 rows[m0 + j].append(mat[j, off:off + width])
+        if identity is not None:
+            rows = [r or [np.asarray(identity, dtype=np.float64)]
+                    for r in rows]
         return rows
 
     def health_report(self):
@@ -86,9 +96,11 @@ class EnsembleFieldSnapshot(FieldSnapshot):
             return None
         if self._report is None:
             width = 1 + 2 * len(self.field_names)
+            # finite, then each field's (min, max): neutral for the merge.
+            identity = [1.0] + [np.inf, -np.inf] * len(self.field_names)
             self._report = EnsembleHealthReport(
                 [report_of(rows, self.field_names, reduce=self._reduce_probe)
-                 for rows in self._member_rows(0, width)],
+                 for rows in self._member_rows(0, width, identity)],
                 active=self.member_active)
         return self._report
 
@@ -105,7 +117,8 @@ class EnsembleFieldSnapshot(FieldSnapshot):
             width = len(obs_numerics.PARTIALS) * n
             members = [_numerics_of(rows, self.field_names,
                                     self._gather).fields
-                       for rows in self._member_rows(off, width)]
+                       for rows in self._member_rows(
+                           off, width, obs_numerics.identity_partials(n))]
             self._numerics_report = (
                 obs_numerics.NumericsReport.aggregate_members(
                     members, active=self.member_active))
@@ -169,22 +182,63 @@ def member_blocks(blocks, member: int) -> list:
 
 class MemberGroupMesh(DeviceMesh):
     """The block slots of a ``member_shards = m`` run: ``m`` groups of
-    the spatial mesh's blocks, group-major (:meth:`group` is each
-    group's :class:`~..parallel.mesh.DeviceMesh`). ``devices`` lists
-    every slot's device, as the simulation's blocks are listed."""
+    the spatial mesh's blocks, group-major, as the reference's ``(m, dx,
+    dy, dz)`` mesh lists them. ``devices`` lists the slots this process
+    holds, from global slot ``first_slot`` on; in a run of several
+    processes the slots are shared out in order, so a process holds
+    whole groups (:attr:`held` lists them) or a share of one group's
+    blocks, whose exchange then crosses processes
+    (``parallel/distributed.p2p``), as a solo mesh's does. :meth:`group`
+    is each held group's :class:`~..parallel.mesh.DeviceMesh`."""
 
-    def __init__(self, dims, devices, groups: int):
+    def __init__(self, dims, devices, groups: int, *, first_slot: int = 0,
+                 processes: int = 1):
         self.dims = tuple(int(d) for d in dims)
         self.devices = [torch.device(d) for d in devices]
-        self.first_rank = 0
         self._side_streams = {}
-        nb = len(self.devices) // groups
-        self.groups = [DeviceMesh(self.dims, self.devices[g * nb:
-                                                          (g + 1) * nb])
-                       for g in range(groups)]
+        n = len(self.devices)
+        nb = self.dims[0] * self.dims[1] * self.dims[2]
+        if n * processes != nb * groups:
+            raise ValueError(
+                f"{groups} member groups of a {self.dims} mesh take "
+                f"{nb * groups} block slots; got {n}"
+                + (f" in each of {processes} processes"
+                   if processes > 1 else ""))
+        if n % nb and nb % n:
+            raise ValueError(
+                f"a process's {n} block slots neither hold whole member "
+                f"groups of {nb} blocks nor share one group evenly")
+        self.first_process = 0
+        if n >= nb:
+            # Whole groups: each held group's mesh is in this process.
+            g0 = first_slot // nb
+            self.held = list(range(g0, g0 + n // nb))
+            self.first_rank = 0
+            self._share = nb
+            self.groups = {g: DeviceMesh(self.dims,
+                                         self.devices[i * nb:(i + 1) * nb],
+                                         first_process=first_slot // n)
+                           for i, g in enumerate(self.held)}
+        else:
+            # A share of one group, whose processes exchange its halos.
+            g = first_slot // nb
+            self.held = [g]
+            self.first_rank = first_slot % nb
+            self._share = n
+            self.groups = {g: DeviceMesh(
+                self.dims, self.devices, first_rank=self.first_rank,
+                processes=nb // n, first_process=g * nb // n)}
+
+    @property
+    def spatial_share(self) -> int:
+        return self._share
 
     def group(self, g: int) -> DeviceMesh:
         return self.groups[g]
+
+    def census(self):
+        return [sum(c) for c in zip(*(m.census()
+                                      for m in self.groups.values()))]
 
     def ppermute(self, tensors, axis, shift):
         raise ValueError("members exchange nothing: a halo exchange runs "
@@ -239,9 +293,15 @@ class EnsembleSimulation(Simulation):
     def _build_mesh(self, devices, first: int = 0) -> DeviceMesh:
         if self.member_shards == 1:
             return super()._build_mesh(devices, first)
-        if self.processes > 1:
-            raise ValueError("member_shards > 1 runs in one process")
-        return MemberGroupMesh(self.domain.dims, devices, self.member_shards)
+        return MemberGroupMesh(self.domain.dims, devices, self.member_shards,
+                               first_slot=first, processes=self.processes)
+
+    @property
+    def _held(self) -> List[int]:
+        """The member groups this process holds (all in one process)."""
+        if self.member_shards == 1:
+            return [0]
+        return self.mesh.held
 
     def _group_members(self, g: Optional[int]) -> range:
         """The members of group ``g`` (None: every member)."""
@@ -278,9 +338,9 @@ class EnsembleSimulation(Simulation):
         per = self.n_members // self.member_shards
         nb = len(self.offsets)
         out = []
-        for g in range(self.member_shards):
+        for i, _ in enumerate(self._held):
             for offs, dev in zip(self.offsets,
-                                 self.mesh.devices[g * nb:(g + 1) * nb]):
+                                 self.mesh.devices[i * nb:(i + 1) * nb]):
                 if self.sharded:
                     blk = self.model.init(L, self.dtype, offsets=offs,
                                           sizes=self.domain.local_shape,
@@ -304,12 +364,15 @@ class EnsembleSimulation(Simulation):
             return
         m = int(m)
         total = self.domain.n_blocks * self.member_shards
-        if self.n_members % m or total % m or (m > 1 and self.processes > 1):
+        n = len(self.mesh.devices)
+        if self.n_members % m or total % m or (n % (total // m)
+                                               and (total // m) % n):
             return  # infeasible for this run's slots and members
         devices = self.mesh.devices
+        first = distributed.process_index() * n
         self.member_shards = m
         self.domain = CartDomain.create(total // m, self.settings.L)
-        self.mesh = self._build_mesh(devices, 0)
+        self.mesh = self._build_mesh(devices, first)
         self.sharded = self.domain.n_blocks > 1
         decision.provenance["adopted_member_shards"] = m
 
@@ -348,9 +411,11 @@ class EnsembleSimulation(Simulation):
         nb = len(self.offsets)
         out = []
         rounds = None
-        for g in range(self.member_shards):
+        # This process's groups only: another process's exchange rounds
+        # involve it only where a group spans both.
+        for i, g in enumerate(self._held):
             with self._group(g):
-                out += super()._run_blocks(blocks[g * nb:(g + 1) * nb],
+                out += super()._run_blocks(blocks[i * nb:(i + 1) * nb],
                                            nsteps)
             if rounds is None:
                 rounds = self.exchange_rounds
@@ -376,13 +441,25 @@ class EnsembleSimulation(Simulation):
         per = self.n_members // self.member_shards
         return member // per, member % per
 
+    def _group_of_block(self, r: int) -> int:
+        """The member group of this process's block ``r``."""
+        return self._held[r // len(self.offsets)]
+
+    def _first_block(self, g: int) -> Optional[int]:
+        """This process's first block of member group ``g``, or None when
+        another process holds the group."""
+        held = self._held
+        return held.index(g) * len(self.offsets) if g in held else None
+
     def _bitflip_site(self):
         """The member-addressable ``bitflip``: member ``GS_FAULT_MEMBER``
         (default 0) of the first block of its group, so that detection
         names it while the other members verify clean."""
         g, j = self._member_site(env_int("GS_FAULT_MEMBER", 0)
                                  % self.n_members)
-        return g * len(self.offsets), (j, 0, 0, 0)
+        # A member another process holds: this process flips its first
+        # block's member j.
+        return self._first_block(g) or 0, (j, 0, 0, 0)
 
     def _snapshot_boxes(self) -> List[Tuple[tuple, tuple]]:
         """Each block's part: the member range in front of its spatial
@@ -390,7 +467,7 @@ class EnsembleSimulation(Simulation):
         per = self.n_members // self.member_shards
         boxes = self.local_boxes()
         return [((g * per,) + tuple(offs), (per,) + tuple(true))
-                for g in range(self.member_shards) for offs, true in boxes]
+                for g in self._held for offs, true in boxes]
 
     def local_boxes(self) -> List[Tuple[tuple, tuple]]:
         first = self.mesh.first_rank
@@ -401,6 +478,7 @@ class EnsembleSimulation(Simulation):
         for the per-member resolution downstream."""
         snap = super().snapshot_async(**kw)
         snap.member_active = self.member_active
+        snap.member_count = self.n_members
         snap.member_ranges = [(offs[0], true[0])
                               for offs, true in self._snapshot_boxes()]
         return snap
@@ -409,17 +487,15 @@ class EnsembleSimulation(Simulation):
         """One numerics probe of the live fields, per member, aggregated
         over the active members."""
         per = self.n_members // self.member_shards
-        nb = len(self.offsets)
         rows: List[list] = [[] for _ in range(self.n_members)]
         for r, fields in enumerate(self.blocks):
             mat = obs_numerics.member_partials(*fields).cpu().numpy()
             for j in range(per):
-                rows[(r // nb) * per + j].append(mat[j])
-        from ..parallel import distributed
-
+                rows[self._group_of_block(r) * per + j].append(mat[j])
         gather = distributed.all_gather_f64 if self.processes > 1 else None
-        members = [_numerics_of(r, self.model.field_names, gather).fields
-                   for r in rows]
+        names = self.model.field_names
+        members = [_numerics_of(r or [obs_numerics.identity_partials(
+            len(names))], names, gather).fields for r in rows]
         return obs_numerics.NumericsReport.aggregate_members(
             members, active=self.member_active)
 
@@ -436,12 +512,11 @@ class EnsembleSimulation(Simulation):
         """The members whose checksum rows differ between two
         :meth:`block_checksums` lists (the SDC screen's attribution)."""
         per = self.n_members // self.member_shards
-        nb = len(self.offsets)
         out = set()
         for r, (a, b) in enumerate(zip(live, replay)):
             for j, (x, y) in enumerate(zip(a, b)):
                 if x != y:
-                    out.add((r // nb) * per + j)
+                    out.add(self._group_of_block(r) * per + j)
         return sorted(out)
 
     def metrics_labels(self) -> dict:
@@ -495,15 +570,17 @@ class EnsembleSimulation(Simulation):
             member = env_int("GS_FAULT_MEMBER", 0)
         g, j = self._member_site(int(member) % self.n_members)
         i = self._field_index(field)
-        nb = len(self.offsets)
+        first = self._first_block(g)
+        if first is None:
+            return  # the process that holds the member poisons it
         for r, offs in enumerate(self.offsets):
             if any(offs):
                 continue
-            fields = list(self.blocks[g * nb + r])
+            fields = list(self.blocks[first + r])
             poisoned = fields[i].clone()
             poisoned[j, 0, 0, 0] = float("nan")
             fields[i] = poisoned
-            self.blocks[g * nb + r] = tuple(fields)
+            self.blocks[first + r] = tuple(fields)
 
     def _sdc_site(self, device=None) -> Tuple[str, int]:
         """With ``GS_FAULT_MEMBER`` set, the highest-ranked block of that
@@ -621,7 +698,7 @@ class EnsembleSimulation(Simulation):
         nb = len(self.offsets)
         blocks = []
         for r, dev in enumerate(self.mesh.devices):
-            g, offs = r // nb, self.offsets[r % nb]
+            g, offs = self._group_of_block(r), self.offsets[r % nb]
             sl = (slice(g * per, (g + 1) * per),) + tuple(
                 slice(o, o + b) for o, b in zip(offs, block))
             blocks.append(tuple(torch.tensor(a[sl], dtype=self.dtype,

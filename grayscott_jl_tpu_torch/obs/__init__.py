@@ -22,9 +22,16 @@ Contract, as in the reference: obs on or off leaves the stores bitwise
 the same — every hook observes host-side control flow or only reads the
 fields. Each sink resolves its path from the environment once (a
 process-wide singleton, ``.rank<N>``-suffixed in a run of several
-processes) and is a no-op when its variable is unset. Compile
-statistics (``xstats``) and the profiler windows (``GS_PROFILE``,
-``GS_TPU_PROFILE``) are ROADMAP Queue 1 item 21b.
+processes) and is a no-op when its variable is unset.
+
+* :mod:`.xstats` — build and launch analytics (``GS_XSTATS``): each
+  library built or loaded and each kernel entry launched, with the
+  card's attributes and the launch's cost, and the exchange census.
+* :class:`~.trace.ProfileWindow` — a ``torch.profiler`` capture of a
+  step range (``GS_PROFILE``); ``utils/profiler.trace`` captures a
+  whole run (``GS_TPU_PROFILE``).
+* :mod:`.report` — the run report over these artifacts
+  (``python -m grayscott_jl_tpu_torch.obs.report``).
 """
 
 from .events import (  # noqa: F401
@@ -35,7 +42,7 @@ from .events import (  # noqa: F401
 )
 from .metrics import Histogram, MetricsRegistry, get_metrics  # noqa: F401
 from .numerics import NumericsRecorder, NumericsReport  # noqa: F401
-from .trace import SpanTracer, get_tracer  # noqa: F401
+from .trace import ProfileWindow, SpanTracer, get_tracer  # noqa: F401
 
 __all__ = [
     "EventStream",
@@ -43,6 +50,7 @@ __all__ = [
     "MetricsRegistry",
     "NumericsRecorder",
     "NumericsReport",
+    "ProfileWindow",
     "SpanTracer",
     "get_events",
     "get_metrics",

@@ -163,6 +163,13 @@ def _sum(xs) -> float:
         return math.nan
 
 
+def identity_partials(n_fields: int) -> List[float]:
+    """The partials of no cells for ``n_fields`` fields: :func:`combine`
+    merges them with any rows to the same bits as without them."""
+    row = {"min": math.inf, "max": -math.inf}
+    return [row.get(stat, 0.0) for stat in PARTIALS] * n_fields
+
+
 def combine(rows: Sequence[Sequence[float]]) -> List[float]:
     """Merge the partial vectors of blocks into one: the mins by min and
     the maxes by max (a NaN wins), the rest by their correctly rounded

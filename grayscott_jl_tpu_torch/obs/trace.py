@@ -22,8 +22,11 @@ document against the contract the tests hold it to.
 * **balanced**: spans nest LIFO per thread and an edge span is closed
   before the next opens, so the exported intervals nest.
 
-The device-side captures of ``GS_PROFILE``/``GS_TPU_PROFILE`` are not
-here yet (ROADMAP Queue 1 item 21b; both variables are refused).
+The device-side capture of a step range is :class:`ProfileWindow`
+(``GS_PROFILE=start:stop``, ``GS_PROFILE_DIR``), over ``torch.profiler``:
+the spans say which round was slow, the capture which kernel. The
+capture of the whole run (``GS_TPU_PROFILE``) is
+``utils/profiler.trace``; both export through :func:`profiler_capture`.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import threading
 import time
 from typing import List, Optional
 
 __all__ = [
     "NULL_TRACER",
+    "ProfileWindow",
     "SpanTracer",
     "get_tracer",
     "rank_path",
@@ -328,3 +333,136 @@ def validate_trace(doc) -> List[str]:
                     continue
             stack.append(e)
     return problems
+
+
+# ------------------------------------------------------- profiler windows
+
+
+class ProfilerCapture:
+    """One ``torch.profiler`` capture, exported as a Chrome trace to
+    ``path`` when it stops: CPU activity, and the card's (kernels,
+    copies) when ``cuda``."""
+
+    def __init__(self, path: str, cuda: bool):
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.path = path
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.start()
+
+    def stop(self) -> str:
+        """Stop the capture and write its trace; returns the path."""
+        self._prof.stop()
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                    exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        return self.path
+
+
+def profiler_capture(path: str, cuda: bool) -> ProfilerCapture:
+    """Start a capture that exports to ``path`` (``.rank<N>`` in a run of
+    several processes)."""
+    return ProfilerCapture(rank_path(path), cuda)
+
+
+class ProfileWindow:
+    """``torch.profiler`` capture bracketing a simulation-step range
+    (the reference's ``jax.profiler`` window).
+
+    ``GS_PROFILE=start:stop`` (simulation steps) opens the capture at
+    the first driver boundary with ``step >= start`` and closes it at
+    the first with ``step >= stop``; its Chrome trace lands in
+    ``GS_PROFILE_DIR`` (default ``gs_profile``) as
+    ``profile_<start>_<stop>.json`` (``.rank<N>`` in a run of several
+    processes), with each round inside the window a ``gs_round`` range
+    naming its first step. It collects the card's activity with the
+    host's when ``cuda`` (the driver sets it for a run on the card).
+    Profiler failures warn and close the window: a profiling misconfig
+    never stops a run."""
+
+    def __init__(self, start: int, stop: int, out_dir: str):
+        if start < 0 or stop <= start:
+            raise ValueError(
+                f"profile window needs 0 <= start < stop, got "
+                f"{start}:{stop}"
+            )
+        self.start = start
+        self.stop = stop
+        self.out_dir = out_dir
+        self.active = False
+        self.cuda = False
+        #: The trace written when the window closed, or None.
+        self.path: Optional[str] = None
+        self._capture = None
+        self._done = False
+
+    @classmethod
+    def from_env(cls) -> Optional["ProfileWindow"]:
+        spec = os.environ.get("GS_PROFILE", "").strip()
+        if not spec:
+            return None
+        parts = spec.split(":")
+        if len(parts) != 2:
+            raise ValueError(
+                f"GS_PROFILE must be start:stop (steps), got {spec!r}"
+            )
+        try:
+            start, stop = int(parts[0]), int(parts[1])
+        except ValueError as e:
+            raise ValueError(
+                f"GS_PROFILE must be start:stop integers, got {spec!r}"
+            ) from e
+        return cls(start, stop,
+                   os.environ.get("GS_PROFILE_DIR", "gs_profile"))
+
+    def _fail(self, what: str, exc: Exception) -> None:
+        print(f"gray-scott-torch: warning: torch.profiler {what} failed "
+              f"({exc}); profile window disabled", file=sys.stderr)
+        self.active = False
+        self._capture = None
+        self._done = True
+
+    def _close(self) -> None:
+        try:
+            self.path = self._capture.stop()
+        except Exception as e:  # noqa: BLE001 — never stop the run
+            self._fail("stop", e)
+            return
+        self.active = False
+        self._capture = None
+        self._done = True
+
+    def on_boundary(self, step: int) -> None:
+        """Called at every driver boundary with the current step."""
+        if self._done:
+            return
+        if self.active and step >= self.stop:
+            self._close()
+        elif not self.active and self.start <= step < self.stop:
+            try:
+                self._capture = profiler_capture(
+                    os.path.join(self.out_dir,
+                                 f"profile_{self.start}_{self.stop}.json"),
+                    self.cuda)
+            except Exception as e:  # noqa: BLE001
+                self._fail("start", e)
+                return
+            self.active = True
+
+    def round(self, step: int):
+        """A ``gs_round`` range around a round from ``step`` while the
+        window is open, else nothing."""
+        if not self.active:
+            return contextlib.nullcontext()
+        import torch
+
+        return torch.profiler.record_function(f"gs_round step={step}")
+
+    def finish(self) -> None:
+        """Close a still-open capture (the run ended inside the
+        window)."""
+        if self.active:
+            self._close()

@@ -1017,6 +1017,49 @@ int probe(int mode, int variant, const void* const* in, void* const* out,
 }
 #endif  // GS_ENVELOPE_PROBES
 
+#ifndef GS_ENVELOPE_PROBES
+// The attributes of one kernel instance (gs_kernel_attributes): out[0]
+// registers per thread, out[1] local (spill) bytes per thread, out[2]
+// static shared bytes, out[3] the instance's max threads per block,
+// out[4] the dynamic shared bytes a launch at depth `fuse` requests,
+// out[5] blocks per SM at those bytes, out[6] threads per block.
+template <typename T, typename M, int MODE>
+int attributes_of(int fuse, int* out) {
+  auto kernel = stencil_chain_kernel<T, M, MODE>;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes<T, M>(fuse, windows_needed(MODE, fuse));
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      NTHREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = (int)smem;
+  out[5] = blocks;
+  out[6] = NTHREADS;
+  return 0;
+}
+
+template <typename T, typename M>
+int attributes_by_mode(int mode, int fuse, int* out) {
+  switch (mode) {
+    case kFaces6:
+      return attributes_of<T, M, kFaces6>(fuse, out);
+    case kXChain:
+      return attributes_of<T, M, kXChain>(fuse, out);
+    default:
+      return attributes_of<T, M, kBlock>(fuse, out);
+  }
+}
+#endif  // GS_ENVELOPE_PROBES
+
 }  // namespace
 
 extern "C" {
@@ -1127,6 +1170,27 @@ int gs_window_map4(void* out, const void* base, int itemsize, int nx, int ny,
   }
 
 #ifndef GS_ENVELOPE_PROBES
+// The attributes of the instance an entry point launches in `mode` at
+// depth `fuse` (entry: 0 f32, 1 f64, 2 bf16, 3 f32_mid_bf16; mode as the
+// entry points take it) into `out` (7 ints, attributes_of). Returns 0 or
+// the CUDA error. Launches nothing.
+int gs_kernel_attributes(int entry, int mode, int fuse, int* out) {
+  if (fuse < 1 || out == nullptr || mode < kBlock || mode > kXChain) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (entry) {
+    case 1:
+      return attributes_by_mode<double, double>(mode, fuse, out);
+    case 2:
+      return attributes_by_mode<__nv_bfloat16, __nv_bfloat16>(mode, fuse,
+                                                              out);
+    case 3:
+      return attributes_by_mode<float, __nv_bfloat16>(mode, fuse, out);
+    default:
+      return attributes_by_mode<float, float>(mode, fuse, out);
+  }
+}
+
 GS_ENTRY(gs_stencil_chain_f32, float, float)
 GS_ENTRY(gs_stencil_chain_f64, double, double)
 GS_ENTRY(gs_stencil_chain_bf16, __nv_bfloat16, __nv_bfloat16)

@@ -84,7 +84,11 @@ launches count in ``LAUNCHES`` and ``MODE_LAUNCHES`` (``copy_walk``,
 ``compute_walk``), the compute walk's also per variant in
 ``VARIANT_LAUNCHES``, and in neither per-model nor per-entry count.
 The SDC screen's replays (inside ``replaying()``) count in
-``REPLAY_LAUNCHES`` only.
+``REPLAY_LAUNCHES`` only. ``ENTRY_LAUNCHES`` counts the launches of each
+kernel entry (model, mode, entry point, members, depth, operand shape),
+and :func:`kernel_attributes` reads an entry's registers, shared bytes
+and blocks per SM from the card: the build and launch analytics'
+records (``obs/xstats.py``).
 """
 
 from __future__ import annotations
@@ -147,6 +151,11 @@ ENTRIES: Dict[Tuple[torch.dtype, bool], str] = {
 #: Launches per entry point, counted beside :data:`LAUNCHES`.
 DTYPE_LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRIES.values(), 0)
 
+#: Launches per kernel entry: ``(model, mode, entry point, members,
+#: fuse, operand shape, band)`` -> count, beside :data:`LAUNCHES` (the
+#: build and launch analytics' records, ``obs/xstats.py``).
+ENTRY_LAUNCHES: Dict[tuple, int] = {}
+
 #: Interior tile of one thread block, (x, y, z); z is contiguous. Must
 #: equal TX/TY/TZ in stencil_chain.cu (checked when the library loads).
 TILE = (8, 8, 32)
@@ -190,8 +199,8 @@ def reset_launches() -> None:
     """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES`,
     :data:`REPLAY_LAUNCHES` and every
     :data:`MODE_LAUNCHES`, :data:`MODE_MEMBERS`, :data:`VARIANT_LAUNCHES`,
-    :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES` and
-    :data:`LOAD_PATH_LAUNCHES` count to 0."""
+    :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES`,
+    :data:`ENTRY_LAUNCHES` and :data:`LOAD_PATH_LAUNCHES` count to 0."""
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     LAUNCHES = BAND_LAUNCHES = REPLAY_LAUNCHES = 0
     for counts in (MODE_LAUNCHES, MODE_MEMBERS, VARIANT_LAUNCHES,
@@ -199,6 +208,7 @@ def reset_launches() -> None:
         for key in counts:
             counts[key] = 0
     MODEL_LAUNCHES.clear()
+    ENTRY_LAUNCHES.clear()
 
 
 #: Launches inside :func:`replaying` (the SDC screen's replays), counted
@@ -840,6 +850,9 @@ def _lib(spec):
                 f"{tuple(layout)} != the ledger's {want}"
             )
         _type_common(lib)
+        lib.gs_kernel_attributes.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.gs_kernel_attributes.restype = ctypes.c_int
         for suffix in ENTRIES.values():
             fn = getattr(lib, f"gs_stencil_chain_{suffix}")
             fn.argtypes = (
@@ -923,11 +936,12 @@ def maps_address(maps):
 
 
 def count_launch(mode, path, *, entry=None, model=None, band=False,
-                 members=1):
+                 members=1, fuse=None, shape=None):
     """Count one kernel launch of ``mode`` on load ``path`` (of entry
-    point ``entry`` and ``model``; ``band``: a band recompute; advancing
-    ``members`` members), or, inside :func:`replaying`, in
-    :data:`REPLAY_LAUNCHES` only. A batched launch counts once."""
+    point ``entry`` and ``model`` at depth ``fuse`` on a ``shape``
+    operand; ``band``: a band recompute; advancing ``members`` members),
+    or, inside :func:`replaying`, in :data:`REPLAY_LAUNCHES` only. A
+    batched launch counts once."""
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     if _REPLAYING:
         REPLAY_LAUNCHES += 1
@@ -938,6 +952,8 @@ def count_launch(mode, path, *, entry=None, model=None, band=False,
     LOAD_PATH_LAUNCHES[path] += 1
     if entry is not None:
         DTYPE_LAUNCHES[entry] += 1
+        key = (model, mode, entry, int(members), fuse, shape, bool(band))
+        ENTRY_LAUNCHES[key] = ENTRY_LAUNCHES.get(key, 0) + 1
     if model is not None:
         MODEL_LAUNCHES[model] = MODEL_LAUNCHES.get(model, 0) + 1
     BAND_LAUNCHES += bool(band)
@@ -1050,5 +1066,31 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
             f"fuse={fuse}, shape={tuple(first.shape)}, {entry}, load "
             f"{path}): CUDA error {rc}: {msg}", code=rc)
     count_launch(mode, path, entry=entry, model=spec.name, band=band,
-                 members=members or 1)
+                 members=members or 1, fuse=fuse, shape=(nx, ny, nz))
     return outs
+
+
+def kernel_attributes(spec, mode: str, entry: str, fuse: int,
+                      device=None) -> dict:
+    """The card's attributes of the kernel instance ``spec``'s entry
+    point ``entry`` launches in ``mode`` at depth ``fuse``
+    (``gs_kernel_attributes``: ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; launches
+    nothing): ``registers``, ``local_bytes``, ``static_shared_bytes``,
+    ``max_threads_per_block``, ``dynamic_shared_bytes`` (what such a
+    launch requests), ``blocks_per_sm`` and ``threads_per_block``.
+    Raises :class:`KernelLaunchError` when the query fails."""
+    lib = _lib(spec)
+    out = (ctypes.c_int * 7)()
+    index = list(ENTRIES.values()).index(entry)
+    with torch.cuda.device(device if device is not None else 0):
+        rc = lib.gs_kernel_attributes(index, MODES[mode], int(fuse),
+                                      ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise KernelLaunchError(
+            f"gs_kernel_attributes({entry}, {mode}, fuse={fuse}) failed: "
+            f"CUDA error {rc}: {lib.gs_error_string(rc).decode()}", code=rc)
+    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
+                     "max_threads_per_block", "dynamic_shared_bytes",
+                     "blocks_per_sm", "threads_per_block"),
+                    (int(v) for v in out)))

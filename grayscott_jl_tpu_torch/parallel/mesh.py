@@ -88,10 +88,13 @@ class DeviceMesh:
     rank ``first_rank + i`` (row-major, as ``CartDomain.coords``) lives
     on ``devices[i]``. In a run of one process the devices cover the
     whole mesh; with ``processes`` > 1 each process holds an equal,
-    contiguous share, and ``first_rank`` is this process's first."""
+    contiguous share, and ``first_rank`` is this process's first. The
+    shares belong to the processes from ``first_process`` on (a member
+    group's mesh spans some of the run's processes)."""
 
     def __init__(self, dims: Tuple[int, int, int], devices: Sequence, *,
-                 first_rank: int = 0, processes: int = 1):
+                 first_rank: int = 0, processes: int = 1,
+                 first_process: int = 0):
         self.dims = tuple(int(d) for d in dims)
         self.devices = [torch.device(d) for d in devices]
         n = self.dims[0] * self.dims[1] * self.dims[2]
@@ -107,7 +110,25 @@ class DeviceMesh:
                 f"first_rank {first_rank} is not the start of a share of "
                 f"{len(self.devices)} blocks of {n}")
         self.first_rank = int(first_rank)
+        #: The process that holds rank 0 of this mesh (a member group's
+        #: mesh may start at another process than 0).
+        self.first_process = int(first_process)
         self._side_streams = {}
+        #: ppermute calls per axis, then the sends to other processes
+        #: (:meth:`census`).
+        self._calls = [0, 0, 0, 0]
+
+    def census(self) -> List[int]:
+        """ppermute calls along x, y and z since the mesh was built, and
+        the point-to-point sends to other processes they made (the
+        exchange census of ``obs/xstats.collective_counts``)."""
+        return list(self._calls)
+
+    @property
+    def spatial_share(self) -> int:
+        """The blocks of the spatial mesh this process holds (of each
+        member group it holds, for an ensemble's group mesh)."""
+        return len(self.devices)
 
     def side_stream(self, device: torch.device) -> "torch.cuda.Stream":
         """The card ``device``'s stream for the split-phase exchanges
@@ -125,7 +146,7 @@ class DeviceMesh:
 
     def owner(self, rank: int) -> int:
         """The process that holds mesh rank ``rank``."""
-        return rank // len(self.devices)
+        return self.first_process + rank // len(self.devices)
 
     def coords(self, rank: int) -> Tuple[int, int, int]:
         """Row-major rank -> (cx, cy, cz)."""
@@ -146,6 +167,7 @@ class DeviceMesh:
         global edge where no neighbour sends."""
         if shift not in (1, -1):
             raise ValueError(f"shift must be +1 or -1, got {shift}")
+        self._calls[axis] += 1
         first, n, me = self.first_rank, self.n_blocks, self.owner(
             self.first_rank)
         out: List[Optional[torch.Tensor]] = []
@@ -171,6 +193,7 @@ class DeviceMesh:
         if sends or remote:
             from . import distributed
 
+            self._calls[3] += len(sends)
             # Every block's tensor of one call has the same shape.
             got = distributed.p2p(
                 sends, [(self.owner(src), first + i, tensors[i],

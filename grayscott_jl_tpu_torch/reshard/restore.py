@@ -220,6 +220,19 @@ def _device_set(sim) -> frozenset:
     return frozenset(device_name(d) for d in sim.mesh.devices)
 
 
+def _group_meshes(sim, target):
+    """The ``(groups, old mesh, new mesh, old blocks, first new block)``
+    of each relayout a move makes: one for a solo or one-group run, one
+    per member group this process holds otherwise (the groups and their
+    processes are the same on both sides: the member split stays)."""
+    if int(getattr(sim, "member_shards", 1)) == 1:
+        return [(sim.mesh, target.mesh, list(sim.blocks), 0)]
+    na, nb = len(sim.offsets), len(target.offsets)
+    return [(sim.mesh.group(g), target.mesh.group(g),
+             list(sim.blocks[i * na:(i + 1) * na]), i * nb)
+            for i, g in enumerate(sim.mesh.held)]
+
+
 def _relayout(sim, target, stage) -> List[tuple]:
     """This process's new blocks of ``target``, each assembled on
     ``stage(i)`` (the i-th local new block's device) from the overlaps
@@ -227,23 +240,34 @@ def _relayout(sim, target, stage) -> List[tuple]:
     never read), mesh B's pad at the boundary values. Overlaps held by
     another process arrive in one ``distributed.p2p`` round; both sides
     walk the (new rank, old rank) pairs in the same order, so the
-    transfers between two processes match."""
+    transfers between two processes match. Under ``member_shards > 1``
+    each member group's blocks move by their own relayout, between the
+    processes that hold the group."""
+    out = []
+    for a_mesh, b_mesh, blocks, first in _group_meshes(sim, target):
+        out += _relayout_mesh(sim, target, a_mesh, b_mesh, blocks,
+                              lambda i, first=first: stage(first + i))
+    return out
+
+
+def _relayout_mesh(sim, target, a_mesh, b_mesh, blocks, stage):
+    """One relayout from ``blocks`` on ``a_mesh`` (``sim``'s spatial
+    mesh, or one member group's) onto ``b_mesh``."""
     L = sim.settings.L
     old_dims = sim.domain.dims
     old_boxes = plan_mod.shard_boxes(L, old_dims)
     new_boxes = plan_mod.shard_boxes(L, target.domain.dims)
     rank_of = {coords: r for r, (coords, _, _) in enumerate(old_boxes)}
-    a_first, a_n = sim.mesh.first_rank, sim.mesh.n_blocks
-    b_first, b_n = target.mesh.first_rank, target.mesh.n_blocks
+    a_first, b_first = a_mesh.first_rank, b_mesh.first_rank
     me = distributed.process_index()
     # An ensemble's blocks carry the member axis in front: it rides
     # along every slice (the member set is adjusted by _adjust_members).
-    lead = tuple(sim.blocks[0][0].shape[:-3])
+    lead = tuple(blocks[0][0].shape[:-3])
     block = lead + tuple(target.domain.local_shape)
     padded = target.domain.padded
     nf = target.model.n_fields
     out = []
-    for i in range(b_n):
+    for i in range(b_mesh.n_blocks):
         dev = stage(i)
         out.append(tuple(
             torch.full(block, float(bv), dtype=target.dtype, device=dev)
@@ -251,11 +275,11 @@ def _relayout(sim, target, stage) -> List[tuple]:
             for bv in target.model.boundaries))
     sends, recvs, landing = [], [], []
     for rb, (_, nstart, ncount) in enumerate(new_boxes):
-        mine_b = rb // b_n == me
+        mine_b = b_mesh.owner(rb) == me
         for coords in plan_mod.overlapping_old_shards((nstart, ncount), L,
                                                       old_dims):
             ra = rank_of[coords]
-            mine_a = ra // a_n == me
+            mine_a = a_mesh.owner(ra) == me
             if not (mine_a or mine_b):
                 continue
             _, ostart, ocount = old_boxes[ra]
@@ -268,15 +292,16 @@ def _relayout(sim, target, stage) -> List[tuple]:
                                       for x, y, s in zip(lo, hi, nstart))
             tag = rb * len(old_boxes) + ra
             if mine_a and mine_b:
-                for new, old in zip(out[rb - b_first], sim.blocks[ra - a_first]):
+                for new, old in zip(out[rb - b_first], blocks[ra - a_first]):
                     new[dst].copy_(old[src])
             elif mine_a:
-                piece = torch.stack([f[src] for f in sim.blocks[ra - a_first]])
-                sends.append((rb // b_n, tag, piece))
+                piece = torch.stack([f[src] for f in blocks[ra - a_first]])
+                sends.append((b_mesh.owner(rb), tag, piece))
             else:
                 shape = (nf,) + lead + tuple(y - x for x, y in zip(lo, hi))
                 like = torch.empty(shape, dtype=target.dtype, device="meta")
-                recvs.append((ra // a_n, tag, like, out[rb - b_first][0].device))
+                recvs.append((a_mesh.owner(ra), tag, like,
+                              out[rb - b_first][0].device))
                 landing.append((rb - b_first, dst))
     if sends or recvs:
         for (i, dst), piece in zip(landing, distributed.p2p(sends, recvs)):
@@ -302,6 +327,18 @@ def _adjust_members(sim, target, blocks) -> List[tuple]:
             if new_n > old_n else f[:new_n].contiguous()
             for f, i in zip(fields, init)))
     return out
+
+
+def _regroups(sim, target) -> bool:
+    """Whether a move changes which member group a member is in: the
+    member split or count changes where either side has more than one
+    group (the device tiers move each group's blocks within the
+    group)."""
+    shards = [int(getattr(s, "member_shards", 1)) for s in (sim, target)]
+    if max(shards) == 1:
+        return False
+    return (shards[0] != shards[1]
+            or int(sim.n_members) != int(target.n_members))
 
 
 def _collective_tier(sim, target) -> None:
@@ -366,17 +403,17 @@ def device_all_to_all_restore(sim, plan: ReshardPlan, target, *,
         # Every process takes the same tier.
         same_set = not distributed.any_process(not same_set)
     t0 = time.perf_counter()
-    grouped = any(int(getattr(s, "member_shards", 1)) > 1
-                  for s in (sim, target))
-    if grouped and mode in ("auto", "host"):
-        # Member groups on either side: the members are re-placed
-        # through the host (the device tiers relay one group's blocks).
+    regroup = _regroups(sim, target)
+    if regroup and mode in ("auto", "host"):
+        # The member split or count changes under member_shards > 1:
+        # members change groups, which the host re-places.
         _host_tier(sim, target)
         path = "host"
-    elif grouped:
+    elif regroup:
         raise ReshardError(
-            f"GS_RESHARD_DEVICE={mode} moves one member group's blocks; a "
-            "member_shards > 1 run moves through auto or host")
+            f"GS_RESHARD_DEVICE={mode} moves each member group's blocks "
+            "within its group; this move changes the member split or "
+            "count of a member_shards > 1 run: use auto or host")
     elif mode == "collective" or (mode == "auto" and same_set):
         if not same_set:
             raise ReshardError(

@@ -439,6 +439,18 @@ class Simulation:
         #: program as a chain of that depth. 1 is the one-exchange-per-
         #: chain schedule; unpinned, the autotuner may adopt a deeper one.
         halo_pinned, self.halo_depth = config.resolve_halo_depth(settings)
+        #: Build and launch analytics (``obs/xstats.py``): armed by
+        #: ``GS_XSTATS`` / ``xstats``, or whenever the compile cache is,
+        #: as in the reference. Each library the run builds or loads
+        #: (here, before the tuner's launches) and, at the run's end,
+        #: each kernel entry it launched appends its record.
+        self.xstats_enabled = (config.resolve_xstats(settings)
+                               or bool(self.compile_cache_dir))
+        self.executables: list = []
+        if self.xstats_enabled:
+            from .obs import xstats
+
+            xstats.capture_libraries(self)
         if settings.kernel_language.strip().lower() == "auto":
             self._resolve_auto(settings, kind, seed, halo_pinned,
                                mesh_forced=(mesh_dims is not None or bool(
@@ -489,8 +501,7 @@ class Simulation:
             #: (rank order).
             self.offsets = [
                 tuple(c * b for c, b in zip(self.domain.coords(r), block))
-                for r in range(first, first + self.domain.n_blocks
-                               // self.processes)
+                for r in range(first, first + self.mesh.spatial_share)
             ]
         else:
             self.offsets = [(0, 0, 0)]

@@ -23,7 +23,9 @@ the hang watchdog's provenance and the fault journal, and
 :meth:`~RunStats.record_comm` the fabric model's exchange budget
 (``parallel/icimodel.comm_report``), under the reference's summary keys
 (``metrics``, ``obs``, ``numerics``, ``watchdog``, ``faults``,
-``comm``).
+``comm``), and :meth:`~RunStats.record_executables` the build and
+launch analytics (``executables``). :func:`trace` is the
+``GS_TPU_PROFILE`` capture of a whole run.
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ class RunStats:
         #: health; it also scales ``cell_updates_per_s`` by the active
         #: members.
         self.ensemble: Optional[dict] = None
+        #: The build and launch analytics (:meth:`record_executables`).
+        self.executables: Optional[dict] = None
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
@@ -155,6 +159,12 @@ class RunStats:
             "member_reports": [m.describe() for m in report.members],
         }
 
+    def record_executables(self, info: Optional[dict]) -> None:
+        """Attach the build and launch analytics (``obs/xstats.py``): the
+        ``summarize`` header, ``records`` and the fabric model's
+        residual keys."""
+        self.executables = dict(info) if info else None
+
     def summary(self) -> dict:
         total = time.perf_counter() - self._t0
         with self._lock:
@@ -186,6 +196,7 @@ class RunStats:
             "obs": self.obs,
             "numerics": self.numerics,
             "ensemble": self.ensemble,
+            "executables": self.executables,
         }
 
     def maybe_write(self) -> Optional[str]:
@@ -203,3 +214,38 @@ class RunStats:
             json.dump(self.summary(), f)
             f.write("\n")
         return path
+
+
+@contextlib.contextmanager
+def trace(cuda: bool = False):
+    """A ``torch.profiler`` capture of the run when ``GS_TPU_PROFILE``
+    names a directory (the reference's ``jax.profiler`` trace): its
+    Chrome trace ``gs_tpu_profile.json`` (``.rank<N>`` in a run of
+    several processes) is written there when the run leaves, with the
+    card's activity when ``cuda``. A profiler that fails to start or
+    stop warns; the run goes on."""
+    out = env_raw("GS_TPU_PROFILE")
+    if not out:
+        yield
+        return
+    import os
+    import sys
+
+    from ..obs.trace import profiler_capture
+
+    try:
+        cap = profiler_capture(os.path.join(out, "gs_tpu_profile.json"),
+                               cuda)
+    except Exception as e:  # noqa: BLE001 — never stop the run
+        print(f"gray-scott-torch: warning: torch.profiler start failed "
+              f"({e}); GS_TPU_PROFILE skipped", file=sys.stderr)
+        yield
+        return
+    try:
+        yield
+    finally:
+        try:
+            cap.stop()
+        except Exception as e:  # noqa: BLE001
+            print(f"gray-scott-torch: warning: torch.profiler stop failed "
+                  f"({e}); no GS_TPU_PROFILE trace", file=sys.stderr)

@@ -11,6 +11,8 @@ model's kernel must equal its plain torch version bitwise: both perform
 the same IEEE operations in the same order (``--fmad=false``); only the
 math-library ops are held at a stated tolerance."""
 
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -1296,10 +1298,11 @@ def test_ensemble_members_equal_solo_runs_on_one_card(dims, fuse,
 
 
 @pytest.mark.cuda
-def test_ensemble_member_shards_across_cards(monkeypatch):
+def test_ensemble_member_shards_across_cards(monkeypatch, tmp_path):
     """``member_shards = 2`` over a (2,1,1) spatial mesh on four cards:
     each group's blocks on its own cards, every member bitwise equal to
-    its solo run on (2,1,1)."""
+    its solo run on (2,1,1); then the same run as four NCCL processes, a
+    card each, each group spanning two of them."""
     _card()
     if torch.cuda.device_count() < 4:
         pytest.skip(f"needs 4 cards, this machine has "
@@ -1329,3 +1332,161 @@ def test_ensemble_member_shards_across_cards(monkeypatch):
         solo.iterate(6)
         for a, b in zip(fields, solo.get_fields()):
             assert (a[k] == b).all()
+    # The same groups as four NCCL processes, a card each: each group's
+    # two blocks on two processes, its halo exchange between them; every
+    # member's store bitwise equal to the one-process run's.
+    import os
+
+    from grayscott_jl_tpu_torch import driver, launch
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+
+    monkeypatch.setenv("GS_TPU_MESH_DIMS", "2,1,1")
+    base = tmp_path
+    one_cfg = _ens_card_config(base / "one", L=32, steps=6, plotgap=6)
+    driver.run_once(get_settings([one_cfg]), sim_factory=(
+        lambda st, *, n_devices, seed: EnsembleSimulation(
+            st, seed=seed, devices=[f"cuda:{i}" for i in range(4)])))
+    cfg = _ens_card_config(base / "four", L=32, steps=6, plotgap=6)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GS_TPU_COORDINATOR", "GS_TPU_DISTRIBUTED")}
+    log = base / "four" / "launch.log"
+    with open(log, "w") as f:
+        codes = launch.launch(4, cfg, 1, env=env, cwd=str(base / "four"),
+                              timeout=240, stdout=f, stderr=f)
+    assert codes == [0] * 4, log.read_text()[-4000:]
+    _assert_member_stores_equal(base / "one", base / "four", 4)
+
+
+# -------------------------------- build and launch analytics, profiling
+
+
+def _ens_card_config(d, presets=("spots", "stripes", "waves", "chaos"),
+                     member_shards=2, **kw):
+    """A card config with an ``[ensemble]`` table, the stores in ``d``."""
+    d.mkdir(parents=True, exist_ok=True)
+    cfg = _card_config(d / "cfg.toml", **kw)
+    with open(cfg, "a") as f:
+        f.write("[ensemble]\npresets = [" + ", ".join(
+            f'"{p}"' for p in presets) + f"]\nmember_shards = "
+            f"{member_shards}\n")
+    return cfg
+
+
+def _assert_member_stores_equal(a, b, n):
+    """Every member's output store in ``a`` and ``b``: the same steps,
+    bitwise the same arrays."""
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.ensemble.io import member_path
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+
+    for k in range(n):
+        with BpReader(member_path(str(a / "gs.bp"), k, n)) as x, BpReader(
+                member_path(str(b / "gs.bp"), k, n)) as y:
+            assert x.num_steps() == y.num_steps() > 0
+            for i in range(x.num_steps()):
+                for name in ("U", "V"):
+                    np.testing.assert_array_equal(x.get(name, step=i),
+                                                  y.get(name, step=i))
+
+
+@pytest.mark.cuda
+def test_launch_record_attributes_on_the_card(tmp_path, monkeypatch):
+    """``GS_XSTATS=1`` on the card: the kernel library's record, and one
+    launch record for the ``kBlock`` f32 entry with the card's registers,
+    shared bytes (the launch's request at depth 1: one window per field
+    and the barrier) and blocks per SM, and the row's cost."""
+    _card()
+    import json
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.obs import xstats
+
+    for var in ("GS_FUSE", "GS_TPU_MESH_DIMS", "GS_COMPILE_CACHE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("GS_XSTATS", "1")
+    stats = tmp_path / "stats.json"
+    monkeypatch.setenv("GS_TPU_STATS", str(stats))
+    sim = driver.main([_card_config(tmp_path / "cfg.toml", steps=8,
+                                    plotgap=4)])
+    section = json.loads(stats.read_text())["executables"]
+    libs = {r["name"]: r for r in section["records"]
+            if r.get("record") == "library"}
+    assert set(libs) == {"grayscott", "libbplite"}
+    (rec,) = [r for r in section["records"] if r.get("record") == "launch"]
+    assert (rec["name"], rec["launches"], rec["shape"]) == (
+        "kBlock[f32]", 8, [64, 64, 64])
+    mem, occ = rec["memory"], rec["occupancy"]
+    wvol = cuda_stencil.window_geometry(4, 1)[5]
+    assert mem["dynamic_shared_bytes"] == 2 * wvol * 4 + 8
+    assert 0 < mem["registers"] <= 255 and mem["local_bytes"] >= 0
+    assert occ["blocks_per_sm"] >= 1 and occ["threads_per_block"] > 0
+    flops = SPEC.flops_per_cell_step()
+    assert rec["cost"] == xstats.launch_cost("chain", (64,) * 3, 1, flops)
+    assert sim.xstats_enabled
+
+
+@pytest.mark.cuda
+def test_profile_window_launch_count_on_the_card(tmp_path, monkeypatch):
+    """``GS_PROFILE=4:12`` over 16 steps with boundaries every 4: the
+    window's Chrome trace holds exactly the 8 launches of the template's
+    kernel from steps 4 to 12 and none outside."""
+    _card()
+    import json
+
+    from grayscott_jl_tpu_torch import driver
+
+    for var in ("GS_FUSE", "GS_TPU_MESH_DIMS"):
+        monkeypatch.delenv(var, raising=False)
+    prof = tmp_path / "prof"
+    monkeypatch.setenv("GS_PROFILE", "4:12")
+    monkeypatch.setenv("GS_PROFILE_DIR", str(prof))
+    cuda_stencil.reset_launches()
+    driver.main([_card_config(tmp_path / "cfg.toml", steps=16, plotgap=4)])
+    assert cuda_stencil.LAUNCHES == 16
+    doc = json.loads((prof / "profile_4_12.json").read_text())
+    kernels = [e for e in doc["traceEvents"] if e.get("cat") == "kernel"
+               and "stencil_chain_kernel" in e.get("name", "")]
+    assert len(kernels) == 8
+
+
+@pytest.mark.cuda
+def test_member_groups_across_two_processes_on_one_card(tmp_path,
+                                                        monkeypatch):
+    """``member_shards = 2`` as two processes sharing ``cuda:0`` over
+    gloo, one group each: every member's store bitwise equal to the
+    one-process run's, each process 20 batched ``kBlock`` launches of 2
+    members."""
+    _card()
+    import json
+    import os
+
+    from grayscott_jl_tpu_torch import driver, launch
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from grayscott_jl_tpu_torch.ensemble.engine import EnsembleSimulation
+
+    for var in ("GS_FUSE", "GS_TPU_MESH_DIMS"):
+        monkeypatch.delenv(var, raising=False)
+    one_cfg = _ens_card_config(tmp_path / "one")
+    driver.run_once(get_settings([one_cfg]), sim_factory=(
+        lambda s, *, n_devices, seed: EnsembleSimulation(
+            s, seed=seed, devices=["cuda:0"] * 2)))
+    cfg = _ens_card_config(tmp_path / "pair")
+    stats = tmp_path / "pair" / "stats.json"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GS_TPU_COORDINATOR", "GS_TPU_DISTRIBUTED")}
+    env.update(GS_TPU_STATS=str(stats), GS_XSTATS="1",
+               CUDA_VISIBLE_DEVICES="0")
+    log = tmp_path / "pair" / "launch.log"
+    with open(log, "w") as f:
+        codes = launch.launch(2, cfg, 1, env=env, cwd=str(tmp_path / "pair"),
+                              timeout=240, stdout=f, stderr=f)
+    assert codes == [0, 0], log.read_text()[-4000:]
+    _assert_member_stores_equal(tmp_path / "one", tmp_path / "pair", 4)
+    for rank in range(2):
+        summary = json.loads(Path(f"{stats}.rank{rank}").read_text())
+        assert summary["config"]["launches"]["modes"] == {"chain": 20}
+        (rec,) = [r for r in summary["executables"]["records"]
+                  if r.get("record") == "launch"]
+        assert (rec["name"], rec["launches"], rec["members"]) == (
+            "kBlock[f32]x2", 20, 2)

@@ -332,3 +332,77 @@ print("ok")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+OBS_MODULES = ("obs/xstats.py", "obs/report.py", "obs/trace.py",
+               "utils/profiler.py")
+
+
+@pytest.mark.parametrize("rel", OBS_MODULES)
+def test_the_observability_modules_are_checked(rel):
+    """Build and launch analytics, the run report and the profiler
+    captures are among the sources held to the rule."""
+    assert PACKAGE / rel in SOURCES
+
+
+def test_member_groups_across_processes_stand_alone(tmp_path):
+    """Two processes of a member_shards = 2 ensemble over gloo, one
+    group each, with the analytics and a profiler window armed, run
+    with JAX blocked in every process; the report checks the stats."""
+    worker = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from grayscott_jl_tpu_torch import driver
+from grayscott_jl_tpu_torch.config.settings import get_settings
+sim = driver.run_once(get_settings([sys.argv[1]]), n_devices=1)
+assert sim.member_shards == 2 and len(sim.mesh.held) == 1
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    from grayscott_jl_tpu_torch import launch
+
+    cfg = tmp_path / "c.toml"
+    cfg.write_text(f"""L = 8
+steps = 4
+plotgap = 2
+noise = 0.1
+backend = "CPU"
+precision = "Float32"
+kernel_language = "Pallas"
+output = "{tmp_path}/gs.bp"
+[ensemble]
+presets = ["spots", "chaos"]
+member_shards = 2
+""")
+    port = launch.free_port()
+    env = {k: v for k, v in __import__("os").environ.items()
+           if not k.startswith(("GS_", "LOCAL_"))}
+    env.update(PYTHONPATH=str(REPO), GS_XSTATS="1", GS_PROFILE="0:2",
+               GS_PROFILE_DIR=str(tmp_path / "prof"),
+               GS_TPU_STATS=str(tmp_path / "stats.json"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", worker, str(cfg)], cwd=tmp_path,
+        env=launch.process_env(r, 2, port, env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert out.strip().splitlines()[-1] == "ok"
+    assert sorted(x.name for x in (tmp_path / "prof").iterdir()) == [
+        "profile_0_2.json.rank0", "profile_0_2.json.rank1"]
+    for rank in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.modules['jax'] = None; "
+             "from grayscott_jl_tpu_torch.obs import report; "
+             "sys.exit(report.main(sys.argv[1:]))", "--check", "--stats",
+             str(tmp_path / f"stats.json.rank{rank}")],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -418,7 +418,8 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
     construction, naming its ROADMAP item; its "off" values run. The
     integrity variables' item has ported them, ``GS_NUMERICS``'s (item
     16b), the supervisor's, fault plans', watchdog's and SDC screen's
-    (item 17) and ``GS_AUTOTUNE``'s (item 20): they act now."""
+    (item 17), ``GS_AUTOTUNE``'s (item 20) and ``GS_XSTATS``'s (item
+    21b): they act now."""
     if var in ("GS_SUPERVISE", "GS_FAULTS", "GS_WATCHDOG", "GS_SDC_CHECK"):
         from grayscott_jl_tpu_torch.resilience import (faults, sdc,
                                                        supervisor, watchdog)
@@ -471,6 +472,20 @@ def test_unported_env_vars_raise_naming_the_item(var, value, off, item,
         cfg = integrity.resolve_config()
         assert (cfg["replicas"], cfg["scrub"]) == (1, False)
         return
+    if var == "GS_XSTATS":
+        # Ported by ``item`` (21b): the build and launch analytics arm,
+        # recording the store engine's library; "off" leaves them
+        # unarmed.
+        assert var not in config.NOT_PORTED_ENV
+        monkeypatch.setenv(var, value)
+        sim = Simulation(Settings(L=8, backend="CPU"))
+        sim.iterate(1)
+        assert sim.xstats_enabled
+        assert [r["name"] for r in sim.executables] == ["libbplite"]
+        monkeypatch.setenv(var, off)
+        sim = Simulation(Settings(L=8, backend="CPU"))
+        assert not sim.xstats_enabled and sim.executables == []
+        return
     if var == "GS_AUTOTUNE":
         # Ported by ``item``: the tuner measures the shortlist, stores
         # the winner in GS_AUTOTUNE_CACHE, and the "off" value reads it
@@ -504,9 +519,10 @@ def test_reference_environment_no_longer_ignored(monkeypatch):
                        ("GS_CKPT_REPLICAS", "2")):
         monkeypatch.setenv(var, value)
     s = Settings(L=16, backend="CPU", precision="Float32")
+    # The build and launch analytics are ported (Queue 1 item 21b): they
+    # act.
     monkeypatch.setenv("GS_XSTATS", "1")
-    with pytest.raises(SettingsError, match="GS_XSTATS"):
-        Simulation(s)
+    assert Simulation(s).xstats_enabled
     monkeypatch.delenv("GS_XSTATS")
     # Supervision is ported (Queue 1 item 17): it acts.
     monkeypatch.setenv("GS_SUPERVISE", "1")

@@ -5,6 +5,8 @@ ports it, with its "off" values still running; one that its item has
 since ported now acts (``GS_CKPT_VERIFY=full``, Queue 1 item 7 with
 16b's device checksum, in the settings and in the reader; ``GS_EVENTS``,
 ``GS_METRICS`` and ``GS_TRACE``, item 21a: a run writes the sink;
+``GS_PROFILE`` and ``GS_TPU_PROFILE``, item 21b: a run writes its
+profiler capture;
 ``GS_DEVICE_BLOCKLIST``, item 17: a quarantined device is left out); and
 ``reshard = "off"`` / ``GS_RESHARD=off`` refuses a restore from a store
 recorded on another mesh, as the reference does."""
@@ -64,6 +66,33 @@ def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
             assert not SINKS[var][0]().enabled
         finally:
             SINKS[var][1]()
+        return
+    if var in ("GS_PROFILE", "GS_TPU_PROFILE"):
+        # Ported by ``item``: the value acts. The window (10:20 over 20
+        # steps, boundaries every 5) captures the rounds from steps 10
+        # and 15; the whole-run capture writes its trace; the "off"
+        # value writes none. Either way the stores are the same.
+        import json
+
+        assert var not in NOT_PORTED_ENV
+        out = tmp_path / ("profile" if var == "GS_PROFILE"
+                          else value.rsplit("/", 1)[1])
+        cfg = _config(tmp_path / "c.toml", steps=20)
+        monkeypatch.setenv(var, value if var == "GS_PROFILE" else str(out))
+        monkeypatch.setenv("GS_PROFILE_DIR", str(out))
+        driver.main([cfg])
+        (trace_file,) = out.iterdir()
+        doc = json.loads(trace_file.read_text())
+        rounds = sorted(e["name"] for e in doc["traceEvents"]
+                        if e.get("name", "").startswith("gs_round"))
+        assert rounds == ([] if var == "GS_TPU_PROFILE" else
+                          ["gs_round step=10", "gs_round step=15"])
+        on = (tmp_path / "gs.bp" / "data.0").read_bytes()
+        monkeypatch.setenv(var, off)
+        monkeypatch.setenv("GS_PROFILE_DIR", str(tmp_path / "none"))
+        driver.main([cfg])
+        assert not (tmp_path / "none").exists()
+        assert (tmp_path / "gs.bp" / "data.0").read_bytes() == on
         return
     if var == "GS_CKPT_VERIFY":
         # Ported by ``item``: the value acts. A snapshot carries the

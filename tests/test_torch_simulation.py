@@ -284,7 +284,8 @@ def test_unported_keys_raise_at_construction(key, value, monkeypatch,
     since item 16b was ported: the mode resolves and the probe runs.
     ``supervise``, ``faults`` and ``watchdog`` act since item 17 was
     ported: a simulation builds, and the key resolves as the
-    reference's."""
+    reference's. ``xstats`` acts since item 21b was ported: the
+    analytics arm and the run is the default one, bitwise."""
     s = dataclasses.replace(Settings(L=8, backend="CPU"), **{key: value})
     if key in ("supervise", "faults", "watchdog"):
         from grayscott_jl_tpu.resilience import faults as ref_faults
@@ -318,6 +319,22 @@ def test_unported_keys_raise_at_construction(key, value, monkeypatch,
         prov = sim.kernel_selection["autotune"]
         assert (prov["mode"], prov["source"]) == ("quick", "measured")
         assert prov["winner"]["kernel"] == sim.kernel_language == "plain"
+        for x in (sim, base):
+            x.iterate(3)
+        for a, b in zip(sim.get_fields(), base.get_fields()):
+            np.testing.assert_array_equal(a, b)
+        return
+    if key == "xstats":
+        # Item 21b is ported: the key acts, as the reference's does. The
+        # run records its store engine's library, bitwise the run
+        # without analytics.
+        from grayscott_jl_tpu.obs.xstats import resolve_xstats as ref_resolve
+        from grayscott_jl_tpu_torch.config.settings import resolve_xstats
+
+        assert resolve_xstats(s) is ref_resolve(s) is True
+        sim, base = Simulation(s), Simulation(Settings(L=8, backend="CPU"))
+        assert sim.xstats_enabled and not base.xstats_enabled
+        assert [r["name"] for r in sim.executables] == ["libbplite"]
         for x in (sim, base):
             x.iterate(3)
         for a, b in zip(sim.get_fields(), base.get_fields()):
