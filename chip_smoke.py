@@ -214,7 +214,30 @@ Phases, each of which stops the run on failure:
    of 2 members each) with every member's stores bitwise equal to the
    one-process run's, and the one-process run moved live onto (2,1,1)
    per group under ``GS_RESHARD_DEVICE=auto`` (``collective``), its
-   stores equal to the unmoved run's;
+   stores equal to the unmoved run's; (xi) serving (``phase_serve``,
+   right after (ix)): the service (``serve/``) in-process on port 0 with
+   ``backend = "CUDA"``, a fresh state directory and unsupervised batches.
+   (xi-a) three Gray-Scott jobs of one pack key over HTTP — L=256, the
+   reference's ``GS_SERVE_MAX_L`` cap, 100 steps, plotgap 50, a
+   checkpoint every 50, noise 0.1, three (F, k) and seeds — form one
+   batch of 4 slots: exactly 100 batched ``kBlock`` f32 launches of 4
+   members (``MODE_MEMBERS``, ``ENTRY_LAUNCHES``), no store of the idle
+   slot, ``/field`` at ``sim_step`` 100, and each member's ``.bp``,
+   ``.vtk`` and checkpoint trees byte-identical to that job's solo
+   ``driver.main`` run on the card (``kernel_language = "CUDA"``); (xi-b)
+   a second batch of the shape is a warm hit (no new engine, no build),
+   job 1's spec again answers ``cache="hit"`` with its store and no
+   launch, and a flipped byte of that store under ``GS_CACHE_VERIFY=1``
+   drops the entry and the job recomputes into the same bytes; (xi-c)
+   chaos scenario 6 at L=64 (the worker killed mid-batch, the stores
+   byte-identical to an uninterrupted service's); (xi-d) a front door
+   with no local worker and one ``--role worker`` process on ``cuda:0``
+   sharing a fleet directory: job 1 again, its stores equal (xi-a)'s.
+   ``obs/report --check`` passes on the service's stream and on the
+   fleet's merged stream. Printed beside the card's name and power
+   limit: the batch's wall against the three solo walls, request to
+   first step cold and warm, the cache hit's round trip, and one N=4
+   batched launch's CUDA-event time against its bound (4 x 0.0801 ms);
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -248,7 +271,8 @@ Phases, each of which stops the run on failure:
    kernels' device times under the profiler and their plain versions'
    times at L=256 depth 1.
 
-Prints the ensemble phase's numbers as a JSON line, the kernels' JSON
+Prints the ensemble phase's numbers as a JSON line, the serving phase's
+as another, the kernels' JSON
 line (each kernel with the load path its main path took, and for the
 production modes the member count and launches of the ensemble phase's
 batched runs), then the ``nvidia-smi`` line, then the
@@ -266,6 +290,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -4968,6 +4993,307 @@ def phase_batch_parity(torch, gs, cuda_stencil, spec, report):
     return worst
 
 
+#: The serving phase (phase 4 (xi)): three Gray-Scott jobs of one pack key
+#: at the reference's serving cap (``GS_SERVE_MAX_L`` = 256), float32,
+#: noise 0.1, steps cut to the smoke's limit; three (F, k) and seeds.
+SERVE_STEPS = 100
+SERVE_FK = ((0.02, 0.048), (0.03, 0.055), (0.04, 0.06))
+SERVE_SLOTS = 4
+
+
+def serve_job(i, seed=101):
+    """Job ``i`` of the serving phase, as a client payload."""
+    F, k = SERVE_FK[i]
+    return {"tenant": "smoke", "model": "grayscott", "L": MAIN_L,
+            "steps": SERVE_STEPS, "plotgap": 50, "checkpoint_freq": 50,
+            "dt": 1.0, "noise": 0.1, "seed": seed + i,
+            "params": {"F": F, "k": k, "Du": 0.2, "Dv": 0.1}}
+
+
+def phase_serve(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (xi), serving on the card (``serve/``): the service
+    in-process on port 0, ``backend = "CUDA"``, a fresh state directory,
+    unsupervised batches (the kernels load from the build of phase 2).
+
+    (a) three jobs of one pack key over HTTP form one batch of 4 slots:
+    exactly 100 batched ``kBlock`` f32 launches of 4 members, no store of
+    the idle slot, ``/field`` at ``sim_step`` 100, and each member's
+    ``.bp``, ``.vtk`` and checkpoint trees byte-identical to that job's
+    solo ``driver.main`` run on the card (``kernel_language = "CUDA"``);
+    (b) a second batch of the shape is a warm hit (no new engine, no
+    build); job 1's spec again is a ``cache="hit"`` with its store and no
+    launch; a flipped byte of that store under ``GS_CACHE_VERIFY=1`` drops
+    the entry and the job recomputes into the same bytes; (c) chaos
+    scenario 6 at L=64; (d) a front door with no local worker and one
+    ``--role worker`` process on ``cuda:0`` sharing a fleet directory:
+    job 1 again, its stores equal (a)'s. ``obs/report --check`` passes
+    on the service's stream and on the fleet's merged stream. Prints the
+    walls, the request-to-first-step latencies, the cache hit's latency
+    and the N=4 batched launch's CUDA-event time against its bound, each
+    beside the card's name and power limit."""
+    from grayscott_jl_tpu_torch import chaos, driver
+    from grayscott_jl_tpu_torch.models import get_model
+    from grayscott_jl_tpu_torch.obs import events as obs_events
+    from grayscott_jl_tpu_torch.ops import _build, kernelgen
+    from grayscott_jl_tpu_torch.resilience.integrity import (
+        corrupt_store_byte)
+    from grayscott_jl_tpu_torch.serve import cache as serve_cache
+    from grayscott_jl_tpu_torch.serve.scheduler import ServeConfig
+    from grayscott_jl_tpu_torch.serve.server import ServeService
+
+    smi = nvidia_smi("name,power.limit")
+    d = os.path.join(workdir, "serve")
+    os.makedirs(d)
+    saved = {k: os.environ.get(k)
+             for k in ("GS_EVENTS", "GS_CACHE_VERIFY", "GS_SERVE_FLEET_DIR",
+                       "GS_TPU_STATS")}
+    events_path = os.path.join(d, "events.jsonl")
+    os.environ["GS_EVENTS"] = events_path
+    os.environ["GS_CACHE_VERIFY"] = "1"
+    obs_events.reset_events()
+    rec = {"card": smi}
+    builds = dict(_build.BUILDS)
+    entry = ("grayscott", "chain", "f32", SERVE_SLOTS, 1, (MAIN_L,) * 3,
+             False)
+
+    def trees(record):
+        return chaos.member_trees(record["store"])
+
+    def stats(path):
+        """The run's wall, phases and writer time (``GS_TPU_STATS``)."""
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+        io = doc.get("io") or {}
+        return {"wall_s": doc["wall_s"], "phases_s": doc["phases_s"],
+                "io_busy_s": io.get("busy_s")}
+
+    def run_stream(path):
+        proc = subprocess.run(
+            [sys.executable, "-m", "grayscott_jl_tpu_torch.obs.report",
+             "--check", "--events", path], cwd=REPO, capture_output=True,
+            text=True, timeout=120)
+        check(proc.returncode == 0, f"obs/report --check on {path}: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+    try:
+        svc = ServeService(ServeConfig(
+            port=0, workers=1, pack_max=8, pack_window_s=0.5,
+            state_dir=os.path.join(d, "state"), supervise=False,
+            cache_verify=serve_cache.resolve_cache_verify(),
+            backend="CUDA")).start()
+        base = f"http://127.0.0.1:{svc.port}"
+        try:
+            # (a) Three jobs, one batch of 4 slots.
+            os.environ["GS_TPU_STATS"] = os.path.join(d, "batch_stats.json")
+            cuda_stencil.reset_launches()
+            t0 = time.perf_counter()
+            jobs = [chaos.post(base, "/v1/jobs", serve_job(i))["job"]
+                    for i in range(3)]
+            first = chaos.wait_terminal(base, jobs, timeout=300)
+            batch_wall = time.perf_counter() - t0
+            counts = {"launches": cuda_stencil.LAUNCHES,
+                      "chain": cuda_stencil.MODE_LAUNCHES["chain"],
+                      "members": cuda_stencil.MODE_MEMBERS["chain"],
+                      "entry": cuda_stencil.ENTRY_LAUNCHES.get(entry, 0)}
+            check([r["state"] for r in first] == ["complete"] * 3,
+                  f"(xi-a) job states {[r['state'] for r in first]}")
+            check(len({r["batch"] for r in first}) == 1,
+                  "(xi-a) the three jobs did not form one batch")
+            packed = [e["attrs"] for e in obs_events.parse_events(
+                events_path) if e["kind"] == "job_packed"]
+            check({p["slots"] for p in packed} == {SERVE_SLOTS},
+                  f"(xi-a) slots {packed}")
+            check(counts == {"launches": SERVE_STEPS, "chain": SERVE_STEPS,
+                             "members": SERVE_SLOTS, "entry": SERVE_STEPS},
+                  f"(xi-a) launch counts {counts}")
+            batch_dir = os.path.dirname(first[0]["store"])
+            idle = [n for n in os.listdir(batch_dir) if ".m03." in n]
+            check(not idle, f"(xi-a) the idle slot wrote {idle}")
+            plane = chaos.get(base, f"/v1/jobs/{jobs[0]}/field?field=u"
+                                    "&stride=16")
+            check(plane["sim_step"] == SERVE_STEPS
+                  and plane["shape"] == [MAIN_L // 16] * 2,
+                  f"(xi-a) /field gave {plane['sim_step']} {plane['shape']}")
+            batch_stats = stats(os.path.join(d, "batch_stats.json"))
+            solo_walls, solo_stats = [], []
+            for i in range(3):
+                sd = os.path.join(d, f"solo{i}")
+                os.makedirs(sd)
+                job = serve_job(i)
+                cfg = os.path.join(sd, "config.toml")
+                write_config(cfg, **main_settings(
+                    kernel_language="CUDA", steps=SERVE_STEPS,
+                    checkpoint=True, checkpoint_freq=50, **job["params"],
+                    output=os.path.join(sd, "gs.bp"),
+                    checkpoint_output=os.path.join(sd, "ckpt.bp")))
+                os.environ["GS_TPU_STATS"] = os.path.join(sd, "stats.json")
+                t1 = time.perf_counter()
+                driver.main([cfg], seed=job["seed"])
+                solo_walls.append(time.perf_counter() - t1)
+                solo_stats.append(stats(os.environ["GS_TPU_STATS"]))
+                for kind, name in (("gs", "gs.bp"), ("vtk", "gs.vtk"),
+                                   ("ckpt", "ckpt.bp")):
+                    bad = chaos.trees_equal(os.path.join(sd, name),
+                                            trees(first[i])[kind])
+                    check(not bad, f"(xi-a) job {i} {kind} differs from its "
+                          f"solo run: {bad[:5]}")
+                shutil.rmtree(sd)
+            os.environ.pop("GS_TPU_STATS")
+            rec["a"] = {"batch_wall_s": batch_wall,
+                        "solo_walls_s": solo_walls, "counts": counts,
+                        "batch_stats": batch_stats,
+                        "solo_stats": solo_stats,
+                        "request_to_first_step_s": [
+                            r["request_to_first_step_s"] for r in first]}
+            log(f"  (xi-a) 3 jobs -> 1 batch of {SERVE_SLOTS} slots: "
+                f"{counts['entry']} batched kBlock f32 launches of "
+                f"{counts['members']} members; member stores byte-identical "
+                f"to the solo runs; batch wall {batch_wall:.4f} s against "
+                f"solo walls {', '.join(f'{w:.4f}' for w in solo_walls)} s; "
+                f"request to first step (cold) "
+                f"{', '.join(f'{r:.4f}' for r in rec['a']['request_to_first_step_s'])}"
+                f" s [{smi}]")
+            log(f"  (xi-a) the batch's run (RunStats): wall "
+                f"{batch_stats['wall_s']:.4f} s, phases "
+                f"{batch_stats['phases_s']}, writer busy "
+                f"{batch_stats['io_busy_s']} s; solo 0: wall "
+                f"{solo_stats[0]['wall_s']:.4f} s, phases "
+                f"{solo_stats[0]['phases_s']} [{smi}]")
+
+            # (b) A warm second batch, a cache hit, a corrupt entry.
+            warm0 = svc.fleet.warm_hits
+            jobs2 = [chaos.post(base, "/v1/jobs", serve_job(i, 201))["job"]
+                     for i in range(3)]
+            second = chaos.wait_terminal(base, jobs2, timeout=300)
+            check([r["state"] for r in second] == ["complete"] * 3,
+                  f"(xi-b) job states {[r['state'] for r in second]}")
+            check(svc.fleet.warm_hits == warm0 + 1,
+                  f"(xi-b) warm hits {warm0} -> {svc.fleet.warm_hits}")
+            check(_build.BUILDS == builds,
+                  f"(xi-b) builds {builds} -> {_build.BUILDS}")
+            cuda_stencil.reset_launches()
+            t1 = time.perf_counter()
+            hit = chaos.post(base, "/v1/jobs",
+                             dict(serve_job(0), tenant="again"))
+            hit_ms = (time.perf_counter() - t1) * 1e3
+            check((hit["cache"], hit["state"], hit["store"])
+                  == ("hit", "complete", first[0]["store"]),
+                  f"(xi-b) the repeated spec answered {hit}")
+            check(cuda_stencil.LAUNCHES == 0,
+                  f"(xi-b) the cache hit launched {cuda_stencil.LAUNCHES}")
+            snapshot = os.path.join(d, "snapshot.bp")
+            shutil.copytree(first[0]["store"], snapshot)
+            check(corrupt_store_byte(first[0]["store"]) is not None,
+                  "(xi-b) no byte to flip")
+            again = chaos.post(base, "/v1/jobs", serve_job(0))
+            check((again["cache"], again["state"]) == ("miss", "queued"),
+                  f"(xi-b) the corrupt entry answered {again}")
+            redo = chaos.wait_terminal(base, [again["job"]], timeout=300)[0]
+            bad = chaos.trees_equal(snapshot, redo["store"])
+            check(redo["state"] == "complete" and not bad,
+                  f"(xi-b) the recomputed store differs: {bad[:5]}")
+            rec["b"] = {"warm_hits": svc.fleet.warm_hits - warm0,
+                        "request_to_first_step_s": [
+                            r["request_to_first_step_s"] for r in second],
+                        "cache_hit_ms": hit_ms}
+            log(f"  (xi-b) warm batch: warm hits +1, no build; request to "
+                f"first step (warm) "
+                f"{', '.join(f'{r:.4f}' for r in rec['b']['request_to_first_step_s'])}"
+                f" s; cache hit {hit_ms:.3f} ms round trip, 0 launches; "
+                f"a flipped byte dropped the entry and the recompute equals "
+                f"the first store [{smi}]")
+        finally:
+            svc.close()
+        run_stream(events_path)
+
+        # (c) Chaos scenario 6 on the card.
+        rc = chaos.main(["--L", "64", "--steps", "40", "--scenarios", "6",
+                         "--seed", "5", "--workdir", os.path.join(d, "c")])
+        check(rc == 0, "(xi-c) chaos scenario 6 failed")
+
+        # (d) A worker process on cuda:0 behind a front door.
+        fleet = os.path.join(d, "fleet")
+        fleet_events = os.path.join(d, "fleet_events.jsonl")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("GS_")}
+        env.update(PYTHONPATH=REPO, GS_SERVE_FLEET_DIR=fleet,
+                   GS_SERVE_FLEET_RANK="1", GS_SERVE_WORKERS="1",
+                   GS_SERVE_SUPERVISE="0", GS_EVENTS=fleet_events,
+                   GS_SERVE_STATE_DIR=os.path.join(d, "wstate"))
+        with open(os.path.join(d, "worker.log"), "w") as wlog:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "grayscott_jl_tpu_torch.serve",
+                 "--role", "worker"], cwd=d, env=env, stdout=wlog,
+                stderr=subprocess.STDOUT)
+        try:
+            os.environ["GS_EVENTS"] = fleet_events
+            t1 = time.perf_counter()
+            front = ServeService(ServeConfig(
+                port=0, workers=0, fleet_dir=fleet, fleet_rank=0,
+                state_dir=os.path.join(d, "fstate"), supervise=False,
+                pack_window_s=0.0, backend="CUDA")).start()
+            try:
+                fbase = f"http://127.0.0.1:{front.port}"
+                job = chaos.post(fbase, "/v1/jobs", serve_job(0))["job"]
+                got = chaos.wait_terminal(fbase, [job], timeout=300)[0]
+                fleet_wall = time.perf_counter() - t1
+            finally:
+                front.close()
+        finally:
+            worker.send_signal(signal.SIGTERM)
+            try:
+                worker.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                worker.kill()
+                worker.wait()
+        check(got["state"] == "complete", f"(xi-d) the fleet job: {got}")
+        for kind in ("gs", "vtk", "ckpt"):
+            # (b) flipped a byte of (a)'s job-1 store: its copy stands in.
+            want = snapshot if kind == "gs" else trees(first[0])[kind]
+            bad = chaos.trees_equal(want, trees(got)[kind])
+            check(not bad, f"(xi-d) the worker process's {kind} differs "
+                  f"from (xi-a)'s: {bad[:5]}")
+        run_stream(fleet_events)
+        rec["d"] = {"wall_s": fleet_wall, "worker_rc": worker.returncode,
+                    "request_to_first_step_s": got[
+                        "request_to_first_step_s"]}
+        log(f"  (xi-d) a --role worker process on cuda:0: the job's stores "
+            f"equal (xi-a)'s; submit to complete {fleet_wall:.4f} s "
+            f"(the worker process reaching the card inside) [{smi}]")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        obs_events.reset_events()
+
+    # The N=4 batched launch of (a), CUDA events, against its bound.
+    spec = kernelgen.get_spec(get_model("grayscott"))
+    rows = [dict(Du=0.2, Dv=0.1, F=F, k=k, dt=1.0, noise=0.1)
+            for F, k in SERVE_FK + SERVE_FK[:1]]
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f = tuple(torch.rand((SERVE_SLOTS,) + (MAIN_L,) * 3, generator=gen,
+                         device="cuda") for _ in range(2))
+    params = cuda_stencil.member_params(rows, spec.model.params_cls,
+                                        torch.float32, "cuda")
+    seeds = cuda_stencil.member_seeds([(0, i) for i in range(SERVE_SLOTS)],
+                                      0)
+    ev_ms = time_calls(torch, lambda: cuda_stencil.fused_step(
+        f, params, seeds, spec=spec, row=MAIN_L))
+    b_ms, b_by = bound_of(2 * 2 * 4 * SERVE_SLOTS * MAIN_L**3,
+                          SERVE_SLOTS * spec.flops_per_cell_step()
+                          * MAIN_L**3)
+    del f
+    rec["launch"] = {"members": SERVE_SLOTS, "ms": ev_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    log(f"  (xi) one batched kBlock launch of {SERVE_SLOTS} members: "
+        f"{ev_ms:.4f} ms (CUDA events) against a bound of {b_ms:.4f} ms "
+        f"({b_by}) [{smi}]")
+    report["serve"] = rec
+    return rec
+
+
 def phase_ensemble(torch, gs, cuda_stencil, workdir, report):
     """Phase 4 (ix), the ensemble main path (``[ensemble]``; config (a)
     with members), the launch counts set to 0 just before each run and
@@ -5469,6 +5795,10 @@ def _main(torch, report):
             "advances every member")
         batched = timed(report, "ensemble", phase_ensemble, torch, gs,
                         cuda_stencil, workdir, report, clean=workdir)
+        log("phase 4 (xi): serving — packed jobs on the batched kernel, "
+            "warm engines, the result cache, chaos 6 and a worker process")
+        timed(report, "serve", phase_serve, torch, gs, cuda_stencil,
+              workdir, report, clean=workdir)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,
@@ -5637,6 +5967,8 @@ def _main(torch, report):
         "launch": ens["e"]["launch"], "steady": ens["e"]["steady"],
         "member_cost_ratio": ens["e"]["member_cost_ratio"],
         "phase_s": report["phase_s"]["ensemble"]}}))
+    print(json.dumps({"serve": {**report["serve"],
+                                "phase_s": report["phase_s"]["serve"]}}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ attribution.
 The same sections, event schema, ``--check`` mode and exit codes as the
 reference's script: 0 on success, 1 when ``--check`` finds a problem or
 a requested artifact is unreadable. The tenants and fleet sections
-render the serving layer's events, which this package does not emit
-yet (ROADMAP Queue 1 item 22). Stdlib only, with this package's
+render the serving layer's events (``serve/``: ``job_*``, ``worker_*``,
+``job_failover``, ``cache_*``), merged over a fleet's ``.rank<N>``
+files. Stdlib only, with this package's
 ``obs`` helpers.
 """
 

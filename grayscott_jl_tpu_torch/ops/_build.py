@@ -33,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
@@ -68,6 +69,15 @@ PROBE_MODEL = "grayscott"
 #: Loaded libraries by (spec, envelope) (specs are memoized per model
 #: object).
 _LIBS: Dict[object, ctypes.CDLL] = {}
+
+#: Serializes builds and loads in this process: threads that reach a
+#: library's first use at once (the serve worker fleet on one card)
+#: never run nvcc into one directory twice. Reentrant, for
+#: :func:`load` over :func:`build_all`.
+LOCK = threading.RLock()
+
+#: Libraries this process compiled (nvcc runs that succeeded), by name.
+BUILDS: Dict[str, int] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -167,7 +177,13 @@ def build_all(specs: Optional[Iterable] = None,
     (:func:`target_name`); ``log`` is nvcc's output (register and
     shared-memory use from ``-Xptxas=-v``), empty for a library that was
     already built. Raises on any failure, after every started process
-    has ended."""
+    has ended. Threads of one process build one at a time
+    (:data:`LOCK`); each compile counts in :data:`BUILDS`."""
+    with LOCK:
+        return _build_all(specs, envelope)
+
+
+def _build_all(specs, envelope):
     targets = [(spec, False)
                for spec in (all_specs() if specs is None else specs)]
     if envelope:
@@ -211,6 +227,7 @@ def build_all(specs: Optional[Iterable] = None,
             continue
         os.replace(mine, source)
         os.replace(tmp, path)
+        BUILDS[name] = BUILDS.get(name, 0) + 1
         result[name] = {"path": path, "source": source, "seconds": seconds,
                         "log": log}
     if failures:
@@ -223,12 +240,16 @@ def load(spec, envelope: bool = False) -> ctypes.CDLL:
     """The loaded library of ``spec``'s kernel (with ``envelope``, of
     its envelope probes), built first if needed."""
     lib = _LIBS.get((spec, envelope))
-    if lib is None:
-        if envelope:
-            _check_envelope(spec, envelope)
-            built = build_all([], envelope=True)
-        else:
-            built = build_all([spec])
-        path = built[target_name(spec, envelope)]["path"]
-        lib = _LIBS[spec, envelope] = ctypes.CDLL(path)
+    if lib is not None:
+        return lib
+    with LOCK:
+        lib = _LIBS.get((spec, envelope))
+        if lib is None:
+            if envelope:
+                _check_envelope(spec, envelope)
+                built = build_all([], envelope=True)
+            else:
+                built = build_all([spec])
+            path = built[target_name(spec, envelope)]["path"]
+            lib = _LIBS[spec, envelope] = ctypes.CDLL(path)
     return lib

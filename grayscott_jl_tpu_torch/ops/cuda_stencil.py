@@ -96,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -194,6 +195,10 @@ MAP_BYTES = 128
 _KEYS: Dict[tuple, torch.Tensor] = {}
 _KEYS_LIMIT = 64
 
+#: Guards :data:`_MAPS`, :data:`_KEYS` and the launch counts: the serve
+#: worker fleet drives one card from several threads at once.
+_LOCK = threading.Lock()
+
 
 def reset_launches() -> None:
     """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES`,
@@ -215,18 +220,22 @@ def reset_launches() -> None:
 #: here and in no count above: a run's counts stay those of its
 #: trajectory. The screen reports its share as ``replay_launches``.
 REPLAY_LAUNCHES = 0
-_REPLAYING = False
+
+#: Per thread: whether the thread is inside :func:`replaying`, so that
+#: one serve worker's replay never counts another worker's launches.
+_REPLAYING = threading.local()
 
 
 @contextlib.contextmanager
 def replaying():
-    """Count the launches inside in :data:`REPLAY_LAUNCHES` only."""
-    global _REPLAYING
-    prev, _REPLAYING = _REPLAYING, True
+    """Count the launches this thread makes inside in
+    :data:`REPLAY_LAUNCHES` only."""
+    prev = getattr(_REPLAYING, "on", False)
+    _REPLAYING.on = True
     try:
         yield
     finally:
-        _REPLAYING = prev
+        _REPLAYING.on = prev
 
 
 class KernelLaunchError(RuntimeError):
@@ -839,45 +848,53 @@ def _lib(spec):
 
     lib = _build.load(spec)
     if not getattr(lib, "_gs_ready", False):
-        layout = (ctypes.c_int * 5)()
-        lib.gs_layout.argtypes = [ctypes.c_void_p]
-        lib.gs_layout.restype = None
-        lib.gs_layout(ctypes.cast(layout, ctypes.c_void_p))
-        want = TILE + (spec.n_fields, len(spec.param_fields))
-        if tuple(layout) != want:
-            raise KernelLaunchError(
-                f"the {spec.name!r} kernel's (tile, fields, params) "
-                f"{tuple(layout)} != the ledger's {want}"
-            )
-        _type_common(lib)
-        lib.gs_kernel_attributes.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        lib.gs_kernel_attributes.restype = ctypes.c_int
-        for suffix in ENTRIES.values():
-            fn = getattr(lib, f"gs_stencil_chain_{suffix}")
-            fn.argtypes = (
-                [ctypes.c_void_p] * 6
-                + [ctypes.c_int]
-                + [ctypes.c_uint32] * 3
-                + [ctypes.c_int] * 3
-                + [ctypes.c_uint32]
-                + [ctypes.c_int] * 5
-                + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"gs_stencil_batch_{suffix}")
-            fn.argtypes = (
-                [ctypes.c_void_p] * 6
-                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                + [ctypes.c_uint32]
-                + [ctypes.c_int] * 3
-                + [ctypes.c_uint32]
-                + [ctypes.c_int] * 5
-                + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-        lib._gs_ready = True
+        with _build.LOCK:
+            if not getattr(lib, "_gs_ready", False):
+                _ready(lib, spec)
     return lib
+
+
+def _ready(lib, spec):
+    """Check ``lib``'s layout against the ledger and type its entry
+    points (once, under the build lock)."""
+    layout = (ctypes.c_int * 5)()
+    lib.gs_layout.argtypes = [ctypes.c_void_p]
+    lib.gs_layout.restype = None
+    lib.gs_layout(ctypes.cast(layout, ctypes.c_void_p))
+    want = TILE + (spec.n_fields, len(spec.param_fields))
+    if tuple(layout) != want:
+        raise KernelLaunchError(
+            f"the {spec.name!r} kernel's (tile, fields, params) "
+            f"{tuple(layout)} != the ledger's {want}"
+        )
+    _type_common(lib)
+    lib.gs_kernel_attributes.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.gs_kernel_attributes.restype = ctypes.c_int
+    for suffix in ENTRIES.values():
+        fn = getattr(lib, f"gs_stencil_chain_{suffix}")
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_int]
+            + [ctypes.c_uint32] * 3
+            + [ctypes.c_int] * 3
+            + [ctypes.c_uint32]
+            + [ctypes.c_int] * 5
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"gs_stencil_batch_{suffix}")
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_uint32]
+            + [ctypes.c_int] * 3
+            + [ctypes.c_uint32]
+            + [ctypes.c_int] * 5
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    lib._gs_ready = True
 
 
 def _type_common(lib):
@@ -907,7 +924,8 @@ def window_maps(lib, fields, fuse):
     if path != "tma":
         return path, None
     key = (ptrs, tuple(first.shape), itemsize, fuse)
-    maps = _MAPS.get(key)
+    with _LOCK:
+        maps = _MAPS.get(key)
     if maps is None:
         maps = (ctypes.c_ubyte * (MAP_BYTES * len(fields)))()
         nx, ny, nz = first.shape[-3:]
@@ -924,9 +942,10 @@ def window_maps(lib, fields, fuse):
                     f" {first.dtype} input at depth {fuse}: "
                     + ("the driver has no such entry point" if rc < 0
                        else f"CUresult {rc}"))
-        if len(_MAPS) >= _MAPS_LIMIT:
-            _MAPS.clear()
-        _MAPS[key] = maps
+        with _LOCK:
+            if len(_MAPS) >= _MAPS_LIMIT:
+                _MAPS.clear()
+            _MAPS[key] = maps
     return path, maps
 
 
@@ -942,8 +961,13 @@ def count_launch(mode, path, *, entry=None, model=None, band=False,
     operand; ``band``: a band recompute; advancing ``members`` members),
     or, inside :func:`replaying`, in :data:`REPLAY_LAUNCHES` only. A
     batched launch counts once."""
+    with _LOCK:
+        _count_launch(mode, path, entry, model, band, members, fuse, shape)
+
+
+def _count_launch(mode, path, entry, model, band, members, fuse, shape):
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
-    if _REPLAYING:
+    if getattr(_REPLAYING, "on", False):
         REPLAY_LAUNCHES += 1
         return
     LAUNCHES += 1
@@ -964,16 +988,18 @@ def _key_array(seeds, device) -> torch.Tensor:
     (int32 storage), cached per device and keys: one copy to the card
     per member set, not per launch."""
     key = (device, seeds[0], seeds[1])
-    arr = _KEYS.get(key)
+    with _LOCK:
+        arr = _KEYS.get(key)
     if arr is None:
         words = [[k & 0xFFFFFFFF for k in pair]
                  for pair in zip(seeds[0], seeds[1])]
         words = [[w - (1 << 32) if w >= 1 << 31 else w for w in pair]
                  for pair in words]
         arr = torch.tensor(words, dtype=torch.int32, device=device)
-        if len(_KEYS) >= _KEYS_LIMIT:
-            _KEYS.clear()
-        _KEYS[key] = arr
+        with _LOCK:
+            if len(_KEYS) >= _KEYS_LIMIT:
+                _KEYS.clear()
+            _KEYS[key] = arr
     return arr
 
 

@@ -299,8 +299,8 @@ def member_map(
     corrupt member, not a grow, and silently re-initializing it would
     fork the ensemble's history.
 
-    ``active`` masks IDLE pack slots (the reference's serving
-    scheduler's padding, Queue 1 item 22): an idle slot deliberately wrote no store, so its
+    ``active`` masks IDLE pack slots (the serving scheduler's padding,
+    ``serve/scheduler.py``): an idle slot deliberately wrote no store, so its
     absence is never a gap and its action is always ``"init"`` — a
     requeued packed batch resumes its real members from the store
     quorum while the padding just re-initializes.

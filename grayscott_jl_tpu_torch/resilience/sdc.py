@@ -30,8 +30,9 @@ the CPU). It raises :class:`SDCError` naming both; the supervisor
 restarts from the last *verified* checkpoint, and a second attribution
 to the same device quarantines it (:func:`quarantine_device`:
 ``GS_DEVICE_BLOCKLIST`` in this process, which
-``parallel/mesh.select_devices`` and :func:`usable_devices` honour; the
-serving fleet's quarantine document is Queue 1 item 22).
+``parallel/mesh.select_devices`` and :func:`usable_devices` honour, and,
+in a serving fleet, a ``quarantine/<device>`` document in
+``GS_SERVE_FLEET_DIR`` that every member reads).
 
 Knobs: ``GS_SDC_CHECK``, ``GS_SDC_EVERY``, ``GS_DEVICE_BLOCKLIST``
 (comma-separated ``str(torch.device)`` names, e.g. ``cuda:1``) and
@@ -43,6 +44,7 @@ a run of one process, as in the reference.
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +66,10 @@ __all__ = [
 ]
 
 _MODES = ("off", "spot", "shadow")
+
+#: Fleet-namespace key prefix of the quarantine documents
+#: (``serve/cluster.FleetKV``).
+QUARANTINE_PREFIX = "quarantine/"
 
 
 class SDCError(RuntimeError):
@@ -138,25 +144,53 @@ def device_name(dev) -> str:
 
 
 def resolve_blocklist() -> frozenset:
-    """The quarantined devices: ``GS_DEVICE_BLOCKLIST``, comma-separated.
-    (The reference also reads the serving fleet's quarantine documents,
-    Queue 1 item 22.)"""
-    return frozenset(tok.strip()
-                     for tok in env_str("GS_DEVICE_BLOCKLIST", "").split(",")
-                     if tok.strip())
+    """The quarantined devices: ``GS_DEVICE_BLOCKLIST`` (comma-separated)
+    joined with the ``quarantine/*`` documents of the serving fleet's
+    namespace when one is armed (``GS_SERVE_FLEET_DIR``): one worker's
+    attribution quarantines the device fleet-wide."""
+    names = {tok.strip()
+             for tok in env_str("GS_DEVICE_BLOCKLIST", "").split(",")
+             if tok.strip()}
+    fleet = env_str("GS_SERVE_FLEET_DIR", "")
+    if fleet:
+        try:
+            from ..serve.cluster import FleetKV
+
+            kv = FleetKV(fleet)
+            for key in kv.keys("quarantine"):
+                doc = kv.get(QUARANTINE_PREFIX + key)
+                if isinstance(doc, dict) and doc.get("device"):
+                    names.add(str(doc["device"]))
+        except OSError:
+            pass  # an unreadable namespace: the variable still applies
+    return frozenset(names)
 
 
 def quarantine_device(name: str, *, journal=None, step: Optional[int] = None,
                       reason: str = "") -> None:
-    """Add ``name`` to this process's ``GS_DEVICE_BLOCKLIST`` (an
-    attempt in this process and a launched child both see it) and
-    journal ``device_quarantined``."""
+    """Quarantine ``name``: add it to this process's
+    ``GS_DEVICE_BLOCKLIST`` (an attempt in this process and a launched
+    child both see it), publish the fleet's ``quarantine/<device>``
+    document when serving (the first verdict wins; key ``cuda_0`` for
+    ``cuda:0``), and journal ``device_quarantined``."""
     current = [tok.strip()
                for tok in env_str("GS_DEVICE_BLOCKLIST", "").split(",")
                if tok.strip()]
     if name not in current:
         current.append(name)
         os.environ["GS_DEVICE_BLOCKLIST"] = ",".join(current)
+    fleet = env_str("GS_SERVE_FLEET_DIR", "")
+    if fleet:
+        try:
+            from ..serve.cluster import FleetKV
+
+            kv = FleetKV(fleet)
+            key = QUARANTINE_PREFIX + name.replace(":", "_")
+            if kv.get(key) is None:
+                kv.put(key, {"device": name, "reason": reason, "step": step,
+                             "t": round(time.time(), 3)})
+        except OSError:
+            pass  # the variable above is the fallback
     if journal is not None:
         journal.record(event="device_quarantined", kind="sdc", device=name,
                        step=step, reason=reason)

@@ -326,8 +326,8 @@ def supervise(settings, *, n_devices: Optional[int] = None, seed: int = 0,
     attempt's simulation. ``settings`` is changed across attempts (the
     restart target), so that it describes how the run finished.
     ``sim_factory`` is passed to every attempt (it places a mesh's
-    blocks on chosen devices); the reference's serving use of it, a warm
-    engine rebound per attempt, is Queue 1 item 22. ``reshape_poll``
+    blocks on chosen devices, or, in the serve worker fleet, hands back
+    a warm engine rebound to the batch, ``serve/worker.py``). ``reshape_poll``
     (the live move's between-rounds hook, ``driver.run_once``) is passed
     to every attempt too."""
     from ..config.env import env_str

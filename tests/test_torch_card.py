@@ -1490,3 +1490,87 @@ def test_member_groups_across_two_processes_on_one_card(tmp_path,
                   if r.get("record") == "launch"]
         assert (rec["name"], rec["launches"], rec["members"]) == (
             "kBlock[f32]x2", 20, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", [9, 10])
+def test_fleet_chaos_scenarios_on_the_card(tmp_path, capsys, scenario):
+    """Chaos scenarios 9 and 10 with every serve process on ``cuda:0``
+    (``--backend CUDA``, the default): too long for the smoke."""
+    _card()
+    import json
+
+    from grayscott_jl_tpu_torch import chaos
+
+    rc = chaos.main(["--L", "64", "--steps", "60", "--scenarios",
+                     str(scenario), "--seed", "3", "--workdir",
+                     str(tmp_path / "w")])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert rc == 0, lines
+    assert [(r["scenario"], r["ok"]) for r in lines] == [(scenario, True)]
+
+
+@pytest.mark.cuda
+def test_two_worker_threads_share_the_card(tmp_path, monkeypatch):
+    """``GS_SERVE_WORKERS=2`` in one process: two batches of different
+    pack keys run at once on ``cuda:0``, each member bitwise equal to its
+    solo run on the card, the launch counts exact, and no kernel library
+    built twice."""
+    _card()
+    from grayscott_jl_tpu_torch import chaos, driver
+    from grayscott_jl_tpu_torch.obs import events as obs_events
+    from grayscott_jl_tpu_torch.obs.events import parse_events
+    from grayscott_jl_tpu_torch.ops import _build
+    from grayscott_jl_tpu_torch.serve.scheduler import ServeConfig
+    from grayscott_jl_tpu_torch.serve.server import ServeService
+
+    events = tmp_path / "events.jsonl"
+    monkeypatch.setenv("GS_EVENTS", str(events))
+    obs_events.reset_events()
+    specs = [{"tenant": "t", "L": L, "steps": 200, "plotgap": 100,
+              "checkpoint_freq": 100, "dt": 1.0, "noise": 0.1,
+              "seed": 7 + i, "params": {"F": 0.02 + 0.01 * i, "k": 0.048,
+                                        "Du": 0.2, "Dv": 0.1}}
+             for i, L in enumerate((128, 128, 160, 160))]
+    cuda_stencil.reset_launches()
+    svc = ServeService(ServeConfig(
+        port=0, workers=2, pack_max=2, pack_window_s=0.2,
+        state_dir=str(tmp_path / "st"), supervise=False, cache=False,
+        backend="CUDA")).start()
+    try:
+        base = f"http://127.0.0.1:{svc.port}"
+        jobs = [chaos.post(base, "/v1/jobs", s)["job"] for s in specs]
+        records = chaos.wait_terminal(base, jobs, timeout=600)
+    finally:
+        svc.close()
+        obs_events.reset_events()
+    assert [r["state"] for r in records] == ["complete"] * 4
+    assert len({r["batch"] for r in records}) == 2
+    assert cuda_stencil.LAUNCHES == 400
+    assert cuda_stencil.MODE_MEMBERS["chain"] == 2
+    assert all(n == 1 for n in _build.BUILDS.values()), _build.BUILDS
+    spans = {}
+    for e in parse_events(str(events)):
+        batch = e["attrs"].get("batch")
+        if e["kind"] in ("run_start", "run_complete") and batch:
+            spans.setdefault(batch, []).append(e["ts"])
+    (a0, a1), (b0, b1) = sorted(spans.values())
+    assert b0 < a1 and a0 < b1, f"the batches did not overlap: {spans}"
+    for i, spec in enumerate(specs):
+        d = tmp_path / f"solo{i}"
+        d.mkdir()
+        cfg = d / "c.toml"
+        cfg.write_text("\n".join([
+            f"L = {spec['L']}", "steps = 200", "plotgap = 100", "dt = 1.0",
+            "noise = 0.1", "checkpoint = true", "checkpoint_freq = 100",
+            *(f"{k} = {v}" for k, v in spec["params"].items()),
+            f'output = "{d}/gs.bp"', f'checkpoint_output = "{d}/ckpt.bp"',
+            'precision = "Float32"', 'backend = "CUDA"',
+            'kernel_language = "CUDA"']) + "\n")
+        driver.main([str(cfg)], seed=spec["seed"])
+        trees = chaos.member_trees(records[i]["store"])
+        for kind, name in (("gs", "gs.bp"), ("vtk", "gs.vtk"),
+                           ("ckpt", "ckpt.bp")):
+            assert chaos.trees_equal(str(d / name), trees[kind]) == [], (
+                i, kind)

@@ -406,3 +406,53 @@ member_shards = 2
              str(tmp_path / f"stats.json.rank{rank}")],
             cwd=REPO, capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+SERVE_MODULES = ("serve/__init__.py", "serve/__main__.py",
+                 "serve/protocol.py", "serve/cache.py", "serve/scheduler.py",
+                 "serve/worker.py", "serve/server.py", "serve/cluster.py",
+                 "serve/elastic.py")
+
+
+@pytest.mark.parametrize("rel", SERVE_MODULES)
+def test_the_serve_modules_are_checked(rel):
+    """The serving package (the port's own copies of the reference's
+    stdlib modules over the port's config, ensemble, io, obs and
+    resilience) is among the sources held to the rule."""
+    assert PACKAGE / rel in SOURCES
+
+
+def test_a_service_runs_with_jax_blocked(tmp_path):
+    """An in-process service on the CPU (one job, L=8) runs to a
+    complete, cached job with JAX blocked."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from grayscott_jl_tpu_torch import chaos
+from grayscott_jl_tpu_torch.serve.scheduler import ServeConfig
+from grayscott_jl_tpu_torch.serve.server import ServeService
+svc = ServeService(ServeConfig(port=0, pack_window_s=0.0, supervise=False,
+                               state_dir=sys.argv[1], backend="CPU")).start()
+try:
+    base = f"http://127.0.0.1:{svc.port}"
+    spec = {"tenant": "a", "L": 8, "steps": 4, "plotgap": 2, "noise": 0.1}
+    job = chaos.post(base, "/v1/jobs", spec)["job"]
+    record, = chaos.wait_terminal(base, [job])
+    assert record["state"] == "complete", record
+    assert chaos.post(base, "/v1/jobs", spec)["cache"] == "hit"
+finally:
+    svc.close()
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    env = {k: v for k, v in __import__("os").environ.items()
+           if not k.startswith("GS_")}
+    env.update(PYTHONPATH=str(REPO), GS_EVENTS=str(tmp_path / "ev.jsonl"))
+    proc = subprocess.run([sys.executable, "-c", probe, str(tmp_path / "st")],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
