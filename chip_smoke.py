@@ -238,6 +238,18 @@ Phases, each of which stops the run on failure:
    limit: the batch's wall against the three solo walls, request to
    first step cold and warm, the cache hit's round trip, and one N=4
    batched launch's CUDA-event time against its bound (4 x 0.0801 ms);
+   (xii) the analysis workflow (``phase_analysis``, after (xi)): the
+   CLI's entry on an L=256 float32 config, noise 0.1, 40 steps, plotgap
+   10, while ``analysis/pdfcalc`` streams its store live from another
+   thread at 1,000 bins with the histograms on the card — exactly 40
+   ``kBlock`` f32 launches, 4 PDF steps whose every U and V histogram
+   is bitwise equal to the CPU path's on the stored block, each slice
+   counting 256^2 cells, three pinned blocks (``pdf_blocks``: one where
+   a division by a host scalar moves cells, float64, a NaN) equal on
+   the card and the CPU, and ``gdsplot``'s slice (its PNGs where
+   matplotlib is installed); printed beside the card's name and power
+   limit: ``compute_pdf``'s ms per field on the card (CUDA events) and
+   on the CPU, and the streaming wall;
 5. times at the main path's shapes (Gray-Scott: float32, L=256 at every
    chain depth and L=512 at depths 1 and 2, and each face mode at the sharded path's block
    shapes; the other models: L=256 at depth 1): the kernel (CUDA
@@ -272,7 +284,7 @@ Phases, each of which stops the run on failure:
    times at L=256 depth 1.
 
 Prints the ensemble phase's numbers as a JSON line, the serving phase's
-as another, the kernels' JSON
+as another, the analysis phase's as a third, the kernels' JSON
 line (each kernel with the load path its main path took, and for the
 production modes the member count and launches of the ensemble phase's
 batched runs), then the ``nvidia-smi`` line, then the
@@ -368,6 +380,12 @@ def physics(name):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def value_from_env(name, default=None):
+    """The value of ``name`` in this process's environment, or
+    ``default``: the variables a phase sets, saved to be put back."""
+    return os.environ.get(name, default)
 
 
 def check(cond, msg):
@@ -2105,7 +2123,7 @@ def phase_multiprocess(torch, gs, cuda_stencil, workdir, stored, report):
     # The chains: one-process (4,2,1) runs first, then the pair.
     step50, u50, v50 = stored[0]
     want = {}
-    saved = os.environ.get("GS_FUSE")
+    saved = value_from_env("GS_FUSE")
     os.environ["GS_FUSE"] = "2"
     try:
         for label, (dims, ov) in MP_CHAINS.items():
@@ -2889,12 +2907,12 @@ def phase_resilience(torch, gs, cuda_stencil, workdir, report):
           and rec[0]["action"] == "resumed_from_checkpoint_step_100",
           f"SDC one fault: {mism} {rec}")
     same_stores(d, "a", "sdc_one")
-    blocklist = os.environ.get("GS_DEVICE_BLOCKLIST")
+    blocklist = value_from_env("GS_DEVICE_BLOCKLIST")
     try:
         d, summary, events, attempts, error = supervised(
             "sdc_two", {"GS_SDC_CHECK": "spot",
                         "GS_FAULTS": "step=120:kind=sdc;step=160:kind=sdc"})
-        quarantined = os.environ.get("GS_DEVICE_BLOCKLIST")
+        quarantined = value_from_env("GS_DEVICE_BLOCKLIST")
     finally:
         if blocklist is None:
             os.environ.pop("GS_DEVICE_BLOCKLIST", None)
@@ -3342,7 +3360,7 @@ def phase_auto(torch, gs, cuda_stencil, workdir, report):
               f"quick adopted depth {fuse}, winner {prov['winner']}")
         run_launches = stats["counters"]["kernel_launches"]
         want = chunk_launches(fuse, 50, MAIN_STEPS // 50)
-        steps = int(os.environ.get("GS_AUTOTUNE_STEPS", "20"))
+        steps = int(value_from_env("GS_AUTOTUNE_STEPS", "20"))
         tuning = sum((1 + c["rounds"]) * chunk_launches(c["fuse"], steps, 1)
                      for c in cands if c["measured_us"] is not None)
         check(run_launches == want and total == want + tuning
@@ -4803,7 +4821,7 @@ def phase_member_procs(torch, gs, cuda_stencil, workdir, report):
                    for x, y in zip(a, b))
 
     out = {}
-    saved = os.environ.get("GS_RESHARD_DEVICE")
+    saved = value_from_env("GS_RESHARD_DEVICE")
     os.environ["GS_RESHARD_DEVICE"] = "auto"
     try:
         d1, cfg1 = config("xb_one")
@@ -5130,7 +5148,7 @@ def phase_serve(torch, gs, cuda_stencil, workdir, report):
                 t1 = time.perf_counter()
                 driver.main([cfg], seed=job["seed"])
                 solo_walls.append(time.perf_counter() - t1)
-                solo_stats.append(stats(os.environ["GS_TPU_STATS"]))
+                solo_stats.append(stats(value_from_env("GS_TPU_STATS")))
                 for kind, name in (("gs", "gs.bp"), ("vtk", "gs.vtk"),
                                    ("ckpt", "ckpt.bp")):
                     bad = chaos.trees_equal(os.path.join(sd, name),
@@ -5294,6 +5312,178 @@ def phase_serve(torch, gs, cuda_stencil, workdir, report):
     return rec
 
 
+#: The analysis phase's run (phase 4 (xii)): steps, plotgap, bins.
+ANALYSIS_STEPS = 40
+ANALYSIS_PLOTGAP = 10
+ANALYSIS_BINS = 1000
+
+
+def pdf_blocks(np):
+    """The analysis phase's pinned blocks, from seeds: the 64^3 float32
+    block of values in [0.1, 0.8] where a product with the bin width's
+    reciprocal puts cells in other bins than the division at 1,000
+    bins, a float64 block, and a float32 block holding a NaN."""
+    pinned = np.random.default_rng(0).uniform(
+        0.1, 0.8, (64, 64, 64)).astype(np.float32)
+    wide = np.random.default_rng(1).uniform(0.0, 1.0, (16, 32, 32))
+    nan = np.random.default_rng(2).uniform(
+        0.1, 0.8, (16, 32, 32)).astype(np.float32)
+    nan[3, 4, 5] = np.nan
+    return {"reciprocal": pinned, "float64": wide, "nan": nan}
+
+
+def phase_analysis(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (xii), the analysis workflow on the card: the port's CLI
+    entry (``julia_main``, what ``python -m grayscott_jl_tpu_torch``
+    runs) on an L=256 float32 config with noise 0.1, 40 steps, plotgap
+    10, in this thread, while ``analysis/pdfcalc.read_data_write_pdf``
+    streams its store live from another thread at 1,000 bins with the
+    histograms on the card. The launch counts are set to 0 just before
+    and read just after: exactly 40 ``kBlock`` f32 launches. Then: 4 PDF
+    steps, each U and V histogram (pdf and bins) bitwise equal to the
+    port's CPU path on the same stored block, each slice's counts
+    summing to 256^2; the pinned blocks (``pdf_blocks``) equal on the
+    card and the CPU; ``gdsplot``'s mid-plane slice equal to the stored
+    plane, and, where matplotlib is installed, the slice and the PDF
+    heatmap written as PNGs.
+    Times: ``compute_pdf`` per field on the card (CUDA events; from the
+    host block, as the workflow calls it, and from a block already on
+    the card) and on the CPU (host clock), and the streaming wall."""
+    import threading
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.analysis import gdsplot, pdfcalc
+    from grayscott_jl_tpu_torch.io.bplite import BpReader
+
+    out = os.path.join(workdir, "an.bp")
+    pdf_out = os.path.join(workdir, "an_pdf.bp")
+    cfg = os.path.join(workdir, "an.toml")
+    write_config(cfg, **main_settings(steps=ANALYSIS_STEPS,
+                                      plotgap=ANALYSIS_PLOTGAP), output=out)
+    stream = {}
+
+    def consume():
+        t0 = time.perf_counter()
+        try:
+            stream["steps"] = pdfcalc.read_data_write_pdf(
+                out, pdf_out, ANALYSIS_BINS, timeout=0.2, max_not_ready=300)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            stream["error"] = e
+        stream["wall_s"] = time.perf_counter() - t0
+
+    cuda_stencil.reset_launches()
+    consumer = threading.Thread(target=consume)
+    t0 = time.perf_counter()
+    consumer.start()
+    rc = gs.julia_main([cfg])
+    sim_wall = time.perf_counter() - t0
+    consumer.join(timeout=600)
+    launches = cuda_stencil.LAUNCHES
+    f32 = cuda_stencil.DTYPE_LAUNCHES["f32"]
+    chain = cuda_stencil.MODE_LAUNCHES["chain"]
+    check(not consumer.is_alive(), "pdfcalc did not finish the stream")
+    if "error" in stream:
+        raise stream["error"]
+    check(rc == 0, f"the CLI exited {rc}")
+    check(launches == f32 == chain == ANALYSIS_STEPS,
+          f"(xii) {launches} launches ({f32} f32, {chain} chain), expected "
+          f"exactly {ANALYSIS_STEPS} kBlock f32 launches")
+    n_out = ANALYSIS_STEPS // ANALYSIS_PLOTGAP
+    check(stream["steps"] == n_out,
+          f"pdfcalc processed {stream['steps']} steps, expected {n_out}")
+
+    sim = BpReader(out)
+    pdfs = BpReader(pdf_out)
+    check(pdfs.num_steps() == n_out and sim.num_steps() == n_out,
+          f"{pdfs.num_steps()} PDF steps and {sim.num_steps()} stored")
+    for i in range(n_out):
+        step = int(pdfs.get("step", step=i))
+        check(step == int(sim.get("step", step=i))
+              == ANALYSIS_PLOTGAP * (i + 1), f"PDF step {i} is sim step {step}")
+        for var in ("U", "V"):
+            block = sim.get(var, step=i)
+            pdf, bins = pdfcalc.compute_pdf(block, ANALYSIS_BINS,
+                                            device="cpu")
+            card_pdf = pdfs.get(f"{var}/pdf", step=i)
+            card_bins = pdfs.get(f"{var}/bins", step=i)
+            check(card_pdf.dtype == pdf.dtype and np.array_equal(card_pdf, pdf)
+                  and np.array_equal(card_bins, bins),
+                  f"(xii) {var} at step {step}: the card's histogram differs "
+                  "from the CPU path's")
+            check((pdf.sum(axis=1) == MAIN_L * MAIN_L).all(),
+                  f"(xii) {var} at step {step}: a slice does not count "
+                  f"{MAIN_L}^2 cells")
+    field = sim.get("U", step=n_out - 1)
+    sim.close()
+    pdfs.close()
+
+    pinned = {}
+    for name, block in pdf_blocks(np).items():
+        card = pdfcalc.compute_pdf(block, ANALYSIS_BINS)
+        host = pdfcalc.compute_pdf(block, ANALYSIS_BINS, device="cpu")
+        check(all(np.array_equal(a, b, equal_nan=True)
+                  for a, b in zip(card, host)),
+              f"(xii) the {name} block's histogram differs on the card")
+        pinned[name] = "bitwise"
+    # What a division by a host scalar would have done on this card.
+    block = torch.from_numpy(pdf_blocks(np)["reciprocal"]).cuda()
+    lo, hi = float(block.min()), float(block.max())
+    width = (hi - lo) / ANALYSIS_BINS
+    lo_t = torch.tensor(lo, device="cuda")
+    divided = torch.floor((block - lo_t) / torch.tensor(width, device="cuda"))
+    by_scalar = torch.floor((block - lo_t) / width)
+    pinned["host_scalar_moved_cells"] = int((divided != by_scalar).sum())
+    del block, divided, by_scalar
+
+    card_ms = time_calls(torch, lambda: pdfcalc.compute_pdf(
+        field, ANALYSIS_BINS), min_ms=500.0)
+    on_card = torch.from_numpy(field).cuda()
+    resident_ms = time_calls(torch, lambda: pdfcalc.compute_pdf(
+        on_card, ANALYSIS_BINS), min_ms=500.0)
+    del on_card
+    reps = 3
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        pdfcalc.compute_pdf(field, ANALYSIS_BINS, device="cpu")
+    cpu_ms = (time.perf_counter() - t1) / reps * 1e3
+    smi = nvidia_smi("name,power.limit")
+    rec = {"launches": launches, "steps": n_out, "bins": ANALYSIS_BINS,
+           "cli_wall_s": sim_wall, "stream_wall_s": stream["wall_s"],
+           "compute_pdf_ms": {"card_from_host": card_ms,
+                              "card_resident": resident_ms, "cpu": cpu_ms},
+           "pinned": pinned, "card": smi}
+    report["analysis"] = rec
+    log(f"  (xii) the CLI at L={MAIN_L}: {launches} kBlock f32 launches, "
+        f"{sim_wall:.3f} s; pdfcalc streamed {n_out} steps at "
+        f"{ANALYSIS_BINS} bins in {stream['wall_s']:.3f} s, every "
+        f"histogram bitwise equal to the CPU path's; compute_pdf per field "
+        f"{card_ms:.3f} ms on the card from the host block, "
+        f"{resident_ms:.3f} ms from the card, {cpu_ms:.1f} ms on the CPU; "
+        f"the pinned blocks bitwise ({pinned['host_scalar_moved_cells']} "
+        f"cells a host-scalar division would move) [{smi}]")
+    sl = gdsplot.load_slice(out, "U")
+    check(np.array_equal(sl, field[MAIN_L // 2]),
+          "gdsplot's mid-plane slice is not the stored plane")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        # matplotlib is not on every card's machine: gdsplot's slice is
+        # checked, and nothing is drawn.
+        rec["pngs"] = "matplotlib not installed; the slice checked, no PNG"
+        log(f"  (xii) gdsplot: {rec['pngs']}")
+        return rec
+    png_slice = gdsplot.plot_slice(out, "U", output=os.path.join(
+        workdir, "an_slice.png"))
+    png_pdf = gdsplot.plot_pdf(pdf_out, "U", output=os.path.join(
+        workdir, "an_pdf.png"))
+    check(all(os.path.getsize(p) > 0 for p in (png_slice, png_pdf)),
+          "gdsplot wrote an empty PNG")
+    rec["pngs"] = [os.path.basename(png_slice), os.path.basename(png_pdf)]
+    log(f"  (xii) gdsplot wrote {rec['pngs']}")
+    return rec
+
+
 def phase_ensemble(torch, gs, cuda_stencil, workdir, report):
     """Phase 4 (ix), the ensemble main path (``[ensemble]``; config (a)
     with members), the launch counts set to 0 just before each run and
@@ -5319,7 +5509,7 @@ def phase_ensemble(torch, gs, cuda_stencil, workdir, report):
 
     Returns ``{mode: (batched launches, members)}`` for the kernels
     line. The phase's tuning cache is a directory of its workdir."""
-    saved = os.environ.get("GS_AUTOTUNE_CACHE")
+    saved = value_from_env("GS_AUTOTUNE_CACHE")
     os.environ["GS_AUTOTUNE_CACHE"] = os.path.join(workdir, "ens_tune")
     try:
         return _phase_ensemble(torch, gs, cuda_stencil, workdir, report)
@@ -5799,6 +5989,10 @@ def _main(torch, report):
             "warm engines, the result cache, chaos 6 and a worker process")
         timed(report, "serve", phase_serve, torch, gs, cuda_stencil,
               workdir, report, clean=workdir)
+        log("phase 4 (xii): the analysis workflow — pdfcalc streaming a "
+            "live L=256 run, its histograms on the card; gdsplot")
+        timed(report, "analysis", phase_analysis, torch, gs, cuda_stencil,
+              workdir, report, clean=workdir)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,
@@ -5969,6 +6163,8 @@ def _main(torch, report):
         "phase_s": report["phase_s"]["ensemble"]}}))
     print(json.dumps({"serve": {**report["serve"],
                                 "phase_s": report["phase_s"]["serve"]}}))
+    print(json.dumps({"analysis": {**report["analysis"],
+                                   "phase_s": report["phase_s"]["analysis"]}}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

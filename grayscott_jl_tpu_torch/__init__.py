@@ -19,9 +19,28 @@ from .config.settings import (  # noqa: F401
     parse_settings_toml,
     resolve_precision,
 )
-from .simulation import Simulation, initialization  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """``Simulation``, ``initialization`` and the submodules, loaded at
+    first use: importing the package does not import torch, so that the
+    host-only modules (``lint/``, ``analysis/decomp``) run without it."""
+    import importlib
+
+    simulation = importlib.import_module(f"{__name__}.simulation")
+    if name in ("Simulation", "initialization"):
+        return getattr(simulation, name)
+    if name in globals():
+        return globals()[name]
+    try:
+        return importlib.import_module(f"{__name__}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}") from None
 
 
 def main(args, *, n_devices=None):

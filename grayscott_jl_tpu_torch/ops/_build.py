@@ -157,8 +157,9 @@ def library_path(spec, envelope: bool = False) -> str:
 
 
 def all_specs():
-    """The spec of every registered model the generator accepts."""
-    from ..models import available_models, get_model
+    """The spec of every registered model the generator accepts (looked
+    up through the declaration protocol's registry, ``models.base``)."""
+    from ..models.base import available_models, get_model
     from . import kernelgen
 
     models = [get_model(name) for name in available_models()]
@@ -187,7 +188,7 @@ def _build_all(specs, envelope):
     targets = [(spec, False)
                for spec in (all_specs() if specs is None else specs)]
     if envelope:
-        from ..models import get_model
+        from ..models.base import get_model
         from . import kernelgen
 
         targets.append((kernelgen.get_spec(get_model(PROBE_MODEL)), True))

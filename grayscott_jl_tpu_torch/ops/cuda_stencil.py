@@ -737,7 +737,8 @@ def _check_faces(faces, shape, n_f, fuse, name) -> str:
 
 
 def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
-               fuse=1, offsets=None, row=None, y_halo=0, band=False):
+               fuse=1, offsets=None, row: Optional[int] = None, y_halo=0,
+               band=False):
     """``fuse`` fused steps of ``spec``'s model on interior-shaped
     fields (an n-tuple of (nx, ny, nz) tensors in declaration order).
 
@@ -965,7 +966,7 @@ def count_launch(mode, path, *, entry=None, model=None, band=False,
         _count_launch(mode, path, entry, model, band, members, fuse, shape)
 
 
-def _count_launch(mode, path, entry, model, band, members, fuse, shape):
+def _count_launch(mode, path, entry, model, band, members: int, fuse, shape):
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     if getattr(_REPLAYING, "on", False):
         REPLAY_LAUNCHES += 1

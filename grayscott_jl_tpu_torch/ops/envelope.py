@@ -70,10 +70,10 @@ _PINNED = ("chain", "nonoise", "fma")
 
 
 def _gray_scott_spec():
-    from ..models import grayscott
-    from . import kernelgen
+    from ..models.base import get_model
+    from . import _build, kernelgen
 
-    return kernelgen.get_spec(grayscott.MODEL)
+    return kernelgen.get_spec(get_model(_build.PROBE_MODEL))
 
 
 def _check_spec(spec):

@@ -26,7 +26,7 @@ def u32(x):
     (negative values wrap modulo 2**32)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK32
-    return int(x) & MASK32
+    return int(x) & MASK32  # gslint: disable=trace-safety — x is a Python int here
 
 
 def mul32(x, c):

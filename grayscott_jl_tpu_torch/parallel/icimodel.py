@@ -677,7 +677,7 @@ def select_kernel(
         )
         return "plain", info
 
-    from ..models import SettingsError
+    from ..models.base import SettingsError
     from ..ops import cuda_stencil
 
     feasible = cuda_stencil.max_feasible_fuse(itemsize, n_fields)

@@ -456,3 +456,61 @@ print("ok")
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+ANALYSIS_LINT_MODULES = (
+    "analysis/__init__.py", "analysis/decomp.py", "analysis/gdsplot.py",
+    "analysis/pdfcalc.py", "lint/__init__.py", "lint/__main__.py",
+    "lint/astutil.py", "lint/context.py", "lint/donation.py",
+    "lint/env_knobs.py", "lint/events_schema.py", "lint/layering.py",
+    "lint/purity.py", "lint/trace_safety.py")
+
+
+@pytest.mark.parametrize("rel", ANALYSIS_LINT_MODULES)
+def test_the_analysis_and_lint_modules_are_checked(rel):
+    """The analysis workflow and the port's gslint are among the sources
+    held to the rule."""
+    assert PACKAGE / rel in SOURCES
+
+
+def test_analysis_runs_with_jax_blocked(tmp_path):
+    """A CPU run (L=8), pdfcalc over its store on the CPU, a slice and
+    the decomposition, with JAX blocked."""
+    probe = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import grayscott_jl_tpu_torch as gs
+from grayscott_jl_tpu_torch import driver
+from grayscott_jl_tpu_torch.analysis import decomp, gdsplot, pdfcalc
+from grayscott_jl_tpu_torch.config.settings import get_settings
+driver.run_once(get_settings([sys.argv[1]]))
+n = pdfcalc.read_data_write_pdf(sys.argv[2] + "/gs.bp", sys.argv[2] + "/pdf.bp",
+                                16, device="cpu")
+assert n == 2, n
+assert gdsplot.load_slice(sys.argv[2] + "/pdf.bp", "U/pdf", axis="x",
+                          index=0).shape == (16,)
+assert "mesh dims" in decomp.describe(8, 8)
+leaked = sorted(m for m in sys.modules
+                if m == "grayscott_jl_tpu" or m.startswith("grayscott_jl_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+    cfg = tmp_path / "c.toml"
+    cfg.write_text(f"""L = 8
+steps = 4
+plotgap = 2
+noise = 0.1
+backend = "CPU"
+precision = "Float32"
+output = "{tmp_path}/gs.bp"
+""")
+    env = {k: v for k, v in __import__("os").environ.items()
+           if not k.startswith("GS_")}
+    env.update(PYTHONPATH=str(REPO),
+               GS_AUTOTUNE_CACHE=str(tmp_path / "tune"))
+    proc = subprocess.run(
+        [sys.executable, "-c", probe, str(cfg), str(tmp_path)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
