@@ -218,11 +218,11 @@ Phases, each of which stops the run on failure:
    right after (ix)): the service (``serve/``) in-process on port 0 with
    ``backend = "CUDA"``, a fresh state directory and unsupervised batches.
    (xi-a) three Gray-Scott jobs of one pack key over HTTP — L=256, the
-   reference's ``GS_SERVE_MAX_L`` cap, 100 steps, plotgap 50, a
+   reference's ``GS_SERVE_MAX_L`` cap, 50 steps, plotgap 50, a
    checkpoint every 50, noise 0.1, three (F, k) and seeds — form one
-   batch of 4 slots: exactly 100 batched ``kBlock`` f32 launches of 4
+   batch of 4 slots: exactly 50 batched ``kBlock`` f32 launches of 4
    members (``MODE_MEMBERS``, ``ENTRY_LAUNCHES``), no store of the idle
-   slot, ``/field`` at ``sim_step`` 100, and each member's ``.bp``,
+   slot, ``/field`` at ``sim_step`` 50, and each member's ``.bp``,
    ``.vtk`` and checkpoint trees byte-identical to that job's solo
    ``driver.main`` run on the card (``kernel_language = "CUDA"``); (xi-b)
    a second batch of the shape is a warm hit (no new engine, no build),
@@ -1285,8 +1285,9 @@ def output_breakdown(workdir, rounds=2):
 def phase_async_main_path(torch, gs, cuda_stencil, workdir, stored, report):
     """Phase 4 (i): the main path's config (a) through the output
     pipeline at ``GS_ASYNC_IO_DEPTH`` 0 and 2 with the native engine, on
-    the single block (runs in the order 0, 2, 2, 0) and on the (2,2,2)
-    mesh on ``cuda:0`` (0, 2): every run's files byte-identical to the
+    the single block and on the (2,2,2) mesh on ``cuda:0`` (each in the
+    order 0, 2; the single block's repeat at 2, 0 was cut to keep the
+    smoke inside its limit): every run's files byte-identical to the
     other depth's, its store bitwise equal to phase 4's, the engine
     native, and no device-wide or stream synchronise on the writer
     thread (it waits on each snapshot's copy event)."""
@@ -1298,7 +1299,7 @@ def phase_async_main_path(torch, gs, cuda_stencil, workdir, stored, report):
     rows = {}
     stop = watch_synchronize(torch)
     try:
-        for layout, fac, order in (("single", None, (0, 2, 2, 0)),
+        for layout, fac, order in (("single", None, (0, 2)),
                                    ("mesh", factory, (0, 2))):
             digests = {}
             for i, depth in enumerate(order):
@@ -2351,9 +2352,10 @@ def poisoning(gs, at, factory=None):
 
 def phase_obs(torch, gs, cuda_stencil, workdir, stored, report):
     """Phase 4 (v), the observability sinks (``obs/``) on the main paths:
-    config (a) and the (2,2,2) mesh (b), each in the order obs off, on,
-    on, off (``GS_EVENTS``, ``GS_METRICS`` at 0.05 s, ``GS_METRICS_PROM``,
-    ``GS_TRACE`` and ``GS_NUMERICS=boundary`` armed): every store
+    config (a) and the (2,2,2) mesh (b), each obs off then on (the repeat
+    on, off was cut to keep the smoke inside its limit; on: ``GS_EVENTS``,
+    ``GS_METRICS`` at 0.05 s, ``GS_METRICS_PROM``, ``GS_TRACE`` and
+    ``GS_NUMERICS=boundary`` armed): every store
     byte-identical to the others and bitwise equal to phase 4's, the
     sinks checked (``check_sinks``), the walls printed; then (a) at
     ``GS_NUMERICS=every_round`` with ``GS_DRIFT_POLICY=abort`` and
@@ -2378,7 +2380,7 @@ def phase_obs(torch, gs, cuda_stencil, workdir, stored, report):
         digests = []
         walls = {"off": [], "on": []}
         checks = []
-        for i, mode in enumerate(("off", "on", "on", "off")):
+        for i, mode in enumerate(("off", "on")):
             name = f"obs_{layout}_{mode}_{i}"
             sinks = os.path.join(workdir, name + "_sinks")
             os.makedirs(sinks)
@@ -4212,8 +4214,8 @@ def phase_bf16_times(torch, gs, cuda_stencil, spec, report):
 def phase_sharded_times(torch, gs, report):
     """ms per step of the sharded path on one card (8 blocks of the
     (2,2,2) mesh on cuda:0, and the GS_FUSE=2 chain forms) against the
-    single block, host clock around 20 steps that end in a synchronise
-    (after 20 of warm-up); and the 6n-face halo exchange alone. Then
+    single block, host clock around 12 steps that end in a synchronise
+    (after 12 of warm-up); and the 6n-face halo exchange alone. Then
     the exchange schedule: at GS_FUSE=2 on (8,1,1), (2,2,2) and (2,2,1)
     the split round against the fused one (in turns: on, off, off, on),
     each under the profiler (:func:`exchange_profile`: the device's busy
@@ -4222,7 +4224,7 @@ def phase_sharded_times(torch, gs, report):
     split ("auto") and fused, with the exchange rounds per step."""
     from grayscott_jl_tpu_torch.parallel import halo
 
-    steps = 20
+    steps = 12
     settings = gs.Settings(**main_settings())
 
     def per_step(sim):
@@ -4570,6 +4572,9 @@ def phase_envelope(torch, cuda_stencil, spec, workdir, report):
 #: examples/settings-ensemble-phases.toml at config (a)'s size; three of
 #: them on the meshes; four (two per group) for the member split.
 ENS_PRESETS = ("spots", "stripes", "waves", "mitosis", "chaos")
+#: The steps of the ensemble phase's (a) and (b) on (2,2,2): half of (a)'s
+#: 200, cut so that the smoke keeps inside its limit with phase (xiii).
+ENS_STEPS = 100
 ENS_MESH_PRESETS = ("spots", "stripes", "chaos")
 ENS_SPLIT_PRESETS = ("spots", "stripes", "waves", "chaos")
 #: The kernel checks of the batched launch: members per launch.
@@ -5013,8 +5018,9 @@ def phase_batch_parity(torch, gs, cuda_stencil, spec, report):
 
 #: The serving phase (phase 4 (xi)): three Gray-Scott jobs of one pack key
 #: at the reference's serving cap (``GS_SERVE_MAX_L`` = 256), float32,
-#: noise 0.1, steps cut to the smoke's limit; three (F, k) and seeds.
-SERVE_STEPS = 100
+#: noise 0.1, steps cut to the smoke's limit (one output and one
+#: checkpoint a job); three (F, k) and seeds.
+SERVE_STEPS = 50
 SERVE_FK = ((0.02, 0.048), (0.03, 0.055), (0.04, 0.06))
 SERVE_SLOTS = 4
 
@@ -5034,10 +5040,10 @@ def phase_serve(torch, gs, cuda_stencil, workdir, report):
     unsupervised batches (the kernels load from the build of phase 2).
 
     (a) three jobs of one pack key over HTTP form one batch of 4 slots:
-    exactly 100 batched ``kBlock`` f32 launches of 4 members, no store of
-    the idle slot, ``/field`` at ``sim_step`` 100, and each member's
-    ``.bp``, ``.vtk`` and checkpoint trees byte-identical to that job's
-    solo ``driver.main`` run on the card (``kernel_language = "CUDA"``);
+    exactly ``SERVE_STEPS`` batched ``kBlock`` f32 launches of 4 members,
+    no store of the idle slot, ``/field`` at ``sim_step`` ``SERVE_STEPS``,
+    and each member's ``.bp``, ``.vtk`` and checkpoint trees
+    byte-identical to that job's solo ``driver.main`` run on the card (``kernel_language = "CUDA"``);
     (b) a second batch of the shape is a warm hit (no new engine, no
     build); job 1's spec again is a ``cache="hit"`` with its store and no
     launch; a flipped byte of that store under ``GS_CACHE_VERIFY=1`` drops
@@ -5484,15 +5490,216 @@ def phase_analysis(torch, gs, cuda_stencil, workdir, report):
     return rec
 
 
+#: Phase 4 (xiii): the main path's output through the ADIOS2 engine.
+ADIOS_STEPS = 40
+ADIOS_PLOTGAP = 10
+ADIOS_CKPT = 20
+ADIOS_BINS = 1000
+#: The strict adios2 API fake the CPU tests use: the card's machine has no
+#: adios2 wheel, so the phase installs it as the ``adios2`` module.
+FAKE_ADIOS2 = os.path.join(REPO, "tests", "support", "adios2_fake")
+
+
+def phase_adios2(torch, gs, cuda_stencil, workdir, report):
+    """Phase 4 (xiii), the main path with its output store through the
+    ADIOS2 engine (``io/adios.py``): the API fake of ``tests/support`` is
+    put first on ``sys.path`` as ``adios2`` and the port's ``available()``
+    cache cleared; a ``finally`` takes the fake out of ``sys.modules`` and
+    ``sys.path`` and clears the cache again, so every later phase writes
+    BP-lite. The runs, the CLI entry (``julia_main``) on (a)'s Gray-Scott
+    settings at L=256 float32, noise 0.1, 40 steps, plotgap 10 and a
+    checkpoint every 20, the launch counts set to 0 just before each and
+    read just after:
+
+    A. the ADIOS2 engine (``io_engine`` ``adios2``): exactly 40 ``kBlock``
+       f32 launches; its checkpoint store BP-lite;
+    C. the same under ``GS_TPU_ADIOS2=0``: 40 launches, a BP-lite store
+       whose steps equal A's bitwise, read through ``open_reader``;
+    B. a restart of A from its step-20 checkpoint, appending into A's
+       store: a rollback onto a real store, so steps 30 and 40 go to the
+       BP-lite sidecar; exactly 20 launches; ``MergedReader`` serves steps
+       10, 20, 30, 40 bitwise equal to C's (so to A's).
+
+    Then ``pdfcalc`` at 1,000 bins on the card over B's merged store and
+    over C's: the histograms bitwise equal. Times (host clock): each run's
+    wall and its writer's busy seconds, and one output step's store write
+    through each engine — the fake's costs (``np.savez`` of the step), not
+    a real BP4 engine's."""
+    from grayscott_jl_tpu_torch.io import adios
+
+    prior = sys.modules.pop("adios2", None)
+    saved = value_from_env("GS_TPU_ADIOS2")
+    sys.path.insert(0, FAKE_ADIOS2)
+    adios.available.cache_clear()
+    try:
+        return _phase_adios2(torch, gs, cuda_stencil, workdir, report)
+    finally:
+        sys.path.remove(FAKE_ADIOS2)
+        sys.modules.pop("adios2", None)
+        if prior is not None:
+            sys.modules["adios2"] = prior
+        adios.available.cache_clear()
+        if saved is None:
+            os.environ.pop("GS_TPU_ADIOS2", None)
+        else:
+            os.environ["GS_TPU_ADIOS2"] = saved
+
+
+def _phase_adios2(torch, gs, cuda_stencil, workdir, report):
+    import adios2
+    import numpy as np
+
+    from grayscott_jl_tpu_torch.analysis import pdfcalc
+    from grayscott_jl_tpu_torch.io import (_real_bp_evidence, adios,
+                                           open_reader, open_writer, sidecar)
+
+    check(adios.available() and adios2.__version__.endswith("-fake"),
+          f"(xiii) adios2 {adios2.__version__} is not the API fake")
+    log(f"  (xiii) adios2 {adios2.__version__}: the API fake of "
+        "tests/support as the adios2 module (the card's machine has no "
+        "wheel); its store writes are the fake's, not a BP4 engine's")
+    a_dir, c_dir = (os.path.join(workdir, n) for n in ("ad_a", "ad_c"))
+    runs = {}
+
+    def run(name, d, adios_on, engine, launches, **kw):
+        """A run into ``d``; ``engine`` is the ``io_engine`` its stats
+        must name (the sidecar's BP-lite engine for a rollback)."""
+        os.makedirs(d, exist_ok=True)
+        cfg = os.path.join(d, f"{name}.toml")
+        write_config(cfg, **main_settings(
+            steps=ADIOS_STEPS, plotgap=ADIOS_PLOTGAP, checkpoint=True,
+            checkpoint_freq=ADIOS_CKPT), output=os.path.join(d, "gs.bp"),
+            checkpoint_output=os.path.join(d, "ckpt.bp"), **kw)
+        stats_path = os.path.join(d, f"{name}_stats.json")
+        os.environ["GS_TPU_STATS"] = stats_path
+        os.environ["GS_TPU_ADIOS2"] = "1" if adios_on else "0"
+        cuda_stencil.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = gs.julia_main([cfg])
+        finally:
+            os.environ.pop("GS_TPU_STATS", None)
+        wall = time.perf_counter() - t0
+        counts = (cuda_stencil.LAUNCHES, cuda_stencil.DTYPE_LAUNCHES["f32"],
+                  cuda_stencil.MODE_LAUNCHES["chain"])
+        check(rc == 0, f"(xiii) run {name}: the CLI exited {rc}")
+        check(counts == (launches,) * 3,
+              f"(xiii) run {name}: {counts} launches (all, f32, chain), "
+              f"expected exactly {launches} kBlock f32 launches")
+        with open(stats_path, encoding="utf-8") as f:
+            stats = json.load(f)
+        check(stats["config"]["io_engine"] == engine,
+              f"(xiii) run {name} wrote through "
+              f"{stats['config']['io_engine']}, expected {engine}")
+        check(os.path.isfile(os.path.join(d, "ckpt.bp", "md.json")),
+              f"(xiii) run {name}: the checkpoint store is not BP-lite")
+        runs[name] = {"wall_s": wall, "launches": launches,
+                      "io_engine": engine,
+                      "writer_busy_s": stats["io"]["busy_s"]}
+        log(f"  (xiii) run {name}: {launches} kBlock f32 launches, "
+            f"{engine} output store, wall {wall:.3f} s, writer busy "
+            f"{stats['io']['busy_s']} s")
+
+    def steps_of(path):
+        with open_reader(path) as r:
+            return r, [{n: np.asarray(r.get(n, step=i))
+                        for n in ("step", "U", "V")}
+                       for i in range(r.num_steps())]
+
+    run("A", a_dir, True, "adios2", ADIOS_STEPS)
+    run("C", c_dir, False, "native", ADIOS_STEPS)
+    a_out, c_out = (os.path.join(d, "gs.bp") for d in (a_dir, c_dir))
+    check(_real_bp_evidence(a_out) and not _real_bp_evidence(c_out)
+          and os.path.isfile(os.path.join(c_out, "md.json")),
+          "(xiii) A's store is not a real BP store or C's not BP-lite")
+    want = [ADIOS_PLOTGAP * (i + 1)
+            for i in range(ADIOS_STEPS // ADIOS_PLOTGAP)]
+
+    def same(path, label, kind):
+        (r, got), (_, ref) = steps_of(path), steps_of(c_out)
+        check(type(r).__name__ == kind,
+              f"(xiii) {label} read through {type(r).__name__}, not {kind}")
+        check([int(x["step"]) for x in got] == want,
+              f"(xiii) {label} holds steps "
+              f"{[int(x['step']) for x in got]}, expected {want}")
+        for x, y in zip(got, ref):
+            for n in x:
+                check(x[n].dtype == y[n].dtype
+                      and np.array_equal(x[n], y[n]),
+                      f"(xiii) {label}: {n} at step {int(x['step'])} "
+                      "differs from C's BP-lite store")
+
+    same(a_out, "A's store", "Adios2Reader")
+    # B: A resumed from its step-20 checkpoint into A's own stores.
+    run("B", a_dir, True, "native", ADIOS_STEPS - ADIOS_CKPT, restart=True,
+        restart_input=os.path.join(a_dir, "ckpt.bp"),
+        restart_step=ADIOS_CKPT)
+    keep = sidecar.read_keep_base(a_out)
+    check(keep == ADIOS_CKPT // ADIOS_PLOTGAP,
+          f"(xiii) B's sidecar marker keeps {keep} base steps")
+    same(a_out, "B's merged store", "MergedReader")
+
+    pdf_s = {}
+    for name, path in (("B", a_out), ("C", c_out)):
+        out = os.path.join(workdir, f"ad_pdf_{name}.bp")
+        t0 = time.perf_counter()
+        n = pdfcalc.read_data_write_pdf(path, out, ADIOS_BINS,
+                                        max_not_ready=2)
+        pdf_s[name] = time.perf_counter() - t0
+        check(n == len(want), f"(xiii) pdfcalc over {name}: {n} steps")
+    with open_reader(os.path.join(workdir, "ad_pdf_B.bp")) as rb, \
+            open_reader(os.path.join(workdir, "ad_pdf_C.bp")) as rc:
+        for i in range(len(want)):
+            for var in ("U/pdf", "U/bins", "V/pdf", "V/bins"):
+                x, y = rb.get(var, step=i), rc.get(var, step=i)
+                check(x.dtype == y.dtype and np.array_equal(x, y),
+                      f"(xiii) pdfcalc's {var} at step index {i}: B's "
+                      "merged store and C's differ")
+
+    # One output step's store write through each engine.
+    _, last = steps_of(c_out)
+    last = last[-1]
+    write_ms = {}
+    for engine in ("adios2", "native"):
+        os.environ["GS_TPU_ADIOS2"] = "1" if engine == "adios2" else "0"
+        path = os.path.join(workdir, f"ad_write_{engine}.bp")
+        t0 = time.perf_counter()
+        w = open_writer(path)
+        w.define_variable("step", np.int32)
+        for n in ("U", "V"):
+            w.define_variable(n, np.float32, (MAIN_L,) * 3)
+        w.begin_step()
+        w.put("step", np.int32(last["step"]))
+        w.put("U", last["U"])
+        w.put("V", last["V"])
+        w.end_step()
+        w.close()
+        write_ms[engine] = (time.perf_counter() - t0) * 1e3
+        check(w.engine == engine, f"(xiii) {w.engine} wrote {path}")
+    smi = nvidia_smi("name,power.limit")
+    rec = {"adios2": adios2.__version__, "runs": runs,
+           "pdfcalc_s": pdf_s, "store_write_ms": write_ms,
+           "keep_base": keep, "card": smi,
+           "note": "the adios2 API fake's costs, not a BP4 engine's"}
+    report["adios2"] = rec
+    log(f"  (xiii) steps {want} bitwise: A (adios2) = C (BP-lite) = B "
+        f"(merged, base 2 + sidecar 2); pdfcalc at {ADIOS_BINS} bins over B "
+        f"{pdf_s['B']:.3f} s and C {pdf_s['C']:.3f} s, bitwise; one step's "
+        f"store write {write_ms['adios2']:.1f} ms through the fake, "
+        f"{write_ms['native']:.1f} ms native [{smi}]")
+    return rec
+
+
 def phase_ensemble(torch, gs, cuda_stencil, workdir, report):
     """Phase 4 (ix), the ensemble main path (``[ensemble]``; config (a)
     with members), the launch counts set to 0 just before each run and
     read just after, every member's stores compared file for file with
     a solo run of that member (its preset, seed ``k``):
 
-    (a) the five presets on one block through ``driver.main``: 200
-        ``kBlock`` launches of 5 members (solo (a)'s count, not 1,000);
-    (b) three members on (2,2,2) on ``cuda:0`` at depth 1 (1,600
+    (a) the five presets on one block through ``driver.main``, 100 steps
+        (``ENS_STEPS``): 100 ``kBlock`` launches of 5 members (a solo
+        run's count, not 500);
+    (b) three members on (2,2,2) on ``cuda:0`` at depth 1, 100 steps (800
         ``kFaces6`` launches of 3 members), on (8,1,1) at ``GS_FUSE=2``
         fused (x-chain) and on (2,2,1) at ``GS_FUSE=2`` split (the
         xy-chain operand and the bands), 50 steps;
@@ -5601,13 +5808,14 @@ def _phase_ensemble(torch, gs, cuda_stencil, workdir, report):
 
     # (a) One block, five members.
     settings, sim, (modes, members, _), stats_path, wall = ens_run(
-        "ens_a", ENS_PRESETS, checkpoint=True, checkpoint_freq=100)
+        "ens_a", ENS_PRESETS, steps=ENS_STEPS, checkpoint=True,
+        checkpoint_freq=100)
     settings_a = settings
-    check(modes == {"chain": MAIN_STEPS} and members == {"chain": 5},
+    check(modes == {"chain": ENS_STEPS} and members == {"chain": 5},
           f"(a) ensemble launched {modes} with members {members}, expected "
-          f"{MAIN_STEPS} chain launches of 5 members")
+          f"{ENS_STEPS} chain launches of 5 members")
     took(report, cuda_stencil, "ensemble_chain")
-    ens_ms, ens_stats = compute_ms(stats_path, MAIN_STEPS)
+    ens_ms, ens_stats = compute_ms(stats_path, ENS_STEPS)
     out["chain"] = (modes["chain"], 5)
     solo_ms = []
     for k in range(len(ENS_PRESETS)):
@@ -5615,10 +5823,10 @@ def _phase_ensemble(torch, gs, cuda_stencil, workdir, report):
             settings, k, os.path.join(workdir, f"ens_a_solo{k}"))
         check(s_modes == modes, f"(a) solo member {k} launched {s_modes}")
         same_as_solo(settings, k, ms, "(a)")
-        solo_ms.append(compute_ms(s_stats, MAIN_STEPS)[0])
+        solo_ms.append(compute_ms(s_stats, ENS_STEPS)[0])
         with BpReader(member_path(settings.output, k, 5)) as r:
             u = r.get("U", step=r.num_steps() - 1)
-            check(r.num_steps() == MAIN_STEPS // 50
+            check(r.num_steps() == ENS_STEPS // 50
                   and bool(np.isfinite(u).all()),
                   f"(a) member {k}'s store: {r.num_steps()} steps")
         for p in stores_of(settings, k):
@@ -5630,7 +5838,7 @@ def _phase_ensemble(torch, gs, cuda_stencil, workdir, report):
                 "solo_compute_ms_per_step": solo_ms,
                 "health": ens_stats.get("ensemble", {}).get("health"),
                 "cell_updates_per_s": ens_stats["cell_updates_per_s"]}
-    log(f"  (a) {len(ENS_PRESETS)} members on one block: {MAIN_STEPS} "
+    log(f"  (a) {len(ENS_PRESETS)} members on one block: {ENS_STEPS} "
         f"kBlock launches in {wall:.2f} s, compute {ens_ms:.4f} ms/step "
         f"against {sum(solo_ms):.4f} for five solo runs; every member's "
         "stores byte-equal to its solo run's")
@@ -5646,8 +5854,8 @@ def _phase_ensemble(torch, gs, cuda_stencil, workdir, report):
                        devices=["cuda:0"] * n)
         return factory
 
-    meshes = [("b_2x2x2", (2, 2, 2), None, MAIN_STEPS, "off",
-               {"faces6": 8 * MAIN_STEPS}),
+    meshes = [("b_2x2x2", (2, 2, 2), None, ENS_STEPS, "off",
+               {"faces6": 8 * ENS_STEPS}),
               ("b_8x1x1", (8, 1, 1), "2", 50, "off", {"xchain": 8 * 25}),
               ("b_2x2x1", (2, 2, 1), "2", 50, "on",
                {"xychain": 4 * 25, "xchain": 4 * 4 * 25})]
@@ -5658,7 +5866,7 @@ def _phase_ensemble(torch, gs, cuda_stencil, workdir, report):
             settings, sim, (modes, members, bands), _, wall = ens_run(
                 name, ENS_MESH_PRESETS, factory=on_cuda0(dims),
                 steps=steps, comm_overlap=overlap,
-                checkpoint=steps == MAIN_STEPS, checkpoint_freq=100)
+                checkpoint=name == "b_2x2x2", checkpoint_freq=100)
             check(modes == want and set(members.values()) == {3},
                   f"(b) {dims} launched {modes} with {members}, expected "
                   f"{want} of 3 members")
@@ -5993,6 +6201,10 @@ def _main(torch, report):
             "live L=256 run, its histograms on the card; gdsplot")
         timed(report, "analysis", phase_analysis, torch, gs, cuda_stencil,
               workdir, report, clean=workdir)
+        log("phase 4 (xiii): the main path's output through the ADIOS2 "
+            "engine (the API fake), a rollback into its sidecar; pdfcalc")
+        timed(report, "adios2", phase_adios2, torch, gs, cuda_stencil,
+              workdir, report, clean=workdir)
         del stored
         model_launches = {
             name: timed(report, f"{name} path", phase_model_path, torch, gs,
@@ -6165,6 +6377,8 @@ def _main(torch, report):
                                 "phase_s": report["phase_s"]["serve"]}}))
     print(json.dumps({"analysis": {**report["analysis"],
                                    "phase_s": report["phase_s"]["analysis"]}}))
+    print(json.dumps({"adios2": {**report["adios2"],
+                                 "phase_s": report["phase_s"]["adios2"]}}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

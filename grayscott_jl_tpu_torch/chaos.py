@@ -250,14 +250,17 @@ def values_equal(a: str, b: str) -> List[str]:
     serve the same values."""
     import numpy as np
 
-    from .io.bplite import BpReader
+    from .io import open_reader
 
     try:
-        ra, rb = BpReader(a), BpReader(b)
-    except (FileNotFoundError, OSError) as e:
+        ra, rb = open_reader(a), open_reader(b)
+    except (FileNotFoundError, OSError, RuntimeError) as e:
         return [f"{a} or {b} is unreadable ({e})"]
     with ra, rb:
-        bad = [] if ra.attributes() == rb.attributes() else ["attributes"]
+        # The ADIOS2 reader hands list attributes back as arrays.
+        attrs = [{k: v.tolist() if isinstance(v, np.ndarray) else v
+                  for k, v in r.attributes().items()} for r in (ra, rb)]
+        bad = [] if attrs[0] == attrs[1] else ["attributes"]
         if ra.num_steps() != rb.num_steps():
             return bad + [f"{ra.num_steps()} != {rb.num_steps()} steps"]
         names = sorted(ra.available_variables())

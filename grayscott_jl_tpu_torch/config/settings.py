@@ -32,8 +32,10 @@ their defaults that the reference acts on — ``health_policy``,
 and ``halo_depth`` / ``GS_HALO_DEPTH`` (:func:`resolve_halo_depth`),
 the sharded round's exchange schedule, and the output and integrity
 variables: ``GS_ASYNC_IO_DEPTH`` (the output
-pipeline's depth, ``io/async_writer.resolve_depth``), ``GS_TPU_NATIVE_IO``
-(``0`` forces the Python store engine, ``io/__init__.py``),
+pipeline's depth, ``io/async_writer.resolve_depth``), ``GS_TPU_ADIOS2``
+(``0`` keeps output stores on BP-lite where the adios2 bindings are
+importable) and ``GS_TPU_NATIVE_IO`` (``0`` forces the Python store
+engine), both in ``io/__init__.py``,
 ``GS_CKPT_REPLICAS``, ``GS_CKPT_VERIFY`` (``off``/``read``/``full``),
 ``GS_SCRUB`` and ``GS_SCRUB_EVERY`` (``resilience/integrity.py``), and
 the launch variables of a run of several processes

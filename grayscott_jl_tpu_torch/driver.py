@@ -501,19 +501,27 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
             out = EnsembleStream(run_settings, sim.domain, sim.dtype,
                                  writer_id=proc, nwriters=nprocs,
                                  resume_step=resume_step)
-            ck = (EnsembleCheckpointWriter(
+        else:
+            out = SimStream(run_settings, sim.domain, sim.dtype,
+                            writer_id=proc, nwriters=nprocs,
+                            resume_step=resume_step, codec=codec.output)
+        if not settings.checkpoint:
+            return out, None
+        try:
+            if ens is not None:
+                return out, EnsembleCheckpointWriter(
+                    run_settings, sim.dtype, writer_id=proc,
+                    nwriters=nprocs, resume_step=resume_step,
+                    layout=sim.layout())
+            return out, CheckpointWriter(
                 run_settings, sim.dtype, writer_id=proc, nwriters=nprocs,
-                resume_step=resume_step, layout=sim.layout())
-                if settings.checkpoint else None)
-            return out, ck
-        out = SimStream(run_settings, sim.domain, sim.dtype,
-                        writer_id=proc, nwriters=nprocs,
-                        resume_step=resume_step, codec=codec.output)
-        ck = (CheckpointWriter(run_settings, sim.dtype, writer_id=proc,
-                               nwriters=nprocs, resume_step=resume_step,
-                               layout=sim.layout(), codec=codec.ckpt)
-              if settings.checkpoint else None)
-        return out, ck
+                resume_step=resume_step, layout=sim.layout(),
+                codec=codec.ckpt)
+        except BaseException:
+            # The output store is open (a rollback's sidecar marker
+            # written): close it before the error leaves.
+            _close_quietly(out)
+            raise
 
     try:
         stream, ckpt = open_stores(settings, resume)

@@ -84,8 +84,12 @@ class CheckpointWriter:
             if settings.restart and resume_step is not None:
                 keep = count_steps_upto(path, resume_step)
             fresh = not (settings.restart and os.path.isfile(_md_path(path)))
+            # Checkpoints stay on BP-lite with the adios2 bindings
+            # importable: rollback-append and selection restores are
+            # BP-lite semantics.
             w = open_writer(path, writer_id=writer_id, nwriters=nwriters,
-                            append=settings.restart, keep_steps=keep)
+                            append=settings.restart, keep_steps=keep,
+                            prefer_adios2=False)
             if writer_id == 0:
                 w.define_attribute("L", settings.L)
                 w.define_attribute("precision", settings.precision)

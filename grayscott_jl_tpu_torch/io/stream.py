@@ -26,6 +26,7 @@ import numpy as np
 from ..config.settings import Settings, resolve_model
 from ..parallel.domain import CartDomain
 from . import open_writer
+from .bplite import BF16, dtype_name
 from .codec import (CODEC_ATTR, EncodedField, codec_attr_value,
                     payload_dtype, qhi_var, qlo_var)
 
@@ -130,9 +131,11 @@ class SimStream:
             from . import count_steps_upto
 
             keep = count_steps_upto(settings.output, resume_step)
+        # ADIOS2 has no bfloat16 type: bf16 output stays on BP-lite.
         self.writer = open_writer(
             settings.output, writer_id=writer_id, nwriters=nwriters,
             append=settings.restart, keep_steps=keep,
+            prefer_adios2=dtype_name(dtype) != BF16,
         )
         if writer_id == 0:
             for name, value in model.resolve_param_values(settings).items():
@@ -172,13 +175,14 @@ class SimStream:
         (``[(offsets, sizes, *field_blocks)]`` in model declaration
         order, with the codec form on ``encoded`` for a coded store).
         ``checksums`` (``{field: int}``, the boundary's device checksums)
-        go into the store's integrity sidecar. With the output pipeline
+        go into the store's integrity sidecar (a real ADIOS2 store has
+        none and skips them). With the output pipeline
         this runs on its writer thread, the ``.vti`` file's assembly
         and transposition included."""
         w = self.writer
         w.begin_step()
         w.put("step", np.int32(step))
-        if checksums is not None:
+        if checksums is not None and hasattr(w, "record_device_checksums"):
             w.record_device_checksums(step, checksums)
         put_fields(w, self.var_names, blocks, bool(self.codec))
         w.end_step()
@@ -214,8 +218,8 @@ class SimStream:
 
     @property
     def engine(self) -> str:
-        """The BP-lite engine writing the store (``native`` or
-        ``python``)."""
+        """The engine writing the store: ``adios2``, or ``native`` or
+        ``python`` for BP-lite (a rollback sidecar's writer included)."""
         return self.writer.engine
 
     def close(self) -> None:

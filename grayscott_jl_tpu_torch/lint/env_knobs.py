@@ -52,9 +52,6 @@ RESOLVER_MODULES = (
 #: with its reason (ROADMAP "Not queued" and "Not faults"); a key that
 #: ends in ``_`` declares the family of knobs it begins.
 NOT_READ = {
-    "GS_TPU_ADIOS2": "the ADIOS2 engine needs the adios2 wheel, which "
-    "the port does not carry; it writes BP-lite, the reference's "
-    "fallback without the wheel",
     "GS_TPU_PROBE_TIMEOUT": "it bounds the reference's TPU backend "
     "probe; the port asks torch.cuda for the card and has no probe",
     "GS_BX": "the port's tile is fixed (cuda_stencil.TILE), so there is "

@@ -65,10 +65,12 @@ TORCHFREE_EXACT = (PACKAGE,) + tuple(
         "ensemble",
         "ensemble.spec",
         "io",
+        "io.adios",
         "io.async_writer",
         "io.bplite",
         "io.codec",
         "io.native",
+        "io.sidecar",
         "io.stream",
         "io.vtk",
         "launch",

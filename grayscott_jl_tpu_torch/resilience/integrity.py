@@ -378,9 +378,19 @@ def scrub_store(path: str, *, journal=None, quarantine: bool = True,
     ones. Returns the audit (None for a store with no metadata yet).
     Reads only the on-disk metadata, so a live writer is undisturbed.
     ``writers`` limits the audit to those writers' blocks (each process
-    of a multi-process run scrubs its own)."""
-    from ..io import bplite
+    of a multi-process run scrubs its own). A real ADIOS2 store records
+    no CRCs, so its blocks are skipped; its rollback sidecar, a BP-lite
+    store with its own ledger, is audited in its place."""
+    from ..io import _real_bp_evidence, bplite, sidecar
 
+    if _real_bp_evidence(path):
+        report = None
+        if sidecar.read_keep_base(path) is not None:
+            report = scrub_store(sidecar.sidecar_path(path), journal=journal,
+                                 quarantine=quarantine, writers=writers)
+        return dict(report or {"path": path, "steps_audited": 0,
+                               "blocks_checked": 0, "corrupt": []},
+                    unverified_base=path)
     md_path = os.path.join(path, "md.json")
     if not os.path.isfile(md_path):
         return None
@@ -574,12 +584,17 @@ def _verify_writer_last_step(path: str, writer_id: int) -> None:
 
 def verify_store(path: str) -> dict:
     """Full CRC audit of a finished store, never quarantining: raises
-    :class:`CorruptionError` naming the corrupt entries, or for a store
-    with no readable metadata."""
+    :class:`CorruptionError` naming the corrupt entries, for a store with
+    no readable metadata, or for a real ADIOS2 store, whose base records
+    no CRCs: a cache must not vouch for a store it cannot verify."""
     report = scrub_store(path, quarantine=False)
     if report is None:
         raise CorruptionError(
             f"store {path} has no readable metadata — nothing to verify")
+    if "unverified_base" in report:
+        raise CorruptionError(
+            f"store {path} is a real ADIOS2 BP store, whose base records "
+            "no CRCs — it cannot be verified")
     if report["corrupt"]:
         raise CorruptionError(
             f"store {path}: CRC mismatch in step entr"
@@ -591,28 +606,44 @@ def verify_store(path: str) -> dict:
 def replicate_store(path: str, n: Optional[int] = None) -> List[str]:
     """Mirror a finished store to its ``.r1`` .. ``.r<n-1>`` paths
     (``GS_CKPT_REPLICAS`` when ``n`` is None), each atomically (a copy
-    then a rename); mirrors already there are left alone. Returns the
+    then a rename); mirrors already there are left alone. A rollback
+    sidecar (``<store>.sidecar``) is mirrored beside its mirror, before
+    it, so a mirror is never seen without its sidecar. Returns the
     mirrors written."""
-    import shutil
+    from ..io import sidecar
 
     if n is None:
         n = resolve_replicas()
+    side = sidecar.sidecar_path(path)
     written = []
     for mirror in replica_paths(path, n)[1:]:
         if os.path.exists(mirror):
             continue
-        tmp = f"{mirror}.copy.{os.getpid()}"
-        try:
-            shutil.copytree(path, tmp)
-            os.rename(tmp, mirror)
-        except FileExistsError:
-            shutil.rmtree(tmp, ignore_errors=True)
-        except OSError:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise
-        else:
+        if os.path.isdir(side):
+            _copy_atomic(side, sidecar.sidecar_path(mirror))
+        if _copy_atomic(path, mirror):
             written.append(mirror)
     return written
+
+
+def _copy_atomic(src: str, dst: str) -> bool:
+    """Copy directory ``src`` to ``dst`` through a temporary directory
+    and a rename; False when ``dst`` was already there (left alone)."""
+    import shutil
+
+    if os.path.exists(dst):
+        return False
+    tmp = f"{dst}.copy.{os.getpid()}"
+    try:
+        shutil.copytree(src, tmp)
+        os.rename(tmp, dst)
+    except FileExistsError:
+        shutil.rmtree(tmp, ignore_errors=True)
+        return False
+    except OSError:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return True
 
 
 def primary_checkpoint_path(settings) -> str:

@@ -68,16 +68,17 @@ def _ensure_events(state_dir: str):
 def _field_slice(job, *, field: Optional[str] = None,
                  z: Optional[int] = None, stride: int = 1) -> dict:
     """One z-plane of one field from the job's member OUTPUT store at
-    its latest durable step — read through the standard BP-lite reader
-    (durability rules included: a torn tail is invisible)."""
-    from ..io.bplite import BpReader
+    its latest durable step, through ``io.open_reader`` (a BP-lite store
+    under its durability rules, so a torn tail is invisible, or a real
+    ADIOS2 store with its rollback sidecar merged)."""
+    from ..io import open_reader
 
     if job.store is None or not os.path.exists(job.store):
         raise FileNotFoundError("no output store yet")
     L = job.spec.L
     z = L // 2 if z is None else max(0, min(int(z), L - 1))
     stride = max(1, int(stride))
-    reader = BpReader(job.store)
+    reader = open_reader(job.store)
     try:
         n = reader.num_steps()
         if n == 0:

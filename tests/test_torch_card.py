@@ -1599,3 +1599,61 @@ def test_pdfcalc_histograms_on_the_card_equal_the_cpu():
             for a, b in zip(card, host):
                 assert a.dtype == b.dtype
                 assert np.array_equal(a, b, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_adios2_engine_output_equals_bplite_on_card(tmp_path, monkeypatch):
+    """The main path at L=64 on the card with its output store through
+    the ADIOS2 engine (the strict API fake of ``tests/support`` as the
+    ``adios2`` module; the card's machine has no wheel) equals the same
+    run on BP-lite (``GS_TPU_ADIOS2=0``) bitwise, step for step, with
+    the checkpoint store on BP-lite in both."""
+    import os
+    import sys
+
+    import numpy as np
+
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.io import adios, open_reader
+
+    _card()
+    fake = str(Path(__file__).resolve().parent / "support" / "adios2_fake")
+    prior = sys.modules.pop("adios2", None)
+    sys.path.insert(0, fake)
+    adios.available.cache_clear()
+    try:
+        assert adios.available()
+
+        def run(name, engine):
+            d = tmp_path / name
+            d.mkdir()
+            monkeypatch.setenv("GS_TPU_ADIOS2",
+                               "1" if engine == "adios2" else "0")
+            s = Settings(L=64, steps=40, plotgap=10, noise=0.1,
+                         precision="Float32", backend="CUDA",
+                         kernel_language="CUDA", checkpoint=True,
+                         checkpoint_freq=20, output=str(d / "gs.bp"),
+                         checkpoint_output=str(d / "ckpt.bp"), **KW)
+            cuda_stencil.reset_launches()
+            driver.run_once(s)
+            assert cuda_stencil.LAUNCHES == 40
+            assert os.path.isfile(d / "ckpt.bp" / "md.json")
+            assert os.path.isfile(d / "gs.bp" / "md.json") == (
+                engine != "adios2")
+            with open_reader(str(d / "gs.bp")) as r:
+                return [{n: np.asarray(r.get(n, step=i))
+                         for n in ("step", "U", "V")}
+                        for i in range(r.num_steps())]
+
+        a, c = run("a", "adios2"), run("c", "bplite")
+        assert len(a) == len(c) == 4
+        for x, y in zip(a, c):
+            for n in x:
+                assert x[n].dtype == y[n].dtype and np.array_equal(
+                    x[n], y[n]), n
+    finally:
+        sys.path.remove(fake)
+        sys.modules.pop("adios2", None)
+        if prior is not None:
+            sys.modules["adios2"] = prior
+        adios.available.cache_clear()

@@ -514,3 +514,41 @@ output = "{tmp_path}/gs.bp"
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_adios2_engine_stands_alone():
+    """``io.adios`` and ``io.sidecar`` are in the no-JAX check and import
+    without JAX, the reference package and the adios2 bindings: the
+    engine is then unavailable and output stays on BP-lite. No module of
+    the package reaches the API fake under ``tests/support``."""
+    checked = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert {"grayscott_jl_tpu_torch/io/adios.py",
+            "grayscott_jl_tpu_torch/io/sidecar.py"} <= checked
+    probe = r"""
+import sys
+for name in ("jax", "jaxlib", "grayscott_jl_tpu", "adios2"):
+    sys.modules[name] = None
+import os, tempfile
+from grayscott_jl_tpu_torch.io import adios, open_reader, open_writer, sidecar
+assert not adios.available()
+d = tempfile.mkdtemp()
+w = open_writer(os.path.join(d, "gs.bp"))
+assert w.engine in ("native", "python"), w.engine
+w.close()
+assert sidecar.read_keep_base(os.path.join(d, "gs.bp")) is None
+leaked = sorted(m for m in sys.modules if m.startswith("grayscott_jl_tpu.")
+                or m.startswith("adios2") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"
+    reach = [p.relative_to(REPO).as_posix()
+             for p in sorted(PACKAGE.rglob("*.py"))
+             if "tests/support" in p.read_text()
+             or "adios2_fake" in p.read_text()]
+    assert not reach, reach
