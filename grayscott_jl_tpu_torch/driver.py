@@ -145,11 +145,20 @@ the first boundary at or past ``start`` and closes it at the first at or
 past ``stop`` (``obs/trace.ProfileWindow``; the Chrome trace in
 ``GS_PROFILE_DIR``), ``GS_TPU_PROFILE=<dir>`` captures the whole step
 loop (``utils/profiler.trace``). Neither changes a launch or a store.
+While ``GS_TRACE`` is set or a capture is live (``obs/trace.hot_armed``,
+checked once a round), each round is a ``gs_round step=<n>`` range with
+its wait for the device a ``gs_sync`` range inside, the launches'
+``gs_launch`` ranges between (``ops/cuda_stencil.py``), and the
+``compute`` span's args carry the round's ``launches``,
+``dispatch_us``, ``call_us``, ``ops_us``, ``sync_us`` and
+``exchange_us``. Each phase edge is then a ``gs_phase <phase>`` range
+too, until the next edge: the driver's own
+set-up before the first round (``compile``) and its wind-down after the
+last (``drain``) are named in a capture as in the trace file.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import sys
@@ -169,7 +178,7 @@ from .obs import events as obs_events
 from .obs import metrics as obs_metrics
 from .obs import numerics as obs_numerics
 from .obs import xstats
-from .obs.trace import ProfileWindow, get_tracer
+from .obs.trace import HotRange, ProfileWindow, get_tracer, hot_armed
 from .parallel import distributed, icimodel
 from .reshard.plan import ReshardError
 from .reshard.restore import reshape_live, restore_run
@@ -192,6 +201,43 @@ def _next_boundary(step: int, period: int, limit: int) -> int:
     if period <= 0:
         return limit
     return min(limit, (step // period + 1) * period)
+
+
+class _PhaseRanges:
+    """The driver's phase edges as ``gs_phase <phase>`` ranges, each
+    open from its edge to the next while the hot path is armed."""
+
+    def __init__(self):
+        self._open = None
+
+    def edge(self, phase) -> None:
+        self.close()
+        if hot_armed():
+            self._open = HotRange(f"gs_phase {phase}").__enter__()
+
+    def close(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+
+def _timed_round(sim, steps: int, step: int, args) -> None:
+    """One round from ``step`` under the hot path's instrumentation:
+    ``gs_round step=<step>`` around the launches and the ``gs_sync``
+    wait, the wait added to ``cuda_stencil.SYNC_NS``, and the round's
+    counters into ``args`` (the ``compute`` span's, or None)."""
+    before = cuda_stencil.timings()
+    with HotRange(f"gs_round step={step}"):
+        sim.iterate(steps)
+        with HotRange("gs_sync") as sync:
+            sim.block_until_ready()
+    cuda_stencil.add_host_ns(sync=sync.ns)
+    if args is not None:
+        after = cuda_stencil.timings()
+        args["launches"] = after["launches"] - before["launches"]
+        for key in ("dispatch", "call", "ops", "sync", "exchange"):
+            args[f"{key}_us"] = round(
+                (after[f"{key}_ns"] - before[f"{key}_ns"]) / 1e3, 3)
 
 
 def _resolve_reshape_dims(req, sim):
@@ -329,11 +375,12 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
         enabled=resolve_graceful_shutdown(settings), watchdog=wd,
         on_request=lambda signum: evs.emit("shutdown_requested",
                                            signum=signum)).install()
+    phases = _PhaseRanges()
     try:
         return _run(settings, guard, shutdown, depth, icfg, num_mode, scfg,
                     plan=plan, journal=journal, wd=wd, context=context,
                     n_devices=n_devices, seed=seed, sim_factory=sim_factory,
-                    reshape_poll=reshape_poll)
+                    reshape_poll=reshape_poll, phases=phases)
     except BaseException as exc:
         # The watchdog's interrupt unwinds as KeyboardInterrupt (through
         # the listener's handler): it is the classified hang it stands
@@ -343,6 +390,7 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
             wd.check()
         raise
     finally:
+        phases.close()
         shutdown.uninstall()
         if wd is not None:
             wd.stop()
@@ -357,7 +405,7 @@ def run_once(settings: Settings, *, n_devices: Optional[int] = None,
 
 def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
          plan, journal, wd, context, n_devices, seed, sim_factory,
-         reshape_poll) -> Simulation:
+         reshape_poll, phases) -> Simulation:
     tracer = get_tracer()
     evs = obs_events.get_events()
     metrics = obs_metrics.get_metrics(settings)
@@ -367,11 +415,12 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
 
     def mark(phase, at=None):
         """One phase edge: the watchdog's heartbeat (which is the
-        tracer's edge too), else the edge alone."""
+        tracer's edge too), else the edge alone; and its range."""
         if wd is not None:
             wd.heartbeat(phase, at)
         else:
             tracer.edge(phase, at)
+        phases.edge(phase)
 
     mark("compile")
     ens = getattr(settings, "ensemble", None)
@@ -763,12 +812,14 @@ def _run(settings, guard, shutdown, depth, icfg, num_mode, scfg, *,
                         device=sdc_mod.resolve_fault_device(settings))
                     journal.record(event="injected", kind="sdc", step=step,
                                    planned_step=fault.step, device=name)
+                armed = hot_armed()
                 t_round = time.perf_counter()
-                with stats.phase("compute", step=step), (
-                        profile.round(step) if profile is not None
-                        else contextlib.nullcontext()):
-                    sim.iterate(boundary - step)
-                    sim.block_until_ready()
+                with stats.phase("compute", step=step) as span_args:
+                    if armed:
+                        _timed_round(sim, boundary - step, step, span_args)
+                    else:
+                        sim.iterate(boundary - step)
+                        sim.block_until_ready()
                 # One sample per round: the round's mean per step.
                 m_step_us.observe((time.perf_counter() - t_round)
                                   / (boundary - step) * 1e6)

@@ -4,7 +4,9 @@ numerics probes (counterpart of ``grayscott_jl_tpu/obs/``).
 * :mod:`.trace` — nestable host-side spans exported as Chrome
   trace-event JSON (``GS_TRACE=path``; opens in Perfetto), fed by the
   driver's phase edges, ``RunStats`` phases and the output writer's
-  phases on its own thread.
+  phases on its own thread; and the hot path's ranges and counters
+  (rounds, launches, the exchange), armed by ``GS_TRACE`` or a live
+  ``torch.profiler`` capture (:func:`~.trace.hot_armed`).
 * :mod:`.metrics` — counters / gauges / ring-buffer histograms
   (p50/p95/p99) flushed as interval JSONL (``GS_METRICS=path``,
   ``metrics_interval_s``) with a one-shot Prometheus dump

@@ -27,6 +27,30 @@ The device-side capture of a step range is :class:`ProfileWindow`
 the spans say which round was slow, the capture which kernel. The
 capture of the whole run (``GS_TPU_PROFILE``) is
 ``utils/profiler.trace``; both export through :func:`profiler_capture`.
+
+**One clock.** The file's ``ts`` are microseconds since its
+``baseTimeNanoseconds``, the rule of ``torch.profiler``'s own Chrome
+export, and that base is Unix-epoch nanoseconds (``time.time_ns``), the
+clock the profiler's events carry, so a span lands at the same instant
+in both files. Durations and the offsets from the base are read on
+:data:`clock_ns`, a monotonic clock, so that a step of the wall clock
+cannot break a span's nesting or a counter.
+
+**The hot path** (the driver's round, ``ops/cuda_stencil.fused_step``,
+the sharded round's exchange) is instrumented only while
+:func:`hot_armed`: ``GS_TRACE`` is set or a ``torch.profiler`` capture
+is live (``GS_PROFILE``, ``GS_TPU_PROFILE``, a benchmark's capture).
+Off, it costs one such check a launch and reads no clock. On, each
+:class:`HotRange` is a profiler range in the live capture (a launch's
+only on one call in ``cuda_stencil.LAUNCH_RANGE_EVERY``: a range costs
+the host microseconds under a capture of the card) and its nanoseconds
+on :data:`clock_ns`, which the caller adds to its counters
+(``cuda_stencil.timings``). The ranges, innermost last: ``gs_phase
+<phase>`` (a driver phase edge to the next), ``gs_round step=<n>`` (a
+driver round with its sync), ``gs_sync`` (the round's wait
+for the device), ``gs_exchange`` (a sharded round's halo exchange),
+``gs_launch`` (an outermost ``fused_step`` call) and ``gs_launch_call``
+(the call into the kernel library's entry point).
 """
 
 from __future__ import annotations
@@ -41,9 +65,12 @@ from typing import List, Optional
 
 __all__ = [
     "NULL_TRACER",
+    "HotRange",
     "ProfileWindow",
     "SpanTracer",
+    "clock_ns",
     "get_tracer",
+    "hot_armed",
     "rank_path",
     "reset_tracer",
     "validate_trace",
@@ -52,6 +79,11 @@ __all__ = [
 #: tid of the driver-phase edge track; real threads are numbered from 1
 #: in the order they first record a span.
 EDGE_TID = 0
+
+#: The clock of every span's offset and duration and of the hot path's
+#: counters: monotonic nanoseconds. A tracer pins it to Unix-epoch
+#: nanoseconds, ``torch.profiler``'s clock, once, at its base.
+clock_ns = time.perf_counter_ns
 
 
 def _proc_index() -> int:
@@ -80,6 +112,7 @@ class _NullTracer:
     _cm = contextlib.nullcontext()
 
     def span(self, name, phase=None, step=None, **attrs):
+        """Yields None: there are no args to add to."""
         return self._cm
 
     def edge(self, phase, step=None) -> None:
@@ -101,9 +134,10 @@ NULL_TRACER = _NullTracer()
 class SpanTracer:
     """Nestable host-side spans -> Chrome trace-event JSON.
 
-    Timestamps are microseconds of ``time.perf_counter`` since the
-    tracer's creation (``otherData.epoch_unix_s`` in the file anchors
-    them to the wall clock, for correlation with the event stream).
+    Timestamps are microseconds on :data:`clock_ns` since the tracer's
+    creation, whose Unix-epoch nanoseconds the file gives as
+    ``baseTimeNanoseconds`` (and ``otherData.epoch_unix_s``, for
+    correlation with the event stream).
     Thread-safe: spans come from the driver thread and the output
     writer's thread.
     """
@@ -125,8 +159,8 @@ class SpanTracer:
         self.dropped = 0
         self._lock = threading.Lock()
         self._events: List[dict] = []
-        self._t0 = time.perf_counter()
-        self._epoch = time.time()
+        self._base_ns = time.time_ns()
+        self._t0 = clock_ns()
         #: The open edge span: (phase, step, t_us).
         self._edge = None
         self._tids = {}  # thread ident -> small tid
@@ -140,7 +174,7 @@ class SpanTracer:
         }]
 
     def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        return (clock_ns() - self._t0) / 1e3
 
     def _tid(self) -> int:
         ident = threading.get_ident()
@@ -183,10 +217,11 @@ class SpanTracer:
     @contextlib.contextmanager
     def span(self, name, phase=None, step=None, **attrs):
         """A timing span around a host-side block, on this thread's
-        track (LIFO per thread, so the intervals nest)."""
+        track (LIFO per thread, so the intervals nest). Yields the span's
+        args, which the block may add to before it closes."""
         t0 = self._now_us()
         try:
-            yield
+            yield attrs
         finally:
             self._complete(name, t0, self._now_us() - t0,
                            tid=self._tid(), phase=phase, step=step,
@@ -239,8 +274,9 @@ class SpanTracer:
         doc = {
             "traceEvents": events,
             "displayTimeUnit": "ms",
+            "baseTimeNanoseconds": self._base_ns,
             "otherData": {
-                "epoch_unix_s": round(self._epoch, 6),
+                "epoch_unix_s": round(self._base_ns / 1e9, 6),
                 "proc": self.proc,
                 "dropped_events": self.dropped,
             },
@@ -273,6 +309,56 @@ def reset_tracer() -> None:
     the next use)."""
     global _tracer
     _tracer = None
+
+
+# ---------------------------------------------------------- the hot path
+
+#: ``torch.autograd._profiler_enabled`` and the profiler's range type,
+#: bound at the first :func:`hot_armed` (this module imports no torch).
+_profiler_enabled = None
+_range = None
+
+
+def _bind_profiler() -> None:
+    global _profiler_enabled, _range
+    import torch
+
+    _range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                     torch.profiler.record_function)
+    _profiler_enabled = torch.autograd._profiler_enabled
+
+
+def hot_armed() -> bool:
+    """Whether the hot path's instrumentation is on: ``GS_TRACE`` names
+    a file or a ``torch.profiler`` capture is live. The one check the
+    hot path makes when it is off."""
+    if _profiler_enabled is None:
+        _bind_profiler()
+    return get_tracer().enabled or _profiler_enabled()
+
+
+class HotRange:
+    """One range of the hot path, opened only while :func:`hot_armed`:
+    a ``torch.profiler`` range in a live capture (nothing without one,
+    or with ``record`` false) and :attr:`ns`, its nanoseconds on
+    :data:`clock_ns`, inside it."""
+
+    __slots__ = ("ns", "_rf", "_t0")
+
+    def __init__(self, name: str, record: bool = True):
+        self._rf = _range(name) if record else None
+        self.ns = 0
+
+    def __enter__(self) -> "HotRange":
+        if self._rf is not None:
+            self._rf.__enter__()
+        self._t0 = clock_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ns = clock_ns() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
 
 
 def validate_trace(doc) -> List[str]:
@@ -378,7 +464,8 @@ class ProfileWindow:
     ``GS_PROFILE_DIR`` (default ``gs_profile``) as
     ``profile_<start>_<stop>.json`` (``.rank<N>`` in a run of several
     processes), with each round inside the window a ``gs_round`` range
-    naming its first step. It collects the card's activity with the
+    naming its first step (the driver's, :class:`HotRange`: the live
+    capture arms it). It collects the card's activity with the
     host's when ``cuda`` (the driver sets it for a run on the card).
     Profiler failures warn and close the window: a profiling misconfig
     never stops a run."""
@@ -451,15 +538,6 @@ class ProfileWindow:
                 self._fail("start", e)
                 return
             self.active = True
-
-    def round(self, step: int):
-        """A ``gs_round`` range around a round from ``step`` while the
-        window is open, else nothing."""
-        if not self.active:
-            return contextlib.nullcontext()
-        import torch
-
-        return torch.profiler.record_function(f"gs_round step={step}")
 
     def finish(self) -> None:
         """Close a still-open capture (the run ended inside the

@@ -89,6 +89,23 @@ kernel entry (model, mode, entry point, members, depth, operand shape),
 and :func:`kernel_attributes` reads an entry's registers, shared bytes
 and blocks per SM from the card: the build and launch analytics'
 records (``obs/xstats.py``).
+
+The launch path's host time, while ``obs/trace.hot_armed`` (``GS_TRACE``
+or a live ``torch.profiler`` capture), beside ``LAUNCHES``: each
+outermost :func:`fused_step` call is a ``gs_launch`` range and the call
+into the library's entry point inside it a ``gs_launch_call`` range,
+recorded in a capture on one call in :data:`LAUNCH_RANGE_EVERY` and
+timed on every one. ``TIMED_LAUNCHES`` counts the launches timed,
+``CALL_NS`` the nanoseconds in ``gs_launch_call`` (the entry queues the
+kernel, and blocks while CUDA's launch queue is full), ``OPS_NS`` those
+in the torch ops that build a launch's operands (the params vector's
+stack, the outputs' allocation, the faces' copies: they queue device
+work too, and wait the same way), ``DISPATCH_NS`` those in ``gs_launch``
+less both: the host's own work a launch costs, whatever the queue holds
+(on the CPU, where no launch counts, the plain path's). ``SYNC_NS`` and
+``EXCHANGE_NS`` hold the driver's ``gs_sync`` and the sharded round's
+``gs_exchange``; :func:`timings` reads them all. Off, a call costs one
+check and reads no clock.
 """
 
 from __future__ import annotations
@@ -103,12 +120,29 @@ import torch
 import torch.nn.functional as F
 
 from ..config.env import env_raw
+from ..obs import trace as _trace
 from . import stencil
 from .noise import uniform_pm1_block
 
 #: Launches of the CUDA kernel since the process started (or the
 #: caller last reset them).
 LAUNCHES = 0
+
+#: Launches counted while the hot path's instrumentation was armed, and
+#: the host nanoseconds it measured (module docstring; :func:`timings`).
+TIMED_LAUNCHES = 0
+DISPATCH_NS = 0
+CALL_NS = 0
+OPS_NS = 0
+SYNC_NS = 0
+EXCHANGE_NS = 0
+
+#: A live capture records the ``gs_launch`` and ``gs_launch_call`` ranges
+#: of the timed :func:`fused_step` calls 0, N, 2N, ... after
+#: :func:`reset_launches`: the two ranges cost the host ~20 µs a launch
+#: under a capture of the card, a tenth of the kernel's time at L=256.
+LAUNCH_RANGE_EVERY = 100
+_TIMED_CALLS = 0
 
 #: The kernel's modes: no faces (``chain``), 6n faces (``faces6``), the
 #: x-chain (``xchain``) and the x-chain on the xy-chain's y-extended
@@ -202,12 +236,17 @@ _LOCK = threading.Lock()
 
 def reset_launches() -> None:
     """Set :data:`LAUNCHES`, :data:`BAND_LAUNCHES`,
-    :data:`REPLAY_LAUNCHES` and every
+    :data:`REPLAY_LAUNCHES`, the timed counters (:func:`timings`) and
+    every
     :data:`MODE_LAUNCHES`, :data:`MODE_MEMBERS`, :data:`VARIANT_LAUNCHES`,
     :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES`,
     :data:`ENTRY_LAUNCHES` and :data:`LOAD_PATH_LAUNCHES` count to 0."""
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
+    global TIMED_LAUNCHES, DISPATCH_NS, CALL_NS, OPS_NS, SYNC_NS
+    global EXCHANGE_NS, _TIMED_CALLS
     LAUNCHES = BAND_LAUNCHES = REPLAY_LAUNCHES = 0
+    TIMED_LAUNCHES = DISPATCH_NS = CALL_NS = OPS_NS = SYNC_NS = 0
+    EXCHANGE_NS = _TIMED_CALLS = 0
     for counts in (MODE_LAUNCHES, MODE_MEMBERS, VARIANT_LAUNCHES,
                    DTYPE_LAUNCHES, LOAD_PATH_LAUNCHES):
         for key in counts:
@@ -224,6 +263,24 @@ REPLAY_LAUNCHES = 0
 #: Per thread: whether the thread is inside :func:`replaying`, so that
 #: one serve worker's replay never counts another worker's launches.
 _REPLAYING = threading.local()
+
+
+def timings() -> Dict[str, int]:
+    """The timed counters: ``launches`` (:data:`TIMED_LAUNCHES`) and
+    ``dispatch_ns``, ``call_ns``, ``ops_ns``, ``sync_ns``,
+    ``exchange_ns``."""
+    with _LOCK:
+        return {"launches": TIMED_LAUNCHES, "dispatch_ns": DISPATCH_NS,
+                "call_ns": CALL_NS, "ops_ns": OPS_NS, "sync_ns": SYNC_NS,
+                "exchange_ns": EXCHANGE_NS}
+
+
+def add_host_ns(*, sync: int = 0, exchange: int = 0) -> None:
+    """Add a ``gs_sync`` or ``gs_exchange`` range's nanoseconds."""
+    global SYNC_NS, EXCHANGE_NS
+    with _LOCK:
+        SYNC_NS += sync
+        EXCHANGE_NS += exchange
 
 
 @contextlib.contextmanager
@@ -765,7 +822,45 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
     Batched: fields ``(N, nx, ny, nz)``, faces with the same leading
     axis, params from :func:`member_params` and seeds from
     :func:`member_seeds` — one launch advances every member (one count
-    in :data:`LAUNCHES`; :data:`MODE_MEMBERS` keeps N)."""
+    in :data:`LAUNCHES`; :data:`MODE_MEMBERS` keeps N).
+
+    While ``obs/trace.hot_armed``, the call adds to the timed counters
+    (:func:`timings`), and is a ``gs_launch`` range in a live capture
+    once in :data:`LAUNCH_RANGE_EVERY` calls."""
+    if not _trace.hot_armed():
+        return _fused_step(fields, params, seeds, faces, spec, use_noise,
+                           fuse, offsets, row, y_halo, band, None)
+    global TIMED_LAUNCHES, DISPATCH_NS, CALL_NS, OPS_NS, _TIMED_CALLS
+    timed = _Timed(_TIMED_CALLS % LAUNCH_RANGE_EVERY == 0)
+    with _trace.HotRange("gs_launch", timed.record) as launch:
+        out = _fused_step(fields, params, seeds, faces, spec, use_noise,
+                          fuse, offsets, row, y_halo, band, timed)
+    with _LOCK:
+        _TIMED_CALLS += 1
+        if not getattr(_REPLAYING, "on", False):  # as LAUNCHES counts
+            TIMED_LAUNCHES += timed.launches
+            CALL_NS += timed.call_ns
+            OPS_NS += timed.ops_ns
+            DISPATCH_NS += launch.ns - timed.call_ns - timed.ops_ns
+    return out
+
+
+class _Timed:
+    """One :func:`fused_step` call's timing under the instrumentation:
+    its launches, the nanoseconds in their library calls and operand
+    ops, and whether its ranges go into the capture."""
+
+    __slots__ = ("record", "launches", "call_ns", "ops_ns")
+
+    def __init__(self, record: bool):
+        self.record = record
+        self.launches = self.call_ns = self.ops_ns = 0
+
+
+def _fused_step(fields, params, seeds, faces, spec, use_noise, fuse,
+                offsets, row: Optional[int], y_halo, band, timed):
+    """:func:`fused_step`'s work; ``timed`` (a :class:`_Timed`, or None)
+    gathers the launches' times."""
     fields = tuple(fields)
     n_f = spec.n_fields
     if len(fields) != n_f:
@@ -799,13 +894,12 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
             f"{seeds!r}")
     if members == 1 and fields[0].is_cuda:
         # A stack of one member is a solo launch: its host key words and
-        # 3-D tensor maps.
-        out = fused_step(
+        # 3-D tensor maps, inside this call's range.
+        out = _fused_step(
             tuple(f[0] for f in fields), params_row(params, 0),
             (seeds[0][0], seeds[1][0], seeds[2]),
             None if faces is None else tuple(f[0] for f in faces),
-            spec=spec, use_noise=use_noise, fuse=fuse, offsets=offsets,
-            row=row, y_halo=y_halo, band=band)
+            spec, use_noise, fuse, offsets, row, y_halo, band, timed)
         return tuple(o.unsqueeze(0) for o in out)
     if not fields[0].is_cuda:
         if mode == "chain":
@@ -830,14 +924,15 @@ def fused_step(fields, params, seeds, faces=None, *, spec, use_noise=True,
         return _launch(fields, params, seeds, spec=spec,
                        use_noise=use_noise, fuse=fuse, offsets=offsets,
                        row=row, faces=faces, mode=mode, mid_bf16=mid_bf16,
-                       band=band)
+                       band=band, timed=timed)
     step = int(seeds[2])
     done = 0
     while done < fuse:
         k = min(cap, fuse - done)
         fields = _launch(fields, params, (seeds[0], seeds[1], step + done),
                          spec=spec, use_noise=use_noise, fuse=k,
-                         offsets=offsets, row=row, mid_bf16=mid_bf16)
+                         offsets=offsets, row=row, mid_bf16=mid_bf16,
+                         timed=timed)
         done += k
     return fields
 
@@ -1005,11 +1100,15 @@ def _key_array(seeds, device) -> torch.Tensor:
 
 
 def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
-            faces=None, mode="chain", mid_bf16=False, band=False):
+            faces=None, mode="chain", mid_bf16=False, band=False,
+            timed=None):
     """One launch of ``spec``'s generated kernel advancing ``fuse``
     steps (``fuse`` <= the ledger's cap) in ``mode``; returns the new
     field tuple. ``(N, nx, ny, nz)`` fields with member seeds launch the
-    batched entry point: one launch, N members on the grid's y axis."""
+    batched entry point: one launch, N members on the grid's y axis.
+    With ``timed`` (:func:`fused_step`'s :class:`_Timed`), the library
+    call is a ``gs_launch_call`` range, and the launch, the call's
+    nanoseconds and the operand ops' are added there."""
     first = fields[0]
     dtype = first.dtype
     entry = ENTRIES.get((dtype, bool(mid_bf16)))
@@ -1034,6 +1133,7 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
     nx, ny, nz = first.shape[-3:]
     if first.numel() >= 2**31:
         raise ValueError(f"field shape {tuple(first.shape)} is too large")
+    t_ops = _trace.clock_ns() if timed is not None else 0
     face_ptrs = None
     if faces is not None:
         # Exchanged y and z faces are strided views of the stacked
@@ -1060,6 +1160,8 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
             [getattr(params, f).reshape(-1) for f in spec.param_fields], 1
         ).to(device=first.device, dtype=compute_dtype_of(dtype)).contiguous()
     outs = tuple(torch.empty_like(f) for f in fields)
+    if timed is not None:
+        timed.ops_ns += _trace.clock_ns() - t_ops
     bounds = (ctypes.c_double * spec.n_fields)(*spec.boundaries)
     lib = _lib(spec)
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
@@ -1079,13 +1181,19 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
                 offsets[0], offsets[1], offsets[2], row & 0xFFFFFFFF,
                 nx, ny, nz, fuse, int(bool(use_noise)), stream)
         if members is None:
-            rc = getattr(lib, f"gs_stencil_chain_{entry}")(
-                *head, int(seeds[0]) & 0xFFFFFFFF,
-                int(seeds[1]) & 0xFFFFFFFF, *tail)
+            fn = getattr(lib, f"gs_stencil_chain_{entry}")
+            args = (*head, int(seeds[0]) & 0xFFFFFFFF,
+                    int(seeds[1]) & 0xFFFFFFFF, *tail)
         else:
             keys = _key_array(seeds, first.device)
-            rc = getattr(lib, f"gs_stencil_batch_{entry}")(
-                *head, keys.data_ptr(), members, *tail)
+            fn = getattr(lib, f"gs_stencil_batch_{entry}")
+            args = (*head, keys.data_ptr(), members, *tail)
+        if timed is None:
+            rc = fn(*args)
+        else:
+            with _trace.HotRange("gs_launch_call", timed.record) as call:
+                rc = fn(*args)
+            timed.call_ns += call.ns
     if rc != 0:
         msg = lib.gs_error_string(rc).decode()
         raise KernelLaunchError(
@@ -1094,6 +1202,8 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
             f"{path}): CUDA error {rc}: {msg}", code=rc)
     count_launch(mode, path, entry=entry, model=spec.name, band=band,
                  members=members or 1, fuse=fuse, shape=(nx, ny, nz))
+    if timed is not None:
+        timed.launches += 1
     return outs
 
 

@@ -82,6 +82,7 @@ from .io.codec import (BoundaryBlocks, EncodedField, device_quantize,
                        resolve_snapshot_codec)
 from .models import SettingsError
 from .obs import numerics as obs_numerics
+from .obs.trace import HotRange, hot_armed
 from .ops import _build, cuda_stencil, kernelgen, stencil
 from .ops.noise import uniform_pm1_block
 from .parallel import distributed, halo, temporal
@@ -796,7 +797,10 @@ class Simulation:
     def _sharded_run(self, blocks, nsteps: int):
         """``nsteps`` steps over every block of the mesh: the reference's
         sharded ``_local_run`` branches, each round mapping the list of
-        block field tuples to the next."""
+        block field tuples to the next. While ``obs/trace.hot_armed``,
+        each halo exchange this makes (its start and its finish in a
+        split-phase round; the xy-chain's are ``temporal.xy_chain``'s) is
+        a ``gs_exchange`` range, added to ``cuda_stencil.EXCHANGE_NS``."""
         L = self.settings.L
         dims = self.domain.dims
         local = self.domain.local_shape
@@ -805,6 +809,15 @@ class Simulation:
         spec = self.spec
         step0 = self.step
         padded = self.domain.padded
+        armed = hot_armed()
+
+        def exchanged(fn, *args, **kw):
+            if not armed:
+                return fn(*args, **kw)
+            with HotRange("gs_exchange") as rng:
+                out = fn(*args, **kw)
+            cuda_stencil.add_host_ns(exchange=rng.ns)
+            return out
 
         def pin_blocks(blocks):
             """Re-pin each block's pad cells (global coords >= L) to the
@@ -862,7 +875,7 @@ class Simulation:
                                              device=device)
 
             def faces_round(blocks, step):
-                faces = halo.exchange_faces(blocks, bvs, mesh)
+                faces = exchanged(halo.exchange_faces, blocks, bvs, mesh)
                 return pin_blocks([
                     cuda_stencil.fused_step(
                         fields, self._params_of(r), self._seeds(step),
@@ -885,7 +898,8 @@ class Simulation:
                         return faces_round(blocks, step)
                     if self.comm_overlap and local[0] >= 2 * depth:
                         return xchain_split(blocks, step, depth)
-                    pairs = halo.exchange_x_slabs(blocks, bvs, mesh, depth)
+                    pairs = exchanged(halo.exchange_x_slabs, blocks, bvs,
+                                      mesh, depth)
                     return pin_blocks([
                         cuda_stencil.fused_step(
                             fields, self._params_of(r), self._seeds(step),
@@ -904,8 +918,9 @@ class Simulation:
                     adjacent owned planes, and written over the
                     interior's."""
                     self.overlap_applied = True
-                    pending = halo.start_exchange(
-                        blocks, bvs, mesh, k, exchange=halo.exchange_x_slabs)
+                    pending = exchanged(
+                        halo.start_exchange, blocks, bvs, mesh, k,
+                        exchange=halo.exchange_x_slabs)
                     interior = [
                         cuda_stencil.fused_step(
                             fields, self._params_of(r), self._seeds(step),
@@ -916,7 +931,7 @@ class Simulation:
                         )
                         for r, fields in enumerate(blocks)
                     ]
-                    pairs = pending.finish()
+                    pairs = exchanged(pending.finish)
                     nx = local[0]
 
                     def planes(f, a, b):
@@ -1003,7 +1018,7 @@ class Simulation:
         overlap_plain = self.comm_overlap and dims[1] == 1 and dims[2] == 1
         if nsteps < 2 and not overlap_plain:
             self.exchange_rounds += 1
-            pads = halo.halo_pad(blocks, bvs, mesh)
+            pads = exchanged(halo.halo_pad, blocks, bvs, mesh)
             out = []
             for r, fp in enumerate(pads):
                 noise_term = 0.0
@@ -1028,7 +1043,8 @@ class Simulation:
                 # on frozen frames, then the k-thick bands of every
                 # sharded face are recomputed from the arrived frames.
                 self.overlap_applied = True
-                pending = halo.start_exchange(blocks, bvs, mesh, depth)
+                pending = exchanged(halo.start_exchange, blocks, bvs, mesh,
+                                    depth)
                 interior = [
                     temporal.window_chain(
                         halo.frozen_frame(fields, bvs, depth),
@@ -1041,7 +1057,7 @@ class Simulation:
                     )
                     for r, fields in enumerate(blocks)
                 ]
-                frames = pending.finish()
+                frames = exchanged(pending.finish)
                 return [
                     temporal.stitch_bands_from_frame(
                         fi, fw, self._params_of(r), self.model, depth=depth,
@@ -1052,7 +1068,8 @@ class Simulation:
                     )
                     for r, (fi, fw) in enumerate(zip(interior, frames))
                 ]
-            frames = halo.halo_pad_wide(blocks, bvs, mesh, depth)
+            frames = exchanged(halo.halo_pad_wide, blocks, bvs, mesh,
+                               depth)
             return [
                 temporal.window_chain(
                     fw, self._params_of(r), self.model, depth=depth,

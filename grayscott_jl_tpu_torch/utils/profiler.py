@@ -85,15 +85,16 @@ class RunStats:
     @contextlib.contextmanager
     def phase(self, name: str, step: Optional[int] = None):
         """Time a block under phase ``name``; with a tracer, also a span
-        (``step`` in its args)."""
+        (``step`` in its args). Yields the span's args, which the block
+        may add to, or None without a tracer."""
         tr = self.tracer
         span = (tr.span(name, phase=name, step=step)
                 if tr is not None and tr.enabled
                 else contextlib.nullcontext())
-        with span:
+        with span as args:
             t = time.perf_counter()
             try:
-                yield
+                yield args
             finally:
                 self.add(name, time.perf_counter() - t)
 

@@ -1451,6 +1451,61 @@ def test_profile_window_launch_count_on_the_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ensemble,every", [(False, 1), (True, 1), (False, 5)],
+                         ids=["solo", "member1", "solo-every5"])
+def test_launch_ranges_hold_their_kernel_launches(tmp_path, monkeypatch,
+                                                  ensemble, every):
+    """Under a capture of the card: every ``gs_launch_call`` lies in a
+    ``gs_launch`` and holds the ``cudaLaunchKernel`` of its stencil
+    kernel, one ``gs_launch`` a launch recorded (a batch of one member
+    re-enters ``fused_step`` inside its range) on one launch in
+    ``LAUNCH_RANGE_EVERY``, and every launch is timed:
+    ``TIMED_LAUNCHES`` equals ``LAUNCHES``."""
+    _card()
+    from grayscott_jl_tpu_torch import driver
+    from grayscott_jl_tpu_torch.config.settings import get_settings
+    from torch.profiler import ProfilerActivity, profile
+
+    for var in ("GS_FUSE", "GS_TPU_MESH_DIMS", "GS_TRACE", "GS_PROFILE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(cuda_stencil, "LAUNCH_RANGE_EVERY", every)
+    cfg = (_ens_card_config(tmp_path, presets=("spots",), member_shards=1,
+                            steps=16, plotgap=4) if ensemble else
+           _card_config(tmp_path / "cfg.toml", steps=16, plotgap=4))
+    settings = get_settings([cfg])
+    driver.run_once(settings, n_devices=1, seed=3)  # builds and warms
+    torch.cuda.synchronize()
+    cuda_stencil.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        driver.run_once(settings, n_devices=1, seed=3)
+    cuda = torch.autograd.DeviceType.CUDA
+    host, kernels = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            kernels += "stencil_chain_kernel" in e.name()
+        else:
+            host.append((e.name(), e.start_ns(),
+                         e.start_ns() + e.duration_ns()))
+
+    def inside(a, b):
+        return b[1] <= a[1] and a[2] <= b[2]
+
+    launches = [h for h in host if h[0] == "gs_launch"]
+    calls = [h for h in host if h[0] == "gs_launch_call"]
+    runtime = [h for h in host if h[0].startswith("cudaLaunchKernel")]
+    assert cuda_stencil.LAUNCHES == 16 and kernels == 16
+    assert cuda_stencil.TIMED_LAUNCHES == cuda_stencil.LAUNCHES
+    assert len(launches) == len(calls) == -(-16 // every)
+    for c in calls:
+        assert sum(inside(c, h) for h in launches) == 1
+        assert sum(inside(r, c) for r in runtime) == 1
+    t = cuda_stencil.timings()
+    assert t["call_ns"] > 0 and t["dispatch_ns"] > 0 and t["sync_ns"] > 0
+    assert t["ops_ns"] > 0
+
+
+@pytest.mark.cuda
 def test_member_groups_across_two_processes_on_one_card(tmp_path,
                                                         monkeypatch):
     """``member_shards = 2`` as two processes sharing ``cuda:0`` over

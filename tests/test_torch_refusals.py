@@ -70,8 +70,9 @@ def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
     if var in ("GS_PROFILE", "GS_TPU_PROFILE"):
         # Ported by ``item``: the value acts. The window (10:20 over 20
         # steps, boundaries every 5) captures the rounds from steps 10
-        # and 15; the whole-run capture writes its trace; the "off"
-        # value writes none. Either way the stores are the same.
+        # and 15; the whole-run capture writes its trace, with every
+        # round; the "off" value writes none. Either way the stores are
+        # the same.
         import json
 
         assert var not in NOT_PORTED_ENV
@@ -83,10 +84,11 @@ def test_ignored_env_vars_now_raise_naming_the_item(var, value, off, item,
         driver.main([cfg])
         (trace_file,) = out.iterdir()
         doc = json.loads(trace_file.read_text())
-        rounds = sorted(e["name"] for e in doc["traceEvents"]
-                        if e.get("name", "").startswith("gs_round"))
-        assert rounds == ([] if var == "GS_TPU_PROFILE" else
-                          ["gs_round step=10", "gs_round step=15"])
+        rounds = sorted((e["name"] for e in doc["traceEvents"]
+                         if e.get("name", "").startswith("gs_round")),
+                        key=lambda n: int(n.rsplit("=", 1)[1]))
+        assert rounds == [f"gs_round step={s}" for s in (
+            (0, 5, 10, 15) if var == "GS_TPU_PROFILE" else (10, 15))]
         on = (tmp_path / "gs.bp" / "data.0").read_bytes()
         monkeypatch.setenv(var, off)
         monkeypatch.setenv("GS_PROFILE_DIR", str(tmp_path / "none"))
