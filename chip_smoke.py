@@ -56,7 +56,8 @@ Phases, each of which stops the run on failure:
    to a single-block run, its windows loaded by cp.async (1,000 B
    rows) — these ``GS_FUSE=2`` runs with ``comm_overlap = "off"``, the
    fused round; the Gray-Scott single-block and mesh paths all by TMA
-   (``LOAD_PATH_LAUNCHES``). The other models, each with the physics of
+   (``LOAD_PATH_LAUNCHES``; ``SCHEDULE_LAUNCHES`` beside it). The other
+   models, each with the physics of
    its ``examples/settings-<model>.toml`` (dt 0.05) at L=256, noise 0.1,
    ``kernel_language = "Auto"``: brusselator 100 steps (plotgap and
    checkpoint every 50), fhn and heat 50 steps (plotgap and checkpoint
@@ -468,8 +469,9 @@ def took(report, cuda_stencil, name):
     check(total > 0 and len(paths) == 1 and counts[paths[0]] == total,
           f"{name}: {total} launches loaded their windows {counts}, not "
           "all by one path")
-    report.setdefault("load_path", {})[name] = {"path": paths[0],
-                                                "launches": total}
+    report.setdefault("load_path", {})[name] = {
+        "path": paths[0], "launches": total,
+        "schedules": dict(cuda_stencil.SCHEDULE_LAUNCHES)}
     return paths[0]
 
 
@@ -786,6 +788,7 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
           f"the main path launched {cuda_stencil.MODEL_LAUNCHES}, not only "
           "Gray-Scott's generated kernel")
     loads_main = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+    schedules_main = dict(cuda_stencil.SCHEDULE_LAUNCHES)
     check(took(report, cuda_stencil, "stencil_chain") == "tma",
           f"the L={MAIN_L} main path loaded its windows {loads_main}, not "
           "all by TMA")
@@ -848,7 +851,7 @@ def phase_main_path(torch, gs, cuda_stencil, workdir, report):
     log("  restart from step 100 reproduces step 200 bitwise")
     report["main_path"] = {
         "wall_s": wall, "launches": launches, "fuse": sim.fuse,
-        "load_paths": loads_main,
+        "load_paths": loads_main, "schedules": schedules_main,
         "run_stats": stats,
         "u_range": [float(u_end.min()), float(u_end.max())],
         "v_range": [float(v_end.min()), float(v_end.max())],
@@ -884,6 +887,7 @@ def phase_health(torch, gs, cuda_stencil, workdir, report):
                        "steps_written": n,
                        "launches": cuda_stencil.LAUNCHES,
                        "load_paths": dict(cuda_stencil.LOAD_PATH_LAUNCHES),
+                       "schedules": dict(cuda_stencil.SCHEDULE_LAUNCHES),
                        "message": None if raised is None else str(raised)}
     check(out["abort"]["raised_at"] == 10
           and out["abort"]["steps_written"] == 0
@@ -1088,6 +1092,7 @@ def phase_sharded(torch, gs, cuda_stencil, workdir, stored, report):
     wall = time.perf_counter() - t0
     counts = dict(cuda_stencil.MODE_LAUNCHES)
     loads_mesh = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+    schedules_mesh = dict(cuda_stencil.SCHEDULE_LAUNCHES)
     took(report, cuda_stencil, "stencil_faces6")
     del os.environ["GS_TPU_STATS"]
     with open(stats_path, encoding="utf-8") as f:
@@ -1126,7 +1131,8 @@ def phase_sharded(torch, gs, cuda_stencil, workdir, stored, report):
     log("  sharded restart from step 100 reproduces step 200 bitwise")
     report["sharded_main_path"] = {
         "mesh": list(MESH), "wall_s": wall, "launches": counts,
-        "load_paths": loads_mesh, "run_stats": stats,
+        "load_paths": loads_mesh, "schedules": schedules_mesh,
+        "run_stats": stats,
     }
     return counts["faces6"]
 
@@ -1688,6 +1694,7 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
         xchain = cuda_stencil.MODE_LAUNCHES["xchain"]
         check(xchain == 3 * 25, f"L=250 launched {xchain} x-chain kernels")
         loads_250 = dict(cuda_stencil.LOAD_PATH_LAUNCHES)
+        schedules_250 = dict(cuda_stencil.SCHEDULE_LAUNCHES)
         check(loads_250 == {"tma": 0, "cp_async": xchain},
               f"L=250 (nz = 250: 1,000 B rows, which TMA refuses) loaded "
               f"its windows {loads_250}")
@@ -1696,7 +1703,8 @@ def phase_fuse2(torch, gs, cuda_stencil, stored, report):
             check(a.shape == (L,) * 3 and np.array_equal(a, b),
                   "L=250 on (3,1,1) != the single-block L=250 run")
         runs["L250_3x1x1"] = {"mode": "xchain", "launches": xchain,
-                              "load_paths": loads_250}
+                              "load_paths": loads_250,
+                              "schedules": schedules_250}
         log("  L=250 on (3,1,1) (pad-and-mask, cp.async loads): bitwise "
             "equal to the single-block run")
     finally:
@@ -1818,7 +1826,8 @@ def phase_overlap(torch, gs, cuda_stencil, workdir, stored, report):
         counts = {"modes": {m: c for m, c in
                             cuda_stencil.MODE_LAUNCHES.items() if c},
                   "bands": cuda_stencil.BAND_LAUNCHES,
-                  "loads": dict(cuda_stencil.LOAD_PATH_LAUNCHES)}
+                  "loads": dict(cuda_stencil.LOAD_PATH_LAUNCHES),
+                  "schedules": dict(cuda_stencil.SCHEDULE_LAUNCHES)}
         got = sim.get_fields()
         for a, b in zip(got, want if want is not None else (u50, v50)):
             check(np.array_equal(a, b),

@@ -87,6 +87,32 @@
 //     caller, as in the reference).
 // Blocks are independent and use no atomics: results are deterministic.
 //
+// The march (stencil_chain_kernel_march; PERF.md's rows 1a, 1f.1, 1g):
+// kBlock at fuse 1 on the TMA load path runs another schedule of the
+// same step. At depth 1 the window above loads 1.76x the tile's bytes,
+// runs its ghost pass on every tile (the `lead` cells), and each block
+// loads, waits, then computes. The march gives a block one member's
+// (y, z) column of kMarchTY rows by kMarchZB bytes of z and walks `span`
+// consecutive x-planes of it. A producer warp keeps a ring of kRing
+// plane slots filled by TMA, one box per field per plane: the column
+// plus a one-row y halo and a z halo of 16 B a side, so the box starts on
+// a 16 B boundary and no lead cells remain; each slot has a full and an
+// empty mbarrier, and the producer refills a slot once the consumer warps
+// release it, so the loads of the next planes run under the compute of
+// this one. Plane x is computed from the slots of x - 1, x and x + 1;
+// each x-plane is loaded once and serves three output planes. A thread
+// owns 16 B of z of one row (one vector load and store a field) and
+// keeps its x - 1, x and x + 1 centre values in registers. Neighbours
+// outside the operand take the frozen boundary value, as the window's
+// ghost pass stores it: planes outside in x are never loaded, and the
+// y/z ghosts are replaced in registers only in columns that touch an
+// edge. The cell's position hash (cell_hash) does not depend on x or the
+// step, so each thread draws it once for the march, and a cell-step
+// draws one hash32; a plane's seed is drawn by one lane for 32 planes
+// and shuffled. The same lap7 order, reaction and rounding as the window
+// kernel: the two are equal bit for bit. `span` is a function of the
+// shape (march_span). The ring holds 78,976 B for two float fields.
+//
 // The envelope probes (built only into Gray-Scott's second library,
 // under GS_ENVELOPE_PROBES; see the entry points at the end) replace
 // the two measurement kernels of benchmarks/envelope_probe.py, and
@@ -870,6 +896,367 @@ int run(const Fields<T, typename Compute<T>::type>& fs,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the march
+//
+// The column of a march block: kMarchTY rows by kMarchZB bytes of z (64
+// float, 32 double, 128 bf16 cells), walked by kMarchWarps consumer warps
+// of 16 threads a row, 16 B of z each, and one producer warp; kRing
+// plane slots. A block marches `span` planes; march_span sizes it from
+// the shape.
+constexpr int kMarchTY = 32;
+constexpr int kMarchZB = 256;
+constexpr int kMarchWarps = 16;
+constexpr int kMarchThreads = 32 * (kMarchWarps + 1);
+constexpr int kRing = 4;
+constexpr int kMarchMinSpan = 16;
+// The blocks a launch aims for: four waves of one resident block on an
+// H100's 132 SMs. Longer spans (fewer halo planes and pipeline fills)
+// beat more blocks down to about four waves: on an H100, 528 beat 1,056
+// with this column, as 1,056 beat 528 to 16,896 with a 16-row one
+// (PERF.md).
+constexpr int kMarchBlocks = 528;
+// The ring's mbarriers (kRing full, kRing empty) before the slots.
+constexpr int kRingHead = 128;
+
+static_assert(kMarchWarps * 2 == kMarchTY, "a warp computes two rows");
+
+// One plane slot of one field for `itemsize`-byte cells: the box of
+// (kMarchTY + 2) rows of BZ cells (the column's z extent TZ plus 16 B a
+// side) at row stride BZ, rounded up to 128 B (TMA's destination
+// alignment). The Python ledger's cuda_stencil.ring_geometry.
+struct RingGeom {
+  int V, TZ, BZ, RY, box_bytes, slot_bytes;
+};
+
+__host__ __device__ constexpr RingGeom ring_of(int itemsize) {
+  RingGeom r{};
+  r.V = 16 / itemsize;
+  r.TZ = kMarchZB / itemsize;
+  r.BZ = r.TZ + 2 * r.V;
+  r.RY = kMarchTY + 2;
+  r.box_bytes = r.RY * r.BZ * itemsize;
+  r.slot_bytes = (r.box_bytes + 127) / 128 * 128;
+  return r;
+}
+
+__host__ __device__ __forceinline__ size_t ring_bytes(int itemsize) {
+  return kRingHead + (size_t)kRing * kNF * ring_of(itemsize).slot_bytes;
+}
+
+// The planes a block marches for an operand of nx planes whose launch has
+// `tiles` columns times members: enough segments for kMarchBlocks blocks,
+// none shorter than kMarchMinSpan planes (unless nx is), so that the two
+// halo planes of a segment cost at most an eighth of its loads.
+__host__ __device__ __forceinline__ int march_span(int nx, long long tiles) {
+  long long segs = (kMarchBlocks + tiles - 1) / tiles;
+  const int most = nx / kMarchMinSpan;
+  if (segs > most) segs = most;
+  if (segs < 1) segs = 1;
+  return (int)((nx + segs - 1) / segs);
+}
+
+// Whether a launch marches: kBlock at fuse 1 with TMA maps (its inputs
+// pass TMA's rules) and outputs on 16 B boundaries (vector stores).
+__host__ __device__ __forceinline__ bool march_engages(int mode, int fuse,
+                                                       bool tma,
+                                                       bool outs_aligned) {
+  return mode == kBlock && fuse == 1 && tma && outs_aligned;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// 16 B of cells of one row in registers, as four 32-bit words (V cells
+// of T): Cells<T> reads cell v in the compute type (exactly) and writes
+// it rounded to T. Words, not an array of T: 16-bit bf16 cells in an
+// array would go through local memory.
+struct Pack {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ Pack ld_pack(const void* p) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  return Pack{{r.x, r.y, r.z, r.w}};
+}
+
+__device__ __forceinline__ void st_pack(void* p, const Pack& v) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+}
+
+template <typename T>
+struct Cells;
+
+template <>
+struct Cells<float> {
+  static __device__ __forceinline__ float get(const Pack& p, int v) {
+    return __uint_as_float(p.w[v]);
+  }
+  static __device__ __forceinline__ void set(Pack& p, int v, float x) {
+    p.w[v] = __float_as_uint(x);
+  }
+};
+
+template <>
+struct Cells<double> {
+  static __device__ __forceinline__ double get(const Pack& p, int v) {
+    return __hiloint2double((int)p.w[2 * v + 1], (int)p.w[2 * v]);
+  }
+  static __device__ __forceinline__ void set(Pack& p, int v, double x) {
+    p.w[2 * v] = (uint32_t)__double2loint(x);
+    p.w[2 * v + 1] = (uint32_t)__double2hiint(x);
+  }
+};
+
+// A bf16 cell is the high half of its float: widening is a shift, and
+// the write rounds to nearest even as put does.
+template <>
+struct Cells<__nv_bfloat16> {
+  static __device__ __forceinline__ float get(const Pack& p, int v) {
+    const uint32_t w = p.w[v / 2];
+    return __uint_as_float(v % 2 ? w & 0xFFFF0000u : w << 16);
+  }
+  static __device__ __forceinline__ void set(Pack& p, int v, float x) {
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+    uint32_t& w = p.w[v / 2];
+    w = v % 2 ? (w & 0xFFFFu) | (b << 16) : (w & 0xFFFF0000u) | b;
+  }
+};
+
+// A pack of V copies of c, rounded to T.
+template <typename T, typename C>
+__device__ __forceinline__ Pack fill_pack(C c) {
+  Pack out{};
+#pragma unroll
+  for (int v = 0; v < (int)(16 / sizeof(T)); ++v) Cells<T>::set(out, v, c);
+  return out;
+}
+
+// One block of 544 threads an SM (~80 registers): faster on an H100 than
+// two or four blocks of 288 or 160 threads with 16- or 8-row columns, as
+// the copy alone is slower at five blocks than at two (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(kMarchThreads, 1)
+stencil_chain_kernel_march(const Fields<T, typename Compute<T>::type> fs,
+                           const typename Compute<T>::type* __restrict__ params,
+                           const __grid_constant__ WindowMaps maps, int tma,
+                           uint32_t k0, uint32_t k1,
+                           const uint32_t* __restrict__ keys, uint32_t step,
+                           int ox, int oy, int oz, uint32_t row, int nx,
+                           int ny, int nz, int span, int nseg,
+                           int use_noise) {
+  using C = typename Compute<T>::type;
+  constexpr RingGeom g = ring_of(sizeof(T));
+  constexpr int V = g.V, BZ = g.BZ;
+  constexpr int FS = g.slot_bytes / (int)sizeof(T);  // a field's slot
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + kRing;
+  const T* ring = reinterpret_cast<const T*>(smem_raw + kRingHead);
+
+  // This block: member m, column (y0, z0) (columns z fastest), planes
+  // [xs, xe); the grid's x is segment-fastest.
+  const int m = blockIdx.y;
+  const int seg = blockIdx.x % nseg, col = blockIdx.x / nseg;
+  const int cols_z = (nz + g.TZ - 1) / g.TZ;
+  const int z0 = col % cols_z * g.TZ, y0 = col / cols_z * kMarchTY;
+  const int xs = seg * span;
+  const int n = (xs + span < nx ? xs + span : nx) - xs;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kMarchWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kMarchWarps) {
+    // The producer: planes xs - 1 .. xe, plane j into slot j % kRing once
+    // the consumers released the plane kRing before it. A plane outside
+    // the operand is not loaded; its arrival alone completes the slot.
+    if (lane == 0) {
+      for (int j = 0; j < n + 2; ++j) {
+        const int s = j % kRing;
+        if (j >= kRing) mbar_wait(&empty[s], (uint32_t)((j / kRing - 1) & 1));
+        const int x = xs - 1 + j;
+        if (x < 0 || x >= nx) {
+          mbar_arrive(&full[s]);
+          continue;
+        }
+        mbar_expect_tx(&full[s], (uint32_t)(kNF * g.RY * BZ * sizeof(T)));
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) {
+          void* dst = const_cast<T*>(ring) + (s * kNF + f) * FS;
+          if (tma == 2) {
+            tma_load_4d(dst, &maps.m[f], z0 - V, y0 - 1, x, m, &full[s]);
+          } else {
+            tma_load_3d(dst, &maps.m[f], z0 - V, y0 - 1, x, &full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer thread: row ty of the column, z cells [tz, tz + V).
+  const size_t mvol = (size_t)m * nx * ny * nz;
+  if (keys != nullptr) {
+    k0 = keys[2 * m];
+    k1 = keys[2 * m + 1];
+  }
+  params += (size_t)m * kNP;
+  C p[kNP];
+#pragma unroll
+  for (int i = 0; i < kNP; ++i) p[i] = params[i];
+  const C inv6 = C(1.0 / 6.0);
+  const int ty = warp * 2 + lane / 16, tz = lane % 16 * V;
+  const int gy = y0 + ty, gz = z0 + tz;
+  const bool live = gy < ny && gz < nz;  // nz is a multiple of V
+  // Only a column at an edge replaces ghosts: in y, a row at 0 or ny - 1;
+  // in z, a vector at either end of the row.
+  const bool edge =
+      y0 == 0 || z0 == 0 || y0 + kMarchTY >= ny || z0 + g.TZ >= nz;
+  const bool ylo = gy == 0, yhi = gy + 1 >= ny;
+  const bool zlo = gz == 0, zhi = gz + V >= nz;
+  // The boundary value as the window's ghost pass stores it (in T).
+  C bound[kNF];
+#pragma unroll
+  for (int f = 0; f < kNF; ++f) {
+    T b;
+    put(&b, fs.bound[f]);
+    bound[f] = widen(b);
+  }
+  uint32_t ch[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    ch[v] = use_noise ? cell_hash((uint32_t)(oy + gy),
+                                  (uint32_t)(oz + gz + v), row)
+                      : 0u;
+  }
+  const int c0 = (ty + 1) * BZ + V + tz;  // the thread's first cell in a slot
+
+  Pack prev[kNF], cur[kNF], nxt[kNF];
+  mbar_wait(&full[0], 0u);
+  mbar_wait(&full[1], 0u);
+#pragma unroll
+  for (int f = 0; f < kNF; ++f) {
+    prev[f] =
+        xs > 0 ? ld_pack(ring + f * FS + c0) : fill_pack<T>(bound[f]);
+    cur[f] = ld_pack(ring + (kNF + f) * FS + c0);
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[0]);
+
+  uint32_t seeds = 0u;  // lane l: plane_seed of plane xs + 32 (i / 32) + l
+  for (int i = 0; i < n; ++i) {
+    const int x = xs + i;
+    const int sc = (i + 1) % kRing, sn = (i + 2) % kRing;
+    // The plane's seed, drawn by one lane in 32 planes and shuffled.
+    if (use_noise && (i & 31) == 0) {
+      seeds = plane_seed(k0, k1, step, (uint32_t)(ox + x + lane));
+    }
+    const uint32_t pseed = __shfl_sync(0xFFFFFFFFu, seeds, i & 31);
+    const T* cs = ring + sc * kNF * FS;
+    const T* ns = ring + sn * kNF * FS;
+    mbar_wait(&full[sn], (uint32_t)(((i + 2) / kRing) & 1));
+    Pack ym[kNF], yp[kNF];
+    C zm[kNF], zp[kNF];
+#pragma unroll
+    for (int f = 0; f < kNF; ++f) {
+      nxt[f] =
+          x + 1 < nx ? ld_pack(ns + f * FS + c0) : fill_pack<T>(bound[f]);
+      ym[f] = ld_pack(cs + f * FS + c0 - BZ);
+      yp[f] = ld_pack(cs + f * FS + c0 + BZ);
+      zm[f] = widen(cs[f * FS + c0 - 1]);
+      zp[f] = widen(cs[f * FS + c0 + V]);
+    }
+    if (edge) {
+#pragma unroll
+      for (int f = 0; f < kNF; ++f) {
+        if (ylo) ym[f] = fill_pack<T>(bound[f]);
+        if (yhi) yp[f] = fill_pack<T>(bound[f]);
+        if (zlo) zm[f] = bound[f];
+        if (zhi) zp[f] = bound[f];
+      }
+    }
+    // Everything of plane x is in registers: release its slot.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[sc]);
+    if (live) {
+      Pack res[kNF] = {};
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        C val[kNF], lap[kNF], d[kNF];
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) {
+          val[f] = Cells<T>::get(cur[f], v);
+          const C zl =
+              v == 0 ? zm[f] : Cells<T>::get(cur[f], v == 0 ? 0 : v - 1);
+          const C zh = v == V - 1
+                           ? zp[f]
+                           : Cells<T>::get(cur[f], v == V - 1 ? 0 : v + 1);
+          const C total = add(add(add(add(add(Cells<T>::get(prev[f], v),
+                                              Cells<T>::get(nxt[f], v)),
+                                          Cells<T>::get(ym[f], v)),
+                                      Cells<T>::get(yp[f], v)),
+                                  zl),
+                              zh);
+          lap[f] = sub(mul(total, inv6), val[f]);
+        }
+        C noise = C(0);
+        if (use_noise) {
+          noise = mul(p[kNoise], (C)bits_to_pm1(hash32(ch[v] ^ pseed)));
+        }
+        gs_reaction(val, lap, noise, p, d);
+#pragma unroll
+        for (int f = 0; f < kNF; ++f) {
+          Cells<T>::set(res[f], v, add(val[f], mul(d[f], p[kDt])));
+        }
+      }
+      const size_t o = mvol + ((size_t)x * ny + gy) * nz + gz;
+#pragma unroll
+      for (int f = 0; f < kNF; ++f) st_pack(fs.out[f] + o, res[f]);
+    }
+#pragma unroll
+    for (int f = 0; f < kNF; ++f) {
+      prev[f] = cur[f];
+      cur[f] = nxt[f];
+    }
+  }
+}
+
+template <typename T>
+int run_march(const Fields<T, typename Compute<T>::type>& fs,
+              const typename Compute<T>::type* params, const WindowMaps& maps,
+              int tma, uint32_t k0, uint32_t k1, const uint32_t* keys,
+              int members, uint32_t step0, int ox, int oy, int oz,
+              uint32_t row, int nx, int ny, int nz, int use_noise,
+              cudaStream_t stream) {
+  auto kernel = stencil_chain_kernel_march<T>;
+  if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
+  // The grid: columns x segments of `span` planes, per member.
+  constexpr RingGeom g = ring_of(sizeof(T));
+  const long long cols =
+      (long long)((nz + g.TZ - 1) / g.TZ) * ((ny + kMarchTY - 1) / kMarchTY);
+  const int span = march_span(nx, cols * members);
+  const long long nseg = (nx + span - 1) / span;
+  if (cols * nseg > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = ring_bytes(sizeof(T));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)(cols * nseg), (unsigned)members), kMarchThreads,
+           smem, stream>>>(fs, params, maps, tma, k0, k1, keys, step0, ox, oy,
+                           oz, row, nx, ny, nz, span, (int)nseg, use_noise);
+  return (int)cudaGetLastError();
+}
+
 // The tensor maps of a launch: kNF maps from the host (`maps`, 128 B
 // each, as gs_window_map encodes them), or none for the cp.async load.
 inline WindowMaps maps_of(const void* maps) {
@@ -912,6 +1299,16 @@ int launch(const void* const* in, void* const* out, const void* params,
   const int tma = maps == nullptr ? 0 : members > 1 ? 2 : 1;
   const C* pv = static_cast<const C*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool outs_aligned = true;
+  for (int f = 0; f < kNF; ++f) {
+    outs_aligned =
+        outs_aligned && reinterpret_cast<uintptr_t>(out[f]) % 16 == 0;
+  }
+  if (march_engages(mode, fuse, tma != 0, outs_aligned)) {
+    // `maps` are gs_march_map's.
+    return run_march<T>(fs, pv, wm, tma, k0, k1, keys, members, step0, ox, oy,
+                        oz, row, nx, ny, nz, use_noise, st);
+  }
   switch (mode) {
     case kFaces6:
       return run<T, M, kFaces6>(fs, pv, faces, wm, tma, k0, k1, keys, members,
@@ -1047,8 +1444,36 @@ int attributes_of(int fuse, int* out) {
   return 0;
 }
 
+// The march's attributes, in attributes_of's layout.
+template <typename T>
+int march_attributes(int* out) {
+  auto kernel = stencil_chain_kernel_march<T>;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = ring_bytes(sizeof(T));
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kMarchThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = (int)smem;
+  out[5] = blocks;
+  out[6] = kMarchThreads;
+  return 0;
+}
+
+// kBlock at fuse 1 reports the march, the instance a launch on the TMA
+// path runs.
 template <typename T, typename M>
 int attributes_by_mode(int mode, int fuse, int* out) {
+  if (march_engages(mode, fuse, true, true)) return march_attributes<T>(out);
   switch (mode) {
     case kFaces6:
       return attributes_of<T, M, kFaces6>(fuse, out);
@@ -1064,14 +1489,21 @@ int attributes_by_mode(int mode, int fuse, int* out) {
 
 extern "C" {
 
-// The interior tile (x, y, z) and the generated counts (fields,
-// params); the Python ledger checks they agree.
+// The interior tile (x, y, z), the generated counts (fields, params)
+// and the march's column rows, column z bytes, ring slots, threads,
+// least span and block target; the Python ledger checks they agree.
 void gs_layout(int* out) {
   out[0] = TX;
   out[1] = TY;
   out[2] = TZ;
   out[3] = kNF;
   out[4] = kNP;
+  out[5] = kMarchTY;
+  out[6] = kMarchZB;
+  out[7] = kRing;
+  out[8] = kMarchThreads;
+  out[9] = kMarchMinSpan;
+  out[10] = kMarchBlocks;
 }
 
 const char* gs_error_string(int code) {
@@ -1133,11 +1565,39 @@ int gs_window_map4(void* out, const void* base, int itemsize, int nx, int ny,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The TMA tensor map of one field's march planes (the ring's box): the
+// (nx, ny, nz) tensor at `base`, box (BZ, kMarchTY + 2, 1); with more
+// than one member the (members, nx, ny, nz) tensor, box one member deep.
+int gs_march_map(void* out, const void* base, int itemsize, int nx, int ny,
+                 int nz, int members) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return -1;
+  const CUtensorMapDataType type =
+      itemsize == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+      : itemsize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const RingGeom r = ring_of(itemsize);
+  const cuuint32_t rank = members > 1 ? 4 : 3;
+  const cuuint64_t dims[4] = {(cuuint64_t)nz, (cuuint64_t)ny, (cuuint64_t)nx,
+                              (cuuint64_t)members};
+  const cuuint64_t strides[3] = {(cuuint64_t)nz * itemsize,
+                                 (cuuint64_t)ny * nz * itemsize,
+                                 (cuuint64_t)nx * ny * nz * itemsize};
+  const cuuint32_t box[4] = {(cuuint32_t)r.BZ, (cuuint32_t)r.RY, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return (int)encode(static_cast<CUtensorMap*>(out), type, rank,
+                     const_cast<void*>(base), dims, strides, box, unit,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // in, out: host arrays of kNF device pointers; params: a device vector
 // of kNP values of the compute type (float for bf16 fields); face_ptrs: a
 // host array of device pointers (6 kNF for mode 1, 2 kNF for mode 2) or
 // NULL for mode 0; maps: kNF tensor maps of the inputs (gs_window_map,
-// 128 B each, at this fuse), or NULL to load by cp.async; bounds: a host
+// 128 B each, at this fuse; gs_march_map's where the launch marches:
+// march_engages), or NULL to load by cp.async; bounds: a host
 // array of kNF boundary values. One entry point per posture: f32, f64,
 // bf16 (bf16 storage and windows, float compute) and f32_mid_bf16
 // (float fields, bf16 mid windows).
@@ -1155,8 +1615,8 @@ int gs_window_map4(void* out, const void* base, int itemsize, int nx, int ny,
 // The batched form: in and out point at (members, nx, ny, nz) tensors,
 // params at a (members, kNP) matrix, face_ptrs at faces with the same
 // leading axis, keys at a device array of `members` key pairs (uint32
-// k0, k1); maps are gs_window_map4's. The step and the offsets are
-// shared.
+// k0, k1); maps are gs_window_map4's (gs_march_map's where it
+// marches). The step and the offsets are shared.
 #define GS_BATCH_ENTRY(NAME, T, M)                                            \
   int NAME(const void* const* in, void* const* out, const void* params,       \
            const void* const* face_ptrs, const void* maps,                    \

@@ -72,6 +72,15 @@ edge of member k never reads member k - 1's planes; a stack of one
 member takes the solo launch. The plain versions take the same leading
 axis by broadcasting.
 
+The schedule: a launch in ``chain`` mode at depth 1 on the TMA path
+(:func:`schedule_of`) runs the march — one block per member's (y, z)
+column walking ``span`` x-planes (:func:`march_grid`) over a ring of
+plane slots that a producer warp fills by TMA (:func:`ring_geometry`,
+:func:`ring_smem_bytes`), with tensor maps of one plane's box; every
+other launch runs the window kernel. Both compute the same operations in
+the same order (bitwise equal). ``SCHEDULE_LAUNCHES`` counts the
+launches of each.
+
 ``LAUNCHES`` counts kernel launches (not plain-path calls),
 ``MODE_LAUNCHES`` splits them by mode, ``BAND_LAUNCHES`` counts the
 x-chain launches that recompute a split-phase round's boundary bands
@@ -212,6 +221,31 @@ LOAD_PATHS = ("tma", "cp_async")
 #: :data:`LAUNCHES`.
 LOAD_PATH_LAUNCHES: Dict[str, int] = dict.fromkeys(LOAD_PATHS, 0)
 
+#: The kernel's schedules: the window kernel, or the march that a
+#: depth-1 ``chain`` launch on the TMA path runs (:func:`schedule_of`).
+SCHEDULES = ("window", "march")
+
+#: Launches per schedule (the probes' too, all ``window``), counted
+#: beside :data:`LOAD_PATH_LAUNCHES`.
+SCHEDULE_LAUNCHES: Dict[str, int] = dict.fromkeys(SCHEDULES, 0)
+
+#: The march's layout, as ``gs_layout`` reports it after the tile and the
+#: counts: column rows, column z bytes (16 B a thread of a row's 16),
+#: ring slots, threads (16 consumer warps and a producer), the least
+#: span and the blocks a launch aims for (:func:`march_span`).
+MARCH_ROWS = 32
+MARCH_Z_BYTES = 256
+RING_SLOTS = 4
+MARCH_THREADS = 544
+MARCH_MIN_SPAN = 16
+MARCH_BLOCKS = 528
+MARCH_LAYOUT = (MARCH_ROWS, MARCH_Z_BYTES, RING_SLOTS, MARCH_THREADS,
+                MARCH_MIN_SPAN, MARCH_BLOCKS)
+
+#: Bytes before the ring's slots (its 2 x RING_SLOTS mbarriers, padded to
+#: TMA's 128 B destination alignment).
+RING_HEAD = 128
+
 #: A load path forced by :func:`override` (the parity checks run every
 #: mode on both paths); None lets :func:`load_path` decide.
 _FORCED_LOAD: Optional[str] = None
@@ -240,7 +274,8 @@ def reset_launches() -> None:
     every
     :data:`MODE_LAUNCHES`, :data:`MODE_MEMBERS`, :data:`VARIANT_LAUNCHES`,
     :data:`MODEL_LAUNCHES`, :data:`DTYPE_LAUNCHES`,
-    :data:`ENTRY_LAUNCHES` and :data:`LOAD_PATH_LAUNCHES` count to 0."""
+    :data:`ENTRY_LAUNCHES`, :data:`LOAD_PATH_LAUNCHES` and
+    :data:`SCHEDULE_LAUNCHES` count to 0."""
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     global TIMED_LAUNCHES, DISPATCH_NS, CALL_NS, OPS_NS, SYNC_NS
     global EXCHANGE_NS, _TIMED_CALLS
@@ -248,7 +283,7 @@ def reset_launches() -> None:
     TIMED_LAUNCHES = DISPATCH_NS = CALL_NS = OPS_NS = SYNC_NS = 0
     EXCHANGE_NS = _TIMED_CALLS = 0
     for counts in (MODE_LAUNCHES, MODE_MEMBERS, VARIANT_LAUNCHES,
-                   DTYPE_LAUNCHES, LOAD_PATH_LAUNCHES):
+                   DTYPE_LAUNCHES, LOAD_PATH_LAUNCHES, SCHEDULE_LAUNCHES):
         for key in counts:
             counts[key] = 0
     MODEL_LAUNCHES.clear()
@@ -370,6 +405,60 @@ def window_geometry(itemsize: int, fuse: int,
     return wx, wy, wz, wzp, fuse % zq, wvol
 
 
+def ring_geometry(itemsize: int):
+    """One plane slot of the march's ring for ``itemsize``-byte cells
+    (``ring_of`` in stencil_chain.cu): ``(V, TZ, BZ, RY, box_bytes,
+    slot_bytes)`` — V cells in a thread's 16 B; the column's TZ cells of
+    z (:data:`MARCH_Z_BYTES`); the TMA box's BZ = TZ + 2 V cells of z,
+    from V cells (16 B) below the column, so that it starts on a 16 B
+    boundary; its RY = :data:`MARCH_ROWS` + 2 rows; its bytes; and one
+    field's slot, rounded up to 128 B."""
+    v = 16 // itemsize
+    tz = MARCH_Z_BYTES // itemsize
+    bz, ry = tz + 2 * v, MARCH_ROWS + 2
+    box = ry * bz * itemsize
+    return v, tz, bz, ry, box, -(-box // 128) * 128
+
+
+def ring_smem_bytes(itemsize: int, n_fields: int = 2) -> int:
+    """Dynamic shared memory of one march block: the ring's mbarriers
+    (:data:`RING_HEAD`) and :data:`RING_SLOTS` slots of every field."""
+    return RING_HEAD + RING_SLOTS * n_fields * ring_geometry(itemsize)[5]
+
+
+def march_span(nx: int, tiles: int) -> int:
+    """The x-planes one march block walks (``march_span`` in
+    stencil_chain.cu), for ``nx`` planes and ``tiles`` = columns times
+    members: enough segments for :data:`MARCH_BLOCKS` blocks, but none
+    shorter than :data:`MARCH_MIN_SPAN` planes unless nx is."""
+    segs = -(-MARCH_BLOCKS // tiles)
+    segs = max(1, min(segs, nx // MARCH_MIN_SPAN))
+    return -(-nx // segs)
+
+
+def march_grid(shape: Sequence[int], itemsize: int, members: int = 1):
+    """The march's grid on an (nx, ny, nz) operand of ``members``
+    members: ``(columns, span, segments)``; it launches columns x
+    segments blocks per member."""
+    nx, ny, nz = shape
+    tz = ring_geometry(itemsize)[1]
+    cols = -(-nz // tz) * -(-ny // MARCH_ROWS)
+    span = march_span(nx, cols * members)
+    return cols, span, -(-nx // span)
+
+
+def schedule_of(mode: str, fuse: int, shape: Sequence[int], itemsize: int,
+                pointers: Sequence[int]) -> str:
+    """The schedule of a launch (``march_engages`` in stencil_chain.cu):
+    ``"march"`` for ``chain`` mode at depth 1 whose inputs and outputs
+    (``pointers``) pass :func:`load_path`'s TMA rules — the march loads
+    by TMA and stores 16 B a thread — else ``"window"``."""
+    if mode != "chain" or fuse != 1:
+        return "window"
+    path = load_path(shape, itemsize, pointers)
+    return "march" if path == "tma" else "window"
+
+
 def compute_dtype_of(dtype: torch.dtype) -> torch.dtype:
     """The kernel's compute dtype for fields of ``dtype`` (the
     reference's ``_compute_dtype``): float32 for bfloat16, else the
@@ -401,7 +490,8 @@ def smem_bytes(itemsize: int, fuse: int, n_fields: int = 2,
     ``_slab_fits`` counts them; each window of
     :func:`window_geometry`'s ``wvol`` cells, and the load's mbarrier.
     This is the most a launch takes (the cap): a depth-1 launch requests
-    one window per field, as it writes nothing back to shared memory."""
+    one window per field, as it writes nothing back to shared memory, or
+    marches in :func:`ring_smem_bytes`."""
     wvol = window_geometry(itemsize, fuse, tile)[5]
     if mid_itemsize is None or mid_itemsize == itemsize:
         return n_fields * N_BUFFERS * wvol * itemsize + BARRIER_BYTES
@@ -953,14 +1043,14 @@ def _lib(spec):
 def _ready(lib, spec):
     """Check ``lib``'s layout against the ledger and type its entry
     points (once, under the build lock)."""
-    layout = (ctypes.c_int * 5)()
+    want = TILE + (spec.n_fields, len(spec.param_fields)) + MARCH_LAYOUT
+    layout = (ctypes.c_int * len(want))()
     lib.gs_layout.argtypes = [ctypes.c_void_p]
     lib.gs_layout.restype = None
     lib.gs_layout(ctypes.cast(layout, ctypes.c_void_p))
-    want = TILE + (spec.n_fields, len(spec.param_fields))
     if tuple(layout) != want:
         raise KernelLaunchError(
-            f"the {spec.name!r} kernel's (tile, fields, params) "
+            f"the {spec.name!r} kernel's (tile, fields, params, march) "
             f"{tuple(layout)} != the ledger's {want}"
         )
     _type_common(lib)
@@ -1001,6 +1091,8 @@ def _type_common(lib):
     lib.gs_window_map.restype = ctypes.c_int
     lib.gs_window_map4.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     lib.gs_window_map4.restype = ctypes.c_int
+    lib.gs_march_map.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    lib.gs_march_map.restype = ctypes.c_int
 
 
 def _pointers(tensors):
@@ -1008,18 +1100,19 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def window_maps(lib, fields, fuse):
+def window_maps(lib, fields, fuse, schedule="window"):
     """The load of a launch on ``fields`` at depth ``fuse``: ``(path,
     maps)`` — ``"tma"`` with a host buffer of one encoded tensor map per
-    field (cached; 4-D, one member deep, for ``(N, nx, ny, nz)`` fields),
-    or ``"cp_async"`` with None (:func:`load_path`)."""
+    field (cached; 4-D, one member deep, for ``(N, nx, ny, nz)`` fields;
+    with ``schedule="march"`` the ring's plane box, ``gs_march_map``), or
+    ``"cp_async"`` with None (:func:`load_path`)."""
     first = fields[0]
     itemsize = first.element_size()
     ptrs = tuple(f.data_ptr() for f in fields)
     path = load_path(first.shape[-3:], itemsize, ptrs)
     if path != "tma":
         return path, None
-    key = (ptrs, tuple(first.shape), itemsize, fuse)
+    key = (ptrs, tuple(first.shape), itemsize, fuse, schedule)
     with _LOCK:
         maps = _MAPS.get(key)
     if maps is None:
@@ -1027,7 +1120,11 @@ def window_maps(lib, fields, fuse):
         nx, ny, nz = first.shape[-3:]
         for i, p in enumerate(ptrs):
             out = ctypes.addressof(maps) + MAP_BYTES * i
-            if first.dim() == 4:
+            if schedule == "march":
+                rc = lib.gs_march_map(out, p, itemsize, nx, ny, nz,
+                                      first.shape[0] if first.dim() == 4
+                                      else 1)
+            elif first.dim() == 4:
                 rc = lib.gs_window_map4(out, p, itemsize, nx, ny, nz,
                                         first.shape[0], fuse)
             else:
@@ -1051,17 +1148,19 @@ def maps_address(maps):
 
 
 def count_launch(mode, path, *, entry=None, model=None, band=False,
-                 members=1, fuse=None, shape=None):
-    """Count one kernel launch of ``mode`` on load ``path`` (of entry
-    point ``entry`` and ``model`` at depth ``fuse`` on a ``shape``
-    operand; ``band``: a band recompute; advancing ``members`` members),
-    or, inside :func:`replaying`, in :data:`REPLAY_LAUNCHES` only. A
-    batched launch counts once."""
+                 members=1, fuse=None, shape=None, schedule="window"):
+    """Count one kernel launch of ``mode`` on load ``path`` under
+    ``schedule`` (of entry point ``entry`` and ``model`` at depth
+    ``fuse`` on a ``shape`` operand; ``band``: a band recompute;
+    advancing ``members`` members), or, inside :func:`replaying`, in
+    :data:`REPLAY_LAUNCHES` only. A batched launch counts once."""
     with _LOCK:
-        _count_launch(mode, path, entry, model, band, members, fuse, shape)
+        _count_launch(mode, path, entry, model, band, members, fuse, shape,
+                      schedule)
 
 
-def _count_launch(mode, path, entry, model, band, members: int, fuse, shape):
+def _count_launch(mode, path, entry, model, band, members: int, fuse, shape,
+                  schedule):
     global LAUNCHES, BAND_LAUNCHES, REPLAY_LAUNCHES
     if getattr(_REPLAYING, "on", False):
         REPLAY_LAUNCHES += 1
@@ -1070,6 +1169,7 @@ def _count_launch(mode, path, entry, model, band, members: int, fuse, shape):
     MODE_LAUNCHES[mode] += 1
     MODE_MEMBERS[mode] = max(MODE_MEMBERS[mode], int(members))
     LOAD_PATH_LAUNCHES[path] += 1
+    SCHEDULE_LAUNCHES[schedule] += 1
     if entry is not None:
         DTYPE_LAUNCHES[entry] += 1
         key = (model, mode, entry, int(members), fuse, shape, bool(band))
@@ -1166,7 +1266,10 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
     lib = _lib(spec)
     in_ptrs, out_ptrs = _pointers(fields), _pointers(outs)
     with torch.cuda.device(first.device):
-        path, maps = window_maps(lib, fields, fuse)
+        schedule = schedule_of(
+            mode, fuse, (nx, ny, nz), first.element_size(),
+            [t.data_ptr() for t in (*fields, *outs)])
+        path, maps = window_maps(lib, fields, fuse, schedule)
         stream = torch.cuda.current_stream(first.device).cuda_stream
         head = (
             ctypes.cast(in_ptrs, ctypes.c_void_p),
@@ -1199,9 +1302,10 @@ def _launch(fields, params, seeds, *, spec, use_noise, fuse, offsets, row,
         raise KernelLaunchError(
             f"stencil_chain launch failed (model={spec.name}, mode={mode}, "
             f"fuse={fuse}, shape={tuple(first.shape)}, {entry}, load "
-            f"{path}): CUDA error {rc}: {msg}", code=rc)
+            f"{path}, {schedule}): CUDA error {rc}: {msg}", code=rc)
     count_launch(mode, path, entry=entry, model=spec.name, band=band,
-                 members=members or 1, fuse=fuse, shape=(nx, ny, nz))
+                 members=members or 1, fuse=fuse, shape=(nx, ny, nz),
+                 schedule=schedule)
     if timed is not None:
         timed.launches += 1
     return outs
@@ -1213,7 +1317,8 @@ def kernel_attributes(spec, mode: str, entry: str, fuse: int,
     point ``entry`` launches in ``mode`` at depth ``fuse``
     (``gs_kernel_attributes``: ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; launches
-    nothing): ``registers``, ``local_bytes``, ``static_shared_bytes``,
+    nothing; ``chain`` at depth 1: the march, which a launch on the TMA
+    path runs): ``registers``, ``local_bytes``, ``static_shared_bytes``,
     ``max_threads_per_block``, ``dynamic_shared_bytes`` (what such a
     launch requests), ``blocks_per_sm`` and ``threads_per_block``.
     Raises :class:`KernelLaunchError` when the query fails."""

@@ -13,19 +13,31 @@ process each, in the order given and then reversed (a b ... b a). Each
 process builds Gray-Scott's kernel and envelope probes from its own
 tree and times, on inputs made from fixed seeds with noise 0.1:
 
-  chain_<dtype>   the chain at L=256, depth 1 (float32 and bfloat16);
-  chain2_<dtype>  the chain at L=256, depth 2;
-  faces6_<dtype>  the 6n-face step at (128,128,128);
-  xchain_<dtype>  the x-chain at (32,256,256), depth 2;
-  copy_walk       the envelope probe's copy walk at L=256, depth 1;
+  chain_<dtype>   the chain at L=256, depth 1 (float32 and bfloat16;
+                  PERF.md's rows 1a and 1f.1);
+  chain_n5_float32  the same, five members in one batched launch (1a);
+  chain_<model>   Brusselator, FHN and heat at L=256, depth 1, float32
+                  (1g.1-1g.3);
+  chain2_<dtype>  the chain at L=256, depth 2 (1b);
+  faces6_<dtype>  the 6n-face step at (128,128,128) (1c, 1f.2);
+  xchain_<dtype>  the x-chain at (32,256,256), depth 2 (1d, 1f.3);
+  xychain_float32 the x-chain on the xy-chain's (128,132,128) operand,
+                  depth 2 (1e);
+  copy_walk, compute_walk  the envelope probes at L=256, depth 1 (rows
+                  2 and 3; they take apart the window kernel);
 
 each as the profiler's device time per launch (the mean of 50) and the
 CUDA-event ms per call (the mean of 200), after warm-up. Prints the
 ``nvidia-smi`` name and power limit, one JSON line per process
-(``tree``, ``registers``: ptxas's register lines, ``cases``: ``{case:
-{"device_ms", "ms"}}``) and a last line ``{"summary": {tree: {case:
-{"device_ms", "ms"}}}}``, each the mean over that tree's two runs;
-``--out`` appends the same lines. Needs a card: exits 2 without one.
+(``tree``, ``registers``: ptxas's register lines, ``attributes``: the
+card's attributes of the instance each of the float32 and bf16 depth-1
+chain, the depth-2 chain, the 6n-face step and the x-chain launches
+(``cuda_stencil.kernel_attributes``), ``schedules``: the tree's
+``SCHEDULE_LAUNCHES`` after the cases, where it has them, ``cases``:
+``{case: {"device_ms", "ms"}}``) and a last line ``{"summary": {tree:
+{case: {"device_ms", "ms"}}}}``, each the mean over that tree's two
+runs; ``--out`` appends the same lines. Needs a card: exits 2 without
+one.
 """
 
 from __future__ import annotations
@@ -38,6 +50,15 @@ import sys
 
 #: The package a tree must hold.
 PACKAGE = "grayscott_jl_tpu_torch"
+
+#: The other generated models, timed at depth 1 with these physics.
+OTHER_MODELS = {
+    "brusselator": dict(model_params={"A": 1.0, "B": 3.0, "Du": 0.2,
+                                      "Dv": 0.02}, dt=0.05),
+    "fhn": dict(model_params={"a": 0.7, "b": 0.8, "eps": 0.08, "I": 0.5,
+                              "Dv": 0.2, "Dw": 0.0}, dt=0.05),
+    "heat": dict(model_params={"D": 0.2}, dt=0.05),
+}
 
 #: Device-time launches and event-timed calls per case.
 PROFILE_REPS = 50
@@ -91,7 +112,9 @@ def child(tree: str) -> dict:
                                             kernelgen)
 
     spec = kernelgen.get_spec(get_model("grayscott"))
-    built = _build.build_all([spec], envelope=True)
+    others = {name: kernelgen.get_spec(get_model(name))
+              for name in OTHER_MODELS}
+    built = _build.build_all([spec, *others.values()], envelope=True)
     registers = [line.strip() for info in built.values()
                  for line in info["log"].splitlines() if "registers" in line]
     cases = {}
@@ -111,6 +134,8 @@ def child(tree: str) -> dict:
                       + [(128, 1, 128)] * 4 + [(128, 128, 1)] * 4)
         slab = (rand((32, 256, 256)), rand((32, 256, 256)))
         slabs = tuple(rand((2, 256, 256)) for _ in range(4))
+        ext = (rand((128, 132, 128)), rand((128, 132, 128)))
+        ext_slabs = tuple(rand((2, 132, 128)) for _ in range(4))
         runs = {
             f"chain_{dname}": lambda: cuda_stencil.fused_step(
                 chain, params, (0, 3, 0), spec=spec, row=256),
@@ -123,19 +148,59 @@ def child(tree: str) -> dict:
                 slab, params, (0, 3, 0), slabs, spec=spec, fuse=2,
                 offsets=(32, 0, 0), row=256),
         }
+        if dname == "float32":
+            members = tuple(rand((5, 256, 256, 256)) for _ in range(2))
+            rows = [dict(Du=0.2, Dv=0.1, F=0.02 + 0.005 * m, k=0.048,
+                         dt=1.0, noise=0.1) for m in range(5)]
+            mparams = cuda_stencil.member_params(
+                rows, spec.model.params_cls, dtype, "cuda")
+            seeds = cuda_stencil.member_seeds(
+                [(0, 3 + m) for m in range(5)], 0)
+            runs["chain_n5_float32"] = lambda: cuda_stencil.fused_step(
+                members, mparams, seeds, spec=spec, row=256)
+            runs["xychain_float32"] = lambda: cuda_stencil.fused_step(
+                ext, params, (0, 3, 0), ext_slabs, spec=spec, fuse=2,
+                offsets=(128, -2, 0), row=256, y_halo=2)
+            for name, other in others.items():
+                oparams = other.model.make_params(
+                    pkg.Settings(noise=0.1, model=name,
+                                 **OTHER_MODELS[name]), dtype, "cuda")
+                ofields = tuple(rand((256,) * 3)
+                                for _ in range(other.n_fields))
+                runs[f"chain_{name}"] = (
+                    lambda o=other, p=oparams, f=ofields:
+                    cuda_stencil.fused_step(f, p, (0, 3, 0), spec=o,
+                                            row=256))
         for case, fn in runs.items():
             cases[case] = {"device_ms": _device_ms(torch, fn),
                            "ms": _event_ms(torch, fn)}
     gen = torch.Generator(device="cuda").manual_seed(10)
     fields = tuple(torch.rand((256,) * 3, generator=gen, device="cuda")
                    for _ in range(2))
+    walk_params = spec.model.make_params(
+        pkg.Settings(noise=0.1, F=0.02, k=0.048, Du=0.2, Dv=0.1, dt=1.0),
+        torch.float32, "cuda")
 
     def walk():
         return envelope.copy_walk(fields, fuse=1)
 
-    cases["copy_walk"] = {"device_ms": _device_ms(torch, walk),
-                          "ms": _event_ms(torch, walk)}
-    return {"tree": tree, "registers": registers, "cases": cases}
+    def compute():
+        return envelope.compute_walk(fields, walk_params, (0, 3, 0),
+                                     spec=spec, fuse=1, use_noise=True)
+
+    for case, fn in (("copy_walk", walk), ("compute_walk", compute)):
+        cases[case] = {"device_ms": _device_ms(torch, fn),
+                       "ms": _event_ms(torch, fn)}
+    attributes = {
+        f"{mode}_{entry}_k{fuse}": cuda_stencil.kernel_attributes(
+            spec, mode, entry, fuse)
+        for mode, entry, fuse in (("chain", "f32", 1), ("chain", "bf16", 1),
+                                  ("chain", "f32", 2), ("faces6", "f32", 1),
+                                  ("xchain", "f32", 2))}
+    schedules = getattr(cuda_stencil, "SCHEDULE_LAUNCHES", None)
+    return {"tree": tree, "registers": registers, "attributes": attributes,
+            "schedules": None if schedules is None else dict(schedules),
+            "cases": cases}
 
 
 def summarize(rows):

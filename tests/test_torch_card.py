@@ -784,6 +784,109 @@ def test_every_mode_equals_plain_on_every_load_path(mode, shape, fuse,
                                        (a.double() - b.double()).abs().max())
 
 
+#: The march's shapes: regular; ragged (the column tile divides neither
+#: ny nor nz); nx below one least span; nx not a multiple of the span
+#: (50 planes in segments of 17, 17 and 16).
+MARCH_SHAPES = [(64, 48, 128), (40, 36, 72), (7, 32, 64), (50, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grayscott", "brusselator", "fhn", "heat"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("noise", [0.0, 0.1])
+def test_march_equals_plain_on_card(name, dtype, noise):
+    """The fuse-1 chain on the TMA path marches, in every posture and
+    model, on regular and ragged shapes, and equals the plain version
+    (bf16: its oracle) bitwise; each launch counts as a ``chain`` launch
+    on the TMA path under the ``march`` schedule."""
+    _card()
+    pdtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    spec, params = _model_case(name, pdtype, noise)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for shape in MARCH_SHAPES:
+        f = tuple(torch.rand(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(spec.n_fields))
+        kw = dict(spec=spec, use_noise=noise != 0, offsets=(16, 4, 8),
+                  row=128)
+        want = cuda_stencil.plain_chain(f, params, (5, 2, 7),
+                                        oracle=dtype == torch.bfloat16, **kw)
+        cuda_stencil.reset_launches()
+        got = cuda_stencil.fused_step(f, params, (5, 2, 7), **kw)
+        torch.cuda.synchronize()
+        assert cuda_stencil.SCHEDULE_LAUNCHES == {"window": 0, "march": 1}
+        assert cuda_stencil.MODE_LAUNCHES["chain"] == 1
+        assert cuda_stencil.LOAD_PATH_LAUNCHES["tma"] == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (shape, (a.double() - b.double())
+                                       .abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_batched_march_equals_its_solo_launches_on_card(dtype):
+    """A batched N=3 march (4-D maps one member deep) equals its three
+    solo launches and the plain version bitwise, on a ragged shape."""
+    _card()
+    shape, n = (40, 36, 72), 3
+    rows = [dict(Du=0.2, Dv=0.1, F=f, k=k, dt=1.0, noise=0.1)
+            for f, k in ((0.03, 0.062), (0.055, 0.062), (0.026, 0.051))]
+    keys = [(0, 3), (0, 4), (0, 2**31 + 5)]
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    f = tuple(torch.rand((n,) + shape, generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    params = cuda_stencil.member_params(
+        rows, SPEC.model.params_cls, cuda_stencil.compute_dtype_of(dtype),
+        "cuda")
+    seeds = cuda_stencil.member_seeds(keys, 9)
+    kw = dict(spec=SPEC, use_noise=True, offsets=(0, 0, 0), row=64)
+    cuda_stencil.reset_launches()
+    got = cuda_stencil.fused_step(f, params, seeds, **kw)
+    assert cuda_stencil.SCHEDULE_LAUNCHES == {"window": 0, "march": 1}
+    assert cuda_stencil.MODE_MEMBERS["chain"] == n
+    want = cuda_stencil.plain_chain(f, params, seeds,
+                                    oracle=dtype == torch.bfloat16, **kw)
+    for m in range(n):
+        solo = cuda_stencil.fused_step(
+            tuple(x[m].contiguous() for x in f),
+            cuda_stencil.params_row(params, m),
+            (keys[m][0], keys[m][1], 9), **kw)
+        assert all(torch.equal(g[m], x) for g, x in zip(got, solo)), m
+    torch.cuda.synchronize()
+    assert cuda_stencil.SCHEDULE_LAUNCHES == {"window": 0, "march": 1 + n}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fuse", [((20, 24, 41), 1),
+                                        ((40, 48, 64), 2)])
+def test_window_schedule_keeps_the_other_launches_on_card(shape, fuse):
+    """A cp.async-path operand (41 float32 cells a row) and a depth-2
+    chain run the window kernel, counted under ``window``, bitwise equal
+    to the plain version; ``gs_kernel_attributes`` reports the march's
+    instance for the depth-1 chain and the window's at depth 2."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    f = tuple(torch.rand(shape, generator=gen, device="cuda")
+              for _ in range(2))
+    params = grayscott.MODEL.make_params(Settings(noise=0.1, **KW),
+                                         torch.float32, "cuda")
+    cuda_stencil.reset_launches()
+    got = cuda_stencil.fused_step(f, params, (0, 2, 3), spec=SPEC, fuse=fuse,
+                                  row=64)
+    torch.cuda.synchronize()
+    assert cuda_stencil.SCHEDULE_LAUNCHES == {"window": 1, "march": 0}
+    want = cuda_stencil.plain_chain(f, params, (0, 2, 3), spec=SPEC,
+                                    fuse=fuse, row=64)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    march = cuda_stencil.kernel_attributes(SPEC, "chain", "f32", 1)
+    assert march["threads_per_block"] == cuda_stencil.MARCH_THREADS
+    assert march["dynamic_shared_bytes"] == cuda_stencil.ring_smem_bytes(4)
+    window = cuda_stencil.kernel_attributes(SPEC, "chain", "f32", 2)
+    assert window["threads_per_block"] == 256
+
+
 @pytest.mark.cuda
 def test_copy_walk_on_each_load_path_on_card():
     from grayscott_jl_tpu_torch.ops import envelope
@@ -1394,8 +1497,9 @@ def _assert_member_stores_equal(a, b, n):
 def test_launch_record_attributes_on_the_card(tmp_path, monkeypatch):
     """``GS_XSTATS=1`` on the card: the kernel library's record, and one
     launch record for the ``kBlock`` f32 entry with the card's registers,
-    shared bytes (the launch's request at depth 1: one window per field
-    and the barrier) and blocks per SM, and the row's cost."""
+    shared bytes (the launch's request at depth 1 on the TMA path: the
+    march's ring of plane slots and its barriers) and blocks per SM, and
+    the row's cost."""
     _card()
     import json
 
@@ -1417,10 +1521,10 @@ def test_launch_record_attributes_on_the_card(tmp_path, monkeypatch):
     assert (rec["name"], rec["launches"], rec["shape"]) == (
         "kBlock[f32]", 8, [64, 64, 64])
     mem, occ = rec["memory"], rec["occupancy"]
-    wvol = cuda_stencil.window_geometry(4, 1)[5]
-    assert mem["dynamic_shared_bytes"] == 2 * wvol * 4 + 8
+    assert mem["dynamic_shared_bytes"] == cuda_stencil.ring_smem_bytes(4)
     assert 0 < mem["registers"] <= 255 and mem["local_bytes"] >= 0
-    assert occ["blocks_per_sm"] >= 1 and occ["threads_per_block"] > 0
+    assert occ["blocks_per_sm"] >= 1
+    assert occ["threads_per_block"] == cuda_stencil.MARCH_THREADS
     flops = SPEC.flops_per_cell_step()
     assert rec["cost"] == xstats.launch_cost("chain", (64,) * 3, 1, flops)
     assert sim.xstats_enabled
