@@ -13,9 +13,9 @@ control, per number.
 
 ``--mid-bf16`` runs the program's own lower-precision path in its place:
 float32 fields with bfloat16 mid windows (``GS_MID_BF16=1``) at chain
-depth 2 (``GS_FUSE=2``), the program's second control. Cells of one
-process only (each process of a cell of several scrubs the program's
-knobs).
+depth 2 (``GS_FUSE=2``), the program's second control; in a cell of
+several processes each process sets the two knobs after its scrub of
+the environment.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import tempfile
 from . import harness, run
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, root=harness.ROOT) -> int:
     p = argparse.ArgumentParser(prog="gsbench.calibrate")
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True)
@@ -39,19 +39,19 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     harness.scrub_env()
-    cell = harness.load_cell(a.workload)
+    cell = harness.load_cell(a.workload, root)
     if a.mid_bf16:
-        if cell.processes > 1:
-            p.error("--mid-bf16 takes a cell of one process")
-        os.environ.update(GS_MID_BF16="1", GS_FUSE="2")
+        # A cell of one process runs here; the children of a cell of
+        # several set the knobs from their arguments.
+        os.environ.update(run.MID_BF16)
     seeds = a.seeds.split(",")
     argv_run = ["--workload", a.workload, "--seed", seeds[0], "--seconds",
                 str(a.seconds), "--trace", "0", "--seeds", a.seeds,
-                "--control"]
+                "--control"] + (["--mid-bf16"] if a.mid_bf16 else [])
     args = run.parse(argv_run)
     workdir = tempfile.mkdtemp(prefix="gsbench-cal-")
     try:
-        per_seed = run.run_cell(cell, args, argv_run, workdir, harness.ROOT)
+        per_seed = run.run_cell(cell, args, argv_run, workdir, root)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     lines = []
@@ -67,7 +67,11 @@ def main(argv=None) -> int:
             / 1e9,
             "steps": r0["steps"], "mesh_dims": r0["mesh_dims"],
             "fuse": r0["fuse"], "device_kind": r0["device_kind"],
-            "memory_peak_bytes": max(r["memory_peak_bytes"] for r in ranks)})
+            "entries": sorted({(e[1], e[2], e[4]) for r in ranks
+                               for e in r["entries"]}, key=repr),
+            "memory_peak_bytes": max(r["memory_peak_bytes"] for r in ranks),
+            "check_peak_bytes": max(r["check_peak_bytes"] for r in ranks),
+            "host_peak_bytes": max(r["host_peak_bytes"] for r in ranks)})
     names = sorted(lines[0]["checks"])
     summary = {"workload": a.workload, "mid_bf16": a.mid_bf16,
                "seeds": len(lines),

@@ -21,15 +21,19 @@ argv parse), on one simulation object the set-up built:
    ``fuse``, read from the simulation the set-up built), so that no call
    ends in a shallower remainder round. The rate is all the window's
    cell updates over all its host time;
-3. the check, once the peak memory is read and the simulation freed:
-   the reference replays ``start_steps`` steps from its own initial
-   state against the program's state after them, and the short call's
-   steps from the program's state before it against the window's output
-   (the gathered field, in a run of several processes). The long call's
-   steps are the program's alone: their count is checked against the
-   program's step counter, and the kernel launches of each kind (model,
-   mode, entry point, members, depth, operand, band; load path) per step
-   against the short call's, which the reference checked.
+3. the check, once the peak memory is read and the simulation freed,
+   by block: each process judges the blocks it holds, and no process
+   holds the whole field. The reference replays ``start_steps`` steps
+   from its own initial state over each block grown by that many cells
+   a side, and the short call's steps from the program's state before
+   it over each block grown by the call's steps, the margin sent by the
+   processes that hold it; each replay is cropped to the block and
+   compared with the program's, and each compared number is the most
+   over processes. The long call's steps are the program's alone: their
+   count is checked against the program's step counter, and the kernel
+   launches of each kind (model, mode, entry point, members, depth,
+   operand, band; load path) per step against the short call's, which
+   the reference checked.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import resource
 import sys
 import time
 import tomllib
@@ -267,45 +272,61 @@ class Rank:
             out.append((tuple(int(o) for o in offs), fs))
         return out
 
-    def gather(self, blocks):
-        """The whole field ``(u, v)``, ``(members, L, L, L)`` on this
-        process's device, on process 0 (None elsewhere)."""
+    def own_boxes(self, blocks):
+        """This process's blocks in the true ``L^3`` grid (a
+        non-divisible L's pad cells cut off): ``[(offset, shape)]``."""
+        L = self.cell.L
+        return [(o, tuple(min(a + n, L) - a
+                          for a, n in zip(o, f[0].shape[1:])))
+                for o, f in blocks]
+
+    def boxes(self, blocks):
+        """Every block of every process (:meth:`own_boxes`):
+        ``[(rank, index, offset, shape)]`` in rank order."""
+        mine = self.own_boxes(blocks)
+        every = [mine]
+        if self.world > 1:
+            every = [None] * self.world
+            self.torch.distributed.all_gather_object(every, mine)
+        return [(r, i, tuple(o), tuple(n)) for r, m in enumerate(every)
+                for i, (o, n) in enumerate(m)]
+
+    def grown(self, blocks, margin: int):
+        """This process's blocks, each grown by ``margin`` cells a side
+        and clipped to the grid: ``[(offset, shape, origin, (u, v))]``,
+        the grown box's fields float32 ``(members, ...)`` on this
+        process's device. Its cells come from the blocks that hold
+        them: the process's own, and every overlap (face, edge, corner)
+        of another process's block by a plain send and receive of that
+        box alone, in one order that every process walks."""
         torch = self.torch
         dev = torch.device("cuda") if self.cuda else torch.device("cpu")
-        L, M = self.cell.L, self.cell.members
-        if self.world > 1:
-            dist = torch.distributed
-            meta = [None] * self.world
-            dist.all_gather_object(
-                meta, [(o, tuple(f[0].shape)) for o, f in blocks])
-        else:
-            meta = [[(o, tuple(f[0].shape)) for o, f in blocks]]
-        whole = None
-        if self.rank == 0:
-            whole = tuple(torch.empty((M, L, L, L), dtype=torch.float32,
-                                      device=dev) for _ in range(2))
-        for r, blocks_r in enumerate(meta):
-            for i, (offs, shape) in enumerate(blocks_r):
-                if r == self.rank:
-                    fields = tuple(f.to(dev) for f in blocks[i][1])
-                elif self.rank == 0:
-                    fields = tuple(torch.empty(shape, dtype=torch.float32,
-                                               device=dev) for _ in range(2))
-                    for f in fields:
-                        torch.distributed.recv(f, src=r)
-                else:
-                    continue
-                if self.rank == 0:
-                    box = (slice(None),) + tuple(
-                        slice(o, min(o + n, L))
-                        for o, n in zip(offs, shape[1:]))
-                    for w, f in zip(whole, fields):
-                        w[box] = f[(slice(None),) + tuple(
-                            slice(0, b.stop - b.start) for b in box[1:])]
-                else:
-                    for f in fields:
-                        torch.distributed.send(f.float().contiguous(), dst=0)
-        return whole
+        boxes = self.boxes(blocks)
+        out = {}
+        for r, i, o, n in boxes:
+            if r == self.rank:
+                go, gn = grow(o, n, margin, self.cell.L)
+                out[i] = (o, n, go, tuple(
+                    torch.empty((self.cell.members, *gn),
+                                dtype=torch.float32, device=dev)
+                    for _ in range(2)))
+        for src, si, dst, di, src_box, dst_box in margin_plan(
+                boxes, margin, self.cell.L):
+            if src == dst == self.rank:
+                for g, f in zip(out[di][3], blocks[si][1]):
+                    g[dst_box] = f[src_box]
+            elif src == self.rank:
+                part = torch.stack([f[src_box] for f in blocks[si][1]])
+                torch.distributed.send(
+                    part.to(dev, torch.float32).contiguous(), dst=dst)
+            elif dst == self.rank:
+                part = torch.empty((2, self.cell.members) + tuple(
+                    b.stop - b.start for b in dst_box[1:]),
+                    dtype=torch.float32, device=dev)
+                torch.distributed.recv(part, src=src)
+                for g, p in zip(out[di][3], part):
+                    g[dst_box] = p
+        return [out[i] for i in sorted(out)]
 
     # --------------------------------------------------------------- run
 
@@ -387,6 +408,7 @@ class Rank:
         st1, st2 = self.stats(stats1), self.stats(stats2)
         kinds2 = launch_kinds(cs)
         launches = cs.LAUNCHES
+        timings = cs.timings() if hasattr(cs, "timings") else None
         modes = {m: v for m, v in cs.MODE_LAUNCHES.items() if v}
         members = max([v for v in cs.MODE_MEMBERS.values() if v] or [0])
         p2p = (self.distributed.p2p_stats() or {}).get("seconds", 0.0) - p2p0
@@ -398,7 +420,9 @@ class Rank:
             "t0_epoch": t0_epoch,
             "memory_peak_bytes": int(peak),
             "launches": launches,
+            "timings": timings,
             "modes": modes,
+            "entries": window_entries(kinds0, kinds2),
             "members_per_launch": members or None,
             "p2p_s": p2p if self.world > 1 else None,
             "stats_wall_s": st1["wall_s"] + st2["wall_s"],
@@ -417,64 +441,142 @@ class Rank:
         if prof is not None:
             out["trace"] = devtrace.summarize(prof)
             del prof
-        end = self.state(sim)
-        del sim
+        # The check takes the states over, so that it can free each
+        # once judged.
+        held = {"start": start, "before_end": before_end,
+                "end": self.state(sim)}
+        del sim, start, before_end
         if self.cuda:
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         mix_gap = launch_mix_gap(kinds0, kinds1, kinds2, n_long, k)
-        out["checks"] = self.check(start, before_end, end, key_seed,
+        out["checks"] = self.check(held, key_seed,
                                    t_end=k0 + w + n_long, end_steps=k,
                                    steps=n, program_step=out["program_step"],
                                    launch_mix_gap=mix_gap, control=control)
+        # The check's own peaks, apart from the window's: the card's
+        # since the window's state was freed, and the process's host
+        # memory over its life.
+        out["check_peak_bytes"] = (int(torch.cuda.max_memory_allocated())
+                                   if self.cuda else 0)
+        out["host_peak_bytes"] = (
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+        if self.cuda:
+            torch.cuda.reset_peak_memory_stats()
         out["forbidden"] = forbidden_modules()
         return out
 
-    def check(self, start, before_end, end, key_seed: int, *, t_end: int,
+    def check(self, held: dict, key_seed: int, *, t_end: int,
               end_steps: int, steps: int, program_step: int,
               launch_mix_gap: float, control: bool) -> dict:
         """The compared numbers (process 0; ``{}`` elsewhere): each gap
         of the program from the reference, and with ``control`` the same
-        gaps of the reference computed in bfloat16 in its place."""
+        gaps of the reference computed in bfloat16 in its place. Every
+        process judges its own blocks, each from the reference's replay
+        of a box around it (no process holds the whole field); each
+        number is the most over processes. ``held`` has this process's
+        blocks (:meth:`state`) after the set-up's first call
+        (``start``), before the window's short call (``before_end``) and
+        after it (``end``); each is dropped once judged."""
         from . import reference as ref
 
         torch = self.torch
         cell = self.cell
-        rows, M = cell.member_rows(), cell.members
+        L, rows, M = cell.L, cell.member_rows(), cell.members
         keys = [(0, key_seed + m) for m in range(M)]
-        checks = {}
-        # Gathered and judged one stage at a time, so that process 0
-        # holds at most two whole fields of the program's beside the
-        # reference's (8 GiB a field at L = 1024).
-        prog_start = self.gather(start)
-        del start
-        if self.rank == 0:
-            init = ref.initial_state(cell.L, M, device=prog_start[0].device)
-            want = ref.advance(init, rows, keys, 0, cell.start_steps)
-            checks["start_max_abs"] = ref.max_abs_gap(prog_start, want)
-            del prog_start
+        dev = torch.device("cuda") if self.cuda else torch.device("cpu")
+        gaps = {}
+
+        def judge(name, prog, low, want):
+            gaps[name] = max(gaps.get(name, 0.0), ref.max_abs_gap(prog, want))
+            if low is not None:
+                gaps[name + "_control"] = max(
+                    gaps.get(name + "_control", 0.0),
+                    ref.max_abs_gap(low, want))
+
+        def replay(state, origin, t0, nsteps, offs, shape):
+            """The reference's ``nsteps`` from ``state`` over the box at
+            ``origin``, and with ``control`` its bfloat16 twin, each
+            cropped to the block ``(offs, shape)``."""
+            at = ref.box_after(origin, state[0].shape[1:], L, nsteps)[0]
+            low = None
             if control:
-                low = ref.advance(init, rows, keys, 0, cell.start_steps,
-                                  dtype=torch.bfloat16)
-                checks["start_max_abs_control"] = ref.max_abs_gap(low, want)
-                del low
-            del init, want
-        prog_before = self.gather(before_end)
-        del before_end
-        prog_end = self.gather(end)
-        del end
+                low = ref.crop(ref.advance(state, rows, keys, t0, nsteps,
+                                           dtype=torch.bfloat16,
+                                           origin=origin, L=L),
+                               at, offs, shape)
+            want = ref.advance(state, rows, keys, t0, nsteps, origin=origin,
+                               L=L)
+            return low, ref.crop(want, at, offs, shape)
+
+        # The end, first: the program's state before the short call over
+        # each block grown by the call's steps, its margin from the
+        # processes that hold it.
+        grown = self.grown(held.pop("before_end"), end_steps)
+        end = held.pop("end")
+        while grown:
+            offs, shape, go, state = grown.pop(0)
+            prog = end.pop(0)[1]
+            low, want = replay(state, go, t_end, end_steps, offs, shape)
+            del state
+            judge("end_max_abs", ref.crop(prog, offs, offs, shape), low,
+                  want)
+            del prog, low, want
+        # The start: the reference's own initial state over each block
+        # grown by the start's steps.
+        start = held.pop("start")
+        for (offs, shape), (_, prog) in zip(self.own_boxes(start), start):
+            go, gn = grow(offs, shape, cell.start_steps, L)
+            init = ref.initial_state(L, M, device=dev, origin=go, shape=gn)
+            low, want = replay(init, go, 0, cell.start_steps, offs, shape)
+            del init
+            judge("start_max_abs", ref.crop(prog, offs, offs, shape), low,
+                  want)
+            del low, want
+        del start
+        expected = cell.start_steps + cell.warmup_steps + steps
+        gaps["step_count_gap"] = float(abs(program_step - expected))
+        gaps["launch_mix_gap"] = launch_mix_gap
+        every = [gaps]
+        if self.world > 1:
+            every = [None] * self.world
+            torch.distributed.all_gather_object(every, gaps)
         if self.rank != 0:
             return {}
-        want = ref.advance(prog_before, rows, keys, t_end, end_steps)
-        checks["end_max_abs"] = ref.max_abs_gap(prog_end, want)
-        del prog_end
-        if control:
-            low = ref.advance(prog_before, rows, keys, t_end, end_steps,
-                              dtype=torch.bfloat16)
-            checks["end_max_abs_control"] = ref.max_abs_gap(low, want)
-        expected = cell.start_steps + cell.warmup_steps + steps
-        checks["step_count_gap"] = float(abs(program_step - expected))
-        checks["launch_mix_gap"] = launch_mix_gap
-        return checks
+        return {name: max(g[name] for g in every) for name in gaps}
+
+
+def grow(offs, shape, margin: int, L: int):
+    """The box ``(offs, shape)`` grown by ``margin`` cells a side and
+    clipped to the grid of side ``L``: ``(origin, shape)``."""
+    lo = tuple(max(o - margin, 0) for o in offs)
+    hi = tuple(min(o + n + margin, L) for o, n in zip(offs, shape))
+    return lo, tuple(b - a for a, b in zip(lo, hi))
+
+
+def margin_plan(boxes, margin: int, L: int):
+    """What fills each block's grown box (:func:`grow`): for every pair
+    of a grown box and a block that overlaps it, ``(src, src_index,
+    dst, dst_index, src_box, dst_box)``, the overlap as index boxes of
+    the source block's fields and of the grown box's (a member axis in
+    front). ``boxes`` as :meth:`Rank.boxes` gives them; the order is
+    the same on every process."""
+    plan = []
+    for dst, di, do, dn in boxes:
+        go, gn = grow(do, dn, margin, L)
+        for src, si, so, sn in boxes:
+            lo = [max(a, b) for a, b in zip(go, so)]
+            hi = [min(a + m, b + n) for a, m, b, n in zip(go, gn, so, sn)]
+            if any(b <= a for a, b in zip(lo, hi)):
+                continue
+            plan.append((src, si, dst, di,
+                         (slice(None),) + tuple(
+                             slice(a - o, b - o)
+                             for a, b, o in zip(lo, hi, so)),
+                         (slice(None),) + tuple(
+                             slice(a - o, b - o)
+                             for a, b, o in zip(lo, hi, go))))
+    return plan
 
 
 def launch_kinds(cs) -> Dict[tuple, int]:
@@ -483,6 +585,15 @@ def launch_kinds(cs) -> Dict[tuple, int]:
     kinds = {("entry",) + key: v for key, v in cs.ENTRY_LAUNCHES.items()}
     kinds.update({("load", p): v for p, v in cs.LOAD_PATH_LAUNCHES.items()})
     return kinds
+
+
+def window_entries(k0: dict, k2: dict) -> List[list]:
+    """The window's kernel launches by entry point: ``[model, mode,
+    entry, members, depth, launches]`` for each kind of
+    :func:`launch_kinds` whose count grew from ``k0`` to ``k2``."""
+    return sorted(([k[1], k[2], k[3], k[4], k[5], v - k0.get(k, 0)]
+                   for k, v in k2.items()
+                   if k[0] == "entry" and v > k0.get(k, 0)), key=repr)
 
 
 def launch_mix_gap(k0: dict, k1: dict, k2: dict, long_steps: int,

@@ -28,6 +28,9 @@ from . import harness  # noqa: E402
 
 #: A process of a cell of several processes gets this long.
 CHILD_TIMEOUT_S = 330
+#: The program's own lower-precision path: float32 fields with bfloat16
+#: mid windows, at chain depth 2.
+MID_BF16 = {"GS_MID_BF16": "1", "GS_FUSE": "2"}
 
 
 def parse(argv):
@@ -37,10 +40,13 @@ def parse(argv):
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     # Internal: one process of a cell of several (the launcher's child);
-    # and the calibration's seeds and control (gsbench.calibrate).
+    # and the calibration's seeds, control, and the program's own
+    # lower-precision path, whose knobs (MID_BF16) every process of the
+    # run sets after its scrub of the environment (gsbench.calibrate).
     p.add_argument("--rank-workdir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--seeds", default=None, help=argparse.SUPPRESS)
     p.add_argument("--control", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mid-bf16", action="store_true", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -197,6 +203,8 @@ def main(argv=None, *, root=harness.ROOT, require_cards=True) -> int:
     argv = sys.argv[1:] if argv is None else argv
     args = parse(argv)
     harness.scrub_env()
+    if args.mid_bf16:
+        os.environ.update(MID_BF16)
     cell = harness.load_cell(args.workload, root)
     if args.rank_workdir is not None:
         from grayscott_jl_tpu_torch import launch
@@ -246,6 +254,10 @@ def main(argv=None, *, root=harness.ROOT, require_cards=True) -> int:
     print("gsbench setup_s by phase: " + ", ".join(
         f"{b[0]} {b[1] - a[1]:.3f}" for a, b in zip(edges, edges[1:])),
         file=sys.stderr)
+    print("gsbench peaks (bytes, the fullest process): window card "
+          f"{line['device']['memory_peak_bytes']}, check card "
+          f"{max(r['check_peak_bytes'] for r in ranks)}, host "
+          f"{max(r['host_peak_bytes'] for r in ranks)}", file=sys.stderr)
     for name, c in line["checks"].items():
         print(f"gsbench check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)

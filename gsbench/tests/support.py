@@ -13,6 +13,7 @@ import io
 import json
 import os
 import shutil
+import subprocess
 import tomllib
 
 from gsbench import harness, run
@@ -39,6 +40,27 @@ def mesh_of_four(monkeypatch) -> None:
         return orig(settings, **{**kw, "n_devices": 4})
 
     monkeypatch.setattr(driver, "run_once", run_once)
+
+
+#: The stand-in for ``python -m gsbench.run`` in a patched cell's
+#: processes, and the variable that names its patch.
+CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "patched_child.py")
+PATCH_ENV = "GSBENCH_TEST_PATCH"
+
+
+def patch_children(monkeypatch, patch: str) -> None:
+    """Start each process of a cell of several through
+    :data:`CHILD` with ``patch`` (see its docstring) applied."""
+    monkeypatch.setenv(PATCH_ENV, patch)
+    orig = subprocess.Popen
+
+    def popen(cmd, *a, **kw):
+        if list(cmd[1:3]) == ["-m", "gsbench.run"]:
+            cmd = [cmd[0], CHILD, *cmd[3:]]
+        return orig(cmd, *a, **kw)
+
+    monkeypatch.setattr(run.subprocess, "Popen", popen)
 
 
 def _toml_line(k, v) -> str:

@@ -219,7 +219,7 @@ def test_cpu_cell_of_four_processes(tree, env):
 def test_no_card_exits_2_with_no_result(env, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is visible")
-    rc = run.main(["--workload", "gs-f32.l256", "--seed", "1", "--seconds",
+    rc = run.main(["--workload", "gs-f32.l512", "--seed", "1", "--seconds",
                    "1", "--trace", "0"])
     assert rc == 2 and capsys.readouterr().out == ""
 
@@ -231,7 +231,7 @@ def test_bare_tree_exits_nonzero(tmp_path):
     shutil.copy(os.path.join(REPO, "BENCHMARK.json"), tmp_path)
     envv = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     p = subprocess.run([sys.executable, "-m", "gsbench.run", "--workload",
-                        "gs-f32.l256", "--seed", "3", "--seconds", "1",
+                        "gs-f32.l512", "--seed", "3", "--seconds", "1",
                         "--trace", "0"], cwd=tmp_path, env=envv,
                        capture_output=True, text=True, timeout=120)
     assert p.returncode != 0 and p.stdout.strip() == ""
